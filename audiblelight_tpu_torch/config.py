@@ -1,6 +1,35 @@
-"""Constants of the ported render path (values as in audiblelight_tpu.config)."""
+"""Constants of the port (values as in audiblelight_tpu.config)."""
 
 SAMPLE_RATE = 44100
+
+# Scene
+DEFAULT_REF_DB = -65
+MAX_OVERLAP = 2
+WARN_WHEN_SCENE_DURATION_BELOW = 5
+
+# Event
+MIN_EVENT_VELOCITY, MAX_EVENT_VELOCITY = 0.5, 2.0
+MIN_EVENT_RESOLUTION, MAX_EVENT_RESOLUTION = 1.0, 4.0
+MIN_EVENT_DURATION, MAX_EVENT_DURATION = 2.0, 10.0
+MIN_EVENT_SNR, MAX_EVENT_SNR = 5.0, 30.0
+DEFAULT_EVENT_VELOCITY = (MAX_EVENT_VELOCITY - MIN_EVENT_VELOCITY) / 2
+DEFAULT_EVENT_RESOLUTION = (MAX_EVENT_RESOLUTION - MIN_EVENT_RESOLUTION) / 2
+
+# World state and placement
+MESH_UNITS = "meters"
+MIN_AVG_RAY_LENGTH = 3.0
+NUM_RAYS = 100
+POINT_BATCH_SIZE = 10
+EMPTY_SPACE_AROUND_EMITTER = 0.2
+EMPTY_SPACE_AROUND_MIC = 0.1
+EMPTY_SPACE_AROUND_SURFACE = 0.2
+EMPTY_SPACE_AROUND_CAPSULE = 0.05
+MAX_PLACE_ATTEMPTS = 1000
+MOVING_EVENT_SHAPES = ["random", "linear", "semicircular"]
+
+# Dataset generation (SELD CLI defaults)
+MIN_STATIC_EVENTS, MAX_STATIC_EVENTS = 1, 10
+MIN_MOVING_EVENTS, MAX_MOVING_EVENTS = 0, 6
 FFT_SIZE = 512
 WIN_SIZE = 256
 HOP_SIZE = 128

@@ -1,14 +1,16 @@
 """Host-side triangle mesh (numpy): the port's copy of audiblelight_tpu's TriMesh.
 
-Only what the render path needs: derived quantities, the convexity test that
+Only what the SELD path needs: derived quantities, the convexity test that
 switches occlusion off, midpoint subdivision, vertex-clustering decimation
-(the acoustic LOD), and the two synthetic room generators. The arithmetic is
+(the acoustic LOD), OBJ and PLY files, and the two synthetic room generators
+(glTF loading and mesh repair are not ported). The arithmetic is
 kept line for line with the reference so both packages build the same
 triangles and the same LOD from the same seed.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional, Union
 
 import numpy as np
@@ -65,6 +67,19 @@ class TriMesh:
     @property
     def area(self) -> float:
         return float(self.face_areas.sum())
+
+    @property
+    def centroid(self) -> np.ndarray:
+        """Mean of the vertices (the world state's serialised mesh centroid)."""
+        return self.vertices.mean(axis=0)
+
+    def broken_faces(self) -> np.ndarray:
+        """Indices of faces with an edge not shared by exactly two faces."""
+        f = self.faces
+        edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+        _, inverse, counts = np.unique(edges, axis=0, return_inverse=True, return_counts=True)
+        bad_edge = counts[inverse.ravel()] != 2
+        return np.flatnonzero(bad_edge.reshape(3, len(f)).any(axis=0))
 
     @property
     def is_watertight(self) -> bool:
@@ -219,6 +234,125 @@ class TriMesh:
         rng = np.random.default_rng(seed)
         noise = rng.uniform(-amplitude, amplitude, self.vertices.shape)
         return TriMesh(self.vertices + noise, self.faces.copy(), dict(self.metadata))
+
+
+# ---------------------------------------------------------------------------
+# Files
+# ---------------------------------------------------------------------------
+
+
+def _load_obj(path: Path) -> tuple[np.ndarray, np.ndarray]:
+    verts, faces = [], []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                verts.append([float(x) for x in line.split()[1:4]])
+            elif line.startswith("f "):
+                # 1-based; negative indices count back from the vertices so far
+                raw = [int(tok.split("/")[0]) for tok in line.split()[1:]]
+                idx = [r - 1 if r > 0 else len(verts) + r for r in raw]
+                for i in range(1, len(idx) - 1):  # fan-triangulate polygons
+                    faces.append([idx[0], idx[i], idx[i + 1]])
+    return np.asarray(verts, dtype=np.float64), np.asarray(faces, dtype=np.int32)
+
+
+_PLY_TYPES = {
+    "float": "<f4", "float32": "<f4", "double": "<f8", "float64": "<f8",
+    "uchar": "u1", "uint8": "u1", "char": "i1", "int8": "i1",
+    "short": "<i2", "ushort": "<u2", "int": "<i4", "int32": "<i4",
+    "uint": "<u4", "uint32": "<u4",
+}
+
+
+def _load_ply(path: Path) -> tuple[np.ndarray, np.ndarray]:
+    with open(path, "rb") as f:
+        header = []
+        while True:
+            line = f.readline().decode("ascii").strip()
+            header.append(line)
+            if line == "end_header":
+                break
+        n_verts = n_faces = 0
+        fmt, props, face_types, current = "ascii", [], ("uchar", "int"), None
+        for line in header:
+            toks = line.split()
+            if not toks:
+                continue
+            if toks[0] == "format":
+                fmt = toks[1]
+            elif toks[0] == "element":
+                current = toks[1]
+                if current == "vertex":
+                    n_verts = int(toks[2])
+                elif current == "face":
+                    n_faces = int(toks[2])
+            elif toks[0] == "property" and current == "vertex":
+                props.append((toks[-1], toks[1]))
+            elif toks[0] == "property" and current == "face" and toks[1] == "list":
+                face_types = (toks[2], toks[3])
+        faces = []
+        if fmt == "ascii":
+            verts = []
+            for _ in range(n_verts):
+                vals = f.readline().split()
+                verts.append([float(vals[i]) for i, (nm, _) in enumerate(props) if nm in "xyz"][:3])
+            for _ in range(n_faces):
+                vals = [int(x) for x in f.readline().split()]
+                cnt, idx = vals[0], vals[1:]
+                for i in range(1, cnt - 1):
+                    faces.append([idx[0], idx[i], idx[i + 1]])
+            return np.asarray(verts), np.asarray(faces, dtype=np.int32)
+        if fmt != "binary_little_endian":
+            raise ValueError(f"Unsupported PLY format '{fmt}' in {path} "
+                             "(ascii and binary_little_endian are supported)")
+        dtype = np.dtype([(nm, _PLY_TYPES[tp]) for nm, tp in props])
+        vdata = np.frombuffer(f.read(dtype.itemsize * n_verts), dtype=dtype)
+        verts = np.stack([vdata["x"], vdata["y"], vdata["z"]], axis=1).astype(np.float64)
+        cnt_dt, idx_dt = np.dtype(_PLY_TYPES[face_types[0]]), np.dtype(_PLY_TYPES[face_types[1]])
+        for _ in range(n_faces):
+            cnt = int(np.frombuffer(f.read(cnt_dt.itemsize), dtype=cnt_dt)[0])
+            idx = np.frombuffer(f.read(idx_dt.itemsize * cnt), dtype=idx_dt)
+            for i in range(1, cnt - 1):
+                faces.append([idx[0], idx[i], idx[i + 1]])
+        return verts, np.asarray(faces, dtype=np.int32)
+
+
+def load_mesh(mesh_fpath: Union[str, Path]) -> TriMesh:
+    """Load an OBJ or PLY mesh and coerce its units to metres (a mesh over
+    1000 units across is taken as millimetres, over 100 as centimetres).
+    Metadata carries the file's stem, suffix and path."""
+    from audiblelight_tpu_torch.utils import logger, sanitise_filepath
+
+    mesh_fpath = sanitise_filepath(mesh_fpath)
+    suffix = mesh_fpath.suffix.lower()
+    if suffix == ".obj":
+        vertices, faces = _load_obj(mesh_fpath)
+    elif suffix == ".ply":
+        vertices, faces = _load_ply(mesh_fpath)
+    elif suffix in (".glb", ".gltf"):
+        raise NotImplementedError("glTF meshes are not ported (ROADMAP: slice E, io/gltf.py)")
+    else:
+        raise ValueError(f"Unsupported mesh format: {suffix}")
+    mesh = TriMesh(vertices, faces,
+                   metadata=dict(fname=mesh_fpath.stem, ftype=mesh_fpath.suffix, fpath=str(mesh_fpath)))
+    extent = np.max(mesh.bounds[1] - mesh.bounds[0])
+    factor = 1000.0 if extent > 1000.0 else (100.0 if extent > 100.0 else 1.0)
+    if factor != 1.0:
+        unit = "millimetres" if factor == 1000.0 else "centimetres"
+        logger.warning(f"Mesh {mesh_fpath.stem} spans {extent:.0f} units; assuming {unit} "
+                       "and converting to meters")
+        mesh.vertices = mesh.vertices / factor
+        mesh._tri_cache = None
+    return mesh
+
+
+def save_obj(mesh: TriMesh, path: Union[str, Path]) -> Path:
+    """Write `mesh` as a Wavefront OBJ whose vertices read back exactly."""
+    path = Path(path)
+    with open(path, "w") as f:
+        f.writelines(f"v {x!r} {y!r} {z!r}\n" for x, y, z in mesh.vertices.tolist())
+        f.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in mesh.faces.tolist())
+    return path
 
 
 def box_mesh(

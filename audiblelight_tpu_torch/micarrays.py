@@ -1,20 +1,286 @@
-"""Microphone capsule layouts (counterpart of audiblelight_tpu/micarrays.py;
-only the AmbeoVR rig the render path uses)."""
+"""Microphone rigs: capsule geometry and channel layouts.
+
+Counterpart of audiblelight_tpu/micarrays.py for the rigs of the SELD
+dataset's two formats: the AmbeoVR tetrahedron ("mic", one channel per
+capsule) and the first-order ambisonic listener ("foa", one point, AmbiX
+channels W, X, Y, Z). Other rigs (Eigenmike, binaural, HOA, mono) are not
+ported; asking for them by name raises.
+"""
 
 from __future__ import annotations
 
+from collections import OrderedDict
+from copy import deepcopy
+from dataclasses import dataclass, field
+from enum import Enum
+from typing import Any, Type
+
 import numpy as np
 
-from audiblelight_tpu_torch.utils import polar_to_cartesian
+from audiblelight_tpu_torch import utils
 
-# Sennheiser AmbeoVR: 4 capsules in a tetrahedron, r = 1 cm,
-# (azimuth deg, elevation deg, radius m) in the order FLU, FRD, BLD, BRU.
-AMBEOVR_POLAR = np.array(
-    [[45, 35, 0.01], [-45, -35, 0.01], [135, -35, 0.01], [-135, 35, 0.01]]
-)
-AMBEOVR_CAPSULE_NAMES = ["FLU", "FRD", "BLD", "BRU"]
+CHANNEL_LAYOUT_TYPES = ["mic", "foa", "binaural", "hoa2", "hoa3"]
+
+
+class ChannelLayoutType(Enum):
+    """Receiver directivity model of the RIR backends."""
+
+    Mono = "mono"
+    Ambisonics = "ambisonics"
+    Binaural = "binaural"
+
+
+@dataclass(frozen=True)
+class ChannelLayout:
+    """A receiver channel layout: directivity type + number of output channels."""
+
+    layout_type: ChannelLayoutType
+    channel_count: int
+
+
+def _compare_dicts(d1: dict, d2: dict, exclude: tuple = (), sig_digits: int = 4) -> bool:
+    """Order-insensitive approximate dict equality."""
+
+    def norm(v):
+        if isinstance(v, (list, tuple)):
+            return tuple(norm(x) for x in v)
+        if isinstance(v, np.ndarray):
+            return tuple(norm(x) for x in v.tolist())
+        if isinstance(v, (float, np.floating, int, np.integer)) and not isinstance(v, bool):
+            return round(float(v), sig_digits)
+        if isinstance(v, dict):
+            return tuple(sorted((k, norm(val)) for k, val in v.items()))
+        return v
+
+    keys = (set(d1) | set(d2)) - set(exclude)
+    return all(norm(d1.get(k)) == norm(d2.get(k)) for k in keys)
+
+
+@dataclass(eq=False)
+class MicArray:
+    """Base class of the microphone rigs: name, layout type, and the
+    absolute capsule positions once `set_absolute_coordinates` placed it."""
+
+    name: str = ""
+    is_spherical: bool = False
+    channel_layout_type: str = "mic"
+
+    irs: np.ndarray = field(default=None, init=False, repr=False)
+    _coordinates_absolute: np.ndarray = field(default=None, init=False, repr=False)
+    _coordinates_center: np.ndarray = field(default=None, init=False, repr=False)
+
+    @property
+    def channel_layout(self) -> ChannelLayout:
+        counts = {"mic": (ChannelLayoutType.Mono, 1), "foa": (ChannelLayoutType.Ambisonics, 4),
+                  "hoa2": (ChannelLayoutType.Ambisonics, 9), "hoa3": (ChannelLayoutType.Ambisonics, 16),
+                  "binaural": (ChannelLayoutType.Binaural, 2)}
+        if self.channel_layout_type not in counts:
+            raise ValueError(
+                f"Expected 'channel_layout_type' to be one of {', '.join(CHANNEL_LAYOUT_TYPES)} "
+                f"but got '{self.channel_layout_type}'"
+            )
+        return ChannelLayout(*counts[self.channel_layout_type])
+
+    @property
+    def n_listeners(self) -> int:
+        """Receiver points: one per capsule for "mic", one for the others."""
+        if self.channel_layout_type == "mic":
+            return self.n_capsules
+        if self.channel_layout_type in ("foa", "binaural", "hoa2", "hoa3"):
+            return 1
+        raise ValueError(
+            f"Expected 'channel_layout_type' to be one of {', '.join(CHANNEL_LAYOUT_TYPES)}, "
+            f"but got '{self.channel_layout_type}'"
+        )
+
+    @property
+    def n_channels(self) -> int:
+        """Output audio channels."""
+        return self.n_listeners * self.channel_layout.channel_count
+
+    @property
+    def coordinates_polar(self) -> np.ndarray:
+        raise NotImplementedError
+
+    @property
+    def coordinates_cartesian(self) -> np.ndarray:
+        raise NotImplementedError
+
+    @property
+    def coordinates_absolute(self) -> np.ndarray:
+        if self._coordinates_absolute is None:
+            raise NotImplementedError("Must call `.set_absolute_coordinates` first!")
+        return np.asarray(self._coordinates_absolute)
+
+    @property
+    def coordinates_center(self) -> np.ndarray:
+        if self._coordinates_center is None:
+            raise NotImplementedError("Must call `.set_absolute_coordinates` first!")
+        return np.asarray(self._coordinates_center)
+
+    @property
+    def n_capsules(self) -> int:
+        return len(self.capsule_names)
+
+    @property
+    def capsule_names(self) -> list[str]:
+        return []
+
+    def set_absolute_coordinates(self, mic_center: np.ndarray) -> np.ndarray:
+        """Place the rig's centre at `mic_center` (metres)."""
+        self._coordinates_center = np.asarray(mic_center, dtype=float)
+        self._coordinates_absolute = self.coordinates_cartesian + utils.coerce2d(self._coordinates_center)
+        return self._coordinates_absolute
+
+    def __len__(self) -> int:
+        return self.n_capsules
+
+    def __repr__(self) -> str:
+        return utils.repr_as_json(self)
+
+    def __eq__(self, other: Any) -> bool:
+        if not isinstance(other, MicArray):
+            return False
+        return _compare_dicts(self.to_dict(), other.to_dict(), exclude=("micarray_type",))
+
+    def to_dict(self) -> dict:
+        coord_dict = OrderedDict()
+        for coord_type in ("coordinates_absolute", "coordinates_center", "coordinates_polar",
+                           "coordinates_cartesian"):
+            try:
+                coord_val = getattr(self, coord_type)
+            except NotImplementedError:
+                coord_val = None
+            else:
+                if isinstance(coord_val, np.ndarray):
+                    coord_val = coord_val.tolist()
+            coord_dict[coord_type] = coord_val
+        return dict(
+            name=self.name,
+            micarray_type=self.__class__.__name__,
+            is_spherical=self.is_spherical,
+            channel_layout_type=self.channel_layout_type,
+            n_capsules=self.n_capsules,
+            capsule_names=self.capsule_names,
+            **coord_dict,
+        )
+
+    def _set_attribute(self, attr_name: str, value: Any) -> None:
+        """Deserialisation setter: read-only properties are checked against
+        the stored value instead of overwritten; a mismatch raises."""
+        if value is None:
+            return
+        if isinstance(value, list) and value and not isinstance(value[0], str):
+            value = np.asarray(value)
+        try:
+            hasat = hasattr(self, attr_name)
+        except NotImplementedError:
+            return
+        if not hasat:
+            return
+        try:
+            setattr(self, attr_name, value)
+        except AttributeError:
+            expected = getattr(self, attr_name)
+            if isinstance(value, np.ndarray):
+                eq = np.isclose(np.asarray(expected, dtype=float), value, atol=utils.SMALL).all()
+            else:
+                eq = expected == value
+            if not eq:
+                raise AttributeError(f"Expected attribute {attr_name} to have value {expected}, but got {value}!")
+
+    @classmethod
+    def from_dict(cls, input_dict: dict[str, Any]) -> "MicArray":
+        if "micarray_type" not in input_dict:
+            raise KeyError("'micarray_type' key not found in input dict")
+        d = deepcopy(input_dict)
+        mic_class_str = d.pop("micarray_type", "mic")
+        if mic_class_str not in MICARRAY_CLASS_MAPPING:
+            raise NotImplementedError(
+                f"microphone type {mic_class_str!r} is not ported (ROADMAP: the other rigs)"
+            )
+        mic_obj = MICARRAY_CLASS_MAPPING[mic_class_str]()
+        mic_obj.set_absolute_coordinates(d["coordinates_center"])
+        for k, v in d.items():
+            mic_obj._set_attribute(k, v)
+        return mic_obj
+
+
+@dataclass(repr=False, eq=False)
+class FOAListener(MicArray):
+    """First-order ambisonics listener: one point, 4 AmbiX channels (W, X, Y, Z)."""
+
+    name: str = "foalistener"
+    is_spherical: bool = False
+    channel_layout_type: str = "foa"
+
+    @property
+    def coordinates_cartesian(self) -> np.ndarray:
+        return np.array([[0.0, 0.0, 0.0]])
+
+    @property
+    def capsule_names(self) -> list[str]:
+        return ["w", "x", "y", "z"]
+
+
+@dataclass(repr=False, eq=False)
+class AmbeoVR(MicArray):
+    """Sennheiser AmbeoVR: 4 cardioid capsules in a tetrahedron, r = 1 cm."""
+
+    name: str = "ambeovr"
+    is_spherical: bool = True
+    channel_layout_type: str = "mic"
+
+    @property
+    def coordinates_polar(self) -> np.ndarray:
+        return np.array([[45, 35, 0.01], [-45, -35, 0.01], [135, -35, 0.01], [-135, 35, 0.01]])
+
+    @property
+    def coordinates_cartesian(self) -> np.ndarray:
+        return utils.polar_to_cartesian(self.coordinates_polar)
+
+    @property
+    def capsule_names(self) -> list[str]:
+        return ["FLU", "FRD", "BLD", "BRU"]
+
+
+MICARRAY_LIST = [AmbeoVR, FOAListener]
+MICARRAY_CLASS_MAPPING = {cls.__name__: cls for cls in MICARRAY_LIST}
+# Rigs of the reference that this port does not build yet
+UNPORTED_MICARRAYS = ("eigenmike32", "eigenmike64", "monocapsule", "binaural", "hoalistener")
+
+
+def sanitize_microphone_input(microphone_type: Any) -> Type[MicArray]:
+    """A MicArray class from a name, class or instance."""
+    if microphone_type is None:
+        raise NotImplementedError(
+            "a rig-less microphone (the reference's mono capsule) is not ported; "
+            "pass 'ambeovr' or 'foalistener'"
+        )
+    if isinstance(microphone_type, str):
+        return get_micarray_from_string(microphone_type)
+    if isinstance(microphone_type, type) and issubclass(microphone_type, MicArray):
+        return microphone_type
+    if isinstance(microphone_type, MicArray):
+        return type(microphone_type)
+    raise TypeError(f"Could not parse microphone type {type(microphone_type)}")
+
+
+def get_micarray_from_string(micarray_name: str) -> Type[MicArray]:
+    """The rig class whose `name` is `micarray_name`."""
+    for ma in MICARRAY_LIST:
+        if ma().name == micarray_name:
+            return ma
+    if micarray_name in UNPORTED_MICARRAYS:
+        raise NotImplementedError(
+            f"microphone {micarray_name!r} is not ported (ROADMAP: the other rigs); "
+            "this port has 'ambeovr' and 'foalistener'"
+        )
+    acceptable = [ma().name for ma in MICARRAY_LIST]
+    raise ValueError(f"Cannot find array {micarray_name}: expected one of {', '.join(acceptable)}")
 
 
 def ambeovr_capsules(center) -> np.ndarray:
     """(4, 3) absolute capsule positions of an AmbeoVR centred at `center`."""
-    return polar_to_cartesian(AMBEOVR_POLAR) + np.asarray(center, dtype=np.float64)[None]
+    mic = AmbeoVR()
+    return mic.set_absolute_coordinates(np.asarray(center, dtype=np.float64))

@@ -20,6 +20,7 @@ SOURCES = {
     "first_hit": "first_hit.cu",
     "any_hit": "any_hit.cu",
     "deposit_histogram": "deposit_histogram.cu",
+    "deposit_histogram_foa": "deposit_histogram_foa.cu",
 }
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"

@@ -6,6 +6,7 @@ Counterpart of audiblelight_tpu/ops/pallas_kernels.py:
 - `ray_first_hit`       <- ray_first_hit_pallas (big and small variants)
 - `segments_occluded`   <- segments_occluded_pallas
 - `deposit_histogram`   <- deposit_histogram_pallas
+- `deposit_histogram_foa` <- deposit_histogram_foa_pallas
 
 Each wrapper prepares its inputs in PyTorch (the same preparation feeds the
 kernel and the plain version), then runs the plain version when the tensors
@@ -36,7 +37,8 @@ _MARGIN = 1e-4
 # Elements of one (rays, faces) chunk in the plain versions
 _CHUNK_ELEMS = 1 << 22
 
-launch_counts = {"first_hit_big": 0, "first_hit_small": 0, "any_hit": 0, "deposit_histogram": 0}
+launch_counts = {"first_hit_big": 0, "first_hit_small": 0, "any_hit": 0, "deposit_histogram": 0,
+                 "deposit_histogram_foa": 0}
 
 
 def reset_launch_counts() -> None:
@@ -425,4 +427,78 @@ def deposit_histogram(hit, normal, e_refl, dist, occ, listener_pos,
              n_sources, tr // n_sources, cl, n_bands, n_bins, n_bins_pad,
              inv_bin_dt, range_limit, inv_c, four_pi2, _ptr(out), _stream(hit))
     _raise_on(err, "deposit_histogram")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: fused deposit + AmbiX first-order encode + histogram
+# ---------------------------------------------------------------------------
+
+
+def deposit_histogram_foa_plain(hit, normal, e_refl, dist, occ, listener_pos,
+                                n_sources: int, n_bins: int, bin_dt: float, c_sound: float):
+    """Plain PyTorch version of `deposit_histogram_foa` (any device)."""
+    n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2 = _deposit_constants(n_bins, bin_dt, c_sound)
+    tr, n_bands = e_refl.shape
+    lis = listener_pos.to(torch.float32).reshape(3)
+    vx = lis[0] - hit[:, 0]
+    vy = lis[1] - hit[:, 1]
+    vz = lis[2] - hit[:, 2]
+    d = torch.sqrt(vx * vx + vy * vy + vz * vz)
+    inv_d = 1.0 / torch.clamp_min(d, 1e-9)
+    cos_th = torch.clamp_min((vx * normal[:, 0] + vy * normal[:, 1] + vz * normal[:, 2]) * inv_d, 0.0)
+    arrival = (dist + d) * inv_c
+    bins = (arrival * inv_bin_dt).to(torch.int32).clamp(0, n_bins_pad - 1)
+    visible = ~occ.reshape(tr) & (cos_th > 0.0) & (arrival < range_limit)
+    m = torch.clamp_min(d, 1e-2)
+    geom = torch.where(visible, cos_th / (four_pi2 * (m * m)), torch.zeros_like(d))
+    dep = e_refl * geom[:, None]  # (TR, B)
+    gains = torch.stack([-vx * inv_d, -vy * inv_d, -vz * inv_d], dim=1)  # (TR, 3)
+    w = torch.cat([dep[:, None, :], dep[:, None, :] * gains[:, :, None]], dim=1)  # (TR, 4, B)
+    r = tr // n_sources
+    flat = torch.arange(tr, device=hit.device) // r * n_bins_pad + bins
+    out = torch.zeros(n_sources * n_bins_pad, 4 * n_bands, dtype=torch.float32, device=hit.device)
+    out.index_add_(0, flat, w.reshape(tr, 4 * n_bands))
+    out = out.reshape(n_sources, n_bins_pad, 4, n_bands)[:, :n_bins]
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def deposit_histogram_foa(hit, normal, e_refl, dist, occ, listener_pos,
+                          n_sources: int, n_bins: int, bin_dt: float, c_sound: float):
+    """Fused diffuse-rain deposit + AmbiX order-1 encode + per-source arrival
+    histogram for one listener point (the FOA rig).
+
+    Arguments:
+        hit, normal: (TR, 3) hit points and incoming-facing normals, TR =
+            n_sources * rays, source-major.
+        e_refl: (TR, B) reflected energies; dist: (TR,) path lengths so far.
+        occ: (1, TR) bool, True where the listener does not receive the ray.
+        listener_pos: (1, 3) the listener point.
+
+    Returns (n_sources, 4, B, n_bins) f32 energy in channels [W, X, Y, Z]:
+    W the deposit, X/Y/Z the deposit times the arrival direction's component.
+    """
+    if not _on_card(hit):
+        return deposit_histogram_foa_plain(hit, normal, e_refl, dist, occ, listener_pos,
+                                           n_sources, n_bins, bin_dt, c_sound)
+    n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2 = _deposit_constants(n_bins, bin_dt, c_sound)
+    tr, n_bands = e_refl.shape
+    if tr % n_sources:
+        raise ValueError(f"{tr} rays do not split into {n_sources} sources")
+    dev = hit.device
+    _check("hit", hit, (tr, 3), torch.float32, dev)
+    _check("normal", normal, (tr, 3), torch.float32, dev)
+    _check("e_refl", e_refl, (tr, n_bands), torch.float32, dev)
+    _check("dist", dist, (tr,), torch.float32, dev)
+    _check("occ", occ, (1, tr), torch.bool, dev)
+    _check("listener_pos", listener_pos, (1, 3), torch.float32, dev)
+    out = torch.zeros((n_sources, 4, n_bands, n_bins), dtype=torch.float32, device=dev)
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _lib("deposit_histogram_foa", "deposit_histogram_foa",
+              [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, cf, cf, vp, vp])
+    launch_counts["deposit_histogram_foa"] += 1
+    err = fn(_ptr(hit), _ptr(normal), _ptr(e_refl), _ptr(dist), _ptr(occ), _ptr(listener_pos),
+             n_sources, tr // n_sources, n_bands, n_bins, n_bins_pad,
+             inv_bin_dt, range_limit, inv_c, four_pi2, _ptr(out), _stream(hit))
+    _raise_on(err, "deposit_histogram_foa")
     return out

@@ -1,33 +1,92 @@
-"""The fused scene render: placed scene arrays -> int16 WAV payload on the card.
+"""The fused scene render: a placed Scene -> int16 WAV payload on the card.
 
-Counterpart of audiblelight_tpu/pipeline.py's FusedSceneRenderer.render_mix
-(the device program of the SELD dataset generator and the benchmark): trace
-the RIRs of every padded source, gather them per event, render the stems,
-place them in the scene timeline, add the ambience bed and quantise to int16.
-The reference compiles this into one XLA program; here it runs eagerly, one
-kernel or PyTorch op after another, with the JAX key replaced by a
-`torch.Generator`.
+Counterpart of audiblelight_tpu/pipeline.py's FusedSceneRenderer and its
+SELD dataset loop: trace the RIRs of every padded source, gather them per
+event, render the stems, place them in the scene timeline, add the ambience
+bed and quantise to int16. The reference compiles this into one XLA program;
+here it runs eagerly, one kernel or PyTorch op after another, with the JAX
+key replaced by a `torch.Generator` seeded from the world state's trace walk.
+
+`render_scenes` is the dataset loop: one scene at a time, one renderer per
+(room, rig, event buckets, source bucket), as the reference's pipelined
+loop groups them. Dispatch-ahead and batched renders are not ported.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
 
+from audiblelight_tpu_torch import utils
 from audiblelight_tpu_torch.geometry.mesh import TriMesh
 from audiblelight_tpu_torch.io.audio import wav_write
 from audiblelight_tpu_torch.render import (
     ScenePlan,
+    _bucket,
     ambience_bed_device,
+    build_scene_plan,
     place_stems_device,
     quantize_mix_wav,
     render_event_stems_arrays,
 )
 from audiblelight_tpu_torch.rir.raytracer import trace_rirs_multi
+from audiblelight_tpu_torch.rir.sh import encoding_channels
 from audiblelight_tpu_torch.worldstate.mesh_backend import MeshDeviceState, rain_mode
+
+# Tracer encoding of each rig layout this port renders
+ENCODINGS = {"mic": "omni", "foa": "foa"}
+
+
+def fused_inputs_host(scene, buckets: tuple, bucket_sources: int):
+    """Host half of `FusedSceneRenderer.scene_inputs`: ((trace seed, padded
+    sources (S, 3), listener points, s_idx (es,), m_idx (em, j)) as numpy,
+    the rain table's query points). Advances the world state's trace walk."""
+    ws = scene.state
+    mic = next(iter(ws.microphones.values()))
+    src = ws._emitter_positions().astype(np.float32)
+    n_src = len(src)
+    if n_src > bucket_sources:
+        raise ValueError(f"scene has {n_src} emitters; this renderer buckets {bucket_sources}")
+    if n_src < bucket_sources:  # padding repeats the first (interior) source
+        src = np.concatenate([src, np.tile(src[:1], (bucket_sources - n_src, 1))])
+
+    caps_abs = np.atleast_2d(np.asarray(utils.coerce2d(mic.coordinates_absolute), np.float64))
+    if mic.channel_layout_type == "mic":
+        caps = caps_abs
+    else:
+        caps = np.atleast_2d(np.asarray(utils.coerce2d(mic.coordinates_center), np.float64))
+
+    es, em, j, _ = buckets
+    s_idx = np.full(es, -1, dtype=np.int64)
+    m_idx = np.full((em, j), -1, dtype=np.int64)
+    si = mi = counter = 0
+    for event in scene.events.values():
+        n_em = len(event)
+        if event.is_moving:
+            if mi < em:
+                n_j = min(n_em, j)
+                m_idx[mi, :n_j] = np.arange(counter, counter + n_j)
+            mi += 1
+        else:
+            if si < es:
+                s_idx[si] = counter
+            si += 1
+        counter += n_em
+
+    # Rain-table query points: the mean of the physical capsules (shared
+    # visibility), else every listener point
+    mic_pts = caps_abs.mean(axis=0, keepdims=True) if bool(ws.cfg["shared_visibility"]) else caps
+    return (ws.split_key(), src, caps.astype(np.float32), s_idx, m_idx), mic_pts
+
+
+def _plan_buckets(plan: ScenePlan) -> tuple:
+    """(es, em, j, S) of a plan."""
+    return (int(plan.static_audio.shape[0]), int(plan.moving_audio.shape[0]),
+            int(plan.moving_w.shape[2]), int(plan.static_audio.shape[1]))
 
 
 class FusedSceneRenderer:
@@ -35,38 +94,129 @@ class FusedSceneRenderer:
 
     Arguments:
         state: the room's device state (mesh, materials, engine config).
-        n_channels: output channels (omni capsules of the rig).
+        n_capsules: listener points of the rig (4 for an AmbeoVR, 1 for FOA).
         buckets: (es, em, j, S) padded static/moving event counts, trajectory
             points and event samples of the scene plans it renders.
         n_sources: padded source count of the trace.
         t_scene: scene length in samples.
+        layout: the rig's channel layout, "mic" (one channel per capsule) or
+            "foa" (4 AmbiX channels at one point).
     """
 
-    def __init__(self, state: MeshDeviceState, n_channels: int, buckets: tuple,
-                 n_sources: int, t_scene: int):
+    def __init__(self, state: MeshDeviceState, n_capsules: int, buckets: tuple,
+                 n_sources: int, t_scene: int, layout: str = "mic"):
         if not state.convex and rain_mode(state.cfg) != "face":
             raise ValueError(
                 "the fused renderer on a nonconvex mesh needs per-face rain visibility "
                 '(rain_visibility="face", or "auto" with mesh_simplification on)'
             )
+        if layout not in ENCODINGS:
+            raise NotImplementedError(
+                f"channel layout {layout!r} is not ported (ROADMAP: binaural and HOA rigs, kernel K5)"
+            )
         self.state = state
         self.device = state.device
-        self.n_channels = int(n_channels)
+        self.layout = layout
+        self.encoding = ENCODINGS[layout]
+        self.n_capsules = int(n_capsules)
+        self.n_channels = encoding_channels(self.encoding, self.n_capsules)
         self.buckets = tuple(int(b) for b in buckets)
         self.n_sources = int(n_sources)
         self.t_scene = int(t_scene)
+        self._identity = None  # the template scene's, set by from_scene
 
     @classmethod
     def from_mesh(cls, mesh: TriMesh, cfg: dict, capsules, buckets: tuple, n_sources: int,
                   t_scene: int, material: Optional[str] = None, device=None) -> "FusedSceneRenderer":
-        """A renderer for `mesh` under engine config `cfg`, for the rig whose
-        capsule positions are `capsules` (C, 3)."""
+        """A renderer for `mesh` under engine config `cfg`, for the microphone
+        rig whose capsules are `capsules` (C, 3)."""
         state = MeshDeviceState.from_mesh(mesh, cfg, material=material, device=device)
         return cls(state, len(np.atleast_2d(capsules)), buckets, n_sources, t_scene)
 
+    @staticmethod
+    def _scene_identity(scene) -> tuple:
+        """What a renderer bakes in besides the buckets: the room's device
+        state (mesh, engine config, material, device), the rig and the
+        scene's length."""
+        ws = scene.state
+        mic = next(iter(ws.microphones.values()))
+        return (id(ws.device_state), mic.channel_layout_type, int(mic.n_capsules), int(mic.n_channels),
+                int(round(float(scene.duration) * ws.sample_rate)))
+
+    @classmethod
+    def from_scene(cls, scene, plan: ScenePlan, bucket_sources: Optional[int] = None) -> "FusedSceneRenderer":
+        """A renderer for scenes like `scene`: its room, rig, scene length and
+        the plan's buckets; `bucket_sources` padded sources (default: the
+        next power of two of the scene's emitters)."""
+        ws = scene.state
+        if len(ws.microphones) != 1 or not hasattr(ws, "device_state"):
+            raise ValueError("the fused renderer needs a single-microphone RLR scene")
+        mic = next(iter(ws.microphones.values()))
+        bucket = _bucket(len(ws._emitter_positions())) if bucket_sources is None else int(bucket_sources)
+        r = cls(ws.device_state, mic.n_listeners, _plan_buckets(plan), bucket,
+                round(float(scene.duration) * ws.sample_rate), layout=mic.channel_layout_type)
+        r._identity = cls._scene_identity(scene)
+        return r
+
+    def compatible(self, scene, plan: ScenePlan) -> bool:
+        """Can `scene` render through this renderer? The same room state, rig
+        and scene length as its template, the same buckets, and an event
+        layout and source count within them."""
+        ws = scene.state
+        if len(ws.microphones) != 1 or not hasattr(ws, "device_state"):
+            return False
+        es, em, j, _ = self.buckets
+        events = list(scene.events.values())
+        n_static = sum(1 for e in events if not e.is_moving)
+        n_moving = sum(1 for e in events if e.is_moving)
+        max_j = max((len(e) for e in events if e.is_moving), default=0)
+        return (
+            n_static <= es and n_moving <= em and max_j <= j
+            and _plan_buckets(plan) == self.buckets
+            and len(ws._emitter_positions()) <= self.n_sources
+            and self._scene_identity(scene) == self._identity
+        )
+
+    def scene_inputs(self, scene) -> tuple:
+        """Per-scene tracer inputs on the renderer's device: (generator,
+        padded sources, listener points, rain table or None, s_idx, m_idx).
+        Advances the world state's trace walk."""
+        (seed, src, caps, s_idx, m_idx), mic_pts = fused_inputs_host(scene, self.buckets, self.n_sources)
+        dev = self.device
+        face_occ = None if self.state.convex else self.state.rain_occlusion_for(mic_pts)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        return (gen, torch.as_tensor(src, device=dev), torch.as_tensor(caps, device=dev), face_occ,
+                torch.as_tensor(s_idx, device=dev), torch.as_tensor(m_idx, device=dev))
+
+    @staticmethod
+    def mix_eligible(scene) -> bool:
+        """Does the scene's ambience fit the device bed: at most one noise
+        ambience with the rig's channel count?"""
+        ambs = list(scene.ambience.values())
+        if len(ambs) > 1:
+            return False
+        if ambs:
+            mic = next(iter(scene.state.microphones.values()))
+            return ambs[0].beta is not None and int(ambs[0].channels) == int(mic.n_channels)
+        return True
+
+    @staticmethod
+    def mix_args(scene) -> tuple:
+        """The ambience scalars (on, beta, ref_db) of the device bed:
+        "gaussian" is white (beta 0)."""
+        ambs = list(scene.ambience.values())
+        if not ambs:
+            return (0.0, 0.0, -65.0)
+        amb = ambs[0]
+        return (1.0, 0.0 if amb.beta == "gaussian" else float(amb.beta), float(amb.ref_db))
+
+    def render_scene(self, scene, plan: ScenePlan) -> torch.Tensor:
+        """One placed scene to its (C, T) int16 WAV payload on the card."""
+        return self.render_mix(*self.scene_inputs(scene), plan, *self.mix_args(scene))
+
     def rain_table(self, capsules) -> Optional[torch.Tensor]:
-        """The (1, F') per-face rain table toward the rig's centroid (the
-        reference's shared visibility), or None in a convex room."""
+        """The (1, F') per-face rain table toward the centroid of the listener
+        points (the reference's shared visibility), or None in a convex room."""
         if self.state.convex:
             return None
         centroid = np.atleast_2d(np.asarray(capsules, dtype=np.float64)).mean(axis=0, keepdims=True)
@@ -74,7 +224,7 @@ class FusedSceneRenderer:
 
     def trace(self, gen: torch.Generator, sources: torch.Tensor, listeners: torch.Tensor,
               face_occ: Optional[torch.Tensor]) -> torch.Tensor:
-        """(C, n_sources, L) RIRs of the padded sources at the capsules."""
+        """(C_out, n_sources, L) RIRs of the padded sources at the listener."""
         st, cfg = self.state, self.state.cfg
         sr = int(cfg["sample_rate"])
         occl = not st.convex
@@ -93,10 +243,13 @@ class FusedSceneRenderer:
             diffraction_order=max(1, int(cfg["max_diffraction_order"])),
             tris_diffraction_graph=st.diffraction_graph_tris,
             decimate=bool(cfg["ray_decimation"]),
+            encoding=self.encoding,
+            sh_order_direct=int(cfg["direct_sh_order"]),
+            sh_order_indirect=int(cfg["indirect_sh_order"]),
         )
 
     def stems(self, gen, sources, listeners, face_occ, s_idx, m_idx, plan: ScenePlan) -> torch.Tensor:
-        """(es + em, C, S) float stems: trace, per-event IR gather, render."""
+        """(es + em, C_out, S) float stems: trace, per-event IR gather, render."""
         es, em, j, _ = self.buckets
         irs = self.trace(gen, sources, listeners, face_occ)  # (C, bucket, L)
         c, ir_len = irs.shape[0], irs.shape[-1]
@@ -114,12 +267,12 @@ class FusedSceneRenderer:
 
     def render_mix(self, gen: torch.Generator, sources, listeners, face_occ, s_idx, m_idx,
                    plan: ScenePlan, amb_on: float, amb_beta: float, amb_db: float) -> torch.Tensor:
-        """One scene to its (C, T) int16 WAV payload on the renderer's device.
+        """One scene to its (C_out, T) int16 WAV payload on the renderer's device.
 
         Arguments:
             gen: the scene's generator (trace, noise carriers, ambience).
-            sources: (n_sources, 3) padded source positions; listeners: (C, 3)
-                capsules; face_occ: `rain_table(listeners)`.
+            sources: (n_sources, 3) padded source positions; listeners:
+                (n_capsules, 3) listener points; face_occ: `rain_table(listeners)`.
             s_idx (es,), m_idx (em, j): event -> source maps, -1 = empty.
             plan: the scene's audio, weights, levels and start offsets.
             amb_on, amb_beta, amb_db: ambience on (1) or off (0), its
@@ -127,8 +280,8 @@ class FusedSceneRenderer:
         """
         if tuple(sources.shape) != (self.n_sources, 3):
             raise ValueError(f"sources must be ({self.n_sources}, 3), got {tuple(sources.shape)}")
-        if tuple(listeners.shape) != (self.n_channels, 3):
-            raise ValueError(f"listeners must be ({self.n_channels}, 3), got {tuple(listeners.shape)}")
+        if tuple(listeners.shape) != (self.n_capsules, 3):
+            raise ValueError(f"listeners must be ({self.n_capsules}, 3), got {tuple(listeners.shape)}")
         stems = self.stems(gen, sources, listeners, face_occ, s_idx, m_idx, plan)
         starts = torch.cat([plan.static_start, plan.moving_start])
         mix = place_stems_device(stems, starts, self.t_scene)
@@ -176,6 +329,47 @@ def renderer_from_numpy(world: dict, cfg: dict, plan: dict, scene_inputs: tuple,
     i64 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)  # noqa: E731
     face_occ = None if rain is None else torch.as_tensor(np.array(rain, dtype=bool), device=dev)
     return renderer, (f32(sources), f32(capsules), face_occ, i64(s_idx), i64(m_idx), splan)
+
+
+def render_scenes(scenes: Iterable, complete: Callable, plan_kwargs: Optional[dict] = None) -> int:
+    """Render placed scenes one at a time; `complete(scene, {mic alias: (C, T)
+    int16 numpy payload})` gets each in order. Returns the number rendered.
+
+    Each scene packs into a plan with `plan_kwargs`' pinned buckets
+    (max_static / max_moving / max_traj / pad_audio_seconds); a scene whose
+    events overflow them gets auto-sized buckets instead, so no event is
+    dropped. One renderer serves every scene it is `compatible` with at the
+    scene's source bucket: one per (room, rig, buckets, source bucket).
+    """
+    renderers = []
+    done = 0
+    for scene in scenes:
+        if len(scene.state.microphones) != 1:
+            raise NotImplementedError("scenes with several microphones are not ported (ROADMAP)")
+        if not FusedSceneRenderer.mix_eligible(scene):
+            raise NotImplementedError(
+                "only one noise ambience with the rig's channel count renders on the card "
+                "(file-based or several ambiences: ROADMAP)"
+            )
+        pk = dict(plan_kwargs or {})
+        events = list(scene.events.values())
+        counts = dict(max_static=sum(1 for e in events if not e.is_moving),
+                      max_moving=sum(1 for e in events if e.is_moving),
+                      max_traj=max((len(e) for e in events if e.is_moving), default=0))
+        for k, n in counts.items():
+            if pk.get(k) is not None and n > pk[k]:
+                pk.pop(k)
+        plan = build_scene_plan(scene, **pk)
+        n_sources = _bucket(len(scene.state._emitter_positions()))
+        renderer = next((r for r in renderers if r.n_sources == n_sources and r.compatible(scene, plan)), None)
+        if renderer is None:
+            renderer = FusedSceneRenderer.from_scene(scene, plan, n_sources)
+            renderers.append(renderer)
+        wav = renderer.render_scene(scene, plan)
+        alias = next(iter(scene.state.microphones))
+        complete(scene, OrderedDict([(alias, wav.cpu().numpy())]))
+        done += 1
+    return done
 
 
 def write_wav(path, payload: torch.Tensor, sample_rate: int) -> Path:

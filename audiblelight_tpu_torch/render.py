@@ -1,8 +1,9 @@
-"""Device half of the scene render: stems, placement, ambience, int16 WAV.
+"""The scene render: plan packing, stems, placement, ambience, int16 WAV.
 
-Counterpart of the device functions of audiblelight_tpu/render.py. A scene is
-described by fixed-shape tensors (`ScenePlan`, the reference's field layout);
-events are rendered as a batch where the reference vmaps.
+Counterpart of audiblelight_tpu/render.py. A scene is described by
+fixed-shape tensors (`ScenePlan`, the reference's field layout, packed from
+a Scene by `build_scene_plan`); events are rendered as a batch where the
+reference vmaps.
 """
 
 from __future__ import annotations
@@ -15,10 +16,14 @@ import torch
 import torch.nn.functional as F
 
 from audiblelight_tpu_torch import config
-from audiblelight_tpu_torch.ops.convolve import fft_convolve, time_variant_convolve_spec
+from audiblelight_tpu_torch.ops.convolve import (
+    fft_convolve,
+    interpolation_matrix,
+    time_variant_convolve_spec,
+)
 from audiblelight_tpu_torch.ops.noise import powerlaw_psd_gaussian
 from audiblelight_tpu_torch.ops.scaling import normalize_irs
-from audiblelight_tpu_torch.ops.stft import istft_overlap_add, stft
+from audiblelight_tpu_torch.ops.stft import istft_overlap_add, n_stft_frames, stft
 
 _TINY = 1e-15
 
@@ -170,3 +175,81 @@ def quantize_mix_wav(mix: torch.Tensor) -> torch.Tensor:
     """(C, T) float mix -> (C, T) int16 WAV samples: clip to [-1, 1], scale by
     32767, truncate toward zero (what an int16 WAV writer produces)."""
     return (torch.clamp(mix, -1.0, 1.0) * 32767.0).to(torch.int16)
+
+
+def _bucket(n: int, default: int = 1) -> int:
+    """The next power of two at or above n (`default` for n <= 0)."""
+    if n <= 0:
+        return default
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def build_scene_plan(scene, max_static: Optional[int] = None, max_moving: Optional[int] = None,
+                     max_traj: Optional[int] = None, pad_audio_seconds: Optional[float] = None) -> ScenePlan:
+    """Pack a placed Scene into a fixed-shape ScenePlan on the scene's
+    world-state device.
+
+    Loads each event's audio on the host and pads the static / moving event
+    slots, trajectory points and samples to the given buckets (next powers of
+    two when not given), as the reference's build_scene_plan(trace=False,
+    build_ambience=False) does. The IR banks are zero-length placeholders and
+    there is no host-side ambience bed: the fused renderer traces the IRs and
+    draws the bed on the card itself.
+    """
+    sr = scene.sample_rate
+    c_total = sum(int(m.n_channels) for m in scene.state.microphones.values())
+    t = round(scene.duration * sr)
+
+    statics, movings = [], []
+    for event in scene.events.values():
+        audio = event.load_audio(normalize=True)
+        start = max(0, round(event.scene_start * sr))
+        end = min(round(event.scene_end * sr), t)
+        entry = dict(audio=audio, n_em=len(event), snr=float(event.snr), start=start, length=len(audio),
+                     place_len=max(end - start, 0), duration=event.duration)
+        (movings if event.is_moving else statics).append(entry)
+
+    es = max_static if max_static is not None else _bucket(len(statics))
+    em = max_moving if max_moving is not None else _bucket(len(movings))
+    if len(statics) > es or len(movings) > em:
+        from audiblelight_tpu_torch.utils import logger
+
+        logger.warning(f"Scene exceeds the plan's event buckets: keeping {es}/{len(statics)} static "
+                       f"and {em}/{len(movings)} moving events")
+    max_len = max([e["length"] for e in statics + movings] or [sr])
+    s = round(pad_audio_seconds * sr) if pad_audio_seconds is not None else _bucket(max_len)
+    j = max_traj if max_traj is not None else _bucket(max([e["n_em"] for e in movings] or [2]), default=2)
+    fr = n_stft_frames(s)
+
+    def slots(entries, n):
+        audio = np.zeros((n, s), np.float32)
+        fields = dict(mask=np.zeros(n, np.float32), snr=np.zeros(n, np.float32),
+                      start=np.zeros(n, np.int32), len=np.ones(n, np.int32), place_len=np.zeros(n, np.int32))
+        for i, e in enumerate(entries[:n]):
+            m = min(e["length"], s)
+            audio[i, :m] = e["audio"][:m]
+            fields["mask"][i], fields["snr"][i], fields["start"][i] = 1.0, e["snr"], e["start"]
+            fields["len"][i], fields["place_len"][i] = m, min(e["place_len"], s)
+        return audio, fields
+
+    static_audio, st = slots(statics, es)
+    moving_audio, mv = slots(movings, em)
+    moving_w = np.zeros((em, fr, j), np.float32)
+    for i, e in enumerate(movings[:em]):
+        n_j = min(e["n_em"], j)
+        ir_times = np.linspace(0, e["duration"], e["n_em"])[:n_j]
+        moving_w[i, :, :n_j] = interpolation_matrix(ir_times, sr, config.HOP_SIZE, fr)
+
+    arrays = dict(
+        static_audio=static_audio, static_irs=np.zeros((es, c_total, 0), np.float32),
+        static_mask=st["mask"], static_snr=st["snr"], static_start=st["start"], static_len=st["len"],
+        static_place_len=st["place_len"],
+        moving_audio=moving_audio, moving_irs=np.zeros((em, c_total, j, 0), np.float32), moving_w=moving_w,
+        moving_mask=mv["mask"], moving_snr=mv["snr"], moving_start=mv["start"], moving_len=mv["len"],
+        moving_place_len=mv["place_len"],
+        ambience=None, ref_db=np.float32(scene.ref_db), n_scene_samples=t,
+    )
+    return ScenePlan.from_numpy(arrays, scene.state.device)

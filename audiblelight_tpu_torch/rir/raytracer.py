@@ -1,16 +1,19 @@
 """Stochastic acoustic ray tracer over triangle meshes (PyTorch, wavefront-style).
 
 Counterpart of the main-path functions of audiblelight_tpu/rir/raytracer.py,
-for omni capsule rigs (AmbeoVR and other "mic" layouts) with per-face rain
-visibility:
+for omni capsule rigs ("omni": AmbeoVR and other "mic" layouts) and the
+first-order ambisonic listener ("foa": AmbiX [W, X, Y, Z] at one point), with
+per-face rain visibility:
 
   1. E sources x N rays leave the sources with unit-total energy per source.
   2. Each bounce: first hit against the mesh (K1), per-band absorption, a
-     diffuse-rain deposit toward every capsule, binned by arrival time (K3,
-     with visibility gathered from the per-face table that K2 filled), and a
+     diffuse-rain deposit toward the listener, binned by arrival time (K3 per
+     omni capsule, K4 with the first-order encode for FOA; visibility
+     gathered from the per-face table that K2 filled), and a
      specular-or-Lambertian reflection chosen by the surface scattering.
   3. The IRs are synthesised from the histograms with band-filtered noise
-     carriers, plus the exact direct path and knife-edge diffraction.
+     carriers, plus the exact direct path and knife-edge diffraction, both
+     encoded at the listener for FOA.
 
 The bounce loop is a Python loop with the reference's early exit: it stops
 when every ray is dead, which costs one host read of a flag per bounce.
@@ -30,8 +33,24 @@ import torch.nn.functional as F
 
 from audiblelight_tpu_torch import config
 from audiblelight_tpu_torch.geometry.queries import ray_mesh_first_hit, segments_occluded
-from audiblelight_tpu_torch.ops.cuda_kernels import deposit_histogram, first_hit_table
+from audiblelight_tpu_torch.ops.cuda_kernels import (
+    deposit_histogram,
+    deposit_histogram_foa,
+    first_hit_table,
+)
+from audiblelight_tpu_torch.rir.sh import ambisonic_encoding_gains, encoding_channels
 from audiblelight_tpu_torch.utils import cross3, dot3, norm3
+
+
+def _check_encoding(encoding: str, cl: int, sh_order: int) -> None:
+    """The encodings this port traces: omni capsules, and FOA at one listener
+    point with an order-1 tail (the reference's fused FOA deposit)."""
+    if encoding == "omni" or (encoding == "foa" and cl == 1 and sh_order == 1):
+        return
+    raise NotImplementedError(
+        f"encoding {encoding!r} with {cl} listener points and tail order {sh_order} is not "
+        "ported (binaural, HOA and multi-point ambisonic rigs: ROADMAP, kernel K5)"
+    )
 
 
 def _band_centers(n_bands: int, device) -> torch.Tensor:
@@ -93,7 +112,7 @@ def _halve_wavefront(state: tuple, n_sources: int, r_now: int, r_next: int) -> t
 
 
 def _bounce(gen, state, tris, table, tri_normals, face_absorption, face_scattering, face_occlusion,
-            listener_pos, n_sources, n_rays, n_bins, bin_dt, c):
+            listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding):
     """One bounce of the whole wavefront: (new state, histogram increment).
     `table` is the first-hit face table of `tris`."""
     origins, dirs, energy, dist, alive = state
@@ -118,7 +137,8 @@ def _bounce(gen, state, tris, table, tri_normals, face_absorption, face_scatteri
     else:
         # Convex enclosure: interior segments are never blocked
         occ = torch.zeros((cl, tr), dtype=torch.bool, device=origins.device)
-    add = deposit_histogram(
+    deposit = deposit_histogram if encoding == "omni" else deposit_histogram_foa
+    add = deposit(
         hit.contiguous(), normal.contiguous(), e_refl.contiguous(), new_dist.contiguous(),
         (occ | ~hit_ok[None]).contiguous(), listener_pos,
         n_sources=n_sources, n_bins=n_bins, bin_dt=bin_dt, c_sound=c,
@@ -153,22 +173,29 @@ def trace_energy_histogram_multi(
     tri_normals: torch.Tensor = None,
     face_occlusion: torch.Tensor = None,
     decimate: bool = False,
+    encoding: str = "omni",
+    sh_order: int = 1,
 ) -> torch.Tensor:
     """Energy histograms for E sources traced together in one wavefront.
 
     Arguments:
         tris: (F, 3, 3) triangles; face_absorption (F, B); face_scattering (F,).
-        source_positions: (E, 3); listener_pos: (C, 3) omni capsules.
+        source_positions: (E, 3); listener_pos: (C, 3) omni capsules, or
+            (1, 3) the FOA listener point.
         face_occlusion: (1 or C, F) bool rain-visibility table (True =
             blocked), or None for a convex room (no occlusion).
         decimate: progressive wavefront decimation (see decimation_phases).
+        encoding, sh_order: "omni", or "foa" with tail order 1.
 
-    Returns (E, C, B, n_bins) pressure^2 energies.
+    Returns (E, C_out, B, n_bins) pressure^2 energies: C_out = C for omni;
+    [W, X, Y, Z] for FOA, X/Y/Z signed (energy times the arrival direction).
     """
     dev = tris.device
     n_sources = source_positions.shape[0]
     n_bands = face_absorption.shape[1]
     cl = listener_pos.shape[0]
+    _check_encoding(encoding, cl, sh_order)
+    c_out = encoding_channels(encoding, cl)
     total = n_sources * n_rays
     listener_pos = listener_pos.to(torch.float32).contiguous()
 
@@ -183,7 +210,7 @@ def trace_energy_histogram_multi(
         torch.zeros(total, dtype=torch.float32, device=dev),
         torch.ones(total, dtype=torch.bool, device=dev),
     )
-    hist = torch.zeros((n_sources, cl, n_bands, n_bins), dtype=torch.float32, device=dev)
+    hist = torch.zeros((n_sources, c_out, n_bands, n_bins), dtype=torch.float32, device=dev)
     table = first_hit_table(tris)
     phases = decimation_phases(n_rays, max_depth, decimate)
     for pi, (start, end, r_src) in enumerate(phases):
@@ -194,7 +221,7 @@ def trace_energy_histogram_multi(
                 break
             state, add = _bounce(
                 gen, state, tris, table, tri_normals, face_absorption, face_scattering,
-                face_occlusion, listener_pos, n_sources, n_rays, n_bins, bin_dt, c,
+                face_occlusion, listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding,
             )
             hist += add
     return hist
@@ -237,12 +264,16 @@ def synthesize_ir_from_histogram(
     n_samples: int,
     bin_dt: float,
     sr: int = config.SAMPLE_RATE,
+    encoding: str = "omni",
 ) -> torch.Tensor:
-    """Turn (..., C, B, n_bins) omni energy histograms into (..., C, n_samples) IRs.
+    """Turn (..., C, B, n_bins) energy histograms into (..., C, n_samples) IRs.
 
-    Band-limited Gaussian noise carriers (independent per capsule and band:
-    diffuse-field decorrelation) are envelope-shaped so each bin's
-    time-integrated squared pressure equals its energy.
+    Band-limited Gaussian noise carriers are envelope-shaped so each bin's
+    time-integrated squared pressure equals its energy. Omni capsules get
+    independent carriers per capsule and band (diffuse-field decorrelation);
+    FOA shares one carrier per band across its 4 channels, and each channel's
+    envelope is its signed energy over sqrt(E_W) (first-order covariance
+    matching), so X/W carries the histogram's signed ratio.
     """
     *lead, c_out, n_bands, n_bins = hist.shape
     dev = hist.device
@@ -252,12 +283,18 @@ def synthesize_ir_from_histogram(
     freqs = torch.arange(n_freq, device=dev) * (sr / n_fft)
     filt = torch.sqrt(_log_band_weights(freqs, band_freqs.to(torch.float32)))  # (B, n_freq)
 
-    white = torch.randn((*lead, c_out, n_bands, n_fft), generator=gen, device=dev)
+    if encoding == "omni":
+        white = torch.randn((*lead, c_out, n_bands, n_fft), generator=gen, device=dev)
+    else:
+        white = torch.randn((*lead, 1, n_bands, n_fft), generator=gen, device=dev)
     spec = torch.fft.rfft(white, dim=-1) * filt
     carriers = torch.fft.irfft(spec, n=n_fft, dim=-1)[..., :n_samples]
     var = torch.mean(carriers**2, dim=-1, keepdim=True) + 1e-20
 
-    env_bins = hist / torch.sqrt(torch.clamp_min(hist, 1e-20) * bin_samples)
+    # Ambisonics: W (unit gain) carries the energy, the other channels carry
+    # signed direction-weighted energy
+    e_ref = hist if encoding == "omni" else torch.clamp_min(hist[..., 0:1, :, :], 0.0)
+    env_bins = hist / torch.sqrt(torch.clamp_min(e_ref, 1e-20) * bin_samples)
     env = _interp_envelope(env_bins, n_samples, bin_samples)
     return torch.sum(carriers / torch.sqrt(var) * env, dim=-2).to(torch.float32)
 
@@ -288,10 +325,14 @@ def direct_paths_ir(
     n_samples: int,
     sr: int = config.SAMPLE_RATE,
     c: float = config.SPEED_OF_SOUND,
+    encoding: str = "omni",
+    sh_order: int = 3,
 ) -> torch.Tensor:
-    """Exact direct paths for a batch of sources (omni capsules), with one
-    occlusion query: a windowed sinc at delay d/c with amplitude
-    visibility/(4 pi d). Returns (E, C, n_samples)."""
+    """Exact direct paths for a batch of sources, with one occlusion query: a
+    windowed sinc at delay d/c with amplitude visibility/(4 pi d), per omni
+    capsule, or at the FOA listener point encoded with the ambisonic gains
+    of the arrival direction at `sh_order` (clipped to the layout's order 1).
+    Returns (E, C_out, n_samples)."""
     source_positions = torch.atleast_2d(source_positions).to(torch.float32)
     listener_pos = torch.atleast_2d(listener_pos).to(torch.float32)
     n_src, cl = source_positions.shape[0], listener_pos.shape[0]
@@ -304,6 +345,12 @@ def direct_paths_ir(
     occ = segments_occluded(starts, ends, tris).reshape(n_src, cl)
     amps = (~occ).to(torch.float32) / (4.0 * math.pi * torch.clamp_min(d, 1e-2))
     delays = d * sr / c
+    if encoding != "omni":
+        dirs = vec[:, 0] / torch.clamp_min(d[:, 0:1], 1e-9)
+        gains = ambisonic_encoding_gains(dirs, sh_order, encoding)  # (E, C_out)
+        amps = amps[:, 0:1] * gains
+        delays = delays[:, 0:1].expand_as(gains)
+    c_out = amps.shape[1]
 
     n_taps = 32
     window = torch.as_tensor(np.hanning(2 * n_taps + 1), dtype=torch.float32, device=dev)
@@ -316,7 +363,7 @@ def direct_paths_ir(
     idx = torch.clamp(pos, 0, n_samples - 1)
     in_range = (pos >= 0) & (pos < n_samples)
     vals = amps[..., None] * taps * in_range
-    ir = torch.zeros((n_src, cl, n_samples), dtype=torch.float32, device=dev)
+    ir = torch.zeros((n_src, c_out, n_samples), dtype=torch.float32, device=dev)
     return ir.scatter_add_(2, idx, vals)
 
 
@@ -428,11 +475,14 @@ def _graph_detour(tris, source_pos, center, order: int, n_angles: int = 12, n_ra
     return found, dist[rows, last], nodes[rows, last], deltas
 
 
-def _synth_bent_component(gain_b, path, band_freqs, n_samples, sr, c):
-    """Frequency-domain synthesis of bent-path arrivals (omni capsules).
+def _synth_bent_component(gain_b, path, bend, listener_pos, band_freqs, n_samples, sr, c,
+                          encoding="omni", sh_order=3):
+    """Frequency-domain synthesis of bent-path arrivals.
 
     gain_b: (E, C, B) per-band amplitude gains (zero where inactive); path:
-    (E, C) bent path lengths. Returns (E, C, n_samples).
+    (E, C) bent path lengths; bend: (E, 3) the last bend point, whose
+    direction from the listener encodes the arrival for FOA. Returns
+    (E, C_out, n_samples).
     """
     n_freq = n_samples // 2 + 1
     freqs = torch.arange(n_freq, device=gain_b.device) * (sr / n_samples)
@@ -442,7 +492,13 @@ def _synth_bent_component(gain_b, path, band_freqs, n_samples, sr, c):
     # Bent paths longer than the IR window are dropped, not wrapped
     g_f = g_f * (delay_samp < n_samples - 1)[..., None]
     spec = g_f * _linear_phase(delay_samp, n_samples)
-    return torch.fft.irfft(spec, n=n_samples, dim=-1).to(torch.float32)
+    ir_caps = torch.fft.irfft(spec, n=n_samples, dim=-1).to(torch.float32)
+    if encoding == "omni":
+        return ir_caps
+    dirs = bend - listener_pos  # (E, 3): listener -> last bend
+    dirs = dirs / torch.clamp_min(norm3(dirs, keepdim=True), 1e-9)
+    gains = ambisonic_encoding_gains(dirs, sh_order, encoding)  # (E, C_out)
+    return gains[:, :, None] * ir_caps[:, 0:1]
 
 
 def diffracted_path_ir(
@@ -457,6 +513,8 @@ def diffracted_path_ir(
     n_radii: int = 12,
     order: int = 1,
     tris_graph: torch.Tensor = None,
+    encoding: str = "omni",
+    sh_order: int = 3,
 ) -> torch.Tensor:
     """Knife-edge diffraction for OCCLUDED direct paths, E sources at once.
 
@@ -467,7 +525,8 @@ def diffracted_path_ir(
     attenuates by the Maekawa fit A(N) = 10 log10(3 + 20 N) dB, N = 2 delta f / c.
     Candidate legs are checked against `tris_graph` when given (an acoustic
     LOD of a big mesh); the trigger always uses `tris`. Unoccluded pairs
-    contribute zero. Returns (E, C, n_samples).
+    contribute zero. For FOA the arrival is encoded with the gains of the
+    last bend's direction. Returns (E, C_out, n_samples).
     """
     source_positions = torch.atleast_2d(source_positions).to(torch.float32)
     listener_pos = torch.atleast_2d(listener_pos).to(torch.float32)
@@ -511,6 +570,7 @@ def diffracted_path_ir(
         deltas_g = deltas_s[:, None, :].expand(e_n, cl, deltas_s.shape[1])
         use_graph = ~found & found_g
         found = found | found_g
+        bend = torch.where(use_graph[:, None], bend_g, bend)
         path = torch.where(use_graph[:, None], path_g, path)
         deltas = torch.where(
             use_graph[:, None, None], deltas_g, F.pad(deltas, (0, deltas_g.shape[2] - 1))
@@ -527,7 +587,8 @@ def diffracted_path_ir(
     att_db = torch.where(no_bend[..., None], floor_db, att_db)
     gain_b = 10.0 ** (-att_db / 20.0) / (4.0 * math.pi * torch.clamp_min(path, 1e-2))[..., None]
     gain_b = gain_b * (occ_direct & found[:, None])[..., None]
-    return _synth_bent_component(gain_b, path, band_freqs, n_samples, sr, c)
+    return _synth_bent_component(gain_b, path, bend, listener_pos, band_freqs, n_samples, sr, c,
+                                 encoding, sh_order)
 
 
 def face_rain_occlusion(tris: torch.Tensor, tri_normals: torch.Tensor, listener_points: torch.Tensor) -> torch.Tensor:
@@ -566,24 +627,34 @@ def trace_rirs_multi(
     diffraction_order: int = 1,
     tris_diffraction_graph: torch.Tensor = None,
     decimate: bool = False,
+    encoding: str = "omni",
+    sh_order_direct: int = 3,
+    sh_order_indirect: int = 1,
 ) -> torch.Tensor:
-    """RIRs for a batch of sources against one omni capsule group: stochastic
+    """RIRs for a batch of sources against one listener group: stochastic
     tail on `tris` (the acoustic mesh) + exact direct path on `tris_direct`
-    (default `tris`) + optional knife-edge diffraction. Returns (C, E, n_samples)."""
+    (default `tris`) + optional knife-edge diffraction. `encoding` is "omni"
+    (one channel per capsule) or "foa" (one listener point, [W, X, Y, Z]);
+    the direct and diffracted paths encode at `sh_order_direct`, the tail at
+    `sh_order_indirect`, each clipped to the layout's order. Returns
+    (C_out, E, n_samples)."""
     source_positions = torch.atleast_2d(source_positions)
     n_bins = int(np.ceil(n_samples / sr / bin_dt)) + 1
     hist = trace_energy_histogram_multi(
         gen, tris, face_absorption, face_scattering, source_positions, listener_pos,
         n_rays=n_rays, max_depth=max_depth, n_bins=n_bins, bin_dt=bin_dt, c=c,
         tri_normals=tri_normals, face_occlusion=face_occlusion, decimate=decimate,
-    )  # (E, C, B, bins)
+        encoding=encoding, sh_order=sh_order_indirect,
+    )  # (E, C_out, B, bins)
     band_freqs = _band_centers(face_absorption.shape[1], tris.device)
-    irs = synthesize_ir_from_histogram(gen, hist, band_freqs, n_samples, bin_dt, sr=sr)
+    irs = synthesize_ir_from_histogram(gen, hist, band_freqs, n_samples, bin_dt, sr=sr, encoding=encoding)
     td = tris if tris_direct is None else tris_direct
-    irs = irs + direct_paths_ir(td, source_positions, listener_pos, n_samples, sr=sr, c=c)
+    irs = irs + direct_paths_ir(td, source_positions, listener_pos, n_samples, sr=sr, c=c,
+                                encoding=encoding, sh_order=sh_order_direct)
     if diffraction:
         irs = irs + diffracted_path_ir(
             td, source_positions, listener_pos, band_freqs, n_samples, sr=sr, c=c,
             order=int(diffraction_order), tris_graph=tris_diffraction_graph,
+            encoding=encoding, sh_order=sh_order_direct,
         )
     return irs.movedim(0, 1)

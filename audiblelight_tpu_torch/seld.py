@@ -1,0 +1,247 @@
+"""Generate a DCASE2023-Task3-style SELD dataset with the PyTorch/CUDA port.
+
+    python -m audiblelight_tpu_torch.seld --fg-dir <folder of WAVs> --output-dir <out> \\
+        --backend rlr --mesh room.obj --channel-layout foa [--device cpu]
+
+The port's counterpart of scripts/seld/generate_dataset.py on its fused rlr
+path, with the same flags, defaults, seeding and file layout: N one-minute
+24 kHz scenes in the FOA ("foalistener") or MIC ("ambeovr") format, static
+and moving events placed in a ray-traced mesh room, written as
+
+    <output>/<fmt>_dev/dev-<split>-alight/fold<k>_scene<i>_<j>_mic000.wav
+    <output>/metadata_dev/dev-<split>-alight/fold<k>_scene<i>_<j>_mic000.csv
+    <output>/metadata_dev/dev-<split>-alight/fold<k>_scene<i>_<j>.json
+
+Scenes whose outputs exist are skipped (resume), and a scene in which no
+event placed is built again. The same --seed places the same events as the
+reference script. `--device` (default cuda) selects where the placement
+queries and the render run; without a card the default raises.
+
+Not ported (raise, ROADMAP): --backend shoebox|sofa, --assets,
+--augmentations, --placement-workers > 0, --mesh-devices > 1,
+--coordinator, --pipeline compiled|classic, --no-mesh-simplification (the
+exact rain mode, kernel K6) and --no-device-mix (the host-mix path).
+--fused-batch is accepted and has no effect (one scene per render).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from audiblelight_tpu_torch import config, utils
+from audiblelight_tpu_torch.core import Scene, write_outputs
+from audiblelight_tpu_torch.pipeline import render_scenes
+from audiblelight_tpu_torch.render import _bucket
+from audiblelight_tpu_torch.utils import logger
+
+DURATION = 60
+SAMPLE_RATE = 24000
+AUGMENTATIONS = ("pitchshift", "speedup", "reverse", "invert", "distortion")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The reference script's flags and defaults, plus --device."""
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--fg-dir", type=str, required=True, help="foreground audio root")
+    p.add_argument("--output-dir", type=str, required=True)
+    p.add_argument("--backend", choices=["shoebox", "rlr", "sofa"], default="shoebox")
+    p.add_argument("--mesh", type=str, default=None, help="mesh file (rlr backend)")
+    p.add_argument("--sofa", type=str, default=None, help="SOFA file (sofa backend)")
+    p.add_argument("--assets", type=str, default=None, help="room split (not ported)")
+    p.add_argument("--mesh-dir", type=str, default=None)
+    p.add_argument("--sofa-dir", type=str, default=None)
+    p.add_argument("--scapes-per-room", type=int, default=None)
+    p.add_argument("--channel-layout", choices=["foa", "mic"], default="mic")
+    p.add_argument("--n-scenes", type=int, default=10, help="scenes per split")
+    p.add_argument("--train-frac", type=float, default=0.75)
+    p.add_argument("--max-overlap", type=int, default=config.MAX_OVERLAP)
+    p.add_argument("--min-events-static", type=int, default=config.MIN_STATIC_EVENTS)
+    p.add_argument("--max-events-static", type=int, default=config.MAX_STATIC_EVENTS)
+    p.add_argument("--min-events-moving", type=int, default=config.MIN_MOVING_EVENTS)
+    p.add_argument("--max-events-moving", type=int, default=config.MAX_MOVING_EVENTS)
+    p.add_argument("--augmentations", nargs="*", default=[], choices=list(AUGMENTATIONS))
+    p.add_argument("--materials", action="store_true", help="use acoustic materials")
+    p.add_argument("--material", type=str, default="Default")
+    p.add_argument("--ism-order", type=int, default=12, help="shoebox image order")
+    p.add_argument("--rays", type=int, default=None, help="indirect ray count (rlr)")
+    p.add_argument("--ray-depth", type=int, default=None, help="indirect ray depth (rlr)")
+    p.add_argument("--ir-seconds", type=float, default=config.MAX_IR_SECONDS)
+    p.add_argument("--fused-batch", type=int, default=4, help="accepted; renders are one scene each")
+    p.add_argument("--duration", type=float, default=DURATION)
+    p.add_argument("--seed", type=int, default=utils.SEED)
+    p.add_argument("--pipeline", choices=["fused", "compiled", "classic"], default=None)
+    p.add_argument("--mesh-simplification", action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--ray-decimation", action=argparse.BooleanOptionalAction, default=False)
+    p.add_argument("--diffraction", action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--device-mix", action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--placement-workers", type=int, default=0)
+    p.add_argument("--mesh-devices", type=int, default=1)
+    p.add_argument("--coordinator", type=str, default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="where placement queries and renders run (cuda, or cpu)")
+    return p
+
+
+def check_ported(args) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for what the port
+    does not run."""
+    unported = [
+        (args.backend != "rlr", f"--backend {args.backend}", "shoebox and SOFA backends"),
+        (args.assets is not None, "--assets", "the asset room tables (glTF loading)"),
+        (bool(args.augmentations), "--augmentations", "augmentations"),
+        (args.placement_workers > 0, "--placement-workers > 0", "pooled placement"),
+        (args.mesh_devices > 1, "--mesh-devices > 1", "multi-device rendering"),
+        (args.coordinator is not None, "--coordinator", "multi-device rendering"),
+        (args.pipeline != "fused", f"--pipeline {args.pipeline}", "the compiled and classic pipelines"),
+        (not args.mesh_simplification, "--no-mesh-simplification", "the exact rain mode, kernel K6"),
+        (not args.device_mix, "--no-device-mix", "the stems + host-mix path"),
+    ]
+    for bad, flag, item in unported:
+        if bad:
+            raise NotImplementedError(f"{flag} is not ported (ROADMAP: {item})")
+
+
+def build_backend_kwargs(args, rng: np.random.Generator, meshes: dict) -> dict:
+    """The rlr world state's constructor kwargs for one scene (one draw of
+    `rng` for its seed, as the reference)."""
+    from audiblelight_tpu_torch.geometry.mesh import load_mesh
+
+    if args.mesh is None:
+        raise ValueError("--mesh is required for the rlr backend")
+    if args.mesh not in meshes:
+        meshes[args.mesh] = load_mesh(args.mesh)
+    rlr_kwargs = dict(
+        max_ir_length=args.ir_seconds,
+        mesh_simplification=args.mesh_simplification,
+        ray_decimation=args.ray_decimation,
+        diffraction=args.diffraction,
+    )
+    if args.rays is not None:
+        rlr_kwargs["indirect_ray_count"] = args.rays
+    if args.ray_depth is not None:
+        rlr_kwargs["indirect_ray_depth"] = args.ray_depth
+    return dict(
+        mesh=meshes[args.mesh],
+        material=args.material if args.materials else None,
+        add_to_context=False,
+        rlr_kwargs=rlr_kwargs,
+        seed=int(rng.integers(2**31)),
+    )
+
+
+def build_scene(args, split: str, scene_num: int, scape_num: int, rng: np.random.Generator,
+                depth: int = 0, meshes: Optional[dict] = None):
+    """Construct and place one scene: (scene, audio path, metadata path), or
+    None when its outputs exist (resume). Builds again when no event placed."""
+    meshes = {} if meshes is None else meshes
+    fold = 1 if split == "train" else 2
+    common = f"dev-{split}-alight/fold{fold}_scene{scene_num}_{str(scape_num).zfill(3)}"
+    audio_path = Path(args.output_dir) / f"{args.channel_layout}_dev/{common}"
+    metadata_path = Path(args.output_dir) / f"metadata_dev/{common}"
+
+    wav_out = audio_path.parent / f"{audio_path.name}_mic000.wav"
+    csv_out = metadata_path.parent / f"{metadata_path.name}_mic000.csv"
+    if wav_out.is_file() and csv_out.is_file():
+        logger.warning(f"Skipping existing scene {common}")
+        return None
+
+    audio_path.parent.mkdir(parents=True, exist_ok=True)
+    metadata_path.parent.mkdir(parents=True, exist_ok=True)
+
+    scene = Scene(
+        duration=args.duration,
+        sample_rate=SAMPLE_RATE,
+        backend=args.backend,
+        backend_kwargs=build_backend_kwargs(args, rng, meshes),
+        fg_path=args.fg_dir,
+        max_overlap=args.max_overlap,
+        class_mapping="DCASE2023Task3",
+        device=args.device,
+    )
+    scene.add_microphone(microphone_type="foalistener" if args.channel_layout == "foa" else "ambeovr")
+
+    n_static = int(rng.integers(args.min_events_static, args.max_events_static + 1))
+    n_moving = int(rng.integers(args.min_events_moving, args.max_events_moving + 1))
+    placed = 0
+    for event_type, n in (("static", n_static), ("moving", n_moving)):
+        for _ in range(n):
+            try:
+                scene.add_event(event_type=event_type, augmentations=None, max_place_attempts=100)
+                placed += 1
+            except (ValueError, FileNotFoundError) as e:
+                logger.warning(f"Could not place {event_type} event: {e}")
+
+    if placed == 0:
+        if depth >= 5:
+            raise RuntimeError(f"Could not place any events for scene {common}")
+        logger.warning(f"No events placed for {common}; retrying...")
+        return build_scene(args, split, scene_num, scape_num, rng, depth + 1, meshes=meshes)
+
+    scene.add_ambience(noise="gaussian")
+    return scene, audio_path, metadata_path
+
+
+def plan_kwargs(args) -> dict:
+    """Pinned plan buckets of a run, as the reference script pins them on its fused path."""
+    return dict(
+        max_static=_bucket(max(args.max_events_static, 1)),
+        max_moving=_bucket(max(args.max_events_moving, 1)),
+        max_traj=32,
+        pad_audio_seconds=config.MAX_EVENT_DURATION,
+    )
+
+
+def generate_fused(args, jobs: list, rng: np.random.Generator) -> list[float]:
+    """Place, render and write every job in order. Returns each rendered
+    scene's host-clock seconds, from the start of its placement to the end of
+    its writes."""
+    paths, meshes, seconds = {}, {}, []
+
+    def factory():
+        for idx, (split, scene_num, scape) in enumerate(jobs):
+            logger.warning(f"[{idx + 1}/{len(jobs)}] {split} scene {scene_num} scape {scape}")
+            t0 = time.perf_counter()
+            built = build_scene(args, split, scene_num, scape, rng, meshes=meshes)
+            if built is None:
+                continue
+            scene, audio_path, metadata_path = built
+            paths[id(scene)] = (audio_path, metadata_path, t0)
+            yield scene
+
+    def complete(scene, audio):
+        scene.audio = audio
+        audio_path, metadata_path, t0 = paths.pop(id(scene))
+        write_outputs(scene, audio_path, metadata_path)
+        seconds.append(time.perf_counter() - t0)
+        logger.warning(f"wrote {audio_path.name} in {seconds[-1]:.3f} s")
+
+    render_scenes(factory(), complete, plan_kwargs=plan_kwargs(args))
+    return seconds
+
+
+def main(argv: Optional[list] = None) -> list[float]:
+    """Run the generator on `argv` (default: the command line). Returns each
+    rendered scene's host-clock seconds, placement included."""
+    args = build_parser().parse_args(argv)
+    if args.pipeline is None:
+        args.pipeline = "fused" if args.backend == "rlr" else "compiled"
+    check_ported(args)
+    utils.resolve_device(args.device)
+    # Seed the global streams too: the scipy placement distributions draw
+    # from numpy's global RNG
+    utils.seed_everything(args.seed)
+    rng = np.random.default_rng(args.seed)
+    n_train = round(args.n_scenes * args.train_frac)
+    jobs = [("train", 1, i) for i in range(n_train)] + [("test", 1, i) for i in range(args.n_scenes - n_train)]
+    return generate_fused(args, jobs, rng)
+
+
+if __name__ == "__main__":
+    main()

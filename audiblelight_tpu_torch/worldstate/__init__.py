@@ -1,0 +1,28 @@
+"""World-state backends (counterpart of audiblelight_tpu/worldstate/): the
+ray-traced mesh backend "RLR". The measured-SOFA and shoebox backends are not
+ported; resolving them by name raises."""
+
+from typing import Type
+
+from audiblelight_tpu_torch.worldstate.base import Emitter, WorldState
+from audiblelight_tpu_torch.worldstate.mesh_backend import WorldStateRLR
+
+WORLDSTATE_LIST = [WorldStateRLR]
+VALID_MOVING_EVENT_TRAJECTORIES = ["linear", "semicircular", "sine", "sawtooth", "random"]
+
+
+def get_worldstate_from_string(worldstate_name: str) -> Type[WorldState]:
+    """Resolve "rlr" (case-insensitive) to its WorldState type."""
+    name = worldstate_name.upper()
+    if name in ("SOFA", "SHOEBOX"):
+        raise NotImplementedError(
+            f"the {worldstate_name} backend is not ported (ROADMAP: shoebox and SOFA backends)"
+        )
+    for ws in WORLDSTATE_LIST:
+        if ws.name == name:
+            return ws
+    raise ValueError(f"Cannot find backend {worldstate_name}: expected one of RLR, SOFA, SHOEBOX")
+
+
+__all__ = ["Emitter", "WorldState", "WorldStateRLR", "WORLDSTATE_LIST",
+           "VALID_MOVING_EVENT_TRAJECTORIES", "get_worldstate_from_string"]

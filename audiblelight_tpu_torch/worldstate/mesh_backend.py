@@ -1,22 +1,40 @@
-"""Device state of the ray-traced mesh backend.
+"""The ray-traced mesh backend: device state and world state.
 
-Counterpart of the device-state half of
-audiblelight_tpu/worldstate/mesh_backend.py (WorldStateRLR): the engine
-configuration defaults, the acoustic LOD, per-face material tables with the
-Sabine area correction, the diffraction-graph LOD and the per-face rain
-visibility table. It works from a TriMesh plus an engine-config dict; the
-Scene, placement and the PRNG walk belong to the host half.
+Counterpart of audiblelight_tpu/worldstate/mesh_backend.py.
+
+- `MeshDeviceState`, the device half: the engine configuration defaults, the
+  acoustic LOD, per-face material tables with the Sabine area correction,
+  the diffraction-graph LOD and the per-face rain visibility table, built
+  from a TriMesh plus an engine-config dict.
+- `WorldStateRLR`, the host half the Scene talks to: mesh and engine config,
+  the placement `rng`, the validity tests placement runs (K2 and the
+  point-in-mesh and surface-distance queries on the world state's device),
+  relative coordinates, serialisation, and the walk that seeds each trace.
+
+The trace seeds come from a walk of their own, keyed by the world state's
+seed and a counter: they never draw from the placement streams, so the same
+seed places the same events as the reference. The reference's native BVH
+(cpp/geomlib.cpp) is not used; every query runs through this package.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from collections import OrderedDict
+from pathlib import Path
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 
-from audiblelight_tpu_torch import config
-from audiblelight_tpu_torch.geometry.mesh import TriMesh
+from audiblelight_tpu_torch import config, utils
+from audiblelight_tpu_torch.geometry.mesh import TriMesh, load_mesh
+from audiblelight_tpu_torch.geometry.queries import (
+    nearest_surface_distance,
+    points_inside_mesh,
+    ray_mesh_first_hit,
+    segments_occluded,
+)
+from audiblelight_tpu_torch.micarrays import MicArray
 from audiblelight_tpu_torch.rir.materials import (
     get_material_absorption,
     get_material_scattering,
@@ -24,7 +42,9 @@ from audiblelight_tpu_torch.rir.materials import (
     octave_band_centers,
     validate_material,
 )
-from audiblelight_tpu_torch.utils import resolve_device
+from audiblelight_tpu_torch.utils import logger, resolve_device
+from audiblelight_tpu_torch.worldstate.base import Emitter, WorldState
+from audiblelight_tpu_torch.worldstate.placement import PlacementMixin
 
 # Engine-config fields and defaults, keyed by the reference rlr config names.
 ENGINE_FIELD_DEFAULTS = {
@@ -143,7 +163,7 @@ class MeshDeviceState:
                  device=None):
         self.cfg = engine_config(cfg)
         if bool(self.cfg["transmission"]):
-            raise NotImplementedError("transmission is not ported")
+            raise NotImplementedError("transmission is not ported (ROADMAP: transmission)")
         self.device = resolve_device(device)
         self.convex = bool(convex)
         self.tris = self._tensor(tris)
@@ -188,3 +208,255 @@ class MeshDeviceState:
                 self.acoustic_tris, self.acoustic_normals, self._tensor(pts)
             )
         return self._rain_cache[key]
+
+
+class _EngineContext:
+    """Listener/source/object counts of the engine context."""
+
+    def __init__(self, cfg: dict):
+        self.config = cfg
+        self.listeners: list = []
+        self.sources: list = []
+        self.object_count = 0
+
+    def get_listener_count(self) -> int:
+        return len(self.listeners)
+
+    def get_source_count(self) -> int:
+        return len(self.sources)
+
+    def get_object_count(self) -> int:
+        return self.object_count
+
+
+class WorldStateRLR(PlacementMixin, WorldState):
+    """A WorldState whose sound is ray-traced inside a 3D mesh.
+
+    Arguments as the reference's; `device` is where the mesh lives for the
+    placement queries and the trace (default `cuda`; raises without a card).
+    Not ported (raise): navigation waypoints and mesh repair.
+    """
+
+    name = "RLR"
+
+    def __init__(
+        self,
+        mesh: Union[str, Path, TriMesh],
+        sample_rate: Optional[utils.Numeric] = config.SAMPLE_RATE,
+        empty_space_around_mic: Optional[utils.Numeric] = config.EMPTY_SPACE_AROUND_MIC,
+        empty_space_around_emitter: Optional[utils.Numeric] = config.EMPTY_SPACE_AROUND_EMITTER,
+        empty_space_around_surface: Optional[utils.Numeric] = config.EMPTY_SPACE_AROUND_SURFACE,
+        empty_space_around_capsule: Optional[utils.Numeric] = config.EMPTY_SPACE_AROUND_CAPSULE,
+        add_to_context: Optional[bool] = True,
+        ensure_minimum_weighted_average_ray_length: Optional[bool] = False,
+        minimum_weighted_average_ray_length: Optional[utils.Numeric] = config.MIN_AVG_RAY_LENGTH,
+        repair_threshold: Optional[utils.Numeric] = None,
+        waypoints_json: Optional[Union[str, Path]] = None,
+        material: Optional[str] = None,
+        rlr_kwargs: Optional[dict] = None,
+        seed: Optional[int] = None,
+        device=None,
+    ):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.add_to_state = add_to_context
+        self.sample_rate = utils.sanitise_positive_number(sample_rate, cast_to=int)
+        self.rng = np.random.default_rng(seed)
+        self._trace_seed = utils.SEED if seed is None else int(seed)
+        self._trace_count = 0
+
+        self.empty_space_around_mic = utils.sanitise_positive_number(empty_space_around_mic)
+        self.empty_space_around_surface = utils.sanitise_positive_number(empty_space_around_surface)
+        self.empty_space_around_emitter = utils.sanitise_positive_number(empty_space_around_emitter)
+        self.empty_space_around_capsule = utils.sanitise_positive_number(empty_space_around_capsule)
+        self.ensure_minimum_weighted_average_ray_length = ensure_minimum_weighted_average_ray_length
+        self.minimum_weighted_average_ray_length = utils.sanitise_positive_number(
+            minimum_weighted_average_ray_length
+        )
+
+        self.mesh = mesh if isinstance(mesh, TriMesh) else load_mesh(mesh)
+        if waypoints_json is not None:
+            raise NotImplementedError(
+                "navigation waypoints (predefined-trajectory events) are not ported (ROADMAP)"
+            )
+        self.waypoints = []
+        self.repair_threshold = repair_threshold
+        if repair_threshold is not None and not self.mesh.is_watertight:
+            raise NotImplementedError("mesh repair is not ported (ROADMAP); pass a watertight mesh")
+        self.material = validate_material(material)
+        self.cfg = self._parse_rlr_config(rlr_kwargs)
+        self.ctx = None
+        if self.add_to_state:
+            self._setup_audio_context()
+
+    def split_key(self) -> int:
+        """The next trace seed of this world state's walk: a 63-bit integer
+        from (seed, counter), independent of every placement stream."""
+        state = np.random.SeedSequence([self._trace_seed, self._trace_count]).generate_state(1, np.uint64)
+        self._trace_count += 1
+        return int(state[0] >> np.uint64(1))
+
+    def _parse_rlr_config(self, rlr_kwargs: Optional[dict]) -> dict:
+        """The engine config, with the world state's sample rate."""
+        rlr_kwargs = dict(rlr_kwargs or {})
+        if "sample_rate" not in rlr_kwargs:
+            rlr_kwargs["sample_rate"] = self.sample_rate
+        elif rlr_kwargs["sample_rate"] != self.sample_rate:
+            raise ValueError(
+                f"Mismatching sample rate (expected {self.sample_rate}, got {rlr_kwargs['sample_rate']})"
+            )
+        for fld, default in (("temporal_coherence", False), ("dmin", 1.0)):
+            if fld in rlr_kwargs and rlr_kwargs[fld] != default:
+                logger.warning(f"rlr config field '{fld}'={rlr_kwargs[fld]!r} is accepted for "
+                               "serialisation parity but has no effect in this tracer.")
+        return engine_config(rlr_kwargs)
+
+    @property
+    def device_state(self) -> MeshDeviceState:
+        """The room's device tensors, shared by every world state over the
+        same mesh object, device, engine config and material."""
+        cache = self.mesh.__dict__.setdefault("_torch_device_states", {})
+        key = (str(self.device), str(self.material),
+               tuple((k, str(v)) for k, v in self.cfg.items()), len(self.mesh.faces))
+        if key not in cache:
+            cache[key] = MeshDeviceState.from_mesh(self.mesh, self.cfg, material=self.material,
+                                                   device=self.device)
+        return cache[key]
+
+    def _setup_audio_context(self) -> None:
+        self.ctx = _EngineContext(self.cfg)
+        self.ctx.object_count = 1  # the mesh
+
+    def _update(self) -> None:
+        """Refresh the context counts and every emitter's relative coordinates."""
+        self._setup_audio_context()
+        for mic in self.microphones.values():
+            for _ in range(mic.n_listeners):
+                self.ctx.listeners.append(mic.channel_layout)
+        for emitter_list in self.emitters.values():
+            for emitter in emitter_list:
+                self.ctx.sources.append(emitter.coordinates_absolute)
+        self._update_relative_coordinates()
+
+    # ------------------------------------------------------------------
+    # Geometry
+    # ------------------------------------------------------------------
+
+    @property
+    def bounds(self) -> np.ndarray:
+        return self.mesh.bounds
+
+    def _points(self, positions) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(positions, dtype=np.float32), device=self.device)
+
+    def _get_valid_positions_mask(self, pos_abs: np.ndarray) -> np.ndarray:
+        """Batched position validation: distances to objects and surfaces,
+        and inside the mesh."""
+        positions = utils.coerce2d(np.asarray(pos_abs, dtype=np.float64))
+        if positions.shape[1] != 3:
+            raise ValueError("Expected input to have shape (N, 3) for XYZ coordinates")
+        valid = self._distance_mask(positions)
+        pts = self._points(positions)
+        tris = self.device_state.tris
+        valid &= nearest_surface_distance(pts, tris).cpu().numpy() >= self.empty_space_around_surface
+        valid &= points_inside_mesh(pts, tris).cpu().numpy()
+        return valid
+
+    def path_exists_between_points(self, point_a: np.ndarray, point_b: np.ndarray) -> bool:
+        """True when both points are inside the mesh and no face blocks the
+        segment between them."""
+        point_a = np.asarray(point_a, dtype=np.float64)
+        point_b = np.asarray(point_b, dtype=np.float64)
+        for point in (point_a, point_b):
+            if point.shape != (3,):
+                raise ValueError(f"Expected an array with shape (3,) but got {point.shape}")
+        tris = self.device_state.tris
+        if not bool(points_inside_mesh(self._points(np.stack([point_a, point_b])), tris).all()):
+            return False
+        return not bool(segments_occluded(self._points(point_a[None]), self._points(point_b[None]), tris)[0])
+
+    def calculate_weighted_average_ray_length(self, point: np.ndarray,
+                                              num_rays: Optional[utils.Numeric] = config.NUM_RAYS) -> float:
+        """Openness heuristic: the distance^2-weighted mean ray length from a point."""
+        num_rays = utils.sanitise_positive_number(num_rays, cast_to=int)
+        point = utils.sanitise_coordinates(point)
+        angles = self.rng.uniform(0, 2 * np.pi, num_rays)
+        elevations = self.rng.uniform(-np.pi / 2, np.pi / 2, num_rays)
+        cos_el = np.cos(elevations)
+        directions = np.stack([cos_el * np.cos(angles), cos_el * np.sin(angles), np.sin(elevations)], -1)
+        origins = np.broadcast_to(point, (num_rays, 3))
+        t, _ = ray_mesh_first_hit(self._points(origins), self._points(directions), self.device_state.tris)
+        distances = t.cpu().numpy()
+        if np.isinf(distances).any():
+            logger.warning(f"Some rays cast from point {point} have infinite distances: is the mesh watertight?")
+            distances = distances[np.isfinite(distances)]
+        weights = distances**2
+        return float(np.sum(distances * weights) / np.sum(weights))
+
+    def _emitter_positions(self) -> np.ndarray:
+        """All emitter coordinates, flattened in registration order: (E, 3)."""
+        coords = [e.coordinates_absolute for lst in self.emitters.values() for e in lst]
+        return np.stack(coords) if coords else np.zeros((0, 3))
+
+    def _rain_mode(self) -> str:
+        return rain_mode(self.cfg)
+
+    # ------------------------------------------------------------------
+    # Serialisation
+    # ------------------------------------------------------------------
+
+    def to_dict(self) -> dict:
+        if self.ctx is None:
+            self._setup_audio_context()
+            self._update()
+        return dict(
+            backend=self.name,
+            sample_rate=self.sample_rate,
+            emitters={
+                alias: [utils.coerce_nested_inputs(e.coordinates_absolute) for e in lst]
+                for alias, lst in self.emitters.items()
+            },
+            microphones={a: m.to_dict() for a, m in self.microphones.items()},
+            mesh=dict(**self.mesh.metadata, bounds=self.mesh.bounds.tolist(),
+                      centroid=self.mesh.centroid.tolist()),
+            rlr_config=dict(self.cfg),
+            empty_space_around_mic=self.empty_space_around_mic,
+            empty_space_around_emitter=self.empty_space_around_emitter,
+            empty_space_around_surface=self.empty_space_around_surface,
+            empty_space_around_capsule=self.empty_space_around_capsule,
+            repair_threshold=self.repair_threshold,
+            material=self.material,
+        )
+
+    @classmethod
+    def from_dict(cls, input_dict: dict[str, Any], device=None) -> "WorldStateRLR":
+        for k in ["emitters", "microphones", "mesh", "rlr_config", "sample_rate"]:
+            if k not in input_dict:
+                raise KeyError(f"Missing key: '{k}'")
+        state = cls(
+            mesh=input_dict["mesh"]["fpath"],
+            sample_rate=input_dict["sample_rate"],
+            empty_space_around_mic=input_dict["empty_space_around_mic"],
+            empty_space_around_emitter=input_dict["empty_space_around_emitter"],
+            empty_space_around_surface=input_dict["empty_space_around_surface"],
+            empty_space_around_capsule=input_dict["empty_space_around_capsule"],
+            repair_threshold=input_dict["repair_threshold"],
+            rlr_kwargs=input_dict["rlr_config"],
+            material=input_dict.get("material", None),
+            device=device,
+        )
+        state.microphones = OrderedDict(
+            {a: MicArray.from_dict(v) for a, v in input_dict["microphones"].items()}
+        )
+        state.emitters = OrderedDict(
+            {a: [Emitter(alias=a, coordinates_absolute=v_) for v_ in v]
+             for a, v in input_dict["emitters"].items()}
+        )
+        state._update()
+        return state
+
+    def __str__(self) -> str:
+        return (
+            f"'{self.__class__.__name__}' with mesh '{self.mesh.metadata.get('fpath', '?')}' and "
+            f"{len(self)} objects ({len(self.microphones)} microphones, {self.num_emitters} emitters)"
+        )

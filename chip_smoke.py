@@ -4,14 +4,25 @@
 
 Builds the tracer's CUDA kernels from audiblelight_tpu_torch/csrc with nvcc,
 holds each against its plain PyTorch version on the card at the flagship
-shapes, then renders three 60 s flagship SELD scenes through the port's
-fused renderer (110,592-face scanned room, 4,071-face acoustic LOD, per-face
-rain visibility, order-10 diffraction, 5,000 rays x 60 bounces with
-wavefront decimation, 16 padded sources, AmbeoVR, 24 kHz) and writes them as
-int16 WAVs under smoke_out/. It checks the WAVs, the direct-path
-arrivals and that the scenes went through every kernel, times the kernels,
-their plain versions and the scene, and prints one JSON line of kernel
-results. The last line is {"ok": true, "device": {...}}.
+shapes, then drives the port's two main paths:
+
+- three 60 s flagship SELD scenes through the fused renderer (110,592-face
+  scanned room, 4,071-face acoustic LOD, per-face rain visibility, order-10
+  diffraction, 5,000 rays x 60 bounces with wavefront decimation, 16 padded
+  sources, AmbeoVR, 24 kHz), written as int16 WAVs under smoke_out/, with
+  their direct-path arrivals checked, timed and profiled;
+- the port's SELD dataset CLI (`audiblelight_tpu_torch.seld.main`) in the
+  same room, written as an OBJ, with the repo's WAVs as foreground audio:
+  two scenes each in the MIC (AmbeoVR) and FOA formats at the flagship
+  width, their WAVs, CSVs and JSONs checked; then one FOA scene traced
+  again, K4 held against its plain version on that trace's own bounces, its
+  direct paths checked for arrival time and direction, and the FOA scene
+  timed and profiled.
+
+Each path's kernel launches are counted from zero just before it and read
+just after; a kernel of the path that did not launch fails the run. It
+prints one JSON line of kernel results; the last line is
+{"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA card is present or the
 port's package is not beside this file.
@@ -19,7 +30,9 @@ port's package is not beside this file.
 
 from __future__ import annotations
 
+import csv
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -52,6 +65,17 @@ PEAK_BYTES = 3.35e12
 FLOPS_BIG_PAIR = 38  # Pluecker-form first hit: 3 dots of 6, 2 of 3, 1 div, 3 mul, 1 add
 FLOPS_MT_PAIR = 46  # Moller-Trumbore: 2 crosses, 4 dots, 3 subs, 1 div, 3 mul, 1 add
 FLOPS_DEPOSIT = 33  # per (ray, capsule): geometry ~25, 4 band multiply-adds
+FLOPS_DEPOSIT_FOA = 60  # per ray: geometry and gains ~28, 4 bands x 4 channels multiply-adds
+# The SELD CLI runs: the repo's WAVs of four DCASE2023 classes, the flagship
+# width, 4 static and 1 moving event per scene, two scenes per format
+CLI_CLASSES = {"femaleSpeech": 0, "maleSpeech": 1, "telephone": 3, "musicInstrument": 9}
+CLI_FLAGS = ["--backend", "rlr", "--n-scenes", "2", "--duration", "60", "--rays", "5000",
+             "--ray-depth", "60", "--ray-decimation", "--ir-seconds", "1.0",
+             "--min-events-static", "4", "--max-events-static", "4",
+             "--min-events-moving", "1", "--max-events-moving", "1", "--seed", "7"]
+KERNELS = ("first_hit_big", "first_hit_small", "any_hit", "deposit_histogram_foa", "deposit_histogram")
+MIC_PATH = ("first_hit_big", "any_hit", "deposit_histogram")
+FOA_PATH = ("first_hit_big", "any_hit", "deposit_histogram_foa")
 
 
 def fail(msg: str) -> None:
@@ -106,6 +130,35 @@ def any_hit_pairs(starts, ends, tris) -> int:
         idx = torch.where(hit.any(1), hit.int().argmax(1) + f0, f)
         first = torch.minimum(first, idx)
     return int(torch.where(first < f, first + 1, f).sum())
+
+
+def check_cli_outputs(out: Path, layout: str, t_scene: int) -> None:
+    """The CLI's DCASE layout for two train scenes: a 4-channel 24 kHz int16
+    WAV each, not silent; a CSV each with frames in 0-600 and the four
+    classes' ids; a JSON each."""
+    from audiblelight_tpu_torch.io.audio import _read_header, wav_read
+
+    stems = [f"dev-train-alight/fold1_scene1_{i:03d}" for i in range(2)]
+    want = sorted([f"{layout}_dev/{s}_mic000.wav" for s in stems] + [f"metadata_dev/{s}.json" for s in stems]
+                  + [f"metadata_dev/{s}_mic000.csv" for s in stems])
+    got = sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file())
+    if got != want:
+        fail(f"{layout} CLI wrote {got}, expected {want}")
+    for s in stems:
+        wav = out / f"{layout}_dev/{s}_mic000.wav"
+        fmt_tag, channels, sr, bits, _, _ = _read_header(wav)
+        data, _ = wav_read(wav)
+        peak = float(np.abs(data).max())
+        rows = [[int(v) for v in row] for row in csv.reader((out / f"metadata_dev/{s}_mic000.csv").open())]
+        json.loads((out / f"metadata_dev/{s}.json").read_text())
+        frames = [r[0] for r in rows]
+        print(f"{layout} {s}: WAV {channels} x {data.shape[1]} at {sr} Hz, {bits}-bit PCM, peak "
+              f"{peak * 32768:.0f}; CSV {len(rows)} rows, frames {min(frames)}-{max(frames)}, classes "
+              f"{sorted({r[1] for r in rows})}")
+        if (fmt_tag, channels, sr, bits, data.shape[1]) != (1, 4, SR, 16, t_scene) or peak * 32768 < 100:
+            fail(f"{wav}: not a 4-channel {SR} Hz int16 WAV of {t_scene} frames with sound")
+        if not rows or any(len(r) != 6 or not 0 <= r[0] <= 600 or r[1] not in CLI_CLASSES.values() for r in rows):
+            fail(f"{s}: bad DCASE CSV")
 
 
 def flagship_inputs(mesh_tris: torch.Tensor, rng: np.random.Generator, dev):
@@ -194,8 +247,7 @@ def main() -> int:
         func = name
         for line in rep.splitlines():
             if "Compiling entry function" in line:
-                func = next(k for k in ("first_hit_big", "first_hit_small", "any_hit", "deposit_histogram")
-                            if f"{k}_kernel" in line)
+                func = next(k for k in KERNELS if f"{k}_kernel" in line)
             if "registers" in line or "spill" in line:
                 print(f"ptxas {func}: {line.strip()}")
 
@@ -251,6 +303,13 @@ def main() -> int:
     print(f"check first_hit_small: {r} rays x 500 faces: mismatches {small_bad}, max ulp {ulp_s}")
     if small_bad or ulp_s > 1:
         fail("first_hit_small disagrees with its plain version")
+    # Off the flagship path (launched 0 times there), so timed on its own line
+    b_ms, b_by = bound_ms(r * 500 * FLOPS_MT_PAIR, r * 24 + 500 * 36 + r * 8)
+    small_ms = time_ms(lambda: ck.ray_first_hit(origins, dirs, small))
+    small_plain_ms = time_ms(lambda: ck.ray_first_hit_plain(origins, dirs, small), reps=3)
+    print(f"first_hit_small (off the main paths): {r} rays x 500 faces: {small_ms:.4f} ms, plain "
+          f"{small_plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max |dt| "
+          f"{float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0:.3e}")
 
     # K2: the rain table's segments, 640k diffraction-like legs on the LOD,
     # and 64 direct-path segments on the full mesh
@@ -323,7 +382,33 @@ def main() -> int:
         plain_ms=time_ms(lambda: ck.deposit_histogram_plain(*dep_args, **kw), reps=3),
         library_ms=time_ms(lambda: hist.index_add_(0, flat, deps)),
     )
-    del any_rows, legs, rain, h_k, h_p
+    # K4: the same bounce at one FOA listener point (the rig's centre)
+    lis1 = torch.tensor([MIC_CENTRE], dtype=torch.float32, device=dev)
+    foa_args = (hit, normal, e_refl, dist, (face_occ[:, face.clamp_min(0).long()] | ~ok[None]).contiguous(), lis1)
+    h_k = ck.deposit_histogram_foa(*foa_args, **kw)
+    h_p = ck.deposit_histogram_foa_plain(*foa_args, **kw)
+    bins_bad = int(((h_k != 0) != (h_p != 0)).sum())
+    peak = h_p.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    rel = float(((h_k - h_p).abs() / peak).max())
+    err = float((h_k - h_p).abs().max())
+    print(f"check deposit_histogram_foa: {r} rays x 1 listener -> {tuple(h_k.shape)}: bin mismatches "
+          f"{bins_bad}, max |diff| {err:.3e}, max |diff| / histogram peak {rel:.3e}", flush=True)
+    if bins_bad or rel > 1e-5 or tuple(h_k.shape) != (16, 4, 4, 501):
+        fail("deposit_histogram_foa disagrees with its plain version")
+    # Yardstick: the fold alone (16 channel-bands per ray) as one index_add_
+    d_1 = norm3(lis1 - hit)
+    flat1 = (torch.arange(r, device=dev) // 5000 * n_bins_pad
+             + ((dist + d_1) * ck._f32(1.0 / 343.0) * 500.0).to(torch.int64).clamp(0, n_bins_pad - 1))
+    deps1 = torch.rand(r, 16, device=dev) * 1e-6
+    hist1 = torch.zeros(16 * n_bins_pad, 16, device=dev)
+    b_ms, b_by = bound_ms(r * FLOPS_DEPOSIT_FOA, r * 45 + h_k.numel() * 4)
+    results["deposit_histogram_foa"] = dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        ms=time_ms(lambda: ck.deposit_histogram_foa(*foa_args, **kw)),
+        plain_ms=time_ms(lambda: ck.deposit_histogram_foa_plain(*foa_args, **kw), reps=3),
+        library_ms=time_ms(lambda: hist1.index_add_(0, flat1, deps1)),
+    )
+    del any_rows, legs, rain, h_k, h_p, foa_args
 
     # 4. The main path: three flagship scenes through the fused renderer
     OUT.mkdir(parents=True, exist_ok=True)
@@ -345,7 +430,7 @@ def main() -> int:
     launches = dict(ck.launch_counts)
     print(f"main path: 3 scenes in {sum(scene_s):.2f} s ({', '.join(f'{x:.3f}' for x in scene_s)} s); "
           f"launches {launches}", flush=True)
-    for name in results:
+    for name in MIC_PATH:
         if launches[name] <= 0:
             fail(f"the main path never launched {name}")
 
@@ -438,7 +523,7 @@ def main() -> int:
     per_scene = {}
     for ev in avgs:
         t_dev = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0)) / 1e3
-        for name in results:
+        for name in MIC_PATH:
             if f"{name}_kernel" in ev.key and t_dev > 0:
                 per_scene[name] = (t_dev, ev.count)
     for name, (t_ms, n) in sorted(per_scene.items()):
@@ -448,15 +533,136 @@ def main() -> int:
     print(f"scene time: median {np.median(scene_s):.3f} s (host clock) over 3 scenes of "
           f"{SCENE_SECONDS:.0f} s on {card}")
 
-    sources = {"first_hit_big": "first_hit.cu", "any_hit": "any_hit.cu", "deposit_histogram": "deposit_histogram.cu"}
+    # 7. The second main path: the SELD dataset CLI in the flagship room, MIC
+    # then FOA, two scenes each; launches counted per run
+    from audiblelight_tpu_torch import seld
+    from audiblelight_tpu_torch.geometry.mesh import save_obj
+
+    cli_root = OUT / "cli"
+    shutil.rmtree(cli_root, ignore_errors=True)
+    fg = cli_root / "fg"
+    for wav in sorted((REPO / "tests" / "resources" / "soundevents").glob("*/*.wav")):
+        (fg / wav.parent.name).mkdir(parents=True, exist_ok=True)
+        shutil.copy(wav, fg / wav.parent.name / wav.name)
+    room_obj = save_obj(mesh, cli_root / "room.obj")
+    cli_launches, cli_seconds = {}, {}
+    for layout, path in (("mic", MIC_PATH), ("foa", FOA_PATH)):
+        argv = ["--fg-dir", str(fg), "--output-dir", str(cli_root / layout), "--mesh", str(room_obj),
+                "--channel-layout", layout, *CLI_FLAGS]
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cli_seconds[layout] = seld.main(argv)
+        torch.cuda.synchronize()
+        cli_launches[layout] = dict(ck.launch_counts)
+        print(f"SELD CLI {layout}: {len(cli_seconds[layout])} scenes in {time.time() - t0:.2f} s, host clock "
+              f"per scene (placement, render and writes) {', '.join(f'{x:.3f}' for x in cli_seconds[layout])} s; "
+              f"launches {cli_launches[layout]}", flush=True)
+        for name in path:
+            if cli_launches[layout][name] <= 0:
+                fail(f"the {layout} CLI run never launched {name}")
+        check_cli_outputs(cli_root / layout, layout, t_scene)
+
+    # 8. FOA physics: one CLI scene, loaded from its JSON, traced again; each
+    # unoccluded source's W direct path peaks at d/c and (X, Y, Z)/W there
+    # points at the source
+    from audiblelight_tpu_torch.core import Scene
+    from audiblelight_tpu_torch.render import build_scene_plan
+
+    from audiblelight_tpu_torch.rir import raytracer
+
+    fscene = Scene.from_json(sorted((cli_root / "foa" / "metadata_dev").rglob("*.json"))[0], device=dev)
+    fplan = build_scene_plan(fscene, **seld.plan_kwargs(seld.build_parser().parse_args(
+        ["--fg-dir", "-", "--output-dir", "-", *CLI_FLAGS])))
+    frend = FusedSceneRenderer.from_scene(fscene, fplan)
+    f_in = frend.scene_inputs(fscene)
+    # The trace keeps K4's inputs at the first and the last bounce of each
+    # decimation phase (keyed by ray count), to hold K4 at the shapes the
+    # FOA scene gives it
+    bounces = {}
+
+    def keep_inputs(*args, **kwargs):
+        kept = bounces.setdefault(args[0].shape[0], [])
+        kept[min(len(kept), 1):] = [([a.clone() for a in args], kwargs)]
+        return ck.deposit_histogram_foa(*args, **kwargs)
+
+    raytracer.deposit_histogram_foa = keep_inputs
+    try:
+        irs_f = frend.trace(f_in[0], *f_in[1:4]).cpu().numpy()  # (4, S, L)
+    finally:
+        raytracer.deposit_histogram_foa = ck.deposit_histogram_foa
+    if len(bounces) != 3:
+        fail(f"the FOA trace ran K4 at ray counts {sorted(bounces)}, expected three decimation phases")
+    for rays, kept in sorted(bounces.items(), reverse=True):
+        for which, (args, kwargs) in zip(("first", "last"), kept):
+            h_k = ck.deposit_histogram_foa(*args, **kwargs)
+            h_p = ck.deposit_histogram_foa_plain(*args, **kwargs)
+            bins_bad = int(((h_k != 0) != (h_p != 0)).sum())
+            rel = float(((h_k - h_p).abs() / h_p.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
+            b_ms, b_by = bound_ms(rays * FLOPS_DEPOSIT_FOA, rays * 45 + h_k.numel() * 4)
+            print(f"check deposit_histogram_foa at the FOA scene's {which} bounce of {rays} rays "
+                  f"({kwargs['n_sources']} sources): bin mismatches {bins_bad}, max |diff| / histogram peak "
+                  f"{rel:.3e}; {time_ms(lambda: ck.deposit_histogram_foa(*args, **kwargs)):.4f} ms, plain "
+                  f"{time_ms(lambda: ck.deposit_histogram_foa_plain(*args, **kwargs), reps=3):.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by})", flush=True)
+            if bins_bad or rel > 1e-5:
+                fail(f"deposit_histogram_foa disagrees with its plain version at {rays} rays")
+    del bounces
+    src_f, lis_f = f_in[1].cpu().numpy(), f_in[2].cpu().numpy()[0]
+    n_real = fscene.state.num_emitters
+    blocked_f = ck.segments_occluded(f_in[2].expand(n_real, 3).contiguous(), f_in[1][:n_real],
+                                     frend.state.tris).cpu().numpy()
+    offs, angles = [], []
+    for e in np.flatnonzero(~blocked_f):
+        vec = src_f[e] - lis_f
+        expect_s = np.linalg.norm(vec) / 343.0 * SR
+        lo = max(int(expect_s) - win, 0)
+        peak_i = lo + int(np.argmax(np.abs(irs_f[0, e, lo : int(expect_s) + win])))
+        offs.append(abs(peak_i - expect_s))
+        xyz = irs_f[1:, e, peak_i] / irs_f[0, e, peak_i]
+        cosang = float(xyz @ vec / (np.linalg.norm(xyz) * np.linalg.norm(vec)))
+        angles.append(float(np.degrees(np.arccos(np.clip(cosang, -1.0, 1.0)))))
+    print(f"FOA direct paths: {len(offs)} of {n_real} sources unoccluded; max |W peak - d/c| "
+          f"{max(offs, default=float('nan')):.2f} samples; max angle of (X, Y, Z)/W at the peak to the source "
+          f"{max(angles, default=float('nan')):.2f} deg")
+    if not offs or max(offs) > 2.0 or max(angles) > 5.0:
+        fail("FOA direct paths off their arrival time or direction")
+
+    # 9. Where an FOA scene's time goes, as section 6 for the MIC scene
+    f_amb = FusedSceneRenderer.mix_args(fscene)
+
+    def foa_scene():
+        frend.render_mix(torch.Generator(device=dev).manual_seed(5), *f_in[1:], fplan, *f_amb)
+
+    def foa_trace():
+        frend.trace(torch.Generator(device=dev).manual_seed(5), *f_in[1:4])
+
+    foa_ms, foa_trace_ms = time_ms(foa_scene, reps=5), time_ms(foa_trace, reps=5)
+    print(f"FOA scene time (CUDA events): median {foa_ms:.3f} ms; trace {foa_trace_ms:.3f} ms "
+          f"({foa_trace_ms / foa_ms:.1%}); {n_real} emitters in a bucket of {frend.n_sources}")
+    avgs_f, busy_f = profiled(foa_scene, "FOA scene profile")
+    if busy_f > 0:
+        print(f"FOA device idle share: scene {1 - busy_f / foa_ms:.1%} (profiler busy over CUDA-event time)")
+    for ev in avgs_f:
+        t_dev = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0)) / 1e3
+        for name in FOA_PATH:
+            if f"{name}_kernel" in ev.key and t_dev > 0:
+                print(f"FOA per scene: {name} {t_dev:.3f} ms over {ev.count} launches")
+    print(f"CLI scene time: median {np.median(cli_seconds['mic'] + cli_seconds['foa']):.3f} s (host clock, "
+          f"placement, render and writes) over {len(cli_seconds['mic'] + cli_seconds['foa'])} scenes on {card}")
+
+    main_launches = dict(launches, deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"])
+    sources = {"first_hit_big": "first_hit.cu", "any_hit": "any_hit.cu", "deposit_histogram": "deposit_histogram.cu",
+               "deposit_histogram_foa": "deposit_histogram_foa.cu"}
     replaces = {
         "first_hit_big": "audiblelight_tpu/ops/pallas_kernels.py:46",
         "any_hit": "audiblelight_tpu/ops/pallas_kernels.py:375",
         "deposit_histogram": "audiblelight_tpu/ops/pallas_kernels.py:594",
+        "deposit_histogram_foa": "audiblelight_tpu/ops/pallas_kernels.py:738",
     }
     line = {"kernels": [
         dict(name=name, route="cuda", source=f"audiblelight_tpu_torch/csrc/{sources[name]}",
-             replaces=replaces[name], launches=int(launches[name]), max_abs_err=res["max_abs_err"],
+             replaces=replaces[name], launches=int(main_launches[name]), max_abs_err=res["max_abs_err"],
              ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"], bound_by=res["bound_by"],
              library_ms=res["library_ms"])
         for name, res in results.items()

@@ -9,8 +9,8 @@ installed, without the JAX conftest:
 
 Tolerances: face indices, occlusion booleans and first-hit t identical (the
 kernels are built with --fmad=false, and eager PyTorch never contracts a
-multiply-add); deposit histograms with the same bins and sums within 1e-5 of
-the peak (shared-memory atomics add in another order).
+multiply-add); deposit histograms (K3 and the FOA K4) with the same bins and
+sums within 1e-5 of the peak (atomics add in another order).
 """
 
 import numpy as np
@@ -90,6 +90,18 @@ def test_deposit_histogram_matches_plain(card):
 
 
 @pytest.mark.cuda
+def test_deposit_histogram_foa_matches_plain(card):
+    """K4 at the flagship FOA shape: 16 sources x 5,000 rays, one listener."""
+    args = [torch.from_numpy(x).to(card) for x in deposit_inputs(np.random.default_rng(5), 16, 5000, 1, 4, 300.0)]
+    kw = dict(n_sources=16, n_bins=501, bin_dt=0.002, c_sound=343.0)
+    got = ck.deposit_histogram_foa(*args, **kw)
+    want = ck.deposit_histogram_foa_plain(*args, **kw)
+    assert got.shape == (16, 4, 4, 501)
+    assert torch.equal(got != 0, want != 0)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
 def test_each_wrapper_counts_its_launch(card):
     """A wrapper on CUDA tensors launches its kernel once and counts it; the
     plain versions launch nothing."""
@@ -97,13 +109,17 @@ def test_each_wrapper_counts_its_launch(card):
     tris = torch.from_numpy(random_tris(4, 600)).to(card)
     o = torch.from_numpy(rng.uniform(-3, 3, (64, 3)).astype(np.float32)).to(card)
     args = [torch.from_numpy(x).to(card) for x in deposit_inputs(rng, 2, 64, 2, 4, 20.0)]
+    foa = [torch.from_numpy(x).to(card) for x in deposit_inputs(rng, 2, 64, 1, 4, 20.0)]
     kw = dict(n_sources=2, n_bins=51, bin_dt=0.002, c_sound=343.0)
     ck.reset_launch_counts()
     ck.ray_first_hit_plain(o, o, tris)
     ck.segments_occluded_plain(o, o + 1.0, tris)
     ck.deposit_histogram_plain(*args, **kw)
+    ck.deposit_histogram_foa_plain(*foa, **kw)
     assert all(v == 0 for v in ck.launch_counts.values())
     ck.ray_first_hit(o, torch.from_numpy(unit_dirs(rng, 64)).to(card), tris)
     ck.segments_occluded(o, o + 1.0, tris)
     ck.deposit_histogram(*args, **kw)
-    assert ck.launch_counts == {"first_hit_big": 1, "first_hit_small": 0, "any_hit": 1, "deposit_histogram": 1}
+    ck.deposit_histogram_foa(*foa, **kw)
+    assert ck.launch_counts == {"first_hit_big": 1, "first_hit_small": 0, "any_hit": 1, "deposit_histogram": 1,
+                                "deposit_histogram_foa": 1}

@@ -12,8 +12,9 @@ noise carrier (diffuse-field decorrelation), which moves the split of that
 energy across capsules by ~8 % per render, so each channel is held within
 25 %.
 
-Also here: the import guard (the port and chip_smoke.py import neither JAX
-nor the JAX package) and the no-card guard of the entry points.
+Also here: the import guard (the port and chip_smoke.py import neither JAX,
+pandas nor the JAX package) and the no-card guard of the entry points
+(renderer, device state, Scene and the SELD CLI).
 """
 
 import ast
@@ -154,7 +155,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "audiblelight_tpu"), f"{path}: imports {name}"
+            assert root not in ("jax", "jaxlib", "pandas", "audiblelight_tpu"), f"{path}: imports {name}"
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -164,6 +165,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from audiblelight_tpu_torch.pipeline import FusedSceneRenderer as PortRenderer
     from audiblelight_tpu_torch.worldstate.mesh_backend import MeshDeviceState
 
+    from audiblelight_tpu_torch import seld
+    from audiblelight_tpu_torch.core import Scene as PortScene
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     room = box_mesh(extents=[4.0, 3.0, 2.5], center=[2.0, 1.5, 1.25])
     caps = np.zeros((4, 3))
@@ -171,4 +175,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         PortRenderer.from_mesh(room, {}, caps, (1, 1, 2, 100), 2, 1000)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MeshDeviceState.from_mesh(room)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PortScene(duration=5.0, backend="rlr", backend_kwargs=dict(mesh=room))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        seld.main(["--fg-dir", str(REPO), "--output-dir", str(REPO / "never"), "--backend", "rlr",
+                   "--mesh", "room.obj"])
+    assert not (REPO / "never").exists()
     assert PortRenderer.from_mesh(room, {}, caps, (1, 1, 2, 100), 2, 1000, device="cpu").device.type == "cpu"
+    assert PortScene(duration=5.0, backend="rlr", backend_kwargs=dict(mesh=room), device="cpu").state.device.type == "cpu"

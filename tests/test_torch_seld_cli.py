@@ -1,0 +1,139 @@
+"""The port's SELD dataset CLI (`python -m audiblelight_tpu_torch.seld`) on the
+CPU, against the JAX package's own script.
+
+The CLI runs at a tiny size (a 6 x 4 x 3 m nonconvex room as an OBJ, two 4 s
+scenes, 128 rays x 4 bounces, 0.1 s IRs) in both DCASE formats. It writes
+the reference script's file names; its DCASE CSVs are byte-identical and
+its JSONs equal (but for the creation time) to those of the reference
+script's own `build_scene` and `generate_dcase2024_metadata` for the same
+--seed (the reference render is not run: the metadata depends only on the
+placement); its WAVs are 4-channel 24 kHz int16 and not silent. A second run
+skips the finished scenes, and every unported flag raises.
+"""
+
+import importlib
+import json
+import random
+import shutil
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from audiblelight_tpu import utils as jutils
+from audiblelight_tpu.synthesize import generate_dcase2024_metadata
+from audiblelight_tpu_torch import seld
+from audiblelight_tpu_torch.geometry.mesh import save_obj, scanned_like_room
+from audiblelight_tpu_torch.io.audio import wav_read
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+SEED = 5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _restore_global_streams():
+    """Placement draws from the global `random`, numpy and torch streams: leave
+    them as this module found them, so the test files that run after it in
+    the same process draw what they would have drawn without it."""
+    states = random.getstate(), np.random.get_state(), torch.random.get_rng_state()
+    yield
+    random.setstate(states[0])
+    np.random.set_state(states[1])
+    torch.random.set_rng_state(states[2])
+
+
+@pytest.fixture(scope="module")
+def assets(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cli")
+    for wav in sorted((REPO / "tests/resources/soundevents").rglob("*.wav")):
+        (root / "fg" / wav.parent.name).mkdir(parents=True, exist_ok=True)
+        shutil.copy(wav, root / "fg" / wav.parent.name / wav.name)
+    save_obj(scanned_like_room((6.0, 4.0, 3.0), subdivision_levels=1, seed=0), root / "room.obj")
+    return root
+
+
+def _argv(root: Path, layout: str, out: str) -> list:
+    return ["--fg-dir", str(root / "fg"), "--output-dir", str(root / out), "--backend", "rlr",
+            "--mesh", str(root / "room.obj"), "--channel-layout", layout, "--n-scenes", "2",
+            "--train-frac", "0.5", "--duration", "4", "--rays", "128", "--ray-depth", "4",
+            "--ir-seconds", "0.1", "--max-events-static", "2", "--max-events-moving", "1",
+            "--seed", str(SEED)]
+
+
+def _names(layout: str) -> list:
+    out = []
+    for split, fold in (("train", 1), ("test", 2)):
+        stem = f"dev-{split}-alight/fold{fold}_scene1_000"
+        out += [f"{layout}_dev/{stem}_mic000.wav", f"metadata_dev/{stem}.json",
+                f"metadata_dev/{stem}_mic000.csv"]
+    return sorted(out)
+
+
+@pytest.fixture(scope="module", params=["mic", "foa"])
+def run(request, assets):
+    layout = request.param
+    seconds = seld.main(_argv(assets, layout, f"port_{layout}") + ["--device", "cpu"])
+    return assets, layout, seconds
+
+
+def test_cli_writes_the_reference_layout_and_wavs(run):
+    root, layout, seconds = run
+    out = root / f"port_{layout}"
+    assert len(seconds) == 2
+    assert sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file()) == _names(layout)
+    for wav in out.rglob("*.wav"):
+        data, sr = wav_read(wav)
+        assert sr == 24000 and data.shape == (4, 4 * 24000)
+        with open(wav, "rb") as f:
+            assert f.read(36)[20:22] == b"\x01\x00" and f.read(0) == b""  # PCM format tag
+        assert np.abs(data).max() > 100 / 32768
+
+
+def test_cli_metadata_matches_reference_script(run):
+    """The reference script's build_scene for the same seed places the same
+    scenes: the same CSV bytes and JSON."""
+    root, layout, _ = run
+    sys.path.insert(0, str(REPO / "scripts" / "seld"))
+    try:
+        gd = importlib.import_module("generate_dataset")
+    finally:
+        sys.path.remove(str(REPO / "scripts" / "seld"))
+    args = seld.build_parser().parse_args(_argv(root, layout, f"ref_{layout}"))
+    args.pipeline = "fused"
+    jutils.seed_everything(SEED)
+    rng = np.random.default_rng(SEED)
+    for split, fold in (("train", 1), ("test", 2)):
+        scene, _, _ = gd.build_scene(args, split, 1, 0, rng)
+        stem = root / f"port_{layout}/metadata_dev/dev-{split}-alight/fold{fold}_scene1_000"
+        want = json.loads(json.dumps(scene.to_dict()))
+        got = json.loads(stem.with_suffix(".json").read_text())
+        want.pop("creation_time"), got.pop("creation_time")
+        assert got == want
+        csv = generate_dcase2024_metadata(scene)["mic000"].to_csv(sep=",", encoding="utf-8", header=None)
+        assert Path(f"{stem}_mic000.csv").read_text() == csv
+
+
+def test_cli_resumes(run):
+    """A second run over the same output folder skips the finished scenes."""
+    root, layout, _ = run
+    out = root / f"port_{layout}"
+    before = {p: p.stat().st_mtime_ns for p in out.rglob("*") if p.is_file()}
+    assert seld.main(_argv(root, layout, f"port_{layout}") + ["--device", "cpu"]) == []
+    assert {p: p.stat().st_mtime_ns for p in out.rglob("*") if p.is_file()} == before
+
+
+@pytest.mark.parametrize("flags", [
+    ["--backend", "shoebox"], ["--backend", "sofa"], ["--assets", "9A"], ["--augmentations", "reverse"],
+    ["--placement-workers", "2"], ["--mesh-devices", "2"], ["--coordinator", "localhost:1"],
+    ["--pipeline", "compiled"], ["--pipeline", "classic"], ["--no-mesh-simplification"], ["--no-device-mix"],
+], ids=lambda f: " ".join(f))
+def test_cli_unported_flags_raise(tmp_path, flags):
+    argv = ["--fg-dir", str(tmp_path), "--output-dir", str(tmp_path / "out"), "--backend", "rlr",
+            "--mesh", str(tmp_path / "room.obj"), "--device", "cpu"] + flags
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        seld.main(argv)
+    assert not (tmp_path / "out").exists()
