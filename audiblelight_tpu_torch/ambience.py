@@ -1,22 +1,27 @@
 """Background ambience of a Scene: colored noise.
 
 Copy of audiblelight_tpu/ambience.py for noise beds ("gaussian", the colour
-names, or a numeric power-law exponent). An Ambience only describes its bed:
-the fused renderer draws it on the card (render.ambience_bed_device). The
-host-side draw and file-based beds are not ported (ROADMAP).
+names, or a numeric power-law exponent). The fused renderer draws a bed on
+the card (render.ambience_bed_device); the plan path draws it on the host
+(`Ambience.load_ambience`), with the reference's numpy draws, so the same
+numpy state gives the same bed bit for bit. File-based beds are not ported
+(ROADMAP).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Optional, Union
+from typing import Any, Iterable, Optional, Union
+
+import numpy as np
 
 from audiblelight_tpu_torch import config, utils
+from audiblelight_tpu_torch.io.audio import valid_audio
 from audiblelight_tpu_torch.micarrays import _compare_dicts
 
 # Map of colour names to beta exponents; higher beta = more low-frequency energy
 NOISE_MAPPING = dict(pink=1, brown=2, red=2, blue=-1, white=0, violet=-2)
-# Keywords of the reference's powerlaw_psd_gaussian that an Ambience records
+# Keywords of powerlaw_psd_gaussian that an Ambience records and passes on
 NOISE_KWARGS = ("fmin", "seed")
 
 
@@ -63,6 +68,39 @@ class Ambience:
         utils.sanitise_positive_number(-ref_db)
         self.ref_db = ref_db
 
+        self.audio = None
+
+    @property
+    def is_audio_loaded(self) -> bool:
+        """True when the bed has been drawn and is valid audio."""
+        if self.audio is None:
+            return False
+        try:
+            return valid_audio(self.audio)
+        except (TypeError, ValueError):
+            return False
+
+    def load_ambience(self, ignore_cache: Optional[bool] = False, normalize: Optional[bool] = True) -> np.ndarray:
+        """The bed as a (channels, samples) array, drawn on the host once and
+        kept. "gaussian" is float32 white noise from a PCG generator seeded
+        by one draw of numpy's global stream; the other exponents shape a
+        Gaussian spectrum (`powerlaw_psd_gaussian`, its own seeded
+        generator). `normalize` divides each channel by its peak."""
+        if self.is_audio_loaded and not ignore_cache:
+            return self.audio
+        shape = (self.channels, round(self.duration * self.sample_rate))
+        if self.beta == "gaussian":
+            out = np.random.default_rng(np.random.randint(0, 2**31)).standard_normal(shape, dtype=np.float32)
+        else:
+            out = powerlaw_psd_gaussian(self.beta, shape, **self.noise_kwargs)
+        if normalize:
+            if out.dtype != np.float32:
+                out = np.asarray(out, dtype=np.float64)
+            peak = np.maximum(np.max(out, axis=1, keepdims=True), -np.min(out, axis=1, keepdims=True)) + utils.tiny(out)
+            out /= peak
+        self.audio = out
+        return self.audio
+
     def __eq__(self, other: Any) -> bool:
         if not isinstance(other, Ambience):
             return False
@@ -103,6 +141,52 @@ class Ambience:
             ref_db=input_dict["ref_db"],
             **input_dict.get("noise_kwargs", {}),
         )
+
+
+def powerlaw_psd_gaussian(beta: utils.Numeric, shape: Union[int, Iterable[int]], fmin: Optional[utils.Numeric] = 0.0,
+                          seed: Optional[int] = utils.SEED) -> np.ndarray:
+    """Gaussian (1/f)^beta noise by Timmer & Koenig spectral shaping (numpy).
+
+    The last axis of `shape` is time; the others are independent. The output
+    has about unit variance. The generator, `np.random.default_rng(seed)`,
+    draws the real and then the imaginary parts, as the reference does."""
+    if isinstance(shape, (np.integer, int)):
+        size = [shape]
+    elif isinstance(shape, Iterable):
+        size = list(shape)
+    else:
+        raise ValueError(f"Argument `shape` must be int or Iterable[int] but got {type(shape)}")
+    samples = size[-1]
+    f = np.fft.rfftfreq(samples)
+    fmin = utils.sanitise_positive_number(fmin)
+    if 0 <= fmin <= 0.5:
+        fmin = max(fmin, 1.0 / (samples + utils.tiny(float(samples))))
+    else:
+        raise ValueError(f"Argument `fmin` must be chosen between 0 and 0.5 but got {fmin:.2f}.")
+    s_scale = f.copy()
+    ix = np.sum(s_scale < fmin)
+    if ix and ix < len(s_scale):
+        s_scale[:ix] = s_scale[ix]
+    s_scale = s_scale ** (-beta / 2.0)
+
+    # Theoretical standard deviation of the output
+    w = s_scale[1:].copy()
+    w[-1] *= (1 + (samples % 2)) / 2.0
+    sigma = 2 * np.sqrt(np.sum(w**2)) / (samples + utils.tiny(float(samples)))
+
+    size[-1] = len(f)
+    s_scale = s_scale[(np.newaxis,) * (len(size) - 1) + (Ellipsis,)]
+    rng = np.random.default_rng(seed)
+    sr = rng.normal(scale=s_scale, size=size)
+    si = rng.normal(scale=s_scale, size=size)
+    if not (samples % 2):
+        si[..., -1] = 0
+        sr[..., -1] *= np.sqrt(2)
+    si[..., 0] = 0
+    sr[..., 0] *= np.sqrt(2)
+    y = np.fft.irfft(sr + 1j * si, n=samples, axis=-1)
+    y /= sigma
+    return y
 
 
 def _parse_beta(noise: Any) -> Union[float, str]:

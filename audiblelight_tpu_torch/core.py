@@ -769,17 +769,26 @@ class Scene:
         audio_fname: Optional[Union[str, Path]] = "audio_out",
         metadata_fname: Optional[Union[str, Path]] = "metadata_out",
         video: bool = False,
+        compiled: bool = False,
     ) -> None:
         """Render the scene to disk: per-mic int16 WAVs, metadata JSON, DCASE CSVs.
 
-        The audio renders through the fused renderer (pipeline.render_scenes)
-        on the world state's device: trace, stems, placement, ambience and
-        int16 quantisation in one pass.
+        The audio renders on the world state's device through the fused
+        renderer (pipeline.render_scenes: trace, stems, placement, ambience
+        and int16 quantisation in one pass), or through the plan path where
+        the fused renderer refuses the scene (the exact rain mode in a
+        nonconvex room). `compiled=True` takes the plan path
+        (pipeline.render_scene_audio_compiled: traced IR banks, device
+        stems, host mix and host ambience bed).
         """
         if video:
             raise NotImplementedError("video is not ported (ROADMAP: imaging and video)")
         output_dir = self._sanitise_output_directory(output_dir)
-        if audio:
+        if audio and compiled:
+            from audiblelight_tpu_torch.pipeline import render_scene_audio_compiled
+
+            self.audio = render_scene_audio_compiled(self)
+        elif audio:
             from audiblelight_tpu_torch.pipeline import render_scenes
 
             def complete(scene, payloads):

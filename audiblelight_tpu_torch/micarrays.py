@@ -1,10 +1,11 @@
 """Microphone rigs: capsule geometry and channel layouts.
 
-Counterpart of audiblelight_tpu/micarrays.py for the rigs of the SELD
-dataset's two formats: the AmbeoVR tetrahedron ("mic", one channel per
-capsule) and the first-order ambisonic listener ("foa", one point, AmbiX
-channels W, X, Y, Z). Other rigs (Eigenmike, binaural, HOA, mono) are not
-ported; asking for them by name raises.
+Counterpart of audiblelight_tpu/micarrays.py for the AmbeoVR tetrahedron
+("mic", one channel per capsule) and the one-point listeners: first-order
+ambisonics ("foa", AmbiX channels W, X, Y, Z), higher-order ambisonics
+("hoa3" by default, or "hoa2"; ACN/SN3D) and the binaural head ("binaural",
+left and right, the analytic spherical head). The other rigs (Eigenmike,
+mono) and measured HRTFs are not ported; asking for them raises.
 """
 
 from __future__ import annotations
@@ -224,6 +225,59 @@ class FOAListener(MicArray):
 
 
 @dataclass(repr=False, eq=False)
+class Binaural(MicArray):
+    """A binaural listener: one point rendered to 2 channels (left, right)
+    through the analytic Brown-Duda spherical head (rir.sh). Measured HRTFs
+    (`hrtf_sofa`) are not ported and raise."""
+
+    name: str = "binaural"
+    is_spherical: bool = False
+    channel_layout_type: str = "binaural"
+    hrtf_sofa: str = None
+
+    def __post_init__(self):
+        self._refuse_sofa(self.hrtf_sofa)
+
+    @staticmethod
+    def _refuse_sofa(path) -> None:
+        if path is not None:
+            raise NotImplementedError("measured HRTFs (hrtf_sofa) are not ported (ROADMAP: measured HRTFs)")
+
+    @property
+    def coordinates_cartesian(self) -> np.ndarray:
+        return np.array([[0.0, 0.0, 0.0]])
+
+    @property
+    def capsule_names(self) -> list[str]:
+        return ["left", "right"]
+
+    def _set_attribute(self, attr_name: str, value: Any) -> None:
+        if attr_name == "hrtf_sofa":
+            self._refuse_sofa(value)
+        super()._set_attribute(attr_name, value)
+
+
+@dataclass(repr=False, eq=False)
+class HOAListener(MicArray):
+    """Higher-order ambisonics listener: one point, ACN/SN3D channels; third
+    order (16 channels) by default, channel_layout_type="hoa2" for second
+    order (9). The tracer encodes the direct path at min(direct_sh_order,
+    layout order) and the tail at min(indirect_sh_order, layout order)."""
+
+    name: str = "hoalistener"
+    is_spherical: bool = False
+    channel_layout_type: str = "hoa3"
+
+    @property
+    def coordinates_cartesian(self) -> np.ndarray:
+        return np.array([[0.0, 0.0, 0.0]])
+
+    @property
+    def capsule_names(self) -> list[str]:
+        return [f"acn{i}" for i in range(self.channel_layout.channel_count)]
+
+
+@dataclass(repr=False, eq=False)
 class AmbeoVR(MicArray):
     """Sennheiser AmbeoVR: 4 cardioid capsules in a tetrahedron, r = 1 cm."""
 
@@ -244,10 +298,10 @@ class AmbeoVR(MicArray):
         return ["FLU", "FRD", "BLD", "BRU"]
 
 
-MICARRAY_LIST = [AmbeoVR, FOAListener]
+MICARRAY_LIST = [AmbeoVR, Binaural, FOAListener, HOAListener]
 MICARRAY_CLASS_MAPPING = {cls.__name__: cls for cls in MICARRAY_LIST}
 # Rigs of the reference that this port does not build yet
-UNPORTED_MICARRAYS = ("eigenmike32", "eigenmike64", "monocapsule", "binaural", "hoalistener")
+UNPORTED_MICARRAYS = ("eigenmike32", "eigenmike64", "monocapsule")
 
 
 def sanitize_microphone_input(microphone_type: Any) -> Type[MicArray]:
@@ -255,7 +309,7 @@ def sanitize_microphone_input(microphone_type: Any) -> Type[MicArray]:
     if microphone_type is None:
         raise NotImplementedError(
             "a rig-less microphone (the reference's mono capsule) is not ported; "
-            "pass 'ambeovr' or 'foalistener'"
+            "pass 'ambeovr', 'foalistener', 'hoalistener' or 'binaural'"
         )
     if isinstance(microphone_type, str):
         return get_micarray_from_string(microphone_type)
@@ -274,7 +328,7 @@ def get_micarray_from_string(micarray_name: str) -> Type[MicArray]:
     if micarray_name in UNPORTED_MICARRAYS:
         raise NotImplementedError(
             f"microphone {micarray_name!r} is not ported (ROADMAP: the other rigs); "
-            "this port has 'ambeovr' and 'foalistener'"
+            f"this port has {', '.join(repr(ma().name) for ma in MICARRAY_LIST)}"
         )
     acceptable = [ma().name for ma in MICARRAY_LIST]
     raise ValueError(f"Cannot find array {micarray_name}: expected one of {', '.join(acceptable)}")

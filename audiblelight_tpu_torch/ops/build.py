@@ -21,6 +21,8 @@ SOURCES = {
     "any_hit": "any_hit.cu",
     "deposit_histogram": "deposit_histogram.cu",
     "deposit_histogram_foa": "deposit_histogram_foa.cu",
+    "bin_histogram": "bin_histogram.cu",
+    "star_any_hit": "star_any_hit.cu",
 }
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"

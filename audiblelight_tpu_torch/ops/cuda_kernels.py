@@ -1,12 +1,16 @@
-"""The tracer's three kernels: wrappers for the CUDA kernels in `csrc/` and
-their plain PyTorch versions.
+"""The tracer's kernels: wrappers for the CUDA kernels in `csrc/` and their
+plain PyTorch versions.
 
-Counterpart of audiblelight_tpu/ops/pallas_kernels.py:
+Counterpart of audiblelight_tpu/ops/pallas_kernels.py and
+audiblelight_tpu/ops/star_occlusion.py:
 
 - `ray_first_hit`       <- ray_first_hit_pallas (big and small variants)
 - `segments_occluded`   <- segments_occluded_pallas
 - `deposit_histogram`   <- deposit_histogram_pallas
 - `deposit_histogram_foa` <- deposit_histogram_foa_pallas
+- `bin_histogram`       <- bin_histogram_pallas
+- `star_any_hit`        <- star_segments_occluded's kernel (the glue around
+  it, azimuth sort and block ranges, is ops/star_occlusion.py)
 
 Each wrapper prepares its inputs in PyTorch (the same preparation feeds the
 kernel and the plain version), then runs the plain version when the tensors
@@ -38,7 +42,7 @@ _MARGIN = 1e-4
 _CHUNK_ELEMS = 1 << 22
 
 launch_counts = {"first_hit_big": 0, "first_hit_small": 0, "any_hit": 0, "deposit_histogram": 0,
-                 "deposit_histogram_foa": 0}
+                 "deposit_histogram_foa": 0, "bin_histogram": 0, "star_any_hit": 0}
 
 
 def reset_launch_counts() -> None:
@@ -502,3 +506,143 @@ def deposit_histogram_foa(hit, normal, e_refl, dist, occ, listener_pos,
              inv_bin_dt, range_limit, inv_c, four_pi2, _ptr(out), _stream(hit))
     _raise_on(err, "deposit_histogram_foa")
     return out
+
+
+# ---------------------------------------------------------------------------
+# K5: grouped histogram
+# ---------------------------------------------------------------------------
+
+# Widest K slice of one block's shared histogram, and its byte budget: the
+# default 48 KiB of a block, so the kernel needs no opt-in
+_HIST_K_SLICE = 16
+_HIST_SMEM = 48 * 1024
+
+
+def bin_histogram_plain(bins, dep, n_bins: int):
+    """Plain PyTorch version of `bin_histogram` (any device)."""
+    g, r, k = dep.shape
+    b = bins.to(torch.int64)
+    keep = (b >= 0) & (b < n_bins)
+    flat = (torch.arange(g, device=dep.device)[:, None] * n_bins + b.clamp(0, n_bins - 1)).reshape(-1)
+    vals = torch.where(keep[..., None], dep.to(torch.float32), torch.zeros((), device=dep.device))
+    out = torch.zeros(g * n_bins, k, dtype=torch.float32, device=dep.device)
+    out.index_add_(0, flat, vals.reshape(-1, k))
+    return out.reshape(g, n_bins, k)
+
+
+def bin_histogram(bins, dep, n_bins: int):
+    """Grouped histogram: out[g, bin, k] = sum over rays r of dep[g, r, k]
+    where bins[g, r] == bin.
+
+    Arguments:
+        bins: (G, R) integer bin indices; bins outside [0, n_bins) deposit
+            nowhere (the Pallas kernel's one-hot matches no bin for them).
+        dep: (G, R, K) float32 deposits.
+
+    Returns (G, n_bins, K) float32, summed in fp32.
+    """
+    if not _on_card(dep):
+        return bin_histogram_plain(bins, dep, n_bins)
+    g, r, k = dep.shape
+    if n_bins * 4 > _HIST_SMEM:
+        raise ValueError(f"bin_histogram: {n_bins} bins do not fit one block's shared histogram")
+    k_slice = min(k, _HIST_K_SLICE, _HIST_SMEM // (4 * n_bins))
+    dev = dep.device
+    bins = bins.to(torch.int32).contiguous()
+    _check("bins", bins, (g, r), torch.int32, dev)
+    _check("dep", dep, (g, r, k), torch.float32, dev)
+    out = torch.empty((g, n_bins, k), dtype=torch.float32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _lib("bin_histogram", "bin_histogram", [vp, vp, ci, ci, ci, ci, ci, vp, vp])
+    launch_counts["bin_histogram"] += 1
+    err = fn(_ptr(bins), _ptr(dep), g, r, k, n_bins, k_slice, _ptr(out), _stream(dep))
+    _raise_on(err, "bin_histogram")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: star any-hit (azimuth-culled segment occlusion toward one end point)
+# ---------------------------------------------------------------------------
+
+STAR_BLOCK = 256  # azimuth-sorted segments per block (kBlock in csrc/star_any_hit.cu)
+STAR_TILE_FACES = 256  # narrow faces per tile (kTileFaces)
+_TWO_PI = 2.0 * math.pi
+
+
+def star_tile_overlap(brange, tile_meta):
+    """(n_blocks, n_tiles) bool: which (segment block, narrow tile) pairs the
+    kernel tests. The circular test of star_occlusion.py:_star_kernel in f32:
+    the difference of the centres wrapped by d - 2 pi floor(d / 2 pi + 0.5),
+    against the sum of the half-widths."""
+    b_cen = (brange[0] + brange[1]) * 0.5
+    b_half = (brange[1] - brange[0]) * 0.5
+    d = tile_meta[0][None, :] - b_cen[:, None]
+    # A tensor divisor: a division by a Python scalar may run as a multiply
+    # by its reciprocal on the card, the kernel divides
+    two_pi = torch.full((), _TWO_PI, dtype=torch.float32, device=d.device)
+    d = d - two_pi * torch.floor(d / two_pi + 0.5)
+    return d.abs() <= tile_meta[1][None, :] + b_half[:, None]
+
+
+def star_any_hit_plain(o, d, length, brange, narrow_tab, tile_meta, wide_tab, n_wide: int):
+    """Plain PyTorch version of `star_any_hit` (any device): the same block x
+    tile cull, each kept pair through the dense any-hit's arithmetic."""
+    r_pad = o.shape[0]
+    n_tiles = tile_meta.shape[1]
+    blocked = torch.zeros(r_pad, dtype=torch.bool, device=o.device)
+    overlap = star_tile_overlap(brange, tile_meta)
+    lanes = torch.arange(STAR_BLOCK, device=o.device)
+    for tl in range(n_tiles):
+        blocks = torch.nonzero(overlap[:, tl]).flatten()
+        if blocks.numel() == 0:
+            continue
+        rows = (blocks[:, None] * STAR_BLOCK + lanes[None]).reshape(-1)
+        tab = narrow_tab[tl * STAR_TILE_FACES : (tl + 1) * STAR_TILE_FACES]
+        blocked[rows] |= _any_hit_plain(o[rows], d[rows], length[rows], tab)
+    if n_wide > 0:
+        blocked |= _any_hit_plain(o, d, length, wide_tab[:n_wide])
+    return blocked
+
+
+def star_any_hit(o, d, length, brange, narrow_tab, tile_meta, wide_tab, n_wide: int):
+    """Occlusion of azimuth-sorted segments toward one end point.
+
+    Arguments:
+        o, d: (R_pad, 3) segment starts and unit directions, sorted by the
+            start's azimuth about the star centre; length: (R_pad,) lengths.
+            R_pad is a multiple of STAR_BLOCK (padding rows have length 0).
+        brange: (2, R_pad / STAR_BLOCK) [lowest; highest] azimuth of each
+            block of STAR_BLOCK segments.
+        narrow_tab: (n_tiles * STAR_TILE_FACES, 9) face rows [a, e1, e2],
+            sorted into tiles; tile_meta: (2, n_tiles) [window centre;
+            half-width] per tile; wide_tab: (>= n_wide, 9) the faces every
+            segment tests.
+
+    Returns (R_pad,) bool, True where a face crosses the open segment inside
+    1e-4 < t < length - 1e-4: the dense `segments_occluded` on the same
+    segments, as long as each tile's window holds every segment its faces
+    can block (star_occlusion.build_star_accel).
+    """
+    if not _on_card(o):
+        return star_any_hit_plain(o, d, length, brange, narrow_tab, tile_meta, wide_tab, n_wide)
+    r_pad, dev = o.shape[0], o.device
+    n_tiles = tile_meta.shape[1]
+    if r_pad % STAR_BLOCK:
+        raise ValueError(f"star_any_hit: {r_pad} segments are not a multiple of {STAR_BLOCK}")
+    _check("starts", o, (r_pad, 3), torch.float32, dev)
+    _check("dirs", d, (r_pad, 3), torch.float32, dev)
+    _check("lengths", length, (r_pad,), torch.float32, dev)
+    _check("block ranges", brange, (2, r_pad // STAR_BLOCK), torch.float32, dev)
+    _check("narrow table", narrow_tab, (n_tiles * STAR_TILE_FACES, 9), torch.float32, dev)
+    _check("tile windows", tile_meta, (2, n_tiles), torch.float32, dev)
+    _check("wide table", wide_tab, (wide_tab.shape[0], 9), torch.float32, dev)
+    if not 0 <= n_wide <= wide_tab.shape[0]:
+        raise ValueError(f"star_any_hit: n_wide {n_wide} outside the wide table's {wide_tab.shape[0]} rows")
+    out = torch.empty(r_pad, dtype=torch.uint8, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _lib("star_any_hit", "star_any_hit", [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp])
+    launch_counts["star_any_hit"] += 1
+    err = fn(_ptr(o), _ptr(d), _ptr(length), _ptr(brange), _ptr(narrow_tab), _ptr(tile_meta), _ptr(wide_tab),
+             r_pad, n_tiles, int(n_wide), _ptr(out), _stream(o))
+    _raise_on(err, "star_any_hit")
+    return out.to(torch.bool)

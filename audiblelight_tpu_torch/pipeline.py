@@ -9,7 +9,14 @@ key replaced by a `torch.Generator` seeded from the world state's trace walk.
 
 `render_scenes` is the dataset loop: one scene at a time, one renderer per
 (room, rig, event buckets, source bucket), as the reference's pipelined
-loop groups them. Dispatch-ahead and batched renders are not ported.
+loop groups them. A scene the fused renderer refuses (the exact rain mode in
+a nonconvex room, an ambience the card's bed does not draw, or
+`device_mix=False`) takes the plan path instead, as in the reference: the
+world state traces its IR banks (`trace_irs_device`), `stems_from_plan`
+renders and quantises the stems on the device, and `mix_plan_host` places
+them and adds the host ambience bed. `render_scene_audio_compiled` is that
+path for one scene (`Scene.generate(compiled=True)`). Dispatch-ahead and
+batched renders are not ported.
 """
 
 from __future__ import annotations
@@ -29,16 +36,17 @@ from audiblelight_tpu_torch.render import (
     _bucket,
     ambience_bed_device,
     build_scene_plan,
+    mix_stems_host,
     place_stems_device,
     quantize_mix_wav,
+    quantize_stems,
     render_event_stems_arrays,
 )
-from audiblelight_tpu_torch.rir.raytracer import trace_rirs_multi
 from audiblelight_tpu_torch.rir.sh import encoding_channels
-from audiblelight_tpu_torch.worldstate.mesh_backend import MeshDeviceState, rain_mode
+from audiblelight_tpu_torch.worldstate.mesh_backend import LAYOUT_ENCODINGS, MeshDeviceState, rain_mode
 
 # Tracer encoding of each rig layout this port renders
-ENCODINGS = {"mic": "omni", "foa": "foa"}
+ENCODINGS = {"mic": "omni", **LAYOUT_ENCODINGS}
 
 
 def fused_inputs_host(scene, buckets: tuple, bucket_sources: int):
@@ -83,6 +91,45 @@ def fused_inputs_host(scene, buckets: tuple, bucket_sources: int):
     return (ws.split_key(), src, caps.astype(np.float32), s_idx, m_idx), mic_pts
 
 
+def mic_channel_spans(scene) -> list:
+    """Per-mic (alias, start, end) spans into a plan's stacked channel axis,
+    in microphone registration order."""
+    spans, off = [], 0
+    for alias, mic in scene.state.microphones.items():
+        spans.append((alias, off, off + int(mic.n_channels)))
+        off += int(mic.n_channels)
+    return spans
+
+
+def stems_from_plan(plan: ScenePlan):
+    """One plan's stems on its device, quantised: (int16 stems (E, C, S),
+    float32 per-stem scales (E,))."""
+    stems = render_event_stems_arrays(
+        plan.static_audio, plan.static_irs, plan.static_mask, plan.static_snr, plan.static_len,
+        plan.static_place_len, plan.moving_audio, plan.moving_irs, plan.moving_w, plan.moving_mask,
+        plan.moving_snr, plan.moving_len, plan.moving_place_len, plan.ref_db,
+    )
+    return quantize_stems(stems)
+
+
+def mix_plan_host(plan: ScenePlan, q, scales) -> np.ndarray:
+    """The (C, T) float32 scene mix on the host: the quantised stems placed
+    at their offsets, plus the plan's host ambience bed."""
+    starts = torch.cat([plan.static_start, plan.moving_start]).cpu().numpy()
+    return mix_stems_host(q.cpu().numpy(), scales.cpu().numpy(), starts, plan.n_scene_samples,
+                          ambience=plan.ambience)
+
+
+def render_scene_audio_compiled(scene, plan: Optional[ScenePlan] = None,
+                                plan_kwargs: Optional[dict] = None) -> "OrderedDict[str, np.ndarray]":
+    """A Scene's per-mic (C, T) float32 audio through the plan path: traced
+    IR banks, device stems, host mix with the host ambience bed."""
+    if plan is None:
+        plan = build_scene_plan(scene, plan_path=True, **(plan_kwargs or {}))
+    mixed = mix_plan_host(plan, *stems_from_plan(plan))
+    return OrderedDict((alias, mixed[a:b]) for alias, a, b in mic_channel_spans(scene))
+
+
 def _plan_buckets(plan: ScenePlan) -> tuple:
     """(es, em, j, S) of a plan."""
     return (int(plan.static_audio.shape[0]), int(plan.moving_audio.shape[0]),
@@ -99,8 +146,8 @@ class FusedSceneRenderer:
             points and event samples of the scene plans it renders.
         n_sources: padded source count of the trace.
         t_scene: scene length in samples.
-        layout: the rig's channel layout, "mic" (one channel per capsule) or
-            "foa" (4 AmbiX channels at one point).
+        layout: the rig's channel layout: "mic" (one channel per capsule),
+            "foa", "hoa2", "hoa3" (ambisonics at one point) or "binaural".
     """
 
     def __init__(self, state: MeshDeviceState, n_capsules: int, buckets: tuple,
@@ -111,9 +158,7 @@ class FusedSceneRenderer:
                 '(rain_visibility="face", or "auto" with mesh_simplification on)'
             )
         if layout not in ENCODINGS:
-            raise NotImplementedError(
-                f"channel layout {layout!r} is not ported (ROADMAP: binaural and HOA rigs, kernel K5)"
-            )
+            raise ValueError(f"unknown channel layout {layout!r}")
         self.state = state
         self.device = state.device
         self.layout = layout
@@ -225,28 +270,8 @@ class FusedSceneRenderer:
     def trace(self, gen: torch.Generator, sources: torch.Tensor, listeners: torch.Tensor,
               face_occ: Optional[torch.Tensor]) -> torch.Tensor:
         """(C_out, n_sources, L) RIRs of the padded sources at the listener."""
-        st, cfg = self.state, self.state.cfg
-        sr = int(cfg["sample_rate"])
-        occl = not st.convex
-        return trace_rirs_multi(
-            gen, st.acoustic_tris, st.absorption, st.scattering, sources, listeners,
-            n_samples=int(round(float(cfg["max_ir_length"]) * sr)),
-            sr=sr,
-            n_rays=int(cfg["indirect_ray_count"]),
-            max_depth=min(int(cfg["indirect_ray_depth"]), 200),
-            bin_dt=float(cfg["hist_bin_dt"]),
-            c=float(cfg["speed_of_sound"]),
-            tri_normals=st.acoustic_normals,
-            face_occlusion=face_occ if occl else None,
-            tris_direct=st.tris,
-            diffraction=bool(cfg["diffraction"]) and occl,
-            diffraction_order=max(1, int(cfg["max_diffraction_order"])),
-            tris_diffraction_graph=st.diffraction_graph_tris,
-            decimate=bool(cfg["ray_decimation"]),
-            encoding=self.encoding,
-            sh_order_direct=int(cfg["direct_sh_order"]),
-            sh_order_indirect=int(cfg["indirect_sh_order"]),
-        )
+        rain = dict(face_occlusion=None if self.state.convex else face_occ)
+        return self.state.trace_rirs(gen, sources, listeners, self.encoding, rain)
 
     def stems(self, gen, sources, listeners, face_occ, s_idx, m_idx, plan: ScenePlan) -> torch.Tensor:
         """(es + em, C_out, S) float stems: trace, per-event IR gather, render."""
@@ -331,26 +356,26 @@ def renderer_from_numpy(world: dict, cfg: dict, plan: dict, scene_inputs: tuple,
     return renderer, (f32(sources), f32(capsules), face_occ, i64(s_idx), i64(m_idx), splan)
 
 
-def render_scenes(scenes: Iterable, complete: Callable, plan_kwargs: Optional[dict] = None) -> int:
+def render_scenes(scenes: Iterable, complete: Callable, plan_kwargs: Optional[dict] = None,
+                  device_mix: bool = True) -> int:
     """Render placed scenes one at a time; `complete(scene, {mic alias: (C, T)
-    int16 numpy payload})` gets each in order. Returns the number rendered.
+    numpy audio})` gets each in order: an int16 payload from the fused
+    renderer, a float32 mix from the plan path. Returns the number rendered.
 
     Each scene packs into a plan with `plan_kwargs`' pinned buckets
     (max_static / max_moving / max_traj / pad_audio_seconds); a scene whose
     events overflow them gets auto-sized buckets instead, so no event is
     dropped. One renderer serves every scene it is `compatible` with at the
-    scene's source bucket: one per (room, rig, buckets, source bucket).
+    scene's source bucket: one per (room, rig, buckets, source bucket). A
+    scene the fused renderer refuses, and every scene when `device_mix` is
+    False, renders through the plan path (traced IR banks, device stems,
+    host mix).
     """
     renderers = []
     done = 0
     for scene in scenes:
         if len(scene.state.microphones) != 1:
             raise NotImplementedError("scenes with several microphones are not ported (ROADMAP)")
-        if not FusedSceneRenderer.mix_eligible(scene):
-            raise NotImplementedError(
-                "only one noise ambience with the rig's channel count renders on the card "
-                "(file-based or several ambiences: ROADMAP)"
-            )
         pk = dict(plan_kwargs or {})
         events = list(scene.events.values())
         counts = dict(max_static=sum(1 for e in events if not e.is_moving),
@@ -359,15 +384,21 @@ def render_scenes(scenes: Iterable, complete: Callable, plan_kwargs: Optional[di
         for k, n in counts.items():
             if pk.get(k) is not None and n > pk[k]:
                 pk.pop(k)
-        plan = build_scene_plan(scene, **pk)
-        n_sources = _bucket(len(scene.state._emitter_positions()))
-        renderer = next((r for r in renderers if r.n_sources == n_sources and r.compatible(scene, plan)), None)
-        if renderer is None:
-            renderer = FusedSceneRenderer.from_scene(scene, plan, n_sources)
-            renderers.append(renderer)
-        wav = renderer.render_scene(scene, plan)
-        alias = next(iter(scene.state.microphones))
-        complete(scene, OrderedDict([(alias, wav.cpu().numpy())]))
+        st = scene.state.device_state
+        fused = (device_mix and FusedSceneRenderer.mix_eligible(scene)
+                 and (st.convex or rain_mode(st.cfg) == "face"))
+        plan = build_scene_plan(scene, plan_path=not fused, **pk)
+        if fused:
+            n_sources = _bucket(len(scene.state._emitter_positions()))
+            renderer = next((r for r in renderers if r.n_sources == n_sources and r.compatible(scene, plan)), None)
+            if renderer is None:
+                renderer = FusedSceneRenderer.from_scene(scene, plan, n_sources)
+                renderers.append(renderer)
+            alias = next(iter(scene.state.microphones))
+            audio = OrderedDict([(alias, renderer.render_scene(scene, plan).cpu().numpy())])
+        else:
+            audio = render_scene_audio_compiled(scene, plan)
+        complete(scene, audio)
         done += 1
     return done
 

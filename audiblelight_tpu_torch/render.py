@@ -3,7 +3,9 @@
 Counterpart of audiblelight_tpu/render.py. A scene is described by
 fixed-shape tensors (`ScenePlan`, the reference's field layout, packed from
 a Scene by `build_scene_plan`); events are rendered as a batch where the
-reference vmaps.
+reference vmaps. Stems are placed into the timeline on the device
+(`place_stems_device`, the fused renderer) or, quantised, on the host
+(`mix_stems_host`, the plan path).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audiblelight_tpu_torch import config
+from audiblelight_tpu_torch import config, utils
 from audiblelight_tpu_torch.ops.convolve import (
     fft_convolve,
     interpolation_matrix,
@@ -177,6 +179,28 @@ def quantize_mix_wav(mix: torch.Tensor) -> torch.Tensor:
     return (torch.clamp(mix, -1.0, 1.0) * 32767.0).to(torch.int16)
 
 
+def mix_stems_host(stems_i16: np.ndarray, scales: np.ndarray, starts: np.ndarray, n_scene_samples: int,
+                   ambience: Optional[np.ndarray] = None) -> np.ndarray:
+    """Additive placement of quantised stems (E, C, S) int16 with per-stem
+    scales (E,) at sample offsets (E,) into a (C, T) float32 scene mix, plus
+    the host ambience bed. Events running past the scene end are clipped."""
+    e, c, s = stems_i16.shape
+    t = int(n_scene_samples)
+    out = np.zeros((c, t), dtype=np.float32)
+    for i in range(e):
+        sc = float(scales[i])
+        if sc == 0.0:
+            continue
+        start = int(starts[i])
+        n = min(s, t - start)
+        if n <= 0:
+            continue
+        out[:, start : start + n] += stems_i16[i, :, :n].astype(np.float32) * sc
+    if ambience is not None:
+        out += ambience
+    return out
+
+
 def _bucket(n: int, default: int = 1) -> int:
     """The next power of two at or above n (`default` for n <= 0)."""
     if n <= 0:
@@ -188,28 +212,37 @@ def _bucket(n: int, default: int = 1) -> int:
 
 
 def build_scene_plan(scene, max_static: Optional[int] = None, max_moving: Optional[int] = None,
-                     max_traj: Optional[int] = None, pad_audio_seconds: Optional[float] = None) -> ScenePlan:
+                     max_traj: Optional[int] = None, pad_audio_seconds: Optional[float] = None,
+                     plan_path: bool = False) -> ScenePlan:
     """Pack a placed Scene into a fixed-shape ScenePlan on the scene's
     world-state device.
 
     Loads each event's audio on the host and pads the static / moving event
     slots, trajectory points and samples to the given buckets (next powers of
-    two when not given), as the reference's build_scene_plan(trace=False,
-    build_ambience=False) does. The IR banks are zero-length placeholders and
-    there is no host-side ambience bed: the fused renderer traces the IRs and
-    draws the bed on the card itself.
+    two when not given), as the reference's build_scene_plan does.
+
+    plan_path: the plan path's plan. Its IR banks come from the world
+        state's trace (`trace_irs_device`, every microphone's channels
+        stacked), and its (C, T) host ambience bed draws every ambience on
+        the host (`Ambience.load_ambience`), scaled to its level and written
+        into every microphone's channel span. False (the fused renderer's
+        plan, which traces the IRs and draws the bed on the card) leaves
+        zero-length IR placeholders and no bed.
     """
     sr = scene.sample_rate
     c_total = sum(int(m.n_channels) for m in scene.state.microphones.values())
     t = round(scene.duration * sr)
+    all_irs = torch.cat(list(scene.state.trace_irs_device().values()), dim=0) if plan_path else None
 
     statics, movings = [], []
+    counter = 0
     for event in scene.events.values():
         audio = event.load_audio(normalize=True)
         start = max(0, round(event.scene_start * sr))
         end = min(round(event.scene_end * sr), t)
-        entry = dict(audio=audio, n_em=len(event), snr=float(event.snr), start=start, length=len(audio),
-                     place_len=max(end - start, 0), duration=event.duration)
+        entry = dict(audio=audio, n_em=len(event), first=counter, snr=float(event.snr), start=start,
+                     length=len(audio), place_len=max(end - start, 0), duration=event.duration)
+        counter += len(event)
         (movings if event.is_moving else statics).append(entry)
 
     es = max_static if max_static is not None else _bucket(len(statics))
@@ -250,6 +283,40 @@ def build_scene_plan(scene, max_static: Optional[int] = None, max_moving: Option
         moving_audio=moving_audio, moving_irs=np.zeros((em, c_total, j, 0), np.float32), moving_w=moving_w,
         moving_mask=mv["mask"], moving_snr=mv["snr"], moving_start=mv["start"], moving_len=mv["len"],
         moving_place_len=mv["place_len"],
-        ambience=None, ref_db=np.float32(scene.ref_db), n_scene_samples=t,
+        ambience=_host_ambience_bed(scene, c_total, t) if plan_path else None,
+        ref_db=np.float32(scene.ref_db), n_scene_samples=t,
     )
-    return ScenePlan.from_numpy(arrays, scene.state.device)
+    plan = ScenePlan.from_numpy(arrays, scene.state.device)
+    if plan_path:
+        plan.static_irs = torch.zeros((es, c_total, all_irs.shape[-1]), dtype=torch.float32, device=all_irs.device)
+        for i, e in enumerate(statics[:es]):
+            plan.static_irs[i] = all_irs[:, e["first"]]
+        plan.moving_irs = torch.zeros((em, c_total, j, all_irs.shape[-1]), dtype=torch.float32,
+                                      device=all_irs.device)
+        for i, e in enumerate(movings[:em]):
+            n_j = min(e["n_em"], j)
+            plan.moving_irs[i, :, :n_j] = all_irs[:, e["first"] : e["first"] + n_j]
+    return plan
+
+
+def _host_ambience_bed(scene, c_total: int, t: int) -> np.ndarray:
+    """The (C, T) float32 host bed: each ambience's normalised noise, scaled
+    to 10^(ref_db / 20) / mean|noise| in float32 and written (the first) or
+    added (the others) into every microphone's channel span, as the
+    reference's build_scene_plan writes it."""
+    ambience = np.zeros((c_total, t), dtype=np.float32)
+    spans, off = [], 0
+    for m in scene.state.microphones.values():
+        spans.append((off, off + int(m.n_channels)))
+        off += int(m.n_channels)
+    for i_amb, amb in enumerate(scene.ambience.values()):
+        noise = amb.load_ambience(normalize=True)
+        scale = np.float32(10 ** (amb.ref_db / 20.0) / (np.mean(np.abs(noise)) + utils.tiny(noise)))
+        for a, b in spans:
+            rows = min(noise.shape[0], b - a)
+            part = ambience[a : a + rows]
+            if i_amb == 0:
+                np.multiply(noise[:rows], scale, out=part, dtype=np.float32)
+            else:
+                part += noise[:rows].astype(np.float32) * scale
+    return ambience

@@ -2,18 +2,24 @@
 
 Counterpart of the main-path functions of audiblelight_tpu/rir/raytracer.py,
 for omni capsule rigs ("omni": AmbeoVR and other "mic" layouts) and the
-first-order ambisonic listener ("foa": AmbiX [W, X, Y, Z] at one point), with
-per-face rain visibility:
+one-point listeners: first-order ambisonics ("foa": AmbiX [W, X, Y, Z]),
+higher orders ("sh2", "sh3": ACN/SN3D) and the analytic spherical head
+("binaural": [left, right]):
 
   1. E sources x N rays leave the sources with unit-total energy per source.
   2. Each bounce: first hit against the mesh (K1), per-band absorption, a
-     diffuse-rain deposit toward the listener, binned by arrival time (K3 per
-     omni capsule, K4 with the first-order encode for FOA; visibility
-     gathered from the per-face table that K2 filled), and a
+     diffuse-rain deposit toward the listener, binned by arrival time, and a
      specular-or-Lambertian reflection chosen by the surface scattering.
+     The deposit is fused with its histogram fold for omni capsules (K3)
+     and for FOA with a first-order tail (K4); the other encodings run the
+     reference's unfused chain (arrival direction, gains, bins) folded by
+     the grouped histogram (K5). Rain visibility comes from the per-face
+     table that K2 filled (one gather), or, in the exact mode, from one
+     query per hit point: the star any-hit (K6) where a star layout was
+     built, else the dense any-hit (K2).
   3. The IRs are synthesised from the histograms with band-filtered noise
      carriers, plus the exact direct path and knife-edge diffraction, both
-     encoded at the listener for FOA.
+     encoded at the listener for the one-point rigs.
 
 The bounce loop is a Python loop with the reference's early exit: it stops
 when every ray is dead, which costs one host read of a flag per bounce.
@@ -34,22 +40,30 @@ import torch.nn.functional as F
 from audiblelight_tpu_torch import config
 from audiblelight_tpu_torch.geometry.queries import ray_mesh_first_hit, segments_occluded
 from audiblelight_tpu_torch.ops.cuda_kernels import (
+    bin_histogram,
     deposit_histogram,
     deposit_histogram_foa,
     first_hit_table,
 )
-from audiblelight_tpu_torch.rir.sh import ambisonic_encoding_gains, encoding_channels
+from audiblelight_tpu_torch.ops.star_occlusion import star_segments_occluded
+from audiblelight_tpu_torch.rir.sh import (
+    ambisonic_encoding_gains,
+    encoding_channels,
+    spherical_head_gains,
+    woodworth_itd,
+)
 from audiblelight_tpu_torch.utils import cross3, dot3, norm3
 
 
-def _check_encoding(encoding: str, cl: int, sh_order: int) -> None:
-    """The encodings this port traces: omni capsules, and FOA at one listener
-    point with an order-1 tail (the reference's fused FOA deposit)."""
-    if encoding == "omni" or (encoding == "foa" and cl == 1 and sh_order == 1):
+def _check_encoding(encoding: str, cl: int) -> None:
+    """The encodings this port traces: omni capsules, and one listener point
+    encoded as FOA, higher-order ambisonics or the analytic binaural head."""
+    if encoding == "omni":
+        return
+    if (encoding in ("foa", "binaural") or encoding.startswith("sh")) and cl == 1:
         return
     raise NotImplementedError(
-        f"encoding {encoding!r} with {cl} listener points and tail order {sh_order} is not "
-        "ported (binaural, HOA and multi-point ambisonic rigs: ROADMAP, kernel K5)"
+        f"encoding {encoding!r} at {cl} listener points is not ported: the one-point rigs trace one point"
     )
 
 
@@ -111,13 +125,74 @@ def _halve_wavefront(state: tuple, n_sources: int, r_now: int, r_next: int) -> t
     return keep(origins), keep(dirs), keep(energy) * boost, keep(dist), keep(alive)
 
 
-def _bounce(gen, state, tris, table, tri_normals, face_absorption, face_scattering, face_occlusion,
-            listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding):
+def _rain_occlusion(hit, normal, face_safe, listener_pos, tris, vis) -> torch.Tensor:
+    """(C, TR) bool rain visibility of one bounce's hit points, True where
+    the listener point does not see the hit.
+
+    `vis` = (face_occlusion, star, occlusion, shared_visibility): a per-face
+    table is one gather by hit face; else, in the exact mode, each hit point
+    (moved 1e-4 off the surface) is queried toward the rig's centroid
+    (shared visibility) or toward every listener point, through the star
+    any-hit where a layout `star` was built and through the dense any-hit
+    where it was not (`occlusion`); a convex room is never blocked."""
+    face_occlusion, star, occlusion, shared = vis
+    cl, tr = listener_pos.shape[0], hit.shape[0]
+    if face_occlusion is not None:
+        return face_occlusion[:, face_safe].expand(cl, tr)
+    if star is None and not occlusion:
+        return torch.zeros((cl, tr), dtype=torch.bool, device=hit.device)
+    starts = (hit + 1e-4 * normal).contiguous()
+    if star is not None and shared:
+        return star_segments_occluded(star, starts, listener_pos.mean(dim=0))[None].expand(cl, tr)
+    if star is not None:
+        return torch.stack([star_segments_occluded(star, starts, listener_pos[i]) for i in range(cl)])
+    if shared and cl > 1:
+        center = listener_pos.mean(dim=0)
+        return segments_occluded(starts, center.expand(tr, 3), tris)[None].expand(cl, tr)
+    ends = listener_pos.repeat_interleave(tr, dim=0)
+    return segments_occluded(starts.repeat(cl, 1), ends, tris).reshape(cl, tr)
+
+
+def _unfused_deposit(hit, normal, e_refl, new_dist, hit_ok, occ, listener_pos, n_sources, n_bins, bin_dt,
+                     c, encoding, sh_order, band_freqs):
+    """The reference's unfused deposit chain for one listener point, folded
+    by the grouped histogram (K5): (E, C_out, B, n_bins).
+
+    The deposit e_refl cos(theta) / (4 pi^2 max(d, 1e-2)^2), masked by
+    visibility and range, is weighted by the gains of the arrival direction:
+    the ambisonic gains at `sh_order`, or the spherical head's per-band
+    power gains |H_ear|^2 for "binaural"."""
+    tr, n_bands = e_refl.shape
+    vec = listener_pos[:, None, :] - hit[None]
+    d_l = norm3(vec)
+    dir_l = vec / torch.clamp_min(d_l[..., None], 1e-9)
+    cos_th = torch.clamp_min(dot3(dir_l, normal[None]), 0.0)
+    visible = hit_ok[None] & ~occ & (cos_th > 0)
+    m = torch.clamp_min(d_l, 1e-2)
+    deposit = e_refl[None] * (cos_th / ((4.0 * math.pi**2) * (m * m)))[..., None] * visible[..., None]
+    arrival = (new_dist[None] + d_l) / c
+    bin_idx = torch.clamp((arrival / bin_dt).to(torch.int32), 0, n_bins - 1)
+    deposit = deposit * (arrival < n_bins * bin_dt)[..., None]
+    if encoding == "binaural":
+        gains = spherical_head_gains(-dir_l[0], band_freqs) ** 2  # (TR, 2, B)
+        weighted = deposit[0][:, None, :] * gains
+    else:
+        gains = ambisonic_encoding_gains(-dir_l[0], sh_order, encoding)  # (TR, C_out)
+        weighted = deposit[0][:, None, :] * gains[:, :, None]
+    c_out = weighted.shape[1]
+    r_src = tr // n_sources
+    add = bin_histogram(bin_idx[0].reshape(n_sources, r_src),
+                        weighted.reshape(n_sources, r_src, c_out * n_bands).contiguous(), n_bins)
+    return add.reshape(n_sources, n_bins, c_out, n_bands).permute(0, 2, 3, 1)
+
+
+def _bounce(gen, state, tris, table, tri_normals, face_absorption, face_scattering, vis,
+            listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs):
     """One bounce of the whole wavefront: (new state, histogram increment).
-    `table` is the first-hit face table of `tris`."""
+    `table` is the first-hit face table of `tris`; `vis` the rain-visibility
+    inputs of `_rain_occlusion`."""
     origins, dirs, energy, dist, alive = state
     tr = origins.shape[0]
-    cl = listener_pos.shape[0]
 
     t, face = ray_mesh_first_hit(origins, dirs, tris, table)
     finite = torch.isfinite(t)
@@ -131,18 +206,17 @@ def _bounce(gen, state, tris, table, tri_normals, face_absorption, face_scatteri
     normal = torch.where((dot3(normal, dirs) > 0)[:, None], -normal, normal)
     e_refl = energy * (1.0 - face_absorption[face_safe])
 
-    if face_occlusion is not None:
-        # Per-face rain visibility: one gather by hit face per bounce
-        occ = face_occlusion[:, face_safe].expand(cl, tr)
+    occ = _rain_occlusion(hit, normal, face_safe, listener_pos, tris, vis)
+    if encoding == "omni" or (encoding == "foa" and sh_order == 1):
+        deposit = deposit_histogram if encoding == "omni" else deposit_histogram_foa
+        add = deposit(
+            hit.contiguous(), normal.contiguous(), e_refl.contiguous(), new_dist.contiguous(),
+            (occ | ~hit_ok[None]).contiguous(), listener_pos,
+            n_sources=n_sources, n_bins=n_bins, bin_dt=bin_dt, c_sound=c,
+        )
     else:
-        # Convex enclosure: interior segments are never blocked
-        occ = torch.zeros((cl, tr), dtype=torch.bool, device=origins.device)
-    deposit = deposit_histogram if encoding == "omni" else deposit_histogram_foa
-    add = deposit(
-        hit.contiguous(), normal.contiguous(), e_refl.contiguous(), new_dist.contiguous(),
-        (occ | ~hit_ok[None]).contiguous(), listener_pos,
-        n_sources=n_sources, n_bins=n_bins, bin_dt=bin_dt, c_sound=c,
-    )
+        add = _unfused_deposit(hit, normal, e_refl, new_dist, hit_ok, occ, listener_pos, n_sources, n_bins,
+                               bin_dt, c, encoding, sh_order, band_freqs)
 
     spec_dir = dirs - (2.0 * dot3(dirs, normal))[:, None] * normal
     diff_dir = _cosine_hemisphere(gen, normal)
@@ -172,6 +246,9 @@ def trace_energy_histogram_multi(
     *,
     tri_normals: torch.Tensor = None,
     face_occlusion: torch.Tensor = None,
+    star=None,
+    occlusion: bool = False,
+    shared_visibility: bool = True,
     decimate: bool = False,
     encoding: str = "omni",
     sh_order: int = 1,
@@ -181,20 +258,29 @@ def trace_energy_histogram_multi(
     Arguments:
         tris: (F, 3, 3) triangles; face_absorption (F, B); face_scattering (F,).
         source_positions: (E, 3); listener_pos: (C, 3) omni capsules, or
-            (1, 3) the FOA listener point.
+            (1, 3) the one listener point of the other encodings.
         face_occlusion: (1 or C, F) bool rain-visibility table (True =
-            blocked), or None for a convex room (no occlusion).
+            blocked), the "face" rain mode.
+        star: an `ops.star_occlusion.StarAccel` of `tris` about the rig's
+            centroid: the "exact" rain mode through the star any-hit.
+        occlusion: without a table or a star, True queries each hit point
+            through the dense any-hit (the exact mode where no star layout
+            pays); False is a convex room, never blocked.
+        shared_visibility: the exact mode queries the rig's centroid once
+            per hit point (True) or every listener point.
         decimate: progressive wavefront decimation (see decimation_phases).
-        encoding, sh_order: "omni", or "foa" with tail order 1.
+        encoding, sh_order: "omni", "foa", "sh2", "sh3" or "binaural"; the
+            ambisonic tail encodes at `sh_order`, clipped to the layout's.
 
     Returns (E, C_out, B, n_bins) pressure^2 energies: C_out = C for omni;
-    [W, X, Y, Z] for FOA, X/Y/Z signed (energy times the arrival direction).
+    the ambisonic channels signed (energy times the arrival direction's
+    gains); [left, right] energies times each ear's power gain.
     """
     dev = tris.device
     n_sources = source_positions.shape[0]
     n_bands = face_absorption.shape[1]
     cl = listener_pos.shape[0]
-    _check_encoding(encoding, cl, sh_order)
+    _check_encoding(encoding, cl)
     c_out = encoding_channels(encoding, cl)
     total = n_sources * n_rays
     listener_pos = listener_pos.to(torch.float32).contiguous()
@@ -212,6 +298,8 @@ def trace_energy_histogram_multi(
     )
     hist = torch.zeros((n_sources, c_out, n_bands, n_bins), dtype=torch.float32, device=dev)
     table = first_hit_table(tris)
+    vis = (face_occlusion, star, bool(occlusion), bool(shared_visibility))
+    band_freqs = _band_centers(n_bands, dev)
     phases = decimation_phases(n_rays, max_depth, decimate)
     for pi, (start, end, r_src) in enumerate(phases):
         if pi > 0:
@@ -221,7 +309,7 @@ def trace_energy_histogram_multi(
                 break
             state, add = _bounce(
                 gen, state, tris, table, tri_normals, face_absorption, face_scattering,
-                face_occlusion, listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding,
+                vis, listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs,
             )
             hist += add
     return hist
@@ -271,9 +359,11 @@ def synthesize_ir_from_histogram(
     Band-limited Gaussian noise carriers are envelope-shaped so each bin's
     time-integrated squared pressure equals its energy. Omni capsules get
     independent carriers per capsule and band (diffuse-field decorrelation);
-    FOA shares one carrier per band across its 4 channels, and each channel's
-    envelope is its signed energy over sqrt(E_W) (first-order covariance
-    matching), so X/W carries the histogram's signed ratio.
+    the one-point encodings share one carrier per band across their
+    channels. An ambisonic channel's envelope is its signed energy over
+    sqrt(E_W) (covariance matching), so X/W carries the histogram's signed
+    ratio; each binaural ear's envelope is the square root of its own energy
+    (the shared carrier keeps the ears coherent).
     """
     *lead, c_out, n_bands, n_bins = hist.shape
     dev = hist.device
@@ -293,7 +383,7 @@ def synthesize_ir_from_histogram(
 
     # Ambisonics: W (unit gain) carries the energy, the other channels carry
     # signed direction-weighted energy
-    e_ref = hist if encoding == "omni" else torch.clamp_min(hist[..., 0:1, :, :], 0.0)
+    e_ref = hist if encoding in ("omni", "binaural") else torch.clamp_min(hist[..., 0:1, :, :], 0.0)
     env_bins = hist / torch.sqrt(torch.clamp_min(e_ref, 1e-20) * bin_samples)
     env = _interp_envelope(env_bins, n_samples, bin_samples)
     return torch.sum(carriers / torch.sqrt(var) * env, dim=-2).to(torch.float32)
@@ -318,6 +408,21 @@ def _linear_phase(delay_samp: torch.Tensor, n_samples: int) -> torch.Tensor:
     return torch.complex(torch.cos(phase), torch.sin(phase))
 
 
+def _binaural_direct_ir(dirs, amp, dist, n_samples: int, sr: int, c: float) -> torch.Tensor:
+    """Exact binaural direct paths of the analytic head: per-ear Woodworth
+    ITD and spherical-head shadow magnitude on the full rfft grid,
+    synthesised with a linear phase. dirs (E, 3) are receiver -> source unit
+    vectors, amp (E,) and dist (E,) the head-centre amplitude and distance;
+    arrivals outside [0, n_samples - 1) are dropped. Returns (E, 2, n_samples)."""
+    n_freq = n_samples // 2 + 1
+    freqs = torch.arange(n_freq, device=dirs.device) * (sr / n_samples)
+    mag = spherical_head_gains(dirs, freqs)  # (E, 2, F)
+    delay_samp = dist[:, None] * (sr / c) + woodworth_itd(dirs, c=c) * sr  # (E, 2)
+    in_range = (delay_samp >= 0.0) & (delay_samp < n_samples - 1)
+    spec = (amp[:, None] * in_range)[..., None] * mag * _linear_phase(delay_samp, n_samples)
+    return torch.fft.irfft(spec, n=n_samples, dim=-1).to(torch.float32)
+
+
 def direct_paths_ir(
     tris: torch.Tensor,
     source_positions: torch.Tensor,
@@ -330,8 +435,9 @@ def direct_paths_ir(
 ) -> torch.Tensor:
     """Exact direct paths for a batch of sources, with one occlusion query: a
     windowed sinc at delay d/c with amplitude visibility/(4 pi d), per omni
-    capsule, or at the FOA listener point encoded with the ambisonic gains
-    of the arrival direction at `sh_order` (clipped to the layout's order 1).
+    capsule, or at the one listener point encoded with the ambisonic gains
+    of the arrival direction at `sh_order` (clipped to the layout's order);
+    "binaural" renders the analytic head (`_binaural_direct_ir`).
     Returns (E, C_out, n_samples)."""
     source_positions = torch.atleast_2d(source_positions).to(torch.float32)
     listener_pos = torch.atleast_2d(listener_pos).to(torch.float32)
@@ -345,6 +451,9 @@ def direct_paths_ir(
     occ = segments_occluded(starts, ends, tris).reshape(n_src, cl)
     amps = (~occ).to(torch.float32) / (4.0 * math.pi * torch.clamp_min(d, 1e-2))
     delays = d * sr / c
+    if encoding == "binaural":
+        dirs = vec[:, 0] / torch.clamp_min(d[:, 0:1], 1e-9)
+        return _binaural_direct_ir(dirs, amps[:, 0], d[:, 0], n_samples, sr, c)
     if encoding != "omni":
         dirs = vec[:, 0] / torch.clamp_min(d[:, 0:1], 1e-9)
         gains = ambisonic_encoding_gains(dirs, sh_order, encoding)  # (E, C_out)
@@ -481,8 +590,9 @@ def _synth_bent_component(gain_b, path, bend, listener_pos, band_freqs, n_sample
 
     gain_b: (E, C, B) per-band amplitude gains (zero where inactive); path:
     (E, C) bent path lengths; bend: (E, 3) the last bend point, whose
-    direction from the listener encodes the arrival for FOA. Returns
-    (E, C_out, n_samples).
+    direction from the listener encodes the arrival at a one-point rig (the
+    ambisonic gains, or the spherical head's shadow magnitude and per-ear
+    Woodworth ITD phase on the spectrum). Returns (E, C_out, n_samples).
     """
     n_freq = n_samples // 2 + 1
     freqs = torch.arange(n_freq, device=gain_b.device) * (sr / n_samples)
@@ -492,6 +602,12 @@ def _synth_bent_component(gain_b, path, bend, listener_pos, band_freqs, n_sample
     # Bent paths longer than the IR window are dropped, not wrapped
     g_f = g_f * (delay_samp < n_samples - 1)[..., None]
     spec = g_f * _linear_phase(delay_samp, n_samples)
+    if encoding == "binaural":
+        dirs = bend - listener_pos  # (E, 3): listener -> last bend
+        dirs = dirs / torch.clamp_min(norm3(dirs, keepdim=True), 1e-9)
+        mag = spherical_head_gains(dirs, freqs)  # (E, 2, F)
+        spec_ear = spec[:, 0:1] * mag * _linear_phase(woodworth_itd(dirs, c=c) * sr, n_samples)
+        return torch.fft.irfft(spec_ear, n=n_samples, dim=-1).to(torch.float32)
     ir_caps = torch.fft.irfft(spec, n=n_samples, dim=-1).to(torch.float32)
     if encoding == "omni":
         return ir_caps
@@ -622,6 +738,9 @@ def trace_rirs_multi(
     *,
     tri_normals: torch.Tensor = None,
     face_occlusion: torch.Tensor = None,
+    star=None,
+    occlusion: bool = False,
+    shared_visibility: bool = True,
     tris_direct: torch.Tensor = None,
     diffraction: bool = False,
     diffraction_order: int = 1,
@@ -634,17 +753,19 @@ def trace_rirs_multi(
     """RIRs for a batch of sources against one listener group: stochastic
     tail on `tris` (the acoustic mesh) + exact direct path on `tris_direct`
     (default `tris`) + optional knife-edge diffraction. `encoding` is "omni"
-    (one channel per capsule) or "foa" (one listener point, [W, X, Y, Z]);
-    the direct and diffracted paths encode at `sh_order_direct`, the tail at
-    `sh_order_indirect`, each clipped to the layout's order. Returns
+    (one channel per capsule), or "foa", "sh2", "sh3" or "binaural" (one
+    listener point); the direct and diffracted paths encode at
+    `sh_order_direct`, the tail at `sh_order_indirect`, each clipped to the
+    layout's order. The tail's rain visibility is `face_occlusion`, `star`
+    or `occlusion` (see trace_energy_histogram_multi). Returns
     (C_out, E, n_samples)."""
     source_positions = torch.atleast_2d(source_positions)
     n_bins = int(np.ceil(n_samples / sr / bin_dt)) + 1
     hist = trace_energy_histogram_multi(
         gen, tris, face_absorption, face_scattering, source_positions, listener_pos,
         n_rays=n_rays, max_depth=max_depth, n_bins=n_bins, bin_dt=bin_dt, c=c,
-        tri_normals=tri_normals, face_occlusion=face_occlusion, decimate=decimate,
-        encoding=encoding, sh_order=sh_order_indirect,
+        tri_normals=tri_normals, face_occlusion=face_occlusion, star=star, occlusion=occlusion,
+        shared_visibility=shared_visibility, decimate=decimate, encoding=encoding, sh_order=sh_order_indirect,
     )  # (E, C_out, B, bins)
     band_freqs = _band_centers(face_absorption.shape[1], tris.device)
     irs = synthesize_ir_from_histogram(gen, hist, band_freqs, n_samples, bin_dt, sr=sr, encoding=encoding)

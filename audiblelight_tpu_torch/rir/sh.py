@@ -1,15 +1,19 @@
-"""Real spherical harmonics and the ambisonic receiver encodings (PyTorch).
+"""Real spherical harmonics and the receiver encodings (PyTorch).
 
-Counterpart of audiblelight_tpu/rir/sh.py for the ambisonic layouts: ACN
-ordering, SN3D normalisation, AmbiX FOA channels [W, X, Y, Z]. Coordinates as
-utils.polar_to_cartesian: +x front, +y left, +z up. The binaural head model
-is not ported (it belongs to the binaural rig's slice).
+Counterpart of audiblelight_tpu/rir/sh.py: the ambisonic layouts (ACN
+ordering, SN3D normalisation, AmbiX FOA channels [W, X, Y, Z]) and the
+analytic binaural head (Brown-Duda spherical-head shadow, Woodworth ITD).
+Coordinates as utils.polar_to_cartesian: +x front, +y left, +z up.
 
-The constants are the reference's f32 values (jnp.sqrt of a Python float
-rounds to f32 before the division), so the gains agree bit for bit.
+The SH constants are the reference's f32 values (jnp.sqrt of a Python float
+rounds to f32 before the division), so the gains agree bit for bit; the
+head model's Python-float constants round to f32 where they meet a tensor,
+as they do in the reference.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -85,3 +89,63 @@ def foa_encoding_gains(dirs: torch.Tensor) -> torch.Tensor:
     (receiver -> source) directions."""
     sh = sh_real(1, dirs)
     return torch.stack([sh[..., 0], sh[..., 3], sh[..., 1], sh[..., 2]], dim=-1)
+
+
+def binaural_encoding_gains(dirs: torch.Tensor) -> torch.Tensor:
+    """Broadband (..., 2) [left, right] head-shadow gains of (..., 3) arrival
+    directions: each ear a cardioid aimed at +-90 degrees azimuth. The
+    tracer's binaural encoding uses the frequency-resolved head below."""
+    y = dirs[..., 1]
+    return torch.stack([0.5 * (1.0 + y), 0.5 * (1.0 - y)], dim=-1)
+
+
+# Average human head radius (Duda & Martens 1998)
+HEAD_RADIUS_M = 0.0875
+
+
+def spherical_head_gains(dirs: torch.Tensor, freqs, c: float = 343.0,
+                         head_radius: float = HEAD_RADIUS_M) -> torch.Tensor:
+    """Per-frequency [left, right] magnitude gains of the Brown-Duda
+    spherical-head shadow model,
+
+        H(w, theta) = (1 + j alpha(theta) w / (2 w0)) / (1 + j w / (2 w0)),
+        w0 = c / a,   alpha(theta) = 1.05 + 0.95 cos(theta * 180 / 150),
+
+    theta the angle between the arrival (receiver -> source) direction and
+    the ear axis (+y left, -y right).
+
+    Arguments:
+        dirs: (..., 3) unit receiver -> source vectors.
+        freqs: (F,) frequencies in Hz.
+
+    Returns (..., 2, F) magnitudes ordered [left, right].
+    """
+    freqs = torch.as_tensor(freqs, dtype=torch.float32, device=dirs.device)
+    w_ratio = (2.0 * math.pi * freqs) * (head_radius / (2.0 * c))  # w / (2 w0)
+    y = torch.clamp(dirs[..., 1], -1.0, 1.0)
+    return torch.stack([spherical_head_shadow(y, w_ratio), spherical_head_shadow(-y, w_ratio)], dim=-2)
+
+
+def spherical_head_shadow(cos_to_ear: torch.Tensor, w_ratio: torch.Tensor) -> torch.Tensor:
+    """One ear's Brown-Duda shadow magnitude (..., F), from the cosine of the
+    angle between the arrival direction and the ear axis (...,) and
+    w_ratio = 2 pi f a / (2 c) (F,)."""
+    theta = torch.arccos(torch.clamp(cos_to_ear, -1.0, 1.0))
+    alpha = 1.05 + 0.95 * torch.cos(theta * (180.0 / 150.0))
+    num = 1.0 + (alpha[..., None] * w_ratio) ** 2
+    den = 1.0 + w_ratio**2
+    return torch.sqrt(num / den)
+
+
+def woodworth_itd(dirs: torch.Tensor, c: float = 343.0, head_radius: float = HEAD_RADIUS_M) -> torch.Tensor:
+    """(..., 2) per-ear arrival-time offsets (seconds) [left, right] from the
+    Woodworth formula, to add to the head-centre delay: the near ear leads
+    by (a/c) cos(theta), the far ear lags by (a/c)(theta - pi/2) once the
+    path wraps the head (theta from the ear axis)."""
+    y = torch.clamp(dirs[..., 1], -1.0, 1.0)
+
+    def ear(cos_th):
+        theta = torch.arccos(cos_th)
+        return (head_radius / c) * torch.where(theta < math.pi / 2.0, -cos_th, theta - math.pi / 2.0)
+
+    return torch.stack([ear(y), ear(-y)], dim=-1)

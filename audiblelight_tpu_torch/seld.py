@@ -17,11 +17,16 @@ event placed is built again. The same --seed places the same events as the
 reference script. `--device` (default cuda) selects where the placement
 queries and the render run; without a card the default raises.
 
+`--no-mesh-simplification` traces the full mesh with the exact rain mode
+(the star any-hit per bounce); such scenes, and every scene under
+`--no-device-mix`, render through the plan path (traced IR banks, device
+stems, host mix). `--pipeline compiled` renders every scene through the
+plan path, one `Scene.generate(compiled=True)` at a time.
+
 Not ported (raise, ROADMAP): --backend shoebox|sofa, --assets,
 --augmentations, --placement-workers > 0, --mesh-devices > 1,
---coordinator, --pipeline compiled|classic, --no-mesh-simplification (the
-exact rain mode, kernel K6) and --no-device-mix (the host-mix path).
---fused-batch is accepted and has no effect (one scene per render).
+--coordinator and --pipeline classic. --fused-batch is accepted and has no
+effect (one scene per render).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import numpy as np
 
 from audiblelight_tpu_torch import config, utils
 from audiblelight_tpu_torch.core import Scene, write_outputs
-from audiblelight_tpu_torch.pipeline import render_scenes
+from audiblelight_tpu_torch.pipeline import render_scene_audio_compiled, render_scenes
 from audiblelight_tpu_torch.render import _bucket
 from audiblelight_tpu_torch.utils import logger
 
@@ -99,9 +104,7 @@ def check_ported(args) -> None:
         (args.placement_workers > 0, "--placement-workers > 0", "pooled placement"),
         (args.mesh_devices > 1, "--mesh-devices > 1", "multi-device rendering"),
         (args.coordinator is not None, "--coordinator", "multi-device rendering"),
-        (args.pipeline != "fused", f"--pipeline {args.pipeline}", "the compiled and classic pipelines"),
-        (not args.mesh_simplification, "--no-mesh-simplification", "the exact rain mode, kernel K6"),
-        (not args.device_mix, "--no-device-mix", "the stems + host-mix path"),
+        (args.pipeline == "classic", "--pipeline classic", "the classic per-event pipeline"),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -199,9 +202,11 @@ def plan_kwargs(args) -> dict:
 
 
 def generate_fused(args, jobs: list, rng: np.random.Generator) -> list[float]:
-    """Place, render and write every job in order. Returns each rendered
-    scene's host-clock seconds, from the start of its placement to the end of
-    its writes."""
+    """Place, render and write every job in order: through `render_scenes`
+    (the fused renderer, or the plan path where it refuses a scene), or, for
+    `--pipeline compiled`, each scene through the plan path. Returns each
+    rendered scene's host-clock seconds, from the start of its placement to
+    the end of its writes."""
     paths, meshes, seconds = {}, {}, []
 
     def factory():
@@ -222,7 +227,11 @@ def generate_fused(args, jobs: list, rng: np.random.Generator) -> list[float]:
         seconds.append(time.perf_counter() - t0)
         logger.warning(f"wrote {audio_path.name} in {seconds[-1]:.3f} s")
 
-    render_scenes(factory(), complete, plan_kwargs=plan_kwargs(args))
+    if args.pipeline == "compiled":
+        for scene in factory():
+            complete(scene, render_scene_audio_compiled(scene))
+    else:
+        render_scenes(factory(), complete, plan_kwargs=plan_kwargs(args), device_mix=args.device_mix)
     return seconds
 
 

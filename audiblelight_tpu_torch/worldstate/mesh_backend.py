@@ -4,12 +4,14 @@ Counterpart of audiblelight_tpu/worldstate/mesh_backend.py.
 
 - `MeshDeviceState`, the device half: the engine configuration defaults, the
   acoustic LOD, per-face material tables with the Sabine area correction,
-  the diffraction-graph LOD and the per-face rain visibility table, built
-  from a TriMesh plus an engine-config dict.
+  the diffraction-graph LOD, the per-face rain visibility tables ("face"
+  rain mode) and the star occlusion layouts ("exact" rain mode), built from
+  a TriMesh plus an engine-config dict.
 - `WorldStateRLR`, the host half the Scene talks to: mesh and engine config,
   the placement `rng`, the validity tests placement runs (K2 and the
   point-in-mesh and surface-distance queries on the world state's device),
-  relative coordinates, serialisation, and the walk that seeds each trace.
+  relative coordinates, serialisation, the walk that seeds each trace, and
+  the trace of every microphone's IR bank (`trace_irs_device`, `get_irs`).
 
 The trace seeds come from a walk of their own, keyed by the world state's
 seed and a counter: they never draw from the placement streams, so the same
@@ -35,6 +37,7 @@ from audiblelight_tpu_torch.geometry.queries import (
     segments_occluded,
 )
 from audiblelight_tpu_torch.micarrays import MicArray
+from audiblelight_tpu_torch.ops.star_occlusion import build_star_accel
 from audiblelight_tpu_torch.rir.materials import (
     get_material_absorption,
     get_material_scattering,
@@ -69,9 +72,10 @@ ENGINE_FIELD_DEFAULTS = {
     "temporal_coherence": False,
     "dmin": 1.0,
     "hist_bin_dt": 0.002,
-    # "face" = precomputed per-face centroid visibility; "auto" = "face"
-    # whenever mesh_simplification is active, else "exact" (per-hit queries,
-    # which this package does not run).
+    # Diffuse-rain visibility: "exact" = one query per hit point (the star
+    # any-hit on big nonconvex meshes, else the dense one); "face" =
+    # precomputed per-face centroid visibility, one gather per bounce;
+    # "auto" = "face" whenever mesh_simplification is active, else "exact".
     "rain_visibility": "auto",
     "source_bucketing": True,
     "shared_visibility": True,
@@ -175,6 +179,7 @@ class MeshDeviceState:
             None if diffraction_graph_tris is None else self._tensor(diffraction_graph_tris)
         )
         self._rain_cache: dict = {}
+        self._star_cache: dict = {}
 
     @classmethod
     def from_mesh(cls, mesh: TriMesh, cfg: Optional[dict] = None,
@@ -208,6 +213,91 @@ class MeshDeviceState:
                 self.acoustic_tris, self.acoustic_normals, self._tensor(pts)
             )
         return self._rain_cache[key]
+
+    def star_accel_for(self, center, r_pad: float):
+        """The cached star occlusion layout of the acoustic mesh about
+        `center`, valid for segment ends within `r_pad` of it; keyed by the
+        centre rounded to 0.1 mm and r_pad. None where it does not pay: a
+        convex room, an acoustic mesh under GRID_ACCEL_MIN_FACES faces, or
+        too many faces near the centre (build_star_accel); the exact mode
+        then runs the dense any-hit."""
+        if self.convex or self.acoustic_tris.shape[0] < config.GRID_ACCEL_MIN_FACES:
+            return None
+        center = np.asarray(center, dtype=np.float64).reshape(3)
+        key = (tuple(np.round(center, 4).tolist()), round(float(r_pad), 4))
+        if key not in self._star_cache:
+            star = build_star_accel(self.acoustic_tris.cpu().numpy(), center, r_pad, device=self.device)
+            if star is None:
+                logger.info("Star occlusion layout does not pay here: the exact rain mode runs the dense any-hit")
+            else:
+                logger.info(f"Built occlusion structure: {star}")
+            self._star_cache[key] = star
+        return self._star_cache[key]
+
+    def rain_inputs(self, capsules, listeners) -> dict:
+        """The tracer's rain-visibility keywords (face_occlusion, star,
+        occlusion, shared_visibility) for a rig whose capsules are
+        `capsules` (C, 3) and whose traced listener points are `listeners`,
+        as the engine config's rain mode resolves them."""
+        shared = bool(self.cfg["shared_visibility"])
+        out = dict(face_occlusion=None, star=None, occlusion=not self.convex, shared_visibility=shared)
+        if self.convex:
+            return out
+        caps = np.atleast_2d(np.asarray(capsules, dtype=np.float64))
+        center = caps.mean(axis=0)
+        if rain_mode(self.cfg) == "face":
+            out["face_occlusion"] = self.rain_occlusion_for(center[None] if shared else listeners)
+        elif shared:
+            out["star"] = self.star_accel_for(center, r_pad=0.02)
+        else:
+            out["star"] = self.star_accel_for(center, float(np.linalg.norm(caps - center, axis=1).max()) + 0.02)
+        return out
+
+
+    def trace_rirs(self, gen: torch.Generator, sources: torch.Tensor, listeners: torch.Tensor,
+                   encoding: str, rain: dict) -> torch.Tensor:
+        """(C_out, E, L) RIRs of `sources` at `listeners` under this room's
+        engine config: the tail on the acoustic mesh with the rain
+        visibility `rain` (`rain_inputs`), the direct path on the full mesh,
+        and diffraction in a nonconvex room."""
+        from audiblelight_tpu_torch.rir.raytracer import trace_rirs_multi
+
+        cfg = self.cfg
+        sr = int(cfg["sample_rate"])
+        return trace_rirs_multi(
+            gen, self.acoustic_tris, self.absorption, self.scattering, sources, listeners,
+            n_samples=int(round(float(cfg["max_ir_length"]) * sr)),
+            sr=sr,
+            n_rays=int(cfg["indirect_ray_count"]),
+            max_depth=min(int(cfg["indirect_ray_depth"]), 200),
+            bin_dt=float(cfg["hist_bin_dt"]),
+            c=float(cfg["speed_of_sound"]),
+            tri_normals=self.acoustic_normals,
+            tris_direct=self.tris,
+            diffraction=bool(cfg["diffraction"]) and not self.convex,
+            diffraction_order=max(1, int(cfg["max_diffraction_order"])),
+            tris_diffraction_graph=self.diffraction_graph_tris,
+            decimate=bool(cfg["ray_decimation"]),
+            encoding=encoding,
+            sh_order_direct=int(cfg["direct_sh_order"]),
+            sh_order_indirect=int(cfg["indirect_sh_order"]),
+            **rain,
+        )
+
+
+# Tracer encoding of each one-point channel layout
+LAYOUT_ENCODINGS = {"foa": "foa", "hoa2": "sh2", "hoa3": "sh3", "binaural": "binaural"}
+
+
+def mic_encoding(mic: MicArray) -> tuple:
+    """(tracer encoding, traced listener points (P, 3), capsules (C, 3)) of
+    a placed microphone: every capsule for "mic" layouts (omni), the rig's
+    centre for the one-point layouts."""
+    caps = np.atleast_2d(np.asarray(utils.coerce2d(mic.coordinates_absolute), dtype=np.float64))
+    if mic.channel_layout_type == "mic":
+        return "omni", caps, caps
+    centre = np.atleast_2d(np.asarray(utils.coerce2d(mic.coordinates_center), dtype=np.float64))
+    return LAYOUT_ENCODINGS[mic.channel_layout_type], centre, caps
 
 
 class _EngineContext:
@@ -400,6 +490,74 @@ class WorldStateRLR(PlacementMixin, WorldState):
 
     def _rain_mode(self) -> str:
         return rain_mode(self.cfg)
+
+    # ------------------------------------------------------------------
+    # Simulation
+    # ------------------------------------------------------------------
+
+    def simulate(self) -> None:
+        """Trace the IRs of every (microphone, emitter) pair."""
+        self._irs = None
+        self._irs = self.get_irs()
+
+    def get_irs(self) -> OrderedDict:
+        """{mic alias: (C_out, n_emitters, n_samples)} IRs as host numpy
+        arrays (also kept on each mic as `mic.irs`)."""
+        out = OrderedDict()
+        for alias, irs in self.trace_irs_device().items():
+            out[alias] = self.microphones[alias].irs = irs.cpu().numpy()
+        return out
+
+    @property
+    def irs(self) -> OrderedDict:
+        """The simulated IRs, taken to the host from the last device trace
+        where only `trace_irs_device` has run."""
+        cached = getattr(self, "_irs_device_cache", None)
+        if self._irs is None and cached is not None:
+            self._irs = OrderedDict((a, v.cpu().numpy()) for a, v in cached[1].items())
+            for a, arr in self._irs.items():
+                self.microphones[a].irs = arr
+        return super().irs
+
+    def trace_irs_device(self) -> OrderedDict:
+        """Trace the IRs of every microphone, {alias: (C_out, E, L)} tensors
+        on the world state's device, as the reference traces them: emitters
+        padded to the next power of two with the first one (source
+        bucketing, dropped after the trace), one trace per microphone with
+        its own seed from the trace walk, the rain visibility of the engine
+        config's mode. One trace per configuration: a second call with the
+        same room, config, emitters and microphones returns the first's."""
+        self._update()
+        if self.num_emitters == 0 or not self.microphones:
+            raise ValueError("add microphones and emitters before tracing")
+        st = self.device_state
+        cache_key = (
+            id(st),
+            tuple(np.round(self._emitter_positions().ravel(), 6).tolist()),
+            tuple((a, m.name, m.channel_layout_type,
+                   tuple(np.round(np.ravel(m.coordinates_absolute), 6).tolist()))
+                  for a, m in self.microphones.items()),
+        )
+        cached = getattr(self, "_irs_device_cache", None)
+        if cached is not None and cached[0] == cache_key:
+            return cached[1]
+        src = self._emitter_positions().astype(np.float32)
+        n_src = len(src)
+        if bool(self.cfg["source_bucketing"]):
+            bucket = 1
+            while bucket < n_src:
+                bucket *= 2
+            src = np.concatenate([src, np.tile(src[:1], (bucket - n_src, 1))])
+        sources = self._points(src)
+        out = OrderedDict()
+        for alias, mic in self.microphones.items():
+            encoding, listeners, caps = mic_encoding(mic)
+            listeners_t = self._points(listeners)
+            gen = torch.Generator(device=self.device).manual_seed(self.split_key())
+            irs = st.trace_rirs(gen, sources, listeners_t, encoding, st.rain_inputs(caps, listeners))
+            out[alias] = irs[:, :n_src]
+        self._irs_device_cache = (cache_key, out)
+        return out
 
     # ------------------------------------------------------------------
     # Serialisation

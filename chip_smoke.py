@@ -17,7 +17,16 @@ shapes, then drives the port's two main paths:
   width, their WAVs, CSVs and JSONs checked; then one FOA scene traced
   again, K4 held against its plain version on that trace's own bounces, its
   direct paths checked for arrival time and direction, and the FOA scene
-  timed and profiled.
+  timed and profiled;
+- the exact rain mode (the default engine config: the full 110,592-face
+  mesh, one star any-hit query per bounce): one flagship-width scene
+  through `Scene.generate()`, one MIC scene of the CLI with
+  `--no-mesh-simplification`, and K6 held against its plain version and the
+  dense any-hit on that scene's own bounces;
+- the HOA3 and binaural rigs: one flagship scene each through the fused
+  renderer (the unfused deposit chain folded by K5), written as int16 WAVs
+  of 16 and 2 channels, their direct paths checked for direction (HOA3)
+  and for the Woodworth ITD and the ILD's sign (binaural).
 
 Each path's kernel launches are counted from zero just before it and read
 just after; a kernel of the path that did not launch fails the run. It
@@ -32,6 +41,7 @@ from __future__ import annotations
 
 import csv
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -73,9 +83,12 @@ CLI_FLAGS = ["--backend", "rlr", "--n-scenes", "2", "--duration", "60", "--rays"
              "--ray-depth", "60", "--ray-decimation", "--ir-seconds", "1.0",
              "--min-events-static", "4", "--max-events-static", "4",
              "--min-events-moving", "1", "--max-events-moving", "1", "--seed", "7"]
-KERNELS = ("first_hit_big", "first_hit_small", "any_hit", "deposit_histogram_foa", "deposit_histogram")
+KERNELS = ("first_hit_big", "first_hit_small", "any_hit", "deposit_histogram_foa", "deposit_histogram",
+           "bin_histogram", "star_any_hit")
 MIC_PATH = ("first_hit_big", "any_hit", "deposit_histogram")
 FOA_PATH = ("first_hit_big", "any_hit", "deposit_histogram_foa")
+EXACT_PATH = ("first_hit_big", "any_hit", "deposit_histogram", "star_any_hit")
+RIG_PATH = ("first_hit_big", "any_hit", "bin_histogram")
 
 
 def fail(msg: str) -> None:
@@ -102,6 +115,13 @@ def time_ms(fn, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def is_kernel(key: str, name: str) -> bool:
+    """Is the profiler's event `key` ("(anonymous namespace)::any_hit_kernel(
+    float const*, ...)", or its mangled form) the kernel `name`? Not a
+    longer name that ends in it: "any_hit" is not "star_any_hit"."""
+    return re.search(rf"(^|[^A-Za-z_]){name}_kernel", key) is not None
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple:
@@ -132,13 +152,13 @@ def any_hit_pairs(starts, ends, tris) -> int:
     return int(torch.where(first < f, first + 1, f).sum())
 
 
-def check_cli_outputs(out: Path, layout: str, t_scene: int) -> None:
-    """The CLI's DCASE layout for two train scenes: a 4-channel 24 kHz int16
-    WAV each, not silent; a CSV each with frames in 0-600 and the four
+def check_cli_outputs(out: Path, layout: str, t_scene: int, n_scenes: int = 2) -> None:
+    """The CLI's DCASE layout for `n_scenes` train scenes: a 4-channel 24 kHz
+    int16 WAV each, not silent; a CSV each with frames in 0-600 and the four
     classes' ids; a JSON each."""
     from audiblelight_tpu_torch.io.audio import _read_header, wav_read
 
-    stems = [f"dev-train-alight/fold1_scene1_{i:03d}" for i in range(2)]
+    stems = [f"dev-train-alight/fold1_scene1_{i:03d}" for i in range(n_scenes)]
     want = sorted([f"{layout}_dev/{s}_mic000.wav" for s in stems] + [f"metadata_dev/{s}.json" for s in stems]
                   + [f"metadata_dev/{s}_mic000.csv" for s in stems])
     got = sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file())
@@ -159,6 +179,96 @@ def check_cli_outputs(out: Path, layout: str, t_scene: int) -> None:
             fail(f"{wav}: not a 4-channel {SR} Hz int16 WAV of {t_scene} frames with sound")
         if not rows or any(len(r) != 6 or not 0 <= r[0] <= 600 or r[1] not in CLI_CLASSES.values() for r in rows):
             fail(f"{s}: bad DCASE CSV")
+
+
+def star_windows_on(star, tris: torch.Tensor) -> tuple:
+    """(centres, padded half-widths) of the narrow faces' azimuth windows of
+    `star`, built from `tris` (the acoustic mesh), on the card."""
+    from audiblelight_tpu_torch.ops import star_occlusion as so
+
+    _, _, cen, half = so.star_windows(tris.cpu().numpy(), star.center.cpu().numpy(), star.r_pad)
+    return (torch.as_tensor(cen, dtype=torch.float32, device=tris.device),
+            torch.as_tensor(half, dtype=torch.float32, device=tris.device))
+
+
+def star_pairs(star, windows, starts, end, blocked) -> tuple:
+    """(pairs the kernel's block x tile cull tests without its early exits,
+    pairs this data needs): for each free segment, every narrow face whose
+    own window (`windows`, from star_windows_on) holds the segment's azimuth
+    and every wide face; one face for each blocked segment."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.ops import star_occlusion as so
+
+    order, o, _, _, brange = so._star_inputs(star, starts, end)
+    overlap = ck.star_tile_overlap(brange, star.tile_meta)
+    tested = (int(overlap.sum()) * ck.STAR_TILE_FACES + brange.shape[1] * star.n_wide) * ck.STAR_BLOCK
+    free = starts[~blocked]
+    az = torch.atan2(free[:, 1] - star.center[1], free[:, 0] - star.center[0])
+    cen, half = windows
+    holds = 0
+    for i0 in range(0, az.shape[0], 1024):
+        d = cen[None, :] - az[i0 : i0 + 1024, None]
+        d = d - 2.0 * np.pi * torch.floor(d / (2.0 * np.pi) + 0.5)
+        holds += int((d.abs() <= half[None, :]).sum())
+    needed = holds + free.shape[0] * star.n_wide + int(blocked.sum())
+    return tested, needed
+
+
+def check_binaural(irs: torch.Tensor, direct: torch.Tensor, src: np.ndarray, free: np.ndarray, win: int) -> None:
+    """The binaural rig's direct paths against the Woodworth head, for each
+    unoccluded source: on the traced IRs `irs` (2, E, L), the near ear peaks
+    within 2 samples of d/c plus its Woodworth offset; on their direct
+    component `direct` (2, E, L), both ears do, and the near ear is the
+    louder for a source clearly to one side. Where the traced IRs' far-ear
+    peak is off its arrival, or their ILD over the direct windows has the
+    wrong sign, the rest of the IR (tail and diffraction, `irs - direct`)
+    must outweigh the shadowed direct path there."""
+    from audiblelight_tpu_torch.rir.sh import woodworth_itd
+
+    irs, direct = irs.cpu().numpy(), direct.cpu().numpy()
+    rest = irs - direct
+    near_off, direct_off, far_off, ild_wrong, ild_wrong_direct, unexplained = [], [], [], [], 0, []
+    for e in np.flatnonzero(free):
+        vec = src[e] - np.array(MIC_CENTRE)
+        dist_e = np.linalg.norm(vec)
+        u = torch.as_tensor(vec / dist_e, dtype=torch.float32)[None]
+        ear_s = dist_e / 343.0 * SR + woodworth_itd(u).numpy()[0] * SR  # (2,) per-ear arrivals
+        near = int(np.argmin(ear_s))
+        lo = [max(int(ear_s[k]) - win, 0) for k in range(2)]
+        peak_t = [lo[k] + int(np.argmax(np.abs(irs[k, e, lo[k] : int(ear_s[k]) + win]))) for k in range(2)]
+        peak_d = [lo[k] + int(np.argmax(np.abs(direct[k, e, lo[k] : int(ear_s[k]) + win]))) for k in range(2)]
+        near_off.append(abs(peak_t[near] - ear_s[near]))
+        direct_off.append(max(abs(peak_d[k] - ear_s[k]) for k in range(2)))
+        far = 1 - near
+        if abs(peak_t[far] - ear_s[far]) > 2.0:
+            ratio = abs(rest[far, e, peak_t[far]]) / max(abs(direct[far, e, peak_t[far]]), 1e-30)
+            far_off.append(f"source {e}: {peak_t[far] - ear_s[far]:+.2f} samples, |rest / direct| there {ratio:.3g}")
+            if ratio <= 1.0:
+                unexplained.append(f"source {e}: far-ear peak {peak_t[far] - ear_s[far]:+.2f} samples off")
+        if abs(float(u[0, 1])) <= 0.2:  # not clearly to one side
+            continue
+
+        def energy(x, k):
+            a = max(int(round(ear_s[k])) - 24, 0)
+            return float(np.sum(x[k, e, a : a + 48] ** 2))
+
+        side = np.sign(float(u[0, 1]))  # ear 0 (left, +y) is near for side > 0
+        ild_wrong_direct += np.sign(energy(direct, 0) - energy(direct, 1)) != side
+        if np.sign(energy(irs, 0) - energy(irs, 1)) != side:
+            ild_wrong.append(int(e))
+            k_far = 1 if side > 0 else 0
+            if energy(rest, k_far) <= energy(direct, k_far):
+                unexplained.append(f"source {e}: traced ILD sign wrong")
+    n_lat = sum(abs(src[e][1] - MIC_CENTRE[1]) / np.linalg.norm(src[e] - np.array(MIC_CENTRE)) > 0.2
+                for e in np.flatnonzero(free))
+    print(f"binaural direct paths: {len(near_off)} of {N_SOURCES} sources unoccluded; traced IRs: max |near-ear "
+          f"peak - (d/c + Woodworth ITD)| {max(near_off, default=float('nan')):.2f} samples, far-ear peak more than 2 "
+          f"samples off: {far_off}, ILD sign over the direct windows wrong for {len(ild_wrong)} of "
+          f"{n_lat} lateral sources {ild_wrong}, each held by the tail and diffraction outweighing the shadowed "
+          f"direct path: {not unexplained}; direct component: max |ear peak - (d/c + Woodworth ITD)| "
+          f"{max(direct_off, default=float('nan')):.2f} samples, ILD sign wrong for {ild_wrong_direct} of {n_lat}")
+    if not near_off or max(near_off) > 2.0 or max(direct_off) > 2.0 or ild_wrong_direct or unexplained:
+        fail(f"binaural direct paths off the Woodworth ITD or the ILD's sign {unexplained}")
 
 
 def flagship_inputs(mesh_tris: torch.Tensor, rng: np.random.Generator, dev):
@@ -227,6 +337,7 @@ def main() -> int:
     from audiblelight_tpu_torch.micarrays import ambeovr_capsules
     from audiblelight_tpu_torch.ops import build
     from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.ops import star_occlusion as so
     from audiblelight_tpu_torch.pipeline import FusedSceneRenderer, write_wav
     from audiblelight_tpu_torch.render import ScenePlan
     from audiblelight_tpu_torch.rir.raytracer import _sphere_directions
@@ -410,6 +521,87 @@ def main() -> int:
     )
     del any_rows, legs, rain, h_k, h_p, foa_args
 
+    # K6 in the exact rain mode's room state (the full mesh is the acoustic
+    # mesh): 80k hit points of one bounce on the 110,592 faces, toward the
+    # AmbeoVR centroid and toward one capsule; K1 timed there too
+    from audiblelight_tpu_torch.worldstate.mesh_backend import MeshDeviceState
+
+    st_x = MeshDeviceState.from_mesh(mesh, dict(ENGINE, mesh_simplification=False, rain_visibility="auto",
+                                                ray_decimation=False), device=dev)
+    table_x = ck.first_hit_table(st_x.tris)
+    t_x, face_x = ck.ray_first_hit(origins, dirs, st_x.tris, table_x)
+    ok_x = torch.isfinite(t_x)
+    hit_x = origins + torch.where(ok_x, t_x, 0.0)[:, None] * dirs
+    n_x = st_x.acoustic_normals[face_x.clamp_min(0).long()]
+    n_x = torch.where(((n_x * dirs).sum(-1) > 0)[:, None], -n_x, n_x)
+    starts_x = (hit_x + 1e-4 * n_x)[ok_x].contiguous()
+    b_ms, b_by = bound_ms(r * n_full * FLOPS_BIG_PAIR, r * 24 + n_full * 64 + r * 8)
+    k1_full_ms = time_ms(lambda: ck.ray_first_hit(origins, dirs, st_x.tris, table_x), reps=5)
+    print(f"first_hit_big on the full mesh: {r} rays x {n_full} faces: {k1_full_ms:.3f} ms per launch, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    centroid = caps.mean(axis=0)
+    r_caps = float(np.linalg.norm(caps - centroid, axis=1).max()) + 0.02
+    for label, end, r_pad in (("centroid", listeners.mean(dim=0), 0.02), ("capsule 0", listeners[0], r_caps)):
+        star = st_x.star_accel_for(centroid, r_pad)
+        if star is None:
+            fail(f"no star layout toward the {label}")
+        seg_k = so.star_segments_occluded(star, starts_x, end)
+        seg_p = so.star_segments_occluded_plain(star, starts_x, end)
+        ends_x = end.expand(starts_x.shape[0], 3).contiguous()
+        seg_d = ck.segments_occluded(starts_x, ends_x, st_x.tris)
+        torch.cuda.synchronize()
+        bad_p, bad_d = int((seg_k != seg_p).sum()), int((seg_k != seg_d).sum())
+        tested, needed = star_pairs(star, star_windows_on(star, st_x.tris), starts_x, end, seg_k)
+        n_seg = starts_x.shape[0]
+        print(f"check star_any_hit toward the {label} ({star}): {n_seg} segments x {n_full} faces: mismatches "
+              f"{bad_p} against its plain version, {bad_d} against any_hit; blocked {float(seg_k.float().mean()):.3f}; "
+              f"pairs tested by the block cull {tested} ({tested / (n_seg * n_full):.2%} of {n_seg * n_full} "
+              f"dense), needed by this data {needed}", flush=True)
+        if bad_p or bad_d:
+            fail(f"star_any_hit disagrees toward the {label}")
+        k6_ms = time_ms(lambda: so.star_segments_occluded(star, starts_x, end))
+        k2_ms = time_ms(lambda: ck.segments_occluded(starts_x, ends_x, st_x.tris), reps=3)
+        b_ms, b_by = bound_ms(needed * FLOPS_MT_PAIR, n_seg * 12 + n_full * 36 + n_seg)
+        print(f"star_any_hit toward the {label}: {k6_ms:.4f} ms; any_hit on the same segments {k2_ms:.4f} ms; "
+              f"bound {b_ms:.5f} ms ({b_by})", flush=True)
+        if "star_any_hit" not in results:
+            results["star_any_hit"] = dict(
+                max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, ms=k6_ms, library_ms=k2_ms,
+                plain_ms=time_ms(lambda: so.star_segments_occluded_plain(star, starts_x, end), reps=3),
+            )
+
+    # K5 at the flagship bounce of the HOA3 (16 channels x 4 bands) and
+    # binaural (2 x 4) rigs: 16 sources x 5,000 rays, 501 bins; bins from
+    # that bounce's arrivals at the rig's centre, some rays out of range
+    d_c = norm3(torch.tensor(MIC_CENTRE, device=dev) - hit)
+    bins5 = ((dist + d_c) / 343.0 / 0.002).to(torch.int32).reshape(16, 5000)
+    bins5 = torch.where(bins5 < 501, bins5, -1).contiguous()
+    for label, k in (("hoa3", 64), ("binaural", 8)):
+        dep5 = (torch.rand(16, 5000, k, generator=g2, device=dev) * 1e-6).contiguous()
+        h_k = ck.bin_histogram(bins5, dep5, 501)
+        h_p = ck.bin_histogram_plain(bins5, dep5, 501)
+        bins_bad = int(((h_k != 0) != (h_p != 0)).sum())
+        peak = h_p.abs().amax().clamp_min(1e-30)
+        err = float((h_k - h_p).abs().max())
+        ok5 = bool(((h_k - h_p).abs() <= 1e-5 * h_p.abs() + 1e-6 * peak).all())
+        print(f"check bin_histogram {label}: (16, 5000, {k}) -> {tuple(h_k.shape)}: bin mismatches {bins_bad}, "
+              f"max |diff| {err:.3e}, max |diff| / peak {err / float(peak):.3e}", flush=True)
+        if bins_bad or not ok5:
+            fail(f"bin_histogram disagrees with its plain version ({label})")
+        flat5 = (torch.arange(16, device=dev)[:, None] * 501 + bins5.clamp_min(0)).reshape(-1).long()
+        vals5 = torch.where((bins5 >= 0)[..., None], dep5, 0.0).reshape(-1, k)
+        out5 = torch.zeros(16 * 501, k, device=dev)
+        b_ms, b_by = bound_ms(16 * 5000 * k, 16 * 5000 * (4 * k + 4) + h_k.numel() * 4)
+        res5 = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                    ms=time_ms(lambda: ck.bin_histogram(bins5, dep5, 501)),
+                    plain_ms=time_ms(lambda: ck.bin_histogram_plain(bins5, dep5, 501), reps=3),
+                    library_ms=time_ms(lambda: out5.index_add_(0, flat5, vals5)))
+        print(f"bin_histogram {label}: {res5['ms']:.4f} ms, plain {res5['plain_ms']:.4f} ms, index_add_ "
+              f"{res5['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+        if label == "hoa3":
+            results["bin_histogram"] = res5
+    del t_x, face_x, hit_x, n_x, seg_k, seg_p, seg_d, ends_x
+
     # 4. The main path: three flagship scenes through the fused renderer
     OUT.mkdir(parents=True, exist_ok=True)
     scenes = [flagship_inputs(st.tris, np.random.default_rng(100 + i), dev) for i in range(3)]
@@ -524,7 +716,7 @@ def main() -> int:
     for ev in avgs:
         t_dev = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0)) / 1e3
         for name in MIC_PATH:
-            if f"{name}_kernel" in ev.key and t_dev > 0:
+            if is_kernel(ev.key, name) and t_dev > 0:
                 per_scene[name] = (t_dev, ev.count)
     for name, (t_ms, n) in sorted(per_scene.items()):
         print(f"per scene: {name} {t_ms:.3f} ms over {n} launches")
@@ -646,19 +838,206 @@ def main() -> int:
     for ev in avgs_f:
         t_dev = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0)) / 1e3
         for name in FOA_PATH:
-            if f"{name}_kernel" in ev.key and t_dev > 0:
+            if is_kernel(ev.key, name) and t_dev > 0:
                 print(f"FOA per scene: {name} {t_dev:.3f} ms over {ev.count} launches")
     print(f"CLI scene time: median {np.median(cli_seconds['mic'] + cli_seconds['foa']):.3f} s (host clock, "
           f"placement, render and writes) over {len(cli_seconds['mic'] + cli_seconds['foa'])} scenes on {card}")
 
-    main_launches = dict(launches, deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"])
+    # 10. The exact rain mode: one flagship-width scene through
+    # Scene.generate() with the default engine config (no mesh
+    # simplification: the full mesh, one star query per bounce), then one MIC
+    # scene of the CLI with --no-mesh-simplification
+    from audiblelight_tpu_torch import utils as tutils
+
+    exact_dir = OUT / "exact"
+    shutil.rmtree(exact_dir, ignore_errors=True)
+    exact_dir.mkdir(parents=True)
+    tutils.seed_everything(11)
+    t0 = time.time()
+    xscene = Scene(duration=SCENE_SECONDS, sample_rate=SR, backend="rlr", fg_path=fg, max_overlap=2,
+                   backend_kwargs=dict(mesh=str(room_obj), seed=11, add_to_context=False), device=dev)
+    xscene.add_microphone(microphone_type="ambeovr")
+    for event_type in ["static"] * N_STATIC + ["moving"]:
+        try:
+            xscene.add_event(event_type=event_type, max_place_attempts=100)
+        except ValueError as err:
+            print(f"exact scene: could not place a {event_type} event: {err}")
+    xscene.add_ambience(noise="gaussian")
+    xcfg = xscene.state.cfg
+    print(f"exact scene: placed {len(xscene.events)} events ({xscene.state.num_emitters} emitters) in "
+          f"{time.time() - t0:.2f} s; rain mode {xscene.state._rain_mode()}, {xcfg['indirect_ray_count']} rays x "
+          f"{xcfg['indirect_ray_depth']} bounces, decimation {xcfg['ray_decimation']}", flush=True)
+    if xscene.state._rain_mode() != "exact" or not xscene.events:
+        fail("the default engine config did not give an exact-mode scene with events")
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    xscene.generate(output_dir=exact_dir)
+    torch.cuda.synchronize()
+    exact_s = time.time() - t0
+    exact_launches = dict(ck.launch_counts)
+    xaudio = xscene.audio["mic000"]
+    print(f"exact scene: Scene.generate() in {exact_s:.3f} s (host clock, render and writes); launches "
+          f"{exact_launches}; star_any_hit {exact_launches['star_any_hit']} per scene, one per bounce "
+          f"({exact_launches['first_hit_big']} bounces); first_hit_big {k1_full_ms:.3f} ms per 80k-ray launch at "
+          f"{n_full} faces; audio {xaudio.dtype} {xaudio.shape}, peak {float(np.abs(xaudio).max()):.4f}",
+          flush=True)
+    for name in EXACT_PATH:
+        if exact_launches[name] <= 0:
+            fail(f"the exact scene never launched {name}")
+    if exact_launches["star_any_hit"] != exact_launches["first_hit_big"]:
+        fail("the exact scene did not query the star once per bounce")
+    if xaudio.shape != (4, t_scene) or float(np.abs(xaudio).max()) * 32768 < 100:
+        fail("the exact scene's audio is misshapen or silent")
+    want_files = ["audio_out_mic000.wav", "metadata_out.json", "metadata_out_mic000.csv"]
+    if sorted(p.name for p in exact_dir.iterdir()) != want_files:
+        fail(f"the exact scene wrote {sorted(p.name for p in exact_dir.iterdir())}")
+    exact_main = dict(exact_launches)
+
+    # Where the exact scene's trace goes: its trace again (a fresh seed from
+    # the world state's walk), by CUDA events and under the profiler
+    def exact_trace():
+        xscene.state._irs_device_cache = None
+        xscene.state.trace_irs_device()
+
+    exact_trace_ms = time_ms(exact_trace, reps=1)
+    avgs_x, busy_x = profiled(exact_trace, "exact trace profile")
+    print(f"exact trace time (CUDA events): {exact_trace_ms:.3f} ms; device idle share "
+          f"{1 - busy_x / exact_trace_ms:.1%} (profiler busy over CUDA-event time)")
+    for ev in avgs_x:
+        t_dev = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0)) / 1e3
+        for name in EXACT_PATH:
+            if is_kernel(ev.key, name) and t_dev > 0:
+                print(f"exact per trace: {name} {t_dev:.3f} ms over {ev.count} launches")
+
+    argv = ["--fg-dir", str(fg), "--output-dir", str(cli_root / "exact"), "--mesh", str(room_obj),
+            "--channel-layout", "mic", *CLI_FLAGS, "--n-scenes", "1", "--no-mesh-simplification"]
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    x_cli_s = seld.main(argv)
+    torch.cuda.synchronize()
+    x_cli = dict(ck.launch_counts)
+    print(f"SELD CLI mic --no-mesh-simplification: {len(x_cli_s)} scene in {time.time() - t0:.2f} s; host clock "
+          f"per scene {', '.join(f'{x:.3f}' for x in x_cli_s)} s; launches {x_cli}", flush=True)
+    for name in EXACT_PATH:
+        if x_cli[name] <= 0:
+            fail(f"the exact CLI run never launched {name}")
+    check_cli_outputs(cli_root / "exact", "mic", t_scene, n_scenes=1)
+
+    # K6 again on that CLI scene's own bounces: its trace, loaded from the
+    # JSON, keeps the star's inputs at the first and the last bounce of each
+    # decimation phase (keyed by ray count)
+    xs = Scene.from_json(sorted((cli_root / "exact" / "metadata_dev").rglob("*.json"))[0], device=dev)
+    kept_star, windows = {}, {}
+
+    def keep_star(star, starts, end):
+        kept = kept_star.setdefault(starts.shape[0], [])
+        kept[min(len(kept), 1):] = [(star, starts.clone(), end.clone())]
+        return so.star_segments_occluded(star, starts, end)
+
+    raytracer.star_segments_occluded = keep_star
+    try:
+        xs.state.trace_irs_device()
+    finally:
+        raytracer.star_segments_occluded = so.star_segments_occluded
+    if len(kept_star) != 3:
+        fail(f"the exact trace ran K6 at ray counts {sorted(kept_star)}, expected three decimation phases")
+    for rays, kept in sorted(kept_star.items(), reverse=True):
+        for which, (star, starts, end) in zip(("first", "last"), kept):
+            seg_k = so.star_segments_occluded(star, starts, end)
+            seg_p = so.star_segments_occluded_plain(star, starts, end)
+            ends = end.expand(rays, 3).contiguous()
+            seg_d = ck.segments_occluded(starts, ends, xs.state.device_state.tris)
+            bad_p, bad_d = int((seg_k != seg_p).sum()), int((seg_k != seg_d).sum())
+            if id(star) not in windows:
+                windows[id(star)] = star_windows_on(star, xs.state.device_state.acoustic_tris)
+            tested, needed = star_pairs(star, windows[id(star)], starts, end, seg_k)
+            b_ms, b_by = bound_ms(needed * FLOPS_MT_PAIR, rays * 12 + n_full * 36 + rays)
+            print(f"check star_any_hit at the exact scene's {which} bounce of {rays} segments: mismatches {bad_p} "
+                  f"against its plain version, {bad_d} against any_hit; blocked {float(seg_k.float().mean()):.3f}; "
+                  f"{time_ms(lambda: so.star_segments_occluded(star, starts, end)):.4f} ms, any_hit "
+                  f"{time_ms(lambda: ck.segments_occluded(starts, ends, xs.state.device_state.tris), reps=3):.4f} ms, "
+                  f"pairs tested {tested} of {rays * n_full}, needed {needed}, bound {b_ms:.5f} ms ({b_by})",
+                  flush=True)
+            if bad_p or bad_d:
+                fail(f"star_any_hit disagrees at the exact scene's bounce of {rays} segments")
+    del kept_star, windows, xs
+
+    # 11. The HOA3 and binaural rigs at the rig's centre: the first
+    # flagship scene through the fused renderer (per-face rain table, K5 per
+    # bounce), written as int16 WAVs; the direct paths of the unoccluded
+    # sources checked for direction (HOA3: the order-1 channels at the W
+    # peak of the traced IRs) and for the Woodworth ITD and the ILD's sign
+    # (binaural: the traced IRs and their direct-path component)
+    src, s_idx, m_idx, plan, amb = scenes[0]
+    src_t, s_idx_t, m_idx_t = (torch.as_tensor(x, device=dev) for x in (src, s_idx, m_idx))
+    lis_c = torch.tensor([MIC_CENTRE], dtype=torch.float32, device=dev)
+    occ_c = st.rain_occlusion_for(np.array([MIC_CENTRE]))
+    free_c = ~ck.segments_occluded(lis_c.expand(N_SOURCES, 3).contiguous(), src_t, st.tris).cpu().numpy()
+    rig_main, rig_ms = {}, {}
+    for layout, n_ch in (("hoa3", 16), ("binaural", 2)):
+        rend = FusedSceneRenderer(st, 1, BUCKETS, N_SOURCES, t_scene, layout=layout)
+        splan = ScenePlan.from_numpy(plan, dev)
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        wav = rend.render_mix(torch.Generator(device=dev).manual_seed(21), src_t, lis_c, occ_c, s_idx_t, m_idx_t,
+                              splan, *amb)
+        torch.cuda.synchronize()
+        rig_s = time.time() - t0
+        rig_main[layout] = dict(ck.launch_counts)
+        peak = int(wav.abs().max())
+        path = write_wav(OUT / f"{layout}.wav", wav, SR)
+        print(f"{layout} scene: {path.relative_to(REPO)} {tuple(wav.shape)} {wav.dtype}, peak {peak}; "
+              f"{rig_s:.3f} s (host clock, first); launches {rig_main[layout]}", flush=True)
+        if wav.dtype != torch.int16 or tuple(wav.shape) != (n_ch, t_scene) or peak < 100:
+            fail(f"{layout} scene: payload {wav.dtype} {tuple(wav.shape)}, peak {peak}")
+        for name in RIG_PATH:
+            if rig_main[layout][name] <= 0:
+                fail(f"the {layout} scene never launched {name}")
+        if rig_main[layout]["bin_histogram"] != rig_main[layout]["first_hit_big"]:
+            fail(f"the {layout} scene did not fold with K5 once per bounce")
+        rig_ms[layout] = time_ms(lambda: rend.render_mix(torch.Generator(device=dev).manual_seed(5), src_t, lis_c,
+                                                          occ_c, s_idx_t, m_idx_t, splan, *amb), reps=3)
+        irs = rend.trace(torch.Generator(device=dev).manual_seed(7), src_t, lis_c, occ_c)
+        if layout == "hoa3":
+            irs = irs.cpu().numpy()
+            offs, worst = [], []
+            for e in np.flatnonzero(free_c):
+                vec = src[e] - np.array(MIC_CENTRE)
+                dist_e = np.linalg.norm(vec)
+                expect_s = dist_e / 343.0 * SR
+                lo = max(int(expect_s) - win, 0)
+                peak_i = lo + int(np.argmax(np.abs(irs[0, e, lo : int(expect_s) + win])))
+                offs.append(abs(peak_i - expect_s))
+                xyz = irs[[3, 1, 2], e, peak_i] / irs[0, e, peak_i]
+                cosang = float(xyz @ vec / (np.linalg.norm(xyz) * dist_e))
+                worst.append(float(np.degrees(np.arccos(np.clip(cosang, -1.0, 1.0)))))
+            print(f"HOA3 direct paths: {len(offs)} of {N_SOURCES} sources unoccluded; max |W peak - d/c| "
+                  f"{max(offs, default=float('nan')):.2f} samples; max angle of the order-1 channels over W to the "
+                  f"source {max(worst, default=float('nan')):.2f} deg")
+            if not offs or max(offs) > 2.0 or max(worst) > 5.0:
+                fail("HOA3 direct paths off their arrival time or direction")
+        else:
+            check_binaural(irs, raytracer.direct_paths_ir(st.tris, src_t, lis_c, irs.shape[-1], sr=SR,
+                                                          encoding="binaural").transpose(0, 1),
+                           src, free_c, win)
+    print(f"rig scene time (CUDA events): HOA3 {rig_ms['hoa3']:.3f} ms, binaural {rig_ms['binaural']:.3f} ms on "
+          f"{card}")
+
+    main_launches = dict(launches, deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"],
+                         star_any_hit=exact_main["star_any_hit"], bin_histogram=rig_main["hoa3"]["bin_histogram"])
     sources = {"first_hit_big": "first_hit.cu", "any_hit": "any_hit.cu", "deposit_histogram": "deposit_histogram.cu",
-               "deposit_histogram_foa": "deposit_histogram_foa.cu"}
+               "deposit_histogram_foa": "deposit_histogram_foa.cu", "bin_histogram": "bin_histogram.cu",
+               "star_any_hit": "star_any_hit.cu"}
     replaces = {
         "first_hit_big": "audiblelight_tpu/ops/pallas_kernels.py:46",
         "any_hit": "audiblelight_tpu/ops/pallas_kernels.py:375",
         "deposit_histogram": "audiblelight_tpu/ops/pallas_kernels.py:594",
         "deposit_histogram_foa": "audiblelight_tpu/ops/pallas_kernels.py:738",
+        "bin_histogram": "audiblelight_tpu/ops/pallas_kernels.py:509",
+        "star_any_hit": "audiblelight_tpu/ops/star_occlusion.py:257",
     }
     line = {"kernels": [
         dict(name=name, route="cuda", source=f"audiblelight_tpu_torch/csrc/{sources[name]}",

@@ -9,15 +9,20 @@ installed, without the JAX conftest:
 
 Tolerances: face indices, occlusion booleans and first-hit t identical (the
 kernels are built with --fmad=false, and eager PyTorch never contracts a
-multiply-add); deposit histograms (K3 and the FOA K4) with the same bins and
-sums within 1e-5 of the peak (atomics add in another order).
+multiply-add); the star any-hit (K6) identical to its plain version and to
+the dense any-hit (K2); deposit histograms (K3 and the FOA K4) and the
+grouped histogram (K5) with the same bins and sums within 1e-5 of the peak
+(atomics add in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from audiblelight_tpu_torch.geometry.mesh import scanned_like_room
+from audiblelight_tpu_torch.micarrays import ambeovr_capsules
 from audiblelight_tpu_torch.ops import cuda_kernels as ck
+from audiblelight_tpu_torch.ops import star_occlusion as so
 
 
 def random_tris(seed, n):
@@ -111,15 +116,74 @@ def test_each_wrapper_counts_its_launch(card):
     args = [torch.from_numpy(x).to(card) for x in deposit_inputs(rng, 2, 64, 2, 4, 20.0)]
     foa = [torch.from_numpy(x).to(card) for x in deposit_inputs(rng, 2, 64, 1, 4, 20.0)]
     kw = dict(n_sources=2, n_bins=51, bin_dt=0.002, c_sound=343.0)
+    bins = torch.from_numpy(rng.integers(-1, 51, (2, 64)).astype(np.int32)).to(card)
+    dep = torch.from_numpy(rng.random((2, 64, 8)).astype(np.float32)).to(card)
+    star = so.build_star_accel(tris.cpu().numpy(), [0.0, 0.0, 0.0], device=card)
     ck.reset_launch_counts()
     ck.ray_first_hit_plain(o, o, tris)
     ck.segments_occluded_plain(o, o + 1.0, tris)
     ck.deposit_histogram_plain(*args, **kw)
     ck.deposit_histogram_foa_plain(*foa, **kw)
+    ck.bin_histogram_plain(bins, dep, 51)
+    so.star_segments_occluded_plain(star, o, torch.zeros(3, device=card))
     assert all(v == 0 for v in ck.launch_counts.values())
     ck.ray_first_hit(o, torch.from_numpy(unit_dirs(rng, 64)).to(card), tris)
     ck.segments_occluded(o, o + 1.0, tris)
     ck.deposit_histogram(*args, **kw)
     ck.deposit_histogram_foa(*foa, **kw)
+    ck.bin_histogram(bins, dep, 51)
+    so.star_segments_occluded(star, o, torch.zeros(3, device=card))
     assert ck.launch_counts == {"first_hit_big": 1, "first_hit_small": 0, "any_hit": 1, "deposit_histogram": 1,
-                                "deposit_histogram_foa": 1}
+                                "deposit_histogram_foa": 1, "bin_histogram": 1, "star_any_hit": 1}
+
+
+@pytest.fixture(scope="module")
+def scanned_room():
+    """27,648 faces: the flagship room one subdivision level down."""
+    return scanned_like_room(extents=(7.0, 5.0, 3.0), subdivision_levels=4, seed=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_seg,kind,toward", [(3000, "surface", "centroid"), (20000, "interior", "capsule"),
+                                               (100, "surface", "capsule")])
+def test_star_matches_plain_and_dense(card, scanned_room, n_seg, kind, toward):
+    """K6 on surface and interior starts, toward the rig's centroid (r_pad
+    0.02) and toward a capsule (r_pad the capsules' reach + 0.02), one block
+    and many."""
+    tris = scanned_room.triangles.astype(np.float32)
+    caps = ambeovr_capsules([3.5, 2.5, 1.5]).astype(np.float32)
+    centre = caps.mean(axis=0)
+    r_pad = 0.02 if toward == "centroid" else float(np.linalg.norm(caps - centre, axis=1).max()) + 0.02
+    end = centre if toward == "centroid" else caps[1]
+    rng = np.random.default_rng(n_seg)
+    if kind == "interior":
+        starts = rng.uniform([0.05, 0.05, 0.05], [6.95, 4.95, 2.95], (n_seg, 3)).astype(np.float32)
+    else:
+        fi = rng.integers(0, len(tris), n_seg)
+        w = rng.dirichlet([1.0, 1.0, 1.0], n_seg).astype(np.float32)
+        starts = np.einsum("nk,nkd->nd", w, tris[fi]).astype(np.float32)
+        starts += np.float32(1e-4) * np.sign(end - starts).astype(np.float32)
+    star = so.build_star_accel(tris, centre, r_pad, device=card)
+    s_t = torch.from_numpy(starts).to(card)
+    e_t = torch.from_numpy(end).to(card)
+    got = so.star_segments_occluded(star, s_t, e_t)
+    assert torch.equal(got, so.star_segments_occluded_plain(star, s_t, e_t))
+    dense = ck.segments_occluded(s_t, e_t.expand(n_seg, 3).contiguous(), torch.from_numpy(tris).to(card))
+    assert torch.equal(got, dense)
+    assert 0 < int(got.sum()) < n_seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 8], ids=["hoa3", "binaural"])
+def test_bin_histogram_matches_plain(card, k):
+    """K5 at the flagship bounce shapes: 16 sources x 5,000 rays, HOA3 (16
+    channels x 4 bands) and binaural (2 x 4), 501 bins, some bins negative."""
+    rng = np.random.default_rng(k)
+    bins = rng.integers(-20, 501, (16, 5000)).astype(np.int32)
+    dep = (rng.standard_normal((16, 5000, k)) * 1e-4).astype(np.float32)
+    b_t, d_t = torch.from_numpy(bins).to(card), torch.from_numpy(dep).to(card)
+    got = ck.bin_histogram(b_t, d_t, 501)
+    want = ck.bin_histogram_plain(b_t, d_t, 501)
+    assert got.shape == (16, 501, k)
+    assert torch.equal(got != 0, want != 0)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()

@@ -8,7 +8,9 @@ its JSONs equal (but for the creation time) to those of the reference
 script's own `build_scene` and `generate_dcase2024_metadata` for the same
 --seed (the reference render is not run: the metadata depends only on the
 placement); its WAVs are 4-channel 24 kHz int16 and not silent. A second run
-skips the finished scenes, and every unported flag raises.
+skips the finished scenes, every unported flag raises, and the flags that
+take the plan path (`--pipeline compiled`, `--no-device-mix`,
+`--no-mesh-simplification`) write the same files.
 """
 
 import importlib
@@ -129,7 +131,7 @@ def test_cli_resumes(run):
 @pytest.mark.parametrize("flags", [
     ["--backend", "shoebox"], ["--backend", "sofa"], ["--assets", "9A"], ["--augmentations", "reverse"],
     ["--placement-workers", "2"], ["--mesh-devices", "2"], ["--coordinator", "localhost:1"],
-    ["--pipeline", "compiled"], ["--pipeline", "classic"], ["--no-mesh-simplification"], ["--no-device-mix"],
+    ["--pipeline", "classic"],
 ], ids=lambda f: " ".join(f))
 def test_cli_unported_flags_raise(tmp_path, flags):
     argv = ["--fg-dir", str(tmp_path), "--output-dir", str(tmp_path / "out"), "--backend", "rlr",
@@ -137,3 +139,23 @@ def test_cli_unported_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         seld.main(argv)
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("flags", [["--pipeline", "compiled"], ["--no-device-mix"], ["--no-mesh-simplification"]],
+                         ids=lambda f: " ".join(f))
+def test_cli_plan_path_flags(run, flags):
+    """The plan path (traced IR banks, device stems, host mix and bed) writes
+    the fused path's files and WAVs with sound. Its first scene's CSV is the
+    fused run's; the host bed draws from numpy's global stream, which the
+    next scene's placement draws from too, as in the reference."""
+    root, layout, _ = run
+    name = f"plan_{layout}_{flags[-1].strip('-')}"
+    seconds = seld.main(_argv(root, layout, name) + ["--device", "cpu"] + flags)
+    out, fused = root / name, root / f"port_{layout}"
+    assert len(seconds) == 2
+    assert sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file()) == _names(layout)
+    first = "metadata_dev/dev-train-alight/fold1_scene1_000_mic000.csv"
+    assert (out / first).read_text() == (fused / first).read_text()
+    for wav in out.rglob("*.wav"):
+        data, sr = wav_read(wav)
+        assert sr == 24000 and data.shape == (4, 4 * 24000) and np.abs(data).max() > 100 / 32768
