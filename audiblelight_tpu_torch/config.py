@@ -1,4 +1,11 @@
-"""Constants of the port (values as in audiblelight_tpu.config)."""
+"""Constants of the port (values as in audiblelight_tpu.config).
+
+The two optional first-hit routes of the tracer's bounce loop,
+USE_TILED_FIRST_HIT (K7) and USE_MXU_FIRST_HIT (K8), are off as in the
+reference. The reference also requires a TPU for them; the port takes the
+route a flag selects on every device, as it does the star any-hit: its plain
+version on the CPU, its kernel on the card.
+"""
 
 SAMPLE_RATE = 44100
 
@@ -49,8 +56,19 @@ RAY_TRACER_FREQUENCY_BANDS = 4
 USE_CUDA_KERNELS = True
 
 # Meshes at or above this face count get an acoustic LOD for the multi-bend
-# diffraction graph legs (worldstate.mesh_backend.MeshDeviceState).
+# diffraction graph legs (worldstate.mesh_backend.MeshDeviceState), and, with
+# USE_TILED_FIRST_HIT, a tile layout for K7 when the full mesh is traced.
 GRID_ACCEL_MIN_FACES = 16384
+
+# Reachability-culled first hit (ops/tiled_first_hit.py, K7) when the full
+# mesh is traced: exact, but the reference measured it at par with its dense
+# kernel (each block's early exit waits for its worst, grazing ray).
+USE_TILED_FIRST_HIT = False
+# Bilinear first hit (ops/mxu_first_hit.py, K8) on meshes of at most
+# MXU_F_MAX faces: its 2 % window slop lets a neighbouring face win near an
+# edge, and its bf16 form on the TPU lost the decay time, so it stays off.
+USE_MXU_FIRST_HIT = False
+
 # Face budget of the vertex-clustered acoustic LOD when the engine config's
 # `mesh_simplification` is True.
 MESH_SIMPLIFICATION_TARGET_FACES = 4096

@@ -3,8 +3,9 @@
 // Replaces audiblelight_tpu/ops/pallas_kernels.py:ray_first_hit_pallas, both
 // of its bodies: _first_hit_big_kernel (F > 512, centred coordinates and the
 // precomputed 16-column face table [e2, w2, -e1, -w1, -n, -k]) and
-// _first_hit_small_kernel (F <= 512, classic Moller-Trumbore). The two
-// formulations round differently in f32, so each is kept as written.
+// _first_hit_small_kernel (F <= 512, classic Moller-Trumbore, whose pair
+// arithmetic lives in mt_pair.cuh and is shared with the tiled first hit).
+// The two formulations round differently in f32, so each is kept as written.
 //
 // Bound on this card: fp32 ALU. Every (ray, face) pair costs ~30 flops and
 // the face table is tiny next to the work (4,071 faces x 64 B = 260 KB), so
@@ -19,6 +20,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mt_pair.cuh"
 
 namespace {
 
@@ -87,25 +90,10 @@ __global__ void first_hit_small_kernel(const float* __restrict__ o,    // (R, 3)
   int best_f = -1;
   for (int f = 0; f < n_faces; ++f) {
     const float* c = tab + 9 * f;
-    const float ax = __ldg(c + 0), ay = __ldg(c + 1), az = __ldg(c + 2);
-    const float e1x = __ldg(c + 3), e1y = __ldg(c + 4), e1z = __ldg(c + 5);
-    const float e2x = __ldg(c + 6), e2y = __ldg(c + 7), e2z = __ldg(c + 8);
-
-    const float hx = dy * e2z - dz * e2y;
-    const float hy = dz * e2x - dx * e2z;
-    const float hz = dx * e2y - dy * e2x;
-    const float a = e1x * hx + e1y * hy + e1z * hz;
-    const bool valid_a = fabsf(a) > kEps;
-    const float inv = 1.0f / (valid_a ? a : 1.0f);
-    const float sx = ox - ax, sy = oy - ay, sz = oz - az;
-    const float u = inv * (sx * hx + sy * hy + sz * hz);
-    const float qx = sy * e1z - sz * e1y;
-    const float qy = sz * e1x - sx * e1z;
-    const float qz = sx * e1y - sy * e1x;
-    const float v = inv * (dx * qx + dy * qy + dz * qz);
-    const float t = inv * (e2x * qx + e2y * qy + e2z * qz);
-    const bool hit = valid_a && (u >= -kEps) && (u <= kOnePlusEps) && (v >= -kEps) &&
-                     (u + v <= kOnePlusEps) && (t > kEps);
+    float t;
+    const bool hit = mt_pair::first_hit(__ldg(c + 0), __ldg(c + 1), __ldg(c + 2), __ldg(c + 3), __ldg(c + 4),
+                                        __ldg(c + 5), __ldg(c + 6), __ldg(c + 7), __ldg(c + 8), ox, oy, oz, dx,
+                                        dy, dz, &t);
     const float t_hit = hit ? t : kBig;
     if (t_hit < best_t) {
       best_t = t_hit;

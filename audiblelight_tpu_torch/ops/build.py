@@ -2,9 +2,9 @@
 
 Each source is compiled on its own into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), at first use, into
-`audiblelight_tpu_torch/_build/<hash>/`, keyed by a hash of the source and the
-flags. `build_all` starts one nvcc per source at once and waits for all of
-them. Nothing here runs at import time.
+`audiblelight_tpu_torch/_build/<hash>/`, keyed by a hash of the source, the
+shared headers (`csrc/*.cuh`) and the flags. `build_all` starts one nvcc per
+source at once and waits for all of them. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ SOURCES = {
     "deposit_histogram_foa": "deposit_histogram_foa.cu",
     "bin_histogram": "bin_histogram.cu",
     "star_any_hit": "star_any_hit.cu",
+    "tiled_first_hit": "tiled_first_hit.cu",
+    "mxu_first_hit": "mxu_first_hit.cu",
 }
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -52,7 +54,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / digest / f"lib{name}.so"
 
 

@@ -11,6 +11,10 @@ audiblelight_tpu/ops/star_occlusion.py:
 - `bin_histogram`       <- bin_histogram_pallas
 - `star_any_hit`        <- star_segments_occluded's kernel (the glue around
   it, azimuth sort and block ranges, is ops/star_occlusion.py)
+- `first_hit_tiled`     <- tiled_first_hit's kernel (the glue, ray sort and
+  per-block tile order, is ops/tiled_first_hit.py)
+- `first_hit_mxu`       <- mxu_first_hit's kernel (the glue, ray vectors and
+  the exact plane re-evaluation, is ops/mxu_first_hit.py)
 
 Each wrapper prepares its inputs in PyTorch (the same preparation feeds the
 kernel and the plain version), then runs the plain version when the tensors
@@ -42,7 +46,8 @@ _MARGIN = 1e-4
 _CHUNK_ELEMS = 1 << 22
 
 launch_counts = {"first_hit_big": 0, "first_hit_small": 0, "any_hit": 0, "deposit_histogram": 0,
-                 "deposit_histogram_foa": 0, "bin_histogram": 0, "star_any_hit": 0}
+                 "deposit_histogram_foa": 0, "bin_histogram": 0, "star_any_hit": 0, "first_hit_tiled": 0,
+                 "first_hit_mxu": 0}
 
 
 def reset_launch_counts() -> None:
@@ -199,10 +204,14 @@ def _first_hit_big_plain(o, d, tab):
 
 def _mt_pair(o, d, c):
     """Classic Moller-Trumbore for rays (R, 1) x faces c = (9, 1, Fc):
-    (valid_a, u, v, t), as the Pallas small and any-hit bodies write it."""
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = c
+    (inside the window, t), as the Pallas small and any-hit bodies write it."""
+    return _mt_pair_xyz(o[:, 0:1], o[:, 1:2], o[:, 2:3], d[:, 0:1], d[:, 1:2], d[:, 2:3], c)
+
+
+def _mt_pair_xyz(ox, oy, oz, dx, dy, dz, c):
+    """`_mt_pair` on ray components and face rows c = (9, ...) that
+    broadcast against them (csrc/mt_pair.cuh, term for term)."""
+    ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = c[:9]
     hx = dy * e2z - dz * e2y
     hy = dz * e2x - dx * e2z
     hz = dx * e2y - dy * e2x
@@ -646,3 +655,202 @@ def star_any_hit(o, d, length, brange, narrow_tab, tile_meta, wide_tab, n_wide: 
              r_pad, n_tiles, int(n_wide), _ptr(out), _stream(o))
     _raise_on(err, "star_any_hit")
     return out.to(torch.bool)
+
+
+# ---------------------------------------------------------------------------
+# K7: tiled first hit (reachability-culled, distance-ordered, early exit)
+# ---------------------------------------------------------------------------
+
+TILED_BLOCK = 512  # sorted rays per block (kBlock in csrc/tiled_first_hit.cu)
+TILED_TILE_FACES = 256  # Morton-sorted faces per tile (kTileFaces)
+DONE_CHECK_EVERY = 4  # tiles between early-exit tests (kDoneCheckEvery)
+_IDX_BIG = 2**30
+
+
+def _tiled_reachable(bmeta, tile_aabb, tl):
+    """(n_blocks,) bool: is tile tl[b] reachable from block b? The kernel's
+    per-axis half-space test on the block's origin box and direction signs."""
+    om, o_max, dm, d_max = bmeta[0:3].T, bmeta[3:6].T, bmeta[6:9].T, bmeta[9:12].T
+    lo, hi = tile_aabb[0:3].T[tl], tile_aabb[3:6].T[tl]
+    behind = ((dm >= 0.0) & (hi < om)) | ((d_max <= 0.0) & (lo > o_max))
+    return ~behind.any(dim=1)
+
+
+def tiled_walk_plain(o, d, bmeta, perm, dlo, face_tab, tile_aabb):
+    """The kernel's walk in plain PyTorch (any device), vectorised over
+    blocks: (best t (R_pad,) with 3e38 on a miss, original face (R_pad,)
+    with -1 on a miss, tiles tested per block (n_blocks,) int64).
+
+    Step i takes each block's tile perm[:, i] where it is reachable and the
+    block is not done; every DONE_CHECK_EVERY steps a block whose worst best
+    t is not above the next tile's bound is done. Each kept pair goes through
+    `_mt_pair_xyz`, and each ray keeps the smallest (t, original index)."""
+    r_pad, n_tiles = o.shape[0], tile_aabb.shape[1]
+    nb = r_pad // TILED_BLOCK
+    dev = o.device
+    ob = o.reshape(nb, TILED_BLOCK, 1, 3)
+    db = d.reshape(nb, TILED_BLOCK, 1, 3)
+    faces = face_tab.reshape(n_tiles, TILED_TILE_FACES, 10)
+    best_t = torch.full((nb, TILED_BLOCK), _BIG, dtype=torch.float32, device=dev)
+    best_i = torch.full((nb, TILED_BLOCK), _IDX_BIG, dtype=torch.int32, device=dev)
+    done = torch.zeros(nb, dtype=torch.bool, device=dev)
+    visited = torch.zeros(nb, dtype=torch.int64, device=dev)
+    per_chunk = max(1, _CHUNK_ELEMS // (TILED_BLOCK * TILED_TILE_FACES))
+    perm = perm.long()
+    for i in range(n_tiles):
+        tl = perm[:, i]
+        blocks = torch.nonzero(~done & _tiled_reachable(bmeta, tile_aabb, tl)).flatten()
+        for b0 in range(0, blocks.numel(), per_chunk):
+            b = blocks[b0 : b0 + per_chunk]
+            c = faces[tl[b]].permute(2, 0, 1)[:, :, None, :]  # (10, A, 1, 256)
+            ox, oy, oz = ob[b].unbind(-1)
+            dx, dy, dz = db[b].unbind(-1)
+            in_tri, t = _mt_pair_xyz(ox, oy, oz, dx, dy, dz, c)
+            hit = in_tri & (t > _EPS) & (c[9] >= 0.0)
+            t_hit = torch.where(hit, t, _BIG)
+            f_hit = torch.where(hit, c[9].to(torch.int32), _IDX_BIG)
+            t_min = t_hit.amin(dim=2)
+            i_min = torch.where(t_hit == t_min[..., None], f_hit, _IDX_BIG).amin(dim=2)
+            bt, bi = best_t[b], best_i[b]
+            better = (t_min < bt) | ((t_min == bt) & (i_min < bi))
+            best_t[b] = torch.where(better, t_min, bt)
+            best_i[b] = torch.where(better, i_min, bi)
+        visited[blocks] += 1
+        if i % DONE_CHECK_EVERY == DONE_CHECK_EVERY - 1:
+            worst = best_t.amax(dim=1)
+            nxt = dlo[:, min(i + 1, n_tiles - 1)]
+            done |= (worst < _BIG) & ((worst <= nxt) | (i + 1 >= n_tiles))
+            if bool(done.all()):
+                break
+    best_t, best_i = best_t.reshape(-1), best_i.reshape(-1)
+    return best_t, torch.where(best_t >= _BIG, -1, best_i), visited
+
+
+def first_hit_tiled_plain(o, d, bmeta, perm, dlo, face_tab, tile_aabb):
+    """Plain PyTorch version of `first_hit_tiled` (any device)."""
+    t, idx, _ = tiled_walk_plain(o, d, bmeta, perm, dlo, face_tab, tile_aabb)
+    return t, idx
+
+
+def first_hit_tiled(o, d, bmeta, perm, dlo, face_tab, tile_aabb):
+    """First hit of sorted rays against Morton-tiled faces.
+
+    Arguments:
+        o, d: (R_pad, 3) origins and directions, sorted (octant, origin
+            cell); R_pad is a multiple of TILED_BLOCK.
+        bmeta: (12, n_blocks) per block of TILED_BLOCK rays: least and most
+            origin, least and most direction, per axis.
+        perm: (n_blocks, n_tiles) int32 each block's tiles in ascending
+            order of `dlo` (n_blocks, n_tiles), the distance lower bounds.
+        face_tab: (n_tiles * TILED_TILE_FACES, 10) rows [a, e1, e2, original
+            index] (index -1 on padding); tile_aabb: (6, n_tiles).
+
+    Returns (t (R_pad,), original face (R_pad,) int32): t = 3e38 and face =
+    -1 on a miss. On equal t the smallest original index wins, so the result
+    is the dense classic Moller-Trumbore first hit over the original faces
+    (`ray_first_hit` with `dense_mt_table`) wherever the early exit's bound
+    is not met with equality.
+    """
+    if not _on_card(o):
+        return first_hit_tiled_plain(o, d, bmeta, perm, dlo, face_tab, tile_aabb)
+    r_pad, dev = o.shape[0], o.device
+    n_tiles = tile_aabb.shape[1]
+    nb = r_pad // TILED_BLOCK
+    if r_pad % TILED_BLOCK or n_tiles == 0:
+        raise ValueError(f"first_hit_tiled: {r_pad} rays are not whole blocks of {TILED_BLOCK}, or no tiles")
+    _check("origins", o, (r_pad, 3), torch.float32, dev)
+    _check("dirs", d, (r_pad, 3), torch.float32, dev)
+    _check("block boxes", bmeta, (12, nb), torch.float32, dev)
+    _check("tile order", perm, (nb, n_tiles), torch.int32, dev)
+    _check("tile bounds", dlo, (nb, n_tiles), torch.float32, dev)
+    _check("face table", face_tab, (n_tiles * TILED_TILE_FACES, 10), torch.float32, dev)
+    _check("tile boxes", tile_aabb, (6, n_tiles), torch.float32, dev)
+    t = torch.empty(r_pad, dtype=torch.float32, device=dev)
+    idx = torch.empty(r_pad, dtype=torch.int32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _lib("tiled_first_hit", "first_hit_tiled", [vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, vp, vp])
+    launch_counts["first_hit_tiled"] += 1
+    err = fn(_ptr(o), _ptr(d), _ptr(bmeta), _ptr(perm), _ptr(dlo), _ptr(face_tab), _ptr(tile_aabb),
+             r_pad, n_tiles, _ptr(t), _ptr(idx), _stream(o))
+    _raise_on(err, "first_hit_tiled")
+    return t, idx
+
+
+def dense_mt_table(tris: torch.Tensor) -> tuple:
+    """A `first_hit_table` that runs the classic Moller-Trumbore variant at
+    any face count: the dense first hit with the tiled kernel's arithmetic."""
+    return "small", None, mt_face_table(tris)
+
+
+# ---------------------------------------------------------------------------
+# K8: bilinear ("MXU") first hit with a launch-face mask
+# ---------------------------------------------------------------------------
+
+MXU_PACKED_COLS = 19  # u [e2, w2], v [-e1, -w1], a [-n], t [n, -k] (kCols)
+MXU_EPS_UV = 0.02  # relative barycentric slop
+MXU_T_EPS = 1.0e-4  # least hit distance (m)
+_MXU_DET_EPS = 1.0e-6
+
+
+def _dot_left(r, c, cols):
+    """sum_k r[k] * c[cols[k]], summed left to right as the kernel sums it."""
+    acc = r[0] * c[cols[0]]
+    for k in range(1, len(cols)):
+        acc = acc + r[k] * c[cols[k]]
+    return acc
+
+
+def first_hit_mxu_plain(rvec, prev, packed):
+    """Plain PyTorch version of `first_hit_mxu` (any device)."""
+    r, f = rvec.shape[0], packed.shape[0]
+    rv = [rvec[:, k : k + 1] for k in range(9)]
+    skip = prev[:, None]
+    best_t = torch.full((r,), _BIG, dtype=torch.float32, device=rvec.device)
+    best_i = torch.full((r,), -1, dtype=torch.int32, device=rvec.device)
+    step = _face_chunk(r, f)
+    for f0 in range(0, f, step):
+        c = packed[f0 : f0 + step].T[:, None, :]  # (19, 1, Fc)
+        u_num = _dot_left(rv[0:6], c, range(0, 6))
+        v_num = _dot_left(rv[0:6], c, range(6, 12))
+        det = _dot_left(rv[3:6], c, range(12, 15))
+        t_num = _dot_left(rv[6:9], c, range(15, 18)) + c[18]
+        valid = det.abs() > _MXU_DET_EPS
+        inv = 1.0 / torch.where(valid, det, torch.ones_like(det))
+        u = u_num * inv
+        v = v_num * inv
+        t = t_num * inv
+        lane = torch.arange(f0, f0 + c.shape[2], device=rvec.device, dtype=torch.int32)
+        hit = (valid & (u >= -MXU_EPS_UV) & (u <= 1.0 + MXU_EPS_UV) & (v >= -MXU_EPS_UV)
+               & (u + v <= 1.0 + MXU_EPS_UV) & (t > MXU_T_EPS) & (lane[None, :] != skip))
+        best_t, best_i = _fold_min(best_t, best_i, torch.where(hit, t, _BIG), f0)
+    return best_t, torch.where(best_t >= _BIG, -1, best_i)
+
+
+def first_hit_mxu(rvec, prev, packed):
+    """Bilinear first hit of rays against an acoustic LOD.
+
+    Arguments:
+        rvec: (R, 9) ray vectors [o' x d, d, o'], o' the origin less the
+            tables' centre.
+        prev: (R,) int32 the face each ray may not hit (its launch face), -1
+            for none.
+        packed: (F, MXU_PACKED_COLS) per-face entries [e2, w2, -e1, -w1, -n,
+            n, -k] (ops/mxu_first_hit.py builds them).
+
+    Returns (t (R,), face (R,) int32): t = 3e38 and face = -1 on a miss; the
+    window has the 2 % slop MXU_EPS_UV, t > 1e-4, |det| > 1e-6; on equal t
+    the smallest face index wins.
+    """
+    if not _on_card(rvec):
+        return first_hit_mxu_plain(rvec, prev, packed)
+    r, f, dev = rvec.shape[0], packed.shape[0], rvec.device
+    _check("ray vectors", rvec, (r, 9), torch.float32, dev)
+    _check("launch faces", prev, (r,), torch.int32, dev)
+    _check("face table", packed, (f, MXU_PACKED_COLS), torch.float32, dev)
+    t = torch.empty(r, dtype=torch.float32, device=dev)
+    idx = torch.empty(r, dtype=torch.int32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _lib("mxu_first_hit", "first_hit_mxu", [vp, vp, vp, ci, ci, vp, vp, vp])
+    launch_counts["first_hit_mxu"] += 1
+    _raise_on(fn(_ptr(rvec), _ptr(prev), _ptr(packed), r, f, _ptr(t), _ptr(idx), _stream(rvec)), "first_hit_mxu")
+    return t, idx

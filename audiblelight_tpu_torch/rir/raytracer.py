@@ -7,9 +7,12 @@ higher orders ("sh2", "sh3": ACN/SN3D) and the analytic spherical head
 ("binaural": [left, right]):
 
   1. E sources x N rays leave the sources with unit-total energy per source.
-  2. Each bounce: first hit against the mesh (K1), per-band absorption, a
-     diffuse-rain deposit toward the listener, binned by arrival time, and a
-     specular-or-Lambertian reflection chosen by the surface scattering.
+  2. Each bounce: first hit against the mesh (K1, or one of the reference's
+     two optional routes: the reachability-culled K7 on a tile layout of a
+     big full mesh, the bilinear K8 on an acoustic LOD), per-band
+     absorption, a diffuse-rain deposit toward the listener, binned by
+     arrival time, and a specular-or-Lambertian reflection chosen by the
+     surface scattering.
      The deposit is fused with its histogram fold for omni capsules (K3)
      and for FOA with a first-order tail (K4); the other encodings run the
      reference's unfused chain (arrival direction, gains, bins) folded by
@@ -26,7 +29,10 @@ when every ray is dead, which costs one host read of a flag per bounce.
 Random numbers come from an explicit torch.Generator; they are not the
 reference's threefry draws, so the stochastic tail agrees statistically.
 Where the reference branches on the TPU, this follows its CPU branch: the
-exact-length carrier FFT and the gather envelope upsample.
+exact-length carrier FFT and the gather envelope upsample. The optional
+first-hit routes are the exception: the reference takes them on a TPU only,
+the port wherever config.USE_TILED_FIRST_HIT or config.USE_MXU_FIRST_HIT
+selects them.
 """
 
 from __future__ import annotations
@@ -45,7 +51,9 @@ from audiblelight_tpu_torch.ops.cuda_kernels import (
     deposit_histogram_foa,
     first_hit_table,
 )
+from audiblelight_tpu_torch.ops.mxu_first_hit import MXU_F_MAX, build_mxu_face_tables, mxu_first_hit
 from audiblelight_tpu_torch.ops.star_occlusion import star_segments_occluded
+from audiblelight_tpu_torch.ops.tiled_first_hit import tiled_first_hit
 from audiblelight_tpu_torch.rir.sh import (
     ambisonic_encoding_gains,
     encoding_channels,
@@ -114,7 +122,7 @@ def decimation_phases(n_rays: int, max_depth: int, enabled: bool) -> tuple:
 
 def _halve_wavefront(state: tuple, n_sources: int, r_now: int, r_next: int) -> tuple:
     """Keep each source's first r_next rays, scaling energy by r_now/r_next."""
-    origins, dirs, energy, dist, alive = state
+    origins, dirs, energy, dist, alive, prev_face = state
 
     def keep(x):
         return x.reshape((n_sources, r_now) + x.shape[1:])[:, :r_next].reshape(
@@ -122,7 +130,29 @@ def _halve_wavefront(state: tuple, n_sources: int, r_now: int, r_next: int) -> t
         )
 
     boost = float(np.float32(r_now / r_next))
-    return keep(origins), keep(dirs), keep(energy) * boost, keep(dist), keep(alive)
+    return keep(origins), keep(dirs), keep(energy) * boost, keep(dist), keep(alive), keep(prev_face)
+
+
+def _mxu_tables_for(tris: torch.Tensor, mesh_tiles):
+    """The K8 face tables of `tris`, or None where that route does not apply:
+    the flag is off, a tile layout was given, or the mesh has more than
+    MXU_F_MAX faces. The reference's conditions less its TPU test: the port
+    takes the route on every device. Built once per trace."""
+    if config.USE_MXU_FIRST_HIT and mesh_tiles is None and tris.shape[0] <= MXU_F_MAX:
+        return build_mxu_face_tables(tris)
+    return None
+
+
+def _first_hit_route(origins, dirs, prev_face, tris, route):
+    """The bounce's first hit: K7 where a tile layout was given, else K8
+    where its tables were built, else the dense kernel (K1), in the
+    reference's order. `route` = (first-hit table, mesh_tiles, mxu_tables)."""
+    table, mesh_tiles, mxu_tables = route
+    if mesh_tiles is not None:
+        return tiled_first_hit(mesh_tiles, origins, dirs)
+    if mxu_tables is not None:
+        return mxu_first_hit(mxu_tables, origins, dirs, prev_face)
+    return ray_mesh_first_hit(origins, dirs, tris, table)
 
 
 def _rain_occlusion(hit, normal, face_safe, listener_pos, tris, vis) -> torch.Tensor:
@@ -186,15 +216,15 @@ def _unfused_deposit(hit, normal, e_refl, new_dist, hit_ok, occ, listener_pos, n
     return add.reshape(n_sources, n_bins, c_out, n_bands).permute(0, 2, 3, 1)
 
 
-def _bounce(gen, state, tris, table, tri_normals, face_absorption, face_scattering, vis,
+def _bounce(gen, state, tris, route, tri_normals, face_absorption, face_scattering, vis,
             listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs):
     """One bounce of the whole wavefront: (new state, histogram increment).
-    `table` is the first-hit face table of `tris`; `vis` the rain-visibility
-    inputs of `_rain_occlusion`."""
-    origins, dirs, energy, dist, alive = state
+    `route` selects the first hit (`_first_hit_route`); `vis` holds the
+    rain-visibility inputs of `_rain_occlusion`."""
+    origins, dirs, energy, dist, alive, prev_face = state
     tr = origins.shape[0]
 
-    t, face = ray_mesh_first_hit(origins, dirs, tris, table)
+    t, face = _first_hit_route(origins, dirs, prev_face, tris, route)
     finite = torch.isfinite(t)
     hit_ok = alive & finite
     t_safe = torch.where(finite, t, torch.zeros_like(t))
@@ -228,7 +258,9 @@ def _bounce(gen, state, tris, table, tri_normals, face_absorption, face_scatteri
         & (e_refl.amax(dim=-1) * n_rays > 1e-6)
         & (new_dist < c * n_bins * bin_dt)
     )
-    return (new_origins, new_dirs, e_refl, new_dist, new_alive), add
+    # The next bounce masks the face just hit (K8's self-mask); -1 on a miss
+    new_prev = torch.where(hit_ok, face, torch.full_like(face, -1))
+    return (new_origins, new_dirs, e_refl, new_dist, new_alive, new_prev), add
 
 
 def trace_energy_histogram_multi(
@@ -252,6 +284,7 @@ def trace_energy_histogram_multi(
     decimate: bool = False,
     encoding: str = "omni",
     sh_order: int = 1,
+    mesh_tiles=None,
 ) -> torch.Tensor:
     """Energy histograms for E sources traced together in one wavefront.
 
@@ -271,6 +304,9 @@ def trace_energy_histogram_multi(
         decimate: progressive wavefront decimation (see decimation_phases).
         encoding, sh_order: "omni", "foa", "sh2", "sh3" or "binaural"; the
             ambisonic tail encodes at `sh_order`, clipped to the layout's.
+        mesh_tiles: an `ops.tiled_first_hit.MeshTiles` of `tris`: the bounce
+            first hit runs K7 on it. Without it, `config.USE_MXU_FIRST_HIT`
+            runs K8 on a mesh of at most MXU_F_MAX faces; else K1.
 
     Returns (E, C_out, B, n_bins) pressure^2 energies: C_out = C for omni;
     the ambisonic channels signed (energy times the arrival direction's
@@ -295,9 +331,12 @@ def trace_energy_histogram_multi(
         torch.full((total, n_bands), 1.0 / n_rays, dtype=torch.float32, device=dev),
         torch.zeros(total, dtype=torch.float32, device=dev),
         torch.ones(total, dtype=torch.bool, device=dev),
+        torch.full((total,), -1, dtype=torch.int32, device=dev),
     )
     hist = torch.zeros((n_sources, c_out, n_bands, n_bins), dtype=torch.float32, device=dev)
-    table = first_hit_table(tris)
+    mxu_tables = _mxu_tables_for(tris, mesh_tiles)
+    dense = mesh_tiles is None and mxu_tables is None
+    route = (first_hit_table(tris) if dense else None, mesh_tiles, mxu_tables)
     vis = (face_occlusion, star, bool(occlusion), bool(shared_visibility))
     band_freqs = _band_centers(n_bands, dev)
     phases = decimation_phases(n_rays, max_depth, decimate)
@@ -308,7 +347,7 @@ def trace_energy_histogram_multi(
             if not bool(state[4].any()):  # all rays dead: the reference's while-loop exit
                 break
             state, add = _bounce(
-                gen, state, tris, table, tri_normals, face_absorption, face_scattering,
+                gen, state, tris, route, tri_normals, face_absorption, face_scattering,
                 vis, listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs,
             )
             hist += add
@@ -749,6 +788,7 @@ def trace_rirs_multi(
     encoding: str = "omni",
     sh_order_direct: int = 3,
     sh_order_indirect: int = 1,
+    mesh_tiles=None,
 ) -> torch.Tensor:
     """RIRs for a batch of sources against one listener group: stochastic
     tail on `tris` (the acoustic mesh) + exact direct path on `tris_direct`
@@ -757,8 +797,8 @@ def trace_rirs_multi(
     listener point); the direct and diffracted paths encode at
     `sh_order_direct`, the tail at `sh_order_indirect`, each clipped to the
     layout's order. The tail's rain visibility is `face_occlusion`, `star`
-    or `occlusion` (see trace_energy_histogram_multi). Returns
-    (C_out, E, n_samples)."""
+    or `occlusion`, its bounce first hit K7 on `mesh_tiles` where given (see
+    trace_energy_histogram_multi). Returns (C_out, E, n_samples)."""
     source_positions = torch.atleast_2d(source_positions)
     n_bins = int(np.ceil(n_samples / sr / bin_dt)) + 1
     hist = trace_energy_histogram_multi(
@@ -766,6 +806,7 @@ def trace_rirs_multi(
         n_rays=n_rays, max_depth=max_depth, n_bins=n_bins, bin_dt=bin_dt, c=c,
         tri_normals=tri_normals, face_occlusion=face_occlusion, star=star, occlusion=occlusion,
         shared_visibility=shared_visibility, decimate=decimate, encoding=encoding, sh_order=sh_order_indirect,
+        mesh_tiles=mesh_tiles,
     )  # (E, C_out, B, bins)
     band_freqs = _band_centers(face_absorption.shape[1], tris.device)
     irs = synthesize_ir_from_histogram(gen, hist, band_freqs, n_samples, bin_dt, sr=sr, encoding=encoding)

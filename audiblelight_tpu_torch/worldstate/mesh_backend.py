@@ -5,7 +5,8 @@ Counterpart of audiblelight_tpu/worldstate/mesh_backend.py.
 - `MeshDeviceState`, the device half: the engine configuration defaults, the
   acoustic LOD, per-face material tables with the Sabine area correction,
   the diffraction-graph LOD, the per-face rain visibility tables ("face"
-  rain mode) and the star occlusion layouts ("exact" rain mode), built from
+  rain mode), the star occlusion layouts ("exact" rain mode) and, with
+  config.USE_TILED_FIRST_HIT, the full mesh's tile layout for K7, built from
   a TriMesh plus an engine-config dict.
 - `WorldStateRLR`, the host half the Scene talks to: mesh and engine config,
   the placement `rng`, the validity tests placement runs (K2 and the
@@ -38,6 +39,7 @@ from audiblelight_tpu_torch.geometry.queries import (
 )
 from audiblelight_tpu_torch.micarrays import MicArray
 from audiblelight_tpu_torch.ops.star_occlusion import build_star_accel
+from audiblelight_tpu_torch.ops.tiled_first_hit import build_mesh_tiles
 from audiblelight_tpu_torch.rir.materials import (
     get_material_absorption,
     get_material_scattering,
@@ -180,6 +182,7 @@ class MeshDeviceState:
         )
         self._rain_cache: dict = {}
         self._star_cache: dict = {}
+        self._mesh_tiles = None
 
     @classmethod
     def from_mesh(cls, mesh: TriMesh, cfg: Optional[dict] = None,
@@ -234,6 +237,18 @@ class MeshDeviceState:
             self._star_cache[key] = star
         return self._star_cache[key]
 
+    @property
+    def mesh_tiles(self):
+        """The cached tile layout of the full mesh for the reachability-culled
+        first hit (K7), or None: the flag config.USE_TILED_FIRST_HIT is off,
+        or the mesh has fewer than GRID_ACCEL_MIN_FACES faces."""
+        if not config.USE_TILED_FIRST_HIT or self.tris.shape[0] < config.GRID_ACCEL_MIN_FACES:
+            return None
+        if self._mesh_tiles is None:
+            self._mesh_tiles = build_mesh_tiles(self.tris.cpu().numpy(), device=self.device)
+            logger.info(f"Built first-hit tile structure: {self._mesh_tiles}")
+        return self._mesh_tiles
+
     def rain_inputs(self, capsules, listeners) -> dict:
         """The tracer's rain-visibility keywords (face_occlusion, star,
         occlusion, shared_visibility) for a rig whose capsules are
@@ -259,7 +274,9 @@ class MeshDeviceState:
         """(C_out, E, L) RIRs of `sources` at `listeners` under this room's
         engine config: the tail on the acoustic mesh with the rain
         visibility `rain` (`rain_inputs`), the direct path on the full mesh,
-        and diffraction in a nonconvex room."""
+        and diffraction in a nonconvex room. Where the tail traces the full
+        mesh itself, its bounce first hit takes K7 on `mesh_tiles` when
+        that layout is built."""
         from audiblelight_tpu_torch.rir.raytracer import trace_rirs_multi
 
         cfg = self.cfg
@@ -281,6 +298,7 @@ class MeshDeviceState:
             encoding=encoding,
             sh_order_direct=int(cfg["direct_sh_order"]),
             sh_order_indirect=int(cfg["indirect_sh_order"]),
+            mesh_tiles=self.mesh_tiles if self.acoustic_tris is self.tris else None,
             **rain,
         )
 

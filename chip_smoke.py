@@ -26,7 +26,16 @@ shapes, then drives the port's two main paths:
 - the HOA3 and binaural rigs: one flagship scene each through the fused
   renderer (the unfused deposit chain folded by K5), written as int16 WAVs
   of 16 and 2 channels, their direct paths checked for direction (HOA3)
-  and for the Woodworth ITD and the ILD's sign (binaural).
+  and for the Woodworth ITD and the ILD's sign (binaural);
+- the tracer's two optional first-hit routes: the first flagship scene with
+  config.USE_MXU_FIRST_HIT (K8 on the acoustic LOD) beside the default
+  scene of the same inputs, their IRs held to 5 % in per-channel energy and
+  per-band T30, K8 held against its plain version and K1 on that trace's own
+  bounces; and the exact-mode scene again with config.USE_TILED_FIRST_HIT
+  (K7 on the full mesh's tiles), its IRs held to 1 % and 2 % against the
+  K1 scene's, K7 held against its plain version, the dense classic
+  Moller-Trumbore first hit and K1 on that scene's bounce inputs and on
+  interior rays.
 
 Each path's kernel launches are counted from zero just before it and read
 just after; a kernel of the path that did not launch fails the run. It
@@ -76,6 +85,8 @@ FLOPS_BIG_PAIR = 38  # Pluecker-form first hit: 3 dots of 6, 2 of 3, 1 div, 3 mu
 FLOPS_MT_PAIR = 46  # Moller-Trumbore: 2 crosses, 4 dots, 3 subs, 1 div, 3 mul, 1 add
 FLOPS_DEPOSIT = 33  # per (ray, capsule): geometry ~25, 4 band multiply-adds
 FLOPS_DEPOSIT_FOA = 60  # per ray: geometry and gains ~28, 4 bands x 4 channels multiply-adds
+FLOPS_MXU_PAIR = 38  # bilinear first hit: dots of 6, 6, 3 and 3 + 1 terms, 1 div, 3 mul, 1 add
+BIN_DT = 0.002  # the IR checks' energy bins (s)
 # The SELD CLI runs: the repo's WAVs of four DCASE2023 classes, the flagship
 # width, 4 static and 1 moving event per scene, two scenes per format
 CLI_CLASSES = {"femaleSpeech": 0, "maleSpeech": 1, "telephone": 3, "musicInstrument": 9}
@@ -83,12 +94,14 @@ CLI_FLAGS = ["--backend", "rlr", "--n-scenes", "2", "--duration", "60", "--rays"
              "--ray-depth", "60", "--ray-decimation", "--ir-seconds", "1.0",
              "--min-events-static", "4", "--max-events-static", "4",
              "--min-events-moving", "1", "--max-events-moving", "1", "--seed", "7"]
-KERNELS = ("first_hit_big", "first_hit_small", "any_hit", "deposit_histogram_foa", "deposit_histogram",
-           "bin_histogram", "star_any_hit")
+KERNELS = ("first_hit_big", "first_hit_small", "first_hit_tiled", "first_hit_mxu", "star_any_hit", "any_hit",
+           "deposit_histogram_foa", "deposit_histogram", "bin_histogram")
 MIC_PATH = ("first_hit_big", "any_hit", "deposit_histogram")
 FOA_PATH = ("first_hit_big", "any_hit", "deposit_histogram_foa")
 EXACT_PATH = ("first_hit_big", "any_hit", "deposit_histogram", "star_any_hit")
 RIG_PATH = ("first_hit_big", "any_hit", "bin_histogram")
+MXU_PATH = ("first_hit_mxu", "any_hit", "deposit_histogram")
+TILED_PATH = ("first_hit_tiled", "any_hit", "deposit_histogram", "star_any_hit")
 
 
 def fail(msg: str) -> None:
@@ -102,9 +115,11 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10) -> float:
-    """Median milliseconds of `fn()` on the card, by CUDA events, after a warm-up."""
-    fn()
+def time_ms(fn, reps: int = 10, warm: bool = True) -> float:
+    """Median milliseconds of `fn()` on the card, by CUDA events, after a
+    warm-up call unless `warm` is False (the caller has just run it)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -115,6 +130,10 @@ def time_ms(fn, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def elapsed(t_start: float, label: str) -> None:
+    print(f"[{time.time() - t_start:.1f} s] {label}", flush=True)
 
 
 def is_kernel(key: str, name: str) -> bool:
@@ -132,6 +151,69 @@ def bound_ms(flops: float, nbytes: float) -> tuple:
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.view(torch.int32).to(torch.int64) - b.view(torch.int32).to(torch.int64)).abs()
+
+
+def face_boxes(tris: torch.Tensor, slop: float = 0.0) -> tuple:
+    """(lo, hi) (F, 3) of each face's box: its triangle's, or with `slop` the
+    box of the triangle A + s e1 + t e2, s, t >= -slop, s + t <= 1 + slop,
+    which holds the region K8's window accepts (a slightly larger one)."""
+    a, e1, e2 = tris[:, 0], tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]
+    corners = ((-slop, -slop), (1 + 2 * slop, -slop), (-slop, 1 + 2 * slop))
+    pts = torch.stack([a + s * e1 + t * e2 for s, t in corners], dim=1) if slop else tris
+    return pts.amin(1), pts.amax(1)
+
+
+def segment_enters(o, inv, t_end, lo, hi) -> torch.Tensor:
+    """Does the segment o + s d, 0 <= s <= t_end, enter the box [lo, hi]?
+    (slab test; `inv` = 1 / d; shapes broadcast, the last axis is x, y, z)"""
+    ta, tb = (lo - o) * inv, (hi - o) * inv
+    t_in = torch.clamp_min(torch.minimum(ta, tb).amax(-1), 0.0)
+    return (t_in <= torch.maximum(ta, tb).amin(-1)) & (t_in <= t_end)
+
+
+BOX_PAD = 1e-5  # m, on face boxes and t_hit, so that rounding drops no face
+
+
+def first_hit_pairs(o, d, t_hit, face, boxes: tuple, order=None, group: int = 256) -> tuple:
+    """(pairs, in_groups): the (ray, face) pairs a first hit needs on this
+    data. A ray needs each face whose box (`boxes`, from face_boxes, padded
+    by BOX_PAD) its segment [0, t_hit] enters: a face whose box the segment
+    misses cannot be its hit. A ray's own hit `face` is counted even where
+    rounding left it out, and those rays are printed. Two levels: the faces
+    in groups of `group` in `order` ((G * group,) face indices, -1 for none;
+    by default sorted by an 8^3 grid of box centres), each group's box tested
+    first; `in_groups` counts every face of the groups entered. The count is
+    exact whatever the grouping."""
+    lo, hi = boxes
+    if order is None:
+        c = 0.5 * (lo + hi)
+        cell = ((c - c.amin(0)) / (c.amax(0) - c.amin(0)).clamp_min(1e-9) * 7.999).long()
+        order = torch.argsort(cell[:, 0] * 64 + cell[:, 1] * 8 + cell[:, 2])
+        order = torch.nn.functional.pad(order, (0, -order.numel() % group), value=-1)
+    order = order.long()
+    real = (order >= 0).view(-1, group)
+    safe = order.clamp_min(0)
+    f_lo, f_hi = (lo[safe] - BOX_PAD).view(-1, group, 3), (hi[safe] + BOX_PAD).view(-1, group, 3)
+    g_lo = torch.where(real[..., None], f_lo, float("inf")).amin(1)
+    g_hi = torch.where(real[..., None], f_hi, float("-inf")).amax(1)
+    inv = 1.0 / torch.where(d.abs() < 1e-30, 1e-30, d)
+    t_end = t_hit + BOX_PAD
+    own = face.clamp_min(0).long()
+    left_out = (face >= 0) & ~segment_enters(o, inv, t_end, lo[own] - BOX_PAD, hi[own] + BOX_PAD)
+    if bool(left_out.any()):
+        print(f"  {int(left_out.sum())} rays' own hit faces lie outside their padded boxes; counted all the same")
+    pairs, in_groups = int(left_out.sum()), 0
+    for r0 in range(0, o.shape[0], 4096):
+        sl = slice(r0, r0 + 4096)
+        ent = segment_enters(o[sl, None], inv[sl, None], t_end[sl, None], g_lo[None], g_hi[None])  # (rays, G)
+        in_groups += int((ent * real.sum(1)[None]).sum())
+        ray, grp = torch.nonzero(ent, as_tuple=True)
+        ray = ray + r0
+        for p0 in range(0, ray.numel(), 16384):
+            rr, gg = ray[p0 : p0 + 16384], grp[p0 : p0 + 16384]
+            hit = segment_enters(o[rr, None], inv[rr, None], t_end[rr, None], f_lo[gg], f_hi[gg]) & real[gg]
+            pairs += int(hit.sum())
+    return pairs, in_groups
 
 
 def any_hit_pairs(starts, ends, tris) -> int:
@@ -212,6 +294,59 @@ def star_pairs(star, windows, starts, end, blocked) -> tuple:
         holds += int((d.abs() <= half[None, :]).sum())
     needed = holds + free.shape[0] * star.n_wide + int(blocked.sum())
     return tested, needed
+
+
+def t30(energy: np.ndarray) -> float:
+    """T30 (s) of a BIN_DT bin-energy decay from its Schroeder integral: the
+    -5 to -35 dB slope, extrapolated to 60 dB (nan when it never falls 35 dB)."""
+    sch = np.cumsum(energy[::-1])[::-1]
+    db = 10 * np.log10(np.maximum(sch / sch[0], 1e-30))
+    sel = (db <= -5) & (db >= -35)
+    if sel.sum() < 2 or db.min() > -35:
+        return float("nan")
+    return float(-60.0 / np.polyfit(np.arange(len(db))[sel] * BIN_DT, db[sel], 1)[0])
+
+
+def band_energy(irs: torch.Tensor) -> np.ndarray:
+    """(4 bands, E, bins) energy of IRs (C, E, L) in BIN_DT bins, summed over
+    channels; each band cut from the spectrum by the square roots of the
+    tracer's log-frequency band weights (they sum to 1 in energy)."""
+    from audiblelight_tpu_torch.rir.raytracer import _band_centers, _log_band_weights
+
+    _, e, n = irs.shape
+    spec = torch.fft.rfft(irs.double(), dim=-1)
+    freqs = torch.arange(spec.shape[-1], device=irs.device, dtype=torch.float32) * (SR / n)
+    w = torch.sqrt(_log_band_weights(freqs, _band_centers(4, irs.device))).double()
+    energy = (torch.fft.irfft(spec[None] * w[:, None, None], n=n, dim=-1) ** 2).sum(1)  # (B, E, n)
+    hop = int(round(BIN_DT * SR))
+    k = n // hop
+    return energy[..., : k * hop].reshape(4, e, k, hop).sum(-1).cpu().numpy()
+
+
+def compare_irs(label: str, got: torch.Tensor, want: torch.Tensor, e_tol: float, t_tol: float) -> None:
+    """Hold IRs `got` (C, E, L) to `want`: per-channel energy (over sources
+    and time) within e_tol, per-band T30 of the sources' IRs pooled within
+    t_tol; the per-source T30 spread and the max |difference| over the peak
+    printed."""
+    e_got, e_want = (got.double() ** 2).sum((1, 2)), (want.double() ** 2).sum((1, 2))
+    e_rel = float(((e_got / e_want) - 1).abs().max())
+    b_got, b_want = band_energy(got), band_energy(want)
+    t_got = [t30(b_got[b].sum(0)) for b in range(4)]
+    t_want = [t30(b_want[b].sum(0)) for b in range(4)]
+    t_rel = max(abs(g / w - 1) for g, w in zip(t_got, t_want))
+    per_src = [abs(t30(b_got[b, e]) / t30(b_want[b, e]) - 1) for b in range(4) for e in range(got.shape[1])]
+    diff = float((got - want).abs().max() / want.abs().max())
+    print(f"{label}: per-channel energy within {e_rel:.4%}; per-band T30 (s) {[round(x, 4) for x in t_got]} "
+          f"against {[round(x, 4) for x in t_want]}, within {t_rel:.4%}; per (band, source) T30 within "
+          f"{np.nanmax(per_src):.4%}; max |difference| / peak {diff:.4e}", flush=True)
+    if not (e_rel <= e_tol and t_rel <= t_tol):
+        fail(f"{label}: energy {e_rel:.4%} (limit {e_tol:.0%}) or T30 {t_rel:.4%} (limit {t_tol:.0%})")
+
+
+def keep_first_last(kept: dict, key: int, item) -> None:
+    """Keep `item` as the first or, replacing the last, the latest under `key`."""
+    items = kept.setdefault(key, [])
+    items[min(len(items), 1):] = [item]
 
 
 def check_binaural(irs: torch.Tensor, direct: torch.Tensor, src: np.ndarray, free: np.ndarray, win: int) -> None:
@@ -325,6 +460,312 @@ def flagship_inputs(mesh_tris: torch.Tensor, rng: np.random.Generator, dev):
     return src, s_idx, m_idx, plan, (1.0, 0.0, REF_DB)
 
 
+def profiled(fn, label: str) -> tuple:
+    """(profiler averages, device busy ms) of one run of `fn`, with the
+    busiest device ops and host ops printed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    # Device-side events only: a CPU op's device time repeats its kernels'
+    self_dev = [(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0)) / 1e3,
+                 ev.count, ev.key) for ev in avgs if ev.device_type == DeviceType.CUDA]
+    busy = sum(t for t, _, _ in self_dev)
+    count = {k: sum(ev.count for ev in avgs if ev.key == k)
+             for k in ("aten::_local_scalar_dense", "cudaStreamSynchronize", "cudaLaunchKernel")}
+    host = sum(ev.self_cpu_time_total for ev in avgs if ev.device_type == DeviceType.CPU) / 1e3
+    print(f"{label}: device busy {busy:.3f} ms; host {host:.3f} ms in profiled ops; calls {count}")
+    for t, n, key in sorted(self_dev, reverse=True)[:12]:
+        if t > 0:
+            print(f"{label}:   {t:9.3f} ms {n:5d}x  {key[:90]}")
+    host_ops = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key) for ev in avgs
+                       if ev.device_type == DeviceType.CPU), reverse=True)
+    for t, n, key in host_ops[:8]:
+        print(f"{label}:   host {t:9.3f} ms {n:5d}x  {key[:80]}")
+    return avgs, busy
+
+
+def kernel_times(avgs, names, label: str) -> dict:
+    """{name: (device ms, launches)} of the kernels `names` in the profiler
+    averages `avgs`, each printed after `label`."""
+    out = {}
+    for ev in avgs:
+        t_dev = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0)) / 1e3
+        for name in names:
+            if is_kernel(ev.key, name) and t_dev > 0:
+                out[name] = (t_dev, ev.count)
+                print(f"{label}: {name} {t_dev:.3f} ms over {ev.count} launches")
+    return out
+
+
+def mxu_phase(renderer, inputs: tuple, t_scene: int, results: dict) -> dict:
+    """The acoustic LOD through the bilinear first hit (K8): the first
+    flagship scene with config.USE_MXU_FIRST_HIT, beside the default scene
+    of the same inputs and generator (K1's launches there less its bounces
+    must be K8's scene's); their IRs traced again with one seed, held to 5 %
+    in per-channel energy and per-band T30; K8 held against its plain
+    version (bit for bit) and K1 (faces agreeing on at least the 0.78 of the
+    reference's own test, t within its 5e-4 + 5e-4 |t| there) on the K8
+    trace's own bounces, the first and the last of each decimation phase.
+    `inputs` = (sources, listeners, rain table, s_idx, m_idx, plan,
+    ambience). Returns the K8 scene's launch counts."""
+    from audiblelight_tpu_torch import config
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.ops import mxu_first_hit as mxu
+    from audiblelight_tpu_torch.rir import raytracer
+
+    src_t, listeners, face_occ, s_idx_t, m_idx_t, splan, amb = inputs
+    dev, st = src_t.device, renderer.state
+
+    def mxu_scene(on: bool):
+        config.USE_MXU_FIRST_HIT = on
+        try:
+            ck.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            wav = renderer.render_mix(torch.Generator(device=dev).manual_seed(1000), src_t, listeners, face_occ,
+                                      s_idx_t, m_idx_t, splan, *amb)
+            torch.cuda.synchronize()
+            return time.time() - t0, dict(ck.launch_counts), wav
+        finally:
+            config.USE_MXU_FIRST_HIT = False
+
+    k1_s, k1_n, _ = mxu_scene(False)
+    mxu_s, mxu_n, mxu_wav = mxu_scene(True)
+    bounces_k1 = k1_n["deposit_histogram"]
+    print(f"K8 scene: {mxu_s:.3f} s (host clock, after the default scene's {k1_s:.3f} s); launches {mxu_n}; "
+          f"the default scene's {k1_n}", flush=True)
+    for name in MXU_PATH:
+        if mxu_n[name] <= 0:
+            fail(f"the K8 scene never launched {name}")
+    if mxu_n["first_hit_mxu"] != mxu_n["deposit_histogram"] or mxu_n["first_hit_mxu"] != bounces_k1:
+        fail("the K8 scene did not take K8 once per bounce")
+    def dense(n):  # K1 launches, either variant
+        return n["first_hit_big"] + n["first_hit_small"]
+
+    if dense(mxu_n) != dense(k1_n) - bounces_k1 or mxu_n["any_hit"] != k1_n["any_hit"]:
+        fail("the K8 scene's K1 and K2 launches are not the default scene's less its bounces")
+    if mxu_wav.dtype != torch.int16 or tuple(mxu_wav.shape) != (4, t_scene) or int(mxu_wav.abs().max()) < 100:
+        fail("the K8 scene's payload is misshapen or silent")
+    # Timed in turns (default, K8, ...; the runs above warmed both up), then
+    # each profiled once
+    turns = {False: [], True: []}
+    for on in (False, True) * 3:
+        turns[on].append(time_ms(lambda: mxu_scene(on), reps=1, warm=False))
+    k1_ms, mxu_ms = float(np.median(turns[False])), float(np.median(turns[True]))
+    busy = {on: profiled(lambda: mxu_scene(on), f"{'K8' if on else 'default'} scene profile") for on in (False, True)}
+    print(f"K8 scene time (CUDA events, median of 3 in turns): {mxu_ms:.3f} ms, device busy {busy[True][1]:.3f} ms; "
+          f"the default scene's {k1_ms:.3f} ms, busy {busy[False][1]:.3f} ms", flush=True)
+    for on, (avgs, _) in busy.items():
+        kernel_times(avgs, ("first_hit_mxu", "first_hit_big"), f"{'K8' if on else 'default'} scene")
+
+    kept_mxu = {}
+
+    def keep_mxu(tables, o, d, prev):
+        keep_first_last(kept_mxu, o.shape[0], (tables, o.clone(), d.clone(), prev.clone()))
+        return mxu.mxu_first_hit(tables, o, d, prev)
+
+    irs_k1 = renderer.trace(torch.Generator(device=dev).manual_seed(7), src_t, listeners, face_occ)
+    config.USE_MXU_FIRST_HIT = True
+    raytracer.mxu_first_hit = keep_mxu
+    try:
+        irs_k8 = renderer.trace(torch.Generator(device=dev).manual_seed(7), src_t, listeners, face_occ)
+    finally:
+        raytracer.mxu_first_hit = mxu.mxu_first_hit
+        config.USE_MXU_FIRST_HIT = False
+    compare_irs("K8 scene IRs against the default scene's", irs_k8, irs_k1, 0.05, 0.05)
+    if len(kept_mxu) != 3:
+        fail(f"the K8 trace ran at ray counts {sorted(kept_mxu)}, expected three decimation phases")
+    table_lod = ck.first_hit_table(st.acoustic_tris)
+    for rays, kept in sorted(kept_mxu.items(), reverse=True):
+        for which, (tables, o8, d8, prev8) in zip(("first", "last"), kept):
+            t_k, i_k = mxu.mxu_first_hit(tables, o8, d8, prev8)
+            t_p, i_p = mxu.mxu_first_hit_plain(tables, o8, d8, prev8)
+            t_1, i_1 = ck.ray_first_hit(o8, d8, st.acoustic_tris, table_lod)
+            torch.cuda.synchronize()
+            exact = torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+            agree = i_k == i_1
+            both = agree & torch.isfinite(t_k) & torch.isfinite(t_1)
+            # The reference's own test of this route: rtol and atol 5e-4 where the faces agree
+            close = bool(((t_k - t_1).abs() <= 5e-4 + 5e-4 * t_1.abs())[both].all())
+            rel = float(((t_k - t_1).abs() / t_1.abs())[both].max()) if bool(both.any()) else 0.0
+            share = float(agree.float().mean())
+            _, _, rvec, prev_k = mxu.mxu_inputs(tables, o8, d8, prev8)
+            t_sel, i_sel = ck.first_hit_mxu(rvec, prev_k, tables.packed)
+            k_ms = time_ms(lambda: ck.first_hit_mxu(rvec, prev_k, tables.packed))
+            p_ms = time_ms(lambda: ck.first_hit_mxu_plain(rvec, prev_k, tables.packed), reps=3)
+            f_lod = tables.n_faces
+            # Pairs this data needs: the faces whose window (with its slop)
+            # the ray's segment up to the selected t could reach
+            needed, _ = first_hit_pairs(o8, d8, t_sel, i_sel, face_boxes(st.acoustic_tris, ck.MXU_EPS_UV))
+            b_ms, b_by = bound_ms(needed * FLOPS_MXU_PAIR, rays * 40 + f_lod * 76 + rays * 8)
+            print(f"check first_hit_mxu at the K8 trace's {which} bounce of {rays} rays x {f_lod} faces: "
+                  f"identical to its plain version {exact}; faces agree with K1 on {share:.4f} of the rays, t "
+                  f"within 5e-4 + 5e-4 |t| there {close} (at most {rel:.3e} relative); kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, with its glue "
+                  f"{time_ms(lambda: mxu.mxu_first_hit(tables, o8, d8, prev8)):.4f} ms, K1 "
+                  f"{time_ms(lambda: ck.ray_first_hit(o8, d8, st.acoustic_tris, table_lod)):.4f} ms; (ray, face) "
+                  f"pairs this data needs {needed} ({needed / (rays * f_lod):.3%} of dense), bound {b_ms:.5f} ms "
+                  f"({b_by})", flush=True)
+            if not exact:
+                fail(f"first_hit_mxu disagrees with its plain version at {rays} rays")
+            if share < 0.78 or not close:
+                fail(f"first_hit_mxu strays from K1 at {rays} rays")
+            if "first_hit_mxu" not in results:
+                # Yardstick: the reference's four (R, 16) x (16, F_pad) fp32
+                # products, their operands laid out from the packed rows
+                rmat = torch.nn.functional.pad(torch.cat([rvec, torch.ones_like(rvec[:, :1])], dim=1), (0, 6))
+                f_pad = tables.normal.shape[0]
+                ops = []
+                for row0, c0, c1 in ((0, 0, 6), (0, 6, 12), (3, 12, 15), (6, 15, 19)):
+                    m = torch.zeros((16, f_pad), dtype=torch.float32, device=dev)
+                    m[row0 : row0 + c1 - c0, :f_lod] = tables.packed[:, c0:c1].T
+                    ops.append(m)
+                results["first_hit_mxu"] = dict(
+                    max_abs_err=float((t_k - t_p).abs().nan_to_num(0.0).max()), bound_ms=b_ms, bound_by=b_by,
+                    ms=k_ms, plain_ms=p_ms, library_ms=time_ms(lambda: [torch.matmul(rmat, m) for m in ops]),
+                )
+                print(f"first_hit_mxu yardstick: the four ({rays}, 16) x (16, {f_pad}) fp32 "
+                      f"products by torch.matmul {results['first_hit_mxu']['library_ms']:.4f} ms")
+    return mxu_n
+
+
+def tiled_phase(make_scene, xscene, k1_scene: tuple, st_x, table_x, interior: tuple, results: dict) -> dict:
+    """The exact-mode scene again with config.USE_TILED_FIRST_HIT: the same
+    seed and placement (`make_scene`) through Scene.generate(), every
+    bounce's first hit through K7 on the full mesh's tiles (K1's launches
+    there must be the K1 scene's less its bounces); its IRs held to 1 % in
+    per-channel energy and 2 % in per-band T30 against the K1 scene's; its
+    trace timed and profiled. Then K7 at the flagship shapes on 80k of that
+    scene's bounce rays (surface origins) and on the interior rays `interior`,
+    against its plain version (bit for bit), the dense classic
+    Moller-Trumbore first hit (K1 small's arithmetic, which is K7's; a
+    difference only as a 1 ulp tie at the early exit's bound) and K1 big
+    (faces may differ at edges, t within 1e-5 relative there). `k1_scene` =
+    (the K1 scene's generate seconds, launches, IRs, trace ms). Returns the
+    K7 scene's launch counts."""
+    from audiblelight_tpu_torch import config
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.ops import tiled_first_hit as tfh
+    from audiblelight_tpu_torch.rir import raytracer
+
+    exact_s, exact_launches, exact_irs, exact_trace_ms = k1_scene
+    origins, dirs = interior
+    n_full = st_x.tris.shape[0]
+
+    kept_tiled = []
+
+    def keep_tiled(tiles, o, d):
+        if len(kept_tiled) < 3:
+            kept_tiled.append((tiles, o.clone(), d.clone()))
+        return tfh.tiled_first_hit(tiles, o, d)
+
+    tiled_dir = OUT / "exact_tiled"
+    shutil.rmtree(tiled_dir, ignore_errors=True)
+    tiled_dir.mkdir(parents=True)
+    config.USE_TILED_FIRST_HIT = True
+    raytracer.tiled_first_hit = keep_tiled
+    try:
+        tscene = make_scene()
+        if not np.array_equal(tscene.state._emitter_positions(), xscene.state._emitter_positions()):
+            fail("the K7 exact scene placed its events elsewhere than the K1 scene")
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tscene.generate(output_dir=tiled_dir)
+        torch.cuda.synchronize()
+        tiled_s = time.time() - t0
+        tiled_launches = dict(ck.launch_counts)
+        tiled_irs = tscene.state.trace_irs_device()["mic000"]
+    finally:
+        raytracer.tiled_first_hit = tfh.tiled_first_hit
+    print(f"K7 exact scene: Scene.generate() in {tiled_s:.3f} s (host clock, render and writes; the K1 scene "
+          f"{exact_s:.3f} s); launches {tiled_launches}", flush=True)
+    for name in TILED_PATH:
+        if tiled_launches[name] <= 0:
+            fail(f"the K7 exact scene never launched {name}")
+    if tiled_launches["first_hit_tiled"] != tiled_launches["star_any_hit"]:
+        fail("the K7 exact scene did not take K7 once per bounce")
+    if tiled_launches["first_hit_big"] != exact_launches["first_hit_big"] - exact_launches["star_any_hit"]:
+        fail("the K7 exact scene's K1 launches are not the K1 scene's less its bounces")
+    compare_irs("K7 exact scene IRs against the K1 exact scene's", tiled_irs, exact_irs, 0.01, 0.02)
+
+    def tiled_trace():
+        tscene.state._irs_device_cache = None
+        tscene.state.trace_irs_device()
+
+    try:
+        tiled_trace_ms = time_ms(tiled_trace, reps=1, warm=False)
+        avgs_t, busy_t = profiled(tiled_trace, "K7 exact trace profile")
+    finally:
+        config.USE_TILED_FIRST_HIT = False
+    print(f"K7 exact trace time (CUDA events): {tiled_trace_ms:.3f} ms against the K1 trace's {exact_trace_ms:.3f} "
+          f"ms; device idle share {1 - busy_t / tiled_trace_ms:.1%} (profiler busy over CUDA-event time)")
+    kernel_times(avgs_t, TILED_PATH, "K7 exact per trace")
+
+    tiles = kept_tiled[0][0]
+    tab_dense = ck.dense_mt_table(st_x.tris)
+    boxes = face_boxes(st_x.tris)
+    # The scene's bounces have 5,000 rays per padded source: its second and
+    # third bounce together make the flagship's 80k surface-origin rays
+    surface = [torch.cat([kept_tiled[1][k], kept_tiled[2][k]])[:80000].contiguous() for k in (1, 2)]
+    for label, o7, d7 in (("exact scene's second and third bounces", *surface), ("interior rays", origins, dirs)):
+        _, o_s, d_s, bmeta, perm, dlo = tfh.tiled_inputs(tiles, o7, d7)
+        kargs = (o_s, d_s, bmeta, perm, dlo, tiles.face_tab, tiles.tile_aabb)
+        t_k, i_k = ck.first_hit_tiled(*kargs)
+        walk = []  # the plain walk, timed on the call that is checked
+        plain_ms = time_ms(lambda: walk.append(ck.tiled_walk_plain(*kargs)), reps=1, warm=False)
+        t_p, i_p, visited = walk[0]
+        exact = torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+        t7, i7 = tfh.tiled_first_hit(tiles, o7, d7)
+        t_d, i_d = ck.ray_first_hit(o7, d7, st_x.tris, tab_dense)
+        differ = torch.nonzero((i7 != i_d) | (t7 != t_d)).flatten()
+        ulps = ulp_distance(t7[differ], t_d[differ])
+        for j, u in zip(differ.tolist()[:20], ulps.tolist()[:20]):
+            print(f"  K7 against the dense first hit, ray {j}: faces {int(i7[j])} / {int(i_d[j])}, t "
+                  f"{float(t7[j]):.9g} / {float(t_d[j]):.9g}, {u} ulp")
+        t_1, i_1 = ck.ray_first_hit(o7, d7, st_x.tris, table_x)
+        mis = (i7 != i_1) & torch.isfinite(t7) & torch.isfinite(t_1)
+        rel1 = float(((t7 - t_1).abs() / t_1.abs())[mis].max()) if bool(mis.any()) else 0.0
+        miss1 = int((torch.isfinite(t7) != torch.isfinite(t_1)).sum())
+        # Pairs this data needs: each face whose box the ray's segment
+        # [0, t_hit] enters (a slab test, the tiles' boxes first); beside it,
+        # every face of each tile whose box the segment enters
+        needed, in_tiles = first_hit_pairs(o7, d7, t7, i7, boxes, order=tiles.face_tab[:, 9].long(),
+                                           group=tfh.TILE_FACES)
+        n_rays, nb = o7.shape[0], visited.shape[0]
+        tested = int(visited.sum())
+        k7_ms = time_ms(lambda: ck.first_hit_tiled(*kargs))
+        glue_ms = time_ms(lambda: tfh.tiled_first_hit(tiles, o7, d7))
+        k1_ms = time_ms(lambda: ck.ray_first_hit(o7, d7, st_x.tris, table_x), reps=3)
+        nbytes = o_s.shape[0] * 32 + nb * (48 + 8 * tiles.n_tiles) + tiles.n_tiles * (256 * 40 + 24)
+        b_ms, b_by = bound_ms(needed * FLOPS_MT_PAIR, nbytes)
+        print(f"check first_hit_tiled on the {label}: {n_rays} rays x {n_full} faces ({tiles}): identical to its "
+              f"plain version {exact}; {differ.numel()} rays differ from the dense first hit, max "
+              f"{int(ulps.max()) if differ.numel() else 0} ulp; against K1 big {int(mis.sum())} faces differ (t "
+              f"within {rel1:.3e} relative there), {miss1} hit/miss differ; (block, tile) pairs tested {tested} of "
+              f"{nb * tiles.n_tiles} ({tested / (nb * tiles.n_tiles):.2%}); (ray, face) pairs this data needs "
+              f"{needed} ({needed / (n_rays * n_full):.4%} of dense; the faces of the tiles entered {in_tiles}, "
+              f"{in_tiles / (n_rays * n_full):.3%}); kernel {k7_ms:.3f} ms, with its glue {glue_ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, K1 big {k1_ms:.3f} ms on the same rays; bound {b_ms:.5f} ms ({b_by})",
+              flush=True)
+        if not exact:
+            fail(f"first_hit_tiled disagrees with its plain version on the {label}")
+        if differ.numel() and int(ulps.max()) > 1:
+            fail(f"first_hit_tiled differs from the dense first hit by more than a rounding tie ({label})")
+        if rel1 > 1e-5 or miss1:
+            fail(f"first_hit_tiled differs from K1 big by more than an edge tie ({label})")
+        if "first_hit_tiled" not in results:
+            results["first_hit_tiled"] = dict(
+                max_abs_err=float((t7 - t_d)[torch.isfinite(t_d)].abs().max()), bound_ms=b_ms, bound_by=b_by,
+                ms=k7_ms, library_ms=None, plain_ms=plain_ms,
+            )
+    return tiled_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -379,6 +820,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     results = {}
 
+    elapsed(t_start, "kernels against their plain versions")
     # 3. Each kernel against its plain version at the flagship shapes
     # K1: one decimation phase's first bounce, 80k rays from interior points
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -398,7 +840,10 @@ def main() -> int:
     if idx_bad or inf_bad or ulp > 1:
         fail("first_hit_big disagrees with its plain version")
     r, f = origins.shape[0], n_lod
-    b_ms, b_by = bound_ms(r * f * FLOPS_BIG_PAIR, r * 24 + f * 64 + r * 8)
+    needed, _ = first_hit_pairs(origins, dirs, t_k, i_k, face_boxes(st.acoustic_tris))
+    b_ms, b_by = bound_ms(needed * FLOPS_BIG_PAIR, r * 24 + f * 64 + r * 8)
+    print(f"first_hit_big: (ray, face) pairs this data needs {needed} ({needed / (r * f):.3%} of dense), bound "
+          f"{b_ms:.5f} ms ({b_by})", flush=True)
     results["first_hit_big"] = dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         ms=time_ms(lambda: ck.ray_first_hit(origins, dirs, st.acoustic_tris)),
@@ -415,11 +860,12 @@ def main() -> int:
     if small_bad or ulp_s > 1:
         fail("first_hit_small disagrees with its plain version")
     # Off the flagship path (launched 0 times there), so timed on its own line
-    b_ms, b_by = bound_ms(r * 500 * FLOPS_MT_PAIR, r * 24 + 500 * 36 + r * 8)
+    needed, _ = first_hit_pairs(origins, dirs, t_k, i_k, face_boxes(small))
+    b_ms, b_by = bound_ms(needed * FLOPS_MT_PAIR, r * 24 + 500 * 36 + r * 8)
     small_ms = time_ms(lambda: ck.ray_first_hit(origins, dirs, small))
     small_plain_ms = time_ms(lambda: ck.ray_first_hit_plain(origins, dirs, small), reps=3)
     print(f"first_hit_small (off the main paths): {r} rays x 500 faces: {small_ms:.4f} ms, plain "
-          f"{small_plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max |dt| "
+          f"{small_plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, {needed} pairs this data needs), max |dt| "
           f"{float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0:.3e}")
 
     # K2: the rain table's segments, 640k diffraction-like legs on the LOD,
@@ -535,10 +981,12 @@ def main() -> int:
     n_x = st_x.acoustic_normals[face_x.clamp_min(0).long()]
     n_x = torch.where(((n_x * dirs).sum(-1) > 0)[:, None], -n_x, n_x)
     starts_x = (hit_x + 1e-4 * n_x)[ok_x].contiguous()
-    b_ms, b_by = bound_ms(r * n_full * FLOPS_BIG_PAIR, r * 24 + n_full * 64 + r * 8)
+    needed, _ = first_hit_pairs(origins, dirs, t_x, face_x, face_boxes(st_x.tris))
+    b_ms, b_by = bound_ms(needed * FLOPS_BIG_PAIR, r * 24 + n_full * 64 + r * 8)
     k1_full_ms = time_ms(lambda: ck.ray_first_hit(origins, dirs, st_x.tris, table_x), reps=5)
     print(f"first_hit_big on the full mesh: {r} rays x {n_full} faces: {k1_full_ms:.3f} ms per launch, bound "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
+          f"{b_ms:.5f} ms ({b_by}, {needed} pairs this data needs, {needed / (r * n_full):.3%} of dense)",
+          flush=True)
     centroid = caps.mean(axis=0)
     r_caps = float(np.linalg.norm(caps - centroid, axis=1).max()) + 0.02
     for label, end, r_pad in (("centroid", listeners.mean(dim=0), 0.02), ("capsule 0", listeners[0], r_caps)):
@@ -602,6 +1050,7 @@ def main() -> int:
             results["bin_histogram"] = res5
     del t_x, face_x, hit_x, n_x, seg_k, seg_p, seg_d, ends_x
 
+    elapsed(t_start, "main path")
     # 4. The main path: three flagship scenes through the fused renderer
     OUT.mkdir(parents=True, exist_ok=True)
     scenes = [flagship_inputs(st.tris, np.random.default_rng(100 + i), dev) for i in range(3)]
@@ -660,6 +1109,7 @@ def main() -> int:
     if not free.any() or off.max() > 2.0 or global_hits < 0.9 * len(off):
         fail("direct-path arrivals off their distance")
 
+    elapsed(t_start, "scene time and profile")
     # 6. Where a scene's time goes: scene and trace time by CUDA events, the
     # cached rain table, and the device time per op and per kernel from the
     # profiler (busy time over wall time gives the device's idle share)
@@ -685,46 +1135,21 @@ def main() -> int:
           f"({trace_ms / scene_ms:.1%}); rain table (cached per room and rig, not in the scene) "
           f"{rain_ms:.3f} ms")
 
-    def profiled(fn, label):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        avgs = prof.key_averages()
-        # Device-side events only: a CPU op's device time repeats its kernels'
-        self_dev = [(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0)) / 1e3,
-                     ev.count, ev.key) for ev in avgs if ev.device_type == DeviceType.CUDA]
-        busy = sum(t for t, _, _ in self_dev)
-        count = {k: sum(ev.count for ev in avgs if ev.key == k)
-                 for k in ("aten::_local_scalar_dense", "cudaStreamSynchronize", "cudaLaunchKernel")}
-        host = sum(ev.self_cpu_time_total for ev in avgs if ev.device_type == DeviceType.CPU) / 1e3
-        print(f"{label}: device busy {busy:.3f} ms; host {host:.3f} ms in profiled ops; calls {count}")
-        for t, n, key in sorted(self_dev, reverse=True)[:12]:
-            if t > 0:
-                print(f"{label}:   {t:9.3f} ms {n:5d}x  {key[:90]}")
-        host_ops = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key) for ev in avgs
-                           if ev.device_type == DeviceType.CPU), reverse=True)
-        for t, n, key in host_ops[:8]:
-            print(f"{label}:   host {t:9.3f} ms {n:5d}x  {key[:80]}")
-        return avgs, busy
-
     avgs, busy = profiled(scene, "scene profile")
     _, busy_trace = profiled(trace, "trace profile")
     if busy > 0:
         print(f"device idle share: scene {1 - busy / scene_ms:.1%}, trace {1 - busy_trace / trace_ms:.1%} "
               f"(busy time from the profiler over the unprofiled CUDA-event time)")
-    per_scene = {}
-    for ev in avgs:
-        t_dev = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0)) / 1e3
-        for name in MIC_PATH:
-            if is_kernel(ev.key, name) and t_dev > 0:
-                per_scene[name] = (t_dev, ev.count)
-    for name, (t_ms, n) in sorted(per_scene.items()):
-        print(f"per scene: {name} {t_ms:.3f} ms over {n} launches")
-    if not per_scene:
+    if not kernel_times(avgs, MIC_PATH, "per scene"):
         print("per scene: kernel times not measured (the profiler saw no device time)")
     print(f"scene time: median {np.median(scene_s):.3f} s (host clock) over 3 scenes of "
           f"{SCENE_SECONDS:.0f} s on {card}")
 
+    elapsed(t_start, "K8 route")
+    # 6b. The acoustic LOD through the bilinear first hit (K8)
+    mxu_n = mxu_phase(renderer, (src_t, listeners, face_occ, s_idx_t, m_idx_t, splan, amb), t_scene, results)
+
+    elapsed(t_start, "SELD CLI")
     # 7. The second main path: the SELD dataset CLI in the flagship room, MIC
     # then FOA, two scenes each; launches counted per run
     from audiblelight_tpu_torch import seld
@@ -760,7 +1185,6 @@ def main() -> int:
     # points at the source
     from audiblelight_tpu_torch.core import Scene
     from audiblelight_tpu_torch.render import build_scene_plan
-
     from audiblelight_tpu_torch.rir import raytracer
 
     fscene = Scene.from_json(sorted((cli_root / "foa" / "metadata_dev").rglob("*.json"))[0], device=dev)
@@ -774,8 +1198,7 @@ def main() -> int:
     bounces = {}
 
     def keep_inputs(*args, **kwargs):
-        kept = bounces.setdefault(args[0].shape[0], [])
-        kept[min(len(kept), 1):] = [([a.clone() for a in args], kwargs)]
+        keep_first_last(bounces, args[0].shape[0], ([a.clone() for a in args], kwargs))
         return ck.deposit_histogram_foa(*args, **kwargs)
 
     raytracer.deposit_histogram_foa = keep_inputs
@@ -835,14 +1258,11 @@ def main() -> int:
     avgs_f, busy_f = profiled(foa_scene, "FOA scene profile")
     if busy_f > 0:
         print(f"FOA device idle share: scene {1 - busy_f / foa_ms:.1%} (profiler busy over CUDA-event time)")
-    for ev in avgs_f:
-        t_dev = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0)) / 1e3
-        for name in FOA_PATH:
-            if is_kernel(ev.key, name) and t_dev > 0:
-                print(f"FOA per scene: {name} {t_dev:.3f} ms over {ev.count} launches")
+    kernel_times(avgs_f, FOA_PATH, "FOA per scene")
     print(f"CLI scene time: median {np.median(cli_seconds['mic'] + cli_seconds['foa']):.3f} s (host clock, "
           f"placement, render and writes) over {len(cli_seconds['mic'] + cli_seconds['foa'])} scenes on {card}")
 
+    elapsed(t_start, "exact rain mode")
     # 10. The exact rain mode: one flagship-width scene through
     # Scene.generate() with the default engine config (no mesh
     # simplification: the full mesh, one star query per bounce), then one MIC
@@ -852,17 +1272,22 @@ def main() -> int:
     exact_dir = OUT / "exact"
     shutil.rmtree(exact_dir, ignore_errors=True)
     exact_dir.mkdir(parents=True)
-    tutils.seed_everything(11)
+    def exact_scene():
+        """The exact-mode scene: the same seed, room, rig and events each call."""
+        tutils.seed_everything(11)
+        scene = Scene(duration=SCENE_SECONDS, sample_rate=SR, backend="rlr", fg_path=fg, max_overlap=2,
+                      backend_kwargs=dict(mesh=str(room_obj), seed=11, add_to_context=False), device=dev)
+        scene.add_microphone(microphone_type="ambeovr")
+        for event_type in ["static"] * N_STATIC + ["moving"]:
+            try:
+                scene.add_event(event_type=event_type, max_place_attempts=100)
+            except ValueError as err:
+                print(f"exact scene: could not place a {event_type} event: {err}")
+        scene.add_ambience(noise="gaussian")
+        return scene
+
     t0 = time.time()
-    xscene = Scene(duration=SCENE_SECONDS, sample_rate=SR, backend="rlr", fg_path=fg, max_overlap=2,
-                   backend_kwargs=dict(mesh=str(room_obj), seed=11, add_to_context=False), device=dev)
-    xscene.add_microphone(microphone_type="ambeovr")
-    for event_type in ["static"] * N_STATIC + ["moving"]:
-        try:
-            xscene.add_event(event_type=event_type, max_place_attempts=100)
-        except ValueError as err:
-            print(f"exact scene: could not place a {event_type} event: {err}")
-    xscene.add_ambience(noise="gaussian")
+    xscene = exact_scene()
     xcfg = xscene.state.cfg
     print(f"exact scene: placed {len(xscene.events)} events ({xscene.state.num_emitters} emitters) in "
           f"{time.time() - t0:.2f} s; rain mode {xscene.state._rain_mode()}, {xcfg['indirect_ray_count']} rays x "
@@ -876,6 +1301,7 @@ def main() -> int:
     torch.cuda.synchronize()
     exact_s = time.time() - t0
     exact_launches = dict(ck.launch_counts)
+    exact_irs = xscene.state.trace_irs_device()["mic000"].clone()
     xaudio = xscene.audio["mic000"]
     print(f"exact scene: Scene.generate() in {exact_s:.3f} s (host clock, render and writes); launches "
           f"{exact_launches}; star_any_hit {exact_launches['star_any_hit']} per scene, one per bounce "
@@ -895,20 +1321,17 @@ def main() -> int:
     exact_main = dict(exact_launches)
 
     # Where the exact scene's trace goes: its trace again (a fresh seed from
-    # the world state's walk), by CUDA events and under the profiler
+    # the world state's walk), by CUDA events (Scene.generate() warmed it up)
+    # and under the profiler
     def exact_trace():
         xscene.state._irs_device_cache = None
         xscene.state.trace_irs_device()
 
-    exact_trace_ms = time_ms(exact_trace, reps=1)
+    exact_trace_ms = time_ms(exact_trace, reps=1, warm=False)
     avgs_x, busy_x = profiled(exact_trace, "exact trace profile")
     print(f"exact trace time (CUDA events): {exact_trace_ms:.3f} ms; device idle share "
           f"{1 - busy_x / exact_trace_ms:.1%} (profiler busy over CUDA-event time)")
-    for ev in avgs_x:
-        t_dev = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0)) / 1e3
-        for name in EXACT_PATH:
-            if is_kernel(ev.key, name) and t_dev > 0:
-                print(f"exact per trace: {name} {t_dev:.3f} ms over {ev.count} launches")
+    kernel_times(avgs_x, EXACT_PATH, "exact per trace")
 
     argv = ["--fg-dir", str(fg), "--output-dir", str(cli_root / "exact"), "--mesh", str(room_obj),
             "--channel-layout", "mic", *CLI_FLAGS, "--n-scenes", "1", "--no-mesh-simplification"]
@@ -932,8 +1355,7 @@ def main() -> int:
     kept_star, windows = {}, {}
 
     def keep_star(star, starts, end):
-        kept = kept_star.setdefault(starts.shape[0], [])
-        kept[min(len(kept), 1):] = [(star, starts.clone(), end.clone())]
+        keep_first_last(kept_star, starts.shape[0], (star, starts.clone(), end.clone()))
         return so.star_segments_occluded(star, starts, end)
 
     raytracer.star_segments_occluded = keep_star
@@ -964,6 +1386,13 @@ def main() -> int:
                 fail(f"star_any_hit disagrees at the exact scene's bounce of {rays} segments")
     del kept_star, windows, xs
 
+    elapsed(t_start, "K7 route")
+    # 10b. The exact-mode scene again with config.USE_TILED_FIRST_HIT (K7)
+    tiled_n = tiled_phase(exact_scene, xscene, (exact_s, exact_launches, exact_irs, exact_trace_ms), st_x, table_x,
+                          (origins, dirs), results)
+    del exact_irs
+
+    elapsed(t_start, "HOA3 and binaural rigs")
     # 11. The HOA3 and binaural rigs at the rig's centre: the first
     # flagship scene through the fused renderer (per-face rain table, K5 per
     # bounce), written as int16 WAVs; the direct paths of the unoccluded
@@ -1027,10 +1456,12 @@ def main() -> int:
           f"{card}")
 
     main_launches = dict(launches, deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"],
-                         star_any_hit=exact_main["star_any_hit"], bin_histogram=rig_main["hoa3"]["bin_histogram"])
+                         star_any_hit=exact_main["star_any_hit"], bin_histogram=rig_main["hoa3"]["bin_histogram"],
+                         first_hit_mxu=mxu_n["first_hit_mxu"], first_hit_tiled=tiled_n["first_hit_tiled"])
     sources = {"first_hit_big": "first_hit.cu", "any_hit": "any_hit.cu", "deposit_histogram": "deposit_histogram.cu",
                "deposit_histogram_foa": "deposit_histogram_foa.cu", "bin_histogram": "bin_histogram.cu",
-               "star_any_hit": "star_any_hit.cu"}
+               "star_any_hit": "star_any_hit.cu", "first_hit_tiled": "tiled_first_hit.cu",
+               "first_hit_mxu": "mxu_first_hit.cu"}
     replaces = {
         "first_hit_big": "audiblelight_tpu/ops/pallas_kernels.py:46",
         "any_hit": "audiblelight_tpu/ops/pallas_kernels.py:375",
@@ -1038,6 +1469,8 @@ def main() -> int:
         "deposit_histogram_foa": "audiblelight_tpu/ops/pallas_kernels.py:738",
         "bin_histogram": "audiblelight_tpu/ops/pallas_kernels.py:509",
         "star_any_hit": "audiblelight_tpu/ops/star_occlusion.py:257",
+        "first_hit_tiled": "audiblelight_tpu/ops/tiled_first_hit.py:141",
+        "first_hit_mxu": "audiblelight_tpu/ops/mxu_first_hit.py:144",
     }
     line = {"kernels": [
         dict(name=name, route="cuda", source=f"audiblelight_tpu_torch/csrc/{sources[name]}",

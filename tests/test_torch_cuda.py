@@ -12,7 +12,11 @@ kernels are built with --fmad=false, and eager PyTorch never contracts a
 multiply-add); the star any-hit (K6) identical to its plain version and to
 the dense any-hit (K2); deposit histograms (K3 and the FOA K4) and the
 grouped histogram (K5) with the same bins and sums within 1e-5 of the peak
-(atomics add in another order).
+(atomics add in another order); the tiled first hit (K7) identical to its
+plain version, and to the dense classic Moller-Trumbore first hit wherever
+the two t differ by more than 1 ulp (a rounding tie at the early exit's
+bound may go either way); the bilinear first hit (K8) identical to its
+plain version.
 """
 
 import numpy as np
@@ -22,7 +26,9 @@ import torch
 from audiblelight_tpu_torch.geometry.mesh import scanned_like_room
 from audiblelight_tpu_torch.micarrays import ambeovr_capsules
 from audiblelight_tpu_torch.ops import cuda_kernels as ck
+from audiblelight_tpu_torch.ops import mxu_first_hit as mxu
 from audiblelight_tpu_torch.ops import star_occlusion as so
+from audiblelight_tpu_torch.ops import tiled_first_hit as tfh
 
 
 def random_tris(seed, n):
@@ -119,6 +125,9 @@ def test_each_wrapper_counts_its_launch(card):
     bins = torch.from_numpy(rng.integers(-1, 51, (2, 64)).astype(np.int32)).to(card)
     dep = torch.from_numpy(rng.random((2, 64, 8)).astype(np.float32)).to(card)
     star = so.build_star_accel(tris.cpu().numpy(), [0.0, 0.0, 0.0], device=card)
+    tiles = tfh.build_mesh_tiles(tris.cpu().numpy(), device=card)
+    tables = mxu.build_mxu_face_tables(tris)
+    d = torch.from_numpy(unit_dirs(rng, 64)).to(card)
     ck.reset_launch_counts()
     ck.ray_first_hit_plain(o, o, tris)
     ck.segments_occluded_plain(o, o + 1.0, tris)
@@ -126,6 +135,8 @@ def test_each_wrapper_counts_its_launch(card):
     ck.deposit_histogram_foa_plain(*foa, **kw)
     ck.bin_histogram_plain(bins, dep, 51)
     so.star_segments_occluded_plain(star, o, torch.zeros(3, device=card))
+    tfh.tiled_walk(tiles, o, d)
+    mxu.mxu_first_hit_plain(tables, o, d)
     assert all(v == 0 for v in ck.launch_counts.values())
     ck.ray_first_hit(o, torch.from_numpy(unit_dirs(rng, 64)).to(card), tris)
     ck.segments_occluded(o, o + 1.0, tris)
@@ -133,8 +144,11 @@ def test_each_wrapper_counts_its_launch(card):
     ck.deposit_histogram_foa(*foa, **kw)
     ck.bin_histogram(bins, dep, 51)
     so.star_segments_occluded(star, o, torch.zeros(3, device=card))
+    tfh.tiled_first_hit(tiles, o, d)
+    mxu.mxu_first_hit(tables, o, d)
     assert ck.launch_counts == {"first_hit_big": 1, "first_hit_small": 0, "any_hit": 1, "deposit_histogram": 1,
-                                "deposit_histogram_foa": 1, "bin_histogram": 1, "star_any_hit": 1}
+                                "deposit_histogram_foa": 1, "bin_histogram": 1, "star_any_hit": 1,
+                                "first_hit_tiled": 1, "first_hit_mxu": 1}
 
 
 @pytest.fixture(scope="module")
@@ -187,3 +201,60 @@ def test_bin_histogram_matches_plain(card, k):
     assert got.shape == (16, 501, k)
     assert torch.equal(got != 0, want != 0)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def _surface_rays(tris, card, n, seed):
+    """Bounce rays: interior rays' first hits on `tris`, moved 1e-4 off the
+    surface on the incoming side, along their specular reflections."""
+    rng = np.random.default_rng(seed)
+    o = torch.from_numpy(rng.uniform([0.3, 0.3, 0.3], [6.7, 4.7, 2.7], (n, 3)).astype(np.float32)).to(card)
+    d = torch.from_numpy(unit_dirs(rng, n)).to(card)
+    tt = torch.from_numpy(tris).to(card)
+    t, face = ck.ray_first_hit(o, d, tt)
+    v = tt[face.clamp_min(0).long()]
+    nrm = torch.linalg.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    nrm = nrm / nrm.norm(dim=1, keepdim=True)
+    nrm = torch.where(((nrm * d).sum(1) > 0)[:, None], -nrm, nrm)
+    refl = d - 2.0 * (d * nrm).sum(1, keepdim=True) * nrm
+    hit = o + torch.where(torch.isfinite(t), t, 0.0)[:, None] * d
+    return (hit + 1e-4 * nrm).contiguous(), refl.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays,kind", [(20000, "interior"), (40000, "surface"), (300, "surface")])
+def test_tiled_first_hit_matches_plain_and_dense(card, scanned_room, n_rays, kind):
+    """K7 from interior and surface origins, one ragged block and many."""
+    tris = scanned_room.triangles.astype(np.float32)
+    rng = np.random.default_rng(n_rays)
+    if kind == "interior":
+        o = torch.from_numpy(rng.uniform([0.05, 0.05, 0.05], [6.95, 4.95, 2.95], (n_rays, 3)).astype(np.float32))
+        o, d = o.to(card), torch.from_numpy(unit_dirs(rng, n_rays)).to(card)
+    else:
+        o, d = _surface_rays(tris, card, n_rays, n_rays)
+    tiles = tfh.build_mesh_tiles(tris, device=card)
+    t_k, i_k = tfh.tiled_first_hit(tiles, o, d)
+    t_p, i_p, _ = tfh.tiled_walk(tiles, o, d)
+    assert torch.equal(i_k, i_p) and torch.equal(t_k, t_p)
+    tt = torch.from_numpy(tris).to(card)
+    t_d, i_d = ck.ray_first_hit(o, d, tt, ck.dense_mt_table(tt))
+    differ = (i_k != i_d) | (t_k != t_d)
+    ulp = (t_k[differ].view(torch.int32).long() - t_d[differ].view(torch.int32).long()).abs()
+    assert bool((ulp <= 1).all()), int(differ.sum())
+    assert float(torch.isfinite(t_k).float().mean()) > 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays", [80000, 257])
+def test_mxu_first_hit_matches_plain(card, scanned_room, n_rays):
+    """K8 on the room's 4,096-face LOD, surface rays with their launch
+    faces masked, one ragged block and many."""
+    lod = scanned_room.simplified(target_faces=4096)
+    tris = lod.triangles.astype(np.float32)
+    o, d = _surface_rays(tris, card, n_rays, 5)
+    prev = torch.from_numpy(np.random.default_rng(5).integers(0, len(tris), n_rays).astype(np.int32)).to(card)
+    tables = mxu.build_mxu_face_tables(torch.from_numpy(tris).to(card))
+    for p in (None, prev):
+        t_k, i_k = mxu.mxu_first_hit(tables, o, d, p)
+        t_p, i_p = mxu.mxu_first_hit_plain(tables, o, d, p)
+        assert torch.equal(i_k, i_p) and torch.equal(t_k, t_p)
+    assert float((i_k >= 0).float().mean()) > 0.99
