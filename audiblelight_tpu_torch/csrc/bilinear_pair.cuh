@@ -1,0 +1,87 @@
+// The bilinear ("big") Moller-Trumbore test of one (ray, face) pair, as the
+// Pallas big first-hit body (audiblelight_tpu/ops/pallas_kernels.py:
+// _first_hit_big_kernel) writes it, term for term, and as the cone-sorted and
+// pair-walk bodies (audiblelight_tpu/ops/sorted_first_hit.py:_sfh_kernel,
+// audiblelight_tpu/ops/pair_first_hit.py:_pair_kernel) repeat it. The face
+// row is the 16-column table [e2, w2, -e1, -w1, -n, -k] in coordinates
+// centred on the mesh, and the ray carries its Plucker moment od = o x d.
+// The dense first hit (first_hit.cu, its big variant), the sorted first hit
+// (sorted_first_hit.cu) and the pair first hit (pair_first_hit.cu) all call
+// it, the last two through the shared tile fold below, so all three compute
+// the same bits; every file that includes it is
+// built with --fmad=false, as the plain PyTorch versions
+// (ops/cuda_kernels.py:_bilinear_pair) never contract a product.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace bilinear_pair {
+
+constexpr float kEps = 1e-9f;
+constexpr float kOnePlusEps = (float)(1.0 + 1e-9);  // rounds to 1.0f, as in f32 JAX
+
+// True where the ray hits the face `c` (16 floats) inside its window with
+// t > 1e-9; `t` is the hit distance in units of |d|. No guard on a == 0:
+// u, v and t become inf or NaN there and every test fails (the zero rows
+// that pad a table never hit).
+__device__ __forceinline__ bool first_hit(const float* c, float ox, float oy, float oz, float dx, float dy,
+                                          float dz, float odx, float ody, float odz, float* t_out) {
+  const float u_num = (odx * c[0] + ody * c[1] + odz * c[2]) + (dx * c[3] + dy * c[4] + dz * c[5]);
+  const float v_num = (odx * c[6] + ody * c[7] + odz * c[8]) + (dx * c[9] + dy * c[10] + dz * c[11]);
+  const float a = dx * c[12] + dy * c[13] + dz * c[14];
+  const float t_num = c[15] - (ox * c[12] + oy * c[13] + oz * c[14]);
+  const float inv = 1.0f / a;
+  const float u = u_num * inv;
+  const float v = v_num * inv;
+  const float t = t_num * inv;
+  *t_out = t;
+  return (u >= -kEps) && (u <= kOnePlusEps) && (v >= -kEps) && (u + v <= kOnePlusEps) && (t > kEps);
+}
+
+// The Morton tiles of the sorted and pair first hits: 256 rows of the table each.
+constexpr int kTileFaces = 256;  // SORTED_TILE_FACES in ops/cuda_kernels.py
+constexpr int kCols = 16;        // [e2, w2, -e1, -w1, -n, -k]
+constexpr float kBig = 3.0e38f;  // t of a miss
+constexpr int kIdxBig = 1 << 30; // face of a miss, above every face index
+
+// Copies tile `tl` of `tab` ((n_tiles * 256, 16)) into `faces` (16 KiB of
+// shared memory), the block's threads taking one float4 each in turn; the
+// caller syncs before reading it.
+__device__ __forceinline__ void stage_tile(float4* faces, const float* __restrict__ tab, int tl) {
+  const float4* src = reinterpret_cast<const float4*>(tab + (size_t)tl * kTileFaces * kCols);
+  for (int k = threadIdx.x; k < kTileFaces * kCols / 4; k += blockDim.x) faces[k] = __ldg(src + k);
+}
+
+// Folds the 256 staged faces of tile `tl` into the ray's smallest (t, sorted
+// face index) so far. The index breaks a tie in t, so the result does not
+// depend on the order the tiles are folded in (the sorted first hit visits
+// them in bound order, the pair first hit one per lane); a miss is (kBig,
+// kIdxBig). Every thread reads the same face row at once: a shared-memory
+// broadcast.
+__device__ __forceinline__ void fold_tile(const float4* faces, int tl, float ox, float oy, float oz, float dx,
+                                          float dy, float dz, float odx, float ody, float odz, float& best_t,
+                                          int& best_i) {
+  for (int f = 0; f < kTileFaces; ++f) {
+    float c[kCols];
+#pragma unroll
+    for (int q = 0; q < kCols / 4; ++q) {
+      const float4 v = faces[f * (kCols / 4) + q];
+      c[4 * q] = v.x;
+      c[4 * q + 1] = v.y;
+      c[4 * q + 2] = v.z;
+      c[4 * q + 3] = v.w;
+    }
+    float t;
+    const bool hit = first_hit(c, ox, oy, oz, dx, dy, dz, odx, ody, odz, &t);
+    const float t_hit = hit ? t : kBig;
+    const int fidx = hit ? tl * kTileFaces + f : kIdxBig;
+    if (t_hit < best_t || (t_hit == best_t && fidx < best_i)) {
+      best_t = t_hit;
+      best_i = fidx;
+    }
+  }
+}
+
+}  // namespace bilinear_pair

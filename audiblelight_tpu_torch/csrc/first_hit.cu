@@ -3,8 +3,10 @@
 // Replaces audiblelight_tpu/ops/pallas_kernels.py:ray_first_hit_pallas, both
 // of its bodies: _first_hit_big_kernel (F > 512, centred coordinates and the
 // precomputed 16-column face table [e2, w2, -e1, -w1, -n, -k]) and
-// _first_hit_small_kernel (F <= 512, classic Moller-Trumbore, whose pair
-// arithmetic lives in mt_pair.cuh and is shared with the tiled first hit).
+// _first_hit_small_kernel (F <= 512, classic Moller-Trumbore). The pair
+// arithmetic of each lives in a header: bilinear_pair.cuh (shared with the
+// sorted and the pair first hits) and mt_pair.cuh (shared with the tiled
+// first hit).
 // The two formulations round differently in f32, so each is kept as written.
 //
 // Bound on this card: fp32 ALU. Every (ray, face) pair costs ~30 flops and
@@ -21,12 +23,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bilinear_pair.cuh"
 #include "mt_pair.cuh"
 
 namespace {
 
-constexpr float kEps = 1e-9f;
-constexpr float kOnePlusEps = (float)(1.0 + 1e-9);  // rounds to 1.0f, as in f32 JAX
 constexpr float kBig = 3.0e38f;
 
 __global__ void first_hit_big_kernel(const float* __restrict__ o,     // (R, 3), centred
@@ -46,25 +47,11 @@ __global__ void first_hit_big_kernel(const float* __restrict__ o,     // (R, 3),
   float best_t = kBig;
   int best_f = -1;
   for (int f = 0; f < n_faces; ++f) {
-    const float* c = tab + 16 * f;
-    const float e2x = __ldg(c + 0), e2y = __ldg(c + 1), e2z = __ldg(c + 2);
-    const float w2x = __ldg(c + 3), w2y = __ldg(c + 4), w2z = __ldg(c + 5);
-    const float me1x = __ldg(c + 6), me1y = __ldg(c + 7), me1z = __ldg(c + 8);
-    const float mw1x = __ldg(c + 9), mw1y = __ldg(c + 10), mw1z = __ldg(c + 11);
-    const float mnx = __ldg(c + 12), mny = __ldg(c + 13), mnz = __ldg(c + 14);
-    const float mk = __ldg(c + 15);
-
-    const float u_num = (odx * e2x + ody * e2y + odz * e2z) + (dx * w2x + dy * w2y + dz * w2z);
-    const float v_num = (odx * me1x + ody * me1y + odz * me1z) + (dx * mw1x + dy * mw1y + dz * mw1z);
-    const float a = dx * mnx + dy * mny + dz * mnz;
-    const float t_num = mk - (ox * mnx + oy * mny + oz * mnz);
-    // No guard on a == 0: u, v, t become inf or NaN and every test fails.
-    const float inv = 1.0f / a;
-    const float u = u_num * inv;
-    const float v = v_num * inv;
-    const float t = t_num * inv;
-    const bool hit = (u >= -kEps) && (u <= kOnePlusEps) && (v >= -kEps) &&
-                     (u + v <= kOnePlusEps) && (t > kEps);
+    float c[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) c[k] = __ldg(tab + 16 * f + k);
+    float t;
+    const bool hit = bilinear_pair::first_hit(c, ox, oy, oz, dx, dy, dz, odx, ody, odz, &t);
     const float t_hit = hit ? t : kBig;
     if (t_hit < best_t) {
       best_t = t_hit;

@@ -25,6 +25,8 @@ SOURCES = {
     "star_any_hit": "star_any_hit.cu",
     "tiled_first_hit": "tiled_first_hit.cu",
     "mxu_first_hit": "mxu_first_hit.cu",
+    "sorted_first_hit": "sorted_first_hit.cu",
+    "pair_first_hit": "pair_first_hit.cu",
 }
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"

@@ -15,6 +15,11 @@ audiblelight_tpu/ops/star_occlusion.py:
   per-block tile order, is ops/tiled_first_hit.py)
 - `first_hit_mxu`       <- mxu_first_hit's kernel (the glue, ray vectors and
   the exact plane re-evaluation, is ops/mxu_first_hit.py)
+- `first_hit_sorted`    <- sorted_first_hit's kernel (the glue, cone sort and
+  per-block tile order, is ops/sorted_first_hit.py)
+- `first_hit_pair`      <- pair_first_hit's kernel (the glue, slab test,
+  candidate tiles, tile-aligned pair layout and rounds, is
+  ops/pair_first_hit.py)
 
 Each wrapper prepares its inputs in PyTorch (the same preparation feeds the
 kernel and the plain version), then runs the plain version when the tensors
@@ -47,7 +52,7 @@ _CHUNK_ELEMS = 1 << 22
 
 launch_counts = {"first_hit_big": 0, "first_hit_small": 0, "any_hit": 0, "deposit_histogram": 0,
                  "deposit_histogram_foa": 0, "bin_histogram": 0, "star_any_hit": 0, "first_hit_tiled": 0,
-                 "first_hit_mxu": 0}
+                 "first_hit_mxu": 0, "first_hit_sorted": 0, "first_hit_pair": 0}
 
 
 def reset_launch_counts() -> None:
@@ -176,28 +181,39 @@ def _fold_min(best_t, best_i, t_hit, f0):
     return torch.where(better, tmin, best_t), torch.where(better, arg.to(torch.int32) + f0, best_i)
 
 
+def _plucker(o, d):
+    """Ray components and the Plucker moment o x d, each (..., 1) of `o`, `d`
+    (..., 3): (ox, oy, oz, dx, dy, dz, odx, ody, odz)."""
+    ox, oy, oz = o[..., 0:1], o[..., 1:2], o[..., 2:3]
+    dx, dy, dz = d[..., 0:1], d[..., 1:2], d[..., 2:3]
+    return ox, oy, oz, dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx
+
+
+def _bilinear_pair(ray, c):
+    """The big variant's test of rays `ray` (from `_plucker`) against face
+    rows c = (16, ...) that broadcast against them: (inside the window with
+    t > 1e-9, t), as csrc/bilinear_pair.cuh writes it, term for term."""
+    ox, oy, oz, dx, dy, dz, odx, ody, odz = ray
+    u_num = (odx * c[0] + ody * c[1] + odz * c[2]) + (dx * c[3] + dy * c[4] + dz * c[5])
+    v_num = (odx * c[6] + ody * c[7] + odz * c[8]) + (dx * c[9] + dy * c[10] + dz * c[11])
+    a = dx * c[12] + dy * c[13] + dz * c[14]
+    t_num = c[15] - (ox * c[12] + oy * c[13] + oz * c[14])
+    inv = 1.0 / a
+    u = u_num * inv
+    v = v_num * inv
+    t = t_num * inv
+    return (u >= -_EPS) & (u <= 1.0 + _EPS) & (v >= -_EPS) & (u + v <= 1.0 + _EPS) & (t > _EPS), t
+
+
 def _first_hit_big_plain(o, d, tab):
     """Plain version of _first_hit_big_kernel on centred origins `o`."""
     r, f = o.shape[0], tab.shape[0]
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    odx = oy * dz - oz * dy
-    ody = oz * dx - ox * dz
-    odz = ox * dy - oy * dx
+    ray = _plucker(o, d)
     best_t = torch.full((r,), _BIG, dtype=torch.float32, device=o.device)
     best_i = torch.full((r,), -1, dtype=torch.int32, device=o.device)
     step = _face_chunk(r, f)
     for f0 in range(0, f, step):
-        c = tab[f0 : f0 + step].T[:, None, :]  # (16, 1, Fc)
-        u_num = (odx * c[0] + ody * c[1] + odz * c[2]) + (dx * c[3] + dy * c[4] + dz * c[5])
-        v_num = (odx * c[6] + ody * c[7] + odz * c[8]) + (dx * c[9] + dy * c[10] + dz * c[11])
-        a = dx * c[12] + dy * c[13] + dz * c[14]
-        t_num = c[15] - (ox * c[12] + oy * c[13] + oz * c[14])
-        inv = 1.0 / a
-        u = u_num * inv
-        v = v_num * inv
-        t = t_num * inv
-        hit = (u >= -_EPS) & (u <= 1.0 + _EPS) & (v >= -_EPS) & (u + v <= 1.0 + _EPS) & (t > _EPS)
+        hit, t = _bilinear_pair(ray, tab[f0 : f0 + step].T[:, None, :])  # faces (16, 1, Fc)
         best_t, best_i = _fold_min(best_t, best_i, torch.where(hit, t, _BIG), f0)
     return best_t, best_i
 
@@ -667,6 +683,12 @@ DONE_CHECK_EVERY = 4  # tiles between early-exit tests (kDoneCheckEvery)
 _IDX_BIG = 2**30
 
 
+def _lex_min(best_t, best_i, t, i):
+    """The smaller of (best_t, best_i) and (t, i), t first, then the index."""
+    better = (t < best_t) | ((t == best_t) & (i < best_i))
+    return torch.where(better, t, best_t), torch.where(better, i, best_i)
+
+
 def _tiled_reachable(bmeta, tile_aabb, tl):
     """(n_blocks,) bool: is tile tl[b] reachable from block b? The kernel's
     per-axis half-space test on the block's origin box and direction signs."""
@@ -711,10 +733,7 @@ def tiled_walk_plain(o, d, bmeta, perm, dlo, face_tab, tile_aabb):
             f_hit = torch.where(hit, c[9].to(torch.int32), _IDX_BIG)
             t_min = t_hit.amin(dim=2)
             i_min = torch.where(t_hit == t_min[..., None], f_hit, _IDX_BIG).amin(dim=2)
-            bt, bi = best_t[b], best_i[b]
-            better = (t_min < bt) | ((t_min == bt) & (i_min < bi))
-            best_t[b] = torch.where(better, t_min, bt)
-            best_i[b] = torch.where(better, i_min, bi)
+            best_t[b], best_i[b] = _lex_min(best_t[b], best_i[b], t_min, i_min)
         visited[blocks] += 1
         if i % DONE_CHECK_EVERY == DONE_CHECK_EVERY - 1:
             worst = best_t.amax(dim=1)
@@ -853,4 +872,167 @@ def first_hit_mxu(rvec, prev, packed):
     fn = _lib("mxu_first_hit", "first_hit_mxu", [vp, vp, vp, ci, ci, vp, vp, vp])
     launch_counts["first_hit_mxu"] += 1
     _raise_on(fn(_ptr(rvec), _ptr(prev), _ptr(packed), r, f, _ptr(t), _ptr(idx), _stream(rvec)), "first_hit_mxu")
+    return t, idx
+
+
+# ---------------------------------------------------------------------------
+# K9 and K10: the cone-sorted and the pair-walk first hits over Morton tiles
+# of the big variant's face table
+# ---------------------------------------------------------------------------
+
+SORTED_TILE_FACES = 256  # Morton-sorted faces per tile (kTileFaces in both sources)
+SFH_LANES = 512  # sorted rays per block (kBlock in csrc/sorted_first_hit.cu)
+PFH_LANES = 512  # pair lanes per block, one tile each (kBlock in csrc/pair_first_hit.cu)
+
+
+def _tile_fold(ray, faces, tl):
+    """Each ray's smallest (t, sorted face index) over its tile: `ray` from
+    `_plucker` with (A, L, 1) components, `faces` (A, 256, 16) the tiles'
+    rows, `tl` (A,) their ids. (t (A, L), face (A, L)): 3e38 and 2**30 on a
+    miss, the smallest index on equal t."""
+    hit, t = _bilinear_pair(ray, faces.permute(2, 0, 1)[:, :, None, :])  # (A, L, 256)
+    t_hit = torch.where(hit, t, _BIG)
+    lane = torch.arange(SORTED_TILE_FACES, dtype=torch.int32, device=faces.device)
+    f_hit = torch.where(hit, tl.to(torch.int32)[:, None, None] * SORTED_TILE_FACES + lane, _IDX_BIG)
+    t_min = t_hit.amin(dim=2)
+    return t_min, torch.where(t_hit == t_min[..., None], f_hit, _IDX_BIG).amin(dim=2)
+
+
+def sorted_walk_plain(o, d, alive, perm, dlo, nv, face_tab):
+    """The K9 kernel's walk in plain PyTorch (any device), vectorised over
+    blocks: (t (R_pad,): 0 on dead lanes, 3e38 on a miss; sorted face
+    (R_pad,) int32, -1 on a dead lane or a miss; tiles visited per block
+    (n_blocks,) int64).
+
+    Step i takes each block's tile perm[:, i] while i < nv and the block is
+    not done; after it a block whose largest best t (dead lanes hold 0) is
+    not above the next bound dlo[:, i + 1] (3e38 past nv) is done. Each ray
+    keeps the smallest (t, sorted face index) over the tiles it visits."""
+    r_pad = o.shape[0]
+    nb, n_tiles = r_pad // SFH_LANES, face_tab.shape[0] // SORTED_TILE_FACES
+    dev = o.device
+    live = alive.reshape(nb, SFH_LANES) != 0
+    ray = _plucker(o.reshape(nb, SFH_LANES, 3), d.reshape(nb, SFH_LANES, 3))
+    faces = face_tab.reshape(n_tiles, SORTED_TILE_FACES, 16)
+    best_t = torch.where(live, _BIG, 0.0)
+    best_i = torch.full((nb, SFH_LANES), _IDX_BIG, dtype=torch.int32, device=dev)
+    n_visit = nv.long().clamp(max=n_tiles)
+    done = n_visit == 0
+    visited = torch.zeros(nb, dtype=torch.int64, device=dev)
+    per_chunk = max(1, _CHUNK_ELEMS // (SFH_LANES * SORTED_TILE_FACES))
+    perm = perm.long()
+    for i in range(n_tiles):
+        blocks = torch.nonzero(~done & (i < n_visit)).flatten()
+        if blocks.numel() == 0:
+            break
+        for b0 in range(0, blocks.numel(), per_chunk):
+            b = blocks[b0 : b0 + per_chunk]
+            tl = perm[b, i]
+            t_min, i_min = _tile_fold(tuple(x[b] for x in ray), faces[tl], tl)
+            best_t[b], best_i[b] = _lex_min(best_t[b], best_i[b], t_min, i_min)
+        visited[blocks] += 1
+        nxt = torch.where(i + 1 < n_visit[blocks], dlo[blocks, min(i + 1, n_tiles - 1)], _BIG)
+        done[blocks] |= best_t[blocks].amax(dim=1) <= nxt
+    t = best_t.reshape(-1)
+    idx = torch.where((t >= _BIG) | ~live.reshape(-1), -1, best_i.reshape(-1))
+    return t, idx, visited
+
+
+def first_hit_sorted(o, d, alive, perm, dlo, nv, face_tab):
+    """First hit of cone-sorted rays against Morton-tiled faces (K9).
+
+    Arguments:
+        o, d: (R_pad, 3) centred origins and directions, sorted by (origin
+            cell, direction cone); alive: (R_pad,) int32, 1 for a live ray.
+            R_pad is a multiple of SFH_LANES.
+        perm: (n_blocks, n_tiles) int32 each block's tiles in ascending
+            order of `dlo` (n_blocks, n_tiles), the directed entry bounds
+            (3e38 past the reachable ones); nv: (n_blocks,) int32 the number
+            of reachable tiles.
+        face_tab: (n_tiles * SORTED_TILE_FACES, 16) the big variant's rows
+            [e2, w2, -e1, -w1, -n, -k], zero rows as padding.
+
+    Returns (t (R_pad,), sorted face (R_pad,) int32): t = 3e38 and face = -1
+    on a miss, t = 0 and face = -1 on a dead lane. The smallest sorted index
+    wins a tie, so on live rays the result is the dense big first hit over
+    the sorted faces, as long as the bounds are conservative.
+    """
+    if not _on_card(o):
+        t, idx, _ = sorted_walk_plain(o, d, alive, perm, dlo, nv, face_tab)
+        return t, idx
+    r_pad, dev = o.shape[0], o.device
+    n_tiles = face_tab.shape[0] // SORTED_TILE_FACES
+    nb = r_pad // SFH_LANES
+    if r_pad % SFH_LANES or n_tiles == 0:
+        raise ValueError(f"first_hit_sorted: {r_pad} rays are not whole blocks of {SFH_LANES}, or no tiles")
+    _check("origins", o, (r_pad, 3), torch.float32, dev)
+    _check("dirs", d, (r_pad, 3), torch.float32, dev)
+    _check("alive", alive, (r_pad,), torch.int32, dev)
+    _check("tile order", perm, (nb, n_tiles), torch.int32, dev)
+    _check("tile bounds", dlo, (nb, n_tiles), torch.float32, dev)
+    _check("reachable tiles", nv, (nb,), torch.int32, dev)
+    _check("face table", face_tab, (n_tiles * SORTED_TILE_FACES, 16), torch.float32, dev)
+    t = torch.empty(r_pad, dtype=torch.float32, device=dev)
+    idx = torch.empty(r_pad, dtype=torch.int32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _lib("sorted_first_hit", "first_hit_sorted", [vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, vp, vp])
+    launch_counts["first_hit_sorted"] += 1
+    err = fn(_ptr(o), _ptr(d), _ptr(alive), _ptr(perm), _ptr(dlo), _ptr(nv), _ptr(face_tab), r_pad, n_tiles,
+             _ptr(t), _ptr(idx), _stream(o))
+    _raise_on(err, "first_hit_sorted")
+    return t, idx
+
+
+def pair_tile_plain(o, d, blk_tile, face_tab):
+    """Plain PyTorch version of `first_hit_pair` (any device): each block of
+    PFH_LANES lanes against its tile, vectorised over blocks."""
+    n_lanes = o.shape[0]
+    nb, n_tiles = n_lanes // PFH_LANES, face_tab.shape[0] // SORTED_TILE_FACES
+    ray = _plucker(o.reshape(nb, PFH_LANES, 3), d.reshape(nb, PFH_LANES, 3))
+    faces = face_tab.reshape(n_tiles, SORTED_TILE_FACES, 16)
+    best_t = torch.full((nb, PFH_LANES), _BIG, dtype=torch.float32, device=o.device)
+    best_i = torch.full((nb, PFH_LANES), _IDX_BIG, dtype=torch.int32, device=o.device)
+    blocks = torch.nonzero((blk_tile >= 0) & (blk_tile < n_tiles)).flatten()
+    per_chunk = max(1, _CHUNK_ELEMS // (PFH_LANES * SORTED_TILE_FACES))
+    for b0 in range(0, blocks.numel(), per_chunk):
+        b = blocks[b0 : b0 + per_chunk]
+        tl = blk_tile[b].long()
+        best_t[b], best_i[b] = _tile_fold(tuple(x[b] for x in ray), faces[tl], tl)
+    t = best_t.reshape(-1)
+    return t, torch.where(t >= _BIG, -1, best_i.reshape(-1))
+
+
+def first_hit_pair(o, d, blk_tile, face_tab):
+    """One round of the pair-walk first hit (K10): every lane against its
+    block's tile.
+
+    Arguments:
+        o, d: (n_lanes, 3) centred ray origins and directions of the (ray,
+            tile) pairs, laid out tile-aligned; n_lanes is a multiple of
+            PFH_LANES; padding lanes carry zero rays.
+        blk_tile: (n_lanes / PFH_LANES,) int32 the tile of each block of
+            PFH_LANES lanes, -1 for a block that serves none.
+        face_tab: (n_tiles * SORTED_TILE_FACES, 16) the big variant's rows.
+
+    Returns (t (n_lanes,), sorted face (n_lanes,) int32): each lane's
+    smallest (t, index) over its tile's faces, t = 3e38 and face = -1 on a
+    miss or a block without a tile.
+    """
+    if not _on_card(o):
+        return pair_tile_plain(o, d, blk_tile, face_tab)
+    n_lanes, dev = o.shape[0], o.device
+    n_tiles = face_tab.shape[0] // SORTED_TILE_FACES
+    if n_lanes % PFH_LANES or n_tiles == 0:
+        raise ValueError(f"first_hit_pair: {n_lanes} lanes are not whole blocks of {PFH_LANES}, or no tiles")
+    _check("origins", o, (n_lanes, 3), torch.float32, dev)
+    _check("dirs", d, (n_lanes, 3), torch.float32, dev)
+    _check("block tiles", blk_tile, (n_lanes // PFH_LANES,), torch.int32, dev)
+    _check("face table", face_tab, (n_tiles * SORTED_TILE_FACES, 16), torch.float32, dev)
+    t = torch.empty(n_lanes, dtype=torch.float32, device=dev)
+    idx = torch.empty(n_lanes, dtype=torch.int32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _lib("pair_first_hit", "first_hit_pair", [vp, vp, vp, vp, ci, ci, vp, vp, vp])
+    launch_counts["first_hit_pair"] += 1
+    err = fn(_ptr(o), _ptr(d), _ptr(blk_tile), _ptr(face_tab), n_lanes, n_tiles, _ptr(t), _ptr(idx), _stream(o))
+    _raise_on(err, "first_hit_pair")
     return t, idx

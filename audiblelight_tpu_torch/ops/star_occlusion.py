@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from audiblelight_tpu_torch.ops.cuda_kernels import STAR_BLOCK, STAR_TILE_FACES, star_any_hit, star_any_hit_plain
-from audiblelight_tpu_torch.utils import norm3
+from audiblelight_tpu_torch.utils import norm3, resolve_device
 
 _EPS = 1e-9
 FACE_GROUP = 8  # the wide table's rows are padded to a multiple of this
@@ -120,8 +120,8 @@ def star_windows(tris: np.ndarray, center: np.ndarray, r_pad: float = 0.02):
 
 def build_star_accel(tris: np.ndarray, center: np.ndarray, r_pad: float = 0.02, device=None):
     """The star layout of `tris` (F, 3, 3) about `center` (3,), valid for
-    segment ends within `r_pad` of it, with its tensors on `device` (default
-    the CPU). Returns None when the layout would not pay (more than
+    segment ends within `r_pad` of it, with its tensors on `device` (the
+    card unless the caller names one). Returns None when the layout would not pay (more than
     WIDE_FRACTION_MAX of the faces wide): callers run the dense any-hit."""
     center = np.asarray(center, dtype=np.float32)
     windows = star_windows(tris, center, r_pad)
@@ -153,7 +153,7 @@ def build_star_accel(tris: np.ndarray, center: np.ndarray, r_pad: float = 0.02, 
     f_wide_pad = max(FACE_GROUP, -(-max(n_wide, 1) // FACE_GROUP) * FACE_GROUP)
     wide_rows = np.concatenate([wide_rows, np.zeros((f_wide_pad - n_wide, 9), np.float32)], axis=0)
 
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = resolve_device(device)
     t = lambda x: torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=dev)  # noqa: E731
     return StarAccel(narrow_tab=t(n_rows), tile_meta=t(np.stack([tc, th])), wide_tab=t(wide_rows),
                      center=t(center), n_tiles=n_tiles, n_wide=n_wide, r_pad=float(r_pad))

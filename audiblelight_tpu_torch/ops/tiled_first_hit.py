@@ -38,7 +38,7 @@ from audiblelight_tpu_torch.ops.cuda_kernels import (
     first_hit_tiled,
     tiled_walk_plain,
 )
-from audiblelight_tpu_torch.utils import norm3
+from audiblelight_tpu_torch.utils import norm3, resolve_device
 
 _BIG = 3.0e38
 TILE_FACES = TILED_TILE_FACES
@@ -72,8 +72,9 @@ def _morton3(ix: np.ndarray, iy: np.ndarray, iz: np.ndarray) -> np.ndarray:
 
 
 def build_mesh_tiles(tris: np.ndarray, device=None) -> MeshTiles | None:
-    """The tile layout of `tris` (F, 3, 3), its tensors on `device` (default
-    the CPU); None when no face is finite and non-degenerate."""
+    """The tile layout of `tris` (F, 3, 3), its tensors on `device` (the
+    card unless the caller names one); None when no face is finite and
+    non-degenerate."""
     tris = np.asarray(tris, dtype=np.float32)
     finite = np.all(np.abs(tris) < 1.0e8, axis=(1, 2))
     area = np.linalg.norm(np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]), axis=-1)
@@ -106,7 +107,7 @@ def build_mesh_tiles(tris: np.ndarray, device=None) -> MeshTiles | None:
         aabb[0:3, t] = blk.min(axis=(0, 1))
         aabb[3:6, t] = blk.max(axis=(0, 1))
 
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = resolve_device(device)
     return MeshTiles(face_tab=torch.as_tensor(rows, device=dev), tile_aabb=torch.as_tensor(aabb, device=dev),
                      n_tiles=n_tiles, n_faces=int(tris.shape[0]))
 

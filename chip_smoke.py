@@ -35,7 +35,14 @@ shapes, then drives the port's two main paths:
   (K7 on the full mesh's tiles), its IRs held to 1 % and 2 % against the
   K1 scene's, K7 held against its plain version, the dense classic
   Moller-Trumbore first hit and K1 on that scene's bounce inputs and on
-  interior rays.
+  interior rays;
+- the cone-sorted (K9) and pair-walk (K10) first hits, which neither
+  package wires into its tracer, through their own entry points
+  (`build_sorted_tiles`, `sorted_first_hit`, `pair_first_hit`) on the exact
+  scene's 80k surface rays and 80k interior rays on the full mesh, the fused
+  trace's first bounce on the LOD, and the surface rays with 45 % of them
+  dead: each kernel held against its plain version and each op against K1
+  big over the Morton-sorted faces, bit for bit.
 
 Each path's kernel launches are counted from zero just before it and read
 just after; a kernel of the path that did not launch fails the run. It
@@ -94,8 +101,8 @@ CLI_FLAGS = ["--backend", "rlr", "--n-scenes", "2", "--duration", "60", "--rays"
              "--ray-depth", "60", "--ray-decimation", "--ir-seconds", "1.0",
              "--min-events-static", "4", "--max-events-static", "4",
              "--min-events-moving", "1", "--max-events-moving", "1", "--seed", "7"]
-KERNELS = ("first_hit_big", "first_hit_small", "first_hit_tiled", "first_hit_mxu", "star_any_hit", "any_hit",
-           "deposit_histogram_foa", "deposit_histogram", "bin_histogram")
+KERNELS = ("first_hit_big", "first_hit_small", "first_hit_tiled", "first_hit_mxu", "first_hit_sorted",
+           "first_hit_pair", "star_any_hit", "any_hit", "deposit_histogram_foa", "deposit_histogram", "bin_histogram")
 MIC_PATH = ("first_hit_big", "any_hit", "deposit_histogram")
 FOA_PATH = ("first_hit_big", "any_hit", "deposit_histogram_foa")
 EXACT_PATH = ("first_hit_big", "any_hit", "deposit_histogram", "star_any_hit")
@@ -633,7 +640,7 @@ def mxu_phase(renderer, inputs: tuple, t_scene: int, results: dict) -> dict:
     return mxu_n
 
 
-def tiled_phase(make_scene, xscene, k1_scene: tuple, st_x, table_x, interior: tuple, results: dict) -> dict:
+def tiled_phase(make_scene, xscene, k1_scene: tuple, st_x, table_x, interior: tuple, results: dict) -> tuple:
     """The exact-mode scene again with config.USE_TILED_FIRST_HIT: the same
     seed and placement (`make_scene`) through Scene.generate(), every
     bounce's first hit through K7 on the full mesh's tiles (K1's launches
@@ -646,7 +653,7 @@ def tiled_phase(make_scene, xscene, k1_scene: tuple, st_x, table_x, interior: tu
     difference only as a 1 ulp tie at the early exit's bound) and K1 big
     (faces may differ at edges, t within 1e-5 relative there). `k1_scene` =
     (the K1 scene's generate seconds, launches, IRs, trace ms). Returns the
-    K7 scene's launch counts."""
+    K7 scene's launch counts and the 80k surface rays (origins, dirs)."""
     from audiblelight_tpu_torch import config
     from audiblelight_tpu_torch.ops import cuda_kernels as ck
     from audiblelight_tpu_torch.ops import tiled_first_hit as tfh
@@ -763,7 +770,161 @@ def tiled_phase(make_scene, xscene, k1_scene: tuple, st_x, table_x, interior: tu
                 max_abs_err=float((t7 - t_d)[torch.isfinite(t_d)].abs().max()), bound_ms=b_ms, bound_by=b_by,
                 ms=k7_ms, library_ms=None, plain_ms=plain_ms,
             )
-    return tiled_launches
+    return tiled_launches, surface
+
+
+def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
+    """The cone-sorted (K9) and pair-walk (K10) first hits, which neither
+    package wires into its tracer, through their own entry points: the
+    Morton tiles of each mesh (`build_sorted_tiles`), then `sorted_first_hit`
+    and `pair_first_hit` on every wavefront of `wavefronts` ((label, tris,
+    origins, dirs, alive or None)), launches counted from zero around that
+    run. Then, per wavefront: each kernel against its plain version on the
+    same inputs (bit for bit: K9 on the sorted rays, K10 on every round's
+    lanes, and the whole K10 walk through both); each op against K1
+    big over the sentinel-padded sorted faces (bit for bit, the same table)
+    and, through `order`, against K1 big over the mesh as it is (t identical,
+    faces differing only at a tie); K9's (block, tile) pairs, K10's tiles
+    per ray, rounds and rays unresolved after round 1; the kernels', glue's,
+    plain versions' and K1's times (K10's kernel and plain times summed over
+    the op's rounds) and the bound of the first hit: the pairs this data
+    needs, the rays and the table read once, the result written once; on
+    the first wavefront, the K10 op under the profiler. Returns
+    the phase's launch counts."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.ops import pair_first_hit as pfh
+    from audiblelight_tpu_torch.ops import sorted_first_hit as sfh
+
+    built = {}
+    for _, tris, *_ in wavefronts:
+        if id(tris) not in built:
+            t0 = time.time()
+            tiles, order = sfh.build_sorted_tiles(tris.cpu().numpy(), device=tris.device)
+            built[id(tris)] = (tiles, order, time.time() - t0)
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    outs = []
+    for _, tris, o, d, alive in wavefronts:
+        tiles = built[id(tris)][0]
+        outs.append((sfh.sorted_first_hit(tiles, o, d, alive), pfh.pair_first_hit(tiles, o, d, alive)))
+    torch.cuda.synchronize()
+    launches = dict(ck.launch_counts)
+    print(f"K9 and K10 on {len(wavefronts)} wavefronts through their entry points in {time.time() - t0:.3f} s "
+          f"(host clock); launches {launches}; host builds "
+          f"{', '.join(f'{b[0]} {b[2]:.2f} s' for b in built.values())}", flush=True)
+    for name in ("first_hit_sorted", "first_hit_pair"):
+        if launches[name] <= 0:
+            fail(f"the K9/K10 path never launched {name}")
+    if launches["first_hit_sorted"] != len(wavefronts):
+        fail("sorted_first_hit did not launch K9 once per wavefront")
+
+    for (label, tris, o, d, alive), ((t9, i9), (t10, i10)) in zip(wavefronts, outs):
+        tiles, order, _ = built[id(tris)]
+        r, dev = o.shape[0], o.device
+        live = torch.ones(r, dtype=torch.bool, device=dev) if alive is None else alive
+        n_live = int(live.sum())
+        # K9 against its plain version on the same sorted rays, orders and bounds
+        _, o_s, d_s, live_s, perm, dlo, nv = sfh.sorted_inputs(tiles, o, d, live)
+        kargs = (o_s, d_s, live_s, perm, dlo, nv, tiles.face_tab)
+        t_k, i_k = ck.first_hit_sorted(*kargs)
+        walk = []
+        k9_plain_ms = time_ms(lambda: walk.append(ck.sorted_walk_plain(*kargs)), reps=1, warm=False)
+        t_p, i_p, visited = walk[0]
+        exact9 = torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+        # K10's whole walk through the kernel, each round's lanes kept, and
+        # through the plain version; the kernel against its plain version on
+        # every round's lanes
+        round_args = []
+
+        def k10_kept(*args):
+            round_args.append(args)
+            return ck.first_hit_pair(*args)
+
+        t_kw, i_kw, stats = pfh.pair_walk(tiles, o, d, live, kernel=k10_kept)
+        t_pw, i_pw, stats_p = pfh.pair_walk(tiles, o, d, live)
+        exact10 = (torch.equal(t_kw, t_pw) and torch.equal(i_kw, i_pw) and stats["rounds"] == stats_p["rounds"]
+                   and len(round_args) == stats["rounds"] and torch.equal(t_kw, t10) and torch.equal(i_kw, i10))
+        k10_plain_ms, k10_err = 0.0, 0.0
+        for args in round_args:
+            t_kr, i_kr = ck.first_hit_pair(*args)
+            lanes = []
+            k10_plain_ms += time_ms(lambda: lanes.append(ck.pair_tile_plain(*args)), reps=1, warm=False)
+            t_pr, i_pr = lanes[0]
+            exact10 = exact10 and torch.equal(t_kr, t_pr) and torch.equal(i_kr, i_pr)
+            k10_err = max(k10_err, float((t_kr - t_pr).abs().nan_to_num(0.0).max()))
+        # Each op against K1 big over the sentinel-padded sorted faces: the same table
+        st = torch.from_numpy(sfh.padded_sorted_tris(tris.cpu().numpy(), order, tiles.n_tiles)).to(dev)
+        centre, tab = ck.big_face_table(st)
+        same_table = torch.equal(centre, tiles.center) and torch.equal(tab, tiles.face_tab)
+        table_s = ("big", centre, tab)
+        t_d, i_d = ck.ray_first_hit(o, d, st, table_s)
+        t_d = torch.where(live, t_d, torch.inf)
+        i_d = torch.where(live, i_d, -1)
+        equal9 = torch.equal(t9, t_d) and torch.equal(i9, i_d)
+        equal10 = torch.equal(t10, t_d) and torch.equal(i10, i_d)
+        # ... and through `order` against K1 big over the mesh as it is
+        order_t = torch.as_tensor(order, dtype=torch.int64, device=dev)
+        t_m, i_m = ck.ray_first_hit(o, d, tris, ("big", *ck.big_face_table(tris)))
+        t_m = torch.where(live, t_m, torch.inf)
+        i_m = torch.where(live, i_m, -1)
+        i9_orig = torch.where(i9 >= 0, order_t[i9.clamp_min(0).long()].to(torch.int32), -1)
+        ties = int((i9_orig != i_m).sum())
+        orig_ok = torch.equal(t9, t_m) and torch.equal(t10, t9)
+        # Times, and the bound of the (ray, face) pairs this data needs
+        k9_ms = time_ms(lambda: ck.first_hit_sorted(*kargs))
+        k9_glue_ms = time_ms(lambda: sfh.sorted_first_hit(tiles, o, d, alive))
+        # K10's kernel time in one op call: the sum of its rounds' launches
+        k10_round_ms = [time_ms(lambda: ck.first_hit_pair(*args)) for args in round_args]
+        k10_ms = sum(k10_round_ms)
+        k10_glue_ms = time_ms(lambda: pfh.pair_first_hit(tiles, o, d, alive), reps=5)
+        k1_ms = time_ms(lambda: ck.ray_first_hit(o, d, st, table_s), reps=3)
+        boxes = face_boxes(tris)
+        pad_order = torch.nn.functional.pad(order_t, (0, tiles.n_tiles * sfh.TILE_FACES - order_t.numel()), value=-1)
+        needed, _ = first_hit_pairs(o[live], d[live], t9[live], i9_orig[live], boxes, order=pad_order,
+                                    group=sfh.TILE_FACES)
+        nb, n_t = perm.shape[0], tiles.n_tiles
+        tab_bytes = n_t * sfh.TILE_FACES * 64
+        b9_ms, b9_by = bound_ms(needed * FLOPS_BIG_PAIR, o_s.shape[0] * 28 + nb * (8 * n_t + 4) + tab_bytes
+                                + o_s.shape[0] * 8)
+        # K10's op computes the same first hit: the rays (and their flags)
+        # read once, the table read once, t and face written once
+        b10_ms, b10_by = bound_ms(needed * FLOPS_BIG_PAIR, r * 25 + tab_bytes + r * 8)
+        n_lanes = round_args[0][0].shape[0]
+        visits = int(visited.sum())
+        pairs, ideal = int(stats["pairs"]), int(stats["needed"])
+        unres = int(stats["unresolved_first"])
+        print(f"check K9/K10 on the {label}: {r} rays ({n_live} live) x {tiles.n_faces} faces ({tiles}); K9 "
+              f"identical to its plain version {exact9}; K10 identical to its plain version (every round's "
+              f"lanes, {n_lanes} in the first, and the whole walk) {exact10}; the dense big table over the sorted faces is the "
+              f"tiles' {same_table}; K9 equals K1 big over the sorted faces {equal9}, K10 {equal10}; against K1 big "
+              f"over the mesh as it is t identical {orig_ok}, faces differ at {ties} ties; K9 visits {visits} of "
+              f"{nb * n_t} (block, tile) pairs ({visits / (nb * n_t):.2%}), {visits / max(nb, 1):.1f} tiles per "
+              f"block of 512; K10 {stats['rounds']} rounds, tests {pairs / max(n_live, 1):.2f} tiles per live ray "
+              f"({pairs} pairs; entered before the hit {ideal / max(n_live, 1):.2f}), "
+              f"{unres / max(n_live, 1):.2%} of live rays unresolved after round 1; (ray, face) pairs this data "
+              f"needs {needed}; K9 kernel {k9_ms:.3f} ms, with its glue {k9_glue_ms:.3f} ms, plain "
+              f"{k9_plain_ms:.3f} ms, bound {b9_ms:.5f} ms ({b9_by}); K10 kernel {k10_ms:.3f} ms over its "
+              f"{len(round_args)} rounds ({', '.join(f'{t:.3f}' for t in k10_round_ms)}), the op {k10_glue_ms:.3f} "
+              f"ms, plain {k10_plain_ms:.3f} ms (all rounds), bound {b10_ms:.5f} ms ({b10_by}); K1 big "
+              f"{k1_ms:.3f} ms on the same rays", flush=True)
+        if not exact9 or not exact10:
+            fail(f"K9 or K10 disagrees with its plain version on the {label}")
+        if not (same_table and equal9 and equal10):
+            fail(f"K9 or K10 differs from K1 big over the sorted faces on the {label}")
+        if not orig_ok:
+            fail(f"K9 or K10 differs from K1 big over the mesh beyond a tie on the {label}")
+        if "first_hit_sorted" not in results:
+            # Where the K10 op's time goes besides its kernel (the first wavefront only)
+            _, busy10 = profiled(lambda: pfh.pair_first_hit(tiles, o, d, alive), "K10 op profile")
+            print(f"K10 op on the {label}: device busy {busy10:.3f} ms of {k10_glue_ms:.3f} ms, "
+                  f"{stats['rounds']} kernel launches, {k10_ms:.3f} ms in all")
+            results["first_hit_sorted"] = dict(max_abs_err=float((t_k - t_p).abs().nan_to_num(0.0).max()),
+                                               bound_ms=b9_ms, bound_by=b9_by, ms=k9_ms, plain_ms=k9_plain_ms,
+                                               library_ms=None)
+            results["first_hit_pair"] = dict(max_abs_err=k10_err, bound_ms=b10_ms, bound_by=b10_by, ms=k10_ms, plain_ms=k10_plain_ms,
+                                             library_ms=None)
+    return launches
 
 
 def main() -> int:
@@ -1087,7 +1248,22 @@ def main() -> int:
               f"rms {float(wav.float().pow(2).mean().sqrt()):.1f}")
     src, *_ = scenes[0]
     src_t = torch.as_tensor(src, device=dev)
-    irs = renderer.trace(torch.Generator(device=dev).manual_seed(7), src_t, listeners, face_occ)
+    # The trace keeps its first bounce's rays on the LOD for the K9/K10 phase
+    from audiblelight_tpu_torch.rir import raytracer
+
+    first_bounce = []
+
+    def keep_first_bounce(o, d, prev_face, tris, route):
+        if not first_bounce:
+            first_bounce.append((tris, o.clone(), d.clone()))
+        return first_hit_route(o, d, prev_face, tris, route)
+
+    first_hit_route = raytracer._first_hit_route
+    raytracer._first_hit_route = keep_first_bounce
+    try:
+        irs = renderer.trace(torch.Generator(device=dev).manual_seed(7), src_t, listeners, face_occ)
+    finally:
+        raytracer._first_hit_route = first_hit_route
     blocked = ck.segments_occluded(listeners.repeat(N_SOURCES, 1),
                                    src_t.repeat_interleave(4, dim=0), st.tris).reshape(N_SOURCES, 4)
     dist_ec = torch.linalg.vector_norm(src_t[:, None] - listeners[None], dim=-1)
@@ -1185,7 +1361,6 @@ def main() -> int:
     # points at the source
     from audiblelight_tpu_torch.core import Scene
     from audiblelight_tpu_torch.render import build_scene_plan
-    from audiblelight_tpu_torch.rir import raytracer
 
     fscene = Scene.from_json(sorted((cli_root / "foa" / "metadata_dev").rglob("*.json"))[0], device=dev)
     fplan = build_scene_plan(fscene, **seld.plan_kwargs(seld.build_parser().parse_args(
@@ -1388,9 +1563,26 @@ def main() -> int:
 
     elapsed(t_start, "K7 route")
     # 10b. The exact-mode scene again with config.USE_TILED_FIRST_HIT (K7)
-    tiled_n = tiled_phase(exact_scene, xscene, (exact_s, exact_launches, exact_irs, exact_trace_ms), st_x, table_x,
-                          (origins, dirs), results)
+    tiled_n, surface = tiled_phase(exact_scene, xscene, (exact_s, exact_launches, exact_irs, exact_trace_ms), st_x,
+                                   table_x, (origins, dirs), results)
     del exact_irs
+
+    elapsed(t_start, "K9 and K10")
+    # 10c. The cone-sorted (K9) and pair-walk (K10) first hits on the full
+    # mesh (the exact scene's surface rays, the interior rays, the surface
+    # rays with 45 % of them dead) and on the LOD (the fused trace's first
+    # bounce)
+    lod_tris, lod_o, lod_d = first_bounce[0]
+    if lod_o.shape[0] != 80000 or lod_tris.shape[0] != n_lod:
+        fail(f"the fused trace's first bounce had {lod_o.shape[0]} rays on {lod_tris.shape[0]} faces")
+    dead45 = torch.rand(surface[0].shape[0], generator=torch.Generator(device=dev).manual_seed(45), device=dev) >= 0.45
+    sorted_pair_n = sorted_pair_phase([
+        ("exact scene's surface rays", st_x.tris, *surface, None),
+        ("interior rays", st_x.tris, origins, dirs, None),
+        ("fused trace's first bounce on the LOD", lod_tris, lod_o, lod_d, None),
+        ("exact scene's surface rays, 45 % dead", st_x.tris, *surface, dead45),
+    ], results)
+    del surface, first_bounce
 
     elapsed(t_start, "HOA3 and binaural rigs")
     # 11. The HOA3 and binaural rigs at the rig's centre: the first
@@ -1457,11 +1649,14 @@ def main() -> int:
 
     main_launches = dict(launches, deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"],
                          star_any_hit=exact_main["star_any_hit"], bin_histogram=rig_main["hoa3"]["bin_histogram"],
-                         first_hit_mxu=mxu_n["first_hit_mxu"], first_hit_tiled=tiled_n["first_hit_tiled"])
+                         first_hit_mxu=mxu_n["first_hit_mxu"], first_hit_tiled=tiled_n["first_hit_tiled"],
+                         first_hit_sorted=sorted_pair_n["first_hit_sorted"],
+                         first_hit_pair=sorted_pair_n["first_hit_pair"])
     sources = {"first_hit_big": "first_hit.cu", "any_hit": "any_hit.cu", "deposit_histogram": "deposit_histogram.cu",
                "deposit_histogram_foa": "deposit_histogram_foa.cu", "bin_histogram": "bin_histogram.cu",
                "star_any_hit": "star_any_hit.cu", "first_hit_tiled": "tiled_first_hit.cu",
-               "first_hit_mxu": "mxu_first_hit.cu"}
+               "first_hit_mxu": "mxu_first_hit.cu", "first_hit_sorted": "sorted_first_hit.cu",
+               "first_hit_pair": "pair_first_hit.cu"}
     replaces = {
         "first_hit_big": "audiblelight_tpu/ops/pallas_kernels.py:46",
         "any_hit": "audiblelight_tpu/ops/pallas_kernels.py:375",
@@ -1471,6 +1666,8 @@ def main() -> int:
         "star_any_hit": "audiblelight_tpu/ops/star_occlusion.py:257",
         "first_hit_tiled": "audiblelight_tpu/ops/tiled_first_hit.py:141",
         "first_hit_mxu": "audiblelight_tpu/ops/mxu_first_hit.py:144",
+        "first_hit_sorted": "audiblelight_tpu/ops/sorted_first_hit.py:231",
+        "first_hit_pair": "audiblelight_tpu/ops/pair_first_hit.py:54",
     }
     line = {"kernels": [
         dict(name=name, route="cuda", source=f"audiblelight_tpu_torch/csrc/{sources[name]}",

@@ -16,7 +16,9 @@ grouped histogram (K5) with the same bins and sums within 1e-5 of the peak
 plain version, and to the dense classic Moller-Trumbore first hit wherever
 the two t differ by more than 1 ulp (a rounding tie at the early exit's
 bound may go either way); the bilinear first hit (K8) identical to its
-plain version.
+plain version; the cone-sorted (K9) and pair-walk (K10) first hits
+identical to their plain versions and to the dense big first hit (K1) over
+the Morton-sorted faces.
 """
 
 import numpy as np
@@ -27,6 +29,8 @@ from audiblelight_tpu_torch.geometry.mesh import scanned_like_room
 from audiblelight_tpu_torch.micarrays import ambeovr_capsules
 from audiblelight_tpu_torch.ops import cuda_kernels as ck
 from audiblelight_tpu_torch.ops import mxu_first_hit as mxu
+from audiblelight_tpu_torch.ops import pair_first_hit as pfh
+from audiblelight_tpu_torch.ops import sorted_first_hit as sfh
 from audiblelight_tpu_torch.ops import star_occlusion as so
 from audiblelight_tpu_torch.ops import tiled_first_hit as tfh
 
@@ -127,6 +131,7 @@ def test_each_wrapper_counts_its_launch(card):
     star = so.build_star_accel(tris.cpu().numpy(), [0.0, 0.0, 0.0], device=card)
     tiles = tfh.build_mesh_tiles(tris.cpu().numpy(), device=card)
     tables = mxu.build_mxu_face_tables(tris)
+    stiles, _ = sfh.build_sorted_tiles(tris.cpu().numpy(), device=card)
     d = torch.from_numpy(unit_dirs(rng, 64)).to(card)
     ck.reset_launch_counts()
     ck.ray_first_hit_plain(o, o, tris)
@@ -137,6 +142,8 @@ def test_each_wrapper_counts_its_launch(card):
     so.star_segments_occluded_plain(star, o, torch.zeros(3, device=card))
     tfh.tiled_walk(tiles, o, d)
     mxu.mxu_first_hit_plain(tables, o, d)
+    sfh.sorted_walk(stiles, o, d)
+    pfh.pair_walk(stiles, o, d, k_slots=8)
     assert all(v == 0 for v in ck.launch_counts.values())
     ck.ray_first_hit(o, torch.from_numpy(unit_dirs(rng, 64)).to(card), tris)
     ck.segments_occluded(o, o + 1.0, tris)
@@ -146,9 +153,12 @@ def test_each_wrapper_counts_its_launch(card):
     so.star_segments_occluded(star, o, torch.zeros(3, device=card))
     tfh.tiled_first_hit(tiles, o, d)
     mxu.mxu_first_hit(tables, o, d)
+    sfh.sorted_first_hit(stiles, o, d)
+    # k_slots = n_tiles: one round tests every reachable tile, one launch
+    pfh.pair_first_hit(stiles, o, d, k_slots=stiles.n_tiles)
     assert ck.launch_counts == {"first_hit_big": 1, "first_hit_small": 0, "any_hit": 1, "deposit_histogram": 1,
                                 "deposit_histogram_foa": 1, "bin_histogram": 1, "star_any_hit": 1,
-                                "first_hit_tiled": 1, "first_hit_mxu": 1}
+                                "first_hit_tiled": 1, "first_hit_mxu": 1, "first_hit_sorted": 1, "first_hit_pair": 1}
 
 
 @pytest.fixture(scope="module")
@@ -258,3 +268,55 @@ def test_mxu_first_hit_matches_plain(card, scanned_room, n_rays):
         t_p, i_p = mxu.mxu_first_hit_plain(tables, o, d, p)
         assert torch.equal(i_k, i_p) and torch.equal(t_k, t_p)
     assert float((i_k >= 0).float().mean()) > 0.99
+
+
+def _dense_big_sorted(tris, order, tiles, o, d, card):
+    """The dense big first hit (K1) over the sentinel-padded sorted faces."""
+    st = torch.from_numpy(sfh.padded_sorted_tris(tris, order, tiles.n_tiles)).to(card)
+    centre, tab = ck.big_face_table(st)
+    assert torch.equal(centre, tiles.center) and torch.equal(tab, tiles.face_tab)
+    return ck.ray_first_hit(o, d, st, ("big", centre, tab))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays,kind,dead", [(20000, "interior", 0.0), (40000, "surface", 0.45),
+                                              (300, "surface", 0.0)])
+def test_sorted_first_hit_matches_plain_and_dense(card, scanned_room, n_rays, kind, dead):
+    """K9 on interior and surface rays, with and without dead lanes, one
+    ragged block and many."""
+    tris = scanned_room.triangles.astype(np.float32)
+    rng = np.random.default_rng(n_rays)
+    if kind == "interior":
+        o = torch.from_numpy(rng.uniform([0.05, 0.05, 0.05], [6.95, 4.95, 2.95], (n_rays, 3)).astype(np.float32))
+        o, d = o.to(card), torch.from_numpy(unit_dirs(rng, n_rays)).to(card)
+    else:
+        o, d = _surface_rays(tris, card, n_rays, n_rays)
+    alive = torch.from_numpy(rng.uniform(size=n_rays) >= dead).to(card)
+    tiles, order = sfh.build_sorted_tiles(tris, device=card)
+    t_k, i_k = sfh.sorted_first_hit(tiles, o, d, alive)
+    t_p, i_p, visited = sfh.sorted_walk(tiles, o, d, alive)
+    assert torch.equal(i_k, i_p) and torch.equal(t_k, t_p)
+    t_d, i_d = _dense_big_sorted(tris, order, tiles, o, d, card)
+    assert torch.equal(i_k[alive], i_d[alive]) and torch.equal(t_k[alive], t_d[alive])
+    assert bool(torch.isinf(t_k[~alive]).all()) and bool((i_k[~alive] == -1).all())
+    assert 0 < int(visited.sum()) <= visited.numel() * tiles.n_tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays,k_slots,dead", [(20000, 8, 0.0), (40000, 8, 0.45), (300, 1, 0.0)])
+def test_pair_first_hit_matches_plain_and_dense(card, scanned_room, n_rays, k_slots, dead):
+    """K10 on surface rays, with and without dead lanes, k_slots = 1 forcing
+    rounds."""
+    tris = scanned_room.triangles.astype(np.float32)
+    rng = np.random.default_rng(n_rays + 1)
+    o, d = _surface_rays(tris, card, n_rays, n_rays + 1)
+    alive = torch.from_numpy(rng.uniform(size=n_rays) >= dead).to(card)
+    tiles, order = sfh.build_sorted_tiles(tris, device=card)
+    t_k, i_k, stats_k = pfh.pair_walk(tiles, o, d, alive, k_slots=k_slots, kernel=ck.first_hit_pair)
+    t_p, i_p, stats_p = pfh.pair_walk(tiles, o, d, alive, k_slots=k_slots)
+    assert torch.equal(i_k, i_p) and torch.equal(t_k, t_p) and stats_k["rounds"] == stats_p["rounds"]
+    t_d, i_d = _dense_big_sorted(tris, order, tiles, o, d, card)
+    assert torch.equal(i_k[alive], i_d[alive]) and torch.equal(t_k[alive], t_d[alive])
+    assert bool(torch.isinf(t_k[~alive]).all()) and bool((i_k[~alive] == -1).all())
+    if k_slots == 1:
+        assert stats_k["rounds"] > 1

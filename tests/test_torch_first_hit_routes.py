@@ -73,7 +73,7 @@ def _room(levels=None, lod_faces=None):
 def exact_room():
     tris, normals, ab, sc = _room(4)
     assert len(tris) == 27648
-    return tris, normals, ab, sc, build_star_accel(tris, CAPS.mean(axis=0), 0.02)
+    return tris, normals, ab, sc, build_star_accel(tris, CAPS.mean(axis=0), 0.02, device="cpu")
 
 
 def _exact_trace(exact_room, **kw):
@@ -116,7 +116,7 @@ def _counting(monkeypatch, name):
 
 def test_tiled_route_equals_dense_mt(exact_room, monkeypatch):
     tris = _t(exact_room[0])
-    tiles = build_mesh_tiles(exact_room[0])
+    tiles = build_mesh_tiles(exact_room[0], device="cpu")
     calls = _counting(monkeypatch, "tiled_first_hit")
     tiled = _exact_trace(exact_room, mesh_tiles=tiles)
     assert len(calls) == 4
@@ -180,6 +180,6 @@ def test_mxu_tables_where_the_route_applies(monkeypatch):
     assert trt._mxu_tables_for(tris, None) is None  # flag off
     monkeypatch.setattr(config, "USE_MXU_FIRST_HIT", True)
     assert trt._mxu_tables_for(tris, None).n_faces == len(tris)
-    assert trt._mxu_tables_for(tris, build_mesh_tiles(tris.numpy())) is None  # a tile layout wins
+    assert trt._mxu_tables_for(tris, build_mesh_tiles(tris.numpy(), device="cpu")) is None  # a tile layout wins
     too_many = torch.rand((trt.MXU_F_MAX + 1, 3, 3))
     assert trt._mxu_tables_for(too_many, None) is None

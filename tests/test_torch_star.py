@@ -96,7 +96,7 @@ def test_build_star_accel_matches_reference(big_room, where, r_pad):
     if r_pad is None:
         r_pad = _caps_r_pad(ambeovr_capsules(centre), centre)
     want = jstar.build_star_accel(tris, centre, r_pad)
-    got = tstar.build_star_accel(tris, centre, r_pad)
+    got = tstar.build_star_accel(tris, centre, r_pad, device="cpu")
     if where == "too wide":
         assert want is None and got is None
         return
@@ -107,7 +107,7 @@ def test_build_star_accel_matches_reference(big_room, where, r_pad):
 
 def test_build_star_accel_none_without_faces():
     empty = np.full((4, 3, 3), 1.0e9, np.float32)
-    assert jstar.build_star_accel(empty, CENTRE) is None and tstar.build_star_accel(empty, CENTRE) is None
+    assert jstar.build_star_accel(empty, CENTRE) is None and tstar.build_star_accel(empty, CENTRE, device="cpu") is None
 
 
 def _segment_starts(mesh, kind, end, rng, n=3000):
@@ -166,7 +166,7 @@ def test_star_matches_reference_and_dense(big_room, kind, toward):
     rng = np.random.default_rng(11 if kind == "surface" else 12)
     starts = _segment_starts(big_room, kind, end, rng)
     ja = jstar.build_star_accel(tris, centre, r_pad)
-    ta = tstar.build_star_accel(tris, centre, r_pad)
+    ta = tstar.build_star_accel(tris, centre, r_pad, device="cpu")
     want_star = np.asarray(jstar.star_segments_occluded(ja, jnp.asarray(starts), jnp.asarray(end), interpret=True))
     ends = np.broadcast_to(end, starts.shape).copy()
     want_dense = np.asarray(jax_segments_occluded(jnp.asarray(starts), jnp.asarray(ends), jnp.asarray(tris)))
@@ -201,7 +201,7 @@ def test_exact_trace_histogram_statistics():
         jax.random.PRNGKey(0), jnp.asarray(tris), jnp.asarray(absorption), jnp.asarray(scattering),
         jnp.asarray(src), jnp.asarray(caps), n_sources=2, tri_normals=jnp.asarray(normals),
         occlusion=True, shared_visibility=True, **kw))
-    star = tstar.build_star_accel(tris, caps.mean(axis=0), 0.02)
+    star = tstar.build_star_accel(tris, caps.mean(axis=0), 0.02, device="cpu")
     assert star is not None
     got = trt.trace_energy_histogram_multi(
         torch.Generator().manual_seed(0), _t(tris), _t(absorption), _t(scattering), _t(src), _t(caps),
@@ -224,7 +224,7 @@ def test_exact_trace_rirs_direct_and_diffraction(big_room):
     caps = ambeovr_capsules(CENTRE).astype(np.float32)
     src = np.array([[1.5, 1.2, 1.4], [5.6, 3.9, 1.1], [0.6, 4.4, 2.0]], np.float32)
     n = SR // 10
-    star = tstar.build_star_accel(tris, caps.mean(axis=0), _caps_r_pad(caps, caps.mean(axis=0)))
+    star = tstar.build_star_accel(tris, caps.mean(axis=0), _caps_r_pad(caps, caps.mean(axis=0)), device="cpu")
     f = len(tris)
     absorption = np.tile(np.array([[0.10, 0.15, 0.20, 0.30]], np.float32), (f, 1))
     scattering = np.full(f, 0.4, np.float32)

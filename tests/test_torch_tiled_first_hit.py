@@ -84,7 +84,7 @@ def _dense_mt(tris, o, d):
 
 def test_build_mesh_tiles_matches_reference(room4):
     want = jtiled.build_mesh_tiles(room4)
-    got = ttiled.build_mesh_tiles(room4)
+    got = ttiled.build_mesh_tiles(room4, device="cpu")
     assert (got.n_tiles, got.n_faces) == (want.n_tiles, want.n_faces) == (432, 110592)
     np.testing.assert_array_equal(got.face_tab.numpy(), np.asarray(want.face_tab))
     np.testing.assert_array_equal(got.tile_aabb.numpy(), np.asarray(want.tile_aabb))
@@ -92,7 +92,7 @@ def test_build_mesh_tiles_matches_reference(room4):
 
 def test_build_mesh_tiles_none_without_faces():
     empty = np.full((4, 3, 3), 1.0e9, np.float32)
-    assert jtiled.build_mesh_tiles(empty) is None and ttiled.build_mesh_tiles(empty) is None
+    assert jtiled.build_mesh_tiles(empty) is None and ttiled.build_mesh_tiles(empty, device="cpu") is None
 
 
 @pytest.mark.parametrize("kind", ["interior", "surface"])
@@ -101,7 +101,7 @@ def test_tiled_first_hit_matches_reference(kind):
     o, d = _interior_rays() if kind == "interior" else _surface_rays(tris)
     t_j, i_j = map(np.asarray, jtiled.tiled_first_hit(jtiled.build_mesh_tiles(tris), jnp.asarray(o),
                                                       jnp.asarray(d), interpret=True))
-    t_p, i_p = ttiled.tiled_first_hit(ttiled.build_mesh_tiles(tris), torch.from_numpy(o), torch.from_numpy(d))
+    t_p, i_p = ttiled.tiled_first_hit(ttiled.build_mesh_tiles(tris, device="cpu"), torch.from_numpy(o), torch.from_numpy(d))
     t_p, i_p = t_p.numpy(), i_p.numpy()
     np.testing.assert_array_equal(i_p, i_j)
     np.testing.assert_array_equal(np.isfinite(t_p), np.isfinite(t_j))
@@ -119,7 +119,7 @@ def test_walk_equals_dense_mt(small_room, kind):
     stays dense."""
     rays = {"interior": _interior_rays, "point source": _point_source_rays}
     o, d = rays[kind]() if kind in rays else _surface_rays(small_room)
-    tiles = ttiled.build_mesh_tiles(small_room)
+    tiles = ttiled.build_mesh_tiles(small_room, device="cpu")
     t_p, i_p, visited = ttiled.tiled_walk(tiles, torch.from_numpy(o), torch.from_numpy(d))
     t_d, i_d = _dense_mt(small_room, o, d)
     np.testing.assert_array_equal(i_p.numpy(), i_d)
@@ -138,7 +138,7 @@ def test_escaping_rays_and_ragged_last_block(small_room):
     o, d = _interior_rays(513, seed=9)
     o[::3] = np.float32([-5.0, -5.0, -5.0]) + o[::3]
     d[::3] = -np.abs(d[::3])
-    tiles = ttiled.build_mesh_tiles(small_room)
+    tiles = ttiled.build_mesh_tiles(small_room, device="cpu")
     t_p, i_p = ttiled.tiled_first_hit(tiles, torch.from_numpy(o), torch.from_numpy(d))
     t_d, i_d = _dense_mt(small_room, o, d)
     np.testing.assert_array_equal(i_p.numpy(), i_d)
