@@ -31,6 +31,7 @@ EMPTY_SPACE_AROUND_EMITTER = 0.2
 EMPTY_SPACE_AROUND_MIC = 0.1
 EMPTY_SPACE_AROUND_SURFACE = 0.2
 EMPTY_SPACE_AROUND_CAPSULE = 0.05
+WARN_WHEN_RAY_EFFICIENCY_BELOW = 0.5
 MAX_PLACE_ATTEMPTS = 1000
 MOVING_EVENT_SHAPES = ["random", "linear", "semicircular"]
 

@@ -769,6 +769,7 @@ class Scene:
         audio_fname: Optional[Union[str, Path]] = "audio_out",
         metadata_fname: Optional[Union[str, Path]] = "metadata_out",
         video: bool = False,
+        video_fname: Optional[Union[str, Path]] = "video_out",
         compiled: bool = False,
     ) -> None:
         """Render the scene to disk: per-mic int16 WAVs, metadata JSON, DCASE CSVs.
@@ -779,10 +780,11 @@ class Scene:
         the fused renderer refuses the scene (the exact rain mode in a
         nonconvex room). `compiled=True` takes the plan path
         (pipeline.render_scene_audio_compiled: traced IR banks, device
-        stems, host mix and host ambience bed).
+        stems, host mix and host ambience bed). `video` and `video_fname` keep
+        the reference's signature; video is not ported.
         """
         if video:
-            raise NotImplementedError("video is not ported (ROADMAP: imaging and video)")
+            raise NotImplementedError("video is not ported (ROADMAP item 1.8: video)")
         output_dir = self._sanitise_output_directory(output_dir)
         if audio and compiled:
             from audiblelight_tpu_torch.pipeline import render_scene_audio_compiled

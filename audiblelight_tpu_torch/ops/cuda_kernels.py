@@ -35,7 +35,9 @@ counts); `reset_launch_counts` zeroes it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -46,6 +48,7 @@ from audiblelight_tpu_torch.utils import cross3, dot3, norm3
 SMALL_F_MAX = 512  # face count at or below which the classic Moller-Trumbore variant runs
 _EPS = 1e-9
 _BIG = 3.0e38
+_IDX_BIG = 1 << 30  # face of a miss in a lexicographic (t, face) fold
 _MARGIN = 1e-4
 # Elements of one (rays, faces) chunk in the plain versions
 _CHUNK_ELEMS = 1 << 22
@@ -91,7 +94,9 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
 
 
 def _stream(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    """PyTorch's current stream on `x`'s card (its raw handle: a tenth of
+    the host time of `torch.cuda.current_stream(...).cuda_stream`)."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(x.device.index))
 
 
 _FUNCTIONS: dict = {}
@@ -155,22 +160,120 @@ def mt_face_table(tris: torch.Tensor) -> torch.Tensor:
     ).contiguous()
 
 
+# The face tree of the big variant (csrc/first_hit.cu): leaves of
+# BVH_LEAF_FACES consecutive Morton-sorted faces, a complete binary tree over
+# them. Each box is padded by BVH_PAD metres plus BVH_PAD_REL of its
+# coordinate's magnitude (~8 f32 ulps), so that a hit the pair arithmetic
+# finds lies inside the boxes of its face's leaf and of every ancestor
+# (tests/test_torch_first_hit_accel.py holds the margin).
+BVH_LEAF_FACES = 4  # small leaves: a box test costs less than a leaf row's pair test
+BVH_MAX_DEPTH = 30  # kStack in csrc/first_hit.cu: levels of internal nodes a walk can stack
+BVH_PAD = 1.0e-3
+BVH_PAD_REL = 1.0e-6
+_SLAB_TINY = 1.0e-20  # a direction component under this in size counts as +-1e-20 in the slab test
+
+
+@dataclass
+class FaceBVH:
+    """The big variant's face tree, tensors on one device, in centred
+    coordinates. Nodes are in heap order: node 1 is the root, node i has the
+    children 2i and 2i + 1, and leaf j is node n_leaves + j; node 0 and the
+    leaves past the last face are empty (lo = +inf, hi = -inf)."""
+
+    rows: torch.Tensor  # (n_leaves * leaf_faces, 16) the table's rows in leaf order; zero rows pad the last leaf
+    face: torch.Tensor  # (n_leaves * leaf_faces,) int32 original face of each row, -1 on padding
+    boxes: torch.Tensor  # (2 * n_leaves, 8) padded node boxes [lo x, y, z, 0, hi x, y, z, 0]
+    n_leaves: int  # a power of two
+    leaf_faces: int  # rows per leaf
+
+    def __repr__(self):
+        return f"FaceBVH(faces={int((self.face >= 0).sum())}, leaves={self.n_leaves} of {self.leaf_faces})"
+
+
+def _morton_spread(v: torch.Tensor) -> torch.Tensor:
+    """The 10 low bits of `v` (int64) spread to every third bit."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def build_face_bvh(tris: torch.Tensor, center: torch.Tensor, tab: torch.Tensor) -> FaceBVH:
+    """The face tree of `tris` (F, 3, 3) over its big table (`big_face_table`),
+    built with torch ops on the tensors' device, the same bits on every
+    device.
+
+    Faces whose row can never hit are left out: a zero normal (the 1e9
+    sentinels, degenerate faces: a = 0 makes u infinite or NaN) or a
+    non-finite entry. The rest are sorted by the 30-bit Morton code of their
+    centroid (stable: ties keep the face order), cut into leaves of
+    BVH_LEAF_FACES rows, and the leaf count padded to a power of two with
+    empty leaves; boxes are the leaves' vertex bounds, padded, and each
+    parent's the union of its children's."""
+    dev, leaf_faces = tab.device, BVH_LEAF_FACES
+    verts = tris.to(torch.float32) - center  # (F, 3, 3) centred
+    real = (tab[:, 12:15] != 0).any(dim=1) & torch.isfinite(tab).all(dim=1)
+    idx = torch.nonzero(real).squeeze(1)
+    vc = verts[idx]
+    cen = vc[:, 0] + vc[:, 1] + vc[:, 2]  # 3x the centroid: the scale drops out of the grid
+    if idx.numel():
+        lo, hi = cen.amin(dim=0), cen.amax(dim=0)
+        span = torch.clamp_min(hi - lo, 1e-6)
+        q = torch.clamp((cen - lo) / span * 1023.0, 0.0, 1023.0).to(torch.int64)
+        code = _morton_spread(q[:, 0]) | (_morton_spread(q[:, 1]) << 1) | (_morton_spread(q[:, 2]) << 2)
+        perm = torch.sort(code, stable=True).indices
+        idx, vc = idx[perm], vc[perm]
+    n = idx.numel()
+    n_leaves = 1 << max(0, math.ceil(math.log2(max(1, -(-n // leaf_faces)))))
+    cap = n_leaves * leaf_faces
+    rows = torch.zeros((cap, 16), dtype=torch.float32, device=dev)
+    rows[:n] = tab[idx]
+    face = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    face[:n] = idx.to(torch.int32)
+
+    v_lo = torch.full((cap, 3), math.inf, dtype=torch.float32, device=dev)
+    v_hi = torch.full((cap, 3), -math.inf, dtype=torch.float32, device=dev)
+    v_lo[:n] = vc.amin(dim=1)
+    v_hi[:n] = vc.amax(dim=1)
+    lo = v_lo.view(n_leaves, leaf_faces, 3).amin(dim=1)
+    hi = v_hi.view(n_leaves, leaf_faces, 3).amax(dim=1)
+    full = torch.isfinite(lo)  # empty leaves stay (+inf, -inf)
+    lo = torch.where(full, lo - (BVH_PAD + BVH_PAD_REL * lo.abs()), lo)
+    hi = torch.where(full, hi + (BVH_PAD + BVH_PAD_REL * hi.abs()), hi)
+    levels = [(lo, hi)]
+    while levels[-1][0].shape[0] > 1:
+        c_lo, c_hi = levels[-1]
+        levels.append((c_lo.view(-1, 2, 3).amin(dim=1), c_hi.view(-1, 2, 3).amax(dim=1)))
+    node_lo = torch.cat([torch.full((1, 3), math.inf, device=dev)] + [lv[0] for lv in reversed(levels)])
+    node_hi = torch.cat([torch.full((1, 3), -math.inf, device=dev)] + [lv[1] for lv in reversed(levels)])
+    zero = torch.zeros((2 * n_leaves, 1), dtype=torch.float32, device=dev)
+    boxes = torch.cat([node_lo, zero, node_hi, zero], dim=1).contiguous()
+    return FaceBVH(rows=rows, face=face, boxes=boxes, n_leaves=n_leaves, leaf_faces=leaf_faces)
+
+
+def big_first_hit_table(tris: torch.Tensor) -> tuple:
+    """("big", centre, face table, face tree) of `tris` at any face count."""
+    center, tab = big_face_table(tris)
+    return "big", center, tab, build_face_bvh(tris, center, tab)
+
+
 def first_hit_table(tris: torch.Tensor) -> tuple:
-    """(variant, centre or None, face table) of the first-hit kernel for
-    `tris` (F, 3, 3). A caller that casts many rays at one mesh builds it
-    once and passes it to every `ray_first_hit` call."""
+    """(variant, centre or None, face table, face tree or None) of the
+    first-hit kernel for `tris` (F, 3, 3). A caller that casts many rays at
+    one mesh builds it once and passes it to every `ray_first_hit` call."""
     if tris.shape[0] <= SMALL_F_MAX:
-        return "small", None, mt_face_table(tris)
-    return ("big", *big_face_table(tris))
+        return "small", None, mt_face_table(tris), None
+    return big_first_hit_table(tris)
 
 
 def _first_hit_inputs(origins, dirs, tris, table):
-    """(variant, origins, dirs, face table) for the first-hit kernel or plain body."""
-    variant, center, tab = first_hit_table(tris) if table is None else table
+    """(variant, origins, dirs, face table, face tree or None) for the
+    first-hit kernel or plain body."""
+    variant, center, tab, bvh = first_hit_table(tris) if table is None else table
     o = torch.atleast_2d(origins).to(torch.float32)
     if center is not None:
         o = o - center
-    return variant, o.contiguous(), torch.atleast_2d(dirs).to(torch.float32).contiguous(), tab
+    return variant, o.contiguous(), torch.atleast_2d(dirs).to(torch.float32).contiguous(), tab, bvh
 
 
 def _fold_min(best_t, best_i, t_hit, f0):
@@ -216,6 +319,96 @@ def _first_hit_big_plain(o, d, tab):
         hit, t = _bilinear_pair(ray, tab[f0 : f0 + step].T[:, None, :])  # faces (16, 1, Fc)
         best_t, best_i = _fold_min(best_t, best_i, torch.where(hit, t, _BIG), f0)
     return best_t, best_i
+
+
+def slab_inverse(d: torch.Tensor) -> torch.Tensor:
+    """1 / d per component as the face tree's slab test takes it: a
+    component under 1e-20 in size counts as +-1e-20 (its sign kept), so no
+    product in the slab test is 0 * inf."""
+    return 1.0 / torch.where(d.abs() < _SLAB_TINY, torch.copysign(torch.full_like(d, _SLAB_TINY), d), d)
+
+
+def slab_entry_exit(o: torch.Tensor, inv: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> tuple:
+    """(entry, exit) of rays o + s d, s >= 0, into boxes [lo, hi] (shapes
+    (..., 3) that broadcast; `inv` from `slab_inverse`), as csrc/first_hit.cu's
+    `slab` computes them, term for term: per axis the near and the far plane
+    by the sign of inv, entry the largest near distance and 0, exit the
+    smallest far one. The walk enters a node where entry <= exit and entry
+    <= the ray's best t so far. An empty box (+inf, -inf) gives entry +inf."""
+    pos = inv >= 0
+    t_near = (torch.where(pos, lo, hi) - o) * inv
+    t_far = (torch.where(pos, hi, lo) - o) * inv
+    entry = torch.maximum(torch.maximum(t_near[..., 0], t_near[..., 1]),
+                          torch.clamp_min(t_near[..., 2], 0.0))
+    exit_ = torch.minimum(torch.minimum(t_far[..., 0], t_far[..., 1]), t_far[..., 2])
+    return entry, exit_
+
+
+def _first_hit_walk_plain(o, d, bvh: FaceBVH):
+    """The face-tree walk of first_hit_big_kernel for every ray at once, in
+    the kernel's order (the nearer child first, the farther pushed with its
+    entry and skipped at its pop once the best t precedes it; a leaf's rows
+    folded by (t, original face)): (t, face, visits (R, 2) int32 = slab
+    tests, leaves folded), a miss as (inf, -1)."""
+    r, dev = o.shape[0], o.device
+    n_leaves = bvh.n_leaves
+    lo, hi = bvh.boxes[:, 0:3], bvh.boxes[:, 4:7]
+    finite = torch.isfinite(o).all(dim=1) & torch.isfinite(d).all(dim=1)
+    o = torch.where(finite[:, None], o, 0.0)
+    d = torch.where(finite[:, None], d, 1.0)
+    inv = slab_inverse(d)
+    ray = _plucker(o, d)
+    best_t = torch.full((r,), _BIG, dtype=torch.float32, device=dev)
+    best_i = torch.full((r,), _IDX_BIG, dtype=torch.int32, device=dev)
+    entry, exit_ = slab_entry_exit(o, inv, lo[1], hi[1])
+    node = torch.where(finite & (entry <= exit_), 1, 0)
+    nodes = finite.to(torch.int32)
+    leaves = torch.zeros(r, dtype=torch.int32, device=dev)
+    stack_n = torch.zeros((r, BVH_MAX_DEPTH), dtype=torch.int64, device=dev)
+    stack_t = torch.zeros((r, BVH_MAX_DEPTH), dtype=torch.float32, device=dev)
+    sp = torch.zeros(r, dtype=torch.int64, device=dev)
+    lanes = torch.arange(bvh.leaf_faces, device=dev)
+    while True:
+        while True:  # pop until an entry does not pass the best t, or the stack is empty
+            pop = torch.nonzero((node == 0) & (sp > 0)).squeeze(1)
+            if pop.numel() == 0:
+                break
+            sp[pop] -= 1
+            keep = stack_t[pop, sp[pop]] <= best_t[pop]
+            node[pop] = torch.where(keep, stack_n[pop, sp[pop]], 0)
+        leaf = torch.nonzero(node >= n_leaves).squeeze(1)
+        inner = torch.nonzero((node > 0) & (node < n_leaves)).squeeze(1)
+        if leaf.numel() == 0 and inner.numel() == 0:
+            break
+        if leaf.numel():
+            row = (node[leaf] - n_leaves)[:, None] * bvh.leaf_faces + lanes  # (n, leaf_faces)
+            hit, t = _bilinear_pair(tuple(x[leaf] for x in ray), bvh.rows[row].permute(2, 0, 1))
+            f = bvh.face[row]
+            ok = hit & (t < _BIG) & (f >= 0)
+            t = torch.where(ok, t, _BIG)
+            f = torch.where(ok, f, _IDX_BIG)
+            t_min = t.amin(dim=1)
+            f_min = torch.where(t == t_min[:, None], f, _IDX_BIG).amin(dim=1)
+            best_t[leaf], best_i[leaf] = _lex_min(best_t[leaf], best_i[leaf], t_min, f_min)
+            leaves[leaf] += 1
+            node[leaf] = 0
+        if inner.numel():
+            c0 = node[inner] * 2
+            e0, x0 = slab_entry_exit(o[inner], inv[inner], lo[c0], hi[c0])
+            e1, x1 = slab_entry_exit(o[inner], inv[inner], lo[c0 + 1], hi[c0 + 1])
+            nodes[inner] += 2
+            bt = best_t[inner]
+            v0 = (e0 <= x0) & (e0 <= bt)
+            v1 = (e1 <= x1) & (e1 <= bt)
+            both = v0 & v1
+            second = e1 < e0  # the nearer child first; child 2i on a tie
+            push = inner[both]
+            stack_n[push, sp[push]] = torch.where(second, c0, c0 + 1)[both]
+            stack_t[push, sp[push]] = torch.where(second, e0, e1)[both]
+            sp[push] += 1
+            node[inner] = torch.where(both, torch.where(second, c0 + 1, c0),
+                                      torch.where(v0, c0, torch.where(v1, c0 + 1, 0)))
+    return (*_finish_first_hit(best_t, best_i), torch.stack([nodes, leaves], dim=1))
 
 
 def _mt_pair(o, d, c):
@@ -268,10 +461,43 @@ def _finish_first_hit(best_t, best_i):
 
 
 def ray_first_hit_plain(origins, dirs, tris, table=None):
-    """Plain PyTorch version of `ray_first_hit` (any device)."""
-    variant, o, d, tab = _first_hit_inputs(origins, dirs, tris, table)
+    """Plain PyTorch version of `ray_first_hit` (any device): the dense walk
+    over every face in order."""
+    variant, o, d, tab, _ = _first_hit_inputs(origins, dirs, tris, table)
     body = _first_hit_big_plain if variant == "big" else _first_hit_small_plain
     return _finish_first_hit(*body(o, d, tab))
+
+
+def _launch_first_hit(variant, o, d, tab, bvh, visits=None):
+    """One launch of the first-hit kernel of `variant` on card tensors."""
+    r, dev = o.shape[0], o.device
+    _check("origins", o, (r, 3), torch.float32, dev)
+    _check("dirs", d, (r, 3), torch.float32, dev)
+    t = o.new_empty(r)
+    idx = o.new_empty(r, dtype=torch.int32)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    if variant == "small":
+        f = tab.shape[0]
+        _check("face table", tab, (f, 9), torch.float32, dev)
+        fn = _lib("first_hit", "first_hit_small", [vp, vp, vp, ci, ci, vp, vp, vp])
+        launch_counts["first_hit_small"] += 1
+        _raise_on(fn(_ptr(o), _ptr(d), _ptr(tab), r, f, _ptr(t), _ptr(idx), _stream(o)), "first_hit_small")
+        return t, idx
+    n_leaves = bvh.n_leaves
+    if n_leaves.bit_length() - 1 > BVH_MAX_DEPTH:
+        raise ValueError(f"first_hit_big: a tree of {n_leaves} leaves is deeper than {BVH_MAX_DEPTH} levels")
+    _check("tree rows", bvh.rows, (n_leaves * bvh.leaf_faces, 16), torch.float32, dev)
+    _check("tree faces", bvh.face, (n_leaves * bvh.leaf_faces,), torch.int32, dev)
+    _check("tree boxes", bvh.boxes, (2 * n_leaves, 8), torch.float32, dev)
+    if visits is not None:
+        _check("visits", visits, (r, 2), torch.int32, dev)
+    fn = _lib("first_hit", "first_hit_big", [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp])
+    launch_counts["first_hit_big"] += 1
+    err = fn(_ptr(o), _ptr(d), _ptr(bvh.rows), _ptr(bvh.face), _ptr(bvh.boxes), r, n_leaves, bvh.leaf_faces,
+             _ptr(t), _ptr(idx),
+             ctypes.c_void_p(0 if visits is None else visits.data_ptr()), _stream(o))
+    _raise_on(err, "first_hit_big")
+    return t, idx
 
 
 def ray_first_hit(origins, dirs, tris, table=None):
@@ -280,25 +506,42 @@ def ray_first_hit(origins, dirs, tris, table=None):
     t = +inf and face = -1 where a ray escapes. On equal t the smallest face
     index wins. F > 512 runs the big-variant arithmetic (centred coordinates,
     precomputed face table), F <= 512 classic Moller-Trumbore, as the Pallas
-    kernel does. `table` is `first_hit_table(tris)` where the caller keeps it.
+    kernel does. `table` is `first_hit_table(tris)` where the caller keeps it:
+    on the card the big variant walks its face tree in one launch; the
+    result is the dense walk's, bit for bit.
     """
-    variant, o, d, tab = _first_hit_inputs(origins, dirs, tris, table)
+    variant, o, d, tab, bvh = _first_hit_inputs(origins, dirs, tris, table)
     if not _on_card(o):
         body = _first_hit_big_plain if variant == "big" else _first_hit_small_plain
         return _finish_first_hit(*body(o, d, tab))
-    r, f = o.shape[0], tab.shape[0]
-    dev = o.device
-    _check("origins", o, (r, 3), torch.float32, dev)
-    _check("dirs", d, (r, 3), torch.float32, dev)
-    _check("face table", tab, (f, 16 if variant == "big" else 9), torch.float32, dev)
-    t = torch.empty(r, dtype=torch.float32, device=dev)
-    idx = torch.empty(r, dtype=torch.int32, device=dev)
-    name = f"first_hit_{variant}"
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _lib("first_hit", name, [vp, vp, vp, ci, ci, vp, vp, vp])
-    launch_counts[name] += 1
-    _raise_on(fn(_ptr(o), _ptr(d), _ptr(tab), r, f, _ptr(t), _ptr(idx), _stream(o)), name)
-    return t, idx
+    return _launch_first_hit(variant, o, d, tab, bvh)
+
+
+def _walk_inputs(origins, dirs, table):
+    variant, o, d, _, bvh = _first_hit_inputs(origins, dirs, None, table)
+    if variant != "big" or bvh is None:
+        raise ValueError("the tree walk takes a big-variant table with its face tree (big_first_hit_table)")
+    return o, d, bvh
+
+
+def first_hit_walk_plain(origins, dirs, table):
+    """Plain PyTorch version of `first_hit_walk` (any device): the kernel's
+    tree walk, every ray's steps in its order."""
+    return _first_hit_walk_plain(*_walk_inputs(origins, dirs, table))
+
+
+def first_hit_walk(origins, dirs, table):
+    """`ray_first_hit` of the big variant with the walk's counts: (t, face,
+    visits (R, 2) int32), visits = [boxes slab-tested, leaves folded] per
+    ray. `table` is a big table with its tree (`big_first_hit_table`).
+    Launches the kernel on a CUDA device (one `first_hit_big` launch) and its
+    plain walk on the CPU."""
+    o, d, bvh = _walk_inputs(origins, dirs, table)
+    if not _on_card(o):
+        return _first_hit_walk_plain(o, d, bvh)
+    visits = torch.empty((o.shape[0], 2), dtype=torch.int32, device=o.device)
+    t, idx = _launch_first_hit("big", o, d, None, bvh, visits)
+    return t, idx, visits
 
 
 # ---------------------------------------------------------------------------
@@ -537,10 +780,24 @@ def deposit_histogram_foa(hit, normal, e_refl, dist, occ, listener_pos,
 # K5: grouped histogram
 # ---------------------------------------------------------------------------
 
-# Widest K slice of one block's shared histogram, and its byte budget: the
-# default 48 KiB of a block, so the kernel needs no opt-in
-_HIST_K_SLICE = 16
-_HIST_SMEM = 48 * 1024
+# The kernel's shapes: up to _HIST_WARPS warps a CTA, each with its own
+# histogram of n_bins columns (16 bytes each with float4 columns) within
+# _HIST_SMEM; clusters of up to 8 CTAs, the fewest that give _HIST_CTAS
+_HIST_WARPS = 4
+_HIST_CLUSTER = 8
+_HIST_CTAS = 2 * 132  # two per SM of an H100
+_HIST_SMEM = 227 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def bin_histogram_shape(g: int, k: int, n_bins: int, vec4: bool) -> tuple:
+    """(warps per CTA, CTAs per cluster) of the K5 launch for G groups, K
+    deposits per ray (K / 4 columns with `vec4`, else K) and n_bins bins."""
+    cols = k // 4 if vec4 else k
+    warps = min(_HIST_WARPS, _HIST_SMEM // (n_bins * (16 if vec4 else 4)))
+    if warps < 1:
+        raise ValueError(f"bin_histogram: {n_bins} bins do not fit one warp's shared histogram")
+    return warps, max(1, min(_HIST_CLUSTER, -(-_HIST_CTAS // (g * cols))))
 
 
 def bin_histogram_plain(bins, dep, n_bins: int):
@@ -569,18 +826,19 @@ def bin_histogram(bins, dep, n_bins: int):
     if not _on_card(dep):
         return bin_histogram_plain(bins, dep, n_bins)
     g, r, k = dep.shape
-    if n_bins * 4 > _HIST_SMEM:
-        raise ValueError(f"bin_histogram: {n_bins} bins do not fit one block's shared histogram")
-    k_slice = min(k, _HIST_K_SLICE, _HIST_SMEM // (4 * n_bins))
     dev = dep.device
-    bins = bins.to(torch.int32).contiguous()
+    if bins.dtype != torch.int32 or not bins.is_contiguous():
+        bins = bins.to(torch.int32).contiguous()
     _check("bins", bins, (g, r), torch.int32, dev)
     _check("dep", dep, (g, r, k), torch.float32, dev)
-    out = torch.empty((g, n_bins, k), dtype=torch.float32, device=dev)
+    out = dep.new_empty((g, n_bins, k))
+    # Columns of four deposits where every row starts on 16 bytes
+    vec4 = k % 4 == 0 and dep.data_ptr() % 16 == 0
+    warps, cluster = bin_histogram_shape(g, k, n_bins, vec4)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _lib("bin_histogram", "bin_histogram", [vp, vp, ci, ci, ci, ci, ci, vp, vp])
+    fn = _lib("bin_histogram", "bin_histogram", [vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, vp])
     launch_counts["bin_histogram"] += 1
-    err = fn(_ptr(bins), _ptr(dep), g, r, k, n_bins, k_slice, _ptr(out), _stream(dep))
+    err = fn(_ptr(bins), _ptr(dep), g, r, k, n_bins, int(vec4), warps, cluster, _ptr(out), _stream(dep))
     _raise_on(err, "bin_histogram")
     return out
 
@@ -798,7 +1056,7 @@ def first_hit_tiled(o, d, bmeta, perm, dlo, face_tab, tile_aabb):
 def dense_mt_table(tris: torch.Tensor) -> tuple:
     """A `first_hit_table` that runs the classic Moller-Trumbore variant at
     any face count: the dense first hit with the tiled kernel's arithmetic."""
-    return "small", None, mt_face_table(tris)
+    return "small", None, mt_face_table(tris), None
 
 
 # ---------------------------------------------------------------------------

@@ -285,6 +285,7 @@ def trace_energy_histogram_multi(
     encoding: str = "omni",
     sh_order: int = 1,
     mesh_tiles=None,
+    fh_table=None,
 ) -> torch.Tensor:
     """Energy histograms for E sources traced together in one wavefront.
 
@@ -307,6 +308,8 @@ def trace_energy_histogram_multi(
         mesh_tiles: an `ops.tiled_first_hit.MeshTiles` of `tris`: the bounce
             first hit runs K7 on it. Without it, `config.USE_MXU_FIRST_HIT`
             runs K8 on a mesh of at most MXU_F_MAX faces; else K1.
+        fh_table: K1's `first_hit_table(tris)` where the caller keeps it
+            (built here when None).
 
     Returns (E, C_out, B, n_bins) pressure^2 energies: C_out = C for omni;
     the ambisonic channels signed (energy times the arrival direction's
@@ -336,7 +339,7 @@ def trace_energy_histogram_multi(
     hist = torch.zeros((n_sources, c_out, n_bands, n_bins), dtype=torch.float32, device=dev)
     mxu_tables = _mxu_tables_for(tris, mesh_tiles)
     dense = mesh_tiles is None and mxu_tables is None
-    route = (first_hit_table(tris) if dense else None, mesh_tiles, mxu_tables)
+    route = ((first_hit_table(tris) if fh_table is None else fh_table) if dense else None, mesh_tiles, mxu_tables)
     vis = (face_occlusion, star, bool(occlusion), bool(shared_visibility))
     band_freqs = _band_centers(n_bands, dev)
     phases = decimation_phases(n_rays, max_depth, decimate)
@@ -789,6 +792,7 @@ def trace_rirs_multi(
     sh_order_direct: int = 3,
     sh_order_indirect: int = 1,
     mesh_tiles=None,
+    fh_table=None,
 ) -> torch.Tensor:
     """RIRs for a batch of sources against one listener group: stochastic
     tail on `tris` (the acoustic mesh) + exact direct path on `tris_direct`
@@ -797,8 +801,9 @@ def trace_rirs_multi(
     listener point); the direct and diffracted paths encode at
     `sh_order_direct`, the tail at `sh_order_indirect`, each clipped to the
     layout's order. The tail's rain visibility is `face_occlusion`, `star`
-    or `occlusion`, its bounce first hit K7 on `mesh_tiles` where given (see
-    trace_energy_histogram_multi). Returns (C_out, E, n_samples)."""
+    or `occlusion`, its bounce first hit K7 on `mesh_tiles` where given, else
+    K1 on `fh_table` (see trace_energy_histogram_multi). Returns (C_out, E,
+    n_samples)."""
     source_positions = torch.atleast_2d(source_positions)
     n_bins = int(np.ceil(n_samples / sr / bin_dt)) + 1
     hist = trace_energy_histogram_multi(
@@ -806,7 +811,7 @@ def trace_rirs_multi(
         n_rays=n_rays, max_depth=max_depth, n_bins=n_bins, bin_dt=bin_dt, c=c,
         tri_normals=tri_normals, face_occlusion=face_occlusion, star=star, occlusion=occlusion,
         shared_visibility=shared_visibility, decimate=decimate, encoding=encoding, sh_order=sh_order_indirect,
-        mesh_tiles=mesh_tiles,
+        mesh_tiles=mesh_tiles, fh_table=fh_table,
     )  # (E, C_out, B, bins)
     band_freqs = _band_centers(face_absorption.shape[1], tris.device)
     irs = synthesize_ir_from_histogram(gen, hist, band_freqs, n_samples, bin_dt, sr=sr, encoding=encoding)

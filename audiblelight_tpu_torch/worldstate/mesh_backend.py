@@ -38,6 +38,7 @@ from audiblelight_tpu_torch.geometry.queries import (
     segments_occluded,
 )
 from audiblelight_tpu_torch.micarrays import MicArray
+from audiblelight_tpu_torch.ops.cuda_kernels import first_hit_table
 from audiblelight_tpu_torch.ops.star_occlusion import build_star_accel
 from audiblelight_tpu_torch.ops.tiled_first_hit import build_mesh_tiles
 from audiblelight_tpu_torch.rir.materials import (
@@ -183,6 +184,7 @@ class MeshDeviceState:
         self._rain_cache: dict = {}
         self._star_cache: dict = {}
         self._mesh_tiles = None
+        self._first_hit_tables: dict = {}
 
     @classmethod
     def from_mesh(cls, mesh: TriMesh, cfg: Optional[dict] = None,
@@ -236,6 +238,17 @@ class MeshDeviceState:
                 logger.info(f"Built occlusion structure: {star}")
             self._star_cache[key] = star
         return self._star_cache[key]
+
+    def first_hit_table(self, tris: torch.Tensor) -> tuple:
+        """The cached first-hit table (`cuda_kernels.first_hit_table`: for
+        more than 512 faces the big variant's table and face tree) of
+        `tris`, this state's full or acoustic triangles, built once."""
+        key = id(tris)
+        if key not in self._first_hit_tables:
+            self._first_hit_tables[key] = first_hit_table(tris)
+            if self._first_hit_tables[key][3] is not None:
+                logger.info(f"Built first-hit face tree: {self._first_hit_tables[key][3]}")
+        return self._first_hit_tables[key]
 
     @property
     def mesh_tiles(self):
@@ -299,6 +312,7 @@ class MeshDeviceState:
             sh_order_direct=int(cfg["direct_sh_order"]),
             sh_order_indirect=int(cfg["indirect_sh_order"]),
             mesh_tiles=self.mesh_tiles if self.acoustic_tris is self.tris else None,
+            fh_table=self.first_hit_table(self.acoustic_tris),
             **rain,
         )
 
@@ -319,13 +333,15 @@ def mic_encoding(mic: MicArray) -> tuple:
 
 
 class _EngineContext:
-    """Listener/source/object counts of the engine context."""
+    """Listener/source/object counts of the engine context, and the ray
+    efficiency of the last simulation."""
 
     def __init__(self, cfg: dict):
         self.config = cfg
         self.listeners: list = []
         self.sources: list = []
         self.object_count = 0
+        self.indirect_ray_efficiency = None
 
     def get_listener_count(self) -> int:
         return len(self.listeners)
@@ -335,6 +351,9 @@ class _EngineContext:
 
     def get_object_count(self) -> int:
         return self.object_count
+
+    def get_indirect_ray_efficiency(self) -> float:
+        return self.indirect_ray_efficiency if self.indirect_ray_efficiency is not None else 0.0
 
 
 class WorldStateRLR(PlacementMixin, WorldState):
@@ -493,7 +512,9 @@ class WorldStateRLR(PlacementMixin, WorldState):
         cos_el = np.cos(elevations)
         directions = np.stack([cos_el * np.cos(angles), cos_el * np.sin(angles), np.sin(elevations)], -1)
         origins = np.broadcast_to(point, (num_rays, 3))
-        t, _ = ray_mesh_first_hit(self._points(origins), self._points(directions), self.device_state.tris)
+        st = self.device_state
+        t, _ = ray_mesh_first_hit(self._points(origins), self._points(directions), st.tris,
+                                  st.first_hit_table(st.tris))
         distances = t.cpu().numpy()
         if np.isinf(distances).any():
             logger.warning(f"Some rays cast from point {point} have infinite distances: is the mesh watertight?")
@@ -513,10 +534,35 @@ class WorldStateRLR(PlacementMixin, WorldState):
     # Simulation
     # ------------------------------------------------------------------
 
+    def _simulation_sanity_check(self) -> None:
+        assert self.num_emitters > 0, "Must have added valid emitters before calling `simulate`!"
+        assert len(self.microphones) > 0, "Must have added microphones before calling `simulate`!"
+        assert all(
+            issubclass(type(m), MicArray) for m in self.microphones.values()
+        ), "Non-microphone objects in microphone attribute"
+        assert self.ctx.get_listener_count() > 0
+        assert self.ctx.get_source_count() > 0
+        assert self.ctx.get_object_count() == 1
+        assert sum(len(em) for em in self.emitters.values()) == self.ctx.get_source_count()
+        assert sum(m.n_listeners for m in self.microphones.values()) == self.ctx.get_listener_count()
+
     def simulate(self) -> None:
-        """Trace the IRs of every (microphone, emitter) pair."""
+        """Trace the IRs of every (microphone, emitter) pair, after the
+        reference's sanity checks; then estimate the ray efficiency from the
+        mesh's watertightness and warn below WARN_WHEN_RAY_EFFICIENCY_BELOW."""
+        self._update()
+        self._simulation_sanity_check()
         self._irs = None
+        logger.info(f"Starting simulation with {self.num_emitters} emitters, {len(self.microphones)} microphones")
         self._irs = self.get_irs()
+        escaped = len(self.mesh.broken_faces()) / max(len(self.mesh.faces), 1)
+        efficiency = float(np.clip(1.0 - escaped, 0.0, 1.0))
+        self.ctx.indirect_ray_efficiency = efficiency
+        if efficiency < config.WARN_WHEN_RAY_EFFICIENCY_BELOW:
+            logger.warning(
+                f"Ray efficiency is below {config.WARN_WHEN_RAY_EFFICIENCY_BELOW:.0%}. "
+                f"The mesh may have holes; consider a lower `repair_threshold` or repairing it."
+            )
 
     def get_irs(self) -> OrderedDict:
         """{mic alias: (C_out, n_emitters, n_samples)} IRs as host numpy

@@ -4,7 +4,9 @@
 
 Builds the tracer's CUDA kernels from audiblelight_tpu_torch/csrc with nvcc,
 holds each against its plain PyTorch version on the card at the flagship
-shapes, then drives the port's two main paths:
+shapes (K1 big, the face-tree walk, bit for bit against the dense walk and
+its own plain walk, visit counts included, with each face tree's build
+time), then drives the port's two main paths:
 
 - three 60 s flagship SELD scenes through the fused renderer (110,592-face
   scanned room, 4,071-face acoustic LOD, per-face rain visibility, order-10
@@ -26,7 +28,9 @@ shapes, then drives the port's two main paths:
 - the HOA3 and binaural rigs: one flagship scene each through the fused
   renderer (the unfused deposit chain folded by K5), written as int16 WAVs
   of 16 and 2 channels, their direct paths checked for direction (HOA3)
-  and for the Woodworth ITD and the ILD's sign (binaural);
+  and for the Woodworth ITD and the ILD's sign (binaural), and K5 held
+  against its plain version and timed beside `index_add_` on the HOA3
+  trace's own bounces (first and last of each decimation phase);
 - the tracer's two optional first-hit routes: the first flagship scene with
   config.USE_MXU_FIRST_HIT (K8 on the acoustic LOD) beside the default
   scene of the same inputs, their IRs held to 5 % in per-channel energy and
@@ -36,6 +40,9 @@ shapes, then drives the port's two main paths:
   K1 scene's, K7 held against its plain version, the dense classic
   Moller-Trumbore first hit and K1 on that scene's bounce inputs and on
   interior rays;
+- K1 big on the full mesh against its plain versions on the exact scene's
+  second and third bounces, 80k interior rays and the exact trace's
+  wavefront with the most dead rays;
 - the cone-sorted (K9) and pair-walk (K10) first hits, which neither
   package wires into its tracer, through their own entry points
   (`build_sorted_tiles`, `sorted_first_hit`, `pair_first_hit`) on the exact
@@ -45,7 +52,9 @@ shapes, then drives the port's two main paths:
   big over the Morton-sorted faces, bit for bit.
 
 Each path's kernel launches are counted from zero just before it and read
-just after; a kernel of the path that did not launch fails the run. It
+just after; a kernel of the path that did not launch fails the run, and so
+does a fused scene that launched K1 big other than 60 times, or any path
+that launched another first-hit kernel than its own. It
 prints one JSON line of kernel results; the last line is
 {"ok": true, "device": {...}}.
 
@@ -137,6 +146,24 @@ def time_ms(fn, reps: int = 10, warm: bool = True) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of the kernels `fn` launches, from the profiler
+    over `reps` calls after a warm-up: `time_ms` without the host's time
+    before each launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
+                for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+    return total / reps / 1e3
 
 
 def elapsed(t_start: float, label: str) -> None:
@@ -795,7 +822,7 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
     from audiblelight_tpu_torch.ops import pair_first_hit as pfh
     from audiblelight_tpu_torch.ops import sorted_first_hit as sfh
 
-    built = {}
+    built, tables = {}, {}
     for _, tris, *_ in wavefronts:
         if id(tris) not in built:
             t0 = time.time()
@@ -855,9 +882,8 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
             k10_err = max(k10_err, float((t_kr - t_pr).abs().nan_to_num(0.0).max()))
         # Each op against K1 big over the sentinel-padded sorted faces: the same table
         st = torch.from_numpy(sfh.padded_sorted_tris(tris.cpu().numpy(), order, tiles.n_tiles)).to(dev)
-        centre, tab = ck.big_face_table(st)
-        same_table = torch.equal(centre, tiles.center) and torch.equal(tab, tiles.face_tab)
-        table_s = ("big", centre, tab)
+        table_s = ck.first_hit_table(st)
+        same_table = torch.equal(table_s[1], tiles.center) and torch.equal(table_s[2], tiles.face_tab)
         t_d, i_d = ck.ray_first_hit(o, d, st, table_s)
         t_d = torch.where(live, t_d, torch.inf)
         i_d = torch.where(live, i_d, -1)
@@ -865,7 +891,9 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
         equal10 = torch.equal(t10, t_d) and torch.equal(i10, i_d)
         # ... and through `order` against K1 big over the mesh as it is
         order_t = torch.as_tensor(order, dtype=torch.int64, device=dev)
-        t_m, i_m = ck.ray_first_hit(o, d, tris, ("big", *ck.big_face_table(tris)))
+        if id(tris) not in tables:
+            tables[id(tris)] = ck.first_hit_table(tris)
+        t_m, i_m = ck.ray_first_hit(o, d, tris, tables[id(tris)])
         t_m = torch.where(live, t_m, torch.inf)
         i_m = torch.where(live, i_m, -1)
         i9_orig = torch.where(i9 >= 0, order_t[i9.clamp_min(0).long()].to(torch.int32), -1)
@@ -925,6 +953,139 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
             results["first_hit_pair"] = dict(max_abs_err=k10_err, bound_ms=b10_ms, bound_by=b10_by, ms=k10_ms, plain_ms=k10_plain_ms,
                                              library_ms=None)
     return launches
+
+
+def check_k5_bounces(kept: dict) -> None:
+    """K5 on a trace's own bounces (`kept`: rays per source -> the first and
+    last bounce's (bins, deposits, n_bins)): against its plain version (bins
+    identical, sums within 1e-5 relative plus 1e-6 of the peak), timed
+    beside one `index_add_` of the same fold."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+
+    if len(kept) != 3:
+        fail(f"the HOA3 trace ran K5 at ray counts {sorted(kept)}, expected three decimation phases")
+    for rays, bounces in sorted(kept.items(), reverse=True):
+        for which, (bins, dep, n_bins) in zip(("first", "last"), bounces):
+            g, _, k = dep.shape
+            h_k = ck.bin_histogram(bins, dep, n_bins)
+            h_p = ck.bin_histogram_plain(bins, dep, n_bins)
+            bins_bad = int(((h_k != 0) != (h_p != 0)).sum())
+            peak = h_p.abs().amax().clamp_min(1e-30)
+            ok = bool(((h_k - h_p).abs() <= 1e-5 * h_p.abs() + 1e-6 * peak).all())
+            keep = (bins >= 0) & (bins < n_bins)
+            flat = (torch.arange(g, device=bins.device)[:, None] * n_bins + bins.clamp(0, n_bins - 1)).reshape(-1)
+            vals = torch.where(keep[..., None], dep, 0.0).reshape(-1, k)
+            out = torch.zeros(g * n_bins, k, device=bins.device)
+            warps, cluster = ck.bin_histogram_shape(g, k, n_bins, k % 4 == 0)
+            b_ms, b_by = bound_ms(g * rays * k, g * rays * (4 * k + 4) + h_k.numel() * 4)
+            print(f"check bin_histogram at the HOA3 trace's {which} bounce of {rays} rays per source ({tuple(dep.shape)}, "
+                  f"{int((dep != 0).any(-1).sum())} rays deposit, in {int(torch.unique(bins[keep]).numel())} bins; "
+                  f"{warps} warps a CTA, clusters of {cluster}): bin mismatches {bins_bad}, within tolerance {ok}; "
+                  f"{time_ms(lambda: ck.bin_histogram(bins, dep, n_bins)):.4f} ms per call (device "
+                  f"{device_ms(lambda: ck.bin_histogram(bins, dep, n_bins)):.4f}), index_add_ "
+                  f"{time_ms(lambda: out.index_add_(0, flat.long(), vals)):.4f} ms (device "
+                  f"{device_ms(lambda: out.index_add_(0, flat.long(), vals)):.4f}), bound {b_ms:.5f} ms ({b_by})",
+                  flush=True)
+            if bins_bad or not ok:
+                fail(f"bin_histogram disagrees with its plain version at the HOA3 trace's bounce of {rays} rays")
+
+
+def check_first_hits(launches: dict, big: int, label: str) -> None:
+    """Fails unless the run `launches` launched K1 big `big` times and no
+    other first-hit kernel."""
+    others = {k: launches[k] for k in KERNELS if k.startswith("first_hit") and k != "first_hit_big" and launches[k]}
+    if launches["first_hit_big"] != big or others:
+        fail(f"{label} launched first_hit_big {launches['first_hit_big']} times (expected {big}) and {others}")
+
+
+def check_k1(label: str, o, d, tris, table, results: dict = None, bound: tuple = None) -> None:
+    """K1 big (the face-tree walk, one launch) against its plain version (the
+    dense walk over every face) and the plain tree walk on the rays `o`, `d`
+    against `tris` and its `table` (`first_hit_table`): t bits, faces and
+    misses identical (0 ulp), the kernel's visit counts equal to the plain
+    walk's. Prints the mean box tests and leaf folds per ray (the walk's
+    divergence), the time per call (and its device part: the centring
+    subtraction and the kernel) and the dense plain time; with `results`,
+    records K1's line from this check (`bound` = (ms, by))."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+
+    t_k, i_k = ck.ray_first_hit(o, d, tris, table)
+    dense = []
+    plain_ms = time_ms(lambda: dense.append(ck.ray_first_hit_plain(o, d, tris, table)), reps=1, warm=False)
+    t_p, i_p = dense[0]
+    t_w, i_w, vis_k = ck.first_hit_walk(o, d, table)
+    t_wp, i_wp, vis_p = ck.first_hit_walk_plain(o, d, table)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(t_p)
+    idx_bad = int((i_k != i_p).sum())
+    inf_bad = int((torch.isfinite(t_k) != fin).sum())
+    ulp = int(ulp_distance(t_k[fin], t_p[fin]).max()) if fin.any() else 0
+    err = float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0
+    walk_same = (torch.equal(t_w, t_k) and torch.equal(i_w, i_k) and torch.equal(t_wp, t_k) and torch.equal(i_wp, i_k)
+                 and torch.equal(vis_k, vis_p))
+    vis = vis_k.double()
+    k_ms = time_ms(lambda: ck.ray_first_hit(o, d, tris, table))
+    dev_ms = device_ms(lambda: ck.ray_first_hit(o, d, tris, table))
+    print(f"check first_hit_big on the {label}: {o.shape[0]} rays x {tris.shape[0]} faces ({table[3]}): face "
+          f"mismatches {idx_bad}, miss mismatches {inf_bad}, max ulp {ulp}, max |dt| {err:.3e} against the dense "
+          f"walk; identical to the plain tree walk, visit counts included, {walk_same}; per ray {float(vis[:, 0].mean()):.1f} "
+          f"box tests (max {int(vis[:, 0].max())}) and {float(vis[:, 1].mean()):.2f} leaves of "
+          f"{table[3].leaf_faces} faces (max {int(vis[:, 1].max())}); {k_ms:.4f} ms per call (device {dev_ms:.4f} "
+          f"ms), dense plain "
+          f"{plain_ms:.3f} ms; hits {float(fin.float().mean()):.4f}", flush=True)
+    if idx_bad or inf_bad or ulp or not walk_same:
+        fail(f"first_hit_big disagrees with its plain version on the {label}")
+    if results is not None:
+        results["first_hit_big"] = dict(max_abs_err=err, bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                                        ms=k_ms, plain_ms=plain_ms)
+
+
+def table_build_ms(tris) -> float:
+    """Milliseconds to build `first_hit_table(tris)` (the big table and its
+    face tree) on the card, host clock around a synchronised build."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+
+    ck.first_hit_table(tris)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ck.first_hit_table(tris)
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def k1_phase(xscene, st_x, table_x, surface: tuple, interior: tuple) -> None:
+    """K1 big on the full mesh: the exact scene's second and third bounces
+    (surface origins, 80k rays; K1 takes no alive mask, so these are also
+    the rays of K9's and K10's 45 %-dead wavefront), the 80k interior rays,
+    and the exact trace's own wavefront at the bounce with the largest share
+    of dead rays (the tracer passes dead rays to K1 too), each through
+    `check_k1`."""
+    from audiblelight_tpu_torch.rir import raytracer
+
+    kept = []
+    bounce = raytracer._bounce
+
+    def keep_dead(gen, state, *args):
+        share = float((~state[4]).float().mean())
+        if not kept or share > kept[0][2]:
+            kept[:] = [(state[0].clone(), state[1].clone(), share)]
+        return bounce(gen, state, *args)
+
+    raytracer._bounce = keep_dead
+    try:
+        xscene.state._irs_device_cache = None
+        xscene.state.trace_irs_device()
+    finally:
+        raytracer._bounce = bounce
+    if not kept or kept[0][2] <= 0.0:
+        fail("the exact trace never held a dead ray")
+    o_dead, d_dead, dead_share = kept[0]
+    for label, o, d in (("exact scene's second and third bounces", *surface), ("interior rays", *interior),
+                        (f"exact trace's wavefront with {dead_share:.1%} of its rays dead", o_dead, d_dead)):
+        check_k1(f"{label} on the full mesh", o, d, st_x.tris, table_x)
 
 
 def main() -> int:
@@ -988,28 +1149,18 @@ def main() -> int:
     src0, *_ = flagship_inputs(st.tris, np.random.default_rng(1), dev)
     origins = torch.as_tensor(src0, device=dev).repeat_interleave(5000, dim=0)
     dirs = _sphere_directions(gen, origins.shape[0], dev)
-    t_k, i_k = ck.ray_first_hit(origins, dirs, st.acoustic_tris)
-    t_p, i_p = ck.ray_first_hit_plain(origins, dirs, st.acoustic_tris)
-    torch.cuda.synchronize()
-    fin = torch.isfinite(t_p)
-    idx_bad = int((i_k != i_p).sum())
-    ulp = int(ulp_distance(t_k[fin], t_p[fin]).max()) if fin.any() else 0
-    inf_bad = int((torch.isfinite(t_k) != fin).sum())
-    err = float((t_k[fin] - t_p[fin]).abs().max())
-    print(f"check first_hit_big: {origins.shape[0]} rays x {n_lod} faces: face mismatches {idx_bad}, "
-          f"miss mismatches {inf_bad}, max ulp {ulp}, max |dt| {err:.3e}", flush=True)
-    if idx_bad or inf_bad or ulp > 1:
-        fail("first_hit_big disagrees with its plain version")
+    table_lod = st.first_hit_table(st.acoustic_tris)
+    build_lod_ms = table_build_ms(st.acoustic_tris)
+    build_full_ms = table_build_ms(st.tris)
+    print(f"first_hit_big face trees: LOD {table_lod[3]} built in {build_lod_ms:.3f} ms, full mesh "
+          f"{st.first_hit_table(st.tris)[3]} in {build_full_ms:.3f} ms (host clock, synchronised)", flush=True)
+    t_k, i_k = ck.ray_first_hit(origins, dirs, st.acoustic_tris, table_lod)
     r, f = origins.shape[0], n_lod
     needed, _ = first_hit_pairs(origins, dirs, t_k, i_k, face_boxes(st.acoustic_tris))
     b_ms, b_by = bound_ms(needed * FLOPS_BIG_PAIR, r * 24 + f * 64 + r * 8)
     print(f"first_hit_big: (ray, face) pairs this data needs {needed} ({needed / (r * f):.3%} of dense), bound "
           f"{b_ms:.5f} ms ({b_by})", flush=True)
-    results["first_hit_big"] = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ms=time_ms(lambda: ck.ray_first_hit(origins, dirs, st.acoustic_tris)),
-        plain_ms=time_ms(lambda: ck.ray_first_hit_plain(origins, dirs, st.acoustic_tris), reps=3),
-    )
+    check_k1("interior rays on the LOD", origins, dirs, st.acoustic_tris, table_lod, results, (b_ms, b_by))
     # The small (F <= 512) variant is off the flagship path; held all the same
     small = st.acoustic_tris[:500].contiguous()
     t_k, i_k = ck.ray_first_hit(origins, dirs, small)
@@ -1205,8 +1356,11 @@ def main() -> int:
                     ms=time_ms(lambda: ck.bin_histogram(bins5, dep5, 501)),
                     plain_ms=time_ms(lambda: ck.bin_histogram_plain(bins5, dep5, 501), reps=3),
                     library_ms=time_ms(lambda: out5.index_add_(0, flat5, vals5)))
-        print(f"bin_histogram {label}: {res5['ms']:.4f} ms, plain {res5['plain_ms']:.4f} ms, index_add_ "
-              f"{res5['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+        print(f"bin_histogram {label}: {res5['ms']:.4f} ms per call (device "
+              f"{device_ms(lambda: ck.bin_histogram(bins5, dep5, 501)):.4f}), plain {res5['plain_ms']:.4f} ms, "
+              f"index_add_ {res5['library_ms']:.4f} ms (device {device_ms(lambda: out5.index_add_(0, flat5, vals5)):.4f}), "
+              f"bound {b_ms:.5f} ms ({b_by}); deterministic {torch.equal(h_k, ck.bin_histogram(bins5, dep5, 501))}",
+              flush=True)
         if label == "hoa3":
             results["bin_histogram"] = res5
     del t_x, face_x, hit_x, n_x, seg_k, seg_p, seg_d, ends_x
@@ -1235,6 +1389,7 @@ def main() -> int:
     for name in MIC_PATH:
         if launches[name] <= 0:
             fail(f"the main path never launched {name}")
+    check_first_hits(launches, 60 * len(scenes), "the main path")
 
     # 5. Outputs: WAVs written, shaped and not silent; direct paths on time
     for i, wav in enumerate(payloads):
@@ -1354,6 +1509,7 @@ def main() -> int:
         for name in path:
             if cli_launches[layout][name] <= 0:
                 fail(f"the {layout} CLI run never launched {name}")
+        check_first_hits(cli_launches[layout], 60 * len(cli_seconds[layout]), f"the {layout} CLI run")
         check_cli_outputs(cli_root / layout, layout, t_scene)
 
     # 8. FOA physics: one CLI scene, loaded from its JSON, traced again; each
@@ -1488,6 +1644,7 @@ def main() -> int:
             fail(f"the exact scene never launched {name}")
     if exact_launches["star_any_hit"] != exact_launches["first_hit_big"]:
         fail("the exact scene did not query the star once per bounce")
+    check_first_hits(exact_launches, exact_launches["star_any_hit"], "the exact scene")
     if xaudio.shape != (4, t_scene) or float(np.abs(xaudio).max()) * 32768 < 100:
         fail("the exact scene's audio is misshapen or silent")
     want_files = ["audio_out_mic000.wav", "metadata_out.json", "metadata_out_mic000.csv"]
@@ -1567,8 +1724,13 @@ def main() -> int:
                                    table_x, (origins, dirs), results)
     del exact_irs
 
+    elapsed(t_start, "K1 on the full mesh")
+    # 10c. K1 big against its plain version on the full mesh: surface,
+    # interior and dead-ray wavefronts
+    k1_phase(xscene, st_x, table_x, surface, (origins, dirs))
+
     elapsed(t_start, "K9 and K10")
-    # 10c. The cone-sorted (K9) and pair-walk (K10) first hits on the full
+    # 10d. The cone-sorted (K9) and pair-walk (K10) first hits on the full
     # mesh (the exact scene's surface rays, the interior rays, the surface
     # rays with 45 % of them dead) and on the LOD (the fused trace's first
     # bounce)
@@ -1619,10 +1781,22 @@ def main() -> int:
                 fail(f"the {layout} scene never launched {name}")
         if rig_main[layout]["bin_histogram"] != rig_main[layout]["first_hit_big"]:
             fail(f"the {layout} scene did not fold with K5 once per bounce")
+        check_first_hits(rig_main[layout], 60, f"the {layout} scene")
         rig_ms[layout] = time_ms(lambda: rend.render_mix(torch.Generator(device=dev).manual_seed(5), src_t, lis_c,
                                                           occ_c, s_idx_t, m_idx_t, splan, *amb), reps=3)
-        irs = rend.trace(torch.Generator(device=dev).manual_seed(7), src_t, lis_c, occ_c)
+        kept5 = {}
+
+        def keep_k5(bins, dep, n_bins):
+            keep_first_last(kept5, bins.shape[1], (bins.clone(), dep.clone(), n_bins))
+            return ck.bin_histogram(bins, dep, n_bins)
+
+        raytracer.bin_histogram = keep_k5
+        try:
+            irs = rend.trace(torch.Generator(device=dev).manual_seed(7), src_t, lis_c, occ_c)
+        finally:
+            raytracer.bin_histogram = ck.bin_histogram
         if layout == "hoa3":
+            check_k5_bounces(kept5)
             irs = irs.cpu().numpy()
             offs, worst = [], []
             for e in np.flatnonzero(free_c):

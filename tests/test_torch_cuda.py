@@ -59,6 +59,105 @@ def deposit_inputs(rng, e, r, c, b, dist_max):
     return hit, normal, e_refl, dist, occ, lis
 
 
+ROOM_LO, ROOM_HI = np.array([0.05, 0.05, 0.05]), np.array([6.95, 4.95, 2.95])
+
+
+def accel_meshes() -> dict:
+    """The face-tree tests' meshes: a 6,912-face scanned room and its ~1,000-face LOD."""
+    room = scanned_like_room(subdivision_levels=3)
+    return {"room": room.triangles.astype(np.float32),
+            "lod": room.simplified(target_faces=1024).triangles.astype(np.float32)}
+
+
+def _unit(v):
+    return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _normals(tris):
+    return _unit(np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]).astype(np.float64))
+
+
+def _dense(tris, o, d):
+    t, i = ck.ray_first_hit_plain(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tris))
+    return t.numpy(), i.numpy()
+
+
+def ray_set(kind, tris, seed, n=600):
+    """(origins, dirs) float32 of one kind of ray against `tris`."""
+    rng = np.random.default_rng(seed)
+    if kind == "interior":
+        return rng.uniform(ROOM_LO, ROOM_HI, (n, 3)).astype(np.float32), _unit(rng.standard_normal((n, 3)))
+    if kind in ("surface", "on_surface"):
+        o, d = ray_set("interior", tris, seed, n)
+        t, f = _dense(tris, o, d)
+        ok = f >= 0
+        o, d, t, f = o[ok], d[ok], t[ok], f[ok]
+        nrm = _normals(tris)[f]
+        nrm = np.where((nrm * d).sum(1, keepdims=True) > 0, -nrm, nrm)
+        hit = o + t[:, None] * d
+        if kind == "surface":
+            hit = hit + 1e-4 * nrm
+        half = len(o) // 2
+        refl = d - 2.0 * (d * nrm).sum(1, keepdims=True) * nrm
+        diffuse = _unit(rng.standard_normal((len(o), 3)))
+        diffuse = np.where((diffuse * nrm).sum(1, keepdims=True) < 0, -diffuse, diffuse)
+        return hit.astype(np.float32), np.concatenate([refl[:half], diffuse[half:]]).astype(np.float32)
+    if kind in ("grazing", "near_plane"):
+        # Through a point over a random face (half of them near an edge):
+        # "grazing" runs 1e-4-1e-2 m off the face's plane, 1e-6 rad from it,
+        # or aims at the point on the face at 3e-3-3e-2 rad; "near_plane"
+        # aims at the point on the face at 0-1e-6 rad, so the ray stays
+        # within microns of the plane for metres
+        f = rng.integers(0, len(tris), n)
+        tri = tris[f].astype(np.float64)
+        nrm = _normals(tris)[f].astype(np.float64)
+        bary = rng.dirichlet([1.0, 1.0, 1.0], n)
+        bary[: n // 2] = np.clip(bary[: n // 2], 1e-4, None) * np.array([1.0, 1.0, 1e-3])
+        bary /= bary.sum(1, keepdims=True)
+        p = (bary[:, :, None] * tri).sum(1)
+        tang = rng.standard_normal((n, 3))
+        tang = _unit(tang - (tang * nrm).sum(1, keepdims=True) * nrm).astype(np.float64)
+        if kind == "near_plane":
+            ang, lift = rng.choice([0.0, 1e-7, 1e-6, -1e-6], n), np.zeros(n)
+        else:
+            parallel = np.arange(n) % 2 == 0
+            ang = np.where(parallel, 1e-6, rng.choice([3e-3, 1e-2, 3e-2], n))
+            lift = np.where(parallel, rng.choice([1e-4, 1e-3, 1e-2], n), 0.0)
+        d = _unit(np.cos(ang)[:, None] * tang - np.sin(ang)[:, None] * nrm)
+        s = rng.uniform(0.05, 3.0, n)
+        return (p + lift[:, None] * nrm - s[:, None] * d).astype(np.float32), d
+    if kind == "axis":
+        axes = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1],
+                         [1, 1, 0], [0, -1, 1], [1, 0, -1]], np.float64)
+        d = _unit(axes[rng.integers(0, len(axes), n)])
+        o = rng.uniform(ROOM_LO, ROOM_HI, (n, 3))
+        o[: n // 3] = tris.reshape(-1, 3)[rng.integers(0, tris.shape[0] * 3, n // 3)]
+        return o.astype(np.float32), d
+    if kind == "vertex_edge":
+        v = tris.reshape(-1, 3)
+        f = rng.integers(0, len(tris), n)
+        e = rng.integers(0, 3, n)
+        mid = 0.5 * (tris[f, e] + tris[f, (e + 1) % 3])
+        o = np.where(np.arange(n)[:, None] % 2 == 0, v[rng.integers(0, len(v), n)], mid)
+        return o.astype(np.float32), _unit(rng.standard_normal((n, 3)))
+    if kind == "nonfinite":
+        o, d = ray_set("interior", tris, seed, n)
+        rows = rng.integers(0, n, n // 2)
+        cols = rng.integers(0, 6, n // 2)
+        vals = rng.choice([np.nan, np.inf, -np.inf], n // 2)
+        od = np.concatenate([o, d], axis=1)
+        od[rows, cols] = vals
+        return np.ascontiguousarray(od[:, :3]), np.ascontiguousarray(od[:, 3:])
+    raise ValueError(kind)
+
+
+def _with_sentinels(tris, seed):
+    """`tris` with 1e9 sentinel faces interleaved (as padded_sorted_tris pads)."""
+    rng = np.random.default_rng(seed)
+    out = np.concatenate([tris, np.full((len(tris) // 4, 3, 3), 1.0e9, np.float32)])
+    return out[rng.permutation(len(out))]
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -198,19 +297,24 @@ def test_star_matches_plain_and_dense(card, scanned_room, n_seg, kind, toward):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r", [5000, 2500, 1250])
 @pytest.mark.parametrize("k", [64, 8], ids=["hoa3", "binaural"])
-def test_bin_histogram_matches_plain(card, k):
-    """K5 at the flagship bounce shapes: 16 sources x 5,000 rays, HOA3 (16
-    channels x 4 bands) and binaural (2 x 4), 501 bins, some bins negative."""
-    rng = np.random.default_rng(k)
-    bins = rng.integers(-20, 501, (16, 5000)).astype(np.int32)
-    dep = (rng.standard_normal((16, 5000, k)) * 1e-4).astype(np.float32)
-    b_t, d_t = torch.from_numpy(bins).to(card), torch.from_numpy(dep).to(card)
-    got = ck.bin_histogram(b_t, d_t, 501)
-    want = ck.bin_histogram_plain(b_t, d_t, 501)
-    assert got.shape == (16, 501, k)
-    assert torch.equal(got != 0, want != 0)
-    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+def test_bin_histogram_matches_plain(card, k, r):
+    """K5 at the flagship bounce shapes: 16 sources x 5,000, 2,500 and 1,250
+    rays (the decimation phases), HOA3 (16 channels x 4 bands) and binaural
+    (2 x 4), 501 bins, some bins negative or past the end; then the same
+    rays with their bins in a few arrival bins, as real arrivals crowd."""
+    rng = np.random.default_rng(k + r)
+    dep = (rng.standard_normal((16, r, k)) * 1e-4).astype(np.float32)
+    spread = rng.integers(-20, 520, (16, r)).astype(np.int32)
+    crowded = rng.choice([3, 4, 5, 90, 500], (16, r)).astype(np.int32)
+    for bins in (spread, crowded):
+        b_t, d_t = torch.from_numpy(bins).to(card), torch.from_numpy(dep).to(card)
+        got = ck.bin_histogram(b_t, d_t, 501)
+        want = ck.bin_histogram_plain(b_t, d_t, 501)
+        assert got.shape == (16, 501, k)
+        assert torch.equal(got != 0, want != 0)
+        assert ((got - want).abs() <= 1e-5 * want.abs() + 1e-6 * want.abs().max()).all()
 
 
 def _surface_rays(tris, card, n, seed):
@@ -273,9 +377,9 @@ def test_mxu_first_hit_matches_plain(card, scanned_room, n_rays):
 def _dense_big_sorted(tris, order, tiles, o, d, card):
     """The dense big first hit (K1) over the sentinel-padded sorted faces."""
     st = torch.from_numpy(sfh.padded_sorted_tris(tris, order, tiles.n_tiles)).to(card)
-    centre, tab = ck.big_face_table(st)
-    assert torch.equal(centre, tiles.center) and torch.equal(tab, tiles.face_tab)
-    return ck.ray_first_hit(o, d, st, ("big", centre, tab))
+    table = ck.big_first_hit_table(st)
+    assert torch.equal(table[1], tiles.center) and torch.equal(table[2], tiles.face_tab)
+    return ck.ray_first_hit(o, d, st, table)
 
 
 @pytest.mark.cuda
@@ -320,3 +424,38 @@ def test_pair_first_hit_matches_plain_and_dense(card, scanned_room, n_rays, k_sl
     assert bool(torch.isinf(t_k[~alive]).all()) and bool((i_k[~alive] == -1).all())
     if k_slots == 1:
         assert stats_k["rounds"] > 1
+
+
+ACCEL_CASES = [("room", k) for k in ("interior", "surface", "on_surface", "grazing", "axis", "vertex_edge",
+                                     "nonfinite", "near_plane")]
+ACCEL_CASES += [("lod", k) for k in ("interior", "surface", "grazing", "axis")] + [("room_sentinels", "surface")]
+
+
+@pytest.fixture(scope="module")
+def accel_rooms():
+    return accel_meshes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,kind", ACCEL_CASES)
+def test_first_hit_tree_matches_plain(card, accel_rooms, which, kind):
+    """K1 big's tree walk against its plain walk (t, face and the per-ray
+    visit counts identical) and against the dense walk (t and face
+    identical; on the near-plane rays, whose dense hits can be rounding
+    noise off their face, wherever the two walks' plain versions agree),
+    on the rays of tests/test_torch_first_hit_accel.py."""
+    base = accel_rooms["room" if which == "room_sentinels" else which]
+    tris = _with_sentinels(base, 5) if which == "room_sentinels" else base
+    o, d = ray_set(kind, base, seed=sum(map(ord, which + kind)))
+    o, d, tt = (torch.from_numpy(x).to(card) for x in (o, d, tris))
+    table = ck.first_hit_table(tt)
+    t_k, i_k = ck.ray_first_hit(o, d, tt, table)
+    t_w, i_w, vis_k = ck.first_hit_walk(o, d, table)
+    t_p, i_p, vis_p = ck.first_hit_walk_plain(o, d, table)
+    t_d, i_d = ck.ray_first_hit_plain(o, d, tt, table)
+    for t, i in ((t_w, i_w), (t_p, i_p)):
+        assert torch.equal(i, i_k) and torch.equal(t.view(torch.int32), t_k.view(torch.int32))
+    assert torch.equal(vis_k, vis_p)
+    same = (i_p == i_d) & (t_p.view(torch.int32) == t_d.view(torch.int32))
+    assert bool(same.all()) or kind == "near_plane"
+    assert float(same.float().mean()) > 0.95

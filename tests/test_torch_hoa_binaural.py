@@ -61,14 +61,19 @@ def _restore_global_streams():
     torch.random.set_rng_state(states[2])
 
 
-@pytest.mark.parametrize("g,r,k,n_bins", [(16, 300, 64, 501), (16, 300, 8, 501), (3, 1000, 5, 40)],
-                         ids=["hoa3", "binaural", "ragged"])
-def test_bin_histogram_matches_pallas_and_scatter(g, r, k, n_bins):
+@pytest.mark.parametrize("g,r,k,n_bins,crowd", [(16, 300, 64, 501, 0), (16, 300, 8, 501, 0), (3, 1000, 5, 40, 0),
+                                                (16, 1250, 64, 501, 4), (16, 1237, 8, 501, 0)],
+                         ids=["hoa3", "binaural", "ragged", "crowded", "r_odd"])
+def test_bin_histogram_matches_pallas_and_scatter(g, r, k, n_bins, crowd):
     """HOA3 (16 channels x 4 bands) and binaural (2 x 4) widths at the
     flagship's 501 bins, and a ragged case; a tenth of the rays carry a
-    negative bin."""
+    negative bin. "crowded" puts every ray in one of `crowd` bins, as real
+    arrivals crowd; "r_odd" has a ray count that no chunk or cluster share
+    divides."""
     rng = np.random.default_rng(k)
     bins = rng.integers(0, n_bins, (g, r)).astype(np.int32)
+    if crowd:
+        bins = rng.choice(rng.integers(0, n_bins, crowd), (g, r)).astype(np.int32)
     bins[rng.random((g, r)) < 0.1] = -1 - rng.integers(0, 3)
     dep = rng.standard_normal((g, r, k)).astype(np.float32) * 1e-4
     want = np.asarray(bin_histogram_pallas(jnp.asarray(bins), jnp.asarray(dep), n_bins, interpret=True))

@@ -171,3 +171,57 @@ def test_generate_writes_the_reference_files(scenes, tmp_path):
     assert _canon(json.loads((tmp_path / "metadata_out.json").read_text())) == _canon(want.to_dict())
     text = jax_dcase(want)["mic000"].to_csv(sep=",", encoding="utf-8", header=None)
     assert (tmp_path / "metadata_out_mic000.csv").read_text() == text
+
+
+def test_generate_signature_matches_reference(scenes, tmp_path):
+    """`generate` takes the reference's parameters in the reference's order
+    (`video_fname` before `compiled`), accepts `video_fname`, and still
+    refuses `video=True`."""
+    import inspect
+
+    def params(fn):
+        return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]
+
+    assert params(PortScene.generate) == params(JaxScene.generate)
+    got, _ = scenes
+    got.generate(tmp_path, False, True, True, "audio_out", "metadata_out", False, "clip")
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["metadata_out.json", "metadata_out_mic000.csv"]
+    with pytest.raises(NotImplementedError, match="1.8"):
+        got.generate(output_dir=tmp_path, audio=False, video=True, video_fname="clip")
+
+
+def _box_state(faces, **kwargs):
+    from audiblelight_tpu_torch.geometry.mesh import TriMesh, box_mesh
+    from audiblelight_tpu_torch.worldstate.mesh_backend import WorldStateRLR
+
+    box = box_mesh(extents=[4.0, 3.0, 2.5], center=[2.0, 1.5, 1.25])
+    return WorldStateRLR(TriMesh(box.vertices, box.faces[faces]), seed=1, device="cpu",
+                         rlr_kwargs=dict(indirect_ray_count=32, indirect_ray_depth=3, max_ir_length=0.05), **kwargs)
+
+
+@pytest.mark.parametrize("faces,warns", [(slice(None), False), ([0, 2, 4, 6, 8, 10], True)],
+                         ids=["watertight", "leaky"])
+def test_simulate_checks_and_ray_efficiency(caplog, faces, warns):
+    """`simulate` runs the reference's sanity checks, traces, and sets the
+    context's ray efficiency from the mesh's broken faces, warning below
+    WARN_WHEN_RAY_EFFICIENCY_BELOW; half a box (every face broken) has
+    efficiency 0."""
+    ws = _box_state(faces)
+    ws.add_microphone(microphone_type="ambeovr", position=[2.0, 1.5, 1.2])
+    ws.add_emitter(position=[1.0, 2.0, 1.5])
+    with caplog.at_level("WARNING"):
+        ws.simulate()
+    assert ws.irs["mic000"].shape[:2] == (4, 1)
+    want = 1.0 - len(ws.mesh.broken_faces()) / len(ws.mesh.faces)
+    assert ws.ctx.get_indirect_ray_efficiency() == pytest.approx(want)
+    assert want == (0.0 if warns else 1.0)
+    assert ("Ray efficiency is below 50%" in caplog.text) == warns
+
+
+def test_simulate_empty_scene_asserts():
+    ws = _box_state(slice(None))
+    with pytest.raises(AssertionError, match="emitters"):
+        ws.simulate()
+    ws.add_emitter(position=[1.0, 2.0, 1.5])
+    with pytest.raises(AssertionError, match="microphones"):
+        ws.simulate()

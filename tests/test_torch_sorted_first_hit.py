@@ -234,7 +234,7 @@ def test_sorted_first_hit_equals_dense_big(room, kind):
     t_p, i_p, visited = tsorted.sorted_walk(tiles, *_port(o, d, alive))
     st = torch.from_numpy(tsorted.padded_sorted_tris(tris, order, tiles.n_tiles))
     # The big variant at any face count (the box's one tile would take the small one)
-    t_d, i_d = ck.ray_first_hit_plain(torch.from_numpy(o), torch.from_numpy(d), st, ("big", *ck.big_face_table(st)))
+    t_d, i_d = ck.ray_first_hit_plain(torch.from_numpy(o), torch.from_numpy(d), st, ck.big_first_hit_table(st))
     if alive is not None:
         dead = torch.from_numpy(~alive)
         t_d, i_d = torch.where(dead, torch.inf, t_d), torch.where(dead, -1, i_d)
