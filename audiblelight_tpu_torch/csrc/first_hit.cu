@@ -59,35 +59,18 @@
 #include <math.h>
 
 #include "bilinear_pair.cuh"
+#include "face_tree.cuh"
 #include "mt_pair.cuh"
 
 namespace {
 
 constexpr float kBig = 3.0e38f;
 
-constexpr int kStack = 30;      // BVH_MAX_DEPTH: one pushed node per level at most
-constexpr float kSlabTiny = 1e-20f;
 constexpr int kIdxBig = 1 << 30;
 
-__device__ __forceinline__ float slab_inverse(float d) {
-  return 1.0f / (fabsf(d) < kSlabTiny ? copysignf(kSlabTiny, d) : d);
-}
-
-// (entry, exit) of the ray into box `b` (lo at b[0], hi at b[1]), as
-// ops/cuda_kernels.py:slab_entry_exit computes them.
-__device__ __forceinline__ void slab(const float4* __restrict__ b, float ox, float oy, float oz, float ix,
-                                     float iy, float iz, float& t_in, float& t_out) {
-  const float4 lo = __ldg(b);
-  const float4 hi = __ldg(b + 1);
-  const float nx = ((ix >= 0.0f ? lo.x : hi.x) - ox) * ix;
-  const float ny = ((iy >= 0.0f ? lo.y : hi.y) - oy) * iy;
-  const float nz = ((iz >= 0.0f ? lo.z : hi.z) - oz) * iz;
-  const float fx = ((ix >= 0.0f ? hi.x : lo.x) - ox) * ix;
-  const float fy = ((iy >= 0.0f ? hi.y : lo.y) - oy) * iy;
-  const float fz = ((iz >= 0.0f ? hi.z : lo.z) - oz) * iz;
-  t_in = fmaxf(fmaxf(nx, ny), fmaxf(nz, 0.0f));
-  t_out = fminf(fminf(fx, fy), fz);
-}
+using face_tree::kStack;
+using face_tree::slab;
+using face_tree::slab_inverse;
 
 // The next stacked node whose entry does not pass `best_t`, or 0 (done);
 // stale entries are dropped.

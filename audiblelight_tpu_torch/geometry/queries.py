@@ -35,13 +35,15 @@ def ray_mesh_first_hit(origins: torch.Tensor, dirs: torch.Tensor, tris: torch.Te
     return cuda_kernels.ray_first_hit(origins, dirs, tris, table)
 
 
-def segments_occluded(starts: torch.Tensor, ends: torch.Tensor, tris: torch.Tensor) -> torch.Tensor:
+def segments_occluded(starts: torch.Tensor, ends: torch.Tensor, tris: torch.Tensor, tree=None) -> torch.Tensor:
     """True where the open segment start->end is blocked by the mesh. (R,) bools.
 
     A small endpoint margin keeps segments that touch the surface at their
-    endpoints (emitters placed on walls) from counting as occluded.
+    endpoints (emitters placed on walls) from counting as occluded. `tree` is
+    `cuda_kernels.any_hit_tree(tris)`, built once per mesh by callers that
+    query it many times.
     """
-    return cuda_kernels.segments_occluded(starts, ends, tris)
+    return cuda_kernels.segments_occluded(starts, ends, tris, tree)
 
 
 def ray_crossing_counts(points: torch.Tensor, tris: torch.Tensor) -> torch.Tensor:

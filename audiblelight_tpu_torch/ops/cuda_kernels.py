@@ -10,7 +10,7 @@ audiblelight_tpu/ops/star_occlusion.py:
 - `deposit_histogram_foa` <- deposit_histogram_foa_pallas
 - `bin_histogram`       <- bin_histogram_pallas
 - `star_any_hit`        <- star_segments_occluded's kernel (the glue around
-  it, azimuth sort and block ranges, is ops/star_occlusion.py)
+  it, the segments toward the common end, is ops/star_occlusion.py)
 - `first_hit_tiled`     <- tiled_first_hit's kernel (the glue, ray sort and
   per-block tile order, is ops/tiled_first_hit.py)
 - `first_hit_mxu`       <- mxu_first_hit's kernel (the glue, ray vectors and
@@ -160,14 +160,15 @@ def mt_face_table(tris: torch.Tensor) -> torch.Tensor:
     ).contiguous()
 
 
-# The face tree of the big variant (csrc/first_hit.cu): leaves of
-# BVH_LEAF_FACES consecutive Morton-sorted faces, a complete binary tree over
-# them. Each box is padded by BVH_PAD metres plus BVH_PAD_REL of its
-# coordinate's magnitude (~8 f32 ulps), so that a hit the pair arithmetic
-# finds lies inside the boxes of its face's leaf and of every ancestor
-# (tests/test_torch_first_hit_accel.py holds the margin).
+# The face trees of K1 big (csrc/first_hit.cu) and of the any-hits K2 and K6
+# (csrc/any_hit_walk.cuh): leaves of BVH_LEAF_FACES consecutive
+# Morton-sorted faces, a complete binary tree over them. Each box is padded
+# by BVH_PAD metres plus BVH_PAD_REL of its coordinate's magnitude (~8 f32
+# ulps), so that a hit the pair arithmetic finds lies inside the boxes of
+# its face's leaf and of every ancestor (tests/test_torch_first_hit_accel.py
+# and tests/test_torch_any_hit_accel.py hold the margin).
 BVH_LEAF_FACES = 4  # small leaves: a box test costs less than a leaf row's pair test
-BVH_MAX_DEPTH = 30  # kStack in csrc/first_hit.cu: levels of internal nodes a walk can stack
+BVH_MAX_DEPTH = 30  # kStack in csrc/face_tree.cuh: levels of internal nodes a walk can stack
 BVH_PAD = 1.0e-3
 BVH_PAD_REL = 1.0e-6
 _SLAB_TINY = 1.0e-20  # a direction component under this in size counts as +-1e-20 in the slab test
@@ -175,12 +176,13 @@ _SLAB_TINY = 1.0e-20  # a direction component under this in size counts as +-1e-
 
 @dataclass
 class FaceBVH:
-    """The big variant's face tree, tensors on one device, in centred
-    coordinates. Nodes are in heap order: node 1 is the root, node i has the
-    children 2i and 2i + 1, and leaf j is node n_leaves + j; node 0 and the
-    leaves past the last face are empty (lo = +inf, hi = -inf)."""
+    """A face tree, tensors on one device, in the frame its walk uses (K1
+    big's centred coordinates, the any-hits' world coordinates). Nodes are in
+    heap order: node 1 is the root, node i has the children 2i and 2i + 1,
+    and leaf j is node n_leaves + j; node 0 and the leaves past the last face
+    are empty (lo = +inf, hi = -inf)."""
 
-    rows: torch.Tensor  # (n_leaves * leaf_faces, 16) the table's rows in leaf order; zero rows pad the last leaf
+    rows: torch.Tensor  # (n_leaves * leaf_faces, W) the table's rows in leaf order; zero rows pad the last leaf
     face: torch.Tensor  # (n_leaves * leaf_faces,) int32 original face of each row, -1 on padding
     boxes: torch.Tensor  # (2 * n_leaves, 8) padded node boxes [lo x, y, z, 0, hi x, y, z, 0]
     n_leaves: int  # a power of two
@@ -198,22 +200,19 @@ def _morton_spread(v: torch.Tensor) -> torch.Tensor:
     return (v | (v << 2)) & 0x09249249
 
 
-def build_face_bvh(tris: torch.Tensor, center: torch.Tensor, tab: torch.Tensor) -> FaceBVH:
-    """The face tree of `tris` (F, 3, 3) over its big table (`big_face_table`),
-    built with torch ops on the tensors' device, the same bits on every
-    device.
+def build_face_bvh(verts: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor) -> FaceBVH:
+    """The face tree over the faces `keep` (F,) bool of the triangles `verts`
+    (F, 3, 3), in the frame the walk uses, gathering their `rows` (F, W) of
+    the kernel's face table; built with torch ops on the tensors' device, the
+    same bits on every device.
 
-    Faces whose row can never hit are left out: a zero normal (the 1e9
-    sentinels, degenerate faces: a = 0 makes u infinite or NaN) or a
-    non-finite entry. The rest are sorted by the 30-bit Morton code of their
-    centroid (stable: ties keep the face order), cut into leaves of
-    BVH_LEAF_FACES rows, and the leaf count padded to a power of two with
-    empty leaves; boxes are the leaves' vertex bounds, padded, and each
-    parent's the union of its children's."""
-    dev, leaf_faces = tab.device, BVH_LEAF_FACES
-    verts = tris.to(torch.float32) - center  # (F, 3, 3) centred
-    real = (tab[:, 12:15] != 0).any(dim=1) & torch.isfinite(tab).all(dim=1)
-    idx = torch.nonzero(real).squeeze(1)
+    The kept faces are sorted by the 30-bit Morton code of their centroid
+    (stable: ties keep the face order), cut into leaves of BVH_LEAF_FACES
+    rows, and the leaf count padded to a power of two with empty leaves;
+    boxes are the leaves' vertex bounds, padded, and each parent's the union
+    of its children's."""
+    dev, leaf_faces = rows.device, BVH_LEAF_FACES
+    idx = torch.nonzero(keep).squeeze(1)
     vc = verts[idx]
     cen = vc[:, 0] + vc[:, 1] + vc[:, 2]  # 3x the centroid: the scale drops out of the grid
     if idx.numel():
@@ -226,8 +225,8 @@ def build_face_bvh(tris: torch.Tensor, center: torch.Tensor, tab: torch.Tensor) 
     n = idx.numel()
     n_leaves = 1 << max(0, math.ceil(math.log2(max(1, -(-n // leaf_faces)))))
     cap = n_leaves * leaf_faces
-    rows = torch.zeros((cap, 16), dtype=torch.float32, device=dev)
-    rows[:n] = tab[idx]
+    leaf_rows = torch.zeros((cap, rows.shape[1]), dtype=torch.float32, device=dev)
+    leaf_rows[:n] = rows[idx]
     face = torch.full((cap,), -1, dtype=torch.int32, device=dev)
     face[:n] = idx.to(torch.int32)
 
@@ -248,13 +247,22 @@ def build_face_bvh(tris: torch.Tensor, center: torch.Tensor, tab: torch.Tensor) 
     node_hi = torch.cat([torch.full((1, 3), -math.inf, device=dev)] + [lv[1] for lv in reversed(levels)])
     zero = torch.zeros((2 * n_leaves, 1), dtype=torch.float32, device=dev)
     boxes = torch.cat([node_lo, zero, node_hi, zero], dim=1).contiguous()
-    return FaceBVH(rows=rows, face=face, boxes=boxes, n_leaves=n_leaves, leaf_faces=leaf_faces)
+    return FaceBVH(rows=leaf_rows, face=face, boxes=boxes, n_leaves=n_leaves, leaf_faces=leaf_faces)
+
+
+def big_face_bvh(tris: torch.Tensor, center: torch.Tensor, tab: torch.Tensor) -> FaceBVH:
+    """K1 big's face tree over its table `tab` (`big_face_table`), in centred
+    coordinates. Faces whose row can never hit are left out: a zero normal
+    (the 1e9 sentinels, degenerate faces: a = 0 makes u infinite or NaN) or
+    a non-finite entry."""
+    keep = (tab[:, 12:15] != 0).any(dim=1) & torch.isfinite(tab).all(dim=1)
+    return build_face_bvh(tris.to(torch.float32) - center, tab, keep)
 
 
 def big_first_hit_table(tris: torch.Tensor) -> tuple:
     """("big", centre, face table, face tree) of `tris` at any face count."""
     center, tab = big_face_table(tris)
-    return "big", center, tab, build_face_bvh(tris, center, tab)
+    return "big", center, tab, big_face_bvh(tris, center, tab)
 
 
 def first_hit_table(tris: torch.Tensor) -> tuple:
@@ -549,53 +557,211 @@ def first_hit_walk(origins, dirs, table):
 # ---------------------------------------------------------------------------
 
 
-def _any_hit_inputs(starts, ends, tris):
-    """(origins, unit directions, lengths, face table) as the Pallas wrapper
-    builds them (pallas_kernels.py:452-468)."""
+ANY_HIT_ROW = 12  # floats per any-hit tree row: [a, e1, e2, 0, 0, 0], three float4s
+# Faces whose edges meet at under ~0.57 degrees (|e1 x e2| < FLAT_SIN |e1||e2|)
+# are tested by every segment rather than through the tree: there the
+# arithmetic's rounding can put a "hit" anywhere along the segment, outside
+# any padded box (an exactly collinear zero-area face can still give
+# |a| > 1e-9)
+FLAT_SIN = 1.0e-2
+
+
+@dataclass
+class AnyHitTree:
+    """The any-hit face tree of one mesh (csrc/any_hit_walk.cuh), tensors on
+    one device, in world coordinates: `bvh` over the faces a query may
+    report, each leaf row the dense table's row (`mt_face_table`) padded to
+    ANY_HIT_ROW floats; `always` the rows every segment tests first (flat or
+    non-finite faces), `always_face` their original faces."""
+
+    bvh: FaceBVH
+    always: torch.Tensor  # (n_always, ANY_HIT_ROW)
+    always_face: torch.Tensor  # (n_always,) int32
+
+    def __repr__(self):
+        return f"AnyHitTree({self.bvh}, always-tested {self.always.shape[0]})"
+
+
+def any_hit_tree(tris: torch.Tensor, faces: torch.Tensor = None) -> AnyHitTree:
+    """The any-hit tree of `tris` (F, 3, 3) over the faces `faces` (F,) bool
+    (default: every face), built with torch ops on the mesh's device, once
+    per mesh.
+
+    A face with a zero edge (e1 = 0 or e2 = 0, as the 1e9 sentinels have)
+    is left out: its a = e1 . (d x e2) is 0 or NaN for every segment, so the
+    dense test never passes. Every other face goes into the tree, or, where
+    its row is not finite or it is flat (FLAT_SIN), into the always-tested
+    rows; so every row the dense any-hit could report is walked or tested."""
+    tab = mt_face_table(tris)
+    e1, e2 = tab[:, 3:6], tab[:, 6:9]
+    cand = (e1 != 0).any(dim=1) & (e2 != 0).any(dim=1)
+    if faces is not None:
+        cand &= faces.to(device=tab.device, dtype=torch.bool)
+    e1d, e2d = e1.double(), e2.double()
+    nrm = cross3(e1d, e2d)
+    flat = dot3(nrm, nrm) < FLAT_SIN**2 * dot3(e1d, e1d) * dot3(e2d, e2d)
+    odd = ~torch.isfinite(tab).all(dim=1) | flat
+    rows = torch.nn.functional.pad(tab, (0, ANY_HIT_ROW - 9))
+    bvh = build_face_bvh(tris.to(torch.float32), rows, cand & ~odd)
+    always = torch.nonzero(cand & odd).squeeze(1)
+    return AnyHitTree(bvh=bvh, always=rows[always].contiguous(), always_face=always.to(torch.int32))
+
+
+def segment_inputs(starts, ends):
+    """(origins, unit directions, lengths) of the segments, as the Pallas
+    wrapper builds them (pallas_kernels.py:452-468)."""
     starts = torch.atleast_2d(starts).to(torch.float32)
     ends = torch.atleast_2d(ends).to(torch.float32)
     seg = ends - starts
     length = norm3(seg)
     dirs = seg / torch.clamp_min(length, _EPS)[:, None]
-    return starts.contiguous(), dirs.contiguous(), length.contiguous(), mt_face_table(tris)
+    return starts.contiguous(), dirs.contiguous(), length.contiguous()
+
+
+def _mt_blocks(o, d, t_max, c):
+    """The dense any-hit test of segments against face rows c = (9, ...) that
+    broadcast against them (csrc/any_hit_walk.cuh:blocks, term for term)."""
+    in_tri, t = _mt_pair_xyz(o[..., 0:1], o[..., 1:2], o[..., 2:3], d[..., 0:1], d[..., 1:2], d[..., 2:3], c)
+    return in_tri & (t > _MARGIN) & (t < t_max[..., None])
 
 
 def _any_hit_plain(o, d, length, tab):
+    """The dense any-hit: every segment against every row of `tab` (F, >= 9)."""
     r, f = o.shape[0], tab.shape[0]
-    t_max = (length - _MARGIN)[:, None]
+    t_max = length - _MARGIN
     blocked = torch.zeros(r, dtype=torch.bool, device=o.device)
     step = _face_chunk(r, f)
     for f0 in range(0, f, step):
-        in_tri, t = _mt_pair(o, d, tab[f0 : f0 + step].T[:, None, :])
-        blocked |= (in_tri & (t > _MARGIN) & (t < t_max)).any(dim=1)
+        blocked |= _mt_blocks(o, d, t_max, tab[f0 : f0 + step, :9].T[:, None, :]).any(dim=1)
     return blocked
 
 
 def segments_occluded_plain(starts, ends, tris):
-    """Plain PyTorch version of `segments_occluded` (any device)."""
-    return _any_hit_plain(*_any_hit_inputs(starts, ends, tris))
+    """The dense any-hit of the segments against every face of `tris` (any
+    device): the exactness reference of both any-hit kernels."""
+    return _any_hit_plain(*segment_inputs(starts, ends), mt_face_table(tris))
 
 
-def segments_occluded(starts, ends, tris):
-    """(R,) bool: True where a face crosses the open segment start -> end,
-    inside the window 1e-4 < t < length - 1e-4 (segments that end ON a
-    surface do not count as blocked). Zero-length segments are never blocked.
-    """
-    o, d, length, tab = _any_hit_inputs(starts, ends, tris)
-    if not _on_card(o):
-        return _any_hit_plain(o, d, length, tab)
-    r, f = o.shape[0], tab.shape[0]
-    dev = o.device
+def any_hit_walk_plain(o, d, length, tree: AnyHitTree):
+    """The walk of both any-hit kernels (K2 `any_hit`, K6 `star_any_hit`) for
+    every segment at once, in the kernels' order: (blocked (R,) bool, visits
+    (R, 2) int32 = slab tests, leaves tested).
+
+    A segment whose window 1e-4 < t < length - 1e-4 is empty (zero length,
+    NaN) is free without a test. The others test the always-tested rows,
+    then, unless blocked or not finite (no finite row can block a segment
+    with a non-finite component), walk the tree: a box is entered where the
+    segment [0, length] meets it, the nearer child first and the farther
+    pushed; the walk stops at the first leaf row that passes the dense test."""
+    r, dev = o.shape[0], o.device
+    bvh = tree.bvh
+    n_leaves = bvh.n_leaves
+    lo, hi = bvh.boxes[:, 0:3], bvh.boxes[:, 4:7]
+    t_max = length - _MARGIN
+    live = t_max > _MARGIN
+    blocked = torch.zeros(r, dtype=torch.bool, device=dev)
+    if tree.always.shape[0]:
+        blocked = live & _any_hit_plain(o, d, length, tree.always)
+    finite = torch.isfinite(o).all(dim=1) & torch.isfinite(d).all(dim=1)
+    walk = live & ~blocked & finite
+    o = torch.where(finite[:, None], o, 0.0)
+    d = torch.where(finite[:, None], d, 1.0)
+    inv = slab_inverse(d)
+    entry, exit_ = slab_entry_exit(o, inv, lo[1], hi[1])
+    node = torch.where(walk & (entry <= exit_) & (entry <= length), 1, 0)
+    nodes = walk.to(torch.int32)
+    leaves = torch.zeros(r, dtype=torch.int32, device=dev)
+    stack = torch.zeros((r, BVH_MAX_DEPTH), dtype=torch.int64, device=dev)
+    sp = torch.zeros(r, dtype=torch.int64, device=dev)
+    lanes = torch.arange(bvh.leaf_faces, device=dev)
+    while True:
+        pop = torch.nonzero((node == 0) & (sp > 0)).squeeze(1)
+        sp[pop] -= 1
+        node[pop] = stack[pop, sp[pop]]
+        leaf = torch.nonzero(node >= n_leaves).squeeze(1)
+        inner = torch.nonzero((node > 0) & (node < n_leaves)).squeeze(1)
+        if leaf.numel() == 0 and inner.numel() == 0:
+            break
+        if leaf.numel():
+            row = (node[leaf] - n_leaves)[:, None] * bvh.leaf_faces + lanes  # (n, leaf_faces)
+            hit = _mt_blocks(o[leaf], d[leaf], t_max[leaf], bvh.rows[row].permute(2, 0, 1)).any(dim=1)
+            blocked[leaf] = hit
+            leaves[leaf] += 1
+            node[leaf] = 0
+            sp[leaf] = torch.where(hit, 0, sp[leaf])
+        if inner.numel():
+            c0 = node[inner] * 2
+            e0, x0 = slab_entry_exit(o[inner], inv[inner], lo[c0], hi[c0])
+            e1, x1 = slab_entry_exit(o[inner], inv[inner], lo[c0 + 1], hi[c0 + 1])
+            nodes[inner] += 2
+            ln = length[inner]
+            v0 = (e0 <= x0) & (e0 <= ln)
+            v1 = (e1 <= x1) & (e1 <= ln)
+            both = v0 & v1
+            second = e1 < e0  # the nearer child first; child 2i on a tie
+            push = inner[both]
+            stack[push, sp[push]] = torch.where(second, c0, c0 + 1)[both]
+            sp[push] += 1
+            node[inner] = torch.where(both, torch.where(second, c0 + 1, c0),
+                                      torch.where(v0, c0, torch.where(v1, c0 + 1, 0)))
+    return blocked, torch.stack([nodes, leaves], dim=1)
+
+
+def _launch_any_hit(name: str, o, d, length, tree: AnyHitTree, visits=None):
+    """One launch of the any-hit kernel `name` ("any_hit" or "star_any_hit",
+    each its own source around csrc/any_hit_walk.cuh) on card tensors."""
+    r, dev = o.shape[0], o.device
+    bvh = tree.bvh
+    n_leaves, n_always = bvh.n_leaves, tree.always.shape[0]
+    if n_leaves.bit_length() - 1 > BVH_MAX_DEPTH:
+        raise ValueError(f"{name}: a tree of {n_leaves} leaves is deeper than {BVH_MAX_DEPTH} levels")
     _check("starts", o, (r, 3), torch.float32, dev)
     _check("dirs", d, (r, 3), torch.float32, dev)
     _check("lengths", length, (r,), torch.float32, dev)
-    _check("face table", tab, (f, 9), torch.float32, dev)
-    out = torch.empty(r, dtype=torch.uint8, device=dev)
+    _check("tree rows", bvh.rows, (n_leaves * bvh.leaf_faces, ANY_HIT_ROW), torch.float32, dev)
+    _check("tree boxes", bvh.boxes, (2 * n_leaves, 8), torch.float32, dev)
+    _check("always-tested rows", tree.always, (n_always, ANY_HIT_ROW), torch.float32, dev)
+    if visits is not None:
+        _check("visits", visits, (r, 2), torch.int32, dev)
+    out = o.new_empty(r, dtype=torch.bool)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _lib("any_hit", "any_hit", [vp, vp, vp, vp, ci, ci, vp, vp])
-    launch_counts["any_hit"] += 1
-    _raise_on(fn(_ptr(o), _ptr(d), _ptr(length), _ptr(tab), r, f, _ptr(out), _stream(o)), "any_hit")
-    return out.to(torch.bool)
+    fn = _lib(name, name, [vp, vp, vp, vp, vp, ci, ci, vp, ci, ci, vp, vp, vp])
+    launch_counts[name] += 1
+    err = fn(_ptr(o), _ptr(d), _ptr(length), _ptr(bvh.rows), _ptr(bvh.boxes), n_leaves, bvh.leaf_faces,
+             _ptr(tree.always), n_always, r, _ptr(out), ctypes.c_void_p(0 if visits is None else visits.data_ptr()),
+             _stream(o))
+    _raise_on(err, name)
+    return out
+
+
+def any_hit(o, d, length, tree: AnyHitTree, visits=None):
+    """(R,) bool any-hit of the segments (o, d, length) (`segment_inputs`)
+    through `tree`: one launch of K2 on a CUDA device, its plain walk on the
+    CPU. With `visits` (R, 2) int32 on the card, the kernel writes each
+    segment's slab tests and leaves tested there."""
+    if not _on_card(o):
+        return any_hit_walk_plain(o, d, length, tree)[0]
+    return _launch_any_hit("any_hit", o, d, length, tree, visits)
+
+
+def segments_occluded(starts, ends, tris, tree: AnyHitTree = None):
+    """(R,) bool: True where a face crosses the open segment start -> end,
+    inside the window 1e-4 < t < length - 1e-4 (segments that end ON a
+    surface do not count as blocked). Zero-length segments are never blocked.
+
+    `tree` is `any_hit_tree(tris)`, which a caller that queries one mesh
+    many times builds once (`MeshDeviceState.any_hit_tree`): on the card the
+    query is then one K2 launch that walks it, on the CPU its plain walk.
+    Without it, the card builds the tree for this one query (a few
+    milliseconds for 100k faces) and the CPU runs the dense plain any-hit;
+    the booleans are the same either way.
+    """
+    o, d, length = segment_inputs(starts, ends)
+    if tree is None:
+        if not _on_card(o):
+            return _any_hit_plain(o, d, length, mt_face_table(tris))
+        tree = any_hit_tree(tris)
+    return any_hit(o, d, length, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -844,91 +1010,17 @@ def bin_histogram(bins, dep, n_bins: int):
 
 
 # ---------------------------------------------------------------------------
-# K6: star any-hit (azimuth-culled segment occlusion toward one end point)
+# K6: star any-hit (segments toward one end point)
 # ---------------------------------------------------------------------------
 
-STAR_BLOCK = 256  # azimuth-sorted segments per block (kBlock in csrc/star_any_hit.cu)
-STAR_TILE_FACES = 256  # narrow faces per tile (kTileFaces)
-_TWO_PI = 2.0 * math.pi
 
-
-def star_tile_overlap(brange, tile_meta):
-    """(n_blocks, n_tiles) bool: which (segment block, narrow tile) pairs the
-    kernel tests. The circular test of star_occlusion.py:_star_kernel in f32:
-    the difference of the centres wrapped by d - 2 pi floor(d / 2 pi + 0.5),
-    against the sum of the half-widths."""
-    b_cen = (brange[0] + brange[1]) * 0.5
-    b_half = (brange[1] - brange[0]) * 0.5
-    d = tile_meta[0][None, :] - b_cen[:, None]
-    # A tensor divisor: a division by a Python scalar may run as a multiply
-    # by its reciprocal on the card, the kernel divides
-    two_pi = torch.full((), _TWO_PI, dtype=torch.float32, device=d.device)
-    d = d - two_pi * torch.floor(d / two_pi + 0.5)
-    return d.abs() <= tile_meta[1][None, :] + b_half[:, None]
-
-
-def star_any_hit_plain(o, d, length, brange, narrow_tab, tile_meta, wide_tab, n_wide: int):
-    """Plain PyTorch version of `star_any_hit` (any device): the same block x
-    tile cull, each kept pair through the dense any-hit's arithmetic."""
-    r_pad = o.shape[0]
-    n_tiles = tile_meta.shape[1]
-    blocked = torch.zeros(r_pad, dtype=torch.bool, device=o.device)
-    overlap = star_tile_overlap(brange, tile_meta)
-    lanes = torch.arange(STAR_BLOCK, device=o.device)
-    for tl in range(n_tiles):
-        blocks = torch.nonzero(overlap[:, tl]).flatten()
-        if blocks.numel() == 0:
-            continue
-        rows = (blocks[:, None] * STAR_BLOCK + lanes[None]).reshape(-1)
-        tab = narrow_tab[tl * STAR_TILE_FACES : (tl + 1) * STAR_TILE_FACES]
-        blocked[rows] |= _any_hit_plain(o[rows], d[rows], length[rows], tab)
-    if n_wide > 0:
-        blocked |= _any_hit_plain(o, d, length, wide_tab[:n_wide])
-    return blocked
-
-
-def star_any_hit(o, d, length, brange, narrow_tab, tile_meta, wide_tab, n_wide: int):
-    """Occlusion of azimuth-sorted segments toward one end point.
-
-    Arguments:
-        o, d: (R_pad, 3) segment starts and unit directions, sorted by the
-            start's azimuth about the star centre; length: (R_pad,) lengths.
-            R_pad is a multiple of STAR_BLOCK (padding rows have length 0).
-        brange: (2, R_pad / STAR_BLOCK) [lowest; highest] azimuth of each
-            block of STAR_BLOCK segments.
-        narrow_tab: (n_tiles * STAR_TILE_FACES, 9) face rows [a, e1, e2],
-            sorted into tiles; tile_meta: (2, n_tiles) [window centre;
-            half-width] per tile; wide_tab: (>= n_wide, 9) the faces every
-            segment tests.
-
-    Returns (R_pad,) bool, True where a face crosses the open segment inside
-    1e-4 < t < length - 1e-4: the dense `segments_occluded` on the same
-    segments, as long as each tile's window holds every segment its faces
-    can block (star_occlusion.build_star_accel).
-    """
+def star_any_hit(o, d, length, tree: AnyHitTree, visits=None):
+    """`any_hit` through the K6 kernel: the any-hit of segments that all end
+    near one point (ops/star_occlusion.py forms them) through the star's
+    tree. One launch on a CUDA device, the plain walk on the CPU."""
     if not _on_card(o):
-        return star_any_hit_plain(o, d, length, brange, narrow_tab, tile_meta, wide_tab, n_wide)
-    r_pad, dev = o.shape[0], o.device
-    n_tiles = tile_meta.shape[1]
-    if r_pad % STAR_BLOCK:
-        raise ValueError(f"star_any_hit: {r_pad} segments are not a multiple of {STAR_BLOCK}")
-    _check("starts", o, (r_pad, 3), torch.float32, dev)
-    _check("dirs", d, (r_pad, 3), torch.float32, dev)
-    _check("lengths", length, (r_pad,), torch.float32, dev)
-    _check("block ranges", brange, (2, r_pad // STAR_BLOCK), torch.float32, dev)
-    _check("narrow table", narrow_tab, (n_tiles * STAR_TILE_FACES, 9), torch.float32, dev)
-    _check("tile windows", tile_meta, (2, n_tiles), torch.float32, dev)
-    _check("wide table", wide_tab, (wide_tab.shape[0], 9), torch.float32, dev)
-    if not 0 <= n_wide <= wide_tab.shape[0]:
-        raise ValueError(f"star_any_hit: n_wide {n_wide} outside the wide table's {wide_tab.shape[0]} rows")
-    out = torch.empty(r_pad, dtype=torch.uint8, device=dev)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _lib("star_any_hit", "star_any_hit", [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp])
-    launch_counts["star_any_hit"] += 1
-    err = fn(_ptr(o), _ptr(d), _ptr(length), _ptr(brange), _ptr(narrow_tab), _ptr(tile_meta), _ptr(wide_tab),
-             r_pad, n_tiles, int(n_wide), _ptr(out), _stream(o))
-    _raise_on(err, "star_any_hit")
-    return out.to(torch.bool)
+        return any_hit_walk_plain(o, d, length, tree)[0]
+    return _launch_any_hit("star_any_hit", o, d, length, tree, visits)
 
 
 # ---------------------------------------------------------------------------

@@ -1,28 +1,28 @@
-"""Azimuth-culled occlusion of segments that end at one point (kernel K6).
+"""Occlusion of segments that end at one point (kernel K6).
 
 Counterpart of audiblelight_tpu/ops/star_occlusion.py. The tracer's rain
 visibility in the exact mode asks, every bounce, whether the segment from
 each hit point to the listener (the rig's centroid, or one capsule) is
-blocked. Those segments form a star about the centre c0, which admits a cull
-no general any-hit query has: project to the xy-plane; a face whose nearest
-xy-point to c0 lies at rho_min >= rho_lim (a narrow face) can only block a
-segment whose start's azimuth about c0 lies inside the face's own azimuth
-window, the circular hull of its vertex azimuths padded by
-asin(r_pad / rho_min). Faces nearer the centre (the wide faces) are tested
-by every segment.
+blocked. The reference answers with an azimuth cull: project to the
+xy-plane about the centre c0; a face whose nearest xy-point to c0 lies at
+rho_min >= rho_lim (a narrow face) can only block a segment whose start's
+azimuth about c0 lies inside the face's own azimuth window, the circular
+hull of its vertex azimuths padded by asin(r_pad / rho_min); faces nearer
+the centre (the wide faces) are tested by every segment.
 
-- `build_star_accel`: the host build, a numpy copy of the reference's, so the
-  tables equal the reference's bit for bit: narrow faces sorted by window
-  centre into tiles of TILE_FACES with one circular window per tile, and the
-  wide faces apart. `star_windows` gives its per-face split and windows.
-- `star_segments_occluded`: the glue around the kernel (azimuth sort, one
-  packed gather, zero-length padding, per-block azimuth ranges, the launch,
-  the un-sort). The result equals the dense any-hit
+- `build_star_accel`: the reference's route decision, taken the same way
+  (a numpy copy of its split, so the tile and wide counts are the
+  reference's and it returns None where the reference does), and the star's
+  face tree: an any-hit tree (`cuda_kernels.any_hit_tree`) over the faces
+  the reference's star tests (finite, area > 0), built once per mesh.
+  `star_windows` gives the per-face split and windows.
+- `star_segments_occluded`: the glue around the kernel, the segments toward
+  the common end formed as the dense any-hit forms them, then one K6 launch
+  that walks the tree. The result equals the dense any-hit
   (`geometry.queries.segments_occluded`) on the same segments, boolean for
-  boolean: the same origins, directions and lengths, the same arithmetic,
-  and a conservative cull.
+  boolean.
 - `star_segments_occluded_plain`: the same glue around the kernel's plain
-  version, which runs the same block x tile cull.
+  walk (`cuda_kernels.any_hit_walk_plain`).
 """
 
 from __future__ import annotations
@@ -32,31 +32,33 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from audiblelight_tpu_torch.ops.cuda_kernels import STAR_BLOCK, STAR_TILE_FACES, star_any_hit, star_any_hit_plain
-from audiblelight_tpu_torch.utils import norm3, resolve_device
+from audiblelight_tpu_torch.ops.cuda_kernels import (
+    AnyHitTree,
+    any_hit_tree,
+    any_hit_walk_plain,
+    segment_inputs,
+    star_any_hit,
+)
+from audiblelight_tpu_torch.utils import resolve_device
 
-_EPS = 1e-9
-FACE_GROUP = 8  # the wide table's rows are padded to a multiple of this
-TILE_FACES = STAR_TILE_FACES  # narrow faces per cullable tile
+TILE_FACES = 256  # narrow faces per tile of the reference's layout (its tile count)
 RHO0 = 0.2  # [m] least xy-distance from the centre of a narrow face
 WIDE_FRACTION_MAX = 0.35  # above this share of wide faces the layout does not pay
 
 
 @dataclass
 class StarAccel:
-    """Listener-centred occlusion layout, its tensors on one device."""
+    """Listener-centred occlusion: the star's face tree, on one device, and
+    the reference's layout counts."""
 
-    narrow_tab: torch.Tensor  # (n_tiles * TILE_FACES, 9) window-sorted face rows [a, e1, e2]
-    tile_meta: torch.Tensor  # (2, n_tiles) [window centre az; padded half-width]
-    wide_tab: torch.Tensor  # (F_wide_pad, 9) always-tested face rows
+    tree: AnyHitTree  # over the star's faces (star_faces)
     center: torch.Tensor  # (3,) the star centre c0
-    n_tiles: int
-    n_wide: int
-    r_pad: float  # most |segment end - center| the windows hold for
+    n_tiles: int  # the reference's narrow tiles
+    n_wide: int  # the reference's always-tested (wide) faces
+    r_pad: float  # most |segment end - center| the reference's layout holds for
 
     def __repr__(self):
-        return (f"StarAccel(tiles={self.n_tiles}, narrow={self.narrow_tab.shape[0]}, "
-                f"wide={self.n_wide}, r_pad={self.r_pad})")
+        return f"StarAccel(tiles={self.n_tiles}, wide={self.n_wide}, r_pad={self.r_pad}, {self.tree})"
 
 
 def _face_rows(tris: np.ndarray) -> np.ndarray:
@@ -73,6 +75,15 @@ def _point_seg_dist2d(p, a, b):
     return np.linalg.norm(p - proj, axis=-1)
 
 
+def star_faces(tris: np.ndarray) -> np.ndarray:
+    """(F,) bool: the faces the reference's star tests, finite (every
+    coordinate under 1e8 in size) and of area > 0."""
+    tris = np.asarray(tris, dtype=np.float32)
+    finite = np.all(np.abs(tris) < 1.0e8, axis=(1, 2))
+    area = np.linalg.norm(np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]), axis=-1)
+    return finite & (area > 0)
+
+
 def star_windows(tris: np.ndarray, center: np.ndarray, r_pad: float = 0.02):
     """The star's face split about `center` (3,) for segment ends within
     `r_pad` of it: (face rows (F', 9) of the finite, non-degenerate faces of
@@ -82,10 +93,7 @@ def star_windows(tris: np.ndarray, center: np.ndarray, r_pad: float = 0.02):
     azimuth about the centre lies within its window."""
     tris = np.asarray(tris, dtype=np.float32)
     center = np.asarray(center, dtype=np.float32)
-
-    finite = np.all(np.abs(tris) < 1.0e8, axis=(1, 2))
-    area = np.linalg.norm(np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]), axis=-1)
-    vt = tris[finite & (area > 0)]
+    vt = tris[star_faces(tris)]
     if len(vt) == 0:
         return None
 
@@ -118,96 +126,56 @@ def star_windows(tris: np.ndarray, center: np.ndarray, r_pad: float = 0.02):
     return _face_rows(vt), narrow, cen, half
 
 
-def build_star_accel(tris: np.ndarray, center: np.ndarray, r_pad: float = 0.02, device=None):
-    """The star layout of `tris` (F, 3, 3) about `center` (3,), valid for
-    segment ends within `r_pad` of it, with its tensors on `device` (the
-    card unless the caller names one). Returns None when the layout would not pay (more than
-    WIDE_FRACTION_MAX of the faces wide): callers run the dense any-hit."""
+def star_tree(tris: np.ndarray, device=None) -> AnyHitTree:
+    """The any-hit tree of the star's faces (`star_faces`) of `tris` (F, 3, 3)
+    on `device` (the card unless the caller names one); it does not depend
+    on the centre, so a mesh builds it once for all its stars."""
+    dev = resolve_device(device)
+    tris_t = torch.as_tensor(np.asarray(tris, dtype=np.float32), device=dev)
+    return any_hit_tree(tris_t, torch.as_tensor(star_faces(tris), device=dev))
+
+
+def build_star_accel(tris: np.ndarray, center: np.ndarray, r_pad: float = 0.02, device=None,
+                     tree: AnyHitTree = None):
+    """The star about `center` (3,) of `tris` (F, 3, 3), valid for segment
+    ends within `r_pad` of it, on `device` (the card unless the caller names
+    one), walking `tree` (`star_tree(tris)`, built here when None). Returns
+    None where the reference's layout would not pay (more than
+    WIDE_FRACTION_MAX of the faces wide, or no face): callers run the dense
+    any-hit, as the reference's do."""
     center = np.asarray(center, dtype=np.float32)
     windows = star_windows(tris, center, r_pad)
     if windows is None:
         return None
-    rows, narrow, cen, half = windows
+    rows, narrow, _, _ = windows
     n_wide = int(np.sum(~narrow))
     if n_wide > WIDE_FRACTION_MAX * len(rows):
         return None
-    wide_rows, n_rows = rows[~narrow], rows[narrow]
-
-    order = np.argsort(cen, kind="stable")
-    n_rows, cen, half = n_rows[order], cen[order], half[order]
-    n_tiles = max(1, -(-len(n_rows) // TILE_FACES))
-    n_rows = np.concatenate([n_rows, np.zeros((n_tiles * TILE_FACES - len(n_rows), 9), np.float32)], axis=0)
-
-    # Per-tile circular hull of the member windows: the members span a
-    # contiguous arc, unwrapped relative to the tile's first member
-    tc = np.empty(n_tiles, np.float32)
-    th = np.empty(n_tiles, np.float32)
-    for i in range(n_tiles):
-        c = cen[i * TILE_FACES : (i + 1) * TILE_FACES]
-        h = half[i * TILE_FACES : (i + 1) * TILE_FACES]
-        rel = np.mod(c - c[0] + np.pi, 2 * np.pi) - np.pi
-        lo, hi = np.min(rel - h), np.max(rel + h)
-        tc[i] = np.mod(c[0] + (lo + hi) / 2.0 + np.pi, 2 * np.pi) - np.pi
-        th[i] = (hi - lo) / 2.0
-
-    f_wide_pad = max(FACE_GROUP, -(-max(n_wide, 1) // FACE_GROUP) * FACE_GROUP)
-    wide_rows = np.concatenate([wide_rows, np.zeros((f_wide_pad - n_wide, 9), np.float32)], axis=0)
-
     dev = resolve_device(device)
-    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=dev)  # noqa: E731
-    return StarAccel(narrow_tab=t(n_rows), tile_meta=t(np.stack([tc, th])), wide_tab=t(wide_rows),
-                     center=t(center), n_tiles=n_tiles, n_wide=n_wide, r_pad=float(r_pad))
+    return StarAccel(tree=star_tree(tris, dev) if tree is None else tree,
+                     center=torch.as_tensor(center, device=dev),
+                     n_tiles=max(1, -(-int(np.sum(narrow)) // TILE_FACES)), n_wide=n_wide, r_pad=float(r_pad))
 
 
-def _star_inputs(accel: StarAccel, starts: torch.Tensor, end: torch.Tensor):
-    """(order, sorted starts, dirs, lengths, block ranges) of the kernel.
-
-    Segments are sorted by the start's azimuth about the centre, so each
-    block of STAR_BLOCK covers a contiguous azimuth range; one packed row
-    gather applies the order. The directions and lengths are formed as the
-    dense any-hit forms them. Padding repeats the last row with length 0 (an
-    empty window), which stays inside the last block's range."""
-    r = starts.shape[0]
-    c = accel.center
-    az = torch.atan2(starts[:, 1] - c[1], starts[:, 0] - c[0])
-    order = torch.argsort(az)
-    seg = end.expand(r, 3) - starts
-    length = norm3(seg)
-    dirs = seg / torch.clamp_min(length, _EPS)[:, None]
-    packed = torch.cat([starts, dirs, length[:, None], az[:, None]], dim=1)[order]
-    r_pad = max(STAR_BLOCK, -(-r // STAR_BLOCK) * STAR_BLOCK)
-    pad_rows = packed[-1:].expand(r_pad - r, 8).clone()
-    pad_rows[:, 6] = 0.0
-    packed = torch.cat([packed, pad_rows], dim=0)
-    az_blocks = packed[:, 7].reshape(-1, STAR_BLOCK)
-    brange = torch.stack([az_blocks.amin(dim=1), az_blocks.amax(dim=1)]).contiguous()
-    return (order, packed[:, 0:3].contiguous(), packed[:, 3:6].contiguous(), packed[:, 6].contiguous(),
-            brange)
-
-
-def _star_query(kernel, accel: StarAccel, starts, end) -> torch.Tensor:
+def _star_inputs(starts: torch.Tensor, end: torch.Tensor) -> tuple:
+    """(origins, unit directions, lengths) of the segments starts[i] -> end,
+    formed as the dense any-hit forms them."""
     starts = torch.atleast_2d(starts).to(torch.float32)
-    end = torch.as_tensor(end, dtype=torch.float32, device=starts.device).reshape(3)
-    r = starts.shape[0]
-    if r == 0:
-        return torch.zeros(0, dtype=torch.bool, device=starts.device)
-    order, o, d, length, brange = _star_inputs(accel, starts, end)
-    occ = kernel(o, d, length, brange, accel.narrow_tab, accel.tile_meta, accel.wide_tab, accel.n_wide)
-    out = torch.empty(r, dtype=torch.bool, device=starts.device)
-    out[order] = occ[:r]
-    return out
+    end = torch.as_tensor(end, dtype=torch.float32, device=starts.device).reshape(1, 3)
+    return segment_inputs(starts, end.expand(starts.shape[0], 3))
 
 
 def star_segments_occluded(accel: StarAccel, starts: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
     """(R,) bool: the open segment starts[i] -> end is blocked by the mesh.
 
-    `end` (3,) must lie within accel.r_pad of accel.center (the tracer passes
-    the rig's centroid or one capsule). Runs the K6 kernel on a CUDA device
-    and its plain version on the CPU; equals `segments_occluded(starts, end,
-    tris)` on the mesh the layout was built from."""
-    return _star_query(star_any_hit, accel, starts, end)
+    The tracer passes the rig's centroid or one capsule as `end` (3,), the
+    end point the star was chosen for; the walk itself holds for any end.
+    One K6 launch on a CUDA device, its plain walk on the CPU; equals
+    `segments_occluded(starts, end, tris)` on the mesh the star was built
+    from."""
+    return star_any_hit(*_star_inputs(starts, end), accel.tree)
 
 
 def star_segments_occluded_plain(accel: StarAccel, starts: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
-    """`star_segments_occluded` through the kernel's plain version (any device)."""
-    return _star_query(star_any_hit_plain, accel, starts, end)
+    """`star_segments_occluded` through the kernel's plain walk (any device)."""
+    return any_hit_walk_plain(*_star_inputs(starts, end), accel.tree)[0]

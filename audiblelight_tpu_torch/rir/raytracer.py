@@ -159,13 +159,14 @@ def _rain_occlusion(hit, normal, face_safe, listener_pos, tris, vis) -> torch.Te
     """(C, TR) bool rain visibility of one bounce's hit points, True where
     the listener point does not see the hit.
 
-    `vis` = (face_occlusion, star, occlusion, shared_visibility): a per-face
-    table is one gather by hit face; else, in the exact mode, each hit point
-    (moved 1e-4 off the surface) is queried toward the rig's centroid
-    (shared visibility) or toward every listener point, through the star
-    any-hit where a layout `star` was built and through the dense any-hit
-    where it was not (`occlusion`); a convex room is never blocked."""
-    face_occlusion, star, occlusion, shared = vis
+    `vis` = (face_occlusion, star, occlusion, shared_visibility, tree): a
+    per-face table is one gather by hit face; else, in the exact mode, each
+    hit point (moved 1e-4 off the surface) is queried toward the rig's
+    centroid (shared visibility) or toward every listener point, through the
+    star any-hit where a layout `star` was built and through the any-hit on
+    `tris` (its any-hit tree `tree`) where it was not (`occlusion`); a
+    convex room is never blocked."""
+    face_occlusion, star, occlusion, shared, tree = vis
     cl, tr = listener_pos.shape[0], hit.shape[0]
     if face_occlusion is not None:
         return face_occlusion[:, face_safe].expand(cl, tr)
@@ -178,9 +179,9 @@ def _rain_occlusion(hit, normal, face_safe, listener_pos, tris, vis) -> torch.Te
         return torch.stack([star_segments_occluded(star, starts, listener_pos[i]) for i in range(cl)])
     if shared and cl > 1:
         center = listener_pos.mean(dim=0)
-        return segments_occluded(starts, center.expand(tr, 3), tris)[None].expand(cl, tr)
+        return segments_occluded(starts, center.expand(tr, 3), tris, tree)[None].expand(cl, tr)
     ends = listener_pos.repeat_interleave(tr, dim=0)
-    return segments_occluded(starts.repeat(cl, 1), ends, tris).reshape(cl, tr)
+    return segments_occluded(starts.repeat(cl, 1), ends, tris, tree).reshape(cl, tr)
 
 
 def _unfused_deposit(hit, normal, e_refl, new_dist, hit_ok, occ, listener_pos, n_sources, n_bins, bin_dt,
@@ -286,6 +287,7 @@ def trace_energy_histogram_multi(
     sh_order: int = 1,
     mesh_tiles=None,
     fh_table=None,
+    any_hit_tree=None,
 ) -> torch.Tensor:
     """Energy histograms for E sources traced together in one wavefront.
 
@@ -310,6 +312,10 @@ def trace_energy_histogram_multi(
             runs K8 on a mesh of at most MXU_F_MAX faces; else K1.
         fh_table: K1's `first_hit_table(tris)` where the caller keeps it
             (built here when None).
+        any_hit_tree: a function from a triangle tensor to its cached
+            any-hit tree (`MeshDeviceState.any_hit_tree`), for the exact
+            mode's dense any-hit; without it each query builds its own on
+            the card (`cuda_kernels.segments_occluded`).
 
     Returns (E, C_out, B, n_bins) pressure^2 energies: C_out = C for omni;
     the ambisonic channels signed (energy times the arrival direction's
@@ -340,7 +346,9 @@ def trace_energy_histogram_multi(
     mxu_tables = _mxu_tables_for(tris, mesh_tiles)
     dense = mesh_tiles is None and mxu_tables is None
     route = ((first_hit_table(tris) if fh_table is None else fh_table) if dense else None, mesh_tiles, mxu_tables)
-    vis = (face_occlusion, star, bool(occlusion), bool(shared_visibility))
+    dense_rain = face_occlusion is None and star is None and bool(occlusion)
+    tree = any_hit_tree(tris) if dense_rain and any_hit_tree is not None else None
+    vis = (face_occlusion, star, bool(occlusion), bool(shared_visibility), tree)
     band_freqs = _band_centers(n_bands, dev)
     phases = decimation_phases(n_rays, max_depth, decimate)
     for pi, (start, end, r_src) in enumerate(phases):
@@ -474,12 +482,14 @@ def direct_paths_ir(
     c: float = config.SPEED_OF_SOUND,
     encoding: str = "omni",
     sh_order: int = 3,
+    tree=None,
 ) -> torch.Tensor:
     """Exact direct paths for a batch of sources, with one occlusion query: a
     windowed sinc at delay d/c with amplitude visibility/(4 pi d), per omni
     capsule, or at the one listener point encoded with the ambisonic gains
     of the arrival direction at `sh_order` (clipped to the layout's order);
-    "binaural" renders the analytic head (`_binaural_direct_ir`).
+    "binaural" renders the analytic head (`_binaural_direct_ir`). `tree` is
+    the any-hit tree of `tris` where the caller keeps one.
     Returns (E, C_out, n_samples)."""
     source_positions = torch.atleast_2d(source_positions).to(torch.float32)
     listener_pos = torch.atleast_2d(listener_pos).to(torch.float32)
@@ -490,7 +500,7 @@ def direct_paths_ir(
     d = norm3(vec)  # (E, C)
     starts = listener_pos[None].expand(n_src, cl, 3).reshape(-1, 3)
     ends = source_positions.repeat_interleave(cl, dim=0)
-    occ = segments_occluded(starts, ends, tris).reshape(n_src, cl)
+    occ = segments_occluded(starts, ends, tris, tree).reshape(n_src, cl)
     amps = (~occ).to(torch.float32) / (4.0 * math.pi * torch.clamp_min(d, 1e-2))
     delays = d * sr / c
     if encoding == "binaural":
@@ -540,7 +550,7 @@ def _lattice_offsets(u, v, n_angles: int, n_radii: int) -> torch.Tensor:
     return (cos_a * u[:, None, None, :] + sin_a * v[:, None, None, :]) * radii[None, None, :, None]
 
 
-def _graph_detour(tris, source_pos, center, order: int, n_angles: int = 12, n_radii: int = 4):
+def _graph_detour(tris, source_pos, center, order: int, n_angles: int = 12, n_radii: int = 4, tree=None):
     """Multi-bend detour search for E sources: layered shortest path over bend
     candidates (min-plus Bellman-Ford on a DAG of `order` stations, capped at
     4), with all candidate legs checked in one occlusion query.
@@ -571,7 +581,7 @@ def _graph_detour(tris, source_pos, center, order: int, n_angles: int = 12, n_ra
     raw_ends = torch.cat([nodes, nodes.repeat(1, n_nodes, 1), cen_b], dim=1)
     g = raw_ends - starts
     ends = raw_ends + over * g / torch.clamp_min(norm3(g, keepdim=True), 1e-9)
-    occ = segments_occluded(starts.reshape(-1, 3), ends.reshape(-1, 3), tris).reshape(e_n, -1)
+    occ = segments_occluded(starts.reshape(-1, 3), ends.reshape(-1, 3), tris, tree).reshape(e_n, -1)
     occ_src = occ[:, :n_nodes]
     occ_pair = occ[:, n_nodes : n_nodes + n_nodes * n_nodes].reshape(e_n, n_nodes, n_nodes)
     occ_lis = occ[:, n_nodes + n_nodes * n_nodes :]
@@ -673,6 +683,8 @@ def diffracted_path_ir(
     tris_graph: torch.Tensor = None,
     encoding: str = "omni",
     sh_order: int = 3,
+    tree=None,
+    tree_graph=None,
 ) -> torch.Tensor:
     """Knife-edge diffraction for OCCLUDED direct paths, E sources at once.
 
@@ -684,18 +696,20 @@ def diffracted_path_ir(
     Candidate legs are checked against `tris_graph` when given (an acoustic
     LOD of a big mesh); the trigger always uses `tris`. Unoccluded pairs
     contribute zero. For FOA the arrival is encoded with the gains of the
-    last bend's direction. Returns (E, C_out, n_samples).
+    last bend's direction. `tree` and `tree_graph` are the any-hit trees of
+    `tris` and `tris_graph` where the caller keeps them. Returns (E, C_out,
+    n_samples).
     """
     source_positions = torch.atleast_2d(source_positions).to(torch.float32)
     listener_pos = torch.atleast_2d(listener_pos).to(torch.float32)
     e_n, cl = source_positions.shape[0], listener_pos.shape[0]
     center = listener_pos.mean(dim=0)
     band_freqs = band_freqs.to(torch.float32)
-    leg_tris = tris if tris_graph is None else tris_graph
+    leg_tris, leg_tree = (tris, tree) if tris_graph is None else (tris_graph, tree_graph)
 
     # The trigger: direct-path occlusion per (source, capsule), capsule -> source
     occ_direct = segments_occluded(
-        listener_pos.repeat(e_n, 1), source_positions.repeat_interleave(cl, dim=0), tris
+        listener_pos.repeat(e_n, 1), source_positions.repeat_interleave(cl, dim=0), tris, tree
     ).reshape(e_n, cl)
 
     d, axis, u, v = _diffraction_frame(source_positions, center)
@@ -710,7 +724,7 @@ def diffracted_path_ir(
     ext2 = bends + over * (bends - center) / torch.clamp_min(d2c, 1e-9)[..., None]
     leg_starts = torch.cat([src_b.expand(e_n, k, 3), center.expand(e_n, k, 3)], dim=1)
     occ_legs = segments_occluded(
-        leg_starts.reshape(-1, 3), torch.cat([ext1, ext2], dim=1).reshape(-1, 3), leg_tris
+        leg_starts.reshape(-1, 3), torch.cat([ext1, ext2], dim=1).reshape(-1, 3), leg_tris, leg_tree
     ).reshape(e_n, 2, k)
     detour = torch.where(~occ_legs[:, 0] & ~occ_legs[:, 1], d1 + d2c, math.inf)
     best = torch.argmin(detour, dim=1)
@@ -723,7 +737,8 @@ def diffracted_path_ir(
     deltas = torch.clamp_min(path - norm3(listener_pos[None] - src_b), 0.0)[..., None]  # (E, C, 1)
 
     if order >= 2:
-        found_g, dist_last, bend_g, deltas_s = _graph_detour(leg_tris, source_positions, center, order)
+        found_g, dist_last, bend_g, deltas_s = _graph_detour(leg_tris, source_positions, center, order,
+                                                             tree=leg_tree)
         path_g = dist_last[:, None] + norm3(listener_pos[None] - bend_g[:, None])
         deltas_g = deltas_s[:, None, :].expand(e_n, cl, deltas_s.shape[1])
         use_graph = ~found & found_g
@@ -749,17 +764,19 @@ def diffracted_path_ir(
                                  encoding, sh_order)
 
 
-def face_rain_occlusion(tris: torch.Tensor, tri_normals: torch.Tensor, listener_points: torch.Tensor) -> torch.Tensor:
+def face_rain_occlusion(tris: torch.Tensor, tri_normals: torch.Tensor, listener_points: torch.Tensor,
+                        tree=None) -> torch.Tensor:
     """Per-face diffuse-rain visibility: (P, F) bool, True where the segment
     face centroid -> listener point is blocked. The start is offset off the
-    surface on the listener's side. All P x F segments go in one query."""
+    surface on the listener's side. All P x F segments go in one query,
+    through `tree` (the any-hit tree of `tris`) where the caller keeps one."""
     listener_points = torch.atleast_2d(listener_points).to(torch.float32)
     centroids = tris.mean(dim=1)  # (F, 3)
     to_l = listener_points[:, None, :] - centroids[None]  # (P, F, 3)
     n_or = torch.where((dot3(tri_normals[None], to_l) >= 0)[..., None], tri_normals[None], -tri_normals[None])
     starts = centroids[None] + 1e-4 * n_or
     ends = listener_points[:, None, :].expand_as(starts)
-    return segments_occluded(starts.reshape(-1, 3), ends.reshape(-1, 3), tris).reshape(
+    return segments_occluded(starts.reshape(-1, 3), ends.reshape(-1, 3), tris, tree).reshape(
         listener_points.shape[0], -1
     )
 
@@ -793,6 +810,7 @@ def trace_rirs_multi(
     sh_order_indirect: int = 1,
     mesh_tiles=None,
     fh_table=None,
+    any_hit_tree=None,
 ) -> torch.Tensor:
     """RIRs for a batch of sources against one listener group: stochastic
     tail on `tris` (the acoustic mesh) + exact direct path on `tris_direct`
@@ -802,7 +820,8 @@ def trace_rirs_multi(
     `sh_order_direct`, the tail at `sh_order_indirect`, each clipped to the
     layout's order. The tail's rain visibility is `face_occlusion`, `star`
     or `occlusion`, its bounce first hit K7 on `mesh_tiles` where given, else
-    K1 on `fh_table` (see trace_energy_histogram_multi). Returns (C_out, E,
+    K1 on `fh_table`; every any-hit query takes its mesh's tree from
+    `any_hit_tree` (see trace_energy_histogram_multi). Returns (C_out, E,
     n_samples)."""
     source_positions = torch.atleast_2d(source_positions)
     n_bins = int(np.ceil(n_samples / sr / bin_dt)) + 1
@@ -811,17 +830,19 @@ def trace_rirs_multi(
         n_rays=n_rays, max_depth=max_depth, n_bins=n_bins, bin_dt=bin_dt, c=c,
         tri_normals=tri_normals, face_occlusion=face_occlusion, star=star, occlusion=occlusion,
         shared_visibility=shared_visibility, decimate=decimate, encoding=encoding, sh_order=sh_order_indirect,
-        mesh_tiles=mesh_tiles, fh_table=fh_table,
+        mesh_tiles=mesh_tiles, fh_table=fh_table, any_hit_tree=any_hit_tree,
     )  # (E, C_out, B, bins)
     band_freqs = _band_centers(face_absorption.shape[1], tris.device)
     irs = synthesize_ir_from_histogram(gen, hist, band_freqs, n_samples, bin_dt, sr=sr, encoding=encoding)
     td = tris if tris_direct is None else tris_direct
+    tree_of = any_hit_tree if any_hit_tree is not None else (lambda _: None)
     irs = irs + direct_paths_ir(td, source_positions, listener_pos, n_samples, sr=sr, c=c,
-                                encoding=encoding, sh_order=sh_order_direct)
+                                encoding=encoding, sh_order=sh_order_direct, tree=tree_of(td))
     if diffraction:
         irs = irs + diffracted_path_ir(
             td, source_positions, listener_pos, band_freqs, n_samples, sr=sr, c=c,
             order=int(diffraction_order), tris_graph=tris_diffraction_graph,
-            encoding=encoding, sh_order=sh_order_direct,
+            encoding=encoding, sh_order=sh_order_direct, tree=tree_of(td),
+            tree_graph=None if tris_diffraction_graph is None else tree_of(tris_diffraction_graph),
         )
     return irs.movedim(0, 1)

@@ -22,6 +22,7 @@ seed places the same events as the reference. The reference's native BVH
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from pathlib import Path
 from typing import Any, Optional, Union
@@ -38,8 +39,8 @@ from audiblelight_tpu_torch.geometry.queries import (
     segments_occluded,
 )
 from audiblelight_tpu_torch.micarrays import MicArray
-from audiblelight_tpu_torch.ops.cuda_kernels import first_hit_table
-from audiblelight_tpu_torch.ops.star_occlusion import build_star_accel
+from audiblelight_tpu_torch.ops.cuda_kernels import any_hit_tree, first_hit_table
+from audiblelight_tpu_torch.ops.star_occlusion import build_star_accel, star_tree
 from audiblelight_tpu_torch.ops.tiled_first_hit import build_mesh_tiles
 from audiblelight_tpu_torch.rir.materials import (
     get_material_absorption,
@@ -178,13 +179,16 @@ class MeshDeviceState:
         self.acoustic_normals = self._tensor(acoustic_normals)
         self.absorption = self._tensor(absorption)
         self.scattering = self._tensor(scattering)
-        self.diffraction_graph_tris = (
-            None if diffraction_graph_tris is None else self._tensor(diffraction_graph_tris)
-        )
+        if diffraction_graph_tris is None or diffraction_graph_tris is acoustic_tris:
+            # The LOD itself (one tensor, so one cached any-hit tree)
+            self.diffraction_graph_tris = None if diffraction_graph_tris is None else self.acoustic_tris
+        else:
+            self.diffraction_graph_tris = self._tensor(diffraction_graph_tris)
         self._rain_cache: dict = {}
         self._star_cache: dict = {}
         self._mesh_tiles = None
         self._first_hit_tables: dict = {}
+        self._any_hit_trees: dict = {}
 
     @classmethod
     def from_mesh(cls, mesh: TriMesh, cfg: Optional[dict] = None,
@@ -215,7 +219,7 @@ class MeshDeviceState:
         key = tuple(np.round(pts, 4).ravel().tolist())
         if key not in self._rain_cache:
             self._rain_cache[key] = face_rain_occlusion(
-                self.acoustic_tris, self.acoustic_normals, self._tensor(pts)
+                self.acoustic_tris, self.acoustic_normals, self._tensor(pts), self.any_hit_tree(self.acoustic_tris)
             )
         return self._rain_cache[key]
 
@@ -231,7 +235,9 @@ class MeshDeviceState:
         center = np.asarray(center, dtype=np.float64).reshape(3)
         key = (tuple(np.round(center, 4).tolist()), round(float(r_pad), 4))
         if key not in self._star_cache:
-            star = build_star_accel(self.acoustic_tris.cpu().numpy(), center, r_pad, device=self.device)
+            tris = self.acoustic_tris.cpu().numpy()
+            tree = self._cached_tree("star", lambda: star_tree(tris, self.device))
+            star = build_star_accel(tris, center, r_pad, device=self.device, tree=tree)
             if star is None:
                 logger.info("Star occlusion layout does not pay here: the exact rain mode runs the dense any-hit")
             else:
@@ -249,6 +255,22 @@ class MeshDeviceState:
             if self._first_hit_tables[key][3] is not None:
                 logger.info(f"Built first-hit face tree: {self._first_hit_tables[key][3]}")
         return self._first_hit_tables[key]
+
+    def any_hit_tree(self, tris: torch.Tensor):
+        """The cached any-hit tree (`cuda_kernels.any_hit_tree`) of `tris`,
+        this state's full, acoustic or diffraction-graph triangles, built
+        once: every segment query on them walks it."""
+        return self._cached_tree(id(tris), lambda: any_hit_tree(tris))
+
+    def _cached_tree(self, key, build):
+        if key not in self._any_hit_trees:
+            t0 = time.perf_counter()
+            tree = build()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            logger.info(f"Built any-hit face tree: {tree} in {1e3 * (time.perf_counter() - t0):.1f} ms")
+            self._any_hit_trees[key] = tree
+        return self._any_hit_trees[key]
 
     @property
     def mesh_tiles(self):
@@ -313,6 +335,7 @@ class MeshDeviceState:
             sh_order_indirect=int(cfg["indirect_sh_order"]),
             mesh_tiles=self.mesh_tiles if self.acoustic_tris is self.tris else None,
             fh_table=self.first_hit_table(self.acoustic_tris),
+            any_hit_tree=self.any_hit_tree,
             **rain,
         )
 
@@ -500,7 +523,8 @@ class WorldStateRLR(PlacementMixin, WorldState):
         tris = self.device_state.tris
         if not bool(points_inside_mesh(self._points(np.stack([point_a, point_b])), tris).all()):
             return False
-        return not bool(segments_occluded(self._points(point_a[None]), self._points(point_b[None]), tris)[0])
+        return not bool(segments_occluded(self._points(point_a[None]), self._points(point_b[None]), tris,
+                                          self.device_state.any_hit_tree(tris))[0])
 
     def calculate_weighted_average_ray_length(self, point: np.ndarray,
                                               num_rays: Optional[utils.Numeric] = config.NUM_RAYS) -> float:

@@ -6,7 +6,11 @@ Builds the tracer's CUDA kernels from audiblelight_tpu_torch/csrc with nvcc,
 holds each against its plain PyTorch version on the card at the flagship
 shapes (K1 big, the face-tree walk, bit for bit against the dense walk and
 its own plain walk, visit counts included, with each face tree's build
-time), then drives the port's two main paths:
+time; K2 and K6, the any-hit tree walks, against their plain walk, visit
+counts included, and the dense any-hit, boolean for boolean, on the rain
+table, 640k random legs, the direct segments, the flagship trace's own
+diffraction legs, 80k hit points toward the centroid and a capsule and the
+exact CLI scene's bounces), then drives the port's two main paths:
 
 - three 60 s flagship SELD scenes through the fused renderer (110,592-face
   scanned room, 4,071-face acoustic LOD, per-face rain visibility, order-10
@@ -53,8 +57,10 @@ time), then drives the port's two main paths:
 
 Each path's kernel launches are counted from zero just before it and read
 just after; a kernel of the path that did not launch fails the run, and so
-does a fused scene that launched K1 big other than 60 times, or any path
-that launched another first-hit kernel than its own. It
+does a fused scene that launched K1 big other than 60 times, any path
+that launched another first-hit kernel than its own, a main path that built
+an any-hit tree, or an exact scene that built more trees than it has
+meshes. It
 prints one JSON line of kernel results; the last line is
 {"ok": true, "device": {...}}.
 
@@ -208,10 +214,10 @@ def segment_enters(o, inv, t_end, lo, hi) -> torch.Tensor:
 BOX_PAD = 1e-5  # m, on face boxes and t_hit, so that rounding drops no face
 
 
-def first_hit_pairs(o, d, t_hit, face, boxes: tuple, order=None, group: int = 256) -> tuple:
+def first_hit_pairs(o, d, t_hit, face, boxes: tuple, order=None, group: int = 256, pad: float = BOX_PAD) -> tuple:
     """(pairs, in_groups): the (ray, face) pairs a first hit needs on this
     data. A ray needs each face whose box (`boxes`, from face_boxes, padded
-    by BOX_PAD) its segment [0, t_hit] enters: a face whose box the segment
+    by `pad`) its segment [0, t_hit] enters: a face whose box the segment
     misses cannot be its hit. A ray's own hit `face` is counted even where
     rounding left it out, and those rays are printed. Two levels: the faces
     in groups of `group` in `order` ((G * group,) face indices, -1 for none;
@@ -227,13 +233,13 @@ def first_hit_pairs(o, d, t_hit, face, boxes: tuple, order=None, group: int = 25
     order = order.long()
     real = (order >= 0).view(-1, group)
     safe = order.clamp_min(0)
-    f_lo, f_hi = (lo[safe] - BOX_PAD).view(-1, group, 3), (hi[safe] + BOX_PAD).view(-1, group, 3)
+    f_lo, f_hi = (lo[safe] - pad).view(-1, group, 3), (hi[safe] + pad).view(-1, group, 3)
     g_lo = torch.where(real[..., None], f_lo, float("inf")).amin(1)
     g_hi = torch.where(real[..., None], f_hi, float("-inf")).amax(1)
     inv = 1.0 / torch.where(d.abs() < 1e-30, 1e-30, d)
-    t_end = t_hit + BOX_PAD
+    t_end = t_hit + pad
     own = face.clamp_min(0).long()
-    left_out = (face >= 0) & ~segment_enters(o, inv, t_end, lo[own] - BOX_PAD, hi[own] + BOX_PAD)
+    left_out = (face >= 0) & ~segment_enters(o, inv, t_end, lo[own] - pad, hi[own] + pad)
     if bool(left_out.any()):
         print(f"  {int(left_out.sum())} rays' own hit faces lie outside their padded boxes; counted all the same")
     pairs, in_groups = int(left_out.sum()), 0
@@ -250,22 +256,16 @@ def first_hit_pairs(o, d, t_hit, face, boxes: tuple, order=None, group: int = 25
     return pairs, in_groups
 
 
-def any_hit_pairs(starts, ends, tris) -> int:
-    """(segment, face) pairs the early-exit any-hit kernel tests on these
-    segments: up to the first blocking face, or every face when free."""
-    from audiblelight_tpu_torch.ops import cuda_kernels as ck
-
-    o, d, length, tab = ck._any_hit_inputs(starts, ends, tris)
-    r, f = o.shape[0], tab.shape[0]
-    first = torch.full((r,), f, dtype=torch.int64, device=o.device)
-    t_max = (length - 1e-4)[:, None]
-    step = ck._face_chunk(r, f)
-    for f0 in range(0, f, step):
-        in_tri, t = ck._mt_pair(o, d, tab[f0 : f0 + step].T[:, None, :])
-        hit = in_tri & (t > 1e-4) & (t < t_max)
-        idx = torch.where(hit.any(1), hit.int().argmax(1) + f0, f)
-        first = torch.minimum(first, idx)
-    return int(torch.where(first < f, first + 1, f).sum())
+def any_hit_pairs(o, d, length, blocked, tris) -> int:
+    """(segment, face) pairs an any-hit needs on this data, by one rule for
+    K2 and K6 and any implementation: a blocked segment its one blocking
+    face; a free one each face whose unpadded box its segment [0, length]
+    enters (a face whose box the segment misses cannot block it); a segment
+    whose window 1e-4 < t < length - 1e-4 is empty, none."""
+    free = ~blocked & (length - 1e-4 > 1e-4)
+    none = torch.full((int(free.sum()),), -1, dtype=torch.int32, device=o.device)
+    pairs, _ = first_hit_pairs(o[free], d[free], length[free], none, face_boxes(tris), pad=0.0)
+    return pairs + int(blocked.sum())
 
 
 def check_cli_outputs(out: Path, layout: str, t_scene: int, n_scenes: int = 2) -> None:
@@ -295,39 +295,6 @@ def check_cli_outputs(out: Path, layout: str, t_scene: int, n_scenes: int = 2) -
             fail(f"{wav}: not a 4-channel {SR} Hz int16 WAV of {t_scene} frames with sound")
         if not rows or any(len(r) != 6 or not 0 <= r[0] <= 600 or r[1] not in CLI_CLASSES.values() for r in rows):
             fail(f"{s}: bad DCASE CSV")
-
-
-def star_windows_on(star, tris: torch.Tensor) -> tuple:
-    """(centres, padded half-widths) of the narrow faces' azimuth windows of
-    `star`, built from `tris` (the acoustic mesh), on the card."""
-    from audiblelight_tpu_torch.ops import star_occlusion as so
-
-    _, _, cen, half = so.star_windows(tris.cpu().numpy(), star.center.cpu().numpy(), star.r_pad)
-    return (torch.as_tensor(cen, dtype=torch.float32, device=tris.device),
-            torch.as_tensor(half, dtype=torch.float32, device=tris.device))
-
-
-def star_pairs(star, windows, starts, end, blocked) -> tuple:
-    """(pairs the kernel's block x tile cull tests without its early exits,
-    pairs this data needs): for each free segment, every narrow face whose
-    own window (`windows`, from star_windows_on) holds the segment's azimuth
-    and every wide face; one face for each blocked segment."""
-    from audiblelight_tpu_torch.ops import cuda_kernels as ck
-    from audiblelight_tpu_torch.ops import star_occlusion as so
-
-    order, o, _, _, brange = so._star_inputs(star, starts, end)
-    overlap = ck.star_tile_overlap(brange, star.tile_meta)
-    tested = (int(overlap.sum()) * ck.STAR_TILE_FACES + brange.shape[1] * star.n_wide) * ck.STAR_BLOCK
-    free = starts[~blocked]
-    az = torch.atan2(free[:, 1] - star.center[1], free[:, 0] - star.center[0])
-    cen, half = windows
-    holds = 0
-    for i0 in range(0, az.shape[0], 1024):
-        d = cen[None, :] - az[i0 : i0 + 1024, None]
-        d = d - 2.0 * np.pi * torch.floor(d / (2.0 * np.pi) + 0.5)
-        holds += int((d.abs() <= half[None, :]).sum())
-    needed = holds + free.shape[0] * star.n_wide + int(blocked.sum())
-    return tested, needed
 
 
 def t30(energy: np.ndarray) -> float:
@@ -1040,6 +1007,93 @@ def check_k1(label: str, o, d, tris, table, results: dict = None, bound: tuple =
                                         ms=k_ms, plain_ms=plain_ms)
 
 
+def count_tree_builds() -> tuple:
+    """(builds, restore): every any-hit tree build from now on appends its
+    face count to `builds` (the builder under each module's name for it);
+    `restore()` puts the builder back."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.ops import star_occlusion as so
+    from audiblelight_tpu_torch.worldstate import mesh_backend as mb
+
+    builds, real = [], ck.any_hit_tree
+
+    def counted(tris, faces=None):
+        builds.append(int(tris.shape[0]))
+        return real(tris, faces)
+
+    modules = (ck, so, mb)
+    for m in modules:
+        m.any_hit_tree = counted
+
+    def restore():
+        for m in modules:
+            m.any_hit_tree = real
+
+    return builds, restore
+
+
+def check_any_hit(name: str, label: str, starts, ends, tris, tree, call, results: dict = None) -> torch.Tensor:
+    """K2 (`name` "any_hit") or K6 ("star_any_hit") on the segments starts ->
+    ends through `tree`: the kernel's booleans and per-segment visit counts
+    equal to the plain walk's (`any_hit_walk_plain`), its booleans to the
+    dense plain any-hit over every face of `tris`, 0 mismatches. Prints the
+    blocked share, the box tests and leaves per segment, the pairs this data
+    needs and the bound on them, the entry point's time per call (`call`)
+    and its device part, the plain walk's and the dense plain time; with
+    `results`, records the kernel's line from this check. Returns the
+    booleans."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+
+    o, d, length = ck.segment_inputs(starts, ends)
+    r, f = o.shape[0], tris.shape[0]
+    visits = torch.empty((r, 2), dtype=torch.int32, device=o.device)
+    got = (ck.any_hit if name == "any_hit" else ck.star_any_hit)(o, d, length, tree, visits)
+    walked = []
+    walk_ms = time_ms(lambda: walked.append(ck.any_hit_walk_plain(o, d, length, tree)), reps=1, warm=False)
+    dense = []
+    dense_ms = time_ms(lambda: dense.append(ck.segments_occluded_plain(starts, ends, tris)), reps=1, warm=False)
+    torch.cuda.synchronize()
+    (walk, vis_p), dense = walked[0], dense[0]
+    bad_w, bad_d = int((got != walk).sum()), int((got != dense).sum())
+    vis_same = torch.equal(visits, vis_p)
+    if not torch.equal(call(), got):
+        fail(f"{name}: the entry point and the kernel disagree on the {label}")
+    needed = any_hit_pairs(o, d, length, got, tris)
+    one_end = name == "star_any_hit"  # K6 reads the starts and one end point
+    b_ms, b_by = bound_ms(needed * FLOPS_MT_PAIR, r * (12 if one_end else 24) + (12 if one_end else 0) + f * 36 + r)
+    k_ms, dev_ms = time_ms(call), device_ms(call)
+    vis = visits.double()
+    print(f"check {name} on the {label}: {r} segments x {f} faces ({tree}): mismatches {bad_w} against the plain "
+          f"walk, {bad_d} against the dense any-hit; visit counts equal {vis_same}; blocked "
+          f"{float(got.float().mean()):.3f}; per segment {float(vis[:, 0].mean()):.1f} box tests (max "
+          f"{int(vis[:, 0].max())}) and {float(vis[:, 1].mean()):.2f} leaves of {tree.bvh.leaf_faces} (max "
+          f"{int(vis[:, 1].max())}); pairs this data needs {needed} ({needed / max(r * f, 1):.4%} of dense), bound "
+          f"{b_ms:.5f} ms ({b_by}); {k_ms:.4f} ms per call (device {dev_ms:.4f} ms), plain walk {walk_ms:.3f} ms, "
+          f"dense plain {dense_ms:.3f} ms", flush=True)
+    if bad_w or bad_d or not vis_same:
+        fail(f"{name} disagrees with its plain walk or the dense any-hit on the {label}")
+    if results is not None:
+        results[name] = dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, library_ms=None, ms=k_ms,
+                             plain_ms=walk_ms)
+    return got
+
+
+def tree_build_ms(tris, faces=None) -> float:
+    """Milliseconds to build `any_hit_tree(tris, faces)` on the card, host
+    clock around a synchronised build (median of three after one)."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+
+    ck.any_hit_tree(tris, faces)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ck.any_hit_tree(tris, faces)
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def table_build_ms(tris) -> float:
     """Milliseconds to build `first_hit_table(tris)` (the big table and its
     face tree) on the card, host clock around a synchronised build."""
@@ -1176,6 +1230,9 @@ def main() -> int:
     b_ms, b_by = bound_ms(needed * FLOPS_MT_PAIR, r * 24 + 500 * 36 + r * 8)
     small_ms = time_ms(lambda: ck.ray_first_hit(origins, dirs, small))
     small_plain_ms = time_ms(lambda: ck.ray_first_hit_plain(origins, dirs, small), reps=3)
+    results["first_hit_small"] = dict(max_abs_err=float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0,
+                                      bound_ms=b_ms, bound_by=b_by, ms=small_ms, plain_ms=small_plain_ms,
+                                      library_ms=None)
     print(f"first_hit_small (off the main paths): {r} rays x 500 faces: {small_ms:.4f} ms, plain "
           f"{small_plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, {needed} pairs this data needs), max |dt| "
           f"{float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0:.3e}")
@@ -1194,25 +1251,13 @@ def main() -> int:
             lo + span * torch.rand(640_000, 3, generator=g2, device=dev), st.acoustic_tris)
     src_t = torch.as_tensor(src0, device=dev)
     direct = (listeners.repeat(16, 1), src_t.repeat_interleave(4, dim=0), st.tris)
-    any_rows = []
-    for label, args in (("rain table", rain), ("diffraction legs", legs), ("direct on full mesh", direct)):
-        k = ck.segments_occluded(*args)
-        p = ck.segments_occluded_plain(*args)
-        bad = int((k != p).sum())
-        print(f"check any_hit {label}: {args[0].shape[0]} segments x {args[2].shape[0]} faces: "
-              f"mismatches {bad}, blocked {float(k.float().mean()):.3f}", flush=True)
-        if bad:
-            fail(f"any_hit disagrees with its plain version ({label})")
-        any_rows.append(args)
-    n_seg, n_f = legs[0].shape[0], legs[2].shape[0]
-    pairs = any_hit_pairs(*legs)
-    b_ms, b_by = bound_ms(pairs * FLOPS_MT_PAIR, n_seg * 24 + n_f * 36 + n_seg)
-    print(f"any_hit diffraction legs: {pairs} pairs tested of {n_seg * n_f}")
-    results["any_hit"] = dict(
-        max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ms=time_ms(lambda: ck.segments_occluded(*legs)),
-        plain_ms=time_ms(lambda: ck.segments_occluded_plain(*legs), reps=3),
-    )
+    tree_lod, tree_full = st.any_hit_tree(st.acoustic_tris), st.any_hit_tree(st.tris)
+    print(f"any_hit face trees: LOD {tree_lod} built in {tree_build_ms(st.acoustic_tris):.3f} ms, full mesh "
+          f"{tree_full} in {tree_build_ms(st.tris):.3f} ms (host clock, synchronised)", flush=True)
+    for label, (s_, e_, tris_), tree in (("rain table", rain, tree_lod), ("640k random legs", legs, tree_lod),
+                                         ("direct segments on the full mesh", direct, tree_full)):
+        check_any_hit("any_hit", label, s_, e_, tris_, tree,
+                      lambda s_=s_, e_=e_, tris_=tris_, tree=tree: ck.segments_occluded(s_, e_, tris_, tree))
 
     # K3: one bounce's worth, 16 sources x 5000 rays hitting the LOD
     t_h, face = ck.ray_first_hit(origins, dirs, st.acoustic_tris)
@@ -1277,7 +1322,7 @@ def main() -> int:
         plain_ms=time_ms(lambda: ck.deposit_histogram_foa_plain(*foa_args, **kw), reps=3),
         library_ms=time_ms(lambda: hist1.index_add_(0, flat1, deps1)),
     )
-    del any_rows, legs, rain, h_k, h_p, foa_args
+    del legs, rain, h_k, h_p, foa_args
 
     # K6 in the exact rain mode's room state (the full mesh is the acoustic
     # mesh): 80k hit points of one bounce on the 110,592 faces, toward the
@@ -1301,34 +1346,20 @@ def main() -> int:
           flush=True)
     centroid = caps.mean(axis=0)
     r_caps = float(np.linalg.norm(caps - centroid, axis=1).max()) + 0.02
+    star_faces = torch.as_tensor(so.star_faces(st_x.tris.cpu().numpy()), device=dev)
+    print(f"star_any_hit face tree: {st_x.star_accel_for(centroid, 0.02).tree} built in "
+          f"{tree_build_ms(st_x.tris, star_faces):.3f} ms (host clock, synchronised)", flush=True)
     for label, end, r_pad in (("centroid", listeners.mean(dim=0), 0.02), ("capsule 0", listeners[0], r_caps)):
         star = st_x.star_accel_for(centroid, r_pad)
         if star is None:
             fail(f"no star layout toward the {label}")
-        seg_k = so.star_segments_occluded(star, starts_x, end)
-        seg_p = so.star_segments_occluded_plain(star, starts_x, end)
         ends_x = end.expand(starts_x.shape[0], 3).contiguous()
-        seg_d = ck.segments_occluded(starts_x, ends_x, st_x.tris)
-        torch.cuda.synchronize()
-        bad_p, bad_d = int((seg_k != seg_p).sum()), int((seg_k != seg_d).sum())
-        tested, needed = star_pairs(star, star_windows_on(star, st_x.tris), starts_x, end, seg_k)
-        n_seg = starts_x.shape[0]
-        print(f"check star_any_hit toward the {label} ({star}): {n_seg} segments x {n_full} faces: mismatches "
-              f"{bad_p} against its plain version, {bad_d} against any_hit; blocked {float(seg_k.float().mean()):.3f}; "
-              f"pairs tested by the block cull {tested} ({tested / (n_seg * n_full):.2%} of {n_seg * n_full} "
-              f"dense), needed by this data {needed}", flush=True)
-        if bad_p or bad_d:
-            fail(f"star_any_hit disagrees toward the {label}")
-        k6_ms = time_ms(lambda: so.star_segments_occluded(star, starts_x, end))
-        k2_ms = time_ms(lambda: ck.segments_occluded(starts_x, ends_x, st_x.tris), reps=3)
-        b_ms, b_by = bound_ms(needed * FLOPS_MT_PAIR, n_seg * 12 + n_full * 36 + n_seg)
-        print(f"star_any_hit toward the {label}: {k6_ms:.4f} ms; any_hit on the same segments {k2_ms:.4f} ms; "
-              f"bound {b_ms:.5f} ms ({b_by})", flush=True)
-        if "star_any_hit" not in results:
-            results["star_any_hit"] = dict(
-                max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, ms=k6_ms, library_ms=k2_ms,
-                plain_ms=time_ms(lambda: so.star_segments_occluded_plain(star, starts_x, end), reps=3),
-            )
+        check_any_hit("star_any_hit", f"{starts_x.shape[0]} hit points toward the {label}", starts_x, ends_x,
+                      st_x.tris, star.tree, lambda star=star, end=end: so.star_segments_occluded(star, starts_x, end),
+                      results if "star_any_hit" not in results else None)
+        tree_x = st_x.any_hit_tree(st_x.tris)
+        print(f"any_hit on the same segments through the full mesh's tree: "
+              f"{time_ms(lambda: ck.segments_occluded(starts_x, ends_x, st_x.tris, tree_x)):.4f} ms", flush=True)
 
     # K5 at the flagship bounce of the HOA3 (16 channels x 4 bands) and
     # binaural (2 x 4) rigs: 16 sources x 5,000 rays, 501 bins; bins from
@@ -1363,12 +1394,13 @@ def main() -> int:
               flush=True)
         if label == "hoa3":
             results["bin_histogram"] = res5
-    del t_x, face_x, hit_x, n_x, seg_k, seg_p, seg_d, ends_x
+    del t_x, face_x, hit_x, n_x, ends_x
 
     elapsed(t_start, "main path")
     # 4. The main path: three flagship scenes through the fused renderer
     OUT.mkdir(parents=True, exist_ok=True)
     scenes = [flagship_inputs(st.tris, np.random.default_rng(100 + i), dev) for i in range(3)]
+    tree_builds, restore_builds = count_tree_builds()
     ck.reset_launch_counts()
     scene_s, payloads = [], []
     for i, (src, s_idx, m_idx, plan, amb) in enumerate(scenes):
@@ -1384,8 +1416,11 @@ def main() -> int:
         scene_s.append(time.time() - t0)
         payloads.append(wav)
     launches = dict(ck.launch_counts)
+    restore_builds()
     print(f"main path: 3 scenes in {sum(scene_s):.2f} s ({', '.join(f'{x:.3f}' for x in scene_s)} s); "
-          f"launches {launches}", flush=True)
+          f"launches {launches}; any-hit trees built {tree_builds}", flush=True)
+    if tree_builds:
+        fail("the main path built an any-hit tree: every query must walk the room's cached trees")
     for name in MIC_PATH:
         if launches[name] <= 0:
             fail(f"the main path never launched {name}")
@@ -1403,22 +1438,37 @@ def main() -> int:
               f"rms {float(wav.float().pow(2).mean().sqrt()):.1f}")
     src, *_ = scenes[0]
     src_t = torch.as_tensor(src, device=dev)
-    # The trace keeps its first bounce's rays on the LOD for the K9/K10 phase
+    # The trace keeps its first bounce's rays on the LOD for the K9/K10
+    # phase, and its largest any-hit query (the diffraction graph's legs)
     from audiblelight_tpu_torch.rir import raytracer
 
-    first_bounce = []
+    first_bounce, real_legs = [], []
 
     def keep_first_bounce(o, d, prev_face, tris, route):
         if not first_bounce:
             first_bounce.append((tris, o.clone(), d.clone()))
         return first_hit_route(o, d, prev_face, tris, route)
 
-    first_hit_route = raytracer._first_hit_route
+    def keep_legs(starts, ends, tris, tree=None):
+        if not real_legs or starts.shape[0] > real_legs[0][0].shape[0]:
+            real_legs[:] = [(starts.clone(), ends.clone(), tris, tree)]
+        return ck.segments_occluded(starts, ends, tris, tree)
+
+    first_hit_route, segments_occluded_query = raytracer._first_hit_route, raytracer.segments_occluded
     raytracer._first_hit_route = keep_first_bounce
+    raytracer.segments_occluded = keep_legs
     try:
         irs = renderer.trace(torch.Generator(device=dev).manual_seed(7), src_t, listeners, face_occ)
     finally:
         raytracer._first_hit_route = first_hit_route
+        raytracer.segments_occluded = segments_occluded_query
+    # K2 on the scene's own diffraction legs, the largest query of its path
+    l_s, l_e, l_tris, l_tree = real_legs[0]
+    if l_tree is None or l_s.shape[0] < 100_000:
+        fail(f"the trace's largest any-hit query had {l_s.shape[0]} segments and tree {l_tree}")
+    check_any_hit("any_hit", "flagship scene's diffraction legs", l_s, l_e, l_tris, l_tree,
+                  lambda: ck.segments_occluded(l_s, l_e, l_tris, l_tree), results)
+    del real_legs
     blocked = ck.segments_occluded(listeners.repeat(N_SOURCES, 1),
                                    src_t.repeat_interleave(4, dim=0), st.tris).reshape(N_SOURCES, 4)
     dist_ec = torch.linalg.vector_norm(src_t[:, None] - listeners[None], dim=-1)
@@ -1625,6 +1675,7 @@ def main() -> int:
           f"{xcfg['indirect_ray_depth']} bounces, decimation {xcfg['ray_decimation']}", flush=True)
     if xscene.state._rain_mode() != "exact" or not xscene.events:
         fail("the default engine config did not give an exact-mode scene with events")
+    tree_builds, restore_builds = count_tree_builds()
     ck.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1632,6 +1683,11 @@ def main() -> int:
     torch.cuda.synchronize()
     exact_s = time.time() - t0
     exact_launches = dict(ck.launch_counts)
+    restore_builds()
+    print(f"exact scene: any-hit trees built {tree_builds} (once per mesh: the full mesh, the star's faces, the "
+          f"diffraction graph)", flush=True)
+    if len(tree_builds) > 3:
+        fail("the exact scene built more any-hit trees than it has meshes")
     exact_irs = xscene.state.trace_irs_device()["mic000"].clone()
     xaudio = xscene.audio["mic000"]
     print(f"exact scene: Scene.generate() in {exact_s:.3f} s (host clock, render and writes); launches "
@@ -1684,7 +1740,7 @@ def main() -> int:
     # JSON, keeps the star's inputs at the first and the last bounce of each
     # decimation phase (keyed by ray count)
     xs = Scene.from_json(sorted((cli_root / "exact" / "metadata_dev").rglob("*.json"))[0], device=dev)
-    kept_star, windows = {}, {}
+    kept_star = {}
 
     def keep_star(star, starts, end):
         keep_first_last(kept_star, starts.shape[0], (star, starts.clone(), end.clone()))
@@ -1699,24 +1755,10 @@ def main() -> int:
         fail(f"the exact trace ran K6 at ray counts {sorted(kept_star)}, expected three decimation phases")
     for rays, kept in sorted(kept_star.items(), reverse=True):
         for which, (star, starts, end) in zip(("first", "last"), kept):
-            seg_k = so.star_segments_occluded(star, starts, end)
-            seg_p = so.star_segments_occluded_plain(star, starts, end)
-            ends = end.expand(rays, 3).contiguous()
-            seg_d = ck.segments_occluded(starts, ends, xs.state.device_state.tris)
-            bad_p, bad_d = int((seg_k != seg_p).sum()), int((seg_k != seg_d).sum())
-            if id(star) not in windows:
-                windows[id(star)] = star_windows_on(star, xs.state.device_state.acoustic_tris)
-            tested, needed = star_pairs(star, windows[id(star)], starts, end, seg_k)
-            b_ms, b_by = bound_ms(needed * FLOPS_MT_PAIR, rays * 12 + n_full * 36 + rays)
-            print(f"check star_any_hit at the exact scene's {which} bounce of {rays} segments: mismatches {bad_p} "
-                  f"against its plain version, {bad_d} against any_hit; blocked {float(seg_k.float().mean()):.3f}; "
-                  f"{time_ms(lambda: so.star_segments_occluded(star, starts, end)):.4f} ms, any_hit "
-                  f"{time_ms(lambda: ck.segments_occluded(starts, ends, xs.state.device_state.tris), reps=3):.4f} ms, "
-                  f"pairs tested {tested} of {rays * n_full}, needed {needed}, bound {b_ms:.5f} ms ({b_by})",
-                  flush=True)
-            if bad_p or bad_d:
-                fail(f"star_any_hit disagrees at the exact scene's bounce of {rays} segments")
-    del kept_star, windows, xs
+            check_any_hit("star_any_hit", f"exact scene's {which} bounce of {rays} segments", starts,
+                          end.expand(rays, 3).contiguous(), xs.state.device_state.acoustic_tris, star.tree,
+                          lambda star=star, starts=starts, end=end: so.star_segments_occluded(star, starts, end))
+    del kept_star, xs
 
     elapsed(t_start, "K7 route")
     # 10b. The exact-mode scene again with config.USE_TILED_FIRST_HIT (K7)
@@ -1826,13 +1868,15 @@ def main() -> int:
                          first_hit_mxu=mxu_n["first_hit_mxu"], first_hit_tiled=tiled_n["first_hit_tiled"],
                          first_hit_sorted=sorted_pair_n["first_hit_sorted"],
                          first_hit_pair=sorted_pair_n["first_hit_pair"])
-    sources = {"first_hit_big": "first_hit.cu", "any_hit": "any_hit.cu", "deposit_histogram": "deposit_histogram.cu",
+    sources = {"first_hit_big": "first_hit.cu", "first_hit_small": "first_hit.cu", "any_hit": "any_hit.cu",
+               "deposit_histogram": "deposit_histogram.cu",
                "deposit_histogram_foa": "deposit_histogram_foa.cu", "bin_histogram": "bin_histogram.cu",
                "star_any_hit": "star_any_hit.cu", "first_hit_tiled": "tiled_first_hit.cu",
                "first_hit_mxu": "mxu_first_hit.cu", "first_hit_sorted": "sorted_first_hit.cu",
                "first_hit_pair": "pair_first_hit.cu"}
     replaces = {
         "first_hit_big": "audiblelight_tpu/ops/pallas_kernels.py:46",
+        "first_hit_small": "audiblelight_tpu/ops/pallas_kernels.py:149",
         "any_hit": "audiblelight_tpu/ops/pallas_kernels.py:375",
         "deposit_histogram": "audiblelight_tpu/ops/pallas_kernels.py:594",
         "deposit_histogram_foa": "audiblelight_tpu/ops/pallas_kernels.py:738",

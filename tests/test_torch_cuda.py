@@ -9,8 +9,9 @@ installed, without the JAX conftest:
 
 Tolerances: face indices, occlusion booleans and first-hit t identical (the
 kernels are built with --fmad=false, and eager PyTorch never contracts a
-multiply-add); the star any-hit (K6) identical to its plain version and to
-the dense any-hit (K2); deposit histograms (K3 and the FOA K4) and the
+multiply-add); the any-hit (K2) and the star any-hit (K6) identical to
+their plain tree walk, per-segment visit counts included, and to the dense
+plain any-hit; deposit histograms (K3 and the FOA K4) and the
 grouped histogram (K5) with the same bins and sums within 1e-5 of the peak
 (atomics add in another order); the tiled first hit (K7) identical to its
 plain version, and to the dense classic Moller-Trumbore first hit wherever
@@ -158,6 +159,56 @@ def _with_sentinels(tris, seed):
     return out[rng.permutation(len(out))]
 
 
+def _flat_faces(tris, seed, n=40):
+    """Zero-area faces with exactly collinear edges (e2 = 2 e1 or -3 e1,
+    formed in f32) over random room faces, some of them tiny."""
+    rng = np.random.default_rng(seed)
+    f = tris[rng.integers(0, len(tris), n)].copy()
+    scale = np.where(np.arange(n) % 2 == 0, 1.0, 1e-3).astype(np.float32)[:, None]
+    e1 = (f[:, 1] - f[:, 0]) * scale
+    f[:, 1] = f[:, 0] + e1
+    f[:, 2] = f[:, 0] + np.where(np.arange(n) % 3 == 0, np.float32(-3.0), np.float32(2.0))[:, None] * e1
+    return f.astype(np.float32)
+
+
+def segment_set(kind, tris, seed, n=500):
+    """(starts, ends) float32 of one kind of segment in the room of `tris`."""
+    rng = np.random.default_rng(seed)
+    if kind == "interior":
+        return (rng.uniform(ROOM_LO, ROOM_HI, (n, 3)).astype(np.float32),
+                rng.uniform(ROOM_LO, ROOM_HI, (n, 3)).astype(np.float32))
+    if kind == "surface":
+        # A point on a face, moved 1e-4 m toward the end's side (the rain)
+        ends = rng.uniform(ROOM_LO, ROOM_HI, (n, 3))
+        f = rng.integers(0, len(tris), n)
+        p = np.einsum("nk,nkd->nd", rng.dirichlet([1.0, 1.0, 1.0], n), tris[f].astype(np.float64))
+        nrm = _normals(tris)[f].astype(np.float64)
+        nrm = np.where(((ends - p) * nrm).sum(1, keepdims=True) >= 0, nrm, -nrm)
+        return (p + 1e-4 * nrm).astype(np.float32), ends.astype(np.float32)
+    if kind == "zero_length":
+        s = rng.uniform(ROOM_LO, ROOM_HI, (n, 3)).astype(np.float32)
+        return s, s.copy()
+    if kind == "nonfinite":
+        s, e = segment_set("interior", tris, seed, n)
+        se = np.concatenate([s, e], axis=1)
+        rows = rng.integers(0, n, n // 2)
+        se[rows, rng.integers(0, 6, n // 2)] = rng.choice([np.nan, np.inf, -np.inf], n // 2)
+        return np.ascontiguousarray(se[:, :3]), np.ascontiguousarray(se[:, 3:])
+    if kind == "vertex_edge":
+        # The segment's middle is a vertex or an edge midpoint
+        f = rng.integers(0, len(tris), n)
+        e = rng.integers(0, 3, n)
+        mid = np.where(np.arange(n)[:, None] % 2 == 0, tris[f, e],
+                       0.5 * (tris[f, e] + tris[f, (e + 1) % 3])).astype(np.float64)
+        d = _unit(rng.standard_normal((n, 3))).astype(np.float64)
+        half = rng.uniform(0.05, 2.0, n)[:, None]
+        return (mid - half * d).astype(np.float32), (mid + half * d).astype(np.float32)
+    # grazing (1e-6 rad over a face, 3e-3-3e-2 rad into it) and axis-aligned rays, cut to segments
+    o, d = ray_set(kind, tris, seed, n)
+    length = rng.uniform(0.1, 6.0, n).astype(np.float32)[:, None]
+    return o, (o + length * d).astype(np.float32)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -182,14 +233,22 @@ def test_first_hit_matches_plain(card, n_faces):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_seg,n_faces,reach", [(20000, 4071, 5.0), (64, 27648, 0.3)])
 def test_occlusion_matches_plain(card, n_seg, n_faces, reach):
-    """Many segments (one face slice each) and few, short segments against
-    many faces (the faces split into slices)."""
+    """Many long segments and few, short segments against many faces of a
+    random soup: the kernel's walk equals its plain walk (booleans and
+    visits) and the dense any-hit, with and without a tree passed in."""
     rng = np.random.default_rng(n_seg)
     tris = torch.from_numpy(random_tris(7, n_faces)).to(card)
     s = torch.from_numpy(rng.uniform(-5, 5, (n_seg, 3)).astype(np.float32)).to(card)
     e = s + torch.from_numpy(rng.uniform(-reach, reach, (n_seg, 3)).astype(np.float32)).to(card)
-    got = ck.segments_occluded(s, e, tris)
+    tree = ck.any_hit_tree(tris)
+    got = ck.segments_occluded(s, e, tris, tree)
     assert torch.equal(got, ck.segments_occluded_plain(s, e, tris))
+    assert torch.equal(got, ck.segments_occluded(s, e, tris))
+    o, d, length = ck.segment_inputs(s, e)
+    visits = torch.empty((n_seg, 2), dtype=torch.int32, device=card)
+    assert torch.equal(ck.any_hit(o, d, length, tree, visits), got)
+    blocked, want = ck.any_hit_walk_plain(o, d, length, tree)
+    assert torch.equal(blocked, got) and torch.equal(visits, want)
     assert 0 < int(got.sum()) < n_seg
 
 
@@ -235,6 +294,7 @@ def test_each_wrapper_counts_its_launch(card):
     ck.reset_launch_counts()
     ck.ray_first_hit_plain(o, o, tris)
     ck.segments_occluded_plain(o, o + 1.0, tris)
+    ck.any_hit_walk_plain(*ck.segment_inputs(o, o + 1.0), ck.any_hit_tree(tris))
     ck.deposit_histogram_plain(*args, **kw)
     ck.deposit_histogram_foa_plain(*foa, **kw)
     ck.bin_histogram_plain(bins, dep, 51)
@@ -291,8 +351,12 @@ def test_star_matches_plain_and_dense(card, scanned_room, n_seg, kind, toward):
     e_t = torch.from_numpy(end).to(card)
     got = so.star_segments_occluded(star, s_t, e_t)
     assert torch.equal(got, so.star_segments_occluded_plain(star, s_t, e_t))
-    dense = ck.segments_occluded(s_t, e_t.expand(n_seg, 3).contiguous(), torch.from_numpy(tris).to(card))
+    dense = ck.segments_occluded_plain(s_t, e_t.expand(n_seg, 3).contiguous(), torch.from_numpy(tris).to(card))
     assert torch.equal(got, dense)
+    inputs = so._star_inputs(s_t, e_t)
+    visits = torch.empty((n_seg, 2), dtype=torch.int32, device=card)
+    assert torch.equal(ck.star_any_hit(*inputs, star.tree, visits), got)
+    assert torch.equal(visits, ck.any_hit_walk_plain(*inputs, star.tree)[1])
     assert 0 < int(got.sum()) < n_seg
 
 
@@ -459,3 +523,32 @@ def test_first_hit_tree_matches_plain(card, accel_rooms, which, kind):
     same = (i_p == i_d) & (t_p.view(torch.int32) == t_d.view(torch.int32))
     assert bool(same.all()) or kind == "near_plane"
     assert float(same.float().mean()) > 0.95
+
+
+ANY_HIT_CASES = [("room", k) for k in ("interior", "surface", "grazing", "axis", "vertex_edge", "zero_length",
+                                       "nonfinite")]
+ANY_HIT_CASES += [("lod", k) for k in ("interior", "surface", "grazing")]
+ANY_HIT_CASES += [("mixed", k) for k in ("interior", "surface", "nonfinite")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,kind", ANY_HIT_CASES)
+def test_any_hit_tree_matches_plain(card, accel_rooms, which, kind):
+    """K2 and K6 walk the same tree: each kernel's booleans and per-segment
+    visit counts equal the plain walk's, and the booleans the dense plain
+    any-hit's, on the segments of tests/test_torch_any_hit_accel.py (the
+    room with 1e9 sentinels and collinear zero-area faces mixed in, whose
+    rows every segment tests first, for "mixed")."""
+    room = accel_rooms["room"]
+    tris = (np.concatenate([_with_sentinels(room, 3), _flat_faces(room, 4)]) if which == "mixed"
+            else accel_rooms[which])
+    starts, ends = segment_set(kind, room if which == "mixed" else tris, seed=sum(map(ord, which + kind)))
+    s, e, tt = (torch.from_numpy(x).to(card) for x in (starts, ends, tris))
+    tree = ck.any_hit_tree(tt)
+    o, d, length = ck.segment_inputs(s, e)
+    blocked, want = ck.any_hit_walk_plain(o, d, length, tree)
+    assert torch.equal(blocked, ck.segments_occluded_plain(s, e, tt))
+    for kernel in (ck.any_hit, ck.star_any_hit):
+        visits = torch.empty((len(starts), 2), dtype=torch.int32, device=card)
+        assert torch.equal(kernel(o, d, length, tree, visits), blocked)
+        assert torch.equal(visits, want)

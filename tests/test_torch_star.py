@@ -1,12 +1,14 @@
 """The port's exact rain mode against the JAX package: the star any-hit (K6),
 the exact-mode trace, the plan path and the entry points that run it.
 
-- `build_star_accel`: both builds are numpy, so the tables, tile and wide
-  counts are identical, and both give None in the same cases.
-- K6's plain version equals the reference's K6 (interpret mode) and the
-  dense any-hit of both packages, boolean for boolean, from surface hit
-  points and from interior points, toward the centroid and toward a capsule
-  inside r_pad.
+- `build_star_accel`: the port takes the reference's route decision on a
+  numpy copy of its split, so the tile and wide counts are identical, both
+  give None in the same cases, and the star's face tree holds exactly the
+  faces the reference's tables hold, row for row.
+- K6's plain walk equals the reference's K6 (interpret mode) and the dense
+  any-hit of both packages, boolean for boolean, from surface hit points
+  and from interior points, toward the centroid and toward a capsule inside
+  r_pad, and tests under a third of the dense (segment, face) pairs.
 - The exact-mode trace: the reference runs its dense any-hit here (its star
   serves TPUs only), the port its star; the direct path within 5e-5 and the
   diffracted path within 1e-4 of the reference's peak, the tail held
@@ -101,8 +103,16 @@ def test_build_star_accel_matches_reference(big_room, where, r_pad):
         assert want is None and got is None
         return
     assert (got.n_tiles, got.n_wide, got.r_pad) == (want.n_tiles, want.n_wide, want.r_pad)
-    for name in ("narrow_tab", "tile_meta", "wide_tab", "center"):
-        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)), err_msg=name)
+    np.testing.assert_array_equal(got.center.numpy(), np.asarray(want.center))
+    # The star's tree holds the reference's narrow and wide faces, row for
+    # row (its walked rows and its always-tested rows together)
+    narrow = np.asarray(want.narrow_tab)
+    want_rows = np.concatenate([narrow[np.abs(narrow).sum(axis=1) > 0], np.asarray(want.wide_tab)[: want.n_wide]])
+    tree = got.tree
+    got_rows = torch.cat([tree.bvh.rows[tree.bvh.face >= 0], tree.always])[:, :9].numpy()
+    assert got_rows.shape == want_rows.shape and not tree.bvh.rows[tree.bvh.face >= 0][:, 9:].any()
+    order = lambda x: x[np.lexsort(x.T[::-1])]  # noqa: E731
+    np.testing.assert_array_equal(order(got_rows), order(want_rows))
 
 
 def test_build_star_accel_none_without_faces():
@@ -135,7 +145,8 @@ def test_star_windows_hold_every_blocker(big_room, kind):
     assert rows.shape[0] == len(tris) and 0 < int((~narrow).sum()) < 0.35 * len(tris)
     starts = torch.as_tensor(_segment_starts(big_room, kind, CENTRE, np.random.default_rng(5), n=400))
     ends = torch.as_tensor(CENTRE, dtype=torch.float32).expand(400, 3).contiguous()
-    o, d, length, tab = ck._any_hit_inputs(starts, ends, torch.as_tensor(tris[narrow]))
+    o, d, length = ck.segment_inputs(starts, ends)
+    tab = ck.mt_face_table(torch.as_tensor(tris[narrow]))
     az = torch.atan2(starts[:, 1] - np.float32(CENTRE[1]), starts[:, 0] - np.float32(CENTRE[0]))
     cen_t, half_t = torch.as_tensor(cen, dtype=torch.float32), torch.as_tensor(half, dtype=torch.float32)
     n_hits = 0
@@ -152,10 +163,11 @@ def test_star_windows_hold_every_blocker(big_room, kind):
 @pytest.mark.parametrize("kind", ["surface", "interior"])
 @pytest.mark.parametrize("toward", ["centroid", "capsule"])
 def test_star_matches_reference_and_dense(big_room, kind, toward):
-    """3,000 segments (padded to 3,072 in 12 blocks of 256): K6's plain
-    version, the wrapper on CPU tensors, the reference's K6 in interpret
-    mode and the dense any-hit of both packages agree on every boolean; the
-    block x tile cull keeps under a third of the narrow pairs."""
+    """3,000 segments: K6's plain walk, the wrapper on CPU tensors, the
+    reference's K6 in interpret mode (3,072 segments in 12 blocks of 256)
+    and the dense any-hit of both packages agree on every boolean; the walk
+    tests under a third of the dense (segment, face) pairs, and a blocked
+    segment's walk ends at its first blocking leaf."""
     tris = big_room.triangles.astype(np.float32)
     caps = ambeovr_capsules(CENTRE).astype(np.float32)
     centre = caps.mean(axis=0)
@@ -176,9 +188,16 @@ def test_star_matches_reference_and_dense(big_room, kind, toward):
     for other in (want_star, want_dense, got, got_dense):
         np.testing.assert_array_equal(got_plain, other)
     assert 0.05 < got_plain.mean() < 0.95
-    _, o, d, length, brange = tstar._star_inputs(ta, torch.from_numpy(starts), torch.from_numpy(end))
-    assert o.shape == (3072, 3) and brange.shape == (2, 12) and float(length[3000:].abs().max()) == 0.0
-    assert float(ck.star_tile_overlap(brange, ta.tile_meta).float().mean()) < 1 / 3
+    o, d, length = tstar._star_inputs(torch.from_numpy(starts), torch.from_numpy(end))
+    assert o.shape == (3000, 3) and torch.equal(length, ck.segment_inputs(torch.from_numpy(starts),
+                                                                        torch.from_numpy(ends))[2])
+    blocked, visits = ck.any_hit_walk_plain(o, d, length, ta.tree)
+    np.testing.assert_array_equal(blocked.numpy(), got_plain)
+    tested = visits[:, 1].double() * ck.BVH_LEAF_FACES + ta.tree.always.shape[0]
+    print(f"{kind} toward the {toward}: {ta}, pairs tested {float(tested.sum()):.0f} of {3000 * len(tris)} dense, "
+          f"{float(visits[:, 0].double().mean()):.1f} box tests per segment")
+    assert float(tested.sum()) < len(tris) * 3000 / 3
+    assert bool((visits[blocked, 1] >= 1).all())
 
 
 def _small_room():
