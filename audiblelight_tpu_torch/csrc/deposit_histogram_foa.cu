@@ -1,5 +1,6 @@
 // Fused diffuse-rain deposit + AmbiX first-order encode + arrival-time
-// histogram for one listener point, one (source, ray chunk) per block.
+// histogram for one listener point, one thread-block cluster per (source,
+// channel, column of bands).
 //
 // Replaces audiblelight_tpu/ops/pallas_kernels.py:deposit_histogram_foa_pallas
 // (_deposit_histogram_foa_kernel). For every ray that hit a face this bounce:
@@ -8,100 +9,122 @@
 // masked by visibility (occ == 0), cos(theta) > 0 and the padded bin range,
 // binned at int(arrival * (1 / bin_dt)), arrival = (dist + d) * (1 / c), and
 // encoded as [W, X, Y, Z] = deposit * [1, ux, uy, uz] of the arrival vector
-// u = -v * inv_d (v = listener - hit), per band.
+// u = -v * inv_d (v = listener - hit), per band, into out (E, 4, B, n_bins).
 //
-// Bound on this card: bytes (hit, normal, e_refl, dist, occ: ~45 B per ray)
-// plus the (E, 4, B, n_bins) output; the arithmetic is ~40 flops per ray.
-// Design: the per-ray geometry stays in registers; each block folds its
-// chunk's rays into a (n_bins_pad, 4, B) f32 histogram in shared memory with
-// shared-memory atomics (32 KiB at 512 bins x 4 bands), then adds its non-zero
-// bins below n_bins into the zeroed output with global atomics. The TPU's
-// one-hot matmul fold has no counterpart here. fp32 throughout, no tensor
-// cores; built with --fmad=false so each rounding follows the plain version.
-// K4's rounding is its own: cos(theta) multiplies by inv_d where K3 divides.
+// Bound on this card: bytes (hit, normal, e_refl, dist, occ: ~45 B per ray
+// read, plus the (E, 4, B, n_bins) output written once); the arithmetic is
+// ~40 flops per ray. Design: the fold of hist_fold.cuh, with no atomic (a
+// float atomicAdd on shared memory is a compare-and-swap spin on the H100,
+// ATOMS.CAST.SPIN, found when the grouped histogram was rebuilt: PERF.md
+// section 6, K5; the arrivals of one bounce crowd into a few bins and would
+// serialise on it). The group is one source, the column one channel (W, X,
+// Y or Z) as a float4 of its 4 bands (one band a column where B % 4 != 0),
+// and each cluster's CTAs split the source's rays
+// (ops/cuda_kernels.py:deposit_histogram_shape). Each lane takes one ray:
+// geometry, bin (-1 when occluded, cos(theta) <= 0, out of range or in the
+// padding above n_bins) and deposit as the plain version forms them, then its
+// channel's gain. The four channels' CTAs each form the ray's geometry again
+// (~40 flops and ~45 B read from L2 a ray): one CTA holding all 16 values a
+// ray would need four histograms a warp (32 KiB at 501 bins), so fewer warps
+// and a quarter of the CTAs. Every output cell is stored once, so the
+// wrapper needs no memset, and the sums are taken in a fixed order: two
+// launches give the same bits. fp32 throughout, no tensor cores; built with
+// --fmad=false so each rounding follows the plain version. K4's rounding is
+// its own: cos(theta) multiplies by inv_d where K3 divides.
 
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "hist_fold.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRaysPerBlock = 1024;
+using namespace hist_fold;
 
+// V = float4 (four bands a column) or float (one); e_refl is (E*R, kv) in
+// units of V; grid.y = 4 channels x kv columns
+template <typename V>
 __global__ void deposit_histogram_foa_kernel(const float* __restrict__ hit,     // (E*R, 3)
                                              const float* __restrict__ normal,  // (E*R, 3)
-                                             const float* __restrict__ e_refl,  // (E*R, B)
+                                             const V* __restrict__ e_refl,      // (E*R, B)
                                              const float* __restrict__ dist,    // (E*R,)
                                              const unsigned char* __restrict__ occ,  // (E*R,)
                                              const float* __restrict__ lis,     // (3,)
-                                             int n_rays, int n_bands, int n_bins, int n_bins_pad,
-                                             float inv_bin_dt, float range_limit, float inv_c,
-                                             float four_pi2,
+                                             int n_rays, int kv, int n_bins, int n_bins_pad, float inv_bin_dt,
+                                             float range_limit, float inv_c, float four_pi2,
                                              float* __restrict__ out) {  // (E, 4, B, n_bins)
-  extern __shared__ float hist[];  // (n_bins_pad, 4, B)
-  const int e = blockIdx.x;
-  const int k0 = blockIdx.y * kRaysPerBlock;
-  const int k1 = min(k0 + kRaysPerBlock, n_rays);
-  const int row = 4 * n_bands;
+  constexpr int kWidth = sizeof(V) / sizeof(float);
+  extern __shared__ float4 smem[];
+  V* hist = reinterpret_cast<V*>(smem);  // (n_warps, n_bins)
+  const int ch = blockIdx.y / kv;
+  const int j = blockIdx.y - ch * kv;
+  const int e = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  zero(hist, n_warps * n_bins);
 
-  for (int i = threadIdx.x; i < n_bins_pad * row; i += blockDim.x) hist[i] = 0.0f;
-  __syncthreads();
-
+  int k0, k1;
+  share(n_rays, k0, k1);
   const float lx = lis[0], ly = lis[1], lz = lis[2];
-  for (int k = k0 + threadIdx.x; k < k1; k += blockDim.x) {
+  V* mine = hist + warp * n_bins;
+  for (int base = k0 + 32 * warp; base < k1; base += 32 * n_warps) {
+    const int k = base + lane;
     const int r = e * n_rays + k;
-    if (occ[r]) continue;
-    const float vx = lx - hit[3 * r];
-    const float vy = ly - hit[3 * r + 1];
-    const float vz = lz - hit[3 * r + 2];
-    const float d2 = vx * vx + vy * vy + vz * vz;
-    const float d = sqrtf(d2);
-    const float inv_d = 1.0f / fmaxf(d, 1e-9f);
-    const float cos_th =
-        fmaxf((vx * normal[3 * r] + vy * normal[3 * r + 1] + vz * normal[3 * r + 2]) * inv_d, 0.0f);
-    const float arrival = (dist[r] + d) * inv_c;
-    if (!(cos_th > 0.0f) || !(arrival < range_limit)) continue;
-    int bin = (int)(arrival * inv_bin_dt);
-    bin = min(max(bin, 0), n_bins_pad - 1);
-    const float m = fmaxf(d, 1e-2f);
-    const float geom = cos_th / (four_pi2 * (m * m));
-    const float g[4] = {1.0f, -vx * inv_d, -vy * inv_d, -vz * inv_d};
-    float* dst = hist + bin * row;
-    for (int b = 0; b < n_bands; ++b) {
-      const float dep = e_refl[(size_t)r * n_bands + b] * geom;
-      atomicAdd(&dst[b], dep);
-      for (int c = 1; c < 4; ++c) atomicAdd(&dst[c * n_bands + b], dep * g[c]);
+    int b = -1;
+    V v = vzero(V());
+    if (k < k1 && !occ[r]) {
+      const float vx = lx - hit[3 * r];
+      const float vy = ly - hit[3 * r + 1];
+      const float vz = lz - hit[3 * r + 2];
+      const float d2 = vx * vx + vy * vy + vz * vz;
+      const float d = sqrtf(d2);
+      const float inv_d = 1.0f / fmaxf(d, 1e-9f);
+      const float cos_th =
+          fmaxf((vx * normal[3 * r] + vy * normal[3 * r + 1] + vz * normal[3 * r + 2]) * inv_d, 0.0f);
+      const float arrival = (dist[r] + d) * inv_c;
+      if (cos_th > 0.0f && arrival < range_limit) {
+        int bin = (int)(arrival * inv_bin_dt);
+        bin = min(max(bin, 0), n_bins_pad - 1);
+        if (bin < n_bins) {
+          const float m = fmaxf(d, 1e-2f);
+          const float geom = cos_th / (four_pi2 * (m * m));
+          b = bin;
+          v = vscale(e_refl[(size_t)r * kv + j], geom);
+          if (ch) v = vscale(v, ch == 1 ? -vx * inv_d : ch == 2 ? -vy * inv_d : -vz * inv_d);
+        }
+      }
     }
+    warp_add(mine, b, v);
   }
-  __syncthreads();
+  float* orow = out + (((size_t)e * 4 + ch) * kv * kWidth + (size_t)j * kWidth) * n_bins;
+  cluster_store(hist, n_warps, n_bins, [&](int bin, V s) { put(orow, (size_t)n_bins, bin, s); });
+}
 
-  // Bins >= n_bins are the padding the reference slices off
-  float* base = out + (size_t)e * row * n_bins;
-  for (int i = threadIdx.x; i < n_bins * row; i += blockDim.x) {
-    const int bin = i / row;
-    const int cb = i - bin * row;  // c * B + b
-    const float v = hist[i];
-    if (v != 0.0f) atomicAdd(&base[(size_t)cb * n_bins + bin], v);
-  }
+template <typename V>
+int launch_v(const float* hit, const float* normal, const float* e_refl, const float* dist, const unsigned char* occ,
+             const float* lis, int n_sources, int n_rays, int kv, int n_bins, int n_bins_pad, float inv_bin_dt,
+             float range_limit, float inv_c, float four_pi2, int n_warps, int cluster, float* out,
+             cudaStream_t stream) {
+  return launch(deposit_histogram_foa_kernel<V>, dim3(cluster, 4 * kv, n_sources), n_warps,
+                (size_t)n_warps * n_bins * sizeof(V), stream, hit, normal, reinterpret_cast<const V*>(e_refl), dist,
+                occ, lis, n_rays, kv, n_bins, n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2, out);
 }
 
 }  // namespace
 
-extern "C" int deposit_histogram_foa(const float* hit, const float* normal, const float* e_refl,
-                                     const float* dist, const unsigned char* occ, const float* lis,
-                                     int n_sources, int n_rays, int n_bands, int n_bins,
-                                     int n_bins_pad, float inv_bin_dt, float range_limit,
-                                     float inv_c, float four_pi2, float* out, cudaStream_t stream) {
-  if (n_sources <= 0 || n_rays <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)n_bins_pad * 4 * n_bands * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        deposit_histogram_foa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid(n_sources, (n_rays + kRaysPerBlock - 1) / kRaysPerBlock);
-  deposit_histogram_foa_kernel<<<grid, kThreads, smem, stream>>>(
-      hit, normal, e_refl, dist, occ, lis, n_rays, n_bands, n_bins, n_bins_pad, inv_bin_dt,
-      range_limit, inv_c, four_pi2, out);
-  return (int)cudaGetLastError();
+// vec4: B % 4 == 0 and e_refl 16-byte aligned, columns of 4 bands.
+// n_warps and cluster: ops/cuda_kernels.py:deposit_histogram_shape.
+extern "C" int deposit_histogram_foa(const float* hit, const float* normal, const float* e_refl, const float* dist,
+                                     const unsigned char* occ, const float* lis, int n_sources, int n_rays,
+                                     int n_bands, int n_bins, int n_bins_pad, float inv_bin_dt, float range_limit,
+                                     float inv_c, float four_pi2, int vec4, int n_warps, int cluster, float* out,
+                                     cudaStream_t stream) {
+  if (n_sources <= 0 || n_bands <= 0 || n_bins <= 0) return (int)cudaSuccess;
+  if (n_rays < 0 || n_bins > n_bins_pad || (vec4 && (n_bands % 4 != 0 || ((size_t)e_refl & 15) != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (vec4)
+    return launch_v<float4>(hit, normal, e_refl, dist, occ, lis, n_sources, n_rays, n_bands / 4, n_bins, n_bins_pad,
+                            inv_bin_dt, range_limit, inv_c, four_pi2, n_warps, cluster, out, stream);
+  return launch_v<float>(hit, normal, e_refl, dist, occ, lis, n_sources, n_rays, n_bands, n_bins, n_bins_pad,
+                         inv_bin_dt, range_limit, inv_c, four_pi2, n_warps, cluster, out, stream);
 }

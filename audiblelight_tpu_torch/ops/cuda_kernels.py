@@ -68,6 +68,8 @@ def _face_chunk(n_rays: int, n_faces: int) -> int:
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, dtype: torch.dtype, device) -> None:
+    if x.dtype == dtype and x.device == device and x.shape == shape and x.is_contiguous():
+        return
     if x.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
     if x.device != device:
@@ -89,8 +91,9 @@ def _on_card(x: torch.Tensor) -> bool:
     return True
 
 
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
+def _ptr(x: torch.Tensor) -> int:
+    """`x`'s address, for an argument that `_lib` declares `c_void_p`."""
+    return x.data_ptr()
 
 
 def _stream(x: torch.Tensor) -> ctypes.c_void_p:
@@ -765,6 +768,50 @@ def segments_occluded(starts, ends, tris, tree: AnyHitTree = None):
 
 
 # ---------------------------------------------------------------------------
+# The atomic-free histogram fold (csrc/hist_fold.cuh) of K3, K4 and K5
+# ---------------------------------------------------------------------------
+
+# The fold's shapes: up to _HIST_WARPS (K5) or _DEPOSIT_WARPS (K3, K4) warps
+# a CTA, each with its own histogram of n_bins columns (16 bytes each with
+# float4 columns, else 4) within _HIST_SMEM; clusters of up to 8 CTAs, the
+# fewest that give _HIST_CTAS
+_HIST_WARPS = 4
+_DEPOSIT_WARPS = 8
+_HIST_CLUSTER = 8
+_HIST_CTAS = 2 * 132  # two per SM of an H100
+_HIST_SMEM = 227 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_shape(what: str, max_warps: int, groups: int, cols: int, n_bins: int, vec4: bool) -> tuple:
+    """(warps per CTA, CTAs per cluster) of a fold of `groups` x `cols`
+    clusters into n_bins bins; raises where one warp's histogram does not
+    fit the shared-memory budget (the card would refuse the launch)."""
+    col_bytes = 16 if vec4 else 4
+    warps = min(max_warps, _HIST_SMEM // (n_bins * col_bytes))
+    if warps < 1:
+        raise ValueError(f"{what}: {n_bins} bins of {col_bytes}-byte columns do not fit one warp's shared "
+                         f"histogram ({_HIST_SMEM} bytes)")
+    return warps, max(1, min(_HIST_CLUSTER, -(-_HIST_CTAS // (groups * cols))))
+
+
+def deposit_histogram_shape(groups: int, channels: int, n_bands: int, n_bins: int, vec4: bool) -> tuple:
+    """(warps per CTA, CTAs per cluster) of the K3 launch (groups = sources x
+    capsules, one channel) or the K4 launch (groups = sources, 4 channels),
+    with columns of 4 bands (`vec4`) or of one, into n_bins bins: the fold's
+    warps sized to the shared-memory budget (opted in above 48 KiB by the
+    launch), and clusters that give at least ~2 CTAs per SM."""
+    return _fold_shape("deposit_histogram", _DEPOSIT_WARPS, groups, channels * (n_bands // 4 if vec4 else n_bands),
+                       n_bins, vec4)
+
+
+def bin_histogram_shape(g: int, k: int, n_bins: int, vec4: bool) -> tuple:
+    """(warps per CTA, CTAs per cluster) of the K5 launch for G groups, K
+    deposits per ray (K / 4 columns with `vec4`, else K) and n_bins bins."""
+    return _fold_shape("bin_histogram", _HIST_WARPS, g, k // 4 if vec4 else k, n_bins, vec4)
+
+
+# ---------------------------------------------------------------------------
 # K3: fused deposit + histogram
 # ---------------------------------------------------------------------------
 
@@ -776,6 +823,7 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+@functools.lru_cache(maxsize=None)
 def _deposit_constants(n_bins: int, bin_dt: float, c_sound: float):
     """(n_bins_pad, 1/bin_dt, range limit, 1/c, 4 pi^2) as the f32 values the
     Pallas kernel uses: each is formed in double on the host, then rounded.
@@ -793,9 +841,11 @@ def _deposit_constants(n_bins: int, bin_dt: float, c_sound: float):
     )
 
 
-def deposit_histogram_plain(hit, normal, e_refl, dist, occ, listener_pos,
-                            n_sources: int, n_bins: int, bin_dt: float, c_sound: float):
-    """Plain PyTorch version of `deposit_histogram` (any device)."""
+def deposit_fold_plain(hit, normal, e_refl, dist, occ, listener_pos,
+                       n_sources: int, n_bins: int, bin_dt: float, c_sound: float) -> tuple:
+    """The plain version of `deposit_histogram` up to its fold: (rows, dep),
+    each deposit's row of the (C * E * n_bins_pad, B) histogram and the (C *
+    TR, B) deposits, zero where the ray deposits nothing."""
     n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2 = _deposit_constants(n_bins, bin_dt, c_sound)
     dev = hit.device
     tr, n_bands = e_refl.shape
@@ -821,11 +871,40 @@ def deposit_histogram_plain(hit, normal, e_refl, dist, occ, listener_pos,
     r = tr // n_sources
     group = (torch.arange(cl, device=dev)[:, None] * n_sources
              + torch.arange(tr, device=dev)[None] // r)  # (C, TR): c * E + e
-    flat = (group * n_bins_pad + bins).reshape(-1)
-    out = torch.zeros(cl * n_sources * n_bins_pad, n_bands, dtype=torch.float32, device=dev)
-    out.index_add_(0, flat, dep.reshape(-1, n_bands))
+    return (group * n_bins_pad + bins).reshape(-1), dep.reshape(-1, n_bands)
+
+
+def deposit_histogram_plain(hit, normal, e_refl, dist, occ, listener_pos,
+                            n_sources: int, n_bins: int, bin_dt: float, c_sound: float):
+    """Plain PyTorch version of `deposit_histogram` (any device)."""
+    n_bins_pad = _deposit_constants(n_bins, bin_dt, c_sound)[0]
+    n_bands, cl = e_refl.shape[1], listener_pos.shape[0]
+    rows, dep = deposit_fold_plain(hit, normal, e_refl, dist, occ, listener_pos, n_sources, n_bins, bin_dt, c_sound)
+    out = torch.zeros(cl * n_sources * n_bins_pad, n_bands, dtype=torch.float32, device=hit.device)
+    out.index_add_(0, rows, dep)
     out = out.reshape(cl, n_sources, n_bins_pad, n_bands)[:, :, :n_bins]
     return out.permute(1, 0, 3, 2).contiguous()
+
+
+_CP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_DEPOSIT_ARGS = [_CP] * 6 + [_CI] * 6 + [_CF] * 4 + [_CI] * 3 + [_CP, _CP]
+_DEPOSIT_FOA_ARGS = [_CP] * 6 + [_CI] * 5 + [_CF] * 4 + [_CI] * 3 + [_CP, _CP]
+
+
+def _deposit_inputs(name: str, hit, normal, e_refl, dist, occ, listener_pos, n_sources: int, n_caps: int) -> tuple:
+    """(TR, B, vec4) of a deposit kernel's inputs, each checked."""
+    tr, n_bands = e_refl.shape
+    if tr % n_sources:
+        raise ValueError(f"{name}: {tr} rays do not split into {n_sources} sources")
+    dev = hit.device
+    _check("hit", hit, (tr, 3), torch.float32, dev)
+    _check("normal", normal, (tr, 3), torch.float32, dev)
+    _check("e_refl", e_refl, (tr, n_bands), torch.float32, dev)
+    _check("dist", dist, (tr,), torch.float32, dev)
+    _check("occ", occ, (n_caps, tr), torch.bool, dev)
+    _check("listener_pos", listener_pos, (n_caps, 3), torch.float32, dev)
+    # Columns of four bands where every row starts on 16 bytes
+    return tr, n_bands, n_bands % 4 == 0 and e_refl.data_ptr() % 16 == 0
 
 
 def deposit_histogram(hit, normal, e_refl, dist, occ, listener_pos,
@@ -844,26 +923,17 @@ def deposit_histogram(hit, normal, e_refl, dist, occ, listener_pos,
     if not _on_card(hit):
         return deposit_histogram_plain(hit, normal, e_refl, dist, occ, listener_pos,
                                        n_sources, n_bins, bin_dt, c_sound)
-    n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2 = _deposit_constants(n_bins, bin_dt, c_sound)
-    tr, n_bands = e_refl.shape
     cl = listener_pos.shape[0]
-    if tr % n_sources:
-        raise ValueError(f"{tr} rays do not split into {n_sources} sources")
-    dev = hit.device
-    _check("hit", hit, (tr, 3), torch.float32, dev)
-    _check("normal", normal, (tr, 3), torch.float32, dev)
-    _check("e_refl", e_refl, (tr, n_bands), torch.float32, dev)
-    _check("dist", dist, (tr,), torch.float32, dev)
-    _check("occ", occ, (cl, tr), torch.bool, dev)
-    _check("listener_pos", listener_pos, (cl, 3), torch.float32, dev)
-    out = torch.empty((n_sources, cl, n_bands, n_bins), dtype=torch.float32, device=dev)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _lib("deposit_histogram", "deposit_histogram",
-              [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, cf, cf, cf, vp, vp])
+    tr, n_bands, vec4 = _deposit_inputs("deposit_histogram", hit, normal, e_refl, dist, occ, listener_pos,
+                                        n_sources, cl)
+    n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2 = _deposit_constants(n_bins, bin_dt, c_sound)
+    warps, cluster = deposit_histogram_shape(n_sources * cl, 1, n_bands, n_bins, vec4)
+    out = torch.empty((n_sources, cl, n_bands, n_bins), dtype=torch.float32, device=hit.device)
+    fn = _lib("deposit_histogram", "deposit_histogram", _DEPOSIT_ARGS)
     launch_counts["deposit_histogram"] += 1
     err = fn(_ptr(hit), _ptr(normal), _ptr(e_refl), _ptr(dist), _ptr(occ), _ptr(listener_pos),
-             n_sources, tr // n_sources, cl, n_bands, n_bins, n_bins_pad,
-             inv_bin_dt, range_limit, inv_c, four_pi2, _ptr(out), _stream(hit))
+             n_sources, tr // n_sources, cl, n_bands, n_bins, n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2,
+             vec4, warps, cluster, _ptr(out), _stream(hit))
     _raise_on(err, "deposit_histogram")
     return out
 
@@ -873,9 +943,11 @@ def deposit_histogram(hit, normal, e_refl, dist, occ, listener_pos,
 # ---------------------------------------------------------------------------
 
 
-def deposit_histogram_foa_plain(hit, normal, e_refl, dist, occ, listener_pos,
-                                n_sources: int, n_bins: int, bin_dt: float, c_sound: float):
-    """Plain PyTorch version of `deposit_histogram_foa` (any device)."""
+def deposit_foa_fold_plain(hit, normal, e_refl, dist, occ, listener_pos,
+                           n_sources: int, n_bins: int, bin_dt: float, c_sound: float) -> tuple:
+    """The plain version of `deposit_histogram_foa` up to its fold: (rows,
+    w), each ray's row of the (E * n_bins_pad, 4 * B) histogram and its (TR,
+    4 * B) encoded deposits, zero where the ray deposits nothing."""
     n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2 = _deposit_constants(n_bins, bin_dt, c_sound)
     tr, n_bands = e_refl.shape
     lis = listener_pos.to(torch.float32).reshape(3)
@@ -894,9 +966,18 @@ def deposit_histogram_foa_plain(hit, normal, e_refl, dist, occ, listener_pos,
     gains = torch.stack([-vx * inv_d, -vy * inv_d, -vz * inv_d], dim=1)  # (TR, 3)
     w = torch.cat([dep[:, None, :], dep[:, None, :] * gains[:, :, None]], dim=1)  # (TR, 4, B)
     r = tr // n_sources
-    flat = torch.arange(tr, device=hit.device) // r * n_bins_pad + bins
+    return torch.arange(tr, device=hit.device) // r * n_bins_pad + bins, w.reshape(tr, 4 * n_bands)
+
+
+def deposit_histogram_foa_plain(hit, normal, e_refl, dist, occ, listener_pos,
+                                n_sources: int, n_bins: int, bin_dt: float, c_sound: float):
+    """Plain PyTorch version of `deposit_histogram_foa` (any device)."""
+    n_bins_pad = _deposit_constants(n_bins, bin_dt, c_sound)[0]
+    n_bands = e_refl.shape[1]
+    rows, w = deposit_foa_fold_plain(hit, normal, e_refl, dist, occ, listener_pos, n_sources, n_bins, bin_dt,
+                                     c_sound)
     out = torch.zeros(n_sources * n_bins_pad, 4 * n_bands, dtype=torch.float32, device=hit.device)
-    out.index_add_(0, flat, w.reshape(tr, 4 * n_bands))
+    out.index_add_(0, rows, w)
     out = out.reshape(n_sources, n_bins_pad, 4, n_bands)[:, :n_bins]
     return out.permute(0, 2, 3, 1).contiguous()
 
@@ -919,25 +1000,16 @@ def deposit_histogram_foa(hit, normal, e_refl, dist, occ, listener_pos,
     if not _on_card(hit):
         return deposit_histogram_foa_plain(hit, normal, e_refl, dist, occ, listener_pos,
                                            n_sources, n_bins, bin_dt, c_sound)
+    tr, n_bands, vec4 = _deposit_inputs("deposit_histogram_foa", hit, normal, e_refl, dist, occ, listener_pos,
+                                        n_sources, 1)
     n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2 = _deposit_constants(n_bins, bin_dt, c_sound)
-    tr, n_bands = e_refl.shape
-    if tr % n_sources:
-        raise ValueError(f"{tr} rays do not split into {n_sources} sources")
-    dev = hit.device
-    _check("hit", hit, (tr, 3), torch.float32, dev)
-    _check("normal", normal, (tr, 3), torch.float32, dev)
-    _check("e_refl", e_refl, (tr, n_bands), torch.float32, dev)
-    _check("dist", dist, (tr,), torch.float32, dev)
-    _check("occ", occ, (1, tr), torch.bool, dev)
-    _check("listener_pos", listener_pos, (1, 3), torch.float32, dev)
-    out = torch.zeros((n_sources, 4, n_bands, n_bins), dtype=torch.float32, device=dev)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _lib("deposit_histogram_foa", "deposit_histogram_foa",
-              [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, cf, cf, vp, vp])
+    warps, cluster = deposit_histogram_shape(n_sources, 4, n_bands, n_bins, vec4)
+    out = torch.empty((n_sources, 4, n_bands, n_bins), dtype=torch.float32, device=hit.device)
+    fn = _lib("deposit_histogram_foa", "deposit_histogram_foa", _DEPOSIT_FOA_ARGS)
     launch_counts["deposit_histogram_foa"] += 1
     err = fn(_ptr(hit), _ptr(normal), _ptr(e_refl), _ptr(dist), _ptr(occ), _ptr(listener_pos),
-             n_sources, tr // n_sources, n_bands, n_bins, n_bins_pad,
-             inv_bin_dt, range_limit, inv_c, four_pi2, _ptr(out), _stream(hit))
+             n_sources, tr // n_sources, n_bands, n_bins, n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2,
+             vec4, warps, cluster, _ptr(out), _stream(hit))
     _raise_on(err, "deposit_histogram_foa")
     return out
 
@@ -945,25 +1017,6 @@ def deposit_histogram_foa(hit, normal, e_refl, dist, occ, listener_pos,
 # ---------------------------------------------------------------------------
 # K5: grouped histogram
 # ---------------------------------------------------------------------------
-
-# The kernel's shapes: up to _HIST_WARPS warps a CTA, each with its own
-# histogram of n_bins columns (16 bytes each with float4 columns) within
-# _HIST_SMEM; clusters of up to 8 CTAs, the fewest that give _HIST_CTAS
-_HIST_WARPS = 4
-_HIST_CLUSTER = 8
-_HIST_CTAS = 2 * 132  # two per SM of an H100
-_HIST_SMEM = 227 * 1024
-
-
-@functools.lru_cache(maxsize=None)
-def bin_histogram_shape(g: int, k: int, n_bins: int, vec4: bool) -> tuple:
-    """(warps per CTA, CTAs per cluster) of the K5 launch for G groups, K
-    deposits per ray (K / 4 columns with `vec4`, else K) and n_bins bins."""
-    cols = k // 4 if vec4 else k
-    warps = min(_HIST_WARPS, _HIST_SMEM // (n_bins * (16 if vec4 else 4)))
-    if warps < 1:
-        raise ValueError(f"bin_histogram: {n_bins} bins do not fit one warp's shared histogram")
-    return warps, max(1, min(_HIST_CLUSTER, -(-_HIST_CTAS // (g * cols))))
 
 
 def bin_histogram_plain(bins, dep, n_bins: int):

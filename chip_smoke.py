@@ -16,19 +16,22 @@ exact CLI scene's bounces), then drives the port's two main paths:
   scanned room, 4,071-face acoustic LOD, per-face rain visibility, order-10
   diffraction, 5,000 rays x 60 bounces with wavefront decimation, 16 padded
   sources, AmbeoVR, 24 kHz), written as int16 WAVs under smoke_out/, with
-  their direct-path arrivals checked, timed and profiled;
+  their direct-path arrivals checked, timed and profiled, and K3 held
+  against its plain version and itself (a second launch bit-identical),
+  timed and set beside one `index_add_` of its plain fold on one trace's
+  own bounces (first and last of each decimation phase);
 - the port's SELD dataset CLI (`audiblelight_tpu_torch.seld.main`) in the
   same room, written as an OBJ, with the repo's WAVs as foreground audio:
   two scenes each in the MIC (AmbeoVR) and FOA formats at the flagship
   width, their WAVs, CSVs and JSONs checked; then one FOA scene traced
-  again, K4 held against its plain version on that trace's own bounces, its
-  direct paths checked for arrival time and direction, and the FOA scene
-  timed and profiled;
+  again, K4 held against its plain version and itself on that trace's own
+  bounces and timed as K3 is, its direct paths checked for arrival time and
+  direction, and the FOA scene timed and profiled;
 - the exact rain mode (the default engine config: the full 110,592-face
   mesh, one star any-hit query per bounce): one flagship-width scene
   through `Scene.generate()`, one MIC scene of the CLI with
   `--no-mesh-simplification`, and K6 held against its plain version and the
-  dense any-hit on that scene's own bounces;
+  dense any-hit, and K3 as above, on that scene's own bounces;
 - the HOA3 and binaural rigs: one flagship scene each through the fused
   renderer (the unfused deposit chain folded by K5), written as int16 WAVs
   of 16 and 2 channels, their direct paths checked for direction (HOA3)
@@ -498,7 +501,7 @@ def kernel_times(avgs, names, label: str) -> dict:
         for name in names:
             if is_kernel(ev.key, name) and t_dev > 0:
                 out[name] = (t_dev, ev.count)
-                print(f"{label}: {name} {t_dev:.3f} ms over {ev.count} launches")
+                print(f"{label}: {name} {t_dev:.3f} ms over {ev.count} launches ({t_dev / ev.count:.4f} ms a launch)")
     return out
 
 
@@ -957,6 +960,75 @@ def check_k5_bounces(kept: dict) -> None:
                 fail(f"bin_histogram disagrees with its plain version at the HOA3 trace's bounce of {rays} rays")
 
 
+def check_deposit(name: str, args: list, kw: dict, label: str) -> dict:
+    """K3 (`name` "deposit_histogram") or K4 ("deposit_histogram_foa") on one
+    bounce's inputs: against its plain version (bins identical, max |diff|
+    within 1e-5 of each histogram's peak), a second launch bit-identical;
+    timed per call by CUDA events, on the device (profiler) and the host's
+    part as their difference, beside its plain version and one `index_add_`
+    of the plain version's fold on the same inputs (per call and on the
+    device). The bound reads what this bounce needs: every occlusion flag,
+    and the rays a capsule sees once each; the geometry for each seen (ray,
+    capsule). Returns the kernel line's entry."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+
+    foa = name == "deposit_histogram_foa"
+    kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
+    h_k = kernel(*args, **kw)
+    h_p = plain(*args, **kw)
+    same = torch.equal(h_k, kernel(*args, **kw))
+    bins_bad = int(((h_k != 0) != (h_p != 0)).sum())
+    rel = float(((h_k - h_p).abs() / h_p.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
+    err = float((h_k - h_p).abs().max())
+    hit, _, e_refl, _, occ, _ = args
+    tr, n_bands = e_refl.shape
+    n_caps, n_sources, n_bins = occ.shape[0], kw["n_sources"], kw["n_bins"]
+    n_bins_pad = ck._deposit_constants(n_bins, kw["bin_dt"], kw["c_sound"])[0]
+    rows, vals = (ck.deposit_foa_fold_plain if foa else ck.deposit_fold_plain)(*args, **kw)
+    hist = torch.zeros(n_caps * n_sources * n_bins_pad, vals.shape[1], device=hit.device)
+    seen = ~occ
+    flops = int(seen.sum()) * (FLOPS_DEPOSIT_FOA if foa else FLOPS_DEPOSIT)
+    b_ms, b_by = bound_ms(flops, occ.numel() + int(seen.any(0).sum()) * (28 + 4 * n_bands) + h_k.numel() * 4)
+    ms, dev_ms = time_ms(lambda: kernel(*args, **kw)), device_ms(lambda: kernel(*args, **kw))
+    fold = lambda: hist.index_add_(0, rows, vals)  # noqa: E731
+    lib_ms, lib_dev_ms = time_ms(fold), device_ms(fold)
+    plain_ms = time_ms(lambda: plain(*args, **kw), reps=3)
+    warps, cluster = ck.deposit_histogram_shape(n_sources * (1 if foa else n_caps), 4 if foa else 1, n_bands, n_bins,
+                                                n_bands % 4 == 0)
+    print(f"check {name} at {label} ({tr} rays, {n_sources} sources x {n_caps} {'listener' if foa else 'capsules'} "
+          f"-> {tuple(h_k.shape)}; {int(seen.sum())} (ray, {'listener' if foa else 'capsule'}) pairs seen, deposits "
+          f"in {int(torch.unique(rows[vals.ne(0).any(-1)]).numel())} histogram rows; {warps} warps a CTA, clusters "
+          f"of {cluster}): bin mismatches {bins_bad}, max |diff| {err:.3e}, max |diff| / histogram peak {rel:.3e}, "
+          f"second launch bit-identical {same}; {ms:.4f} ms per call, device {dev_ms:.4f}, host {ms - dev_ms:.4f}; "
+          f"plain {plain_ms:.4f} ms; index_add_ of the plain fold {lib_ms:.4f} ms, device {lib_dev_ms:.4f}; bound "
+          f"{b_ms:.5f} ms ({b_by})", flush=True)
+    if bins_bad or rel > 1e-5 or not same or tuple(h_k.shape) != (n_sources, 4 if foa else n_caps, n_bands, n_bins):
+        fail(f"{name} disagrees with its plain version or with itself, or is misshapen, at {label}")
+    return dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by, ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
+
+
+def check_deposit_bounces(name: str, kept: dict, label: str) -> None:
+    """`check_deposit` on a trace's own bounces (`kept`: rays -> the first
+    and the last bounce's (args, kwargs)), three decimation phases."""
+    if len(kept) != 3:
+        fail(f"the {label} ran {name} at ray counts {sorted(kept)}, expected three decimation phases")
+    for rays, bounces in sorted(kept.items(), reverse=True):
+        for which, (args, kwargs) in zip(("first", "last"), bounces):
+            check_deposit(name, args, kwargs, f"the {label}'s {which} bounce of {rays} rays")
+
+
+def keep_deposits(name: str, kept: dict):
+    """A stand-in for the tracer's `name` that keeps its inputs at the first
+    and the last bounce of each ray count (`keep_first_last`) in `kept`."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+
+    def keep(*args, **kwargs):
+        keep_first_last(kept, args[0].shape[0], ([a.clone() for a in args], kwargs))
+        return getattr(ck, name)(*args, **kwargs)
+
+    return keep
+
+
 def check_first_hits(launches: dict, big: int, label: str) -> None:
     """Fails unless the run `launches` launched K1 big `big` times and no
     other first-hit kernel."""
@@ -1270,59 +1342,14 @@ def main() -> int:
     occ = (face_occ[:, face.clamp_min(0).long()].expand(4, r) | ~ok[None]).contiguous()
     kw = dict(n_sources=16, n_bins=501, bin_dt=0.002, c_sound=343.0)
     dep_args = (hit, normal, e_refl, dist, occ, listeners)
-    h_k = ck.deposit_histogram(*dep_args, **kw)
-    h_p = ck.deposit_histogram_plain(*dep_args, **kw)
-    bins_bad = int(((h_k != 0) != (h_p != 0)).sum())
-    peak = h_p.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
-    rel = float(((h_k - h_p).abs() / peak).max())
-    err = float((h_k - h_p).abs().max())
-    print(f"check deposit_histogram: {r} rays x 4 capsules -> {tuple(h_k.shape)}: bin mismatches "
-          f"{bins_bad}, max |diff| {err:.3e}, max |diff| / histogram peak {rel:.3e}", flush=True)
-    if bins_bad or rel > 1e-5:
-        fail("deposit_histogram disagrees with its plain version")
-    # Yardstick: the fold alone as one PyTorch call, on the plain version's deposits
-    n_bins_pad = 512
-    lis_v = listeners[:, None, :] - hit[None]
-    d_l = norm3(lis_v)
-    arrival = (dist[None] + d_l) * ck._f32(1.0 / 343.0)
-    flat = ((torch.arange(4, device=dev)[:, None] * 16 + torch.arange(r, device=dev)[None] // 5000)
-            * n_bins_pad + (arrival * 500.0).to(torch.int64).clamp(0, n_bins_pad - 1)).reshape(-1)
-    deps = (e_refl[None] * torch.rand(4, r, 1, device=dev)).reshape(-1, 4)
-    hist = torch.zeros(4 * 16 * n_bins_pad, 4, device=dev)
-    b_ms, b_by = bound_ms(r * 4 * FLOPS_DEPOSIT, r * 44 + 4 * r + h_k.numel() * 4)
-    results["deposit_histogram"] = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        ms=time_ms(lambda: ck.deposit_histogram(*dep_args, **kw)),
-        plain_ms=time_ms(lambda: ck.deposit_histogram_plain(*dep_args, **kw), reps=3),
-        library_ms=time_ms(lambda: hist.index_add_(0, flat, deps)),
-    )
+    results["deposit_histogram"] = check_deposit("deposit_histogram", dep_args, kw,
+                                                 "80k rays of one bounce, arrivals spread over 300 m")
     # K4: the same bounce at one FOA listener point (the rig's centre)
     lis1 = torch.tensor([MIC_CENTRE], dtype=torch.float32, device=dev)
     foa_args = (hit, normal, e_refl, dist, (face_occ[:, face.clamp_min(0).long()] | ~ok[None]).contiguous(), lis1)
-    h_k = ck.deposit_histogram_foa(*foa_args, **kw)
-    h_p = ck.deposit_histogram_foa_plain(*foa_args, **kw)
-    bins_bad = int(((h_k != 0) != (h_p != 0)).sum())
-    peak = h_p.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
-    rel = float(((h_k - h_p).abs() / peak).max())
-    err = float((h_k - h_p).abs().max())
-    print(f"check deposit_histogram_foa: {r} rays x 1 listener -> {tuple(h_k.shape)}: bin mismatches "
-          f"{bins_bad}, max |diff| {err:.3e}, max |diff| / histogram peak {rel:.3e}", flush=True)
-    if bins_bad or rel > 1e-5 or tuple(h_k.shape) != (16, 4, 4, 501):
-        fail("deposit_histogram_foa disagrees with its plain version")
-    # Yardstick: the fold alone (16 channel-bands per ray) as one index_add_
-    d_1 = norm3(lis1 - hit)
-    flat1 = (torch.arange(r, device=dev) // 5000 * n_bins_pad
-             + ((dist + d_1) * ck._f32(1.0 / 343.0) * 500.0).to(torch.int64).clamp(0, n_bins_pad - 1))
-    deps1 = torch.rand(r, 16, device=dev) * 1e-6
-    hist1 = torch.zeros(16 * n_bins_pad, 16, device=dev)
-    b_ms, b_by = bound_ms(r * FLOPS_DEPOSIT_FOA, r * 45 + h_k.numel() * 4)
-    results["deposit_histogram_foa"] = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        ms=time_ms(lambda: ck.deposit_histogram_foa(*foa_args, **kw)),
-        plain_ms=time_ms(lambda: ck.deposit_histogram_foa_plain(*foa_args, **kw), reps=3),
-        library_ms=time_ms(lambda: hist1.index_add_(0, flat1, deps1)),
-    )
-    del legs, rain, h_k, h_p, foa_args
+    results["deposit_histogram_foa"] = check_deposit("deposit_histogram_foa", foa_args, kw,
+                                                     "80k rays of one bounce, arrivals spread over 300 m")
+    del legs, rain, foa_args
 
     # K6 in the exact rain mode's room state (the full mesh is the acoustic
     # mesh): 80k hit points of one bounce on the 110,592 faces, toward the
@@ -1455,13 +1482,19 @@ def main() -> int:
         return ck.segments_occluded(starts, ends, tris, tree)
 
     first_hit_route, segments_occluded_query = raytracer._first_hit_route, raytracer.segments_occluded
+    mic_bounces = {}
     raytracer._first_hit_route = keep_first_bounce
     raytracer.segments_occluded = keep_legs
+    raytracer.deposit_histogram = keep_deposits("deposit_histogram", mic_bounces)
     try:
         irs = renderer.trace(torch.Generator(device=dev).manual_seed(7), src_t, listeners, face_occ)
     finally:
         raytracer._first_hit_route = first_hit_route
         raytracer.segments_occluded = segments_occluded_query
+        raytracer.deposit_histogram = ck.deposit_histogram
+    # K3 on the trace's own bounces: the first and last of each decimation phase
+    check_deposit_bounces("deposit_histogram", mic_bounces, "flagship MIC trace")
+    del mic_bounces
     # K2 on the scene's own diffraction legs, the largest query of its path
     l_s, l_e, l_tris, l_tree = real_legs[0]
     if l_tree is None or l_s.shape[0] < 100_000:
@@ -1577,32 +1610,12 @@ def main() -> int:
     # decimation phase (keyed by ray count), to hold K4 at the shapes the
     # FOA scene gives it
     bounces = {}
-
-    def keep_inputs(*args, **kwargs):
-        keep_first_last(bounces, args[0].shape[0], ([a.clone() for a in args], kwargs))
-        return ck.deposit_histogram_foa(*args, **kwargs)
-
-    raytracer.deposit_histogram_foa = keep_inputs
+    raytracer.deposit_histogram_foa = keep_deposits("deposit_histogram_foa", bounces)
     try:
         irs_f = frend.trace(f_in[0], *f_in[1:4]).cpu().numpy()  # (4, S, L)
     finally:
         raytracer.deposit_histogram_foa = ck.deposit_histogram_foa
-    if len(bounces) != 3:
-        fail(f"the FOA trace ran K4 at ray counts {sorted(bounces)}, expected three decimation phases")
-    for rays, kept in sorted(bounces.items(), reverse=True):
-        for which, (args, kwargs) in zip(("first", "last"), kept):
-            h_k = ck.deposit_histogram_foa(*args, **kwargs)
-            h_p = ck.deposit_histogram_foa_plain(*args, **kwargs)
-            bins_bad = int(((h_k != 0) != (h_p != 0)).sum())
-            rel = float(((h_k - h_p).abs() / h_p.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
-            b_ms, b_by = bound_ms(rays * FLOPS_DEPOSIT_FOA, rays * 45 + h_k.numel() * 4)
-            print(f"check deposit_histogram_foa at the FOA scene's {which} bounce of {rays} rays "
-                  f"({kwargs['n_sources']} sources): bin mismatches {bins_bad}, max |diff| / histogram peak "
-                  f"{rel:.3e}; {time_ms(lambda: ck.deposit_histogram_foa(*args, **kwargs)):.4f} ms, plain "
-                  f"{time_ms(lambda: ck.deposit_histogram_foa_plain(*args, **kwargs), reps=3):.4f} ms, bound "
-                  f"{b_ms:.5f} ms ({b_by})", flush=True)
-            if bins_bad or rel > 1e-5:
-                fail(f"deposit_histogram_foa disagrees with its plain version at {rays} rays")
+    check_deposit_bounces("deposit_histogram_foa", bounces, "FOA scene")
     del bounces
     src_f, lis_f = f_in[1].cpu().numpy(), f_in[2].cpu().numpy()[0]
     n_real = fscene.state.num_emitters
@@ -1736,8 +1749,8 @@ def main() -> int:
             fail(f"the exact CLI run never launched {name}")
     check_cli_outputs(cli_root / "exact", "mic", t_scene, n_scenes=1)
 
-    # K6 again on that CLI scene's own bounces: its trace, loaded from the
-    # JSON, keeps the star's inputs at the first and the last bounce of each
+    # K6 and K3 again on that CLI scene's own bounces: its trace, loaded from
+    # the JSON, keeps their inputs at the first and the last bounce of each
     # decimation phase (keyed by ray count)
     xs = Scene.from_json(sorted((cli_root / "exact" / "metadata_dev").rglob("*.json"))[0], device=dev)
     kept_star = {}
@@ -1746,11 +1759,16 @@ def main() -> int:
         keep_first_last(kept_star, starts.shape[0], (star, starts.clone(), end.clone()))
         return so.star_segments_occluded(star, starts, end)
 
+    exact_bounces = {}
     raytracer.star_segments_occluded = keep_star
+    raytracer.deposit_histogram = keep_deposits("deposit_histogram", exact_bounces)
     try:
         xs.state.trace_irs_device()
     finally:
         raytracer.star_segments_occluded = so.star_segments_occluded
+        raytracer.deposit_histogram = ck.deposit_histogram
+    check_deposit_bounces("deposit_histogram", exact_bounces, "exact CLI trace")
+    del exact_bounces
     if len(kept_star) != 3:
         fail(f"the exact trace ran K6 at ray counts {sorted(kept_star)}, expected three decimation phases")
     for rays, kept in sorted(kept_star.items(), reverse=True):

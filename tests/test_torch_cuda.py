@@ -13,7 +13,8 @@ multiply-add); the any-hit (K2) and the star any-hit (K6) identical to
 their plain tree walk, per-segment visit counts included, and to the dense
 plain any-hit; deposit histograms (K3 and the FOA K4) and the
 grouped histogram (K5) with the same bins and sums within 1e-5 of the peak
-(atomics add in another order); the tiled first hit (K7) identical to its
+(their fold adds in another order than `index_add_`), K3 and K4 also
+bit-identical from launch to launch; the tiled first hit (K7) identical to its
 plain version, and to the dense classic Moller-Trumbore first hit wherever
 the two t differ by more than 1 ulp (a rounding tie at the early exit's
 bound may go either way); the bilinear first hit (K8) identical to its
@@ -49,7 +50,23 @@ def unit_dirs(rng, n):
 
 
 def deposit_inputs(rng, e, r, c, b, dist_max):
+    """One bounce's deposit inputs for e sources x r rays, c capsules and b
+    bands. A float `dist_max` spreads the path lengths over [0, dist_max) and
+    the hits over a 5 m box; a tuple crowds the arrivals as a real bounce's
+    do: path lengths drawn from it, hits 1.0-1.1 m from a rig whose capsules
+    lie within 2 cm of its centre, so each source's arrivals fall in a few
+    bins."""
     tr = e * r
+    if isinstance(dist_max, tuple):
+        centre = rng.uniform(1, 4, 3)
+        u = unit_dirs(rng, tr)
+        hit = (centre + u * rng.uniform(1.0, 1.1, (tr, 1))).astype(np.float32)
+        normal = unit_dirs(rng, tr)
+        e_refl = (rng.random((tr, b)) * 1e-3).astype(np.float32)
+        dist = rng.choice(np.array(dist_max, np.float32), tr)
+        occ = rng.random((c, tr)) < 0.3
+        lis = (centre + rng.uniform(-0.02, 0.02, (c, 3))).astype(np.float32)
+        return hit, normal, e_refl, dist, occ, lis
     hit = rng.uniform(0, 5, (tr, 3)).astype(np.float32)
     normal = rng.standard_normal((tr, 3)).astype(np.float32)
     normal /= np.linalg.norm(normal, axis=1, keepdims=True)
@@ -252,26 +269,51 @@ def test_occlusion_matches_plain(card, n_seg, n_faces, reach):
     assert 0 < int(got.sum()) < n_seg
 
 
-@pytest.mark.cuda
-def test_deposit_histogram_matches_plain(card):
-    args = [torch.from_numpy(x).to(card) for x in deposit_inputs(np.random.default_rng(3), 16, 5000, 4, 4, 300.0)]
-    kw = dict(n_sources=16, n_bins=501, bin_dt=0.002, c_sound=343.0)
-    got = ck.deposit_histogram(*args, **kw)
-    want = ck.deposit_histogram_plain(*args, **kw)
+# K3 and K4 at the flagship bounce (16 sources x 5,000 rays) and its
+# decimation phases (2,500 and 1,250), the FOA and exact scenes' 8 sources,
+# one band (scalar columns) and 5,001 bins (fewer warps a CTA); bins 0.8 m
+# of path apart, so some arrivals land in the padding and past it
+DEPOSIT_CASES = [(16, 5000, 4, 501), (16, 2500, 4, 501), (16, 1250, 4, 501), (8, 5000, 4, 501),
+                 (16, 5000, 1, 501), (16, 1250, 4, 5001)]
+CROWDED = (10.0, 30.0, 100.0)  # path lengths of a crowded bounce (`deposit_inputs`)
+
+
+def _check_deposit(kernel, plain, args, kw, shape):
+    """The kernel against its plain version: the same bins, sums within
+    1e-5 of each histogram's peak (fp32 sums in another order), and a second
+    launch bit-identical (the fold sums in a fixed order)."""
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    assert got.shape == shape
     assert torch.equal(got != 0, want != 0)
-    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    peak = want.abs().amax(dim=-1, keepdim=True)
+    assert ((got - want).abs() <= 1e-5 * peak).all()
+    assert torch.equal(got, kernel(*args, **kw))
 
 
 @pytest.mark.cuda
-def test_deposit_histogram_foa_matches_plain(card):
-    """K4 at the flagship FOA shape: 16 sources x 5,000 rays, one listener."""
-    args = [torch.from_numpy(x).to(card) for x in deposit_inputs(np.random.default_rng(5), 16, 5000, 1, 4, 300.0)]
-    kw = dict(n_sources=16, n_bins=501, bin_dt=0.002, c_sound=343.0)
-    got = ck.deposit_histogram_foa(*args, **kw)
-    want = ck.deposit_histogram_foa_plain(*args, **kw)
-    assert got.shape == (16, 4, 4, 501)
-    assert torch.equal(got != 0, want != 0)
-    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+@pytest.mark.parametrize("arrivals", ["spread", "crowded"])
+@pytest.mark.parametrize("e,r,b,n_bins", DEPOSIT_CASES)
+def test_deposit_histogram_matches_plain(card, e, r, b, n_bins, arrivals):
+    """K3 with 4 capsules."""
+    dist = CROWDED if arrivals == "crowded" else 0.8 * n_bins
+    args = [torch.from_numpy(x).to(card) for x in deposit_inputs(np.random.default_rng(3 + r), e, r, 4, b, dist)]
+    kw = dict(n_sources=e, n_bins=n_bins, bin_dt=0.002, c_sound=343.0)
+    if n_bins > 501:  # fewer warps a CTA than at the flagship's 501 bins
+        warps = [ck.deposit_histogram_shape(e * 4, 1, b, n, True)[0] for n in (n_bins, 501)]
+        assert warps[0] < warps[1]
+    _check_deposit(ck.deposit_histogram, ck.deposit_histogram_plain, args, kw, (e, 4, b, n_bins))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arrivals", ["spread", "crowded"])
+@pytest.mark.parametrize("e,r,b,n_bins", DEPOSIT_CASES)
+def test_deposit_histogram_foa_matches_plain(card, e, r, b, n_bins, arrivals):
+    """K4 at one listener point."""
+    dist = CROWDED if arrivals == "crowded" else 0.8 * n_bins
+    args = [torch.from_numpy(x).to(card) for x in deposit_inputs(np.random.default_rng(5 + r), e, r, 1, b, dist)]
+    kw = dict(n_sources=e, n_bins=n_bins, bin_dt=0.002, c_sound=343.0)
+    _check_deposit(ck.deposit_histogram_foa, ck.deposit_histogram_foa_plain, args, kw, (e, 4, b, n_bins))
 
 
 @pytest.mark.cuda

@@ -46,12 +46,13 @@ def _assert_histograms_match(got, want):
 
 @pytest.mark.parametrize(
     "e,r,b,n_bins,dist_max",
-    [(3, 200, 4, 51, 20.0), (16, 300, 4, 501, 300.0), (2, 100, 1, 128, 1.0)],
+    [(3, 200, 4, 51, 20.0), (16, 300, 4, 501, 300.0), (2, 100, 1, 128, 1.0), (16, 300, 4, 501, (10.0, 30.0, 100.0))],
 )
 def test_deposit_histogram_foa_matches_pallas(rng, e, r, b, n_bins, dist_max):
     """(16, 300, 4, 501) is the flagship FOA histogram shape (501 bins padded
-    to 512), with arrivals in the padding and past it; the last case fills no
-    padding."""
+    to 512), with arrivals in the padding and past it; the third case fills
+    no padding; the last crowds each source's arrivals into a few bins, as a
+    real bounce's are (`deposit_inputs` with a tuple of path lengths)."""
     args = deposit_inputs(rng, e, r, 1, b, dist_max)
     kw = dict(n_sources=e, n_bins=n_bins, bin_dt=0.002, c_sound=343.0)
     want = np.asarray(deposit_histogram_foa_pallas(*map(jnp.asarray, args), interpret=True, **kw))

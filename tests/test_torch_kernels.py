@@ -158,11 +158,14 @@ def test_occlusion_endpoint_margin():
 
 @pytest.mark.parametrize(
     "e,r,c,b,n_bins,dist_max",
-    [(3, 200, 2, 4, 51, 20.0), (16, 300, 4, 4, 501, 300.0), (2, 100, 1, 1, 128, 1.0)],
+    [(3, 200, 2, 4, 51, 20.0), (16, 300, 4, 4, 501, 300.0), (2, 100, 1, 1, 128, 1.0),
+     (16, 300, 4, 4, 501, (10.0, 30.0, 100.0))],
 )
 def test_deposit_histogram_matches_pallas(rng, e, r, c, b, n_bins, dist_max):
     """(16, 300, 4, 4, 501) is the flagship's histogram shape (501 bins padded
-    to 512) with arrivals past the window; the last case fills no padding."""
+    to 512) with arrivals past the window; the third case fills no padding;
+    the last crowds each source's arrivals into a few bins, as a real
+    bounce's are (`deposit_inputs` with a tuple of path lengths)."""
     args = deposit_inputs(rng, e, r, c, b, dist_max)
     kw = dict(n_sources=e, n_bins=n_bins, bin_dt=0.002, c_sound=343.0)
     want = np.asarray(deposit_histogram_pallas(*map(jnp.asarray, args), interpret=True, **kw))
@@ -199,3 +202,34 @@ def test_launch_counts_untouched_on_cpu(rng):
     ck.segments_occluded(o, o + 1.0, tris)
     assert all(v == 0 for v in ck.launch_counts.values())
 
+
+
+# The deposit folds' launches (K3: sources x capsules groups; K4: sources x 4
+# channels): the flagship bounce and its decimated bounces (16 sources; the
+# ray count does not enter the shape), the FOA and exact scenes (8 sources),
+# one band (scalar columns) and 5,001 bins
+@pytest.mark.parametrize("groups,channels,n_bands,n_bins,vec4", [
+    (64, 1, 4, 501, True), (32, 1, 4, 501, True), (16, 4, 4, 501, True), (8, 4, 4, 501, True),
+    (64, 1, 1, 501, False), (8, 4, 1, 501, False), (64, 1, 4, 5001, True),
+])
+def test_deposit_histogram_shape_within_limits(groups, channels, n_bands, n_bins, vec4):
+    """Warps a CTA within 1-8, as many as their histograms fit in 227 KB of
+    shared memory; clusters within the portable 8 CTAs, the fewest that give
+    two CTAs per SM of an H100 (or 8)."""
+    warps, cluster = ck.deposit_histogram_shape(groups, channels, n_bands, n_bins, vec4)
+    cols, hist_bytes = channels * (n_bands // 4 if vec4 else n_bands), n_bins * (16 if vec4 else 4)
+    assert 1 <= warps <= 8 and warps * hist_bytes <= 227 * 1024
+    assert warps == 8 or (warps + 1) * hist_bytes > 227 * 1024  # 5,001 float4 bins: two warps of 80 KB
+    assert 1 <= cluster <= 8
+    assert groups * cols * cluster >= 2 * 132 or cluster == 8
+    assert cluster == 1 or groups * cols * (cluster - 1) < 2 * 132
+
+
+@pytest.mark.parametrize("n_bins,vec4", [(14_600, True), (60_000, False)])
+def test_deposit_histogram_shape_raises_past_one_warp(n_bins, vec4):
+    """A histogram that one warp cannot hold in shared memory is refused on
+    the host, not left to a launch the card refuses."""
+    with pytest.raises(ValueError, match="do not fit one warp"):
+        ck.deposit_histogram_shape(16, 4, 4, n_bins, vec4)
+    with pytest.raises(ValueError, match="do not fit one warp"):
+        ck.bin_histogram_shape(16, 64, n_bins, vec4)
