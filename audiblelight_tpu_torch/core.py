@@ -1,14 +1,16 @@
 """Scene: the top-level API of the port.
 
 Copy of audiblelight_tpu/core.py for the SELD dataset path: the Scene holds a
-ray-traced world state (mesh room + microphone + emitters), Events and an
-Ambience, places events by rejection sampling with the reference's draws
-(Python `random`, numpy's global stream through scipy `rvs`, the world
-state's Generator), renders through the fused renderer on the world state's
-device, writes per-mic int16 WAVs, the metadata JSON and DCASE CSVs, and
-round-trips through to_dict / from_dict / from_json.
+world state (a ray-traced mesh room or an image-source shoebox, its
+microphone and emitters), Events and an Ambience, places events by rejection
+sampling with the reference's draws (Python `random`, numpy's global stream
+through scipy `rvs`, the world state's Generator), renders on the world
+state's device (the fused renderer, or the plan path where it refuses the
+scene, as it does every shoebox scene), writes per-mic int16 WAVs, the
+metadata JSON and DCASE CSVs, and round-trips through to_dict / from_dict /
+from_json.
 
-Not ported (raise; ROADMAP): the shoebox and SOFA backends, event
+Not ported (raise; ROADMAP): the SOFA backend, event
 augmentations, predefined-trajectory events, images, video and acoustic
 imaging.
 """
@@ -70,7 +72,7 @@ class Scene:
     ):
         """Initialise the Scene.
 
-        `backend` is "rlr" or a WorldStateRLR instance; `fg_path` / `bg_path`
+        `backend` is "rlr", "shoebox" or a WorldState instance; `fg_path` / `bg_path`
         are recursively listed audio folders; the `*_dist` arguments are
         distribution-like objects sampled for each added event;
         `backend_kwargs` pass through to the WorldState constructor. `device`
@@ -777,9 +779,9 @@ class Scene:
         The audio renders on the world state's device through the fused
         renderer (pipeline.render_scenes: trace, stems, placement, ambience
         and int16 quantisation in one pass), or through the plan path where
-        the fused renderer refuses the scene (the exact rain mode in a
-        nonconvex room). `compiled=True` takes the plan path
-        (pipeline.render_scene_audio_compiled: traced IR banks, device
+        the fused renderer refuses the scene (a shoebox room, the exact rain
+        mode in a nonconvex room). `compiled=True` takes the plan path
+        (pipeline.render_scene_audio_compiled: the state's IR banks, device
         stems, host mix and host ambience bed). `video` and `video_fname` keep
         the reference's signature; video is not ported.
         """

@@ -1,11 +1,13 @@
 """Microphone rigs: capsule geometry and channel layouts.
 
-Counterpart of audiblelight_tpu/micarrays.py for the AmbeoVR tetrahedron
-("mic", one channel per capsule) and the one-point listeners: first-order
+Counterpart of audiblelight_tpu/micarrays.py: the capsule rigs ("mic", one
+omni channel per capsule: the AmbeoVR tetrahedron, the Eigenmike em32 and
+em64 spheres, a single mono capsule, and rigs defined at run time by
+`dynamically_define_micarray`) and the one-point listeners: first-order
 ambisonics ("foa", AmbiX channels W, X, Y, Z), higher-order ambisonics
 ("hoa3" by default, or "hoa2"; ACN/SN3D) and the binaural head ("binaural",
-left and right, the analytic spherical head). The other rigs (Eigenmike,
-mono) and measured HRTFs are not ported; asking for them raises.
+left and right, the analytic spherical head). Measured HRTFs are not
+ported; asking for them raises.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Any, Type
 import numpy as np
 
 from audiblelight_tpu_torch import utils
+from audiblelight_tpu_torch.utils import logger
 
 CHANNEL_LAYOUT_TYPES = ["mic", "foa", "binaural", "hoa2", "hoa3"]
 
@@ -196,15 +199,32 @@ class MicArray:
             raise KeyError("'micarray_type' key not found in input dict")
         d = deepcopy(input_dict)
         mic_class_str = d.pop("micarray_type", "mic")
-        if mic_class_str not in MICARRAY_CLASS_MAPPING:
-            raise NotImplementedError(
-                f"microphone type {mic_class_str!r} is not ported (ROADMAP: the other rigs)"
-            )
-        mic_obj = MICARRAY_CLASS_MAPPING[mic_class_str]()
+        if mic_class_str in MICARRAY_CLASS_MAPPING:
+            mic_class = MICARRAY_CLASS_MAPPING[mic_class_str]
+        else:
+            mic_class = dynamically_define_micarray(micarray_type=mic_class_str, **d)
+        mic_obj = mic_class()
         mic_obj.set_absolute_coordinates(d["coordinates_center"])
         for k, v in d.items():
             mic_obj._set_attribute(k, v)
         return mic_obj
+
+
+@dataclass(repr=False, eq=False)
+class MonoCapsule(MicArray):
+    """A single mono microphone capsule."""
+
+    name: str = "monocapsule"
+    is_spherical: bool = False
+    channel_layout_type: str = "mic"
+
+    @property
+    def coordinates_cartesian(self) -> np.ndarray:
+        return np.array([[0.0, 0.0, 0.0]])
+
+    @property
+    def capsule_names(self) -> list[str]:
+        return ["mono"]
 
 
 @dataclass(repr=False, eq=False)
@@ -298,19 +318,161 @@ class AmbeoVR(MicArray):
         return ["FLU", "FRD", "BLD", "BRU"]
 
 
-MICARRAY_LIST = [AmbeoVR, Binaural, FOAListener, HOAListener]
+@dataclass(repr=False, eq=False)
+class Eigenmike32(MicArray):
+    """mh acoustics Eigenmike em32: 32 capsules on a 4.2 cm-radius sphere."""
+
+    name: str = "eigenmike32"
+    is_spherical: bool = True
+    channel_layout_type: str = "mic"
+
+    @property
+    def coordinates_polar(self) -> np.ndarray:
+        # Published capsule angles (EigenStudio manual, section 4.5).
+        return np.array(
+            [
+                [0.0, 21.0, 0.042],
+                [32.0, 0.0, 0.042],
+                [0.0, -21.0, 0.042],
+                [-32.0, 0.0, 0.042],
+                [0.0, 58.0, 0.042],
+                [45.0, 35.0, 0.042],
+                [69.0, 0.0, 0.042],
+                [45.0, -35.0, 0.042],
+                [0.0, -58.0, 0.042],
+                [-45.0, -35.0, 0.042],
+                [-69.0, 0.0, 0.042],
+                [-45.0, 35.0, 0.042],
+                [91.0, 69.0, 0.042],
+                [90.0, 32.0, 0.042],
+                [90.0, -31.0, 0.042],
+                [89.0, -69.0, 0.042],
+                [180.0, 21.0, 0.042],
+                [-148.0, 0.0, 0.042],
+                [180.0, -21.0, 0.042],
+                [148.0, 0.0, 0.042],
+                [180.0, 58.0, 0.042],
+                [-135.0, 35.0, 0.042],
+                [-111.0, 0.0, 0.042],
+                [-135.0, -35.0, 0.042],
+                [180.0, -58.0, 0.042],
+                [135.0, -35.0, 0.042],
+                [111.0, 0.0, 0.042],
+                [135.0, 35.0, 0.042],
+                [-91.0, 69.0, 0.042],
+                [-90.0, 32.0, 0.042],
+                [-90.0, -32.0, 0.042],
+                [-89.0, -69.0, 0.042],
+            ]
+        )
+
+    @property
+    def coordinates_cartesian(self) -> np.ndarray:
+        return utils.polar_to_cartesian(self.coordinates_polar)
+
+    @property
+    def capsule_names(self) -> list[str]:
+        return [str(i) for i in range(1, 33)]
+
+
+@dataclass(repr=False, eq=False)
+class Eigenmike64(MicArray):
+    """mh acoustics Eigenmike em64: 64 capsules on a 4.2 cm-radius sphere."""
+
+    name: str = "eigenmike64"
+    is_spherical: bool = True
+    channel_layout_type: str = "mic"
+
+    @property
+    def coordinates_polar(self) -> np.ndarray:
+        # Published capsule angles (em64 getting-started guide, Table 1).
+        return np.array(
+            [
+                [-162.544, 73.234, 0.042],
+                [115.734, 68.032, 0.042],
+                [81.911, 47.606, 0.042],
+                [-46.641, 76.718, 0.042],
+                [43.179, 67.327, 0.042],
+                [46.732, 37.308, 0.042],
+                [-24.004, 52.194, 0.042],
+                [14.54, 46.606, 0.042],
+                [-155.545, 46.061, 0.042],
+                [-153.458, 19.687, 0.042],
+                [-112.678, 56.777, 0.042],
+                [-126.183, 29.974, 0.042],
+                [-95.456, 33.524, 0.042],
+                [99.667, 22.506, 0.042],
+                [104.684, -3.274, 0.042],
+                [120.923, 41.577, 0.042],
+                [126.513, 11.921, 0.042],
+                [148.237, 27.931, 0.042],
+                [162.638, 51.283, 0.042],
+                [178.55, 26.2, 0.042],
+                [21.271, 19.805, 0.042],
+                [25.783, -6.246, 0.042],
+                [47.861, 8.901, 0.042],
+                [55.907, -16.094, 0.042],
+                [71.429, 22.247, 0.042],
+                [78.492, -1.706, 0.042],
+                [-66.779, 50.002, 0.042],
+                [-69.432, 21.227, 0.042],
+                [-41.865, 29.113, 0.042],
+                [-25.996, 7.717, 0.042],
+                [-7.977, 26.975, 0.042],
+                [0.0, 0.206, 0.042],
+                [174.033, -47.517, 0.042],
+                [-147.28, -49.76, 0.042],
+                [-108.082, -45.213, 0.042],
+                [150.647, -70.363, 0.042],
+                [-119.173, -72.577, 0.042],
+                [-66.938, -52.069, 0.042],
+                [-28.99, -71.199, 0.042],
+                [60.827, -72.577, 0.042],
+                [-133.087, -25.536, 0.042],
+                [-126.074, 3.741, 0.042],
+                [-166.362, -26.016, 0.042],
+                [-150.33, -5.331, 0.042],
+                [-176.831, -0.064, 0.042],
+                [163.71, -21.455, 0.042],
+                [156.952, 4.133, 0.042],
+                [139.432, -40.84, 0.042],
+                [135.973, -12.578, 0.042],
+                [102.327, -52.637, 0.042],
+                [112.551, -27.032, 0.042],
+                [83.146, -27.563, 0.042],
+                [-52.292, -25.888, 0.042],
+                [-50.861, 0.31, 0.042],
+                [-81.748, -28.448, 0.042],
+                [-77.026, -3.934, 0.042],
+                [-106.853, -16.387, 0.042],
+                [-99.931, 8.949, 0.042],
+                [59.739, -45.976, 0.042],
+                [14.224, -52.677, 0.042],
+                [32.49, -30.656, 0.042],
+                [-25.925, -43.883, 0.042],
+                [2.084, -26.359, 0.042],
+                [-24.932, -17.464, 0.042],
+            ]
+        )
+
+    @property
+    def coordinates_cartesian(self) -> np.ndarray:
+        return utils.polar_to_cartesian(self.coordinates_polar)
+
+    @property
+    def capsule_names(self) -> list[str]:
+        return [str(i) for i in range(1, 65)]
+
+
+MICARRAY_LIST = [Eigenmike32, Eigenmike64, AmbeoVR, MonoCapsule, Binaural, FOAListener, HOAListener]
 MICARRAY_CLASS_MAPPING = {cls.__name__: cls for cls in MICARRAY_LIST}
-# Rigs of the reference that this port does not build yet
-UNPORTED_MICARRAYS = ("eigenmike32", "eigenmike64", "monocapsule")
 
 
 def sanitize_microphone_input(microphone_type: Any) -> Type[MicArray]:
-    """A MicArray class from a name, class or instance."""
+    """A MicArray class from a name, class or instance; None is a MonoCapsule."""
     if microphone_type is None:
-        raise NotImplementedError(
-            "a rig-less microphone (the reference's mono capsule) is not ported; "
-            "pass 'ambeovr', 'foalistener', 'hoalistener' or 'binaural'"
-        )
+        logger.warning("No microphone type provided, using a mono microphone capsule in a random position!")
+        return MonoCapsule
     if isinstance(microphone_type, str):
         return get_micarray_from_string(microphone_type)
     if isinstance(microphone_type, type) and issubclass(microphone_type, MicArray):
@@ -325,13 +487,59 @@ def get_micarray_from_string(micarray_name: str) -> Type[MicArray]:
     for ma in MICARRAY_LIST:
         if ma().name == micarray_name:
             return ma
-    if micarray_name in UNPORTED_MICARRAYS:
-        raise NotImplementedError(
-            f"microphone {micarray_name!r} is not ported (ROADMAP: the other rigs); "
-            f"this port has {', '.join(repr(ma().name) for ma in MICARRAY_LIST)}"
-        )
     acceptable = [ma().name for ma in MICARRAY_LIST]
     raise ValueError(f"Cannot find array {micarray_name}: expected one of {', '.join(acceptable)}")
+
+
+def dynamically_define_micarray(**kwargs) -> Type["MicArray"]:
+    """A new MicArray class with the given attributes: a rig known only at
+    run time (`MicArray.from_dict` of a type no class has), its capsules
+    from `coordinates_cartesian` or `coordinates_polar`, named `micarray_type`."""
+
+    @dataclass(repr=False, eq=False)
+    class _DynamicMicArray(MicArray):
+        def __init__(self):
+            super().__init__()
+            self.name = kwargs.get("name", getattr(self, "name", ""))
+            self.channel_layout_type = kwargs.get(
+                "channel_layout_type", getattr(self, "channel_layout_type", "unknown")
+            )
+            self.is_spherical = kwargs.get("is_spherical", getattr(self, "is_spherical", False))
+
+        @property
+        def coordinates_cartesian(self) -> np.ndarray:
+            if kwargs.get("coordinates_cartesian") is not None:
+                return np.asarray(kwargs["coordinates_cartesian"], dtype=float)
+            if kwargs.get("coordinates_polar") is not None:
+                return utils.polar_to_cartesian(
+                    np.asarray(kwargs["coordinates_polar"], dtype=float)
+                )
+            raise NotImplementedError
+
+        @property
+        def coordinates_polar(self) -> np.ndarray:
+            if kwargs.get("coordinates_polar") is not None:
+                return np.asarray(kwargs["coordinates_polar"], dtype=float)
+            if kwargs.get("coordinates_cartesian") is not None:
+                return utils.cartesian_to_polar(
+                    np.asarray(kwargs["coordinates_cartesian"], dtype=float)
+                )
+            raise NotImplementedError
+
+        @property
+        def capsule_names(self) -> list[str]:
+            if kwargs.get("capsule_names") is not None:
+                return kwargs["capsule_names"]
+            # Default names from whichever coordinate set was provided
+            coords = kwargs.get("coordinates_cartesian", kwargs.get("coordinates_polar"))
+            if coords is not None:
+                return [f"capsule{i:03d}" for i in range(len(coords))]
+            raise NotImplementedError
+
+    if "micarray_type" in kwargs:
+        _DynamicMicArray.__name__ = kwargs["micarray_type"]
+
+    return _DynamicMicArray
 
 
 def ambeovr_capsules(center) -> np.ndarray:

@@ -9,10 +9,11 @@ key replaced by a `torch.Generator` seeded from the world state's trace walk.
 
 `render_scenes` is the dataset loop: one scene at a time, one renderer per
 (room, rig, event buckets, source bucket), as the reference's pipelined
-loop groups them. A scene the fused renderer refuses (the exact rain mode in
-a nonconvex room, an ambience the card's bed does not draw, or
-`device_mix=False`) takes the plan path instead, as in the reference: the
-world state traces its IR banks (`trace_irs_device`), `stems_from_plan`
+loop groups them. A scene the fused renderer refuses (a shoebox room, the
+exact rain mode in a nonconvex room, an ambience the card's bed does not
+draw, or `device_mix=False`) takes the plan path instead, as in the
+reference: the world state computes its IR banks (`trace_irs_device`, or
+the shoebox's image sources), `stems_from_plan`
 renders and quantises the stems on the device, and `mix_plan_host` places
 them and adds the host ambience bed. `render_scene_audio_compiled` is that
 path for one scene (`Scene.generate(compiled=True)`). Dispatch-ahead and
@@ -373,7 +374,8 @@ def render_scenes(scenes: Iterable, complete: Callable, plan_kwargs: Optional[di
     scene's source bucket: one per (room, rig, buckets, source bucket). A
     scene the fused renderer refuses, and every scene when `device_mix` is
     False, renders through the plan path (traced IR banks, device stems,
-    host mix).
+    host mix), as does every scene of a world state the fused renderer
+    does not take (the shoebox: its image-source IR banks).
     """
     renderers = []
     done = 0
@@ -388,8 +390,8 @@ def render_scenes(scenes: Iterable, complete: Callable, plan_kwargs: Optional[di
         for k, n in counts.items():
             if pk.get(k) is not None and n > pk[k]:
                 pk.pop(k)
-        st = scene.state.device_state
-        fused = (device_mix and FusedSceneRenderer.mix_eligible(scene)
+        st = getattr(scene.state, "device_state", None)
+        fused = (device_mix and st is not None and FusedSceneRenderer.mix_eligible(scene)
                  and (st.convex or rain_mode(st.cfg) == "face"))
         plan = build_scene_plan(scene, plan_path=not fused, **pk)
         if fused:

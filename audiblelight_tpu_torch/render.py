@@ -223,7 +223,9 @@ def build_scene_plan(scene, max_static: Optional[int] = None, max_moving: Option
 
     plan_path: the plan path's plan. Its IR banks come from the world
         state's trace (`trace_irs_device`, every microphone's channels
-        stacked), and its (C, T) host ambience bed draws every ambience on
+        stacked), or, for a world state that has no device trace (the
+        shoebox), from its simulated `irs` (simulated first where there are
+        none yet), and its (C, T) host ambience bed draws every ambience on
         the host (`Ambience.load_ambience`), scaled to its level and written
         into every microphone's channel span. False (the fused renderer's
         plan, which traces the IRs and draws the bed on the card) leaves
@@ -232,7 +234,7 @@ def build_scene_plan(scene, max_static: Optional[int] = None, max_moving: Option
     sr = scene.sample_rate
     c_total = sum(int(m.n_channels) for m in scene.state.microphones.values())
     t = round(scene.duration * sr)
-    all_irs = torch.cat(list(scene.state.trace_irs_device().values()), dim=0) if plan_path else None
+    all_irs = _plan_irs(scene.state) if plan_path else None
 
     statics, movings = [], []
     counter = 0
@@ -297,6 +299,21 @@ def build_scene_plan(scene, max_static: Optional[int] = None, max_moving: Option
             n_j = min(e["n_em"], j)
             plan.moving_irs[i, :, :n_j] = all_irs[:, e["first"] : e["first"] + n_j]
     return plan
+
+
+def _plan_irs(state) -> torch.Tensor:
+    """Every microphone's IR bank of a world state, stacked on its channel
+    axis on the state's device: its device trace where it has one, else its
+    simulated `irs`."""
+    if hasattr(state, "trace_irs_device"):
+        irs = state.trace_irs_device()
+    else:
+        try:
+            irs = state.irs
+        except AttributeError:
+            state.simulate()
+            irs = state.irs
+    return torch.cat([torch.as_tensor(v, dtype=torch.float32, device=state.device) for v in irs.values()], dim=0)
 
 
 def _host_ambience_bed(scene, c_total: int, t: int) -> np.ndarray:

@@ -60,7 +60,7 @@ from audiblelight_tpu_torch.rir.sh import (
     spherical_head_gains,
     woodworth_itd,
 )
-from audiblelight_tpu_torch.utils import cross3, dot3, norm3
+from audiblelight_tpu_torch.utils import cross3, dot3, irfft_real, norm3
 
 
 def _check_encoding(encoding: str, cl: int) -> None:
@@ -470,7 +470,7 @@ def _binaural_direct_ir(dirs, amp, dist, n_samples: int, sr: int, c: float) -> t
     delay_samp = dist[:, None] * (sr / c) + woodworth_itd(dirs, c=c) * sr  # (E, 2)
     in_range = (delay_samp >= 0.0) & (delay_samp < n_samples - 1)
     spec = (amp[:, None] * in_range)[..., None] * mag * _linear_phase(delay_samp, n_samples)
-    return torch.fft.irfft(spec, n=n_samples, dim=-1).to(torch.float32)
+    return irfft_real(spec, n_samples).to(torch.float32)
 
 
 def direct_paths_ir(
@@ -659,8 +659,8 @@ def _synth_bent_component(gain_b, path, bend, listener_pos, band_freqs, n_sample
         dirs = dirs / torch.clamp_min(norm3(dirs, keepdim=True), 1e-9)
         mag = spherical_head_gains(dirs, freqs)  # (E, 2, F)
         spec_ear = spec[:, 0:1] * mag * _linear_phase(woodworth_itd(dirs, c=c) * sr, n_samples)
-        return torch.fft.irfft(spec_ear, n=n_samples, dim=-1).to(torch.float32)
-    ir_caps = torch.fft.irfft(spec, n=n_samples, dim=-1).to(torch.float32)
+        return irfft_real(spec_ear, n_samples).to(torch.float32)
+    ir_caps = irfft_real(spec, n_samples).to(torch.float32)
     if encoding == "omni":
         return ir_caps
     dirs = bend - listener_pos  # (E, 3): listener -> last bend

@@ -1,12 +1,16 @@
 """Generate a DCASE2023-Task3-style SELD dataset with the PyTorch/CUDA port.
 
     python -m audiblelight_tpu_torch.seld --fg-dir <folder of WAVs> --output-dir <out> \\
+        [--backend shoebox] [--ism-order 12] --channel-layout foa [--device cpu]
+    python -m audiblelight_tpu_torch.seld --fg-dir <folder of WAVs> --output-dir <out> \\
         --backend rlr --mesh room.obj --channel-layout foa [--device cpu]
 
-The port's counterpart of scripts/seld/generate_dataset.py on its fused rlr
-path, with the same flags, defaults, seeding and file layout: N one-minute
-24 kHz scenes in the FOA ("foalistener") or MIC ("ambeovr") format, static
-and moving events placed in a ray-traced mesh room, written as
+The port's counterpart of scripts/seld/generate_dataset.py, with the same
+flags, defaults, seeding and file layout: N one-minute 24 kHz scenes in the
+FOA ("foalistener") or MIC ("ambeovr") format, static and moving events
+placed in a shoebox room of random size (the default backend, its IRs from
+the image-source engine, rendered through the plan path) or a ray-traced
+mesh room (the fused renderer), written as
 
     <output>/<fmt>_dev/dev-<split>-alight/fold<k>_scene<i>_<j>_mic000.wav
     <output>/metadata_dev/dev-<split>-alight/fold<k>_scene<i>_<j>_mic000.csv
@@ -17,13 +21,14 @@ event placed is built again. The same --seed places the same events as the
 reference script. `--device` (default cuda) selects where the placement
 queries and the render run; without a card the default raises.
 
-`--no-mesh-simplification` traces the full mesh with the exact rain mode
-(the star any-hit per bounce); such scenes, and every scene under
-`--no-device-mix`, render through the plan path (traced IR banks, device
-stems, host mix). `--pipeline compiled` renders every scene through the
-plan path, one `Scene.generate(compiled=True)` at a time.
+With `--backend shoebox`, `--pipeline` defaults to `compiled`: every scene
+renders through the plan path, one `Scene.generate(compiled=True)` at a
+time (IR banks, device stems, host mix). On rlr, `--no-mesh-simplification`
+traces the full mesh with the exact rain mode (the star any-hit per
+bounce); such scenes, and every scene under `--no-device-mix`, render
+through the plan path too.
 
-Not ported (raise, ROADMAP): --backend shoebox|sofa, --assets,
+Not ported (raise, ROADMAP): --backend sofa, --assets,
 --augmentations, --placement-workers > 0, --mesh-devices > 1,
 --coordinator and --pipeline classic. --fused-batch is accepted and has no
 effect (one scene per render).
@@ -98,7 +103,7 @@ def check_ported(args) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the port
     does not run."""
     unported = [
-        (args.backend != "rlr", f"--backend {args.backend}", "shoebox and SOFA backends"),
+        (args.backend == "sofa", "--backend sofa", "the SOFA backend, then measured HRTFs"),
         (args.assets is not None, "--assets", "the asset room tables (glTF loading)"),
         (bool(args.augmentations), "--augmentations", "augmentations"),
         (args.placement_workers > 0, "--placement-workers > 0", "pooled placement"),
@@ -112,10 +117,20 @@ def check_ported(args) -> None:
 
 
 def build_backend_kwargs(args, rng: np.random.Generator, meshes: dict) -> dict:
-    """The rlr world state's constructor kwargs for one scene (one draw of
-    `rng` for its seed, as the reference)."""
+    """The world state's constructor kwargs for one scene, with the
+    reference's draws of `rng`: a shoebox's dimensions, then its seed; an
+    rlr room's seed."""
     from audiblelight_tpu_torch.geometry.mesh import load_mesh
 
+    if args.backend == "shoebox":
+        dims = rng.uniform([5.0, 4.0, 2.6], [10.0, 8.0, 3.5])
+        return dict(
+            dimensions=dims.tolist(),
+            absorption=args.material if args.materials else 0.3,
+            max_order=args.ism_order,
+            max_ir_length=args.ir_seconds,
+            seed=int(rng.integers(2**31)),
+        )
     if args.mesh is None:
         raise ValueError("--mesh is required for the rlr backend")
     if args.mesh not in meshes:

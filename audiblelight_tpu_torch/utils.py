@@ -380,3 +380,16 @@ def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def norm3(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm over the last axis, rounded as jnp.linalg.norm rounds it."""
     return torch.linalg.vector_norm(x, dim=-1, keepdim=keepdim)
+
+
+def irfft_real(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """`torch.fft.irfft` over the last axis of a (..., n // 2 + 1) spectrum,
+    with the imaginary parts of the DC bin and (n even) the Nyquist bin
+    dropped first, as the CPU's irfft drops them. cuFFT's C2R reads them: a
+    linear-phase spectrum's Nyquist bin then moves a band-limited pulse's
+    samples on the card by ~1e-4 of its peak."""
+    im = spec.imag.clone()
+    im[..., 0] = 0.0
+    if n % 2 == 0:
+        im[..., n // 2] = 0.0
+    return torch.fft.irfft(torch.complex(spec.real, im), n=n, dim=-1)

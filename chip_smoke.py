@@ -57,6 +57,19 @@ exact CLI scene's bounces), then drives the port's two main paths:
   trace's first bounce on the LOD, and the surface rays with 45 % of them
   dead: each kernel held against its plain version and each op against K1
   big over the Morton-sorted faces, bit for bit.
+- the Eigenmike em32 and em64 rigs (32 and 64 omni capsules): the first
+  flagship scene through the fused renderer with each, written as 32- and
+  64-channel int16 WAVs, launches counted as for the MIC scene, timed and
+  profiled, K3 held against its plain version and itself on each trace's
+  own bounces, and every (source, capsule) pair's direct arrival checked;
+- the shoebox backend, the SELD CLI's default (no kernel: the image-source
+  engine is plain PyTorch): the engine on the card against the same
+  function on the CPU (within 1e-5 of peak), the direct paths of its
+  order-12, 1 s IRs (omni, FOA direction, binaural ITD and ILD), the CLI at
+  its defaults in MIC and FOA (two scenes each, checked as the rlr CLI's,
+  the engine's time, peak device memory, terms and bound per scene, its
+  device idle share, no tracer kernel launched) and one MonoCapsule scene
+  through `Scene.generate()`.
 
 Each path's kernel launches are counted from zero just before it and read
 just after; a kernel of the path that did not launch fails the run, and so
@@ -112,6 +125,8 @@ FLOPS_DEPOSIT = 33  # per (ray, capsule): geometry ~25, 4 band multiply-adds
 FLOPS_DEPOSIT_FOA = 60  # per ray: geometry and gains ~28, 4 bands x 4 channels multiply-adds
 FLOPS_MXU_PAIR = 38  # bilinear first hit: dots of 6, 6, 3 and 3 + 1 terms, 1 div, 3 mul, 1 add
 BIN_DT = 0.002  # the IR checks' energy bins (s)
+FLOPS_ISM_TERM = 30  # per image-source term: the int32 phase (7), the float phase (3), a sincos (~12), 8 more
+ISM_ORDER = 12  # the SELD CLI's --ism-order
 # The SELD CLI runs: the repo's WAVs of four DCASE2023 classes, the flagship
 # width, 4 static and 1 moving event per scene, two scenes per format
 CLI_CLASSES = {"femaleSpeech": 0, "maleSpeech": 1, "telephone": 3, "musicInstrument": 9}
@@ -121,6 +136,10 @@ CLI_FLAGS = ["--backend", "rlr", "--n-scenes", "2", "--duration", "60", "--rays"
              "--min-events-moving", "1", "--max-events-moving", "1", "--seed", "7"]
 KERNELS = ("first_hit_big", "first_hit_small", "first_hit_tiled", "first_hit_mxu", "first_hit_sorted",
            "first_hit_pair", "star_any_hit", "any_hit", "deposit_histogram_foa", "deposit_histogram", "bin_histogram")
+# The SELD CLI on its default backend (shoebox: order 12, 1.0 s IRs,
+# absorption 0.3, the compiled plan path), two 60 s scenes per format
+SHOEBOX_FLAGS = ["--n-scenes", "2", "--duration", "60", "--min-events-static", "4", "--max-events-static", "4",
+                 "--min-events-moving", "1", "--max-events-moving", "1", "--seed", "7"]
 MIC_PATH = ("first_hit_big", "any_hit", "deposit_histogram")
 FOA_PATH = ("first_hit_big", "any_hit", "deposit_histogram_foa")
 EXACT_PATH = ("first_hit_big", "any_hit", "deposit_histogram", "star_any_hit")
@@ -353,22 +372,24 @@ def keep_first_last(kept: dict, key: int, item) -> None:
     items[min(len(items), 1):] = [item]
 
 
-def check_binaural(irs: torch.Tensor, direct: torch.Tensor, src: np.ndarray, free: np.ndarray, win: int) -> None:
-    """The binaural rig's direct paths against the Woodworth head, for each
-    unoccluded source: on the traced IRs `irs` (2, E, L), the near ear peaks
-    within 2 samples of d/c plus its Woodworth offset; on their direct
-    component `direct` (2, E, L), both ears do, and the near ear is the
-    louder for a source clearly to one side. Where the traced IRs' far-ear
-    peak is off its arrival, or their ILD over the direct windows has the
-    wrong sign, the rest of the IR (tail and diffraction, `irs - direct`)
-    must outweigh the shadowed direct path there."""
+def check_binaural(irs: torch.Tensor, direct: torch.Tensor, src: np.ndarray, free: np.ndarray, win: int,
+                   centre=MIC_CENTRE, label: str = "binaural") -> None:
+    """The binaural rig's direct paths against the Woodworth head at
+    `centre`, for each unoccluded source: on the IRs `irs` (2, E, L), the
+    near ear peaks within 2 samples of d/c plus its Woodworth offset; on
+    their direct component `direct` (2, E, L), both ears do, and the near
+    ear is the louder for a source clearly to one side. Where the IRs'
+    far-ear peak is off its arrival, or their ILD over the direct windows
+    has the wrong sign, the rest of the IR (tail, reflections and
+    diffraction, `irs - direct`) must outweigh the shadowed direct path
+    there."""
     from audiblelight_tpu_torch.rir.sh import woodworth_itd
 
     irs, direct = irs.cpu().numpy(), direct.cpu().numpy()
     rest = irs - direct
     near_off, direct_off, far_off, ild_wrong, ild_wrong_direct, unexplained = [], [], [], [], 0, []
     for e in np.flatnonzero(free):
-        vec = src[e] - np.array(MIC_CENTRE)
+        vec = src[e] - np.array(centre)
         dist_e = np.linalg.norm(vec)
         u = torch.as_tensor(vec / dist_e, dtype=torch.float32)[None]
         ear_s = dist_e / 343.0 * SR + woodworth_itd(u).numpy()[0] * SR  # (2,) per-ear arrivals
@@ -398,16 +419,16 @@ def check_binaural(irs: torch.Tensor, direct: torch.Tensor, src: np.ndarray, fre
             k_far = 1 if side > 0 else 0
             if energy(rest, k_far) <= energy(direct, k_far):
                 unexplained.append(f"source {e}: traced ILD sign wrong")
-    n_lat = sum(abs(src[e][1] - MIC_CENTRE[1]) / np.linalg.norm(src[e] - np.array(MIC_CENTRE)) > 0.2
+    n_lat = sum(abs(src[e][1] - centre[1]) / np.linalg.norm(src[e] - np.array(centre)) > 0.2
                 for e in np.flatnonzero(free))
-    print(f"binaural direct paths: {len(near_off)} of {N_SOURCES} sources unoccluded; traced IRs: max |near-ear "
+    print(f"{label} direct paths: {len(near_off)} of {len(src)} sources unoccluded; traced IRs: max |near-ear "
           f"peak - (d/c + Woodworth ITD)| {max(near_off, default=float('nan')):.2f} samples, far-ear peak more than 2 "
           f"samples off: {far_off}, ILD sign over the direct windows wrong for {len(ild_wrong)} of "
           f"{n_lat} lateral sources {ild_wrong}, each held by the tail and diffraction outweighing the shadowed "
           f"direct path: {not unexplained}; direct component: max |ear peak - (d/c + Woodworth ITD)| "
           f"{max(direct_off, default=float('nan')):.2f} samples, ILD sign wrong for {ild_wrong_direct} of {n_lat}")
     if not near_off or max(near_off) > 2.0 or max(direct_off) > 2.0 or ild_wrong_direct or unexplained:
-        fail(f"binaural direct paths off the Woodworth ITD or the ILD's sign {unexplained}")
+        fail(f"{label} direct paths off the Woodworth ITD or the ILD's sign {unexplained}")
 
 
 def flagship_inputs(mesh_tris: torch.Tensor, rng: np.random.Generator, dev):
@@ -1214,6 +1235,282 @@ def k1_phase(xscene, st_x, table_x, surface: tuple, interior: tuple) -> None:
         check_k1(f"{label} on the full mesh", o, d, st_x.tris, table_x)
 
 
+def eigenmike_phase(st, scene_inputs: tuple, t_scene: int, win: int) -> dict:
+    """The Eigenmike em32 and em64 rigs on the rlr main path: the first
+    flagship scene through the fused renderer with each rig at MIC_CENTRE
+    (omni capsules: K1 big, K2, K3 at 32 and 64 capsules), written as a 32-
+    and a 64-channel int16 WAV, launches counted as for the MIC scene (K1
+    big 60 times), timed and profiled; K3 held against its plain version and
+    itself on that trace's own bounces (first and last of each decimation
+    phase) and timed there; each unoccluded (source, capsule) pair's direct
+    arrival within 2 samples of d/c: on the trace's direct component for
+    every pair, and on the traced IRs, where the tail can top a far source's
+    direct path within 2 ms of it, for 99 % of the pairs (each miss printed
+    with the tail's and the direct path's size there). Returns {capsules:
+    launch counts}."""
+    from audiblelight_tpu_torch.micarrays import Eigenmike32, Eigenmike64
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.pipeline import FusedSceneRenderer, write_wav
+    from audiblelight_tpu_torch.render import ScenePlan
+    from audiblelight_tpu_torch.rir import raytracer
+
+    dev = st.device
+    src, s_idx, m_idx, plan, amb = scene_inputs
+    src_t, s_idx_t, m_idx_t = (torch.as_tensor(x, device=dev) for x in (src, s_idx, m_idx))
+    out = {}
+    for rig in (Eigenmike32, Eigenmike64):
+        caps = rig().set_absolute_coordinates(np.array(MIC_CENTRE))
+        n = len(caps)
+        label = f"Eigenmike{n} scene"
+        rend = FusedSceneRenderer(st, n, BUCKETS, N_SOURCES, t_scene, layout="mic")
+        lis = torch.as_tensor(caps, dtype=torch.float32, device=dev)
+        occ = rend.rain_table(caps)
+        splan = ScenePlan.from_numpy(plan, dev)
+
+        def scene(seed=5):
+            return rend.render_mix(torch.Generator(device=dev).manual_seed(seed), src_t, lis, occ, s_idx_t, m_idx_t,
+                                   splan, *amb)
+
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        wav = scene(31)
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        out[n] = launches = dict(ck.launch_counts)
+        peak = int(wav.abs().max())
+        path = write_wav(OUT / f"eigenmike{n}.wav", wav, SR)
+        print(f"{label}: {path.relative_to(REPO)} {tuple(wav.shape)} {wav.dtype}, peak {peak}; {first_s:.3f} s "
+              f"(host clock, first); rain table {tuple(occ.shape)}; launches {launches}", flush=True)
+        if wav.dtype != torch.int16 or tuple(wav.shape) != (n, t_scene) or peak < 100:
+            fail(f"{label}: payload {wav.dtype} {tuple(wav.shape)}, peak {peak}")
+        for name in MIC_PATH:
+            if launches[name] <= 0:
+                fail(f"the {label} never launched {name}")
+        check_first_hits(launches, 60, f"the {label}")
+        scene_ms = time_ms(scene, reps=3)
+        avgs, busy = profiled(scene, f"{label} profile")
+        print(f"{label} time (CUDA events): median {scene_ms:.3f} ms; device idle share {1 - busy / scene_ms:.1%} "
+              f"(profiler busy over CUDA-event time) on {card_line()}")
+        kernel_times(avgs, MIC_PATH, f"{label}, per scene")
+        kept = {}
+        raytracer.deposit_histogram = keep_deposits("deposit_histogram", kept)
+        try:
+            irs = rend.trace(torch.Generator(device=dev).manual_seed(7), src_t, lis, occ)
+        finally:
+            raytracer.deposit_histogram = ck.deposit_histogram
+        check_deposit_bounces("deposit_histogram", kept, f"Eigenmike{n} trace")
+        del kept
+        blocked = ck.segments_occluded(lis.repeat(N_SOURCES, 1), src_t.repeat_interleave(n, dim=0),
+                                       st.tris).reshape(N_SOURCES, n)
+        expect = (torch.linalg.vector_norm(src_t[:, None] - lis[None], dim=-1) / 343.0 * SR).cpu().numpy()
+        direct = raytracer.direct_paths_ir(st.tris, src_t, lis, irs.shape[-1], sr=SR)  # (E, C, L)
+        ir_ec, dir_ec = irs.transpose(0, 1).cpu().numpy(), direct.cpu().numpy()
+        free = ~blocked.cpu().numpy()
+        off, off_d, misses = [], [], []
+        for e, c in zip(*np.nonzero(free)):
+            lo, hi = max(int(expect[e, c]) - win, 0), int(expect[e, c]) + win
+            peak_t = lo + int(np.argmax(np.abs(ir_ec[e, c, lo:hi])))
+            off.append(abs(peak_t - expect[e, c]))
+            off_d.append(abs(lo + int(np.argmax(np.abs(dir_ec[e, c, lo:hi]))) - expect[e, c]))
+            if off[-1] > 2.0:
+                d_peak = float(np.abs(dir_ec[e, c, lo:hi]).max())
+                misses.append(f"source {e} capsule {c} ({expect[e, c] / SR * 343.0:.2f} m): peak "
+                              f"{peak_t - expect[e, c]:+.2f} samples off, |IR| there / direct peak "
+                              f"{abs(ir_ec[e, c, peak_t]) / d_peak:.3f}, |IR - direct| there / direct peak "
+                              f"{abs(ir_ec[e, c, peak_t] - dir_ec[e, c, peak_t]) / d_peak:.3f}")
+        print(f"{label} direct paths: {int(free.sum())} of {free.size} (source, capsule) pairs unoccluded; direct "
+              f"component: max |peak - d/c| {max(off_d, default=float('nan')):.2f} samples; traced IRs: max |peak "
+              f"within 2 ms - d/c| {max(off, default=float('nan')):.2f} samples, off by more than 2 samples for "
+              f"{len(misses)} pairs (the tail there outweighing the direct path) {misses}", flush=True)
+        if not off or max(off_d) > 2.0 or len(misses) > 0.01 * len(off):
+            fail(f"{label}: direct-path arrivals off their distance")
+    return out
+
+
+
+def ism_terms(rows: int, emitters: int, n_samples: int, order: int) -> int:
+    """(listener, emitter, image, bin) terms of one `shoebox_rirs` call."""
+    return rows * emitters * 8 * (2 * order + 1) ** 3 * (n_samples // 2 + 1)
+
+
+def shoebox_phase(fg: Path, out: Path, win: int, dev) -> None:
+    """The shoebox backend, the SELD CLI's default: the image-source engine
+    on the card against the same function on the CPU (order 4, 8,192
+    samples, 4 capsules, 6 sources, 4 bands; omni and FOA; within 1e-5 of
+    peak); the direct paths of its order-12, 1 s, 24 kHz IRs in a 7 x 5 x 3 m
+    room (omni: each capsule's peak within 2 samples of d/c; FOA: the
+    direction at the W peak within 5 degrees; binaural: `check_binaural`,
+    the direct component from the same call at order 0 with walls that
+    absorb all but 1e-6 of the energy); `seld.main` at its defaults in MIC
+    and FOA, two scenes each, its outputs checked, with each scene's CLI
+    time and the engine's time (CUDA events), peak device memory, terms and
+    bound, and no tracer kernel launched; the engine's device idle share on
+    one MIC scene; one MonoCapsule scene through `Scene.generate()`."""
+    from audiblelight_tpu_torch import seld
+    from audiblelight_tpu_torch import utils as tutils
+    from audiblelight_tpu_torch.core import Scene
+    from audiblelight_tpu_torch.io.audio import _read_header
+    from audiblelight_tpu_torch.micarrays import ambeovr_capsules
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.rir.image_source import shoebox_rirs, wall_log_betas_from_absorption
+    from audiblelight_tpu_torch.worldstate import shoebox_backend
+
+    card = card_line()
+    rng = np.random.default_rng(9)
+    room = np.array([7.0, 5.0, 3.0], np.float32)
+    caps = ambeovr_capsules(MIC_CENTRE).astype(np.float32)
+
+    # The engine on the card against the CPU
+    src = rng.uniform(0.5, room - 0.5, (6, 3)).astype(np.float32)
+    log_beta, bands = wall_log_betas_from_absorption(rng.uniform(0.1, 0.6, (6, 4)))
+    for enc, rows in (("omni", 4), ("foa", 1)):
+        kw = dict(n_samples=8192, max_order=4, sr=SR, encoding=enc)
+        t0 = time.time()
+        on_cpu = shoebox_rirs(room, src, caps, log_beta, bands, device="cpu", **kw)
+        cpu_s = time.time() - t0
+        src_d = torch.as_tensor(src, device=dev)
+        on_card = shoebox_rirs(room, src_d, caps, log_beta, bands, **kw)
+        gap = float((on_card.cpu() - on_cpu).abs().max() / on_cpu.abs().max())
+        ms = time_ms(lambda: shoebox_rirs(room, src_d, caps, log_beta, bands, **kw), reps=3)
+        print(f"shoebox_rirs {enc} on the card against the CPU: {tuple(on_card.shape)}, "
+              f"{ism_terms(rows, 6, 8192, 4)} terms, max |diff| / peak {gap:.3e}; card {ms:.3f} ms, CPU "
+              f"{cpu_s * 1e3:.1f} ms (host clock)", flush=True)
+        if gap > 1e-5:
+            fail(f"shoebox_rirs {enc}: the card's IRs are {gap:.3e} of peak from the CPU's")
+
+    # Direct paths at the CLI's order, length and rate
+    cand = rng.uniform(0.6, room - 0.6, (256, 3))
+    src = cand[np.linalg.norm(cand - np.array(MIC_CENTRE), axis=1) >= 1.0][:6].astype(np.float32)
+    src_d = torch.as_tensor(src, device=dev)
+    log_beta, bands = wall_log_betas_from_absorption(0.3, n_bands=4)
+    centre = np.array([MIC_CENTRE], np.float32)
+    n = SR
+
+    def ism(lis, enc, order=ISM_ORDER, lb=log_beta):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base, t0 = torch.cuda.memory_allocated(), time.time()
+        irs = shoebox_rirs(room, src_d, lis, lb, bands, n_samples=n, max_order=order, sr=SR, encoding=enc)
+        torch.cuda.synchronize()
+        if order == ISM_ORDER:
+            print(f"shoebox_rirs {enc}, {len(src)} sources, order {order}, {n} samples: {time.time() - t0:.3f} s "
+                  f"(host clock), peak device memory {(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB",
+                  flush=True)
+        return irs
+
+    omni = ism(caps, "omni").cpu().numpy()  # (4, E, n)
+    expect = np.linalg.norm(src[:, None] - caps[None], axis=-1) / 343.0 * SR  # (E, C)
+    off, global_hits = [], 0
+    for e in range(len(src)):
+        for c in range(4):
+            lo = max(int(expect[e, c]) - win, 0)
+            off.append(abs(lo + int(np.argmax(np.abs(omni[c, e, lo : int(expect[e, c]) + win]))) - expect[e, c]))
+            global_hits += abs(int(np.argmax(np.abs(omni[c, e]))) - expect[e, c]) <= 2.0
+    print(f"shoebox direct paths, omni (AmbeoVR, {len(src)} sources, order {ISM_ORDER}, {n} samples, "
+          f"{ism_terms(4, len(src), n, ISM_ORDER)} terms): max |peak within 2 ms - d/c| "
+          f"{max(off):.2f} samples; the direct path is the IR's peak in {global_hits} of {len(off)}", flush=True)
+    if max(off) > 2.0:
+        fail("shoebox omni direct paths off their distance")
+    foa = ism(centre, "foa").cpu().numpy()
+    offs, angles = [], []
+    for e in range(len(src)):
+        vec = src[e] - centre[0]
+        expect_s = np.linalg.norm(vec) / 343.0 * SR
+        lo = max(int(expect_s) - win, 0)
+        peak_i = lo + int(np.argmax(np.abs(foa[0, e, lo : int(expect_s) + win])))
+        offs.append(abs(peak_i - expect_s))
+        xyz = foa[1:, e, peak_i] / foa[0, e, peak_i]
+        cosang = float(xyz @ vec / (np.linalg.norm(xyz) * np.linalg.norm(vec)))
+        angles.append(float(np.degrees(np.arccos(np.clip(cosang, -1.0, 1.0)))))
+    print(f"shoebox direct paths, FOA: max |W peak - d/c| {max(offs):.2f} samples; max angle of (X, Y, Z)/W at the "
+          f"peak to the source {max(angles):.2f} deg", flush=True)
+    if max(offs) > 2.0 or max(angles) > 5.0:
+        fail("shoebox FOA direct paths off their arrival time or direction")
+    direct_lb, _ = wall_log_betas_from_absorption(1.0, n_bands=4)  # beta clipped to 1e-3
+    check_binaural(ism(centre, "binaural"), ism(centre, "binaural", order=0, lb=direct_lb), src,
+                   np.ones(len(src), bool), win, centre=MIC_CENTRE, label="shoebox binaural")
+
+    # The SELD CLI at its defaults; the engine timed per call inside it
+    calls = []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        irs = shoebox_rirs(*args, **kwargs)
+        b.record()
+        b.synchronize()
+        rows = args[2].shape[0] if kwargs["encoding"] == "omni" else 1
+        calls.append(dict(ms=a.elapsed_time(b), peak=torch.cuda.max_memory_allocated() - base,
+                          e=int(args[1].shape[0]), rows=rows,
+                          terms=ism_terms(rows, int(args[1].shape[0]), kwargs["n_samples"], kwargs["max_order"])))
+        return irs
+
+    t_scene = int(SCENE_SECONDS * SR)
+    shutil.rmtree(out, ignore_errors=True)
+    cli_s = {}
+    shoebox_backend.shoebox_rirs = timed
+    try:
+        for layout in ("mic", "foa"):
+            argv = ["--fg-dir", str(fg), "--output-dir", str(out / layout), "--channel-layout", layout, *SHOEBOX_FLAGS]
+            if seld.build_parser().parse_args(argv).backend != "shoebox":
+                fail("the SELD CLI's default backend is not the shoebox")
+            ck.reset_launch_counts()
+            n_calls = len(calls)
+            cli_s[layout] = seld.main(argv)
+            launched = {k: v for k, v in ck.launch_counts.items() if v}
+            for sec, call in zip(cli_s[layout], calls[n_calls:]):
+                b_ms = call["terms"] * FLOPS_ISM_TERM / PEAK_FP32 * 1e3
+                print(f"shoebox CLI {layout} scene: E = {call['e']} emitters x {call['rows']} listener rows, "
+                      f"C.E.K.F = {call['terms']} terms", flush=True)
+                print(f"shoebox CLI {layout} scene: {sec:.3f} s (host clock: placement, engine, render, writes); "
+                      f"shoebox_rirs {call['ms']:.3f} ms (CUDA events), peak device memory "
+                      f"{call['peak'] / 2**30:.3f} GiB, bound {b_ms:.3f} ms (operations: {FLOPS_ISM_TERM} per "
+                      f"term at {PEAK_FP32 / 1e12:.0f} TFLOP/s) on {card}", flush=True)
+            if len(cli_s[layout]) != 2 or len(calls) - n_calls != 2 or launched:
+                fail(f"the shoebox {layout} CLI rendered {len(cli_s[layout])} scenes with "
+                     f"{len(calls) - n_calls} engine calls and launched {launched}")
+            check_cli_outputs(out / layout, layout, t_scene)
+    finally:
+        shoebox_backend.shoebox_rirs = shoebox_rirs
+    sec = cli_s["mic"] + cli_s["foa"]
+    print(f"shoebox CLI scene time: median {np.median(sec):.3f} s (host clock) over {len(sec)} scenes on {card}")
+
+    # The engine's share of the device on one MIC scene, loaded from its JSON
+    mscene = Scene.from_json(sorted((out / "mic" / "metadata_dev").rglob("*.json"))[0], device=dev)
+    engine_ms = time_ms(mscene.state.get_irs, reps=1)
+    _, busy = profiled(mscene.state.get_irs, "shoebox engine profile")
+    print(f"shoebox engine on a MIC CLI scene ({mscene.state.num_emitters} emitters): {engine_ms:.3f} ms (CUDA events); "
+          f"device idle share {1 - busy / engine_ms:.1%} (profiler busy over CUDA-event time)", flush=True)
+
+    # One MonoCapsule scene through Scene.generate()
+    mono_dir = out / "mono"
+    mono_dir.mkdir(parents=True)
+    tutils.seed_everything(13)
+    scene = Scene(duration=SCENE_SECONDS, sample_rate=SR, backend="shoebox", fg_path=fg, max_overlap=2, device=dev,
+                  backend_kwargs=dict(dimensions=room.tolist(), max_order=ISM_ORDER, seed=13))
+    scene.add_microphone(microphone_type="monocapsule")
+    for event_type in ["static"] * N_STATIC + ["moving"]:
+        scene.add_event(event_type=event_type, max_place_attempts=100)
+    scene.add_ambience(noise="gaussian")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    scene.generate(output_dir=mono_dir)
+    mono_s = time.time() - t0
+    audio = scene.audio["mic000"]
+    names = sorted(p.name for p in mono_dir.iterdir())
+    header = _read_header(mono_dir / "audio_out_mic000.wav")
+    print(f"MonoCapsule shoebox scene: {len(scene.events)} events ({scene.state.num_emitters} emitters), "
+          f"Scene.generate() {mono_s:.3f} s (host clock); audio {audio.shape}, peak "
+          f"{float(np.abs(audio).max()):.4f}; WAV header {header[:4]}; wrote {names}", flush=True)
+    if (names != ["audio_out_mic000.wav", "metadata_out.json", "metadata_out_mic000.csv"]
+            or audio.shape != (1, t_scene) or float(np.abs(audio).max()) * 32768 < 100 or header[:4] != (1, 1, SR, 16)):
+        fail("the MonoCapsule shoebox scene's outputs are misshapen or silent")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1880,6 +2177,16 @@ def main() -> int:
                            src, free_c, win)
     print(f"rig scene time (CUDA events): HOA3 {rig_ms['hoa3']:.3f} ms, binaural {rig_ms['binaural']:.3f} ms on "
           f"{card}")
+
+    elapsed(t_start, "Eigenmike rigs")
+    # 12. The Eigenmike em32 and em64 rigs on the rlr main path (K3 at 32 and
+    # 64 capsules)
+    eigenmike_phase(st, scenes[0], t_scene, win)
+
+    elapsed(t_start, "shoebox backend")
+    # 13. The shoebox backend: the image-source engine, its direct paths, the
+    # SELD CLI at its defaults and one MonoCapsule scene
+    shoebox_phase(fg, OUT / "shoebox", win, dev)
 
     main_launches = dict(launches, deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"],
                          star_any_hit=exact_main["star_any_hit"], bin_histogram=rig_main["hoa3"]["bin_histogram"],

@@ -11,6 +11,14 @@ placement); its WAVs are 4-channel 24 kHz int16 and not silent. A second run
 skips the finished scenes, every unported flag raises, and the flags that
 take the plan path (`--pipeline compiled`, `--no-device-mix`,
 `--no-mesh-simplification`) write the same files.
+
+The CLI's default backend, the shoebox (no --backend; order 2, 0.1 s IRs,
+two 4 s scenes per format, the plan path), is held the same way: the
+reference's layout, CSVs byte-identical and JSONs equal to the reference
+script's `build_scene` for the same --seed, and 4-channel 24 kHz int16 WAVs
+with sound. Its plan path draws the host ambience bed from numpy's global
+stream before the next scene is placed, as the reference script's
+`generate` does, so the reference's scenes draw their beds too.
 """
 
 import importlib
@@ -129,7 +137,7 @@ def test_cli_resumes(run):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--backend", "shoebox"], ["--backend", "sofa"], ["--assets", "9A"], ["--augmentations", "reverse"],
+    ["--backend", "sofa"], ["--assets", "9A"], ["--augmentations", "reverse"],
     ["--placement-workers", "2"], ["--mesh-devices", "2"], ["--coordinator", "localhost:1"],
     ["--pipeline", "classic"],
 ], ids=lambda f: " ".join(f))
@@ -159,3 +167,57 @@ def test_cli_plan_path_flags(run, flags):
     for wav in out.rglob("*.wav"):
         data, sr = wav_read(wav)
         assert sr == 24000 and data.shape == (4, 4 * 24000) and np.abs(data).max() > 100 / 32768
+
+
+def _shoebox_argv(root: Path, layout: str, out: str) -> list:
+    return ["--fg-dir", str(root / "fg"), "--output-dir", str(root / out), "--channel-layout", layout,
+            "--n-scenes", "2", "--train-frac", "0.5", "--duration", "4", "--ism-order", "2", "--ir-seconds", "0.1",
+            "--max-events-static", "2", "--max-events-moving", "1", "--seed", str(SEED)]
+
+
+@pytest.fixture(scope="module", params=["mic", "foa"])
+def shoebox_run(request, assets):
+    layout = request.param
+    seconds = seld.main(_shoebox_argv(assets, layout, f"shoebox_{layout}") + ["--device", "cpu"])
+    return assets, layout, seconds
+
+
+def test_shoebox_cli_writes_the_reference_layout_and_wavs(shoebox_run):
+    root, layout, seconds = shoebox_run
+    out = root / f"shoebox_{layout}"
+    assert len(seconds) == 2
+    assert sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file()) == _names(layout)
+    for wav in out.rglob("*.wav"):
+        data, sr = wav_read(wav)
+        assert sr == 24000 and data.shape == (4, 4 * 24000)
+        with open(wav, "rb") as f:
+            assert f.read(36)[20:22] == b"\x01\x00"  # PCM format tag
+        assert np.abs(data).max() > 100 / 32768
+
+
+def test_shoebox_cli_metadata_matches_reference_script(shoebox_run):
+    """The reference script's build_scene for the same seed places the same
+    shoebox scenes (room sizes, then positions): the same CSV bytes and
+    JSON."""
+    root, layout, _ = shoebox_run
+    sys.path.insert(0, str(REPO / "scripts" / "seld"))
+    try:
+        gd = importlib.import_module("generate_dataset")
+    finally:
+        sys.path.remove(str(REPO / "scripts" / "seld"))
+    args = seld.build_parser().parse_args(_shoebox_argv(root, layout, f"ref_shoebox_{layout}"))
+    args.pipeline = "compiled"
+    jutils.seed_everything(SEED)
+    rng = np.random.default_rng(SEED)
+    for split, fold in (("train", 1), ("test", 2)):
+        scene, _, _ = gd.build_scene(args, split, 1, 0, rng)
+        for amb in scene.ambience.values():
+            amb.load_ambience()  # the render's host bed, drawn before the next scene is placed
+        assert scene.state.name == "SHOEBOX" and scene.state.max_order == 2
+        stem = root / f"shoebox_{layout}/metadata_dev/dev-{split}-alight/fold{fold}_scene1_000"
+        want = json.loads(json.dumps(scene.to_dict()))
+        got = json.loads(stem.with_suffix(".json").read_text())
+        want.pop("creation_time"), got.pop("creation_time")
+        assert got == want
+        csv = generate_dcase2024_metadata(scene)["mic000"].to_csv(sep=",", encoding="utf-8", header=None)
+        assert Path(f"{stem}_mic000.csv").read_text() == csv
