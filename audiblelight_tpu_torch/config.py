@@ -58,12 +58,13 @@ USE_CUDA_KERNELS = True
 
 # Meshes at or above this face count get an acoustic LOD for the multi-bend
 # diffraction graph legs (worldstate.mesh_backend.MeshDeviceState), and, with
-# USE_TILED_FIRST_HIT, a tile layout for K7 when the full mesh is traced.
+# USE_TILED_FIRST_HIT, a face tree for K7 when the full mesh is traced.
 GRID_ACCEL_MIN_FACES = 16384
 
-# Reachability-culled first hit (ops/tiled_first_hit.py, K7) when the full
-# mesh is traced: exact, but the reference measured it at par with its dense
-# kernel (each block's early exit waits for its worst, grazing ray).
+# Tiled first hit (ops/tiled_first_hit.py, K7) when the full mesh is traced:
+# the dense classic Moller-Trumbore first hit (on the card a per-ray walk of
+# the mesh's face tree, as K1's). Off by default as in the reference, which
+# measured its TPU form (a block x tile cull) at par with its dense kernel.
 USE_TILED_FIRST_HIT = False
 # Bilinear first hit (ops/mxu_first_hit.py, K8) on meshes of at most
 # MXU_F_MAX faces: its 2 % window slop lets a neighbouring face win near an

@@ -11,10 +11,11 @@ audiblelight_tpu/ops/star_occlusion.py:
 - `bin_histogram`       <- bin_histogram_pallas
 - `star_any_hit`        <- star_segments_occluded's kernel (the glue around
   it, the segments toward the common end, is ops/star_occlusion.py)
-- `first_hit_tiled`     <- tiled_first_hit's kernel (the glue, ray sort and
-  per-block tile order, is ops/tiled_first_hit.py)
-- `first_hit_mxu`       <- mxu_first_hit's kernel (the glue, ray vectors and
-  the exact plane re-evaluation, is ops/mxu_first_hit.py)
+- `first_hit_tiled`     <- tiled_first_hit's kernel (its face tree is
+  `tiled_face_bvh`)
+- `first_hit_mxu`       <- mxu_first_hit's kernel and its glue (the ray
+  vectors and the exact plane re-evaluation run inside the launch; the
+  tables and the face tree are built by ops/mxu_first_hit.py)
 - `first_hit_sorted`    <- sorted_first_hit's kernel (the glue, cone sort and
   per-block tile order, is ops/sorted_first_hit.py)
 - `first_hit_pair`      <- pair_first_hit's kernel (the glue, slab test,
@@ -163,13 +164,14 @@ def mt_face_table(tris: torch.Tensor) -> torch.Tensor:
     ).contiguous()
 
 
-# The face trees of K1 big (csrc/first_hit.cu) and of the any-hits K2 and K6
-# (csrc/any_hit_walk.cuh): leaves of BVH_LEAF_FACES consecutive
-# Morton-sorted faces, a complete binary tree over them. Each box is padded
-# by BVH_PAD metres plus BVH_PAD_REL of its coordinate's magnitude (~8 f32
-# ulps), so that a hit the pair arithmetic finds lies inside the boxes of
-# its face's leaf and of every ancestor (tests/test_torch_first_hit_accel.py
-# and tests/test_torch_any_hit_accel.py hold the margin).
+# The face trees of the first hits K1 big, K7 and K8 (csrc/first_hit_walk.cuh)
+# and of the any-hits K2 and K6 (csrc/any_hit_walk.cuh): leaves of
+# BVH_LEAF_FACES consecutive Morton-sorted faces, a complete binary tree over
+# them. Each box is padded by BVH_PAD metres plus BVH_PAD_REL of its
+# coordinate's magnitude (~8 f32 ulps), so that a hit the pair arithmetic
+# finds lies inside the boxes of its face's leaf and of every ancestor
+# (tests/test_torch_{first_hit_accel,tiled_first_hit,mxu_first_hit,
+# any_hit_accel}.py hold the margin for each kernel's arithmetic).
 BVH_LEAF_FACES = 4  # small leaves: a box test costs less than a leaf row's pair test
 BVH_MAX_DEPTH = 30  # kStack in csrc/face_tree.cuh: levels of internal nodes a walk can stack
 BVH_PAD = 1.0e-3
@@ -180,7 +182,8 @@ _SLAB_TINY = 1.0e-20  # a direction component under this in size counts as +-1e-
 @dataclass
 class FaceBVH:
     """A face tree, tensors on one device, in the frame its walk uses (K1
-    big's centred coordinates, the any-hits' world coordinates). Nodes are in
+    big's and K8's centred coordinates, K7's and the any-hits' world
+    coordinates). Nodes are in
     heap order: node 1 is the root, node i has the children 2i and 2i + 1,
     and leaf j is node n_leaves + j; node 0 and the leaves past the last face
     are empty (lo = +inf, hi = -inf)."""
@@ -203,11 +206,12 @@ def _morton_spread(v: torch.Tensor) -> torch.Tensor:
     return (v | (v << 2)) & 0x09249249
 
 
-def build_face_bvh(verts: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor) -> FaceBVH:
+def build_face_bvh(verts: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor, ids: torch.Tensor = None) -> FaceBVH:
     """The face tree over the faces `keep` (F,) bool of the triangles `verts`
     (F, 3, 3), in the frame the walk uses, gathering their `rows` (F, W) of
-    the kernel's face table; built with torch ops on the tensors' device, the
-    same bits on every device.
+    the kernel's face table; each row reports its index into `rows`, or its
+    entry of `ids` (F,) int32 where given. Built with torch ops on the
+    tensors' device, the same bits on every device.
 
     The kept faces are sorted by the 30-bit Morton code of their centroid
     (stable: ties keep the face order), cut into leaves of BVH_LEAF_FACES
@@ -231,7 +235,7 @@ def build_face_bvh(verts: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor) 
     leaf_rows = torch.zeros((cap, rows.shape[1]), dtype=torch.float32, device=dev)
     leaf_rows[:n] = rows[idx]
     face = torch.full((cap,), -1, dtype=torch.int32, device=dev)
-    face[:n] = idx.to(torch.int32)
+    face[:n] = (idx if ids is None else ids[idx]).to(torch.int32)
 
     v_lo = torch.full((cap, 3), math.inf, dtype=torch.float32, device=dev)
     v_hi = torch.full((cap, 3), -math.inf, dtype=torch.float32, device=dev)
@@ -355,12 +359,16 @@ def slab_entry_exit(o: torch.Tensor, inv: torch.Tensor, lo: torch.Tensor, hi: to
     return entry, exit_
 
 
-def _first_hit_walk_plain(o, d, bvh: FaceBVH):
-    """The face-tree walk of first_hit_big_kernel for every ray at once, in
-    the kernel's order (the nearer child first, the farther pushed with its
-    entry and skipped at its pop once the best t precedes it; a leaf's rows
-    folded by (t, original face)): (t, face, visits (R, 2) int32 = slab
-    tests, leaves folded), a miss as (inf, -1)."""
+def _first_hit_walk_plain(o, d, bvh: FaceBVH, pair):
+    """The face-tree walk of csrc/first_hit_walk.cuh for every ray at once,
+    in the kernels' order (the nearer child first, the farther pushed with
+    its entry and skipped at its pop once the best t precedes it; a leaf's
+    rows folded by (t, original face)): (t, face, visits (R, 2) int32 = slab
+    tests, leaves folded), a miss as (inf, -1). A ray with a non-finite
+    component is a miss without a walk. `pair(rays, rows, faces)` is the
+    kernel's leaf test of the rays `rays` (n,) (indices into `o`) against
+    their leaf's rows (n, leaf_faces, W) of original faces `faces` (n,
+    leaf_faces): (hit, t), each (n, leaf_faces)."""
     r, dev = o.shape[0], o.device
     n_leaves = bvh.n_leaves
     lo, hi = bvh.boxes[:, 0:3], bvh.boxes[:, 4:7]
@@ -368,7 +376,6 @@ def _first_hit_walk_plain(o, d, bvh: FaceBVH):
     o = torch.where(finite[:, None], o, 0.0)
     d = torch.where(finite[:, None], d, 1.0)
     inv = slab_inverse(d)
-    ray = _plucker(o, d)
     best_t = torch.full((r,), _BIG, dtype=torch.float32, device=dev)
     best_i = torch.full((r,), _IDX_BIG, dtype=torch.int32, device=dev)
     entry, exit_ = slab_entry_exit(o, inv, lo[1], hi[1])
@@ -393,8 +400,8 @@ def _first_hit_walk_plain(o, d, bvh: FaceBVH):
             break
         if leaf.numel():
             row = (node[leaf] - n_leaves)[:, None] * bvh.leaf_faces + lanes  # (n, leaf_faces)
-            hit, t = _bilinear_pair(tuple(x[leaf] for x in ray), bvh.rows[row].permute(2, 0, 1))
             f = bvh.face[row]
+            hit, t = pair(leaf, bvh.rows[row], f)
             ok = hit & (t < _BIG) & (f >= 0)
             t = torch.where(ok, t, _BIG)
             f = torch.where(ok, f, _IDX_BIG)
@@ -420,6 +427,16 @@ def _first_hit_walk_plain(o, d, bvh: FaceBVH):
             node[inner] = torch.where(both, torch.where(second, c0 + 1, c0),
                                       torch.where(v0, c0, torch.where(v1, c0 + 1, 0)))
     return (*_finish_first_hit(best_t, best_i), torch.stack([nodes, leaves], dim=1))
+
+
+def _bilinear_leaf(o, d):
+    """K1 big's leaf test (csrc/first_hit.cu:BilinearLeaf) for `_first_hit_walk_plain`."""
+    ray = _plucker(o, d)
+
+    def pair(rays, rows, faces):
+        return _bilinear_pair(tuple(x[rays] for x in ray), rows.permute(2, 0, 1))
+
+    return pair
 
 
 def _mt_pair(o, d, c):
@@ -481,33 +498,49 @@ def ray_first_hit_plain(origins, dirs, tris, table=None):
 
 def _launch_first_hit(variant, o, d, tab, bvh, visits=None):
     """One launch of the first-hit kernel of `variant` on card tensors."""
-    r, dev = o.shape[0], o.device
+    if variant != "small":
+        return _launch_walk("first_hit_big", 16, o, d, bvh, visits)
+    r, f, dev = o.shape[0], tab.shape[0], o.device
     _check("origins", o, (r, 3), torch.float32, dev)
     _check("dirs", d, (r, 3), torch.float32, dev)
+    _check("face table", tab, (f, 9), torch.float32, dev)
     t = o.new_empty(r)
     idx = o.new_empty(r, dtype=torch.int32)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    if variant == "small":
-        f = tab.shape[0]
-        _check("face table", tab, (f, 9), torch.float32, dev)
-        fn = _lib("first_hit", "first_hit_small", [vp, vp, vp, ci, ci, vp, vp, vp])
-        launch_counts["first_hit_small"] += 1
-        _raise_on(fn(_ptr(o), _ptr(d), _ptr(tab), r, f, _ptr(t), _ptr(idx), _stream(o)), "first_hit_small")
-        return t, idx
+    fn = _lib("first_hit", "first_hit_small", [vp, vp, vp, ci, ci, vp, vp, vp])
+    launch_counts["first_hit_small"] += 1
+    _raise_on(fn(_ptr(o), _ptr(d), _ptr(tab), r, f, _ptr(t), _ptr(idx), _stream(o)), "first_hit_small")
+    return t, idx
+
+
+_WALK_SOURCES = {"first_hit_big": "first_hit", "first_hit_tiled": "tiled_first_hit", "first_hit_mxu": "mxu_first_hit"}
+
+
+def _launch_walk(name: str, row_width: int, o, d, bvh: FaceBVH, visits, *head) -> tuple:
+    """One launch of the first-hit walk kernel `name` (K1 big, K7 or K8,
+    csrc/first_hit_walk.cuh) on card tensors, the tree's rows `row_width`
+    floats wide: its C entry point takes the rays, `head` (pointers), then the
+    tree, the counts and the outputs."""
+    r, dev = o.shape[0], o.device
     n_leaves = bvh.n_leaves
     if n_leaves.bit_length() - 1 > BVH_MAX_DEPTH:
-        raise ValueError(f"first_hit_big: a tree of {n_leaves} leaves is deeper than {BVH_MAX_DEPTH} levels")
-    _check("tree rows", bvh.rows, (n_leaves * bvh.leaf_faces, 16), torch.float32, dev)
+        raise ValueError(f"{name}: a tree of {n_leaves} leaves is deeper than {BVH_MAX_DEPTH} levels")
+    _check("origins", o, (r, 3), torch.float32, dev)
+    _check("dirs", d, (r, 3), torch.float32, dev)
+    _check("tree rows", bvh.rows, (n_leaves * bvh.leaf_faces, row_width), torch.float32, dev)
     _check("tree faces", bvh.face, (n_leaves * bvh.leaf_faces,), torch.int32, dev)
     _check("tree boxes", bvh.boxes, (2 * n_leaves, 8), torch.float32, dev)
     if visits is not None:
         _check("visits", visits, (r, 2), torch.int32, dev)
-    fn = _lib("first_hit", "first_hit_big", [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp])
-    launch_counts["first_hit_big"] += 1
-    err = fn(_ptr(o), _ptr(d), _ptr(bvh.rows), _ptr(bvh.face), _ptr(bvh.boxes), r, n_leaves, bvh.leaf_faces,
-             _ptr(t), _ptr(idx),
-             ctypes.c_void_p(0 if visits is None else visits.data_ptr()), _stream(o))
-    _raise_on(err, "first_hit_big")
+    t = o.new_empty(r)
+    idx = o.new_empty(r, dtype=torch.int32)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _lib(_WALK_SOURCES[name], name, [vp] * (2 + len(head)) + [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp])
+    launch_counts[name] += 1
+    err = fn(_ptr(o), _ptr(d), *head, _ptr(bvh.rows), _ptr(bvh.face), _ptr(bvh.boxes), r, n_leaves,
+             bvh.leaf_faces, _ptr(t), _ptr(idx), ctypes.c_void_p(0 if visits is None else visits.data_ptr()),
+             _stream(o))
+    _raise_on(err, name)
     return t, idx
 
 
@@ -538,7 +571,8 @@ def _walk_inputs(origins, dirs, table):
 def first_hit_walk_plain(origins, dirs, table):
     """Plain PyTorch version of `first_hit_walk` (any device): the kernel's
     tree walk, every ray's steps in its order."""
-    return _first_hit_walk_plain(*_walk_inputs(origins, dirs, table))
+    o, d, bvh = _walk_inputs(origins, dirs, table)
+    return _first_hit_walk_plain(o, d, bvh, _bilinear_leaf(o, d))
 
 
 def first_hit_walk(origins, dirs, table):
@@ -549,7 +583,7 @@ def first_hit_walk(origins, dirs, table):
     plain walk on the CPU."""
     o, d, bvh = _walk_inputs(origins, dirs, table)
     if not _on_card(o):
-        return _first_hit_walk_plain(o, d, bvh)
+        return _first_hit_walk_plain(o, d, bvh, _bilinear_leaf(o, d))
     visits = torch.empty((o.shape[0], 2), dtype=torch.int32, device=o.device)
     t, idx = _launch_first_hit("big", o, d, None, bvh, visits)
     return t, idx, visits
@@ -1077,13 +1111,10 @@ def star_any_hit(o, d, length, tree: AnyHitTree, visits=None):
 
 
 # ---------------------------------------------------------------------------
-# K7: tiled first hit (reachability-culled, distance-ordered, early exit)
+# K7: the tiled first hit, as a per-ray walk of the mesh's face tree
 # ---------------------------------------------------------------------------
 
-TILED_BLOCK = 512  # sorted rays per block (kBlock in csrc/tiled_first_hit.cu)
-TILED_TILE_FACES = 256  # Morton-sorted faces per tile (kTileFaces)
-DONE_CHECK_EVERY = 4  # tiles between early-exit tests (kDoneCheckEvery)
-_IDX_BIG = 2**30
+MT_ROW = ANY_HIT_ROW  # floats per K7 tree row: [a, e1, e2, 0, 0, 0], three float4s
 
 
 def _lex_min(best_t, best_i, t, i):
@@ -1092,126 +1123,69 @@ def _lex_min(best_t, best_i, t, i):
     return torch.where(better, t, best_t), torch.where(better, i, best_i)
 
 
-def _tiled_reachable(bmeta, tile_aabb, tl):
-    """(n_blocks,) bool: is tile tl[b] reachable from block b? The kernel's
-    per-axis half-space test on the block's origin box and direction signs."""
-    om, o_max, dm, d_max = bmeta[0:3].T, bmeta[3:6].T, bmeta[6:9].T, bmeta[9:12].T
-    lo, hi = tile_aabb[0:3].T[tl], tile_aabb[3:6].T[tl]
-    behind = ((dm >= 0.0) & (hi < om)) | ((d_max <= 0.0) & (lo > o_max))
-    return ~behind.any(dim=1)
+def tiled_face_bvh(tris: torch.Tensor) -> FaceBVH:
+    """K7's face tree (csrc/tiled_first_hit.cu) over the faces of `tris`
+    (F, 3, 3) that can hit, in world coordinates: finite (every coordinate
+    under 1e8 in size, so the 1e9 sentinels stay out) and of nonzero area,
+    the faces of the reference's tile layout. Each row is the face's classic
+    Moller-Trumbore row [a, e1, e2] (`mt_face_table`) padded to MT_ROW
+    floats, reporting its index into `tris`. Built with torch ops on the
+    mesh's device, once per mesh."""
+    tris32 = tris.to(torch.float32)
+    rows = mt_face_table(tris32)
+    keep = (tris32.abs() < 1.0e8).all(dim=2).all(dim=1) & (cross3(rows[:, 3:6], rows[:, 6:9]) != 0).any(dim=1)
+    return build_face_bvh(tris32, torch.nn.functional.pad(rows, (0, MT_ROW - 9)), keep)
 
 
-def tiled_walk_plain(o, d, bmeta, perm, dlo, face_tab, tile_aabb):
-    """The kernel's walk in plain PyTorch (any device), vectorised over
-    blocks: (best t (R_pad,) with 3e38 on a miss, original face (R_pad,)
-    with -1 on a miss, tiles tested per block (n_blocks,) int64).
+def _mt_leaf(o, d):
+    """K7's leaf test (csrc/tiled_first_hit.cu:MtLeaf) for `_first_hit_walk_plain`."""
+    comps = [o[:, k : k + 1] for k in range(3)] + [d[:, k : k + 1] for k in range(3)]
 
-    Step i takes each block's tile perm[:, i] where it is reachable and the
-    block is not done; every DONE_CHECK_EVERY steps a block whose worst best
-    t is not above the next tile's bound is done. Each kept pair goes through
-    `_mt_pair_xyz`, and each ray keeps the smallest (t, original index)."""
-    r_pad, n_tiles = o.shape[0], tile_aabb.shape[1]
-    nb = r_pad // TILED_BLOCK
-    dev = o.device
-    ob = o.reshape(nb, TILED_BLOCK, 1, 3)
-    db = d.reshape(nb, TILED_BLOCK, 1, 3)
-    faces = face_tab.reshape(n_tiles, TILED_TILE_FACES, 10)
-    best_t = torch.full((nb, TILED_BLOCK), _BIG, dtype=torch.float32, device=dev)
-    best_i = torch.full((nb, TILED_BLOCK), _IDX_BIG, dtype=torch.int32, device=dev)
-    done = torch.zeros(nb, dtype=torch.bool, device=dev)
-    visited = torch.zeros(nb, dtype=torch.int64, device=dev)
-    per_chunk = max(1, _CHUNK_ELEMS // (TILED_BLOCK * TILED_TILE_FACES))
-    perm = perm.long()
-    for i in range(n_tiles):
-        tl = perm[:, i]
-        blocks = torch.nonzero(~done & _tiled_reachable(bmeta, tile_aabb, tl)).flatten()
-        for b0 in range(0, blocks.numel(), per_chunk):
-            b = blocks[b0 : b0 + per_chunk]
-            c = faces[tl[b]].permute(2, 0, 1)[:, :, None, :]  # (10, A, 1, 256)
-            ox, oy, oz = ob[b].unbind(-1)
-            dx, dy, dz = db[b].unbind(-1)
-            in_tri, t = _mt_pair_xyz(ox, oy, oz, dx, dy, dz, c)
-            hit = in_tri & (t > _EPS) & (c[9] >= 0.0)
-            t_hit = torch.where(hit, t, _BIG)
-            f_hit = torch.where(hit, c[9].to(torch.int32), _IDX_BIG)
-            t_min = t_hit.amin(dim=2)
-            i_min = torch.where(t_hit == t_min[..., None], f_hit, _IDX_BIG).amin(dim=2)
-            best_t[b], best_i[b] = _lex_min(best_t[b], best_i[b], t_min, i_min)
-        visited[blocks] += 1
-        if i % DONE_CHECK_EVERY == DONE_CHECK_EVERY - 1:
-            worst = best_t.amax(dim=1)
-            nxt = dlo[:, min(i + 1, n_tiles - 1)]
-            done |= (worst < _BIG) & ((worst <= nxt) | (i + 1 >= n_tiles))
-            if bool(done.all()):
-                break
-    best_t, best_i = best_t.reshape(-1), best_i.reshape(-1)
-    return best_t, torch.where(best_t >= _BIG, -1, best_i), visited
+    def pair(rays, rows, faces):
+        in_tri, t = _mt_pair_xyz(*(x[rays] for x in comps), rows.permute(2, 0, 1))
+        return in_tri & (t > _EPS), t
+
+    return pair
 
 
-def first_hit_tiled_plain(o, d, bmeta, perm, dlo, face_tab, tile_aabb):
-    """Plain PyTorch version of `first_hit_tiled` (any device)."""
-    t, idx, _ = tiled_walk_plain(o, d, bmeta, perm, dlo, face_tab, tile_aabb)
-    return t, idx
+def tiled_walk_plain(o, d, bvh: FaceBVH):
+    """Plain PyTorch version of `first_hit_tiled` (any device): the kernel's
+    walk, every ray's steps in its order: (t, original face, visits (R, 2)
+    int32 = slab tests, leaves folded)."""
+    return _first_hit_walk_plain(o, d, bvh, _mt_leaf(o, d))
 
 
-def first_hit_tiled(o, d, bmeta, perm, dlo, face_tab, tile_aabb):
-    """First hit of sorted rays against Morton-tiled faces.
-
-    Arguments:
-        o, d: (R_pad, 3) origins and directions, sorted (octant, origin
-            cell); R_pad is a multiple of TILED_BLOCK.
-        bmeta: (12, n_blocks) per block of TILED_BLOCK rays: least and most
-            origin, least and most direction, per axis.
-        perm: (n_blocks, n_tiles) int32 each block's tiles in ascending
-            order of `dlo` (n_blocks, n_tiles), the distance lower bounds.
-        face_tab: (n_tiles * TILED_TILE_FACES, 10) rows [a, e1, e2, original
-            index] (index -1 on padding); tile_aabb: (6, n_tiles).
-
-    Returns (t (R_pad,), original face (R_pad,) int32): t = 3e38 and face =
-    -1 on a miss. On equal t the smallest original index wins, so the result
-    is the dense classic Moller-Trumbore first hit over the original faces
-    (`ray_first_hit` with `dense_mt_table`) wherever the early exit's bound
-    is not met with equality.
-    """
+def first_hit_tiled(o, d, bvh: FaceBVH, visits=None):
+    """First hit (t (R,), original face (R,) int32) of the rays `o`, `d`
+    (R, 3) float32 against the faces of K7's tree `bvh` (`tiled_face_bvh`):
+    the dense classic Moller-Trumbore first hit over the mesh
+    (`ray_first_hit_plain` with `dense_mt_table`), t = +inf and face = -1 on
+    a miss, the smallest original index on a tie. One launch of the K7
+    kernel on a CUDA device (with `visits` (R, 2) int32 it writes each ray's
+    slab tests and leaves folded there), its plain walk on the CPU."""
     if not _on_card(o):
-        return first_hit_tiled_plain(o, d, bmeta, perm, dlo, face_tab, tile_aabb)
-    r_pad, dev = o.shape[0], o.device
-    n_tiles = tile_aabb.shape[1]
-    nb = r_pad // TILED_BLOCK
-    if r_pad % TILED_BLOCK or n_tiles == 0:
-        raise ValueError(f"first_hit_tiled: {r_pad} rays are not whole blocks of {TILED_BLOCK}, or no tiles")
-    _check("origins", o, (r_pad, 3), torch.float32, dev)
-    _check("dirs", d, (r_pad, 3), torch.float32, dev)
-    _check("block boxes", bmeta, (12, nb), torch.float32, dev)
-    _check("tile order", perm, (nb, n_tiles), torch.int32, dev)
-    _check("tile bounds", dlo, (nb, n_tiles), torch.float32, dev)
-    _check("face table", face_tab, (n_tiles * TILED_TILE_FACES, 10), torch.float32, dev)
-    _check("tile boxes", tile_aabb, (6, n_tiles), torch.float32, dev)
-    t = torch.empty(r_pad, dtype=torch.float32, device=dev)
-    idx = torch.empty(r_pad, dtype=torch.int32, device=dev)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _lib("tiled_first_hit", "first_hit_tiled", [vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, vp, vp])
-    launch_counts["first_hit_tiled"] += 1
-    err = fn(_ptr(o), _ptr(d), _ptr(bmeta), _ptr(perm), _ptr(dlo), _ptr(face_tab), _ptr(tile_aabb),
-             r_pad, n_tiles, _ptr(t), _ptr(idx), _stream(o))
-    _raise_on(err, "first_hit_tiled")
-    return t, idx
+        return tiled_walk_plain(o, d, bvh)[:2]
+    return _launch_walk("first_hit_tiled", MT_ROW, o, d, bvh, visits)
 
 
 def dense_mt_table(tris: torch.Tensor) -> tuple:
     """A `first_hit_table` that runs the classic Moller-Trumbore variant at
-    any face count: the dense first hit with the tiled kernel's arithmetic."""
+    any face count: the dense first hit with the tiled kernel's arithmetic
+    (through `ray_first_hit_plain`, K7's exactness reference)."""
     return "small", None, mt_face_table(tris), None
 
 
 # ---------------------------------------------------------------------------
-# K8: bilinear ("MXU") first hit with a launch-face mask
+# K8: the bilinear ("MXU") first hit with a launch-face mask, as a per-ray
+# walk of the LOD's face tree
 # ---------------------------------------------------------------------------
 
-MXU_PACKED_COLS = 19  # u [e2, w2], v [-e1, -w1], a [-n], t [n, -k] (kCols)
+MXU_PACKED_COLS = 19  # u [e2, w2], v [-e1, -w1], a [-n], t [n, -k]
+MXU_ROW = 20  # floats per K8 tree row: the packed columns and a zero, five float4s (kRowVecs)
 MXU_EPS_UV = 0.02  # relative barycentric slop
 MXU_T_EPS = 1.0e-4  # least hit distance (m)
 _MXU_DET_EPS = 1.0e-6
+_MXU_DENOM_EPS = 1.0e-9  # the exact plane re-evaluation's least |d . n|
 
 
 def _dot_left(r, c, cols):
@@ -1222,8 +1196,32 @@ def _dot_left(r, c, cols):
     return acc
 
 
+def _mxu_window(rv, c, lane, skip):
+    """K8's pair test (csrc/mxu_first_hit.cu:WindowLeaf, term for term) of
+    ray vectors `rv` (9 components) against face rows c = (>= 19, ...) of
+    faces `lane`, that broadcast against them, each ray's face `skip` masked:
+    (hit, t)."""
+    u_num = _dot_left(rv[0:6], c, range(0, 6))
+    v_num = _dot_left(rv[0:6], c, range(6, 12))
+    det = _dot_left(rv[3:6], c, range(12, 15))
+    t_num = _dot_left(rv[6:9], c, range(15, 18)) + c[18]
+    valid = det.abs() > _MXU_DET_EPS
+    inv = 1.0 / torch.where(valid, det, torch.ones_like(det))
+    u = u_num * inv
+    v = v_num * inv
+    t = t_num * inv
+    hit = (valid & (u >= -MXU_EPS_UV) & (u <= 1.0 + MXU_EPS_UV) & (v >= -MXU_EPS_UV)
+           & (u + v <= 1.0 + MXU_EPS_UV) & (t > MXU_T_EPS) & (lane != skip))
+    return hit, t
+
+
 def first_hit_mxu_plain(rvec, prev, packed):
-    """Plain PyTorch version of `first_hit_mxu` (any device)."""
+    """The dense K8 selection over every face of `packed` (F, 19), in
+    ascending face order (any device): (t (R,), face (R,) int32), t = 3e38
+    and face = -1 on a miss, the smallest face index on a tie. `rvec` (R, 9)
+    the ray vectors [o' x d, d, o'], `prev` (R,) int32 each ray's launch face
+    (-1 for none). The exactness reference of K8, with the exact plane
+    re-evaluation of ops/mxu_first_hit.py."""
     r, f = rvec.shape[0], packed.shape[0]
     rv = [rvec[:, k : k + 1] for k in range(9)]
     skip = prev[:, None]
@@ -1232,50 +1230,103 @@ def first_hit_mxu_plain(rvec, prev, packed):
     step = _face_chunk(r, f)
     for f0 in range(0, f, step):
         c = packed[f0 : f0 + step].T[:, None, :]  # (19, 1, Fc)
-        u_num = _dot_left(rv[0:6], c, range(0, 6))
-        v_num = _dot_left(rv[0:6], c, range(6, 12))
-        det = _dot_left(rv[3:6], c, range(12, 15))
-        t_num = _dot_left(rv[6:9], c, range(15, 18)) + c[18]
-        valid = det.abs() > _MXU_DET_EPS
-        inv = 1.0 / torch.where(valid, det, torch.ones_like(det))
-        u = u_num * inv
-        v = v_num * inv
-        t = t_num * inv
         lane = torch.arange(f0, f0 + c.shape[2], device=rvec.device, dtype=torch.int32)
-        hit = (valid & (u >= -MXU_EPS_UV) & (u <= 1.0 + MXU_EPS_UV) & (v >= -MXU_EPS_UV)
-               & (u + v <= 1.0 + MXU_EPS_UV) & (t > MXU_T_EPS) & (lane[None, :] != skip))
+        hit, t = _mxu_window(rv, c, lane[None, :], skip)
         best_t, best_i = _fold_min(best_t, best_i, torch.where(hit, t, _BIG), f0)
     return best_t, torch.where(best_t >= _BIG, -1, best_i)
 
 
-def first_hit_mxu(rvec, prev, packed):
-    """Bilinear first hit of rays against an acoustic LOD.
+def mxu_face_bvh(tris: torch.Tensor, center: torch.Tensor, packed: torch.Tensor) -> FaceBVH:
+    """K8's face tree (csrc/mxu_first_hit.cu) over the packed rows `packed`
+    (F, 19) of `tris` (F, 3, 3), in the frame centred on `center`: each row
+    padded to MXU_ROW floats, each leaf's box that of its faces' triangles
+    widened by the window's slop (A + s e1 + t e2 at (-eps, -eps), (1 + 2
+    eps, -eps), (-eps, 1 + 2 eps), eps = MXU_EPS_UV: the region the window
+    accepts), padded as every face tree. Faces whose row can never pass the
+    window are left out: a zero normal (|det| is 0) or a non-finite entry.
+    Built with torch ops on the tables' device, once per mesh."""
+    tris32 = tris.to(torch.float32)
+    a = tris32[:, 0] - center
+    e1, e2 = tris32[:, 1] - tris32[:, 0], tris32[:, 2] - tris32[:, 0]
+    eps = MXU_EPS_UV
+    widened = torch.stack([a + s * e1 + t * e2 for s, t in ((-eps, -eps), (1 + 2 * eps, -eps), (-eps, 1 + 2 * eps))],
+                          dim=1)
+    keep = (packed[:, 15:18] != 0).any(dim=1) & torch.isfinite(packed).all(dim=1)
+    return build_face_bvh(widened, torch.nn.functional.pad(packed, (0, MXU_ROW - MXU_PACKED_COLS)), keep)
+
+
+def mxu_ray_vectors(o_c, d):
+    """The ray vectors [o' x d, d, o'] (R, 9) of centred origins `o_c`."""
+    return torch.cat([cross3(o_c, d), d, o_c], dim=1)
+
+
+def _mxu_leaf(o_c, d, prev):
+    """K8's leaf test for `_first_hit_walk_plain`."""
+    rvec = mxu_ray_vectors(o_c, d)
+    rv = [rvec[:, k : k + 1] for k in range(9)]
+    skip = (torch.full_like(rvec[:, 0], -1, dtype=torch.int32) if prev is None else prev)[:, None]
+
+    def pair(rays, rows, faces):
+        return _mxu_window([x[rays] for x in rv], rows.permute(2, 0, 1), faces, skip[rays])
+
+    return pair
+
+
+def _mxu_exact(o_c, d, t_sel, face, bvh: FaceBVH):
+    """The exact f32 plane of each ray's selected face (the reference's
+    :271-284, as csrc/mxu_first_hit.cu writes it): t = (k - o'.n) / (d.n)
+    where |d.n| > 1e-9 and that t is positive, else the selected t; (inf, -1)
+    on a miss. n and -k are columns 15-17 and 18 of the face's tree row."""
+    real = torch.nonzero(bvh.face >= 0).squeeze(1)
+    pos = torch.zeros(max(int(bvh.face.max()) + 1, 1), dtype=torch.int64, device=face.device)
+    pos[bvh.face[real].long()] = real
+    row = bvh.rows[pos[face.clamp_min(0).long()]]
+    n_g, k = row[:, 15:18], -row[:, 18]
+    denom = dot3(d, n_g)
+    numer = k - dot3(o_c, n_g)
+    t_exact = torch.where(denom.abs() > _MXU_DENOM_EPS, numer / denom, t_sel)
+    t_exact = torch.where(t_exact > 0.0, t_exact, t_sel)
+    hit = face >= 0
+    return torch.where(hit, t_exact, math.inf), torch.where(hit, face, -1)
+
+
+def mxu_walk_plain(o, d, prev, center, bvh: FaceBVH):
+    """Plain PyTorch version of `first_hit_mxu` (any device): the centring,
+    the kernel's walk (every ray's steps in its order) and the plane
+    re-evaluation: (t, face, visits (R, 2) int32 = slab tests, leaves
+    folded)."""
+    o_c = o - center
+    t_sel, face, visits = _first_hit_walk_plain(o_c, d, bvh, _mxu_leaf(o_c, d, prev))
+    return (*_mxu_exact(o_c, d, t_sel, face, bvh), visits)
+
+
+def first_hit_mxu(o, d, prev, center, bvh: FaceBVH, visits=None):
+    """Bilinear first hit of rays against an acoustic LOD, the launch face
+    masked, with the winner's plane re-evaluated exactly.
 
     Arguments:
-        rvec: (R, 9) ray vectors [o' x d, d, o'], o' the origin less the
-            tables' centre.
+        o, d: (R, 3) float32 origins (world coordinates) and directions.
         prev: (R,) int32 the face each ray may not hit (its launch face), -1
-            for none.
-        packed: (F, MXU_PACKED_COLS) per-face entries [e2, w2, -e1, -w1, -n,
-            n, -k] (ops/mxu_first_hit.py builds them).
+            for none; or None.
+        center: (3,) the tables' centre; bvh: K8's face tree (`mxu_face_bvh`).
 
-    Returns (t (R,), face (R,) int32): t = 3e38 and face = -1 on a miss; the
+    Returns (t (R,), face (R,) int32): t = +inf and face = -1 on a miss; the
     window has the 2 % slop MXU_EPS_UV, t > 1e-4, |det| > 1e-6; on equal t
-    the smallest face index wins.
+    the smallest face index wins; t is the exact f32 plane intersection of
+    the selected face. Equals the dense selection (`first_hit_mxu_plain`)
+    with its re-evaluation bit for bit. One launch of the K8 kernel on a
+    CUDA device, the centring, the ray vector and the re-evaluation inside
+    it (with `visits` (R, 2) int32 it writes each ray's slab tests and leaves
+    folded there); its plain walk on the CPU.
     """
-    if not _on_card(rvec):
-        return first_hit_mxu_plain(rvec, prev, packed)
-    r, f, dev = rvec.shape[0], packed.shape[0], rvec.device
-    _check("ray vectors", rvec, (r, 9), torch.float32, dev)
-    _check("launch faces", prev, (r,), torch.int32, dev)
-    _check("face table", packed, (f, MXU_PACKED_COLS), torch.float32, dev)
-    t = torch.empty(r, dtype=torch.float32, device=dev)
-    idx = torch.empty(r, dtype=torch.int32, device=dev)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _lib("mxu_first_hit", "first_hit_mxu", [vp, vp, vp, ci, ci, vp, vp, vp])
-    launch_counts["first_hit_mxu"] += 1
-    _raise_on(fn(_ptr(rvec), _ptr(prev), _ptr(packed), r, f, _ptr(t), _ptr(idx), _stream(rvec)), "first_hit_mxu")
-    return t, idx
+    if not _on_card(o):
+        return mxu_walk_plain(o, d, prev, center, bvh)[:2]
+    r, dev = o.shape[0], o.device
+    if prev is not None:
+        _check("launch faces", prev, (r,), torch.int32, dev)
+    _check("centre", center, (3,), torch.float32, dev)
+    return _launch_walk("first_hit_mxu", MXU_ROW, o, d, bvh, visits,
+                        ctypes.c_void_p(0 if prev is None else prev.data_ptr()), _ptr(center))
 
 
 # ---------------------------------------------------------------------------

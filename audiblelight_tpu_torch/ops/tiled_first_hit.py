@@ -1,24 +1,28 @@
-"""Reachability-culled first hit of a bounce wavefront (kernel K7).
+"""First hit of a bounce wavefront on the full mesh in classic
+Moller-Trumbore arithmetic (kernel K7).
 
 Counterpart of audiblelight_tpu/ops/tiled_first_hit.py. The tracer's bounce
 loop asks for the first hit of rays whose origins sit on the mesh and whose
-directions leave it. This route keeps the dense classic Moller-Trumbore
-arithmetic but skips whole (ray block, face tile) pairs:
+directions leave it. The reference keeps the dense classic Moller-Trumbore
+arithmetic and skips whole (ray block, face tile) pairs on the TPU; the port
+keeps its contract (the dense first hit over the same faces, bit for bit)
+and culls per ray:
 
-- `build_mesh_tiles`: the host build, a numpy copy of the reference's, so
-  the tables equal the reference's bit for bit: the finite, non-degenerate
-  faces sorted by centroid Morton code into tiles of TILE_FACES rows [a, e1,
-  e2, original index], one tight AABB per tile.
-- `tiled_first_hit`: the glue around the kernel (the octant-major,
-  origin-cell-minor ray sort, one packed gather, padding to whole blocks,
-  the block boxes `bmeta`, each block's tiles in ascending order of a
-  distance lower bound, the launch, the un-sort). A block skips a tile that
-  lies behind all its rays on a signed axis and stops once every ray's best
-  hit precedes the next tile's bound; the smallest original index wins a
-  tie, so the result is the dense first hit on the same faces
-  (`cuda_kernels.dense_mt_table`).
-- `tiled_walk`: the same glue around the kernel's plain version, which walks
-  the same tiles in the same order, and the tiles it tested per block.
+- `build_tiled_tree`: the face tree the kernel walks, built once per mesh
+  with torch ops on its device (`cuda_kernels.tiled_face_bvh`): the finite,
+  non-degenerate faces' rows [a, e1, e2] in world coordinates.
+- `tiled_first_hit`: one launch of the K7 kernel, each ray walking the tree
+  (the walk of K1 big, csrc/first_hit_walk.cuh) with the classic
+  Moller-Trumbore test at its leaves; no ray sort, no tile sort, no host
+  read. The smallest original index wins a tie, so the result is the dense
+  first hit over the mesh (`cuda_kernels.ray_first_hit_plain` with
+  `cuda_kernels.dense_mt_table`).
+- `tiled_walk`: the kernel's plain walk, with each ray's box tests and
+  leaves.
+- `build_mesh_tiles`: the reference's tile layout (the same faces sorted by
+  centroid Morton code into tiles of TILE_FACES rows [a, e1, e2, original
+  index], one tight AABB per tile), a numpy copy of its build whose tables
+  equal the reference's bit for bit. The kernel reads none of it.
 
 The reference runs this route only on a TPU and records it at par with its
 dense kernel there (audiblelight_tpu/ops/tiled_first_hit.py:27-34); the port
@@ -32,21 +36,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from audiblelight_tpu_torch.ops.cuda_kernels import (
-    TILED_BLOCK,
-    TILED_TILE_FACES,
-    first_hit_tiled,
-    tiled_walk_plain,
-)
-from audiblelight_tpu_torch.utils import norm3, resolve_device
+from audiblelight_tpu_torch.ops.cuda_kernels import FaceBVH, first_hit_tiled, tiled_face_bvh, tiled_walk_plain
+from audiblelight_tpu_torch.utils import resolve_device
 
-_BIG = 3.0e38
-TILE_FACES = TILED_TILE_FACES
+TILE_FACES = 256  # Morton-sorted faces per tile of the reference's layout
 
 
 @dataclass
 class MeshTiles:
-    """Morton-tiled face layout and per-tile AABBs, tensors on one device."""
+    """The reference's Morton-tiled face layout and per-tile AABBs, tensors on one device."""
 
     face_tab: torch.Tensor  # (n_tiles * TILE_FACES, 10): [a, e1, e2, orig_idx]
     tile_aabb: torch.Tensor  # (6, n_tiles): xmin ymin zmin xmax ymax zmax
@@ -112,76 +110,30 @@ def build_mesh_tiles(tris: np.ndarray, device=None) -> MeshTiles | None:
                      n_tiles=n_tiles, n_faces=int(tris.shape[0]))
 
 
-def tiled_inputs(tiles: MeshTiles, origins: torch.Tensor, dirs: torch.Tensor) -> tuple:
-    """(order, o, d, bmeta, perm, dlo) of the kernel for R rays, as the
-    reference's glue forms them (tiled_first_hit.py:304-357).
-
-    Rays sort by direction-sign octant (the high bits: per-block sign
-    coherence turns the per-axis constraints on), then by a 16 x 16 x 8 cell
-    of the wavefront's own origin box. Padding repeats the last sorted row.
-    Each block's tiles sort by the gap between its origin box and the tile's
-    box, the distance lower bound `dlo`."""
-    r = origins.shape[0]
-    lo = origins.amin(dim=0)
-    span = torch.clamp_min(origins.amax(dim=0) - lo, 1e-6)
-    # Made on the device: a copy from the host would synchronise the stream
-    scale = torch.full((3,), 15.999, dtype=torch.float32, device=origins.device)
-    scale[2] = 7.999
-    cell = ((origins - lo) / span * scale).to(torch.int32)
-    octant = ((dirs[:, 0] >= 0).to(torch.int32) + 2 * (dirs[:, 1] >= 0).to(torch.int32)
-              + 4 * (dirs[:, 2] >= 0).to(torch.int32))
-    key = octant * 2048 + ((cell[:, 0] * 16 + cell[:, 1]) * 8 + cell[:, 2])
-    order = torch.argsort(key, stable=True)
-
-    packed = torch.cat([origins, dirs], dim=1)[order]  # one row gather
-    r_pad = max(TILED_BLOCK, -(-r // TILED_BLOCK) * TILED_BLOCK)
-    packed = torch.cat([packed, packed[-1:].expand(r_pad - r, 6)], dim=0)
-    o, d = packed[:, 0:3].contiguous(), packed[:, 3:6].contiguous()
-
-    ob = o.reshape(-1, TILED_BLOCK, 3)
-    db = d.reshape(-1, TILED_BLOCK, 3)
-    omin, omax = ob.amin(dim=1), ob.amax(dim=1)
-    bmeta = torch.cat([omin, omax, db.amin(dim=1), db.amax(dim=1)], dim=1).T.contiguous()
-
-    t_lo = tiles.tile_aabb[0:3].T  # (n_tiles, 3)
-    t_hi = tiles.tile_aabb[3:6].T
-    gap = torch.clamp_min(torch.maximum(t_lo[None] - omax[:, None], omin[:, None] - t_hi[None]), 0.0)
-    dlo = norm3(gap)  # (n_blocks, n_tiles)
-    perm = torch.argsort(dlo, dim=1, stable=True)
-    dlo_sorted = torch.take_along_dim(dlo, perm, dim=1).contiguous()
-    return order, o, d, bmeta, perm.to(torch.int32).contiguous(), dlo_sorted
+def build_tiled_tree(tris, device=None) -> FaceBVH | None:
+    """K7's face tree of `tris` (F, 3, 3), a tensor or an array, on `device`
+    (the card unless the caller names one; a tensor's own device when it
+    lies there already); None when no face is finite and non-degenerate."""
+    tree = tiled_face_bvh(torch.as_tensor(tris, dtype=torch.float32, device=resolve_device(device)))
+    return tree if bool((tree.face >= 0).any()) else None
 
 
-def _tiled_query(kernel, tiles: MeshTiles, origins, dirs) -> tuple:
-    """(t (R,), face (R,), *what else `kernel` returns) in the rays' order."""
-    origins = torch.atleast_2d(origins).to(torch.float32)
-    dirs = torch.atleast_2d(dirs).to(torch.float32)
-    r = origins.shape[0]
-    if r == 0:
-        return (torch.zeros(0, dtype=torch.float32, device=origins.device),
-                torch.zeros(0, dtype=torch.int32, device=origins.device))
-    order, o, d, bmeta, perm, dlo = tiled_inputs(tiles, origins, dirs)
-    t, idx, *extra = kernel(o, d, bmeta, perm, dlo, tiles.face_tab, tiles.tile_aabb)
-    t, idx = t[:r], idx[:r]
-    miss = t >= _BIG
-    t_out = torch.empty_like(t)
-    idx_out = torch.empty_like(idx)
-    t_out[order] = torch.where(miss, torch.full_like(t, float("inf")), t)
-    idx_out[order] = torch.where(miss, torch.full_like(idx, -1), idx)
-    return (t_out, idx_out, *extra)
+def _rays(origins, dirs) -> tuple:
+    return (torch.atleast_2d(origins).to(torch.float32).contiguous(),
+            torch.atleast_2d(dirs).to(torch.float32).contiguous())
 
 
-def tiled_first_hit(tiles: MeshTiles, origins: torch.Tensor, dirs: torch.Tensor):
+def tiled_first_hit(tree: FaceBVH, origins: torch.Tensor, dirs: torch.Tensor):
     """First hit (t (R,), original face (R,) int32) of each ray against the
-    tiled mesh: t = +inf and face = -1 where a ray escapes. Runs the K7
-    kernel on a CUDA device and its plain version on the CPU; equals the
-    dense classic Moller-Trumbore first hit over the original faces."""
-    return _tiled_query(first_hit_tiled, tiles, origins, dirs)
+    mesh of `tree` (`build_tiled_tree`): t = +inf and face = -1 where a ray
+    escapes. Runs the K7 kernel on a CUDA device (one launch) and its plain
+    walk on the CPU; equals the dense classic Moller-Trumbore first hit over
+    the original faces."""
+    return first_hit_tiled(*_rays(origins, dirs), tree)
 
 
-def tiled_walk(tiles: MeshTiles, origins: torch.Tensor, dirs: torch.Tensor):
-    """`tiled_first_hit` through the kernel's plain version (any device),
-    and the tiles its walk tested: (t, face, tiles tested per block of
-    TILED_BLOCK sorted rays (n_blocks,) int64). A dense walk would test
-    n_tiles per block."""
-    return _tiled_query(tiled_walk_plain, tiles, origins, dirs)
+def tiled_walk(tree: FaceBVH, origins: torch.Tensor, dirs: torch.Tensor):
+    """`tiled_first_hit` through the kernel's plain walk (any device), with
+    the walk's counts: (t, face, visits (R, 2) int32 = box tests, leaves
+    folded per ray)."""
+    return tiled_walk_plain(*_rays(origins, dirs), tree)

@@ -272,9 +272,9 @@ class FusedSceneRenderer:
               face_occ: Optional[torch.Tensor]) -> torch.Tensor:
         """(C_out, n_sources, L) RIRs of the padded sources at the listener.
         The reference's fused renderer passes the full mesh's tile layout
-        where the mesh is not simplified; here `trace_rirs` does that (a
-        nonconvex room's exact rain mode takes the plan path, whose trace
-        passes it the same way)."""
+        where the mesh is not simplified; here `trace_rirs` passes K7's face
+        tree of it (a nonconvex room's exact rain mode takes the plan path,
+        whose trace passes it the same way)."""
         rain = dict(face_occlusion=None if self.state.convex else face_occ)
         return self.state.trace_rirs(gen, sources, listeners, self.encoding, rain)
 

@@ -8,8 +8,8 @@ higher orders ("sh2", "sh3": ACN/SN3D) and the analytic spherical head
 
   1. E sources x N rays leave the sources with unit-total energy per source.
   2. Each bounce: first hit against the mesh (K1, or one of the reference's
-     two optional routes: the reachability-culled K7 on a tile layout of a
-     big full mesh, the bilinear K8 on an acoustic LOD), per-band
+     two optional routes: the classic Moller-Trumbore K7 on the face tree
+     of a big full mesh, the bilinear K8 on an acoustic LOD), per-band
      absorption, a diffuse-rain deposit toward the listener, binned by
      arrival time, and a specular-or-Lambertian reflection chosen by the
      surface scattering.
@@ -133,23 +133,25 @@ def _halve_wavefront(state: tuple, n_sources: int, r_now: int, r_next: int) -> t
     return keep(origins), keep(dirs), keep(energy) * boost, keep(dist), keep(alive), keep(prev_face)
 
 
-def _mxu_tables_for(tris: torch.Tensor, mesh_tiles):
+def _mxu_tables_for(tris: torch.Tensor, tiled_tree, tables=None):
     """The K8 face tables of `tris`, or None where that route does not apply:
-    the flag is off, a tile layout was given, or the mesh has more than
+    the flag is off, K7's tree was given, or the mesh has more than
     MXU_F_MAX faces. The reference's conditions less its TPU test: the port
-    takes the route on every device. Built once per trace."""
-    if config.USE_MXU_FIRST_HIT and mesh_tiles is None and tris.shape[0] <= MXU_F_MAX:
-        return build_mxu_face_tables(tris)
+    takes the route on every device. `tables` are the ones the caller keeps
+    per mesh (`MeshDeviceState.mxu_tables`); without them they are built
+    here, once per trace."""
+    if config.USE_MXU_FIRST_HIT and tiled_tree is None and tris.shape[0] <= MXU_F_MAX:
+        return build_mxu_face_tables(tris) if tables is None else tables
     return None
 
 
 def _first_hit_route(origins, dirs, prev_face, tris, route):
-    """The bounce's first hit: K7 where a tile layout was given, else K8
-    where its tables were built, else the dense kernel (K1), in the
-    reference's order. `route` = (first-hit table, mesh_tiles, mxu_tables)."""
-    table, mesh_tiles, mxu_tables = route
-    if mesh_tiles is not None:
-        return tiled_first_hit(mesh_tiles, origins, dirs)
+    """The bounce's first hit: K7 where its tree was given, else K8 where
+    its tables were built, else the dense kernel (K1), in the reference's
+    order. `route` = (first-hit table, tiled_tree, mxu_tables)."""
+    table, tiled_tree, mxu_tables = route
+    if tiled_tree is not None:
+        return tiled_first_hit(tiled_tree, origins, dirs)
     if mxu_tables is not None:
         return mxu_first_hit(mxu_tables, origins, dirs, prev_face)
     return ray_mesh_first_hit(origins, dirs, tris, table)
@@ -285,9 +287,10 @@ def trace_energy_histogram_multi(
     decimate: bool = False,
     encoding: str = "omni",
     sh_order: int = 1,
-    mesh_tiles=None,
+    tiled_tree=None,
     fh_table=None,
     any_hit_tree=None,
+    mxu_tables=None,
 ) -> torch.Tensor:
     """Energy histograms for E sources traced together in one wavefront.
 
@@ -307,11 +310,14 @@ def trace_energy_histogram_multi(
         decimate: progressive wavefront decimation (see decimation_phases).
         encoding, sh_order: "omni", "foa", "sh2", "sh3" or "binaural"; the
             ambisonic tail encodes at `sh_order`, clipped to the layout's.
-        mesh_tiles: an `ops.tiled_first_hit.MeshTiles` of `tris`: the bounce
+        tiled_tree: K7's face tree of `tris` (`ops.tiled_first_hit.
+            build_tiled_tree`; the reference's `mesh_tiles`): the bounce
             first hit runs K7 on it. Without it, `config.USE_MXU_FIRST_HIT`
             runs K8 on a mesh of at most MXU_F_MAX faces; else K1.
         fh_table: K1's `first_hit_table(tris)` where the caller keeps it
             (built here when None).
+        mxu_tables: K8's `build_mxu_face_tables(tris)` where the caller
+            keeps them (built here when the route applies and None).
         any_hit_tree: a function from a triangle tensor to its cached
             any-hit tree (`MeshDeviceState.any_hit_tree`), for the exact
             mode's dense any-hit; without it each query builds its own on
@@ -343,9 +349,9 @@ def trace_energy_histogram_multi(
         torch.full((total,), -1, dtype=torch.int32, device=dev),
     )
     hist = torch.zeros((n_sources, c_out, n_bands, n_bins), dtype=torch.float32, device=dev)
-    mxu_tables = _mxu_tables_for(tris, mesh_tiles)
-    dense = mesh_tiles is None and mxu_tables is None
-    route = ((first_hit_table(tris) if fh_table is None else fh_table) if dense else None, mesh_tiles, mxu_tables)
+    mxu_tables = _mxu_tables_for(tris, tiled_tree, mxu_tables)
+    dense = tiled_tree is None and mxu_tables is None
+    route = ((first_hit_table(tris) if fh_table is None else fh_table) if dense else None, tiled_tree, mxu_tables)
     dense_rain = face_occlusion is None and star is None and bool(occlusion)
     tree = any_hit_tree(tris) if dense_rain and any_hit_tree is not None else None
     vis = (face_occlusion, star, bool(occlusion), bool(shared_visibility), tree)
@@ -808,9 +814,10 @@ def trace_rirs_multi(
     encoding: str = "omni",
     sh_order_direct: int = 3,
     sh_order_indirect: int = 1,
-    mesh_tiles=None,
+    tiled_tree=None,
     fh_table=None,
     any_hit_tree=None,
+    mxu_tables=None,
 ) -> torch.Tensor:
     """RIRs for a batch of sources against one listener group: stochastic
     tail on `tris` (the acoustic mesh) + exact direct path on `tris_direct`
@@ -819,8 +826,9 @@ def trace_rirs_multi(
     listener point); the direct and diffracted paths encode at
     `sh_order_direct`, the tail at `sh_order_indirect`, each clipped to the
     layout's order. The tail's rain visibility is `face_occlusion`, `star`
-    or `occlusion`, its bounce first hit K7 on `mesh_tiles` where given, else
-    K1 on `fh_table`; every any-hit query takes its mesh's tree from
+    or `occlusion`, its bounce first hit K7 on `tiled_tree` where given, else
+    K8 on `mxu_tables` where its flag is on, else K1 on `fh_table`; every
+    any-hit query takes its mesh's tree from
     `any_hit_tree` (see trace_energy_histogram_multi). Returns (C_out, E,
     n_samples)."""
     source_positions = torch.atleast_2d(source_positions)
@@ -830,7 +838,7 @@ def trace_rirs_multi(
         n_rays=n_rays, max_depth=max_depth, n_bins=n_bins, bin_dt=bin_dt, c=c,
         tri_normals=tri_normals, face_occlusion=face_occlusion, star=star, occlusion=occlusion,
         shared_visibility=shared_visibility, decimate=decimate, encoding=encoding, sh_order=sh_order_indirect,
-        mesh_tiles=mesh_tiles, fh_table=fh_table, any_hit_tree=any_hit_tree,
+        tiled_tree=tiled_tree, fh_table=fh_table, any_hit_tree=any_hit_tree, mxu_tables=mxu_tables,
     )  # (E, C_out, B, bins)
     band_freqs = _band_centers(face_absorption.shape[1], tris.device)
     irs = synthesize_ir_from_histogram(gen, hist, band_freqs, n_samples, bin_dt, sr=sr, encoding=encoding)

@@ -5,9 +5,11 @@ Counterpart of audiblelight_tpu/worldstate/mesh_backend.py.
 - `MeshDeviceState`, the device half: the engine configuration defaults, the
   acoustic LOD, per-face material tables with the Sabine area correction,
   the diffraction-graph LOD, the per-face rain visibility tables ("face"
-  rain mode), the star occlusion layouts ("exact" rain mode) and, with
-  config.USE_TILED_FIRST_HIT, the full mesh's tile layout for K7, built from
-  a TriMesh plus an engine-config dict.
+  rain mode), the star occlusion layouts ("exact" rain mode), the first-hit
+  and any-hit trees and, with config.USE_TILED_FIRST_HIT or
+  config.USE_MXU_FIRST_HIT, the full mesh's face tree for K7 or
+  the LOD's tables and tree for K8, each built once per mesh, built from a
+  TriMesh plus an engine-config dict.
 - `WorldStateRLR`, the host half the Scene talks to: mesh and engine config,
   the placement `rng`, the validity tests placement runs (K2 and the
   point-in-mesh and surface-distance queries on the world state's device),
@@ -40,8 +42,9 @@ from audiblelight_tpu_torch.geometry.queries import (
 )
 from audiblelight_tpu_torch.micarrays import MicArray
 from audiblelight_tpu_torch.ops.cuda_kernels import any_hit_tree, first_hit_table
+from audiblelight_tpu_torch.ops.mxu_first_hit import MXU_F_MAX, build_mxu_face_tables
 from audiblelight_tpu_torch.ops.star_occlusion import build_star_accel, star_tree
-from audiblelight_tpu_torch.ops.tiled_first_hit import build_mesh_tiles
+from audiblelight_tpu_torch.ops.tiled_first_hit import build_tiled_tree
 from audiblelight_tpu_torch.rir.materials import (
     get_material_absorption,
     get_material_scattering,
@@ -186,8 +189,9 @@ class MeshDeviceState:
             self.diffraction_graph_tris = self._tensor(diffraction_graph_tris)
         self._rain_cache: dict = {}
         self._star_cache: dict = {}
-        self._mesh_tiles = None
+        self._tiled_tree = None
         self._first_hit_tables: dict = {}
+        self._mxu_tables: dict = {}
         self._any_hit_trees: dict = {}
 
     @classmethod
@@ -256,6 +260,27 @@ class MeshDeviceState:
                 logger.info(f"Built first-hit face tree: {self._first_hit_tables[key][3]}")
         return self._first_hit_tables[key]
 
+    def mxu_tables(self, tris: torch.Tensor):
+        """The cached K8 tables and face tree (`build_mxu_face_tables`) of
+        `tris`, this state's full or acoustic triangles, built once; None
+        where the route does not apply (config.USE_MXU_FIRST_HIT off, or
+        more than MXU_F_MAX faces)."""
+        if not config.USE_MXU_FIRST_HIT or tris.shape[0] > MXU_F_MAX:
+            return None
+        key = id(tris)
+        if key not in self._mxu_tables:
+            self._mxu_tables[key] = self._timed("K8 tables and face tree", lambda: build_mxu_face_tables(tris))
+        return self._mxu_tables[key]
+
+    def _timed(self, what: str, build):
+        """`build()`, its build time logged (host clock, synchronised)."""
+        t0 = time.perf_counter()
+        out = build()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        logger.info(f"Built {what}: {out} in {1e3 * (time.perf_counter() - t0):.1f} ms")
+        return out
+
     def any_hit_tree(self, tris: torch.Tensor):
         """The cached any-hit tree (`cuda_kernels.any_hit_tree`) of `tris`,
         this state's full, acoustic or diffraction-graph triangles, built
@@ -264,25 +289,20 @@ class MeshDeviceState:
 
     def _cached_tree(self, key, build):
         if key not in self._any_hit_trees:
-            t0 = time.perf_counter()
-            tree = build()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            logger.info(f"Built any-hit face tree: {tree} in {1e3 * (time.perf_counter() - t0):.1f} ms")
-            self._any_hit_trees[key] = tree
+            self._any_hit_trees[key] = self._timed("any-hit face tree", build)
         return self._any_hit_trees[key]
 
     @property
-    def mesh_tiles(self):
-        """The cached tile layout of the full mesh for the reachability-culled
-        first hit (K7), or None: the flag config.USE_TILED_FIRST_HIT is off,
-        or the mesh has fewer than GRID_ACCEL_MIN_FACES faces."""
+    def tiled_tree(self):
+        """The cached face tree of the full mesh for the tiled first hit
+        (K7, `build_tiled_tree`), or None: the flag
+        config.USE_TILED_FIRST_HIT is off, or the mesh has fewer than
+        GRID_ACCEL_MIN_FACES faces."""
         if not config.USE_TILED_FIRST_HIT or self.tris.shape[0] < config.GRID_ACCEL_MIN_FACES:
             return None
-        if self._mesh_tiles is None:
-            self._mesh_tiles = build_mesh_tiles(self.tris.cpu().numpy(), device=self.device)
-            logger.info(f"Built first-hit tile structure: {self._mesh_tiles}")
-        return self._mesh_tiles
+        if self._tiled_tree is None:
+            self._tiled_tree = self._timed("K7 face tree", lambda: build_tiled_tree(self.tris, device=self.device))
+        return self._tiled_tree
 
     def rain_inputs(self, capsules, listeners) -> dict:
         """The tracer's rain-visibility keywords (face_occlusion, star,
@@ -310,8 +330,8 @@ class MeshDeviceState:
         engine config: the tail on the acoustic mesh with the rain
         visibility `rain` (`rain_inputs`), the direct path on the full mesh,
         and diffraction in a nonconvex room. Where the tail traces the full
-        mesh itself, its bounce first hit takes K7 on `mesh_tiles` when
-        that layout is built."""
+        mesh itself, its bounce first hit takes K7 on `tiled_tree` when
+        that tree is built."""
         from audiblelight_tpu_torch.rir.raytracer import trace_rirs_multi
 
         cfg = self.cfg
@@ -333,9 +353,10 @@ class MeshDeviceState:
             encoding=encoding,
             sh_order_direct=int(cfg["direct_sh_order"]),
             sh_order_indirect=int(cfg["indirect_sh_order"]),
-            mesh_tiles=self.mesh_tiles if self.acoustic_tris is self.tris else None,
+            tiled_tree=self.tiled_tree if self.acoustic_tris is self.tris else None,
             fh_table=self.first_hit_table(self.acoustic_tris),
             any_hit_tree=self.any_hit_tree,
+            mxu_tables=self.mxu_tables(self.acoustic_tris),
             **rain,
         )
 

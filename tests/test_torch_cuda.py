@@ -14,11 +14,11 @@ their plain tree walk, per-segment visit counts included, and to the dense
 plain any-hit; deposit histograms (K3 and the FOA K4) and the
 grouped histogram (K5) with the same bins and sums within 1e-5 of the peak
 (their fold adds in another order than `index_add_`), K3 and K4 also
-bit-identical from launch to launch; the tiled first hit (K7) identical to its
-plain version, and to the dense classic Moller-Trumbore first hit wherever
-the two t differ by more than 1 ulp (a rounding tie at the early exit's
-bound may go either way); the bilinear first hit (K8) identical to its
-plain version; the cone-sorted (K9) and pair-walk (K10) first hits
+bit-identical from launch to launch; the tiled first hit (K7) and the
+bilinear first hit (K8) identical to their plain walks, per-ray visit counts
+included, and to their dense plain versions (the dense classic
+Moller-Trumbore first hit; the dense window selection with its plane
+re-evaluation); the cone-sorted (K9) and pair-walk (K10) first hits
 identical to their plain versions and to the dense big first hit (K1) over
 the Morton-sorted faces.
 """
@@ -329,7 +329,7 @@ def test_each_wrapper_counts_its_launch(card):
     bins = torch.from_numpy(rng.integers(-1, 51, (2, 64)).astype(np.int32)).to(card)
     dep = torch.from_numpy(rng.random((2, 64, 8)).astype(np.float32)).to(card)
     star = so.build_star_accel(tris.cpu().numpy(), [0.0, 0.0, 0.0], device=card)
-    tiles = tfh.build_mesh_tiles(tris.cpu().numpy(), device=card)
+    tiled_tree = tfh.build_tiled_tree(tris)
     tables = mxu.build_mxu_face_tables(tris)
     stiles, _ = sfh.build_sorted_tiles(tris.cpu().numpy(), device=card)
     d = torch.from_numpy(unit_dirs(rng, 64)).to(card)
@@ -341,7 +341,7 @@ def test_each_wrapper_counts_its_launch(card):
     ck.deposit_histogram_foa_plain(*foa, **kw)
     ck.bin_histogram_plain(bins, dep, 51)
     so.star_segments_occluded_plain(star, o, torch.zeros(3, device=card))
-    tfh.tiled_walk(tiles, o, d)
+    tfh.tiled_walk(tiled_tree, o, d)
     mxu.mxu_first_hit_plain(tables, o, d)
     sfh.sorted_walk(stiles, o, d)
     pfh.pair_walk(stiles, o, d, k_slots=8)
@@ -352,7 +352,7 @@ def test_each_wrapper_counts_its_launch(card):
     ck.deposit_histogram_foa(*foa, **kw)
     ck.bin_histogram(bins, dep, 51)
     so.star_segments_occluded(star, o, torch.zeros(3, device=card))
-    tfh.tiled_first_hit(tiles, o, d)
+    tfh.tiled_first_hit(tiled_tree, o, d)
     mxu.mxu_first_hit(tables, o, d)
     sfh.sorted_first_hit(stiles, o, d)
     # k_slots = n_tiles: one round tests every reachable tile, one launch
@@ -443,7 +443,9 @@ def _surface_rays(tris, card, n, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_rays,kind", [(20000, "interior"), (40000, "surface"), (300, "surface")])
 def test_tiled_first_hit_matches_plain_and_dense(card, scanned_room, n_rays, kind):
-    """K7 from interior and surface origins, one ragged block and many."""
+    """K7 from interior and surface origins, one ragged block and many: the
+    kernel equals its plain walk (visit counts included) and the dense
+    classic Moller-Trumbore first hit, bit for bit."""
     tris = scanned_room.triangles.astype(np.float32)
     rng = np.random.default_rng(n_rays)
     if kind == "interior":
@@ -451,23 +453,26 @@ def test_tiled_first_hit_matches_plain_and_dense(card, scanned_room, n_rays, kin
         o, d = o.to(card), torch.from_numpy(unit_dirs(rng, n_rays)).to(card)
     else:
         o, d = _surface_rays(tris, card, n_rays, n_rays)
-    tiles = tfh.build_mesh_tiles(tris, device=card)
-    t_k, i_k = tfh.tiled_first_hit(tiles, o, d)
-    t_p, i_p, _ = tfh.tiled_walk(tiles, o, d)
-    assert torch.equal(i_k, i_p) and torch.equal(t_k, t_p)
+    tree = tfh.build_tiled_tree(tris, device=card)
+    t_k, i_k = tfh.tiled_first_hit(tree, o, d)
+    visits = torch.empty((n_rays, 2), dtype=torch.int32, device=card)
+    t_v, i_v = ck.first_hit_tiled(o, d, tree, visits)
+    t_p, i_p, vis_p = tfh.tiled_walk(tree, o, d)
+    assert torch.equal(i_k, i_p) and torch.equal(t_k, t_p) and torch.equal(i_v, i_p) and torch.equal(t_v, t_p)
+    assert torch.equal(visits, vis_p)
     tt = torch.from_numpy(tris).to(card)
     t_d, i_d = ck.ray_first_hit(o, d, tt, ck.dense_mt_table(tt))
-    differ = (i_k != i_d) | (t_k != t_d)
-    ulp = (t_k[differ].view(torch.int32).long() - t_d[differ].view(torch.int32).long()).abs()
-    assert bool((ulp <= 1).all()), int(differ.sum())
+    assert torch.equal(i_k, i_d) and torch.equal(t_k.view(torch.int32), t_d.view(torch.int32))
     assert float(torch.isfinite(t_k).float().mean()) > 0.99
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_rays", [80000, 257])
 def test_mxu_first_hit_matches_plain(card, scanned_room, n_rays):
-    """K8 on the room's 4,096-face LOD, surface rays with their launch
-    faces masked, one ragged block and many."""
+    """K8 on the room's 4,096-face LOD, surface rays with and without their
+    launch faces masked, one ragged block and many: the kernel equals its
+    plain walk (visit counts included) and the dense selection with its
+    plane re-evaluation, bit for bit."""
     lod = scanned_room.simplified(target_faces=4096)
     tris = lod.triangles.astype(np.float32)
     o, d = _surface_rays(tris, card, n_rays, 5)
@@ -475,8 +480,13 @@ def test_mxu_first_hit_matches_plain(card, scanned_room, n_rays):
     tables = mxu.build_mxu_face_tables(torch.from_numpy(tris).to(card))
     for p in (None, prev):
         t_k, i_k = mxu.mxu_first_hit(tables, o, d, p)
+        visits = torch.empty((n_rays, 2), dtype=torch.int32, device=card)
+        ck.first_hit_mxu(o, d, p, tables.center, tables.bvh, visits)
+        t_w, i_w, vis_w = mxu.mxu_walk(tables, o, d, p)
         t_p, i_p = mxu.mxu_first_hit_plain(tables, o, d, p)
-        assert torch.equal(i_k, i_p) and torch.equal(t_k, t_p)
+        assert torch.equal(i_k, i_p) and torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+        assert torch.equal(i_w, i_p) and torch.equal(t_w.view(torch.int32), t_p.view(torch.int32))
+        assert torch.equal(visits, vis_w)
     assert float((i_k >= 0).float().mean()) > 0.99
 
 
@@ -594,3 +604,35 @@ def test_any_hit_tree_matches_plain(card, accel_rooms, which, kind):
         visits = torch.empty((len(starts), 2), dtype=torch.int32, device=card)
         assert torch.equal(kernel(o, d, length, tree, visits), blocked)
         assert torch.equal(visits, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,kind", [c for c in ACCEL_CASES if c[1] != "near_plane"])
+def test_tiled_and_mxu_trees_match_plain(card, accel_rooms, which, kind):
+    """K7 and K8 walk their own trees: each kernel's t, faces and per-ray
+    visit counts equal its plain walk's, and its t and faces its dense plain
+    version's, on the rays of tests/test_torch_first_hit_accel.py (K8 with a
+    random half of the rays' faces masked)."""
+    base = accel_rooms["room" if which == "room_sentinels" else which]
+    tris = _with_sentinels(base, 5) if which == "room_sentinels" else base
+    rng = np.random.default_rng(sum(map(ord, which + kind)))
+    o, d = ray_set(kind, base, seed=sum(map(ord, which + kind)))
+    prev = np.where(rng.uniform(size=len(o)) < 0.5, rng.integers(0, len(tris), len(o)), -1).astype(np.int32)
+    o, d, prev, tt = (torch.from_numpy(x).to(card) for x in (o, d, prev, tris))
+    tree = tfh.build_tiled_tree(tt)
+    visits = torch.empty((len(o), 2), dtype=torch.int32, device=card)
+    t_k, i_k = ck.first_hit_tiled(o, d, tree, visits)
+    t_p, i_p, vis_p = tfh.tiled_walk(tree, o, d)
+    t_d, i_d = ck.ray_first_hit_plain(o, d, tt, ck.dense_mt_table(tt))
+    for t, i in ((t_p, i_p), (t_d, i_d)):
+        assert torch.equal(i, i_k) and torch.equal(t.view(torch.int32), t_k.view(torch.int32))
+    assert torch.equal(visits, vis_p)
+    if tris.shape[0] > mxu.MXU_F_MAX:
+        return
+    tables = mxu.build_mxu_face_tables(tt)
+    t_k, i_k = ck.first_hit_mxu(o, d, prev, tables.center, tables.bvh, visits)
+    t_p, i_p, vis_p = mxu.mxu_walk(tables, o, d, prev)
+    t_d, i_d = mxu.mxu_first_hit_plain(tables, o, d, prev)
+    for t, i in ((t_p, i_p), (t_d, i_d)):
+        assert torch.equal(i, i_k) and torch.equal(t.view(torch.int32), t_k.view(torch.int32))
+    assert torch.equal(visits, vis_p)

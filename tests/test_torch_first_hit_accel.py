@@ -46,19 +46,26 @@ def meshes():
 def certificate(table, o, d, t_star, f_star):
     """(held (R,) bool, smallest slack): a ray holds where it misses or every
     ancestor of the leaf holding its dense hit face enters (entry <= exit)
-    no later than t*; the slack is the least t* - entry over the rays."""
+    no later than t*; the slack is the least t* - entry over the rays.
+    `table` is K1 big's (its tree in centred coordinates)."""
     _, center, _, bvh = table
-    o_c = torch.from_numpy(o) - center
-    inv = ck.slab_inverse(torch.from_numpy(d))
+    return tree_certificate(bvh, torch.from_numpy(o) - center, torch.from_numpy(d), t_star, f_star)
+
+
+def tree_certificate(bvh, o_c, d, t_star, f_star):
+    """`certificate` for any kernel's face tree `bvh`, the rays' origins
+    `o_c` (R, 3) given in the tree's frame (as the kernel forms them), the
+    dense walk's t* and face (numpy) in that kernel's arithmetic."""
+    inv = ck.slab_inverse(d)
     pos = torch.full((int(bvh.face.max()) + 1,), -1, dtype=torch.int64)
     real = bvh.face >= 0
     pos[bvh.face[real].long()] = torch.nonzero(real).squeeze(1)
     hit = torch.from_numpy(f_star >= 0)
     node = bvh.n_leaves + pos[torch.from_numpy(f_star)[hit].long()] // bvh.leaf_faces
     t = torch.from_numpy(t_star)[hit]
-    held = torch.ones(len(o), dtype=torch.bool)
+    held = torch.ones(len(o_c), dtype=torch.bool)
     ok, slack = torch.ones(len(t), dtype=torch.bool), np.inf
-    while True:
+    while len(t):
         entry, exit_ = ck.slab_entry_exit(o_c[hit], inv[hit], bvh.boxes[node, 0:3], bvh.boxes[node, 4:7])
         ok &= (entry <= exit_) & (entry <= t)
         slack = min(slack, float((t - entry).min()))
@@ -66,6 +73,7 @@ def certificate(table, o, d, t_star, f_star):
             held[hit] = ok
             return held.numpy(), slack
         node = node // 2
+    return held.numpy(), slack
 
 
 def off_face(tris, o, d, t_star, f_star):
@@ -106,6 +114,51 @@ def test_face_tree_build(meshes, which):
     assert (hi[leaf][live][:, None] >= verts[live] + ck.BVH_PAD).all()
     empty = np.flatnonzero(np.isinf(lo[:, 0]))
     assert (lo[empty] == np.inf).all() and (hi[empty] == -np.inf).all()
+
+
+@pytest.mark.parametrize("kernel,which", [("tiled", "room"), ("tiled", "lod"), ("tiled", "room_sentinels"),
+                                          ("mxu", "room"), ("mxu", "lod"), ("mxu", "lod_sentinels")])
+def test_walk_tree_build(meshes, kernel, which):
+    """The trees of K7 (the mesh's classic Moller-Trumbore rows, world
+    coordinates) and K8 (the packed window rows, centred, under boxes of the
+    slop-widened triangles): every real face in exactly one leaf, no
+    sentinel; the rows the table's rows, bit for bit, zero-padded; each
+    leaf's box holding the region the face's test accepts with the pad."""
+    from audiblelight_tpu_torch.ops import mxu_first_hit as tmxu
+    from audiblelight_tpu_torch.ops import tiled_first_hit as ttiled
+
+    base = meshes[which.split("_")[0]]
+    tris = _with_sentinels(base, 3) if which.endswith("sentinels") else base
+    real = np.flatnonzero(~(np.abs(tris) >= 1e8).any(axis=(1, 2)))
+    tris64 = tris.astype(np.float64)
+    if kernel == "tiled":
+        bvh, width = ttiled.build_tiled_tree(tris, device="cpu"), ck.MT_ROW
+        mt_rows = np.concatenate([tris[:, 0], tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]], axis=1)
+        want_rows = np.pad(mt_rows, ((0, 0), (0, width - 9)))
+        verts = tris64
+    else:
+        tables = tmxu.build_mxu_face_tables(torch.from_numpy(tris))
+        bvh, width = tables.bvh, ck.MXU_ROW
+        want_rows = np.pad(tables.packed.numpy(), ((0, 0), (0, width - ck.MXU_PACKED_COLS)))
+        a = tris64[:, 0] - tables.center.double().numpy()
+        e1, e2 = tris64[:, 1] - tris64[:, 0], tris64[:, 2] - tris64[:, 0]
+        eps = ck.MXU_EPS_UV
+        verts = np.stack([a + s * e1 + t * e2 for s, t in ((-eps, -eps), (1 + 2 * eps, -eps), (-eps, 1 + 2 * eps))],
+                         axis=1)
+    face = bvh.face.numpy()
+    np.testing.assert_array_equal(np.sort(face[face >= 0]), real)
+    live = face >= 0
+    assert bvh.rows.shape == (len(face), width)
+    np.testing.assert_array_equal(bvh.rows.numpy()[live].view(np.int32), want_rows[face[live]].view(np.int32))
+    assert not bvh.rows.numpy()[~live].any()
+    lo, hi = bvh.boxes[:, 0:3].double().numpy(), bvh.boxes[:, 4:7].double().numpy()
+    kids = np.arange(2, 2 * bvh.n_leaves)
+    assert (lo[kids // 2] <= lo[kids]).all() and (hi[kids // 2] >= hi[kids]).all()
+    leaf = bvh.n_leaves + np.arange(len(face)) // bvh.leaf_faces
+    v = verts[face[live]]
+    # The box is built in f32 from f32 corners: within the pad less a micron of the exact region
+    assert (lo[leaf][live][:, None] <= v - ck.BVH_PAD + 1e-6).all()
+    assert (hi[leaf][live][:, None] >= v + ck.BVH_PAD - 1e-6).all()
 
 
 CASES = [("room", k) for k in ("interior", "surface", "on_surface", "grazing", "axis", "vertex_edge", "nonfinite")]

@@ -1,5 +1,5 @@
 """The tracer's two optional first-hit routes: K7 (`config.USE_TILED_FIRST_HIT`,
-a tile layout of a traced full mesh) and K8 (`config.USE_MXU_FIRST_HIT`, a
+the face tree of a traced full mesh) and K8 (`config.USE_MXU_FIRST_HIT`, a
 mesh of at most MXU_F_MAX faces).
 
 - With both flags off the tracer is the one it was before the routes
@@ -14,7 +14,7 @@ mesh of at most MXU_F_MAX faces).
 - K8 on a 2,000-face LOD against the JAX tracer on the CPU (which never
   takes the route): per (source, capsule, band) energy and per-source T30
   within the 5 % of tests/test_torch_raytracer.py.
-- Where each route applies: `MeshDeviceState.mesh_tiles` and the layout
+- Where each route applies: `MeshDeviceState.tiled_tree` and the tree
   `trace_rirs` passes, `_mxu_tables_for`.
 """
 
@@ -32,7 +32,8 @@ from audiblelight_tpu_torch.geometry.mesh import scanned_like_room
 from audiblelight_tpu_torch.micarrays import ambeovr_capsules
 from audiblelight_tpu_torch.ops import cuda_kernels as ck
 from audiblelight_tpu_torch.ops.star_occlusion import build_star_accel
-from audiblelight_tpu_torch.ops.tiled_first_hit import MeshTiles, build_mesh_tiles
+from audiblelight_tpu_torch.ops.cuda_kernels import FaceBVH
+from audiblelight_tpu_torch.ops.tiled_first_hit import build_tiled_tree
 from audiblelight_tpu_torch.rir import raytracer as trt
 from audiblelight_tpu_torch.worldstate.mesh_backend import MeshDeviceState
 from test_torch_raytracer import _t, _t30
@@ -116,13 +117,13 @@ def _counting(monkeypatch, name):
 
 def test_tiled_route_equals_dense_mt(exact_room, monkeypatch):
     tris = _t(exact_room[0])
-    tiles = build_mesh_tiles(exact_room[0], device="cpu")
+    tree = build_tiled_tree(exact_room[0], device="cpu")
     calls = _counting(monkeypatch, "tiled_first_hit")
-    tiled = _exact_trace(exact_room, mesh_tiles=tiles)
+    tiled = _exact_trace(exact_room, tiled_tree=tree)
     assert len(calls) == 4
     dense = ck.dense_mt_table(tris)
-    monkeypatch.setattr(trt, "tiled_first_hit", lambda _tiles, o, d: ck.ray_first_hit(o, d, tris, dense))
-    np.testing.assert_array_equal(tiled, _exact_trace(exact_room, mesh_tiles=tiles))
+    monkeypatch.setattr(trt, "tiled_first_hit", lambda _tree, o, d: ck.ray_first_hit(o, d, tris, dense))
+    np.testing.assert_array_equal(tiled, _exact_trace(exact_room, tiled_tree=tree))
     k1 = _exact_trace(exact_room)
     assert tiled.sum() > 0
     np.testing.assert_allclose(tiled.sum(axis=(0, 1, 3)), k1.sum(axis=(0, 1, 3)), rtol=0.01)
@@ -159,20 +160,20 @@ def test_mesh_tiles_where_the_route_applies(monkeypatch):
     big = scanned_like_room(extents=(7.0, 5.0, 3.0), subdivision_levels=4, seed=0)
     small = scanned_like_room(extents=(7.0, 5.0, 3.0), subdivision_levels=3, seed=0)
     st_big = MeshDeviceState.from_mesh(big, device="cpu")
-    assert st_big.mesh_tiles is None  # flag off
+    assert st_big.tiled_tree is None  # flag off
     monkeypatch.setattr(config, "USE_TILED_FIRST_HIT", True)
-    assert MeshDeviceState.from_mesh(small, device="cpu").mesh_tiles is None  # 6,912 < 16,384 faces
-    tiles = st_big.mesh_tiles
-    assert isinstance(tiles, MeshTiles) and tiles.n_faces == 27648 and st_big.mesh_tiles is tiles
+    assert MeshDeviceState.from_mesh(small, device="cpu").tiled_tree is None  # 6,912 < 16,384 faces
+    tree = st_big.tiled_tree
+    assert isinstance(tree, FaceBVH) and int((tree.face >= 0).sum()) == 27648 and st_big.tiled_tree is tree
 
     passed = []
-    monkeypatch.setattr(trt, "trace_rirs_multi", lambda *a, **kw: passed.append(kw["mesh_tiles"]))
+    monkeypatch.setattr(trt, "trace_rirs_multi", lambda *a, **kw: passed.append(kw["tiled_tree"]))
     src, lis = _t([[1.5, 1.2, 1.4]]), _t(CAPS)
     rain = dict(face_occlusion=None, star=None, occlusion=True, shared_visibility=True)
     st_big.trace_rirs(torch.Generator(), src, lis, "omni", rain)
     st_lod = MeshDeviceState.from_mesh(big, cfg=dict(mesh_simplification=True), device="cpu")
     st_lod.trace_rirs(torch.Generator(), src, lis, "omni", rain)
-    assert passed[0] is tiles and passed[1] is None  # the LOD is traced: no tiles
+    assert passed[0] is tree and passed[1] is None  # the LOD is traced: no K7 tree
 
 
 def test_mxu_tables_where_the_route_applies(monkeypatch):
@@ -180,6 +181,6 @@ def test_mxu_tables_where_the_route_applies(monkeypatch):
     assert trt._mxu_tables_for(tris, None) is None  # flag off
     monkeypatch.setattr(config, "USE_MXU_FIRST_HIT", True)
     assert trt._mxu_tables_for(tris, None).n_faces == len(tris)
-    assert trt._mxu_tables_for(tris, build_mesh_tiles(tris.numpy(), device="cpu")) is None  # a tile layout wins
+    assert trt._mxu_tables_for(tris, build_tiled_tree(tris, device="cpu")) is None  # K7's tree wins
     too_many = torch.rand((trt.MXU_F_MAX + 1, 3, 3))
     assert trt._mxu_tables_for(too_many, None) is None

@@ -19,7 +19,19 @@
   XLA:CPU sums with contracted multiply-adds, so a hit a centimetre away
   differs by a few 1e-7 m.
 - The launch-face mask and escaping rays.
+- The kernel's walk of the LOD's face tree (its plain version, `mxu_walk`:
+  the same centring, window test and plane re-evaluation) against the dense
+  selection over every face with its re-evaluation (`mxu_first_hit_plain`),
+  t and faces bit for bit, on the ray families of
+  tests/test_torch_first_hit_accel.py, bounce rays with their launch face
+  masked (1e-4 m off the surface and on it), and rays aimed at the 2 %
+  slop band just outside a face's edges; with the cull certificate for the
+  window's arithmetic: every ancestor of the leaf holding the dense winner,
+  its box that of the slop-widened triangles, is entered no later than the
+  winner's selection t.
 """
+
+import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +40,10 @@ import torch
 
 from audiblelight_tpu.geometry.mesh import box_mesh, scanned_like_room
 from audiblelight_tpu.ops import mxu_first_hit as jmxu
+from audiblelight_tpu_torch.ops import cuda_kernels as ck
 from audiblelight_tpu_torch.ops import mxu_first_hit as tmxu
+from test_torch_cuda import _normals, _unit, _with_sentinels, accel_meshes, ray_set
+from test_torch_first_hit_accel import tree_certificate
 
 torch.set_num_threads(1)
 
@@ -172,3 +187,87 @@ def test_face_budget_enforced():
     tris = torch.rand((tmxu.MXU_F_MAX + 1, 3, 3))
     with pytest.raises(ValueError):
         tmxu.build_mxu_face_tables(tris)
+
+
+@pytest.fixture(scope="module")
+def meshes():
+    return accel_meshes()
+
+
+def _slop_rays(tris, rng, n):
+    """Rays aimed from 0.05-3 m at points of a face's plane in its window's
+    slop band: barycentric (u, v) with u, v >= -0.02 and u + v <= 1.02 but
+    outside the triangle."""
+    f = rng.integers(0, len(tris), 20 * n)  # ~5.5 % of the draws land in the band
+    uv = rng.uniform(-0.02, 1.04, (20 * n, 2))
+    u, v = uv[:, 0], uv[:, 1]
+    band = (u >= -0.02) & (v >= -0.02) & (u + v <= 1.02) & ((u < 0) | (v < 0) | (u + v > 1))
+    f, u, v = f[band][:n], u[band][:n, None], v[band][:n, None]
+    tri = tris[f].astype(np.float64)
+    p = tri[:, 0] + u * (tri[:, 1] - tri[:, 0]) + v * (tri[:, 2] - tri[:, 0])
+    d = _unit(rng.standard_normal((len(f), 3)))
+    s = rng.uniform(0.05, 3.0, (len(f), 1))
+    return (p - s * d).astype(np.float32), d
+
+
+def _mxu_rays(kind, tris, tables, seed, n=600):
+    """(origins, dirs, launch faces) of one ray family against the LOD
+    `tris`: bounce rays ("surface": 1e-4 m off the hit face, "on_surface":
+    on it) leave the dense winner of interior rays, half specular and half
+    diffuse, with that face masked; "slop" rays aim into the slop band; the
+    rest are tests/test_torch_first_hit_accel.py's, half of them with a
+    random face masked."""
+    rng = np.random.default_rng(seed)
+    if kind in ("surface", "on_surface"):
+        o, d = ray_set("interior", tris, seed, n)
+        t, f = (x.numpy() for x in tmxu.mxu_first_hit_plain(tables, torch.from_numpy(o), torch.from_numpy(d)))
+        ok = f >= 0
+        o, d, t, f = o[ok], d[ok], t[ok], f[ok]
+        nrm = _normals(tris[f])
+        nrm = np.where((nrm * d).sum(1, keepdims=True) > 0, -nrm, nrm)
+        hit = o + t[:, None] * d + (1e-4 * nrm if kind == "surface" else 0.0)
+        refl = d - 2.0 * (d * nrm).sum(1, keepdims=True) * nrm
+        diffuse = _unit(rng.standard_normal((len(o), 3)))
+        diffuse = np.where((diffuse * nrm).sum(1, keepdims=True) < 0, -diffuse, diffuse)
+        half = len(o) // 2
+        return hit.astype(np.float32), np.concatenate([refl[:half], diffuse[half:]]).astype(np.float32), f
+    o, d = _slop_rays(tris, rng, n) if kind == "slop" else ray_set(kind, tris, seed, n)
+    prev = np.where(rng.uniform(size=len(o)) < 0.5, rng.integers(0, len(tris), len(o)), -1)
+    return o, d, prev.astype(np.int32)
+
+
+MXU_CASES = [("room", k) for k in ("interior", "surface", "on_surface", "grazing", "axis", "vertex_edge",
+                                   "nonfinite", "slop")]
+MXU_CASES += [("lod", k) for k in ("interior", "surface", "grazing", "axis", "slop")] + [("lod_sentinels", "surface")]
+
+
+@pytest.mark.parametrize("which,kind", MXU_CASES)
+def test_window_walk_certificate_and_equality(meshes, which, kind):
+    """Every ancestor of the leaf holding the dense selection's winner is
+    entered no later than its selection t, and K8's walk gives the dense
+    selection's bits after the plane re-evaluation."""
+    base = meshes["lod" if which == "lod_sentinels" else which]
+    tris = _with_sentinels(base, 7) if which == "lod_sentinels" else base
+    tables = tmxu.build_mxu_face_tables(torch.from_numpy(tris))
+    o, d, prev = _mxu_rays(kind, tris, tables, seed=zlib.crc32(f"mxu {which} {kind}".encode()))
+    o_t, d_t, p_t = torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(prev)
+    o_c, _, rvec, _ = tmxu.mxu_inputs(tables, o_t, d_t, p_t)
+    t_sel, f_sel = (x.numpy() for x in ck.first_hit_mxu_plain(rvec, p_t, tables.packed))
+    t_sel = np.where(f_sel >= 0, t_sel, np.inf).astype(np.float32)
+    t_star, f_star = (x.numpy() for x in tmxu.mxu_first_hit_plain(tables, o_t, d_t, p_t))
+    np.testing.assert_array_equal(f_star, f_sel)
+    if kind == "nonfinite":
+        bad = ~np.isfinite(np.concatenate([o, d], axis=1)).all(axis=1)
+        assert bad.any() and (f_star[bad] == -1).all()
+    else:
+        assert (f_star >= 0).mean() > 0.8
+    if kind in ("surface", "on_surface"):
+        assert (f_star != prev).all()
+    held, slack = tree_certificate(tables.bvh, o_c, d_t, t_sel, f_sel)
+    print(f"{which} {kind}: {len(o)} rays, {(f_star >= 0).sum()} hits, {(prev >= 0).sum()} launch faces masked, "
+          f"smallest t_sel - ancestor entry {slack:.3e}")
+    assert held.all()
+    t_w, f_w, visits = tmxu.mxu_walk(tables, o_t, d_t, p_t)
+    np.testing.assert_array_equal(f_w.numpy(), f_star)
+    np.testing.assert_array_equal(t_w.numpy().view(np.int32), t_star.view(np.int32))
+    assert float(visits[:, 1].double().mean()) < 0.25 * tables.bvh.n_leaves
