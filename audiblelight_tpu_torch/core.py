@@ -762,6 +762,24 @@ class Scene:
             raise FileNotFoundError(f"Output directory {output_dir} does not exist")
         return output_dir
 
+    def _check_dry_stems(self) -> None:
+        """Refuses an event that asks for a dry stem (both `ref_ir_channel`
+        and `direct_path_time_ms`), and logs the reference's warning
+        (synthesize.py:compute_dry_audio) for one that sets only one of them."""
+        for alias, event in self.events.items():
+            has_channel, has_window = event.ref_ir_channel is not None, event.direct_path_time_ms is not None
+            if has_channel and has_window:
+                raise NotImplementedError(
+                    f"Event {alias!r} asks for a dry stem (ref_ir_channel and direct_path_time_ms): dry stems "
+                    "come from the classic per-event pipeline (ROADMAP item 1.2), which is not ported"
+                )
+            if has_channel or has_window:
+                logger.warning(
+                    "Only one of `ref_ir_channel` or `direct_path_time_ms` were specified when creating "
+                    "the Event. Dry audio will not be computed for this Event. Pass both variables to "
+                    "compute dry audio."
+                )
+
     def generate(
         self,
         output_dir: Optional[Union[str, Path]] = None,
@@ -784,9 +802,18 @@ class Scene:
         (pipeline.render_scene_audio_compiled: the state's IR banks, device
         stems, host mix and host ambience bed). `video` and `video_fname` keep
         the reference's signature; video is not ported.
+
+        The reference's classic per-event pipeline (`compiled=False`) also
+        renders a dry stem for an event with both `ref_ir_channel` and
+        `direct_path_time_ms`; that pipeline is not ported, so such an event
+        raises before anything renders, and an event with only one of the
+        two logs the reference's warning. `compiled=True` renders no dry stem
+        in either package.
         """
         if video:
             raise NotImplementedError("video is not ported (ROADMAP item 1.8: video)")
+        if audio and not compiled:
+            self._check_dry_stems()
         output_dir = self._sanitise_output_directory(output_dir)
         if audio and compiled:
             from audiblelight_tpu_torch.pipeline import render_scene_audio_compiled

@@ -5,11 +5,11 @@
 // audiblelight_tpu/ops/pair_first_hit.py:_pair_kernel) repeat it. The face
 // row is the 16-column table [e2, w2, -e1, -w1, -n, -k] in coordinates
 // centred on the mesh, and the ray carries its Plucker moment od = o x d.
-// The dense first hit (first_hit.cu, its big variant), the sorted first hit
-// (sorted_first_hit.cu) and the pair first hit (pair_first_hit.cu) all call
-// it, the last two through the shared tile fold below, so all three compute
-// the same bits; every file that includes it is
-// built with --fmad=false, as the plain PyTorch versions
+// K1 big (first_hit.cu) and the sorted first hit (sorted_first_hit.cu) walk
+// a face tree of those rows with the leaf test `BilinearLeaf`; the pair
+// first hit (pair_first_hit.cu) folds whole tiles of them with `fold_tile`.
+// All three compute the same bits: every file that includes this is built
+// with --fmad=false, as the plain PyTorch versions
 // (ops/cuda_kernels.py:_bilinear_pair) never contract a product.
 
 #pragma once
@@ -40,7 +40,33 @@ __device__ __forceinline__ bool first_hit(const float* c, float ox, float oy, fl
   return (u >= -kEps) && (u <= kOnePlusEps) && (v >= -kEps) && (u + v <= kOnePlusEps) && (t > kEps);
 }
 
-// The Morton tiles of the sorted and pair first hits: 256 rows of the table each.
+// The bilinear test of one face-tree row (16 floats: four float4s) for the
+// first-hit walk (first_hit_walk.cuh)
+struct BilinearLeaf {
+  const float4* __restrict__ rows;
+  float ox, oy, oz, dx, dy, dz, odx, ody, odz;  // the centred ray and its Plucker moment o x d
+
+  __device__ __forceinline__ bool operator()(int row, int, float* t) const {
+    float c[16];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 v = __ldg(rows + 4 * row + k);
+      c[4 * k] = v.x;
+      c[4 * k + 1] = v.y;
+      c[4 * k + 2] = v.z;
+      c[4 * k + 3] = v.w;
+    }
+    return first_hit(c, ox, oy, oz, dx, dy, dz, odx, ody, odz, t);
+  }
+};
+
+// The leaf test of the centred ray (o, d), its Plucker moment formed once
+__device__ __forceinline__ BilinearLeaf leaf_of(const float4* __restrict__ rows, float ox, float oy, float oz,
+                                                float dx, float dy, float dz) {
+  return BilinearLeaf{rows, ox, oy, oz, dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx};
+}
+
+// The Morton tiles of the pair first hit: 256 rows of the table each.
 constexpr int kTileFaces = 256;  // SORTED_TILE_FACES in ops/cuda_kernels.py
 constexpr int kCols = 16;        // [e2, w2, -e1, -w1, -n, -k]
 constexpr float kBig = 3.0e38f;  // t of a miss
@@ -56,10 +82,9 @@ __device__ __forceinline__ void stage_tile(float4* faces, const float* __restric
 
 // Folds the 256 staged faces of tile `tl` into the ray's smallest (t, sorted
 // face index) so far. The index breaks a tie in t, so the result does not
-// depend on the order the tiles are folded in (the sorted first hit visits
-// them in bound order, the pair first hit one per lane); a miss is (kBig,
-// kIdxBig). Every thread reads the same face row at once: a shared-memory
-// broadcast.
+// depend on the order the tiles are folded in (the pair first hit takes one
+// per lane); a miss is (kBig, kIdxBig). Every thread reads the same face row
+// at once: a shared-memory broadcast.
 __device__ __forceinline__ void fold_tile(const float4* faces, int tl, float ox, float oy, float oz, float dx,
                                           float dy, float dz, float odx, float ody, float odz, float& best_t,
                                           int& best_i) {

@@ -1,9 +1,11 @@
 // The first-hit walk of one ray through a face tree, shared by K1 big
-// (first_hit.cu, the bilinear rows of the dense big table), K7
-// (tiled_first_hit.cu, classic Moller-Trumbore rows) and K8
-// (mxu_first_hit.cu, the bilinear window rows with a launch-face mask). Each
-// kernel passes its own leaf test; the walk, its visit order and its fold are
-// the same for all three.
+// (first_hit.cu, the bilinear rows of the dense big table), K1 small
+// (first_hit.cu, classic Moller-Trumbore rows, the tree staged in shared
+// memory), K7 (tiled_first_hit.cu, classic Moller-Trumbore rows), K8
+// (mxu_first_hit.cu, the bilinear window rows with a launch-face mask) and
+// K9 (sorted_first_hit.cu, the bilinear rows over the Morton-sorted faces,
+// dead rays masked). Each kernel passes its own leaf test; the walk, its
+// visit order and its fold are the same for all five.
 //
 // The trees are built by ops/cuda_kernels.py:build_face_bvh, once per mesh:
 // a kernel's table rows gathered into leaves of BVH_LEAF_FACES (4)
@@ -88,19 +90,19 @@ struct Best {
 // of each row, -1 on padding) for the ray o + s d, s >= 0, in the frame of
 // the boxes. `leaf(row, f, &t)` is the kernel's pair test of row `row`
 // (original face f): true where the ray hits it, with its hit distance t.
-template <class Leaf>
+// The fold starts from `b` (K1 small's always-tested rows); kGlobal is false
+// where `boxes` and `face` lie in shared memory.
+template <bool kGlobal = true, class Leaf>
 __device__ __forceinline__ Best walk(const Leaf& leaf, const float4* __restrict__ boxes,
                                      const int* __restrict__ face, int n_leaves, int leaf_faces, float ox,
-                                     float oy, float oz, float dx, float dy, float dz) {
-  using face_tree::slab;
-  Best b;
+                                     float oy, float oz, float dx, float dy, float dz, Best b = Best()) {
   const float ix = face_tree::slab_inverse(dx), iy = face_tree::slab_inverse(dy),
               iz = face_tree::slab_inverse(dz);
   int stack_node[face_tree::kStack];
   float stack_t[face_tree::kStack];
   int sp = 0;
   float e0, x0, e1, x1;
-  slab(boxes + 2, ox, oy, oz, ix, iy, iz, e0, x0);
+  face_tree::slab<kGlobal>(boxes + 2, ox, oy, oz, ix, iy, iz, e0, x0);
   b.nodes = 1;
   int node = e0 <= x0 ? 1 : 0;
   // While-while: a lane that reaches a leaf waits until every lane of the
@@ -109,8 +111,8 @@ __device__ __forceinline__ Best walk(const Leaf& leaf, const float4* __restrict_
   while (node != 0) {
     while (node != 0 && node < n_leaves) {
       const int c0 = 2 * node;
-      slab(boxes + 2 * c0, ox, oy, oz, ix, iy, iz, e0, x0);
-      slab(boxes + 2 * c0 + 2, ox, oy, oz, ix, iy, iz, e1, x1);
+      face_tree::slab<kGlobal>(boxes + 2 * c0, ox, oy, oz, ix, iy, iz, e0, x0);
+      face_tree::slab<kGlobal>(boxes + 2 * c0 + 2, ox, oy, oz, ix, iy, iz, e1, x1);
       b.nodes += 2;
       const bool v0 = e0 <= x0 && e0 <= b.t;
       const bool v1 = e1 <= x1 && e1 <= b.t;
@@ -129,7 +131,7 @@ __device__ __forceinline__ Best walk(const Leaf& leaf, const float4* __restrict_
     if (node == 0) break;
     const int base = (node - n_leaves) * leaf_faces;
     for (int q = 0; q < leaf_faces; ++q) {
-      const int f = __ldg(face + base + q);
+      const int f = face_tree::load<kGlobal>(face + base + q);
       if (f < 0) continue;
       float t;
       const bool hit = leaf(base + q, f, &t);

@@ -2,14 +2,19 @@
 // first-hit body (audiblelight_tpu/ops/pallas_kernels.py:
 // _first_hit_small_kernel) and the tiled first-hit body
 // (audiblelight_tpu/ops/tiled_first_hit.py:_fh_kernel) write it, term for
-// term. The dense first hit (first_hit.cu, its small variant) and the tiled
-// first hit (tiled_first_hit.cu) both call it, so both compute the same bits;
-// every file that includes it is built with --fmad=false, as the plain
-// PyTorch version (ops/cuda_kernels.py:_mt_pair) never contracts a product.
+// term, and the leaf test `MtLeaf` of a face tree's rows [a, e1, e2] for the
+// first-hit walk (first_hit_walk.cuh). K1 small (first_hit.cu) and K7
+// (tiled_first_hit.cu) both walk with it, so both compute the dense classic
+// first hit's bits; every file that includes it is built with --fmad=false,
+// as the plain PyTorch version (ops/cuda_kernels.py:_mt_pair) never
+// contracts a product.
 
 #pragma once
 
+#include <cuda_runtime.h>
 #include <math.h>
+
+#include "face_tree.cuh"
 
 namespace mt_pair {
 
@@ -38,5 +43,20 @@ __device__ __forceinline__ bool first_hit(float ax, float ay, float az, float e1
   return valid_a && (u >= -kEps) && (u <= kOnePlusEps) && (v >= -kEps) && (u + v <= kOnePlusEps) &&
          (t > kEps);
 }
+
+// The classic Moller-Trumbore test of one face-tree row [a, e1, e2, 0, 0, 0]
+// (three float4s, ops/cuda_kernels.py:MT_ROW) against the ray o + s d;
+// kGlobal is false where a block has staged the rows into shared memory
+template <bool kGlobal = true>
+struct MtLeaf {
+  const float4* __restrict__ rows;
+  float ox, oy, oz, dx, dy, dz;
+
+  __device__ __forceinline__ bool operator()(int row, int, float* t) const {
+    const float4 r0 = face_tree::load<kGlobal>(rows + 3 * row), r1 = face_tree::load<kGlobal>(rows + 3 * row + 1),
+                 r2 = face_tree::load<kGlobal>(rows + 3 * row + 2);
+    return first_hit(r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w, r2.x, ox, oy, oz, dx, dy, dz, t);
+  }
+};
 
 }  // namespace mt_pair

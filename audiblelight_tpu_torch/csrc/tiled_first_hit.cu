@@ -18,9 +18,9 @@
 // read. The tree (ops/cuda_kernels.py:tiled_face_bvh, built once per mesh)
 // holds the finite, non-degenerate faces' rows [a, e1, e2] in world
 // coordinates, padded to three float4s, and each row's original face; a
-// leaf row goes through mt_pair.cuh, the dense small first hit's pair test,
-// so a tested pair gives the dense bits (built with --fmad=false, as the
-// plain PyTorch versions never contract a product). The plain version of
+// leaf row goes through mt_pair.cuh's leaf test, shared with the small first
+// hit (first_hit.cu), so a tested pair gives the dense bits (built with
+// --fmad=false, as the plain PyTorch versions never contract a product). The plain version of
 // the walk is ops/cuda_kernels.py:tiled_walk_plain; the dense plain version
 // ray_first_hit_plain with dense_mt_table.
 
@@ -31,17 +31,6 @@
 #include "mt_pair.cuh"
 
 namespace {
-
-// The classic Moller-Trumbore test of one leaf row [a, e1, e2, 0, 0, 0]
-struct MtLeaf {
-  const float4* __restrict__ rows;
-  float ox, oy, oz, dx, dy, dz;
-
-  __device__ __forceinline__ bool operator()(int row, int, float* t) const {
-    const float4 r0 = __ldg(rows + 3 * row), r1 = __ldg(rows + 3 * row + 1), r2 = __ldg(rows + 3 * row + 2);
-    return mt_pair::first_hit(r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w, r2.x, ox, oy, oz, dx, dy, dz, t);
-  }
-};
 
 __global__ void first_hit_tiled_kernel(const float* __restrict__ o,       // (R, 3) origins
                                        const float* __restrict__ d,       // (R, 3) directions
@@ -56,8 +45,8 @@ __global__ void first_hit_tiled_kernel(const float* __restrict__ o,       // (R,
   const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
   first_hit_walk::Best b;
   if (isfinite(ox) && isfinite(oy) && isfinite(oz) && isfinite(dx) && isfinite(dy) && isfinite(dz))
-    b = first_hit_walk::walk(MtLeaf{rows, ox, oy, oz, dx, dy, dz}, boxes, face, n_leaves, leaf_faces, ox, oy, oz,
-                             dx, dy, dz);
+    b = first_hit_walk::walk(mt_pair::MtLeaf<>{rows, ox, oy, oz, dx, dy, dz}, boxes, face, n_leaves, leaf_faces,
+                             ox, oy, oz, dx, dy, dz);
   first_hit_walk::store(r, b, b.t, t_out, idx_out, visits);
 }
 

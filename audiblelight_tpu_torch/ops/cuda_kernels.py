@@ -16,8 +16,10 @@ audiblelight_tpu/ops/star_occlusion.py:
 - `first_hit_mxu`       <- mxu_first_hit's kernel and its glue (the ray
   vectors and the exact plane re-evaluation run inside the launch; the
   tables and the face tree are built by ops/mxu_first_hit.py)
-- `first_hit_sorted`    <- sorted_first_hit's kernel (the glue, cone sort and
-  per-block tile order, is ops/sorted_first_hit.py)
+- `first_hit_sorted`    <- sorted_first_hit's kernel and its glue (a per-ray
+  walk of the sorted faces' tree in one launch, the centring and the alive
+  mask inside it; the tiles and the tree are built by
+  ops/sorted_first_hit.py)
 - `first_hit_pair`      <- pair_first_hit's kernel (the glue, slab test,
   candidate tiles, tile-aligned pair layout and rounds, is
   ops/pair_first_hit.py)
@@ -272,12 +274,15 @@ def big_first_hit_table(tris: torch.Tensor) -> tuple:
     return "big", center, tab, big_face_bvh(tris, center, tab)
 
 
-def first_hit_table(tris: torch.Tensor) -> tuple:
-    """(variant, centre or None, face table, face tree or None) of the
-    first-hit kernel for `tris` (F, 3, 3). A caller that casts many rays at
-    one mesh builds it once and passes it to every `ray_first_hit` call."""
+def first_hit_table(tris: torch.Tensor, tree: "AnyHitTree" = None) -> tuple:
+    """(variant, centre or None, face table, face tree) of the first-hit
+    kernel for `tris` (F, 3, 3): for more than SMALL_F_MAX faces the big
+    variant's table and `FaceBVH`; else the classic rows and the mesh's
+    any-hit tree (`any_hit_tree(tris)`, or `tree` where the caller caches
+    one), which K1 small walks. A caller that casts many rays at one mesh
+    builds it once and passes it to every `ray_first_hit` call."""
     if tris.shape[0] <= SMALL_F_MAX:
-        return "small", None, mt_face_table(tris), None
+        return "small", None, mt_face_table(tris), any_hit_tree(tris) if tree is None else tree
     return big_first_hit_table(tris)
 
 
@@ -359,7 +364,7 @@ def slab_entry_exit(o: torch.Tensor, inv: torch.Tensor, lo: torch.Tensor, hi: to
     return entry, exit_
 
 
-def _first_hit_walk_plain(o, d, bvh: FaceBVH, pair):
+def _first_hit_walk_plain(o, d, bvh: FaceBVH, pair, best: tuple = None):
     """The face-tree walk of csrc/first_hit_walk.cuh for every ray at once,
     in the kernels' order (the nearer child first, the farther pushed with
     its entry and skipped at its pop once the best t precedes it; a leaf's
@@ -368,7 +373,8 @@ def _first_hit_walk_plain(o, d, bvh: FaceBVH, pair):
     component is a miss without a walk. `pair(rays, rows, faces)` is the
     kernel's leaf test of the rays `rays` (n,) (indices into `o`) against
     their leaf's rows (n, leaf_faces, W) of original faces `faces` (n,
-    leaf_faces): (hit, t), each (n, leaf_faces)."""
+    leaf_faces): (hit, t), each (n, leaf_faces). The fold starts from `best`
+    ((t, face) (R,), 3e38 and 2**30 for none) where given."""
     r, dev = o.shape[0], o.device
     n_leaves = bvh.n_leaves
     lo, hi = bvh.boxes[:, 0:3], bvh.boxes[:, 4:7]
@@ -376,8 +382,11 @@ def _first_hit_walk_plain(o, d, bvh: FaceBVH, pair):
     o = torch.where(finite[:, None], o, 0.0)
     d = torch.where(finite[:, None], d, 1.0)
     inv = slab_inverse(d)
-    best_t = torch.full((r,), _BIG, dtype=torch.float32, device=dev)
-    best_i = torch.full((r,), _IDX_BIG, dtype=torch.int32, device=dev)
+    if best is None:
+        best_t = torch.full((r,), _BIG, dtype=torch.float32, device=dev)
+        best_i = torch.full((r,), _IDX_BIG, dtype=torch.int32, device=dev)
+    else:
+        best_t, best_i = (x.clone() for x in best)
     entry, exit_ = slab_entry_exit(o, inv, lo[1], hi[1])
     node = torch.where(finite & (entry <= exit_), 1, 0)
     nodes = finite.to(torch.int32)
@@ -469,13 +478,15 @@ def _mt_pair_xyz(ox, oy, oz, dx, dy, dz, c):
 
 
 def _first_hit_small_plain(o, d, tab):
-    """Plain version of _first_hit_small_kernel."""
+    """The dense classic Moller-Trumbore first hit over every row of `tab`
+    (F, >= 9) in order, as the Pallas small body computes it: K1 small's
+    exactness reference and its CPU path."""
     r, f = o.shape[0], tab.shape[0]
     best_t = torch.full((r,), _BIG, dtype=torch.float32, device=o.device)
     best_i = torch.full((r,), -1, dtype=torch.int32, device=o.device)
     step = _face_chunk(r, f)
     for f0 in range(0, f, step):
-        in_tri, t = _mt_pair(o, d, tab[f0 : f0 + step].T[:, None, :])
+        in_tri, t = _mt_pair(o, d, tab[f0 : f0 + step, :9].T[:, None, :])
         best_t, best_i = _fold_min(best_t, best_i, torch.where(in_tri & (t > _EPS), t, _BIG), f0)
     return best_t, best_i
 
@@ -496,24 +507,49 @@ def ray_first_hit_plain(origins, dirs, tris, table=None):
     return _finish_first_hit(*body(o, d, tab))
 
 
-def _launch_first_hit(variant, o, d, tab, bvh, visits=None):
-    """One launch of the first-hit kernel of `variant` on card tensors."""
-    if variant != "small":
-        return _launch_walk("first_hit_big", 16, o, d, bvh, visits)
-    r, f, dev = o.shape[0], tab.shape[0], o.device
+def _launch_first_hit(variant, o, d, tree, visits=None):
+    """One launch of the first-hit kernel of `variant` on card tensors:
+    K1 big walks its `FaceBVH`, K1 small the mesh's `AnyHitTree`."""
+    if tree is None:
+        raise ValueError(f"the {variant} first hit on the card walks a face tree: the table carries none "
+                         "(first_hit_table builds one; dense_mt_table is the plain oracle's)")
+    if variant == "small":
+        return _launch_small(o, d, tree, visits)
+    return _launch_walk("first_hit_big", 16, o, d, tree, visits)
+
+
+def _launch_small(o, d, tree: "AnyHitTree", visits=None) -> tuple:
+    """One launch of K1 small on card tensors: the walk of the mesh's any-hit
+    tree (each block staging it into shared memory), its always-tested rows
+    folded first."""
+    r, dev = o.shape[0], o.device
+    bvh = tree.bvh
+    n_leaves, n_always = bvh.n_leaves, tree.always.shape[0]
+    if n_leaves.bit_length() - 1 > BVH_MAX_DEPTH:
+        raise ValueError(f"first_hit_small: a tree of {n_leaves} leaves is deeper than {BVH_MAX_DEPTH} levels")
     _check("origins", o, (r, 3), torch.float32, dev)
     _check("dirs", d, (r, 3), torch.float32, dev)
-    _check("face table", tab, (f, 9), torch.float32, dev)
+    _check("tree rows", bvh.rows, (n_leaves * bvh.leaf_faces, MT_ROW), torch.float32, dev)
+    _check("tree faces", bvh.face, (n_leaves * bvh.leaf_faces,), torch.int32, dev)
+    _check("tree boxes", bvh.boxes, (2 * n_leaves, 8), torch.float32, dev)
+    _check("always-tested rows", tree.always, (n_always, MT_ROW), torch.float32, dev)
+    _check("always-tested faces", tree.always_face, (n_always,), torch.int32, dev)
+    if visits is not None:
+        _check("visits", visits, (r, 2), torch.int32, dev)
     t = o.new_empty(r)
     idx = o.new_empty(r, dtype=torch.int32)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _lib("first_hit", "first_hit_small", [vp, vp, vp, ci, ci, vp, vp, vp])
+    fn = _lib("first_hit", "first_hit_small", [vp] * 7 + [ci] * 4 + [vp, vp, vp, vp])
     launch_counts["first_hit_small"] += 1
-    _raise_on(fn(_ptr(o), _ptr(d), _ptr(tab), r, f, _ptr(t), _ptr(idx), _stream(o)), "first_hit_small")
+    err = fn(_ptr(o), _ptr(d), _ptr(bvh.rows), _ptr(bvh.face), _ptr(bvh.boxes), _ptr(tree.always),
+             _ptr(tree.always_face), r, n_leaves, bvh.leaf_faces, n_always, _ptr(t), _ptr(idx),
+             ctypes.c_void_p(0 if visits is None else visits.data_ptr()), _stream(o))
+    _raise_on(err, "first_hit_small")
     return t, idx
 
 
-_WALK_SOURCES = {"first_hit_big": "first_hit", "first_hit_tiled": "tiled_first_hit", "first_hit_mxu": "mxu_first_hit"}
+_WALK_SOURCES = {"first_hit_big": "first_hit", "first_hit_tiled": "tiled_first_hit", "first_hit_mxu": "mxu_first_hit",
+                 "first_hit_sorted": "sorted_first_hit"}
 
 
 def _launch_walk(name: str, row_width: int, o, d, bvh: FaceBVH, visits, *head) -> tuple:
@@ -550,42 +586,61 @@ def ray_first_hit(origins, dirs, tris, table=None):
     t = +inf and face = -1 where a ray escapes. On equal t the smallest face
     index wins. F > 512 runs the big-variant arithmetic (centred coordinates,
     precomputed face table), F <= 512 classic Moller-Trumbore, as the Pallas
-    kernel does. `table` is `first_hit_table(tris)` where the caller keeps it:
-    on the card the big variant walks its face tree in one launch; the
-    result is the dense walk's, bit for bit.
+    kernel does. `table` is `first_hit_table(tris)` where the caller keeps it.
+    On the card each variant walks the table's face tree in one launch (K1
+    big or K1 small; a table without a tree raises); the result is the dense
+    walk's, bit for bit. On the CPU the dense walk runs.
     """
-    variant, o, d, tab, bvh = _first_hit_inputs(origins, dirs, tris, table)
+    variant, o, d, tab, tree = _first_hit_inputs(origins, dirs, tris, table)
     if not _on_card(o):
         body = _first_hit_big_plain if variant == "big" else _first_hit_small_plain
         return _finish_first_hit(*body(o, d, tab))
-    return _launch_first_hit(variant, o, d, tab, bvh)
+    return _launch_first_hit(variant, o, d, tree)
 
 
 def _walk_inputs(origins, dirs, table):
-    variant, o, d, _, bvh = _first_hit_inputs(origins, dirs, None, table)
-    if variant != "big" or bvh is None:
-        raise ValueError("the tree walk takes a big-variant table with its face tree (big_first_hit_table)")
-    return o, d, bvh
+    variant, o, d, _, tree = _first_hit_inputs(origins, dirs, None, table)
+    if tree is None:
+        raise ValueError("the tree walk takes a table with its face tree (first_hit_table)")
+    return variant, o, d, tree
+
+
+def _small_walk_plain(o, d, tree: "AnyHitTree"):
+    """K1 small's walk (csrc/first_hit.cu) for every ray: the always-tested
+    rows folded first by (t, original face), whatever the ray's components,
+    then the walk of the tree's rows with the classic leaf test."""
+    best_t = torch.full((o.shape[0],), _BIG, dtype=torch.float32, device=o.device)
+    best_i = torch.full((o.shape[0],), _IDX_BIG, dtype=torch.int32, device=o.device)
+    if tree.always.shape[0]:
+        t, i = _first_hit_small_plain(o, d, tree.always)
+        hit = t < _BIG
+        best_t = torch.where(hit, t, best_t)
+        best_i = torch.where(hit, tree.always_face[i.clamp_min(0).long()], best_i)
+    return _first_hit_walk_plain(o, d, tree.bvh, _mt_leaf(o, d), (best_t, best_i))
+
+
+def _plain_walk(variant, o, d, tree):
+    return _small_walk_plain(o, d, tree) if variant == "small" else _first_hit_walk_plain(o, d, tree, _bilinear_leaf(o, d))
 
 
 def first_hit_walk_plain(origins, dirs, table):
     """Plain PyTorch version of `first_hit_walk` (any device): the kernel's
     tree walk, every ray's steps in its order."""
-    o, d, bvh = _walk_inputs(origins, dirs, table)
-    return _first_hit_walk_plain(o, d, bvh, _bilinear_leaf(o, d))
+    return _plain_walk(*_walk_inputs(origins, dirs, table))
 
 
 def first_hit_walk(origins, dirs, table):
-    """`ray_first_hit` of the big variant with the walk's counts: (t, face,
-    visits (R, 2) int32), visits = [boxes slab-tested, leaves folded] per
-    ray. `table` is a big table with its tree (`big_first_hit_table`).
-    Launches the kernel on a CUDA device (one `first_hit_big` launch) and its
-    plain walk on the CPU."""
-    o, d, bvh = _walk_inputs(origins, dirs, table)
+    """`ray_first_hit` through the table's tree with the walk's counts: (t,
+    face, visits (R, 2) int32), visits = [boxes slab-tested, leaves folded]
+    per ray. `table` is `first_hit_table(tris)` (K1 big's tree, or K1
+    small's any-hit tree, whose always-tested rows are not counted).
+    Launches the kernel on a CUDA device (one `first_hit_big` or
+    `first_hit_small` launch) and its plain walk on the CPU."""
+    variant, o, d, tree = _walk_inputs(origins, dirs, table)
     if not _on_card(o):
-        return _first_hit_walk_plain(o, d, bvh, _bilinear_leaf(o, d))
+        return _plain_walk(variant, o, d, tree)
     visits = torch.empty((o.shape[0], 2), dtype=torch.int32, device=o.device)
-    t, idx = _launch_first_hit("big", o, d, None, bvh, visits)
+    t, idx = _launch_first_hit(variant, o, d, tree, visits)
     return t, idx, visits
 
 
@@ -1334,8 +1389,7 @@ def first_hit_mxu(o, d, prev, center, bvh: FaceBVH, visits=None):
 # of the big variant's face table
 # ---------------------------------------------------------------------------
 
-SORTED_TILE_FACES = 256  # Morton-sorted faces per tile (kTileFaces in both sources)
-SFH_LANES = 512  # sorted rays per block (kBlock in csrc/sorted_first_hit.cu)
+SORTED_TILE_FACES = 256  # Morton-sorted faces per tile (kTileFaces in csrc/bilinear_pair.cuh)
 PFH_LANES = 512  # pair lanes per block, one tile each (kBlock in csrc/pair_first_hit.cu)
 
 
@@ -1352,89 +1406,43 @@ def _tile_fold(ray, faces, tl):
     return t_min, torch.where(t_hit == t_min[..., None], f_hit, _IDX_BIG).amin(dim=2)
 
 
-def sorted_walk_plain(o, d, alive, perm, dlo, nv, face_tab):
-    """The K9 kernel's walk in plain PyTorch (any device), vectorised over
-    blocks: (t (R_pad,): 0 on dead lanes, 3e38 on a miss; sorted face
-    (R_pad,) int32, -1 on a dead lane or a miss; tiles visited per block
-    (n_blocks,) int64).
-
-    Step i takes each block's tile perm[:, i] while i < nv and the block is
-    not done; after it a block whose largest best t (dead lanes hold 0) is
-    not above the next bound dlo[:, i + 1] (3e38 past nv) is done. Each ray
-    keeps the smallest (t, sorted face index) over the tiles it visits."""
-    r_pad = o.shape[0]
-    nb, n_tiles = r_pad // SFH_LANES, face_tab.shape[0] // SORTED_TILE_FACES
-    dev = o.device
-    live = alive.reshape(nb, SFH_LANES) != 0
-    ray = _plucker(o.reshape(nb, SFH_LANES, 3), d.reshape(nb, SFH_LANES, 3))
-    faces = face_tab.reshape(n_tiles, SORTED_TILE_FACES, 16)
-    best_t = torch.where(live, _BIG, 0.0)
-    best_i = torch.full((nb, SFH_LANES), _IDX_BIG, dtype=torch.int32, device=dev)
-    n_visit = nv.long().clamp(max=n_tiles)
-    done = n_visit == 0
-    visited = torch.zeros(nb, dtype=torch.int64, device=dev)
-    per_chunk = max(1, _CHUNK_ELEMS // (SFH_LANES * SORTED_TILE_FACES))
-    perm = perm.long()
-    for i in range(n_tiles):
-        blocks = torch.nonzero(~done & (i < n_visit)).flatten()
-        if blocks.numel() == 0:
-            break
-        for b0 in range(0, blocks.numel(), per_chunk):
-            b = blocks[b0 : b0 + per_chunk]
-            tl = perm[b, i]
-            t_min, i_min = _tile_fold(tuple(x[b] for x in ray), faces[tl], tl)
-            best_t[b], best_i[b] = _lex_min(best_t[b], best_i[b], t_min, i_min)
-        visited[blocks] += 1
-        nxt = torch.where(i + 1 < n_visit[blocks], dlo[blocks, min(i + 1, n_tiles - 1)], _BIG)
-        done[blocks] |= best_t[blocks].amax(dim=1) <= nxt
-    t = best_t.reshape(-1)
-    idx = torch.where((t >= _BIG) | ~live.reshape(-1), -1, best_i.reshape(-1))
-    return t, idx, visited
+def sorted_walk_plain(o, d, alive, center, bvh: FaceBVH):
+    """Plain PyTorch version of `first_hit_sorted` (any device): the
+    centring, then K1 big's walk of the sorted faces' tree, every live ray's
+    steps in the kernel's order: (t, sorted face, visits (R, 2) int32 = slab
+    tests, leaves folded). A dead ray walks as a non-finite one does: no
+    walk, (inf, -1), no visits."""
+    o_c = o - center
+    if alive is not None:
+        o_c = torch.where(alive[:, None], o_c, math.nan)
+    return _first_hit_walk_plain(o_c, d, bvh, _bilinear_leaf(o_c, d))
 
 
-def first_hit_sorted(o, d, alive, perm, dlo, nv, face_tab):
-    """First hit of cone-sorted rays against Morton-tiled faces (K9).
+def first_hit_sorted(o, d, alive, center, bvh: FaceBVH, visits=None):
+    """First hit of a ray wavefront against the Morton-sorted faces (K9).
 
     Arguments:
-        o, d: (R_pad, 3) centred origins and directions, sorted by (origin
-            cell, direction cone); alive: (R_pad,) int32, 1 for a live ray.
-            R_pad is a multiple of SFH_LANES.
-        perm: (n_blocks, n_tiles) int32 each block's tiles in ascending
-            order of `dlo` (n_blocks, n_tiles), the directed entry bounds
-            (3e38 past the reachable ones); nv: (n_blocks,) int32 the number
-            of reachable tiles.
-        face_tab: (n_tiles * SORTED_TILE_FACES, 16) the big variant's rows
-            [e2, w2, -e1, -w1, -n, -k], zero rows as padding.
+        o, d: (R, 3) float32 origins (world coordinates) and directions.
+        alive: (R,) bool, True for a live ray; or None (all live).
+        center: (3,) the tiles' centre; bvh: the sorted faces' tree
+            (ops/sorted_first_hit.py:build_sorted_tree), each row reporting
+            its sorted index.
 
-    Returns (t (R_pad,), sorted face (R_pad,) int32): t = 3e38 and face = -1
-    on a miss, t = 0 and face = -1 on a dead lane. The smallest sorted index
-    wins a tie, so on live rays the result is the dense big first hit over
-    the sorted faces, as long as the bounds are conservative.
+    Returns (t (R,), sorted face (R,) int32): t = +inf and face = -1 on a
+    miss or a dead ray, the smallest sorted index on equal t: the dense big
+    first hit over the sorted faces, bit for bit. One launch of the K9
+    kernel on a CUDA device, the centring and the alive mask inside it (with
+    `visits` (R, 2) int32 it writes each ray's slab tests and leaves folded
+    there); its plain walk on the CPU.
     """
     if not _on_card(o):
-        t, idx, _ = sorted_walk_plain(o, d, alive, perm, dlo, nv, face_tab)
-        return t, idx
-    r_pad, dev = o.shape[0], o.device
-    n_tiles = face_tab.shape[0] // SORTED_TILE_FACES
-    nb = r_pad // SFH_LANES
-    if r_pad % SFH_LANES or n_tiles == 0:
-        raise ValueError(f"first_hit_sorted: {r_pad} rays are not whole blocks of {SFH_LANES}, or no tiles")
-    _check("origins", o, (r_pad, 3), torch.float32, dev)
-    _check("dirs", d, (r_pad, 3), torch.float32, dev)
-    _check("alive", alive, (r_pad,), torch.int32, dev)
-    _check("tile order", perm, (nb, n_tiles), torch.int32, dev)
-    _check("tile bounds", dlo, (nb, n_tiles), torch.float32, dev)
-    _check("reachable tiles", nv, (nb,), torch.int32, dev)
-    _check("face table", face_tab, (n_tiles * SORTED_TILE_FACES, 16), torch.float32, dev)
-    t = torch.empty(r_pad, dtype=torch.float32, device=dev)
-    idx = torch.empty(r_pad, dtype=torch.int32, device=dev)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _lib("sorted_first_hit", "first_hit_sorted", [vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, vp, vp])
-    launch_counts["first_hit_sorted"] += 1
-    err = fn(_ptr(o), _ptr(d), _ptr(alive), _ptr(perm), _ptr(dlo), _ptr(nv), _ptr(face_tab), r_pad, n_tiles,
-             _ptr(t), _ptr(idx), _stream(o))
-    _raise_on(err, "first_hit_sorted")
-    return t, idx
+        return sorted_walk_plain(o, d, alive, center, bvh)[:2]
+    r, dev = o.shape[0], o.device
+    if alive is not None:
+        _check("alive", alive, (r,), torch.bool, dev)
+    _check("centre", center, (3,), torch.float32, dev)
+    return _launch_walk("first_hit_sorted", 16, o, d, bvh, visits,
+                        ctypes.c_void_p(0 if alive is None else alive.data_ptr()), _ptr(center))
 
 
 def pair_tile_plain(o, d, blk_tile, face_tab):

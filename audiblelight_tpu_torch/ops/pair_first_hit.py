@@ -1,8 +1,8 @@
 """Per-ray exact first hit through (ray, tile) pair walks (kernel K10).
 
 Counterpart of audiblelight_tpu/ops/pair_first_hit.py, on the tiles of
-ops/sorted_first_hit.build_sorted_tiles. Where K9 culls per block of 512
-rays, this route culls per ray:
+ops/sorted_first_hit.build_sorted_tiles. Where the reference's K9 culls
+per block of 512 rays, this route culls per ray, tile by tile:
 
 - `_tile_entries`: a slab test of every (ray, tile) pair, the entry distance
   into the tile's box (+inf where the ray's line misses it), streamed by

@@ -1,23 +1,25 @@
-"""Cone-sorted, entry-ordered first hit of a ray wavefront (kernel K9).
+"""First hit of a ray wavefront against the Morton-sorted faces of a mesh
+(kernel K9).
 
-Counterpart of audiblelight_tpu/ops/sorted_first_hit.py. The route recovers
-a BVH's work savings with sorted wavefront coherence:
+Counterpart of audiblelight_tpu/ops/sorted_first_hit.py. The reference
+culls per block of 512 cone-sorted rays against Morton tiles of 256 faces;
+the port keeps its tiles and its contract and culls per ray:
 
 - `build_sorted_tiles`: the host build, a numpy copy of the reference's, so
   the tables equal the reference's bit for bit: the finite faces of nonzero
   area sorted by centroid Morton code into tiles of SORTED_TILE_FACES rows
   of the dense big first hit's table [e2, w2, -e1, -w1, -n, -k], centred on
   the middle of the valid vertices' bounds, zero rows as padding, one tight
-  box per tile. `order` maps a sorted position to the original face.
-- `sorted_first_hit`: the glue around the kernel (rays sorted by origin cell
-  x direction cone with dead rays last, padding with dead copies of the last
-  ray, each block's box over its live rays, the directed entry bound of
-  every (block, tile) pair, each block's reachable tiles in ascending bound
-  order, the launch, the un-sort). A block stops once every ray's best hit
-  precedes the next tile's bound, and the smallest sorted index wins a tie,
-  so the result is the dense big first hit over the sorted faces.
-- `sorted_walk`: the same glue around the kernel's plain version, and the
-  tiles its walk visited per block.
+  box per tile. `order` maps a sorted position to the original face. The
+  pair-walk first hit (K10, ops/pair_first_hit.py) walks these tiles.
+- `build_sorted_tree`: the face tree of the tiles' rows (K1 big's tree over
+  the sentinel-padded sorted faces, `padded_sorted_tris`), built once per
+  tiling; each row reports its sorted index.
+- `sorted_first_hit`: one launch of the K9 kernel, one thread per ray
+  walking the tree (the centring and the alive mask inside the launch; no
+  ray sort, no tile bounds, no host read). The result is the dense big first
+  hit over the sorted faces, bit for bit.
+- `sorted_walk`: the kernel's plain walk, with each ray's visits.
 
 Face indices refer to the Morton-sorted order; dead rays and misses report
 (inf, -1). Neither package wires this route into its tracer.
@@ -25,25 +27,17 @@ Face indices refer to the Morton-sorted order; dead rays and misses report
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from audiblelight_tpu_torch.ops.cuda_kernels import SFH_LANES, SORTED_TILE_FACES, first_hit_sorted, sorted_walk_plain
+from audiblelight_tpu_torch.ops.cuda_kernels import (SORTED_TILE_FACES, FaceBVH, big_face_bvh, first_hit_sorted,
+                                                     sorted_walk_plain)
 from audiblelight_tpu_torch.ops.tiled_first_hit import _morton3
 from audiblelight_tpu_torch.utils import resolve_device
 
-_EPS = 1e-9
-_BIG = 3.0e38
 TILE_FACES = SORTED_TILE_FACES
-
-# Sort-key granularity, the reference's: 8 azimuth x 2 elevation bins and
-# 4 x 4 x 2 origin cells
-AZ_BINS = 8
-EL_BINS = 2
-CELL_BITS = (2, 2, 1)
 
 
 @dataclass
@@ -140,111 +134,35 @@ def padded_sorted_tris(tris: np.ndarray, order: np.ndarray, n_tiles: int) -> np.
     return np.concatenate([vt, pad], axis=0)
 
 
-def _bins(x: torch.Tensor, n: int) -> torch.Tensor:
-    """int32(x) clipped to [0, n - 1]; x is clamped to [-1, n] first, so an
-    out-of-range value saturates as XLA's conversion does."""
-    return x.clamp(-1.0, float(n)).to(torch.int32).clamp(0, n - 1)
+def build_sorted_tree(tiles: SortedTiles, tris: np.ndarray, order: np.ndarray) -> FaceBVH:
+    """The face tree K9 walks, over the rows of `tiles.face_tab` (from
+    `build_sorted_tiles(tris)`, which gave `order`), on the tiles' device:
+    the sentinel-padded sorted faces, centred on `tiles.center`, with K1
+    big's keep rule (the zero padding rows are left out), each row reporting
+    its sorted index. The dense big first hit's own table over these faces
+    is the tiles' table, so this is K1 big's tree over them."""
+    padded = torch.as_tensor(padded_sorted_tris(tris, order, tiles.n_tiles), device=tiles.face_tab.device)
+    return big_face_bvh(padded, tiles.center, tiles.face_tab)
 
 
-def _sort_keys(o_c: torch.Tensor, d: torch.Tensor, alive, tiles: SortedTiles) -> torch.Tensor:
-    """(cell, cone) sort keys of the rays; dead rays key past every live group."""
-    az = torch.atan2(d[:, 1], d[:, 0])
-    azb = _bins((az * (0.5 / math.pi) + 0.5) * AZ_BINS, AZ_BINS)
-    elb = _bins((d[:, 2] * 0.5 + 0.5) * EL_BINS, EL_BINS)
-    rel = (o_c - tiles.room_lo) / tiles.room_span
-    nx, ny, nz = (1 << b for b in CELL_BITS)
-    cell = (_bins(rel[:, 0] * nx, nx) * ny + _bins(rel[:, 1] * ny, ny)) * nz + _bins(rel[:, 2] * nz, nz)
-    key = (cell * AZ_BINS + azb) * EL_BINS + elb
-    if alive is not None:
-        key = torch.where(alive, key, nx * ny * nz * AZ_BINS * EL_BINS)
-    return key
+def _rays(origins, dirs, alive):
+    origins = torch.atleast_2d(origins).to(torch.float32).contiguous()
+    dirs = torch.atleast_2d(dirs).to(torch.float32).contiguous()
+    return origins, dirs, None if alive is None else alive.to(torch.bool).contiguous()
 
 
-def _block_tile_bounds(omin, omax, dmin, dmax, tile_lo, tile_hi) -> torch.Tensor:
-    """The conservative directed entry bound of every (block, tile) pair,
-    (B, T) from block boxes (B, 3) and tile boxes (T, 3): per axis, a tile
-    strictly ahead on the + side needs a positive direction and gap / dmax
-    of travel (+inf when the cone has none), the - side likewise, an
-    overlapping axis 0; the bound is the largest over the axes."""
-    gap_pos = tile_lo[None, :, :] - omax[:, None, :]
-    gap_neg = omin[:, None, :] - tile_hi[None, :, :]
-    dmax_e = dmax[:, None, :]
-    dmin_e = dmin[:, None, :]
-    t_pos = torch.where(gap_pos > 0.0,
-                        torch.where(dmax_e > _EPS, gap_pos / torch.clamp_min(dmax_e, _EPS), math.inf), 0.0)
-    t_neg = torch.where(gap_neg > 0.0,
-                        torch.where(dmin_e < -_EPS, gap_neg / torch.clamp_min(-dmin_e, _EPS), math.inf), 0.0)
-    return torch.maximum(t_pos, t_neg).amax(dim=-1)
-
-
-def sorted_inputs(tiles: SortedTiles, origins: torch.Tensor, dirs: torch.Tensor, alive: torch.Tensor) -> tuple:
-    """(order, o, d, live, perm, dlo, nv) of the kernel for R rays, as the
-    reference's glue forms them (sorted_first_hit.py:378-445): a stable sort
-    by key, one packed gather, padding to whole blocks of SFH_LANES with dead
-    copies of the last ray, each block's box over its live rays, the bounds
-    of every (block, tile) pair (+inf for an all-dead block), each block's
-    tiles in ascending bound order (stable), and its count of finite
-    bounds; the bounds past it read 3e38."""
-    r = origins.shape[0]
-    o_c = origins - tiles.center
-    order = torch.argsort(_sort_keys(o_c, dirs, alive, tiles), stable=True)
-    packed = torch.cat([o_c, dirs, alive[:, None].to(torch.float32)], dim=1)[order]
-    r_pad = max(SFH_LANES, -(-r // SFH_LANES) * SFH_LANES)
-    pad_row = torch.cat([packed[-1:, 0:6], torch.zeros_like(packed[-1:, 6:7])], dim=1)
-    packed = torch.cat([packed, pad_row.expand(r_pad - r, 7)], dim=0)
-    o, d = packed[:, 0:3].contiguous(), packed[:, 3:6].contiguous()
-    live = packed[:, 6].to(torch.int32)
-
-    ob = o.reshape(-1, SFH_LANES, 3)
-    db = d.reshape(-1, SFH_LANES, 3)
-    lb = live.reshape(-1, SFH_LANES).bool()[..., None]
-    big = 1e30
-    omin = torch.where(lb, ob, big).amin(dim=1)
-    omax = torch.where(lb, ob, -big).amax(dim=1)
-    dmin = torch.where(lb, db, big).amin(dim=1)
-    dmax = torch.where(lb, db, -big).amax(dim=1)
-    dlo = _block_tile_bounds(omin, omax, dmin, dmax, tiles.tile_lo, tiles.tile_hi)
-    dlo = torch.where(lb.any(dim=1), dlo, math.inf)
-    perm = torch.argsort(dlo, dim=1, stable=True)
-    dlo = torch.take_along_dim(dlo, perm, dim=1)
-    finite = torch.isfinite(dlo)
-    nv = finite.sum(dim=1).to(torch.int32)
-    dlo = torch.where(finite, dlo, _BIG).contiguous()
-    return order, o, d, live, perm.to(torch.int32).contiguous(), dlo, nv
-
-
-def _sorted_query(kernel, tiles: SortedTiles, origins, dirs, alive) -> tuple:
-    """(t (R,), sorted face (R,), *what else `kernel` returns) in the rays' order."""
-    origins = torch.atleast_2d(origins).to(torch.float32)
-    dirs = torch.atleast_2d(dirs).to(torch.float32)
-    r = origins.shape[0]
-    if r == 0:
-        return (torch.zeros(0, dtype=torch.float32, device=origins.device),
-                torch.zeros(0, dtype=torch.int32, device=origins.device))
-    alive = torch.ones(r, dtype=torch.bool, device=origins.device) if alive is None else alive.to(torch.bool)
-    order, o, d, live, perm, dlo, nv = sorted_inputs(tiles, origins, dirs, alive)
-    t, idx, *extra = kernel(o, d, live, perm, dlo, nv, tiles.face_tab)
-    t, idx = t[:r], idx[:r]
-    # Misses and dead lanes (whose t is 0) report (inf, -1)
-    miss = (t >= _BIG) | (idx < 0)
-    t_out = torch.empty_like(t)
-    idx_out = torch.empty_like(idx)
-    t_out[order] = torch.where(miss, math.inf, t)
-    idx_out[order] = torch.where(miss, -1, idx)
-    return (t_out, idx_out, *extra)
-
-
-def sorted_first_hit(tiles: SortedTiles, origins: torch.Tensor, dirs: torch.Tensor, alive=None):
+def sorted_first_hit(tiles: SortedTiles, tree: FaceBVH, origins: torch.Tensor, dirs: torch.Tensor, alive=None):
     """First hit (t (R,), sorted face (R,) int32) of each ray against the
-    Morton-tiled mesh; `alive` (R,) bool, all live by default. Dead rays and
-    misses give (inf, -1). Runs the K9 kernel on a CUDA device and its plain
-    version on the CPU; equals the dense big first hit over the sorted faces
-    (`build_sorted_tiles`' `order`) bit for bit."""
-    return _sorted_query(first_hit_sorted, tiles, origins, dirs, alive)
+    Morton-sorted mesh; `tree` is `build_sorted_tree(tiles, ...)`, `alive`
+    (R,) bool, all live by default. Dead rays and misses give (inf, -1). One
+    launch of the K9 kernel on a CUDA device, its plain walk on the CPU;
+    equals the dense big first hit over the sorted faces (`padded_sorted_tris`)
+    bit for bit."""
+    return first_hit_sorted(*_rays(origins, dirs, alive), tiles.center, tree)
 
 
-def sorted_walk(tiles: SortedTiles, origins: torch.Tensor, dirs: torch.Tensor, alive=None):
-    """`sorted_first_hit` through the kernel's plain version (any device),
-    and the tiles its walk visited per block of SFH_LANES sorted rays:
-    (t, face, visited (n_blocks,) int64). A dense walk visits n_tiles."""
-    return _sorted_query(sorted_walk_plain, tiles, origins, dirs, alive)
+def sorted_walk(tiles: SortedTiles, tree: FaceBVH, origins: torch.Tensor, dirs: torch.Tensor, alive=None):
+    """`sorted_first_hit` through the kernel's plain walk (any device), with
+    each ray's visits: (t, face, visits (R, 2) int32 = slab tests, leaves
+    folded; 0 for a dead ray)."""
+    return sorted_walk_plain(*_rays(origins, dirs, alive), tiles.center, tree)

@@ -41,7 +41,7 @@ from audiblelight_tpu_torch.geometry.queries import (
     segments_occluded,
 )
 from audiblelight_tpu_torch.micarrays import MicArray
-from audiblelight_tpu_torch.ops.cuda_kernels import any_hit_tree, first_hit_table
+from audiblelight_tpu_torch.ops.cuda_kernels import SMALL_F_MAX, any_hit_tree, first_hit_table
 from audiblelight_tpu_torch.ops.mxu_first_hit import MXU_F_MAX, build_mxu_face_tables
 from audiblelight_tpu_torch.ops.star_occlusion import build_star_accel, star_tree
 from audiblelight_tpu_torch.ops.tiled_first_hit import build_tiled_tree
@@ -250,13 +250,18 @@ class MeshDeviceState:
         return self._star_cache[key]
 
     def first_hit_table(self, tris: torch.Tensor) -> tuple:
-        """The cached first-hit table (`cuda_kernels.first_hit_table`: for
-        more than 512 faces the big variant's table and face tree) of
-        `tris`, this state's full or acoustic triangles, built once."""
+        """The cached first-hit table (`cuda_kernels.first_hit_table`) of
+        `tris`, this state's full or acoustic triangles, built once: for
+        more than SMALL_F_MAX faces the big variant's table and face tree,
+        else the classic rows and the cached any-hit tree of `tris`, which
+        K1 small walks (one tree for the first hit and the occlusion
+        queries)."""
         key = id(tris)
         if key not in self._first_hit_tables:
-            self._first_hit_tables[key] = first_hit_table(tris)
-            if self._first_hit_tables[key][3] is not None:
+            if tris.shape[0] <= SMALL_F_MAX:
+                self._first_hit_tables[key] = first_hit_table(tris, self.any_hit_tree(tris))
+            else:
+                self._first_hit_tables[key] = first_hit_table(tris)
                 logger.info(f"Built first-hit face tree: {self._first_hit_tables[key][3]}")
         return self._first_hit_tables[key]
 

@@ -4,9 +4,9 @@
 
 Builds the tracer's CUDA kernels from audiblelight_tpu_torch/csrc with nvcc,
 holds each against its plain PyTorch version on the card at the flagship
-shapes (K1 big, the face-tree walk, bit for bit against the dense walk and
-its own plain walk, visit counts included, with each face tree's build
-time; K2 and K6, the any-hit tree walks, against their plain walk, visit
+shapes (K1 big and K1 small, the face-tree walks, bit for bit against the
+dense walk and its own plain walk, visit counts included, with each face
+tree's build time; K2 and K6, the any-hit tree walks, against their plain walk, visit
 counts included, and the dense any-hit, boolean for boolean, on the rain
 table, 640k random legs, the direct segments, the flagship trace's own
 diffraction legs, 80k hit points toward the centroid and a capsule and the
@@ -53,13 +53,23 @@ exact CLI scene's bounces), then drives the port's two main paths:
 - K1 big on the full mesh against its plain versions on the exact scene's
   second and third bounces, 80k interior rays and the exact trace's
   wavefront with the most dead rays;
-- the cone-sorted (K9) and pair-walk (K10) first hits, which neither
-  package wires into its tracer, through their own entry points
-  (`build_sorted_tiles`, `sorted_first_hit`, `pair_first_hit`) on the exact
+- the cone-sorted (K9, a per-ray walk of the sorted faces' tree in one
+  launch) and pair-walk (K10) first hits, which neither package wires into
+  its tracer, through their own entry points (`build_sorted_tiles`,
+  `build_sorted_tree`, `sorted_first_hit`, `pair_first_hit`) on the exact
   scene's 80k surface rays and 80k interior rays on the full mesh, the fused
   trace's first bounce on the LOD, and the surface rays with 45 % of them
-  dead: each kernel held against its plain version and each op against K1
-  big over the Morton-sorted faces, bit for bit.
+  dead: each kernel held against its plain version (K9's visit counts
+  included) and each op against K1 big over the Morton-sorted faces, bit
+  for bit, K9 timed beside K1 big on the same rays;
+- the rlr main path in a room of <= 512 faces (the 432-face
+  `scanned_like_room(subdivision_levels=1)`): one fused MIC scene at the
+  flagship settings, where K1 small (the walk of the room's any-hit tree,
+  staged in shared memory) takes every bounce, its launches counted, the
+  scene timed and profiled, and K1 small held against its dense plain
+  version (0 ulp) and its plain walk (visit counts included) on that
+  trace's own bounces, timed beside the same walk reading the tree through
+  L1 (K7's kernel on it).
 - the Eigenmike em32 and em64 rigs (32 and 64 omni capsules): the first
   flagship scene through the fused renderer with each, written as 32- and
   64-channel int16 WAVs, launches counted as for the MIC scene, timed and
@@ -76,7 +86,8 @@ exact CLI scene's bounces), then drives the port's two main paths:
 
 Each path's kernel launches are counted from zero just before it and read
 just after; a kernel of the path that did not launch fails the run, and so
-does a fused scene that launched K1 big other than 60 times, any path
+does a fused scene that launched K1 big (K1 small in the small room) other
+than 60 times, any path
 that launched another first-hit kernel than its own, a main path that built
 an any-hit tree, or an exact scene that built more trees than it has
 meshes. It
@@ -149,6 +160,7 @@ EXACT_PATH = ("first_hit_big", "any_hit", "deposit_histogram", "star_any_hit")
 RIG_PATH = ("first_hit_big", "any_hit", "bin_histogram")
 MXU_PATH = ("first_hit_mxu", "any_hit", "deposit_histogram")
 TILED_PATH = ("first_hit_tiled", "any_hit", "deposit_histogram", "star_any_hit")
+SMALL_PATH = ("first_hit_small", "any_hit", "deposit_histogram")
 
 
 def fail(msg: str) -> None:
@@ -830,21 +842,25 @@ def tiled_phase(make_scene, xscene, k1_scene: tuple, st_x, table_x, interior: tu
 def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
     """The cone-sorted (K9) and pair-walk (K10) first hits, which neither
     package wires into its tracer, through their own entry points: the
-    Morton tiles of each mesh (`build_sorted_tiles`), then `sorted_first_hit`
-    and `pair_first_hit` on every wavefront of `wavefronts` ((label, tris,
-    origins, dirs, alive or None)), launches counted from zero around that
-    run. Then, per wavefront: each kernel against its plain version on the
-    same inputs (bit for bit: K9 on the sorted rays, K10 on every round's
-    lanes, and the whole K10 walk through both); each op against K1
-    big over the sentinel-padded sorted faces (bit for bit, the same table)
-    and, through `order`, against K1 big over the mesh as it is (t identical,
-    faces differing only at a tie); K9's (block, tile) pairs, K10's tiles
-    per ray, rounds and rays unresolved after round 1; the kernels', glue's,
-    plain versions' and K1's times (K10's kernel and plain times summed over
-    the op's rounds) and the bound of the first hit: the pairs this data
-    needs, the rays and the table read once, the result written once; on
-    the first wavefront, the K10 op under the profiler. Returns
-    the phase's launch counts."""
+    Morton tiles of each mesh (`build_sorted_tiles`) and K9's tree of them
+    (`build_sorted_tree`), then `sorted_first_hit` and `pair_first_hit` on
+    every wavefront of `wavefronts` ((label, tris, origins, dirs, alive or
+    None)), launches counted from zero around that run (K9 once per call).
+    Then, per wavefront: K9 with visits against its plain walk (t, faces
+    and visit counts identical) and against K1 big over the sentinel-padded
+    sorted faces (bit for bit, the same table and the same tree: K1 big's
+    visits equal K9's on the live rays); K10 against its plain version on
+    every round's lanes and the whole walk; each op against K1 big over the
+    sorted faces and, through `order`, against K1 big over the mesh as it is
+    (t identical, faces differing only at a tie); K9's box tests and leaves
+    per live ray, K10's tiles per ray, rounds and rays unresolved after
+    round 1; K9's time per call (and its device part) beside K1 big's on the
+    same rays, its kernel launches per call by the profiler, the plain
+    versions' and K10's times (kernel and plain summed over the op's
+    rounds), and the bound of the first hit: the pairs this data needs, the
+    rays and the table read once, the result written once; on the first
+    wavefront, the K10 op under the profiler. Returns the phase's launch
+    counts."""
     from audiblelight_tpu_torch.ops import cuda_kernels as ck
     from audiblelight_tpu_torch.ops import pair_first_hit as pfh
     from audiblelight_tpu_torch.ops import sorted_first_hit as sfh
@@ -853,20 +869,24 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
     for _, tris, *_ in wavefronts:
         if id(tris) not in built:
             t0 = time.time()
-            tiles, order = sfh.build_sorted_tiles(tris.cpu().numpy(), device=tris.device)
-            built[id(tris)] = (tiles, order, time.time() - t0)
+            tris_np = tris.cpu().numpy()
+            tiles, order = sfh.build_sorted_tiles(tris_np, device=tris.device)
+            t1 = time.time()
+            tree = sfh.build_sorted_tree(tiles, tris_np, order)
+            torch.cuda.synchronize()
+            built[id(tris)] = (tiles, order, tree, t1 - t0, time.time() - t1)
     ck.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     outs = []
     for _, tris, o, d, alive in wavefronts:
-        tiles = built[id(tris)][0]
-        outs.append((sfh.sorted_first_hit(tiles, o, d, alive), pfh.pair_first_hit(tiles, o, d, alive)))
+        tiles, _, tree, *_ = built[id(tris)]
+        outs.append((sfh.sorted_first_hit(tiles, tree, o, d, alive), pfh.pair_first_hit(tiles, o, d, alive)))
     torch.cuda.synchronize()
     launches = dict(ck.launch_counts)
     print(f"K9 and K10 on {len(wavefronts)} wavefronts through their entry points in {time.time() - t0:.3f} s "
-          f"(host clock); launches {launches}; host builds "
-          f"{', '.join(f'{b[0]} {b[2]:.2f} s' for b in built.values())}", flush=True)
+          f"(host clock); launches {launches}; host builds (tiles, then K9's tree) "
+          f"{', '.join(f'{b[0]} {b[3]:.2f} s, {b[2]} {b[4] * 1e3:.1f} ms' for b in built.values())}", flush=True)
     for name in ("first_hit_sorted", "first_hit_pair"):
         if launches[name] <= 0:
             fail(f"the K9/K10 path never launched {name}")
@@ -874,18 +894,18 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
         fail("sorted_first_hit did not launch K9 once per wavefront")
 
     for (label, tris, o, d, alive), ((t9, i9), (t10, i10)) in zip(wavefronts, outs):
-        tiles, order, _ = built[id(tris)]
+        tiles, order, tree, *_ = built[id(tris)]
         r, dev = o.shape[0], o.device
         live = torch.ones(r, dtype=torch.bool, device=dev) if alive is None else alive
         n_live = int(live.sum())
-        # K9 against its plain version on the same sorted rays, orders and bounds
-        _, o_s, d_s, live_s, perm, dlo, nv = sfh.sorted_inputs(tiles, o, d, live)
-        kargs = (o_s, d_s, live_s, perm, dlo, nv, tiles.face_tab)
-        t_k, i_k = ck.first_hit_sorted(*kargs)
+        # K9 with visits against its plain walk
+        visits = torch.empty((r, 2), dtype=torch.int32, device=dev)
+        t_k, i_k = ck.first_hit_sorted(o, d, alive, tiles.center, tree, visits)
         walk = []
-        k9_plain_ms = time_ms(lambda: walk.append(ck.sorted_walk_plain(*kargs)), reps=1, warm=False)
-        t_p, i_p, visited = walk[0]
-        exact9 = torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+        k9_plain_ms = time_ms(lambda: walk.append(sfh.sorted_walk(tiles, tree, o, d, alive)), reps=1, warm=False)
+        t_p, i_p, vis_p = walk[0]
+        exact9 = (torch.equal(t_k, t_p) and torch.equal(i_k, i_p) and torch.equal(visits, vis_p)
+                  and torch.equal(t_k, t9) and torch.equal(i_k, i9) and not bool(visits[~live].any()))
         # K10's whole walk through the kernel, each round's lanes kept, and
         # through the plain version; the kernel against its plain version on
         # every round's lanes
@@ -907,14 +927,16 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
             t_pr, i_pr = lanes[0]
             exact10 = exact10 and torch.equal(t_kr, t_pr) and torch.equal(i_kr, i_pr)
             k10_err = max(k10_err, float((t_kr - t_pr).abs().nan_to_num(0.0).max()))
-        # Each op against K1 big over the sentinel-padded sorted faces: the same table
+        # Each op against K1 big over the sentinel-padded sorted faces: the
+        # same table, and the same tree (K1 big's visits are K9's)
         st = torch.from_numpy(sfh.padded_sorted_tris(tris.cpu().numpy(), order, tiles.n_tiles)).to(dev)
-        table_s = ck.first_hit_table(st)
-        same_table = torch.equal(table_s[1], tiles.center) and torch.equal(table_s[2], tiles.face_tab)
-        t_d, i_d = ck.ray_first_hit(o, d, st, table_s)
+        table_s = ck.big_first_hit_table(st)
+        same_table = (torch.equal(table_s[1], tiles.center) and torch.equal(table_s[2], tiles.face_tab)
+                      and torch.equal(table_s[3].boxes, tree.boxes) and torch.equal(table_s[3].face, tree.face))
+        t_d, i_d, vis_d = ck.first_hit_walk(o, d, table_s)
         t_d = torch.where(live, t_d, torch.inf)
         i_d = torch.where(live, i_d, -1)
-        equal9 = torch.equal(t9, t_d) and torch.equal(i9, i_d)
+        equal9 = torch.equal(t9, t_d) and torch.equal(i9, i_d) and torch.equal(visits[live], vis_d[live])
         equal10 = torch.equal(t10, t_d) and torch.equal(i10, i_d)
         # ... and through `order` against K1 big over the mesh as it is
         order_t = torch.as_tensor(order, dtype=torch.int64, device=dev)
@@ -927,42 +949,46 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
         ties = int((i9_orig != i_m).sum())
         orig_ok = torch.equal(t9, t_m) and torch.equal(t10, t9)
         # Times, and the bound of the (ray, face) pairs this data needs
-        k9_ms = time_ms(lambda: ck.first_hit_sorted(*kargs))
-        k9_glue_ms = time_ms(lambda: sfh.sorted_first_hit(tiles, o, d, alive))
+        k9_op = (lambda: sfh.sorted_first_hit(tiles, tree, o, d, alive))
+        k9_ms, k9_dev_ms, k9_launches = time_ms(k9_op), device_ms(k9_op), launches_per_call(k9_op)
+        if k9_launches != 1:
+            fail(f"sorted_first_hit launched {k9_launches} kernels per call on the {label}, not one")
         # K10's kernel time in one op call: the sum of its rounds' launches
         k10_round_ms = [time_ms(lambda: ck.first_hit_pair(*args)) for args in round_args]
         k10_ms = sum(k10_round_ms)
         k10_glue_ms = time_ms(lambda: pfh.pair_first_hit(tiles, o, d, alive), reps=5)
-        k1_ms = time_ms(lambda: ck.ray_first_hit(o, d, st, table_s), reps=3)
+        k1_op = (lambda: ck.ray_first_hit(o, d, st, table_s))
+        k1_ms, k1_dev_ms = time_ms(k1_op), device_ms(k1_op)
         boxes = face_boxes(tris)
         pad_order = torch.nn.functional.pad(order_t, (0, tiles.n_tiles * sfh.TILE_FACES - order_t.numel()), value=-1)
         needed, _ = first_hit_pairs(o[live], d[live], t9[live], i9_orig[live], boxes, order=pad_order,
                                     group=sfh.TILE_FACES)
-        nb, n_t = perm.shape[0], tiles.n_tiles
-        tab_bytes = n_t * sfh.TILE_FACES * 64
-        b9_ms, b9_by = bound_ms(needed * FLOPS_BIG_PAIR, o_s.shape[0] * 28 + nb * (8 * n_t + 4) + tab_bytes
-                                + o_s.shape[0] * 8)
+        tab_bytes = tiles.n_faces * 64
+        # K9 reads each ray, its alive flag and the centre once, each real row
+        # of the table once, and writes t and the face once
+        b9_ms, b9_by = bound_ms(needed * FLOPS_BIG_PAIR, r * 25 + 12 + tab_bytes + r * 8)
         # K10's op computes the same first hit: the rays (and their flags)
         # read once, the table read once, t and face written once
-        b10_ms, b10_by = bound_ms(needed * FLOPS_BIG_PAIR, r * 25 + tab_bytes + r * 8)
+        b10_ms, b10_by = bound_ms(needed * FLOPS_BIG_PAIR, r * 25 + tiles.n_tiles * sfh.TILE_FACES * 64 + r * 8)
         n_lanes = round_args[0][0].shape[0]
-        visits = int(visited.sum())
+        vis = visits[live].double()
         pairs, ideal = int(stats["pairs"]), int(stats["needed"])
         unres = int(stats["unresolved_first"])
-        print(f"check K9/K10 on the {label}: {r} rays ({n_live} live) x {tiles.n_faces} faces ({tiles}); K9 "
-              f"identical to its plain version {exact9}; K10 identical to its plain version (every round's "
-              f"lanes, {n_lanes} in the first, and the whole walk) {exact10}; the dense big table over the sorted faces is the "
-              f"tiles' {same_table}; K9 equals K1 big over the sorted faces {equal9}, K10 {equal10}; against K1 big "
-              f"over the mesh as it is t identical {orig_ok}, faces differ at {ties} ties; K9 visits {visits} of "
-              f"{nb * n_t} (block, tile) pairs ({visits / (nb * n_t):.2%}), {visits / max(nb, 1):.1f} tiles per "
-              f"block of 512; K10 {stats['rounds']} rounds, tests {pairs / max(n_live, 1):.2f} tiles per live ray "
-              f"({pairs} pairs; entered before the hit {ideal / max(n_live, 1):.2f}), "
-              f"{unres / max(n_live, 1):.2%} of live rays unresolved after round 1; (ray, face) pairs this data "
-              f"needs {needed}; K9 kernel {k9_ms:.3f} ms, with its glue {k9_glue_ms:.3f} ms, plain "
-              f"{k9_plain_ms:.3f} ms, bound {b9_ms:.5f} ms ({b9_by}); K10 kernel {k10_ms:.3f} ms over its "
+        print(f"check K9/K10 on the {label}: {r} rays ({n_live} live) x {tiles.n_faces} faces ({tiles}, {tree}); K9 "
+              f"identical to its plain walk, visit counts included, {exact9}; K10 identical to its plain version "
+              f"(every round's lanes, {n_lanes} in the first, and the whole walk) {exact10}; the dense big table and "
+              f"tree over the sorted faces are the tiles' and K9's {same_table}; K9 equals K1 big over the sorted "
+              f"faces, visits included, {equal9}, K10 {equal10}; against K1 big over the mesh as it is t identical "
+              f"{orig_ok}, faces differ at {ties} ties; K9 per live ray {float(vis[:, 0].mean()):.1f} box tests "
+              f"(max {int(vis[:, 0].max())}) and {float(vis[:, 1].mean()):.2f} leaves of {tree.leaf_faces} faces "
+              f"(max {int(vis[:, 1].max())}), {k9_launches} launch per call; K10 {stats['rounds']} rounds, tests "
+              f"{pairs / max(n_live, 1):.2f} tiles per live ray ({pairs} pairs; entered before the hit "
+              f"{ideal / max(n_live, 1):.2f}), {unres / max(n_live, 1):.2%} of live rays unresolved after round 1; "
+              f"(ray, face) pairs this data needs {needed}; K9 {k9_ms:.4f} ms per call (device {k9_dev_ms:.4f} ms), "
+              f"plain walk {k9_plain_ms:.3f} ms, bound {b9_ms:.5f} ms ({b9_by}); K1 big on the same rays "
+              f"{k1_ms:.4f} ms (device {k1_dev_ms:.4f} ms); K10 kernel {k10_ms:.3f} ms over its "
               f"{len(round_args)} rounds ({', '.join(f'{t:.3f}' for t in k10_round_ms)}), the op {k10_glue_ms:.3f} "
-              f"ms, plain {k10_plain_ms:.3f} ms (all rounds), bound {b10_ms:.5f} ms ({b10_by}); K1 big "
-              f"{k1_ms:.3f} ms on the same rays", flush=True)
+              f"ms, plain {k10_plain_ms:.3f} ms (all rounds), bound {b10_ms:.5f} ms ({b10_by})", flush=True)
         if not exact9 or not exact10:
             fail(f"K9 or K10 disagrees with its plain version on the {label}")
         if not (same_table and equal9 and equal10):
@@ -974,7 +1000,8 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
             _, busy10 = profiled(lambda: pfh.pair_first_hit(tiles, o, d, alive), "K10 op profile")
             print(f"K10 op on the {label}: device busy {busy10:.3f} ms of {k10_glue_ms:.3f} ms, "
                   f"{stats['rounds']} kernel launches, {k10_ms:.3f} ms in all")
-            results["first_hit_sorted"] = dict(max_abs_err=float((t_k - t_p).abs().nan_to_num(0.0).max()),
+            fin = torch.isfinite(t_d)
+            results["first_hit_sorted"] = dict(max_abs_err=float((t9[fin] - t_d[fin]).abs().max()) if fin.any() else 0.0,
                                                bound_ms=b9_ms, bound_by=b9_by, ms=k9_ms, plain_ms=k9_plain_ms,
                                                library_ms=None)
             results["first_hit_pair"] = dict(max_abs_err=k10_err, bound_ms=b10_ms, bound_by=b10_by, ms=k10_ms, plain_ms=k10_plain_ms,
@@ -1134,6 +1161,150 @@ def check_k1(label: str, o, d, tris, table, results: dict = None, bound: tuple =
     if results is not None:
         results["first_hit_big"] = dict(max_abs_err=err, bound_ms=bound[0], bound_by=bound[1], library_ms=None,
                                         ms=k_ms, plain_ms=plain_ms)
+
+
+def check_small(label: str, o, d, tris, table, results: dict = None) -> dict:
+    """K1 small (the walk of the mesh's any-hit tree, staged in shared memory,
+    one launch) on the rays `o`, `d` against `tris` (<= 512 faces) and its
+    `table` (`first_hit_table`): the kernel against its plain version (the
+    dense classic scan: t bits, faces and misses identical, 0 ulp) and its
+    plain walk (visit counts included). Where the tree has no always-tested
+    rows, the same walk reading the tree through L1/L2 (K7's kernel on it:
+    the same rows and leaf test) is held to the same bits and visits and
+    timed beside it. Prints the box tests and leaves per ray, the times per
+    call and on the device, the dense plain time and the bound of the (ray,
+    face) pairs this data needs; with `results`, records K1 small's line from
+    this check. Returns {ms, dev_ms, l1_ms, l1_dev_ms} (None where not
+    measured)."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+
+    r, f = o.shape[0], tris.shape[0]
+    tree = table[3]
+    t_k, i_k = ck.ray_first_hit(o, d, tris, table)
+    dense = []
+    plain_ms = time_ms(lambda: dense.append(ck.ray_first_hit_plain(o, d, tris, table)), reps=1, warm=False)
+    t_p, i_p = dense[0]
+    t_w, i_w, vis_k = ck.first_hit_walk(o, d, table)
+    t_wp, i_wp, vis_p = ck.first_hit_walk_plain(o, d, table)
+    walk_same = (torch.equal(t_w, t_k) and torch.equal(i_w, i_k) and torch.equal(t_wp, t_k)
+                 and torch.equal(i_wp, i_k) and torch.equal(vis_k, vis_p))
+    l1_ms = l1_dev_ms = None
+    if tree.always.shape[0] == 0:
+        vis_l1 = torch.empty_like(vis_k)
+        t_l1, i_l1 = ck.first_hit_tiled(o, d, tree.bvh, vis_l1)
+        walk_same = walk_same and torch.equal(t_l1, t_k) and torch.equal(i_l1, i_k) and torch.equal(vis_l1, vis_p)
+        l1_call = (lambda: ck.first_hit_tiled(o, d, tree.bvh))
+        l1_ms, l1_dev_ms = time_ms(l1_call), device_ms(l1_call)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(t_p)
+    idx_bad = int((i_k != i_p).sum())
+    inf_bad = int((torch.isfinite(t_k) != fin).sum())
+    ulp = int(ulp_distance(t_k[fin], t_p[fin]).max()) if fin.any() else 0
+    err = float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0
+    vis = vis_p.double()
+    call = (lambda: ck.ray_first_hit(o, d, tris, table))
+    k_ms, dev_ms = time_ms(call), device_ms(call)
+    needed, _ = first_hit_pairs(o, d, t_k, i_k, face_boxes(tris))
+    b_ms, b_by = bound_ms(needed * FLOPS_MT_PAIR, r * 24 + f * 36 + r * 8)
+    l1 = ("not measured (always-tested rows)" if l1_ms is None else
+          f"{l1_ms:.4f} ms (device {l1_dev_ms:.4f} ms), identical, visit counts included")
+    print(f"check first_hit_small on the {label}: {r} rays x {f} faces ({tree}): face mismatches {idx_bad}, miss "
+          f"mismatches {inf_bad}, max ulp {ulp}, max |dt| {err:.3e} against the dense scan; identical to the plain "
+          f"tree walk, visit counts included, {walk_same}; per ray {float(vis[:, 0].mean()):.1f} box tests (max "
+          f"{int(vis[:, 0].max())}) and {float(vis[:, 1].mean()):.2f} leaves of {tree.bvh.leaf_faces} faces (max "
+          f"{int(vis[:, 1].max())}); {k_ms:.4f} ms per call (device {dev_ms:.4f} ms), staged in shared memory; "
+          f"the same walk through L1 (K7's kernel on this tree) {l1}; dense plain {plain_ms:.3f} ms; bound "
+          f"{b_ms:.5f} ms ({b_by}, {needed} pairs this data needs, {needed / max(r * f, 1):.3%} of dense); hits "
+          f"{float(fin.float().mean()):.4f}", flush=True)
+    if idx_bad or inf_bad or ulp or not walk_same:
+        fail(f"first_hit_small disagrees with its plain version or its plain walk on the {label}")
+    if results is not None:
+        results["first_hit_small"] = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=None, ms=k_ms,
+                                          plain_ms=plain_ms)
+    return dict(ms=k_ms, dev_ms=dev_ms, l1_ms=l1_ms, l1_dev_ms=l1_dev_ms)
+
+
+def small_room_phase(caps, listeners, t_scene: int, results: dict) -> dict:
+    """The rlr main path in a room of <= 512 faces, where K1 small takes every
+    bounce: one fused MIC scene (the flagship settings: 5,000 rays per
+    source, 60 bounces, AmbeoVR, 16 padded sources, 60 s) in
+    `scanned_like_room((7, 5, 3), subdivision_levels=1, seed=0)` (432
+    faces; the traced mesh is the room itself), launches counted from zero
+    around it (K1 small once per bounce, no other first-hit kernel), its
+    int16 WAV checked; the scene timed and profiled (K1 small's device time
+    per scene); then the scene traced again with its bounces kept (first and
+    last of each decimation phase) and K1 small held through `check_small`
+    on each, the first recording its line. Returns the scene's launches."""
+    from audiblelight_tpu_torch.geometry.mesh import scanned_like_room
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.pipeline import FusedSceneRenderer, write_wav
+    from audiblelight_tpu_torch.render import ScenePlan
+    from audiblelight_tpu_torch.rir import raytracer
+
+    dev = listeners.device
+    mesh = scanned_like_room((7.0, 5.0, 3.0), subdivision_levels=1, seed=0)
+    rend = FusedSceneRenderer.from_mesh(mesh, ENGINE, caps, BUCKETS, N_SOURCES, t_scene, device=dev)
+    st = rend.state
+    n_faces = st.acoustic_tris.shape[0]
+    if n_faces != 432 or not torch.equal(st.acoustic_tris, st.tris):
+        fail(f"the small room traces {n_faces} faces, not the room's {st.tris.shape[0]}")
+    face_occ = rend.rain_table(caps)
+    src, s_idx, m_idx, plan, amb = flagship_inputs(st.tris, np.random.default_rng(200), dev)
+    args = (torch.as_tensor(src, device=dev), listeners, face_occ, torch.as_tensor(s_idx, device=dev),
+            torch.as_tensor(m_idx, device=dev), ScenePlan.from_numpy(plan, dev), *amb)
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    wav = rend.render_mix(torch.Generator(device=dev).manual_seed(300), *args)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = dict(ck.launch_counts)
+    peak = int(wav.abs().max())
+    path = write_wav(OUT / "small_room.wav", wav, SR)
+    print(f"small room: {n_faces} faces, a fused MIC scene in {first_s:.3f} s (host clock, first); "
+          f"{path.relative_to(REPO)} {tuple(wav.shape)} {wav.dtype}, peak {peak}; launches {launches}", flush=True)
+    if wav.dtype != torch.int16 or tuple(wav.shape) != (4, t_scene) or peak < 100:
+        fail(f"small-room scene: payload {wav.dtype} {tuple(wav.shape)}, peak {peak}")
+    for name in SMALL_PATH:
+        if launches[name] <= 0:
+            fail(f"the small-room scene never launched {name}")
+    bounces = int(ENGINE["indirect_ray_depth"])
+    others = {k: launches[k] for k in KERNELS if k.startswith("first_hit") and k != "first_hit_small" and launches[k]}
+    if launches["first_hit_small"] != bounces or others:
+        fail(f"the small-room scene launched first_hit_small {launches['first_hit_small']} times (expected "
+             f"{bounces}) and {others}")
+
+    def scene():
+        rend.render_mix(torch.Generator(device=dev).manual_seed(301), *args)
+
+    scene_ms = time_ms(scene, reps=3)
+    avgs, busy = profiled(scene, "small-room scene profile")
+    k1 = kernel_times(avgs, ["first_hit_small"], "small room per scene")
+    print(f"small-room scene time (CUDA events): median {scene_ms:.3f} ms; device idle share {1 - busy / scene_ms:.1%}; "
+          f"first_hit_small per scene {k1.get('first_hit_small', ('not measured', 0))[0]} ms of device time over "
+          f"{k1.get('first_hit_small', (0, 0))[1]} launches", flush=True)
+
+    kept = {}
+    route = raytracer._first_hit_route
+
+    def keep_bounce(o, d, prev_face, tris, rt):
+        keep_first_last(kept, o.shape[0], (o.clone(), d.clone(), tris, rt[0]))
+        return route(o, d, prev_face, tris, rt)
+
+    raytracer._first_hit_route = keep_bounce
+    try:
+        rend.trace(torch.Generator(device=dev).manual_seed(302), *args[:3])
+    finally:
+        raytracer._first_hit_route = route
+    if len(kept) != 3:
+        fail(f"the small-room trace ran K1 small at ray counts {sorted(kept)}, expected three decimation phases")
+    for rays, pair in sorted(kept.items(), reverse=True):
+        for which, (o, d, tris, table) in zip(("first", "last"), pair):
+            if table is None or table[0] != "small" or table[3] is not st.any_hit_tree(st.acoustic_tris):
+                fail("the small-room trace's first-hit table does not carry the room's cached any-hit tree")
+            check_small(f"small-room trace's {which} bounce of {rays} rays", o, d, tris, table,
+                        results if "first_hit_small" not in results else None)
+    return launches
 
 
 def count_tree_builds() -> tuple:
@@ -1667,27 +1838,15 @@ def main() -> int:
     print(f"first_hit_big: (ray, face) pairs this data needs {needed} ({needed / (r * f):.3%} of dense), bound "
           f"{b_ms:.5f} ms ({b_by})", flush=True)
     check_k1("interior rays on the LOD", origins, dirs, st.acoustic_tris, table_lod, results, (b_ms, b_by))
-    # The small (F <= 512) variant is off the flagship path; held all the same
+    # K1 small (F <= 512) on the same 80k rays against 500 faces of the LOD
+    # (its path is the small-room phase below)
     small = st.acoustic_tris[:500].contiguous()
-    t_k, i_k = ck.ray_first_hit(origins, dirs, small)
-    t_p, i_p = ck.ray_first_hit_plain(origins, dirs, small)
-    fin = torch.isfinite(t_p)
-    ulp_s = int(ulp_distance(t_k[fin], t_p[fin]).max()) if fin.any() else 0
-    small_bad = int((i_k != i_p).sum()) + int((torch.isfinite(t_k) != fin).sum())
-    print(f"check first_hit_small: {r} rays x 500 faces: mismatches {small_bad}, max ulp {ulp_s}")
-    if small_bad or ulp_s > 1:
-        fail("first_hit_small disagrees with its plain version")
-    # Off the flagship path (launched 0 times there), so timed on its own line
-    needed, _ = first_hit_pairs(origins, dirs, t_k, i_k, face_boxes(small))
-    b_ms, b_by = bound_ms(needed * FLOPS_MT_PAIR, r * 24 + 500 * 36 + r * 8)
-    small_ms = time_ms(lambda: ck.ray_first_hit(origins, dirs, small))
-    small_plain_ms = time_ms(lambda: ck.ray_first_hit_plain(origins, dirs, small), reps=3)
-    results["first_hit_small"] = dict(max_abs_err=float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0,
-                                      bound_ms=b_ms, bound_by=b_by, ms=small_ms, plain_ms=small_plain_ms,
-                                      library_ms=None)
-    print(f"first_hit_small (off the main paths): {r} rays x 500 faces: {small_ms:.4f} ms, plain "
-          f"{small_plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, {needed} pairs this data needs), max |dt| "
-          f"{float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0:.3e}")
+    t0 = time.time()
+    table_small = ck.first_hit_table(small)
+    torch.cuda.synchronize()
+    print(f"first_hit_small face tree (the any-hit tree): {table_small[3]} built in {(time.time() - t0) * 1e3:.3f} "
+          f"ms (host clock, first build)", flush=True)
+    check_small("interior rays on 500 faces of the LOD", origins, dirs, small, table_small)
 
     # K2: the rain table's segments, 640k diffraction-like legs on the LOD,
     # and 64 direct-path segments on the full mesh
@@ -2186,6 +2345,10 @@ def main() -> int:
     ], results)
     del surface, first_bounce
 
+    elapsed(t_start, "small room")
+    # 10e. The rlr main path in a room of <= 512 faces: K1 small on every bounce
+    small_n = small_room_phase(caps, listeners, t_scene, results)
+
     elapsed(t_start, "HOA3 and binaural rigs")
     # 11. The HOA3 and binaural rigs at the rig's centre: the first
     # flagship scene through the fused renderer (per-face rain table, K5 per
@@ -2271,7 +2434,8 @@ def main() -> int:
     # SELD CLI at its defaults and one MonoCapsule scene
     shoebox_phase(fg, OUT / "shoebox", win, dev)
 
-    main_launches = dict(launches, deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"],
+    main_launches = dict(launches, first_hit_small=small_n["first_hit_small"],
+                         deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"],
                          star_any_hit=exact_main["star_any_hit"], bin_histogram=rig_main["hoa3"]["bin_histogram"],
                          first_hit_mxu=mxu_n["first_hit_mxu"], first_hit_tiled=tiled_n["first_hit_tiled"],
                          first_hit_sorted=sorted_pair_n["first_hit_sorted"],

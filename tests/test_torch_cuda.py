@@ -18,16 +18,19 @@ bit-identical from launch to launch; the tiled first hit (K7) and the
 bilinear first hit (K8) identical to their plain walks, per-ray visit counts
 included, and to their dense plain versions (the dense classic
 Moller-Trumbore first hit; the dense window selection with its plane
-re-evaluation); the cone-sorted (K9) and pair-walk (K10) first hits
-identical to their plain versions and to the dense big first hit (K1) over
-the Morton-sorted faces.
+re-evaluation); K1 small (its tree staged in shared memory) and the
+cone-sorted first hit (K9) identical to their plain walks, per-ray visit
+counts included, and to their dense plain versions (the dense classic
+scan; the dense big first hit (K1) over the Morton-sorted faces); the
+pair-walk first hit (K10) identical to its plain version and to that dense
+big first hit.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from audiblelight_tpu_torch.geometry.mesh import scanned_like_room
+from audiblelight_tpu_torch.geometry.mesh import box_mesh, scanned_like_room
 from audiblelight_tpu_torch.micarrays import ambeovr_capsules
 from audiblelight_tpu_torch.ops import cuda_kernels as ck
 from audiblelight_tpu_torch.ops import mxu_first_hit as mxu
@@ -85,6 +88,20 @@ def accel_meshes() -> dict:
     room = scanned_like_room(subdivision_levels=3)
     return {"room": room.triangles.astype(np.float32),
             "lod": room.simplified(target_faces=1024).triangles.astype(np.float32)}
+
+
+def small_meshes() -> dict:
+    """K1 small's test meshes (<= 512 faces): the 432-face
+    `scanned_like_room(subdivision_levels=1)` of the smoke run's small room, a
+    12-face box of the same extents, the room with 1e9 sentinels, exactly
+    collinear zero-area faces and flat faces mixed in, and the box with
+    sentinels."""
+    room = scanned_like_room((7.0, 5.0, 3.0), subdivision_levels=1, seed=0).triangles.astype(np.float32)
+    box = box_mesh(extents=[7.0, 5.0, 3.0], center=[3.5, 2.5, 1.5]).triangles.astype(np.float32)
+    mixed = np.concatenate([room, np.full((24, 3, 3), 1.0e9, np.float32), _flat_faces(room, 4, n=20),
+                            _nearly_flat_faces(room, 5)])
+    mixed = mixed[np.random.default_rng(9).permutation(len(mixed))]
+    return {"room": room, "box": box, "mixed": mixed, "box_sentinels": _with_sentinels(box, 2)}
 
 
 def _unit(v):
@@ -185,6 +202,18 @@ def _flat_faces(tris, seed, n=40):
     e1 = (f[:, 1] - f[:, 0]) * scale
     f[:, 1] = f[:, 0] + e1
     f[:, 2] = f[:, 0] + np.where(np.arange(n) % 3 == 0, np.float32(-3.0), np.float32(2.0))[:, None] * e1
+    return f.astype(np.float32)
+
+
+def _nearly_flat_faces(tris, seed, n=12):
+    """Faces of nonzero area whose edges meet at ~1e-3 rad: flat under
+    FLAT_SIN, so always tested."""
+    rng = np.random.default_rng(seed)
+    f = tris[rng.integers(0, len(tris), n)].astype(np.float64)
+    e1 = f[:, 1] - f[:, 0]
+    side = np.cross(e1, rng.standard_normal((n, 3)))
+    side *= (1e-3 * np.linalg.norm(e1, axis=1) / np.linalg.norm(side, axis=1))[:, None]
+    f[:, 2] = f[:, 0] + 0.5 * e1 + side
     return f.astype(np.float32)
 
 
@@ -331,10 +360,13 @@ def test_each_wrapper_counts_its_launch(card):
     star = so.build_star_accel(tris.cpu().numpy(), [0.0, 0.0, 0.0], device=card)
     tiled_tree = tfh.build_tiled_tree(tris)
     tables = mxu.build_mxu_face_tables(tris)
-    stiles, _ = sfh.build_sorted_tiles(tris.cpu().numpy(), device=card)
+    stiles, sorder = sfh.build_sorted_tiles(tris.cpu().numpy(), device=card)
+    stree = sfh.build_sorted_tree(stiles, tris.cpu().numpy(), sorder)
+    small = ck.first_hit_table(tris[:300])
     d = torch.from_numpy(unit_dirs(rng, 64)).to(card)
     ck.reset_launch_counts()
     ck.ray_first_hit_plain(o, o, tris)
+    ck.first_hit_walk_plain(o, d, small)
     ck.segments_occluded_plain(o, o + 1.0, tris)
     ck.any_hit_walk_plain(*ck.segment_inputs(o, o + 1.0), ck.any_hit_tree(tris))
     ck.deposit_histogram_plain(*args, **kw)
@@ -343,10 +375,11 @@ def test_each_wrapper_counts_its_launch(card):
     so.star_segments_occluded_plain(star, o, torch.zeros(3, device=card))
     tfh.tiled_walk(tiled_tree, o, d)
     mxu.mxu_first_hit_plain(tables, o, d)
-    sfh.sorted_walk(stiles, o, d)
+    sfh.sorted_walk(stiles, stree, o, d)
     pfh.pair_walk(stiles, o, d, k_slots=8)
     assert all(v == 0 for v in ck.launch_counts.values())
     ck.ray_first_hit(o, torch.from_numpy(unit_dirs(rng, 64)).to(card), tris)
+    ck.ray_first_hit(o, d, tris[:300], small)
     ck.segments_occluded(o, o + 1.0, tris)
     ck.deposit_histogram(*args, **kw)
     ck.deposit_histogram_foa(*foa, **kw)
@@ -354,10 +387,10 @@ def test_each_wrapper_counts_its_launch(card):
     so.star_segments_occluded(star, o, torch.zeros(3, device=card))
     tfh.tiled_first_hit(tiled_tree, o, d)
     mxu.mxu_first_hit(tables, o, d)
-    sfh.sorted_first_hit(stiles, o, d)
+    sfh.sorted_first_hit(stiles, stree, o, d)
     # k_slots = n_tiles: one round tests every reachable tile, one launch
     pfh.pair_first_hit(stiles, o, d, k_slots=stiles.n_tiles)
-    assert ck.launch_counts == {"first_hit_big": 1, "first_hit_small": 0, "any_hit": 1, "deposit_histogram": 1,
+    assert ck.launch_counts == {"first_hit_big": 1, "first_hit_small": 1, "any_hit": 1, "deposit_histogram": 1,
                                 "deposit_histogram_foa": 1, "bin_histogram": 1, "star_any_hit": 1,
                                 "first_hit_tiled": 1, "first_hit_mxu": 1, "first_hit_sorted": 1, "first_hit_pair": 1}
 
@@ -461,7 +494,7 @@ def test_tiled_first_hit_matches_plain_and_dense(card, scanned_room, n_rays, kin
     assert torch.equal(i_k, i_p) and torch.equal(t_k, t_p) and torch.equal(i_v, i_p) and torch.equal(t_v, t_p)
     assert torch.equal(visits, vis_p)
     tt = torch.from_numpy(tris).to(card)
-    t_d, i_d = ck.ray_first_hit(o, d, tt, ck.dense_mt_table(tt))
+    t_d, i_d = ck.ray_first_hit_plain(o, d, tt, ck.dense_mt_table(tt))
     assert torch.equal(i_k, i_d) and torch.equal(t_k.view(torch.int32), t_d.view(torch.int32))
     assert float(torch.isfinite(t_k).float().mean()) > 0.99
 
@@ -502,8 +535,9 @@ def _dense_big_sorted(tris, order, tiles, o, d, card):
 @pytest.mark.parametrize("n_rays,kind,dead", [(20000, "interior", 0.0), (40000, "surface", 0.45),
                                               (300, "surface", 0.0)])
 def test_sorted_first_hit_matches_plain_and_dense(card, scanned_room, n_rays, kind, dead):
-    """K9 on interior and surface rays, with and without dead lanes, one
-    ragged block and many."""
+    """K9 on interior and surface rays, with and without dead rays, one
+    ragged block and many: one launch, equal to its plain walk (visit counts
+    included) and to K1 big over the sentinel-padded sorted faces."""
     tris = scanned_room.triangles.astype(np.float32)
     rng = np.random.default_rng(n_rays)
     if kind == "interior":
@@ -513,13 +547,51 @@ def test_sorted_first_hit_matches_plain_and_dense(card, scanned_room, n_rays, ki
         o, d = _surface_rays(tris, card, n_rays, n_rays)
     alive = torch.from_numpy(rng.uniform(size=n_rays) >= dead).to(card)
     tiles, order = sfh.build_sorted_tiles(tris, device=card)
-    t_k, i_k = sfh.sorted_first_hit(tiles, o, d, alive)
-    t_p, i_p, visited = sfh.sorted_walk(tiles, o, d, alive)
-    assert torch.equal(i_k, i_p) and torch.equal(t_k, t_p)
+    tree = sfh.build_sorted_tree(tiles, tris, order)
+    ck.reset_launch_counts()
+    t_k, i_k = sfh.sorted_first_hit(tiles, tree, o, d, alive)
+    assert ck.launch_counts["first_hit_sorted"] == 1
+    visits = torch.empty((n_rays, 2), dtype=torch.int32, device=card)
+    t_v, i_v = ck.first_hit_sorted(o, d, alive, tiles.center, tree, visits)
+    t_p, i_p, vis_p = sfh.sorted_walk(tiles, tree, o, d, alive)
+    assert torch.equal(i_k, i_p) and torch.equal(t_k, t_p) and torch.equal(i_v, i_p) and torch.equal(t_v, t_p)
+    assert torch.equal(visits, vis_p) and not bool(visits[~alive].any())
     t_d, i_d = _dense_big_sorted(tris, order, tiles, o, d, card)
     assert torch.equal(i_k[alive], i_d[alive]) and torch.equal(t_k[alive], t_d[alive])
     assert bool(torch.isinf(t_k[~alive]).all()) and bool((i_k[~alive] == -1).all())
-    assert 0 < int(visited.sum()) <= visited.numel() * tiles.n_tiles
+
+
+SMALL_CASES = [(m, k) for m in ("room", "box") for k in ("interior", "surface", "grazing", "axis", "vertex_edge",
+                                                        "nonfinite")]
+SMALL_CASES += [("mixed", "interior"), ("mixed", "surface"), ("box_sentinels", "surface")]
+
+
+@pytest.fixture(scope="module")
+def small_rooms():
+    return small_meshes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,kind", SMALL_CASES)
+def test_small_first_hit_matches_plain(card, small_rooms, which, kind):
+    """K1 small on the rays of tests/test_torch_small_first_hit.py: its t,
+    faces and per-ray visit counts equal the plain walk's, and its t and
+    faces the dense classic scan's; a treeless table raises on the card."""
+    tris = small_rooms[which]
+    base = small_rooms["room" if which == "mixed" else which.split("_")[0]]
+    o, d = ray_set(kind, base, seed=sum(map(ord, which + kind)), n=3000)
+    o, d, tt = (torch.from_numpy(x).to(card) for x in (o, d, tris))
+    table = ck.first_hit_table(tt)
+    t_w, i_w, vis_w = ck.first_hit_walk_plain(o, d, table)
+    t_d, i_d = ck.ray_first_hit_plain(o, d, tt, table)
+    assert torch.equal(i_w, i_d) and torch.equal(t_w.view(torch.int32), t_d.view(torch.int32))
+    t_k, i_k, vis_k = ck.first_hit_walk(o, d, table)
+    assert torch.equal(i_k, i_w) and torch.equal(t_k.view(torch.int32), t_w.view(torch.int32))
+    assert torch.equal(vis_k, vis_w)
+    t_r, i_r = ck.ray_first_hit(o, d, tt, table)
+    assert torch.equal(i_r, i_w) and torch.equal(t_r.view(torch.int32), t_w.view(torch.int32))
+    with pytest.raises(ValueError):
+        ck.ray_first_hit(o, d, tt, ck.dense_mt_table(tt))
 
 
 @pytest.mark.cuda

@@ -35,7 +35,7 @@ import torch
 
 from audiblelight_tpu.ops.pallas_kernels import ray_first_hit_pallas
 from audiblelight_tpu_torch.ops import cuda_kernels as ck
-from test_torch_cuda import _dense, _with_sentinels, accel_meshes, ray_set
+from test_torch_cuda import _dense, _flat_faces, _with_sentinels, accel_meshes, ray_set
 
 
 @pytest.fixture(scope="module")
@@ -235,10 +235,24 @@ def test_walk_matches_pallas(meshes, which, kind):
 
 
 def test_small_variant_has_no_tree(meshes):
-    """F <= 512 keeps the classic variant and no tree; the walk refuses it."""
-    tris = torch.from_numpy(meshes["lod"][:500])
-    small = ck.first_hit_table(tris)
-    assert small[0] == "small" and small[3] is None
-    o, d = ray_set("interior", meshes["lod"], seed=2, n=64)
-    with pytest.raises(ValueError):
-        ck.first_hit_walk(torch.from_numpy(o), torch.from_numpy(d), small)
+    """F <= 512 keeps the classic variant and builds no face tree of its
+    own: it carries the mesh's any-hit tree, every face the dense scan could
+    report in exactly one leaf or in the always-tested rows (with 1e9
+    sentinels and collinear zero-area faces mixed in: those in neither and
+    in the always-tested rows), and K1 small's walk of it gives the dense
+    bits (tests/test_torch_small_first_hit.py holds it on every ray family)."""
+    lod = meshes["lod"]
+    tris = np.concatenate([lod[:440], np.full((8, 3, 3), 1.0e9, np.float32), _flat_faces(lod, 3, n=12)])
+    tris = tris[np.random.default_rng(6).permutation(len(tris))]
+    small = ck.first_hit_table(torch.from_numpy(tris))
+    assert small[0] == "small" and isinstance(small[3], ck.AnyHitTree)
+    e1, e2 = tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]
+    face = small[3].bvh.face.numpy()
+    placed = np.concatenate([face[face >= 0], small[3].always_face.numpy()])
+    np.testing.assert_array_equal(np.sort(placed), np.flatnonzero((e1 != 0).any(1) & (e2 != 0).any(1)))
+    assert len(small[3].always_face) >= 12
+    o, d = ray_set("interior", lod, seed=2, n=64)
+    t_w, f_w, _ = ck.first_hit_walk_plain(torch.from_numpy(o), torch.from_numpy(d), small)
+    t_d, f_d = _dense(tris, o, d)
+    np.testing.assert_array_equal(f_w.numpy(), f_d)
+    np.testing.assert_array_equal(t_w.numpy().view(np.int32), t_d.view(np.int32))

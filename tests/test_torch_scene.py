@@ -225,3 +225,56 @@ def test_simulate_empty_scene_asserts():
     ws.add_emitter(position=[1.0, 2.0, 1.5])
     with pytest.raises(AssertionError, match="microphones"):
         ws.simulate()
+
+
+@pytest.fixture
+def dry_event(scenes):
+    """The port's scene and its first event, whose dry-stem parameters a
+    test sets; restored afterwards."""
+    got, _ = scenes
+    event = next(iter(got.events.values()))
+    saved = event.ref_ir_channel, event.direct_path_time_ms
+    yield got, event
+    event.ref_ir_channel, event.direct_path_time_ms = saved
+
+
+def test_generate_refuses_a_dry_stem(dry_event, tmp_path):
+    """An event with both `ref_ir_channel` and `direct_path_time_ms` asks for
+    the reference's dry stem, which only the classic per-event pipeline
+    renders: `generate()` raises before anything renders or is written."""
+    got, event = dry_event
+    event.ref_ir_channel, event.direct_path_time_ms = 0, [5, 50]
+    got.audio = None
+    with pytest.raises(NotImplementedError, match=r"classic per-event pipeline \(ROADMAP item 1\.2\)"):
+        got.generate(output_dir=tmp_path)
+    assert got.audio is None and not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("which", ["ref_ir_channel", "direct_path_time_ms"])
+def test_generate_warns_for_half_a_dry_stem(dry_event, tmp_path, caplog, which):
+    """An event with only one of the two logs the reference's own warning
+    (word for word, as its compute_dry_audio logs it) and renders."""
+    from audiblelight_tpu.synthesize import compute_dry_audio
+
+    got, event = dry_event
+    event.ref_ir_channel, event.direct_path_time_ms = (0, None) if which == "ref_ir_channel" else (None, [5, 50])
+    with caplog.at_level("WARNING"):
+        compute_dry_audio(event, np.zeros((4, 1, 8), np.float32), 1.0, "mic000")
+    (want,) = [r.getMessage() for r in caplog.records if r.name == "audiblelight_tpu"]
+    caplog.clear()
+    with caplog.at_level("WARNING"):
+        got.generate(output_dir=tmp_path)
+    assert [r.getMessage() for r in caplog.records if r.name == "audiblelight_tpu_torch"] == [want]
+    assert got.audio["mic000"].shape == (4, 8 * SR) and np.abs(got.audio["mic000"]).max() > 100
+
+
+def test_generate_compiled_renders_without_a_dry_stem(dry_event, tmp_path):
+    """With `compiled=True` neither package renders a dry stem, so both
+    parameters render as before."""
+    got, event = dry_event
+    event.ref_ir_channel, event.direct_path_time_ms = 0, [5, 50]
+    got.generate(output_dir=tmp_path, compiled=True)
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "audio_out_mic000.wav", "metadata_out.json", "metadata_out_mic000.csv"]
+    audio = np.asarray(got.audio["mic000"])
+    assert audio.shape == (4, 8 * SR) and np.isfinite(audio).all() and np.abs(audio).max() > 0

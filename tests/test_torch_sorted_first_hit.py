@@ -1,28 +1,32 @@
-"""The port's cone-sorted first hit (K9) against the JAX package.
+"""The port's cone-sorted first hit (K9) against the JAX package and the
+dense big first hit.
 
 Cases and sizes are those of tests/test_sorted_first_hit.py: a box room's
-interior (one block and 37 rays over), surface-origin wavefronts of the
-`scanned_like_room(subdivision_levels=3)` room (6,912 faces, 27 tiles),
-dead lanes with a ragged last block, escaping rays, and all rays dead.
+interior (one block of the reference's 512 rays and 37 over),
+surface-origin wavefronts of the `scanned_like_room(subdivision_levels=3)`
+room (6,912 faces, 27 tiles), dead lanes, escaping rays, and all rays dead.
 
 - `build_sorted_tiles`: both builds are numpy, so every field and `order`
   are bit-equal, also on a mesh with zero-area and sentinel (1e9) faces;
   both return None without a valid face.
-- The glue: the sort keys equal the reference's except where the two atan2
-  differ in the last bit (counted); the block bounds, tile order and counts
-  equal the reference's on the same ray order.
-- The kernel body: the plain walk against `_sfh_call(interpret=True)` on
-  identical inputs, and the whole op against the reference's in interpret
-  mode. Faces identical; t within rtol 1e-4 and atol 3e-5 m: XLA:CPU
-  contracts multiply-adds in the interpret-mode body and the port never
-  does, and the contracted rounding of k - o.n (terms of the room's size,
-  ~1e-7 m) divided by a grazing d.n moves t by an absolute amount, at most
-  2.3e-5 m on these rays (a surface ray of the k_slots=1 case), which is
-  up to 2.2e-3 of t where a ray hits a face a few mm away or less. The
-  rays beyond rtol 1e-4 and the largest gap are printed.
-- The op against the port's dense big first hit (plain) over the sorted
-  faces, bit for bit: both build the same table, and the walk's bounds are
-  conservative.
+- `build_sorted_tree`: K1 big's tree over the sentinel-padded sorted faces:
+  each valid row in exactly one leaf, reporting its sorted index, the
+  padding rows in none; the rows the tiles' table rows, bit for bit; each
+  leaf's box holding its faces' centred vertices with the pad.
+- The port's walk of that tree (`sorted_walk`, the kernel's plain version)
+  against the dense big first hit over the sorted faces, bit for bit, on the
+  cases above and on interior, surface, grazing, axis-aligned, vertex/edge
+  and non-finite rays with a third of them dead; a cull certificate on the
+  live rays: every ancestor of the leaf holding the dense hit is entered no
+  later than the dense t. Dead rays report (inf, -1) and visit nothing.
+- The whole op against the reference's in interpret mode: faces identical;
+  t within rtol 1e-4 and atol 3e-5 m: XLA:CPU contracts multiply-adds in
+  the interpret-mode body and the port never does, and the contracted
+  rounding of k - o.n (terms of the room's size, ~1e-7 m) divided by a
+  grazing d.n moves t by an absolute amount, at most 2.3e-5 m on these rays
+  (a surface ray of the pair walk's k_slots=1 case), which is up to 2.2e-3
+  of t where a ray hits a face a few mm away or less. The rays beyond rtol
+  1e-4 and the largest gap are printed.
 """
 
 import jax.numpy as jnp
@@ -34,6 +38,8 @@ from audiblelight_tpu.geometry.mesh import box_mesh, scanned_like_room
 from audiblelight_tpu.ops import sorted_first_hit as jsorted
 from audiblelight_tpu_torch.ops import cuda_kernels as ck
 from audiblelight_tpu_torch.ops import sorted_first_hit as tsorted
+from test_torch_cuda import ray_set
+from test_torch_first_hit_accel import tree_certificate
 
 torch.set_num_threads(1)
 
@@ -62,7 +68,7 @@ def _case(kind, room):
     if kind == "box interior":
         rng = np.random.default_rng(0)
         mesh = box_mesh(extents=[4.0, 3.0, 2.5], center=[2.0, 1.5, 1.25])
-        o = rng.uniform(0.3, 1.8, (tsorted.SFH_LANES + 37, 3)).astype(np.float32)
+        o = rng.uniform(0.3, 1.8, (512 + 37, 3)).astype(np.float32)
         d = rng.standard_normal((len(o), 3)).astype(np.float32)
         return mesh.triangles.astype(np.float32), o, d / np.linalg.norm(d, axis=1, keepdims=True), None
     tris = room.triangles.astype(np.float32)
@@ -135,84 +141,76 @@ def test_build_sorted_tiles_none_without_faces():
     assert want is None and got is None and len(order) == len(want_order) == 0
 
 
-def test_sort_keys_match_reference(room):
-    """Equal keys, except where the two atan2 differ in the last bit and the
-    azimuth sits on a bin edge; those rays are counted."""
-    tris = room.triangles.astype(np.float32)
-    rng = np.random.default_rng(3)
-    o, d = _wavefront(rng, room, 4000)
-    alive = rng.uniform(size=4000) < 0.8
-    tiles, _ = tsorted.build_sorted_tiles(tris, device="cpu")
-    jt, _ = jsorted.build_sorted_tiles(tris)
-    o_c = torch.from_numpy(o) - tiles.center
-    got = tsorted._sort_keys(o_c, torch.from_numpy(d), torch.from_numpy(alive), tiles).numpy()
-    want = np.asarray(jsorted._sort_keys(jnp.asarray(o_c.numpy()), jnp.asarray(d), jnp.asarray(alive), jt))
-    az_t = torch.atan2(torch.from_numpy(d[:, 1]), torch.from_numpy(d[:, 0])).numpy()
-    az_j = np.asarray(jnp.arctan2(jnp.asarray(d[:, 1]), jnp.asarray(d[:, 0])))
-    differ = got != want
-    print(f"{int(differ.sum())} of 4000 keys differ; atan2 differs on {int((az_t != az_j).sum())} rays")
-    assert not (differ & (az_t == az_j)).any()
-    assert differ.sum() <= 2
-    assert (want[~alive] == 512).all() and (got[~alive] == 512).all()
+def _tree(tris, device="cpu"):
+    tiles, order = tsorted.build_sorted_tiles(tris, device=device)
+    return tiles, order, tsorted.build_sorted_tree(tiles, tris, order)
 
 
-@pytest.mark.parametrize("kind", ["scanned wavefront", "dead lanes"])
-def test_block_bounds_match_reference(room, kind):
-    """The bounds, the tile order and the counts of reachable tiles on the
-    port's ray order, against the reference's functions on the same rays."""
-    tris, o, d, alive = _case(kind, room)
-    tiles, _ = tsorted.build_sorted_tiles(tris, device="cpu")
-    jt, _ = jsorted.build_sorted_tiles(tris)
-    a_t = torch.ones(len(o), dtype=torch.bool) if alive is None else torch.from_numpy(alive)
-    _, o_s, d_s, live, perm, dlo, nv = tsorted.sorted_inputs(tiles, torch.from_numpy(o), torch.from_numpy(d), a_t)
-    lanes = tsorted.SFH_LANES
-    ob, db = jnp.asarray(o_s.numpy()).reshape(-1, lanes, 3), jnp.asarray(d_s.numpy()).reshape(-1, lanes, 3)
-    lb = jnp.asarray(live.numpy()).reshape(-1, lanes).astype(bool)
-    big = jnp.float32(1e30)
-    omin = jnp.min(jnp.where(lb[..., None], ob, big), axis=1)
-    omax = jnp.max(jnp.where(lb[..., None], ob, -big), axis=1)
-    dmin = jnp.min(jnp.where(lb[..., None], db, big), axis=1)
-    dmax = jnp.max(jnp.where(lb[..., None], db, -big), axis=1)
-    want = jsorted._block_tile_bounds(omin, omax, dmin, dmax, jt.tile_lo, jt.tile_hi)
-    want = jnp.where(jnp.any(lb, axis=1)[:, None], want, jnp.inf)
-    want_perm = jnp.argsort(want, axis=1)
-    want_sorted = np.asarray(jnp.take_along_axis(want, want_perm, axis=1))
-    np.testing.assert_array_equal(perm.numpy(), np.asarray(want_perm))
-    np.testing.assert_array_equal(nv.numpy(), np.isfinite(want_sorted).sum(axis=1))
-    np.testing.assert_array_equal(dlo.numpy(), np.where(np.isfinite(want_sorted), want_sorted, 3.0e38))
-    assert (nv.numpy() > 0).all()
+@pytest.mark.parametrize("mesh", ["scanned", "degenerate faces", "box"])
+def test_build_sorted_tree(room, mesh):
+    if mesh == "box":
+        tris = box_mesh(extents=[4.0, 3.0, 2.5], center=[2.0, 1.5, 1.25]).triangles.astype(np.float32)
+    else:
+        tris = room.triangles.astype(np.float32) if mesh == "scanned" else _degenerate_mesh(room)
+    tiles, order, tree = _tree(tris)
+    face = tree.face.numpy()
+    # Every valid sorted row once, reporting its sorted index; the padding in none
+    np.testing.assert_array_equal(np.sort(face[face >= 0]), np.arange(tiles.n_faces))
+    assert tree.n_leaves == 1 << int(np.ceil(np.log2(-(-tiles.n_faces // tree.leaf_faces))))
+    live = face >= 0
+    np.testing.assert_array_equal(tree.rows.numpy()[live].view(np.int32),
+                                  tiles.face_tab.numpy()[face[live]].view(np.int32))
+    assert not tree.rows.numpy()[~live].any()
+    # Boxes: each parent holds its children; each leaf its faces' centred vertices with the pad
+    lo, hi = tree.boxes[:, 0:3].double().numpy(), tree.boxes[:, 4:7].double().numpy()
+    kids = np.arange(2, 2 * tree.n_leaves)
+    assert (lo[kids // 2] <= lo[kids]).all() and (hi[kids // 2] >= hi[kids]).all()
+    verts = (tris[order].astype(np.float64) - tiles.center.double().numpy())[face[live]]
+    leaf = tree.n_leaves + np.flatnonzero(live) // tree.leaf_faces
+    assert (lo[leaf][:, None] <= verts - ck.BVH_PAD).all() and (hi[leaf][:, None] >= verts + ck.BVH_PAD).all()
 
 
-@pytest.mark.parametrize("kind", ["scanned wavefront", "dead lanes"])
-def test_kernel_body_matches_interpret(room, kind):
-    """`sorted_walk_plain` against the Pallas body in interpret mode on the
-    same sorted rays, tile orders and bounds."""
-    tris, o, d, alive = _case(kind, room)
-    tiles, _ = tsorted.build_sorted_tiles(tris, device="cpu")
-    a_t = torch.ones(len(o), dtype=torch.bool) if alive is None else torch.from_numpy(alive)
-    _, o_s, d_s, live, perm, dlo, nv = tsorted.sorted_inputs(tiles, torch.from_numpy(o), torch.from_numpy(d), a_t)
-    t_p, i_p, _ = ck.sorted_walk_plain(o_s, d_s, live, perm, dlo, nv, tiles.face_tab)
-    nb = perm.shape[0]
-    pad = -nb % 8  # the Pallas grid reads its tables in groups of 8 blocks
-    perm_j = np.pad(perm.numpy(), ((0, pad), (0, 0)))
-    dlo_j = np.pad(dlo.numpy(), ((0, pad), (0, 0)))
-    nv_j = np.pad(nv.numpy(), (0, pad))[:, None]
-    t_j, i_j = jsorted._sfh_call(jnp.asarray(tiles.face_tab.numpy()), tiles.n_tiles, jnp.asarray(o_s.numpy()),
-                                 jnp.asarray(d_s.numpy()), jnp.asarray(live.numpy()), jnp.asarray(perm_j),
-                                 jnp.asarray(dlo_j), jnp.asarray(nv_j), interpret=True)
-    t_j, i_j = np.asarray(t_j).reshape(-1), np.asarray(i_j).reshape(-1)
-    np.testing.assert_array_equal(i_p.numpy(), i_j)
-    hit = i_j >= 0
-    _assert_close(t_p.numpy()[hit], t_j[hit])
-    np.testing.assert_array_equal(t_p.numpy()[~hit], t_j[~hit])  # 3e38 on a miss, 0 on a dead lane
+def _dense_sorted(tris, order, tiles, o, d, alive):
+    """The dense big first hit (plain) over the sentinel-padded sorted faces,
+    dead rays (inf, -1)."""
+    st = torch.from_numpy(tsorted.padded_sorted_tris(tris, order, tiles.n_tiles))
+    # The big variant at any face count (a one-tile mesh would take the small one)
+    t_d, i_d = ck.ray_first_hit_plain(torch.from_numpy(o), torch.from_numpy(d), st, ck.big_first_hit_table(st))
+    if alive is not None:
+        dead = torch.from_numpy(~alive)
+        t_d, i_d = torch.where(dead, torch.inf, t_d), torch.where(dead, -1, i_d)
+    return t_d, i_d
+
+
+@pytest.mark.parametrize("kind", ["interior", "surface", "grazing", "axis", "vertex_edge", "nonfinite"])
+def test_sorted_walk_certificate_and_equality(kind):
+    """On a 6,912-face room (7 x 5 x 3 m, the face-tree tests' rays), a third
+    of the rays dead: the walk equals the dense big first hit over the sorted
+    faces bit for bit, dead rays visit nothing, and every ancestor of the leaf
+    holding a live ray's dense hit is entered no later than the dense t."""
+    tris = scanned_like_room(subdivision_levels=3).triangles.astype(np.float32)
+    o, d = ray_set(kind, tris, seed=len(kind))
+    alive = np.random.default_rng(len(kind)).uniform(size=len(o)) >= 1 / 3
+    tiles, order, tree = _tree(tris)
+    t_w, i_w, visits = tsorted.sorted_walk(tiles, tree, *_port(o, d, alive))
+    t_d, i_d = _dense_sorted(tris, order, tiles, o, d, alive)
+    assert torch.equal(i_w, i_d) and torch.equal(t_w.view(torch.int32), t_d.view(torch.int32))
+    assert not visits[torch.from_numpy(~alive)].any() and bool(visits[torch.from_numpy(alive), 0].all() or
+                                                                  kind == "nonfinite")
+    held, slack = tree_certificate(tree, torch.from_numpy(o) - tiles.center, torch.from_numpy(d), t_d.numpy(),
+                                   i_d.numpy())
+    live_hits = int((i_d >= 0).sum())
+    print(f"{kind}: {live_hits} live hits of {len(o)} rays, smallest t* - ancestor entry {slack:.3e}, "
+          f"{float(visits[torch.from_numpy(alive), 1].double().mean()):.2f} leaves per live ray of {tree.n_leaves}")
+    assert held.all() and live_hits > 0.3 * len(o)
 
 
 @pytest.mark.parametrize("kind", CASES)
 def test_sorted_first_hit_matches_reference(room, kind):
     tris, o, d, alive = _case(kind, room)
-    tiles, order = tsorted.build_sorted_tiles(tris, device="cpu")
+    tiles, _, tree = _tree(tris)
     jt, _ = jsorted.build_sorted_tiles(tris)
-    t_p, i_p = tsorted.sorted_first_hit(tiles, *_port(o, d, alive))
+    t_p, i_p = tsorted.sorted_first_hit(tiles, tree, *_port(o, d, alive))
     t_j, i_j = jsorted.sorted_first_hit(jt, jnp.asarray(o), jnp.asarray(d),
                                         alive=None if alive is None else jnp.asarray(alive), interpret=True)
     t_p, i_p, t_j, i_j = t_p.numpy(), i_p.numpy(), np.asarray(t_j), np.asarray(i_j)
@@ -227,30 +225,33 @@ def test_sorted_first_hit_matches_reference(room, kind):
 
 @pytest.mark.parametrize("kind", CASES)
 def test_sorted_first_hit_equals_dense_big(room, kind):
-    """Bit for bit the dense big first hit over the sorted faces; an
-    all-dead wavefront visits no tile."""
+    """Bit for bit the dense big first hit over the sorted faces, every
+    ancestor of a live ray's dense hit entered no later than its t, the
+    walk's visits per live ray a few leaves; an all-dead wavefront visits
+    nothing."""
     tris, o, d, alive = _case(kind, room)
-    tiles, order = tsorted.build_sorted_tiles(tris, device="cpu")
-    t_p, i_p, visited = tsorted.sorted_walk(tiles, *_port(o, d, alive))
-    st = torch.from_numpy(tsorted.padded_sorted_tris(tris, order, tiles.n_tiles))
-    # The big variant at any face count (the box's one tile would take the small one)
-    t_d, i_d = ck.ray_first_hit_plain(torch.from_numpy(o), torch.from_numpy(d), st, ck.big_first_hit_table(st))
-    if alive is not None:
-        dead = torch.from_numpy(~alive)
-        t_d, i_d = torch.where(dead, torch.inf, t_d), torch.where(dead, -1, i_d)
-    assert torch.equal(i_p, i_d) and torch.equal(t_p, t_d)
-    print(f"{kind}: {int(visited.sum())} of {visited.numel() * tiles.n_tiles} (block, tile) pairs visited")
+    tiles, order, tree = _tree(tris)
+    t_p, i_p = tsorted.sorted_first_hit(tiles, tree, *_port(o, d, alive))
+    t_w, i_w, visits = tsorted.sorted_walk(tiles, tree, *_port(o, d, alive))
+    t_d, i_d = _dense_sorted(tris, order, tiles, o, d, alive)
+    assert torch.equal(i_p, i_d) and torch.equal(t_p, t_d) and torch.equal(i_w, i_d) and torch.equal(t_w, t_d)
+    held, _ = tree_certificate(tree, torch.from_numpy(o) - tiles.center, torch.from_numpy(d), t_d.numpy(), i_d.numpy())
+    assert held.all()
+    print(f"{kind}: {float(visits[:, 0].double().mean()):.1f} box tests and {float(visits[:, 1].double().mean()):.2f} "
+          f"leaves per ray of {tree.n_leaves}")
     if kind == "all dead":
-        assert int(visited.sum()) == 0
+        assert not visits.any()
+    else:
+        assert float(visits[:, 1].double().mean()) < 0.25 * tree.n_leaves or tree.n_leaves < 16
 
 
 def test_escaping_rays():
     """Outside the box pointing away: (inf, -1); inside pointing up: the
     ceiling at t = 1."""
     mesh = box_mesh(extents=[2.0, 2.0, 2.0], center=[1.0, 1.0, 1.0])
-    tiles, _ = tsorted.build_sorted_tiles(mesh.triangles.astype(np.float32), device="cpu")
+    tiles, _, tree = _tree(mesh.triangles.astype(np.float32))
     o = torch.tensor([[5.0, 5.0, 5.0], [1.0, 1.0, 1.0]])
     d = torch.tensor([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
-    t, idx = tsorted.sorted_first_hit(tiles, o, d)
+    t, idx = tsorted.sorted_first_hit(tiles, tree, o, d)
     assert np.isinf(float(t[0])) and int(idx[0]) == -1
     assert int(idx[1]) >= 0 and abs(float(t[1]) - 1.0) <= 1e-5
