@@ -5,11 +5,11 @@
 // audiblelight_tpu/ops/pair_first_hit.py:_pair_kernel) repeat it. The face
 // row is the 16-column table [e2, w2, -e1, -w1, -n, -k] in coordinates
 // centred on the mesh, and the ray carries its Plucker moment od = o x d.
-// K1 big (first_hit.cu) and the sorted first hit (sorted_first_hit.cu) walk
-// a face tree of those rows with the leaf test `BilinearLeaf`; the pair
-// first hit (pair_first_hit.cu) folds whole tiles of them with `fold_tile`.
-// All three compute the same bits: every file that includes this is built
-// with --fmad=false, as the plain PyTorch versions
+// K1 big (first_hit.cu), the sorted first hit (sorted_first_hit.cu) and the
+// pair first hit (pair_first_hit.cu, one tile's subtree at a time) walk a
+// face tree of those rows with the leaf test `BilinearLeaf`. All three
+// compute the same bits: every file that includes this is built with
+// --fmad=false, as the plain PyTorch versions
 // (ops/cuda_kernels.py:_bilinear_pair) never contract a product.
 
 #pragma once
@@ -64,49 +64,6 @@ struct BilinearLeaf {
 __device__ __forceinline__ BilinearLeaf leaf_of(const float4* __restrict__ rows, float ox, float oy, float oz,
                                                 float dx, float dy, float dz) {
   return BilinearLeaf{rows, ox, oy, oz, dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx};
-}
-
-// The Morton tiles of the pair first hit: 256 rows of the table each.
-constexpr int kTileFaces = 256;  // SORTED_TILE_FACES in ops/cuda_kernels.py
-constexpr int kCols = 16;        // [e2, w2, -e1, -w1, -n, -k]
-constexpr float kBig = 3.0e38f;  // t of a miss
-constexpr int kIdxBig = 1 << 30; // face of a miss, above every face index
-
-// Copies tile `tl` of `tab` ((n_tiles * 256, 16)) into `faces` (16 KiB of
-// shared memory), the block's threads taking one float4 each in turn; the
-// caller syncs before reading it.
-__device__ __forceinline__ void stage_tile(float4* faces, const float* __restrict__ tab, int tl) {
-  const float4* src = reinterpret_cast<const float4*>(tab + (size_t)tl * kTileFaces * kCols);
-  for (int k = threadIdx.x; k < kTileFaces * kCols / 4; k += blockDim.x) faces[k] = __ldg(src + k);
-}
-
-// Folds the 256 staged faces of tile `tl` into the ray's smallest (t, sorted
-// face index) so far. The index breaks a tie in t, so the result does not
-// depend on the order the tiles are folded in (the pair first hit takes one
-// per lane); a miss is (kBig, kIdxBig). Every thread reads the same face row
-// at once: a shared-memory broadcast.
-__device__ __forceinline__ void fold_tile(const float4* faces, int tl, float ox, float oy, float oz, float dx,
-                                          float dy, float dz, float odx, float ody, float odz, float& best_t,
-                                          int& best_i) {
-  for (int f = 0; f < kTileFaces; ++f) {
-    float c[kCols];
-#pragma unroll
-    for (int q = 0; q < kCols / 4; ++q) {
-      const float4 v = faces[f * (kCols / 4) + q];
-      c[4 * q] = v.x;
-      c[4 * q + 1] = v.y;
-      c[4 * q + 2] = v.z;
-      c[4 * q + 3] = v.w;
-    }
-    float t;
-    const bool hit = first_hit(c, ox, oy, oz, dx, dy, dz, odx, ody, odz, &t);
-    const float t_hit = hit ? t : kBig;
-    const int fidx = hit ? tl * kTileFaces + f : kIdxBig;
-    if (t_hit < best_t || (t_hit == best_t && fidx < best_i)) {
-      best_t = t_hit;
-      best_i = fidx;
-    }
-  }
 }
 
 }  // namespace bilinear_pair

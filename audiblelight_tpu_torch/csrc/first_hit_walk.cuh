@@ -2,10 +2,11 @@
 // (first_hit.cu, the bilinear rows of the dense big table), K1 small
 // (first_hit.cu, classic Moller-Trumbore rows, the tree staged in shared
 // memory), K7 (tiled_first_hit.cu, classic Moller-Trumbore rows), K8
-// (mxu_first_hit.cu, the bilinear window rows with a launch-face mask) and
-// K9 (sorted_first_hit.cu, the bilinear rows over the Morton-sorted faces,
-// dead rays masked). Each kernel passes its own leaf test; the walk, its
-// visit order and its fold are the same for all five.
+// (mxu_first_hit.cu, the bilinear window rows with a launch-face mask), K9
+// (sorted_first_hit.cu, the bilinear rows over the Morton-sorted faces, dead
+// rays masked) and K10 (pair_first_hit.cu, the same rows, one tile's subtree
+// after another). Each kernel passes its own leaf test; the walk, its visit
+// order and its fold are the same for all six.
 //
 // The trees are built by ops/cuda_kernels.py:build_face_bvh, once per mesh:
 // a kernel's table rows gathered into leaves of BVH_LEAF_FACES (4)
@@ -88,23 +89,36 @@ struct Best {
 
 // Walks the tree (`boxes`, `face`: (n_leaves * leaf_faces,) original face
 // of each row, -1 on padding) for the ray o + s d, s >= 0, in the frame of
-// the boxes. `leaf(row, f, &t)` is the kernel's pair test of row `row`
-// (original face f): true where the ray hits it, with its hit distance t.
-// The fold starts from `b` (K1 small's always-tested rows); kGlobal is false
-// where `boxes` and `face` lie in shared memory.
-template <bool kGlobal = true, class Leaf>
-__device__ __forceinline__ Best walk(const Leaf& leaf, const float4* __restrict__ boxes,
-                                     const int* __restrict__ face, int n_leaves, int leaf_faces, float ox,
-                                     float oy, float oz, float dx, float dy, float dz, Best b = Best()) {
+// the boxes, from each root that `next(b)` gives in turn: a node, or 0 when
+// none is left, asked for when the walk from the last root is done (so `b`
+// holds its result). `leaf(row, f, &t)` is the kernel's pair test of row
+// `row` (original face f): true where the ray hits it, with its hit
+// distance t. The fold starts from `b` (K1 small's always-tested rows, K10's
+// best over the tiles walked before), whose counts the walk adds to;
+// kGlobal is false where `boxes` and `face` lie in shared memory. A lane
+// goes on to its next root without waiting for the warp, so K10's walks of
+// several tile subtrees are one walk; each lane's steps are those of one
+// walk per root, in turn.
+template <bool kGlobal = true, class Leaf, class Next>
+__device__ __forceinline__ Best walk_roots(const Leaf& leaf, const float4* __restrict__ boxes,
+                                           const int* __restrict__ face, int n_leaves, int leaf_faces, float ox,
+                                           float oy, float oz, float dx, float dy, float dz, Best b, Next next) {
   const float ix = face_tree::slab_inverse(dx), iy = face_tree::slab_inverse(dy),
               iz = face_tree::slab_inverse(dz);
   int stack_node[face_tree::kStack];
   float stack_t[face_tree::kStack];
   int sp = 0;
   float e0, x0, e1, x1;
-  face_tree::slab<kGlobal>(boxes + 2, ox, oy, oz, ix, iy, iz, e0, x0);
-  b.nodes = 1;
-  int node = e0 <= x0 ? 1 : 0;
+  // The next root whose box the ray enters, each root's test counted; 0 when none is left
+  auto enter = [&]() -> int {
+    for (int root = next(b); root != 0; root = next(b)) {
+      face_tree::slab<kGlobal>(boxes + 2 * root, ox, oy, oz, ix, iy, iz, e0, x0);
+      ++b.nodes;
+      if (e0 <= x0) return root;
+    }
+    return 0;
+  };
+  int node = enter();
   // While-while: a lane that reaches a leaf waits until every lane of the
   // warp has reached one (or finished), so the warp folds its lanes' leaves
   // together; each lane's own steps are the plain walk's
@@ -126,6 +140,7 @@ __device__ __forceinline__ Best walk(const Leaf& leaf, const float4* __restrict_
         node = v0 ? c0 : c0 + 1;
       } else {
         node = pop(stack_node, stack_t, sp, b.t);
+        if (node == 0) node = enter();
       }
     }
     if (node == 0) break;
@@ -143,8 +158,23 @@ __device__ __forceinline__ Best walk(const Leaf& leaf, const float4* __restrict_
     }
     ++b.leaves;
     node = pop(stack_node, stack_t, sp, b.t);
+    if (node == 0) node = enter();
   }
   return b;
+}
+
+// `walk_roots` from the root of the whole tree, node 1.
+template <bool kGlobal = true, class Leaf>
+__device__ __forceinline__ Best walk(const Leaf& leaf, const float4* __restrict__ boxes,
+                                     const int* __restrict__ face, int n_leaves, int leaf_faces, float ox,
+                                     float oy, float oz, float dx, float dy, float dz, Best b = Best()) {
+  int root = 1;
+  return walk_roots<kGlobal>(leaf, boxes, face, n_leaves, leaf_faces, ox, oy, oz, dx, dy, dz, b,
+                             [&root](const Best&) {
+                               const int r = root;
+                               root = 0;
+                               return r;
+                             });
 }
 
 // The launch every first-hit walk kernel makes: one thread per ray.

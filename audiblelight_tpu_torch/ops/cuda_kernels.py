@@ -20,8 +20,9 @@ audiblelight_tpu/ops/star_occlusion.py:
   walk of the sorted faces' tree in one launch, the centring and the alive
   mask inside it; the tiles and the tree are built by
   ops/sorted_first_hit.py)
-- `first_hit_pair`      <- pair_first_hit's kernel (the glue, slab test,
-  candidate tiles, tile-aligned pair layout and rounds, is
+- `first_hit_pair`      <- pair_first_hit's kernel and its glue (the
+  nearest-tile rounds of each ray, each live tile's subtree walked, in one
+  launch; the tiles and their tree are built by ops/sorted_first_hit.py and
   ops/pair_first_hit.py)
 
 Each wrapper prepares its inputs in PyTorch (the same preparation feeds the
@@ -208,7 +209,8 @@ def _morton_spread(v: torch.Tensor) -> torch.Tensor:
     return (v | (v << 2)) & 0x09249249
 
 
-def build_face_bvh(verts: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor, ids: torch.Tensor = None) -> FaceBVH:
+def build_face_bvh(verts: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor, ids: torch.Tensor = None,
+                   in_order: bool = False) -> FaceBVH:
     """The face tree over the faces `keep` (F,) bool of the triangles `verts`
     (F, 3, 3), in the frame the walk uses, gathering their `rows` (F, W) of
     the kernel's face table; each row reports its index into `rows`, or its
@@ -219,12 +221,14 @@ def build_face_bvh(verts: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor, 
     (stable: ties keep the face order), cut into leaves of BVH_LEAF_FACES
     rows, and the leaf count padded to a power of two with empty leaves;
     boxes are the leaves' vertex bounds, padded, and each parent's the union
-    of its children's."""
+    of its children's. With `in_order` every row keeps its place (row j in
+    leaf j // BVH_LEAF_FACES, no sort): a row left out by `keep` reports -1
+    and adds nothing to its leaf's box."""
     dev, leaf_faces = rows.device, BVH_LEAF_FACES
-    idx = torch.nonzero(keep).squeeze(1)
+    idx = torch.arange(rows.shape[0], device=dev) if in_order else torch.nonzero(keep).squeeze(1)
     vc = verts[idx]
     cen = vc[:, 0] + vc[:, 1] + vc[:, 2]  # 3x the centroid: the scale drops out of the grid
-    if idx.numel():
+    if idx.numel() and not in_order:
         lo, hi = cen.amin(dim=0), cen.amax(dim=0)
         span = torch.clamp_min(hi - lo, 1e-6)
         q = torch.clamp((cen - lo) / span * 1023.0, 0.0, 1023.0).to(torch.int64)
@@ -243,6 +247,10 @@ def build_face_bvh(verts: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor, 
     v_hi = torch.full((cap, 3), -math.inf, dtype=torch.float32, device=dev)
     v_lo[:n] = vc.amin(dim=1)
     v_hi[:n] = vc.amax(dim=1)
+    if in_order:
+        face[:n] = torch.where(keep, face[:n], -1)
+        v_lo[:n] = torch.where(keep[:, None], v_lo[:n], math.inf)
+        v_hi[:n] = torch.where(keep[:, None], v_hi[:n], -math.inf)
     lo = v_lo.view(n_leaves, leaf_faces, 3).amin(dim=1)
     hi = v_hi.view(n_leaves, leaf_faces, 3).amax(dim=1)
     full = torch.isfinite(lo)  # empty leaves stay (+inf, -inf)
@@ -259,13 +267,17 @@ def build_face_bvh(verts: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor, 
     return FaceBVH(rows=leaf_rows, face=face, boxes=boxes, n_leaves=n_leaves, leaf_faces=leaf_faces)
 
 
+def big_keep(tab: torch.Tensor) -> torch.Tensor:
+    """(F,) bool the rows of a big table `tab` (F, 16) that can hit: not a
+    zero normal (the 1e9 sentinels, degenerate faces, the zero rows that pad
+    a table: a = 0 makes u infinite or NaN) and no non-finite entry."""
+    return (tab[:, 12:15] != 0).any(dim=1) & torch.isfinite(tab).all(dim=1)
+
+
 def big_face_bvh(tris: torch.Tensor, center: torch.Tensor, tab: torch.Tensor) -> FaceBVH:
     """K1 big's face tree over its table `tab` (`big_face_table`), in centred
-    coordinates. Faces whose row can never hit are left out: a zero normal
-    (the 1e9 sentinels, degenerate faces: a = 0 makes u infinite or NaN) or
-    a non-finite entry."""
-    keep = (tab[:, 12:15] != 0).any(dim=1) & torch.isfinite(tab).all(dim=1)
-    return build_face_bvh(tris.to(torch.float32) - center, tab, keep)
+    coordinates; the faces whose row can never hit (`big_keep`) are left out."""
+    return build_face_bvh(tris.to(torch.float32) - center, tab, big_keep(tab))
 
 
 def big_first_hit_table(tris: torch.Tensor) -> tuple:
@@ -364,7 +376,7 @@ def slab_entry_exit(o: torch.Tensor, inv: torch.Tensor, lo: torch.Tensor, hi: to
     return entry, exit_
 
 
-def _first_hit_walk_plain(o, d, bvh: FaceBVH, pair, best: tuple = None):
+def _first_hit_walk_plain(o, d, bvh: FaceBVH, pair, best: tuple = None, feed=None):
     """The face-tree walk of csrc/first_hit_walk.cuh for every ray at once,
     in the kernels' order (the nearer child first, the farther pushed with
     its entry and skipped at its pop once the best t precedes it; a leaf's
@@ -374,7 +386,11 @@ def _first_hit_walk_plain(o, d, bvh: FaceBVH, pair, best: tuple = None):
     kernel's leaf test of the rays `rays` (n,) (indices into `o`) against
     their leaf's rows (n, leaf_faces, W) of original faces `faces` (n,
     leaf_faces): (hit, t), each (n, leaf_faces). The fold starts from `best`
-    ((t, face) (R,), 3e38 and 2**30 for none) where given."""
+    ((t, face) (R,), 3e38 and 2**30 for none) where given. Each ray walks
+    from node 1, or, with `feed`, from each root that `feed(rays, best_t,
+    best_i)` gives the rays `rays` (n,) in turn ((n,) int64, 0 where a ray
+    has none left), asked when a ray's walk from its last root is done:
+    csrc/first_hit_walk.cuh's `walk_roots` (K10's tile subtrees)."""
     r, dev = o.shape[0], o.device
     n_leaves = bvh.n_leaves
     lo, hi = bvh.boxes[:, 0:3], bvh.boxes[:, 4:7]
@@ -387,22 +403,38 @@ def _first_hit_walk_plain(o, d, bvh: FaceBVH, pair, best: tuple = None):
         best_i = torch.full((r,), _IDX_BIG, dtype=torch.int32, device=dev)
     else:
         best_t, best_i = (x.clone() for x in best)
-    entry, exit_ = slab_entry_exit(o, inv, lo[1], hi[1])
-    node = torch.where(finite & (entry <= exit_), 1, 0)
-    nodes = finite.to(torch.int32)
+    if feed is None:
+        entry, exit_ = slab_entry_exit(o, inv, lo[1], hi[1])
+        node = torch.where(finite & (entry <= exit_), 1, 0)
+        nodes = finite.to(torch.int32)
+    else:
+        node = torch.zeros(r, dtype=torch.int64, device=dev)
+        nodes = torch.zeros(r, dtype=torch.int32, device=dev)
+        fed = finite.clone()  # rays that may have a root left
     leaves = torch.zeros(r, dtype=torch.int32, device=dev)
     stack_n = torch.zeros((r, BVH_MAX_DEPTH), dtype=torch.int64, device=dev)
     stack_t = torch.zeros((r, BVH_MAX_DEPTH), dtype=torch.float32, device=dev)
     sp = torch.zeros(r, dtype=torch.int64, device=dev)
     lanes = torch.arange(bvh.leaf_faces, device=dev)
     while True:
-        while True:  # pop until an entry does not pass the best t, or the stack is empty
+        while True:  # pop until an entry does not pass the best t, or the stack is empty; then the next root
             pop = torch.nonzero((node == 0) & (sp > 0)).squeeze(1)
-            if pop.numel() == 0:
+            if pop.numel():
+                sp[pop] -= 1
+                keep = stack_t[pop, sp[pop]] <= best_t[pop]
+                node[pop] = torch.where(keep, stack_n[pop, sp[pop]], 0)
+                continue
+            if feed is None:
                 break
-            sp[pop] -= 1
-            keep = stack_t[pop, sp[pop]] <= best_t[pop]
-            node[pop] = torch.where(keep, stack_n[pop, sp[pop]], 0)
+            ask = torch.nonzero((node == 0) & fed).squeeze(1)
+            if ask.numel() == 0:
+                break
+            root = feed(ask, best_t[ask], best_i[ask])
+            fed[ask[root == 0]] = False
+            ask, root = ask[root > 0], root[root > 0]
+            entry, exit_ = slab_entry_exit(o[ask], inv[ask], lo[root], hi[root])
+            nodes[ask] += 1
+            node[ask] = torch.where(entry <= exit_, root, 0)
         leaf = torch.nonzero(node >= n_leaves).squeeze(1)
         inner = torch.nonzero((node > 0) & (node < n_leaves)).squeeze(1)
         if leaf.numel() == 0 and inner.numel() == 0:
@@ -1389,8 +1421,10 @@ def first_hit_mxu(o, d, prev, center, bvh: FaceBVH, visits=None):
 # of the big variant's face table
 # ---------------------------------------------------------------------------
 
-SORTED_TILE_FACES = 256  # Morton-sorted faces per tile (kTileFaces in csrc/bilinear_pair.cuh)
-PFH_LANES = 512  # pair lanes per block, one tile each (kBlock in csrc/pair_first_hit.cu)
+SORTED_TILE_FACES = 256  # Morton-sorted faces per tile (64 leaves of K10's tree: kTileLeaves in csrc/pair_first_hit.cu)
+TILE_LEAVES = SORTED_TILE_FACES // BVH_LEAF_FACES  # leaves of one tile's subtree in K10's tree (kTileLeaves)
+PFH_LANES = 512  # pair lanes per block of the reference-shaped round (ops/pair_first_hit.py:round_inputs)
+_ENTRY_TINY = 1.0e-12  # a direction component under this in size counts as +-1e-12 in the tile entries
 
 
 def _tile_fold(ray, faces, tl):
@@ -1446,8 +1480,10 @@ def first_hit_sorted(o, d, alive, center, bvh: FaceBVH, visits=None):
 
 
 def pair_tile_plain(o, d, blk_tile, face_tab):
-    """Plain PyTorch version of `first_hit_pair` (any device): each block of
-    PFH_LANES lanes against its tile, vectorised over blocks."""
+    """One round of the reference's pair layout (ops/pair_first_hit.py:
+    `round_inputs`): each block of PFH_LANES lanes against its tile's 256
+    faces, vectorised over blocks: (t (n_lanes,), sorted face (n_lanes,)
+    int32), 3e38 and -1 on a miss or a block without a tile (-1)."""
     n_lanes = o.shape[0]
     nb, n_tiles = n_lanes // PFH_LANES, face_tab.shape[0] // SORTED_TILE_FACES
     ray = _plucker(o.reshape(nb, PFH_LANES, 3), d.reshape(nb, PFH_LANES, 3))
@@ -1464,37 +1500,134 @@ def pair_tile_plain(o, d, blk_tile, face_tab):
     return t, torch.where(t >= _BIG, -1, best_i.reshape(-1))
 
 
-def first_hit_pair(o, d, blk_tile, face_tab):
-    """One round of the pair-walk first hit (K10): every lane against its
-    block's tile.
+def tile_entries(o_c: torch.Tensor, d: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(R, T) entry distance of each ray (centred origins `o_c`, directions
+    `d`, (R, 3)) into each tile's box [lo, hi] (T, 3), +inf where the ray's
+    line misses it, as the reference's `_tile_entries` computes it, axis by
+    axis: a direction component under 1e-12 in size counts as +-1e-12 (-0 as
+    +1e-12); entry max(0, near distances), exit min(far distances)."""
+    tiny = torch.where(d < 0, -_ENTRY_TINY, _ENTRY_TINY)
+    inv = 1.0 / torch.where(d.abs() < _ENTRY_TINY, tiny, d)
+    r, n_t = o_c.shape[0], lo.shape[0]
+    ent = torch.zeros((r, n_t), dtype=torch.float32, device=o_c.device)
+    exi = torch.full((r, n_t), math.inf, dtype=torch.float32, device=o_c.device)
+    for ax in range(3):
+        t0 = (lo[None, :, ax] - o_c[:, ax, None]) * inv[:, ax, None]
+        t1 = (hi[None, :, ax] - o_c[:, ax, None]) * inv[:, ax, None]
+        ent = torch.maximum(ent, torch.minimum(t0, t1))
+        exi = torch.minimum(exi, torch.maximum(t0, t1))
+    return torch.where(exi >= ent, ent, math.inf)
+
+
+def pair_walk_plain(o, d, alive, center, tile_lo, tile_hi, bvh: FaceBVH, k: int):
+    """Plain PyTorch version of `first_hit_pair` (any device), every ray's
+    steps in the kernel's order: (t, sorted face, counts (R, 4) int32 =
+    rounds, live (ray, tile) pairs, subtree box tests, leaves folded).
+
+    Each ray's tiles are taken in (entry, tile id) order (a stable sort of
+    `tile_entries`). A round takes the next `k`; a candidate is live where
+    its entry is finite and no later than the ray's best t at the round's
+    start (+inf before a hit), and a live one's subtree (node n_leaves /
+    TILE_LEAVES + tile) is walked from the ray's best so far, as soon as the
+    walk is done with the tile before. The first candidate that is not live
+    ends the ray (every later one enters later); so does the end of a round
+    whose next candidate enters after the best t. A dead ray or one with a
+    non-finite component takes one round and walks nothing."""
+    r, dev = o.shape[0], o.device
+    o_c = o - center
+    walked = torch.isfinite(o_c).all(dim=1) & torch.isfinite(d).all(dim=1)
+    if alive is not None:
+        walked &= alive
+    n_tiles = tile_lo.shape[0]
+    enter = torch.where(walked[:, None], tile_entries(o_c, d, tile_lo, tile_hi), math.inf)
+    ent_s, tile_s = torch.sort(enter, dim=1, stable=True)
+    base = bvh.n_leaves // TILE_LEAVES
+    counts = torch.zeros((r, 4), dtype=torch.int32, device=dev)
+    counts[:, 0] = 1
+    pos = torch.zeros(r, dtype=torch.int64, device=dev)
+    slots = torch.full((r,), k, dtype=torch.int64, device=dev)
+    round_best = torch.full((r,), math.inf, dtype=torch.float32, device=dev)
+
+    def feed(rays, best_t, best_i):
+        # The ray's next candidate; a round ends after k of them, and the next
+        # starts where its first candidate enters no later than the best t
+        p = pos[rays].clamp_max(n_tiles - 1)
+        e = torch.where(pos[rays] < n_tiles, ent_s[rays, p], math.inf)
+        now = torch.where(best_t >= _BIG, math.inf, best_t)
+        fin = torch.isfinite(e)
+        boundary = slots[rays] == 0
+        start = boundary & fin & (e <= now)
+        nxt = rays[start]
+        counts[nxt, 0] += 1
+        round_best[nxt], slots[nxt] = now[start], k
+        live = fin & (~boundary | start) & (e <= round_best[rays])
+        go = rays[live]
+        counts[go, 1] += 1
+        slots[go] -= 1
+        pos[go] += 1
+        return torch.where(live, base + tile_s[rays, p], 0)
+
+    t, face, visits = _first_hit_walk_plain(o_c, d, bvh, _bilinear_leaf(o_c, d), feed=feed)
+    counts[:, 2:] = visits
+    return t, face, counts
+
+
+def first_hit_pair(o, d, alive, center, tile_lo, tile_hi, bvh: FaceBVH, k_slots: int, counts=None):
+    """The pair-walk first hit (K10): each ray through its nearest tiles in
+    rounds of `k_slots`, every round in one launch.
 
     Arguments:
-        o, d: (n_lanes, 3) centred ray origins and directions of the (ray,
-            tile) pairs, laid out tile-aligned; n_lanes is a multiple of
-            PFH_LANES; padding lanes carry zero rays.
-        blk_tile: (n_lanes / PFH_LANES,) int32 the tile of each block of
-            PFH_LANES lanes, -1 for a block that serves none.
-        face_tab: (n_tiles * SORTED_TILE_FACES, 16) the big variant's rows.
+        o, d: (R, 3) float32 origins (world coordinates) and directions.
+        alive: (R,) bool, True for a live ray; or None (all live).
+        center: (3,) the tiles' centre; tile_lo, tile_hi: (T, 3) the tiles'
+            tight boxes, centred.
+        bvh: the tiles' face tree (ops/pair_first_hit.py:build_pair_tree):
+            the sorted rows in their own order, tile t's 256 rows in the
+            subtree of node n_leaves / TILE_LEAVES + t.
+        k_slots: candidates per round, >= 1; above T it counts as T.
+        counts: (R, 4) int32 or None: where given, each ray's rounds, live
+            (ray, tile) pairs, subtree box tests and leaves folded.
 
-    Returns (t (n_lanes,), sorted face (n_lanes,) int32): each lane's
-    smallest (t, index) over its tile's faces, t = 3e38 and face = -1 on a
-    miss or a block without a tile.
+    Returns (t (R,), sorted face (R,) int32): t = +inf and face = -1 on a
+    miss or a dead ray, the smallest sorted index on equal t: the (t, face)
+    of the reference's rounds, which test each live tile whole, and the
+    dense big first hit over the sorted faces, bit for bit. One launch of
+    the K10 kernel on a CUDA device, its plain walk on the CPU.
     """
+    n_tiles = tile_lo.shape[0]
+    if k_slots < 1:
+        raise ValueError(f"first_hit_pair: k_slots must be >= 1, got {k_slots}")
+    k = min(int(k_slots), n_tiles)
     if not _on_card(o):
-        return pair_tile_plain(o, d, blk_tile, face_tab)
-    n_lanes, dev = o.shape[0], o.device
-    n_tiles = face_tab.shape[0] // SORTED_TILE_FACES
-    if n_lanes % PFH_LANES or n_tiles == 0:
-        raise ValueError(f"first_hit_pair: {n_lanes} lanes are not whole blocks of {PFH_LANES}, or no tiles")
-    _check("origins", o, (n_lanes, 3), torch.float32, dev)
-    _check("dirs", d, (n_lanes, 3), torch.float32, dev)
-    _check("block tiles", blk_tile, (n_lanes // PFH_LANES,), torch.int32, dev)
-    _check("face table", face_tab, (n_tiles * SORTED_TILE_FACES, 16), torch.float32, dev)
-    t = torch.empty(n_lanes, dtype=torch.float32, device=dev)
-    idx = torch.empty(n_lanes, dtype=torch.int32, device=dev)
+        t, idx, c = pair_walk_plain(o, d, alive, center, tile_lo, tile_hi, bvh, k)
+        if counts is not None:
+            counts.copy_(c)
+        return t, idx
+    r, dev = o.shape[0], o.device
+    n_leaves = bvh.n_leaves
+    if n_tiles == 0 or bvh.leaf_faces != BVH_LEAF_FACES or n_leaves // TILE_LEAVES < n_tiles:
+        raise ValueError(f"first_hit_pair: {bvh} is not the pair tree of {n_tiles} tiles (build_pair_tree)")
+    if n_leaves.bit_length() - 1 > BVH_MAX_DEPTH:
+        raise ValueError(f"first_hit_pair: a tree of {n_leaves} leaves is deeper than {BVH_MAX_DEPTH} levels")
+    _check("origins", o, (r, 3), torch.float32, dev)
+    _check("dirs", d, (r, 3), torch.float32, dev)
+    if alive is not None:
+        _check("alive", alive, (r,), torch.bool, dev)
+    _check("centre", center, (3,), torch.float32, dev)
+    _check("tile minima", tile_lo, (n_tiles, 3), torch.float32, dev)
+    _check("tile maxima", tile_hi, (n_tiles, 3), torch.float32, dev)
+    _check("tree rows", bvh.rows, (n_leaves * BVH_LEAF_FACES, 16), torch.float32, dev)
+    _check("tree faces", bvh.face, (n_leaves * BVH_LEAF_FACES,), torch.int32, dev)
+    _check("tree boxes", bvh.boxes, (2 * n_leaves, 8), torch.float32, dev)
+    if counts is not None:
+        _check("counts", counts, (r, 4), torch.int32, dev)
+    t = o.new_empty(r)
+    idx = o.new_empty(r, dtype=torch.int32)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _lib("pair_first_hit", "first_hit_pair", [vp, vp, vp, vp, ci, ci, vp, vp, vp])
+    fn = _lib("pair_first_hit", "first_hit_pair", [vp] * 9 + [ci] * 4 + [vp] * 4)
     launch_counts["first_hit_pair"] += 1
-    err = fn(_ptr(o), _ptr(d), _ptr(blk_tile), _ptr(face_tab), n_lanes, n_tiles, _ptr(t), _ptr(idx), _stream(o))
+    err = fn(_ptr(o), _ptr(d), ctypes.c_void_p(0 if alive is None else alive.data_ptr()), _ptr(center),
+             _ptr(tile_lo), _ptr(tile_hi), _ptr(bvh.rows), _ptr(bvh.face), _ptr(bvh.boxes), r, n_tiles, n_leaves, k,
+             _ptr(t), _ptr(idx), ctypes.c_void_p(0 if counts is None else counts.data_ptr()), _stream(o))
     _raise_on(err, "first_hit_pair")
     return t, idx

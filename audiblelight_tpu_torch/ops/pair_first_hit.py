@@ -1,22 +1,28 @@
 """Per-ray exact first hit through (ray, tile) pair walks (kernel K10).
 
 Counterpart of audiblelight_tpu/ops/pair_first_hit.py, on the tiles of
-ops/sorted_first_hit.build_sorted_tiles. Where the reference's K9 culls
-per block of 512 rays, this route culls per ray, tile by tile:
+ops/sorted_first_hit.build_sorted_tiles. Where the reference's K9 culls per
+block of 512 rays, this route culls per ray, tile by tile, in rounds:
 
-- `_tile_entries`: a slab test of every (ray, tile) pair, the entry distance
-  into the tile's box (+inf where the ray's line misses it), streamed by
-  axis;
+- the slab test of every (ray, tile) pair gives the entry distance into the
+  tile's tight box (+inf where the ray's line misses it);
 - each round takes each ray's K untested tiles of least entry (the first K
   of a stable sort, as XLA's TopK breaks ties) and marks a candidate live
-  where its entry does not pass the ray's best hit so far;
-- `_one_round` lays the live pairs out tile-aligned (pairs sorted by tile,
-  each tile's run padded to whole blocks of PFH_LANES), so every kernel
-  block tests its lanes' rays against one tile's 256 faces, then takes each
-  ray's smallest (t, sorted face) over its K lanes;
+  where its entry does not pass the ray's best hit at the round's start;
+  every live tile is tested and all K candidates are consumed;
 - rounds repeat while a ray's next untested tile enters no later than its
-  best hit; all K candidates are consumed each round, so at most
-  ceil(n_tiles / K) rounds run. Each round reads one flag to the host.
+  best hit, so at most ceil(n_tiles / K) rounds run.
+
+The port runs every round of every ray in one launch (`pair_first_hit`,
+csrc/pair_first_hit.cu): one thread per ray streams the tiles' boxes through
+shared memory, keeps its next candidates in registers, and tests a live tile
+by walking that tile's own subtree of `build_pair_tree` (K1 big's walk and
+bilinear leaf) from the ray's best hit so far; no sort, no pair layout and no
+host read. `cuda_kernels.pair_walk_plain` takes the same steps in PyTorch.
+The reference's round structure stays as a plain version of its own
+(`pair_rounds`: `round_inputs` lays each round's live pairs out
+tile-aligned, `_one_round` tests each against its tile's 256 faces), which
+the tests hold against the reference's rounds.
 
 The slab test and the bounds are conservative and ties go to the smallest
 sorted index, so the result is the dense big first hit over the sorted
@@ -28,29 +34,33 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from audiblelight_tpu_torch.ops.cuda_kernels import PFH_LANES, _lex_min, first_hit_pair, pair_tile_plain
-from audiblelight_tpu_torch.ops.sorted_first_hit import SortedTiles
+from audiblelight_tpu_torch.ops.cuda_kernels import (PFH_LANES, FaceBVH, _lex_min, big_keep, build_face_bvh,
+                                                     first_hit_pair, pair_tile_plain, tile_entries)
+from audiblelight_tpu_torch.ops.sorted_first_hit import SortedTiles, _rays, padded_sorted_tris
 
 _BIG = 3.0e38
 _IDX_BIG = 2**30
 
 
+def build_pair_tree(tiles: SortedTiles, tris: np.ndarray, order: np.ndarray) -> FaceBVH:
+    """The face tree K10 walks, over the rows of `tiles.face_tab` (from
+    `build_sorted_tiles(tris)`, which gave `order`), on the tiles' device:
+    the sentinel-padded sorted faces centred on `tiles.center`, in their own
+    order (no re-sort), so tile t's 256 rows are leaves 64 t ... 64 t + 63
+    and its subtree is rooted at node n_leaves / 64 + t. K1 big's keep rule
+    and boxes: the zero padding and sentinel rows report -1 and add nothing
+    to a box; each row reports its sorted index."""
+    padded = torch.as_tensor(padded_sorted_tris(tris, order, tiles.n_tiles), device=tiles.face_tab.device)
+    return build_face_bvh(padded - tiles.center, tiles.face_tab, big_keep(tiles.face_tab), in_order=True)
+
+
 def _tile_entries(tiles: SortedTiles, o_c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """(R, T) entry distance of each ray into each tile's box, +inf where the
-    ray's line misses it; directions under 1e-12 in size count as +-1e-12."""
-    tiny = torch.where(d < 0, -1e-12, 1e-12)
-    inv = 1.0 / torch.where(d.abs() < 1e-12, tiny, d)
-    r, n_t = o_c.shape[0], tiles.tile_lo.shape[0]
-    ent = torch.zeros((r, n_t), dtype=torch.float32, device=o_c.device)
-    exi = torch.full((r, n_t), math.inf, dtype=torch.float32, device=o_c.device)
-    for ax in range(3):
-        t0 = (tiles.tile_lo[None, :, ax] - o_c[:, ax, None]) * inv[:, ax, None]
-        t1 = (tiles.tile_hi[None, :, ax] - o_c[:, ax, None]) * inv[:, ax, None]
-        ent = torch.maximum(ent, torch.minimum(t0, t1))
-        exi = torch.minimum(exi, torch.maximum(t0, t1))
-    return torch.where(exi >= ent, ent, math.inf)
+    ray's line misses it (`cuda_kernels.tile_entries`)."""
+    return tile_entries(o_c, d, tiles.tile_lo, tiles.tile_hi)
 
 
 def round_inputs(n_tiles: int, o_c, d, cand_tile, cand_live) -> tuple:
@@ -109,19 +119,55 @@ def _one_round(kernel, tiles: SortedTiles, o_c, d, cand_tile, cand_live) -> tupl
     return t_best, torch.where(t_pair == t_best[:, None], i_pair, _IDX_BIG).amin(dim=1)
 
 
-def _pair_query(kernel, tiles: SortedTiles, origins, dirs, alive, k_slots: int, counted: bool = False) -> tuple:
-    """(t (R,), sorted face (R,), stats) through `kernel`. With `counted`,
-    stats holds the rounds (int) and, on the device, the live (ray, tile)
-    pairs tested, the rays unresolved after the first round, and the (ray,
-    tile) pairs whose box the ray's line enters no later than its hit (each
-    ray's ideal walk); else it is empty."""
+def _pair_tree(tiles: SortedTiles) -> FaceBVH:
+    if tiles.pair_tree is None:
+        raise ValueError(f"{tiles} carry no pair tree: build_sorted_tiles builds one (build_pair_tree)")
+    return tiles.pair_tree
+
+
+def pair_first_hit(tiles: SortedTiles, origins: torch.Tensor, dirs: torch.Tensor, alive=None, k_slots: int = 8):
+    """First hit (t (R,), sorted face (R,) int32) of each ray against the
+    Morton-tiled mesh, in rounds of `k_slots` nearest tiles per ray; `alive`
+    (R,) bool, all live by default. Dead rays and misses give (inf, -1).
+    One launch of the K10 kernel on a CUDA device (the tiles' `pair_tree`
+    walked tile by tile), its plain walk on the CPU; equals the dense big
+    first hit over the sorted faces bit for bit."""
+    o, d, alive = _rays(origins, dirs, alive)
+    return first_hit_pair(o, d, alive, tiles.center, tiles.tile_lo, tiles.tile_hi, _pair_tree(tiles), k_slots)
+
+
+def pair_walk(tiles: SortedTiles, origins: torch.Tensor, dirs: torch.Tensor, alive=None, k_slots: int = 8):
+    """`pair_first_hit` with the walk's counts: (t, face, stats). stats holds
+    the rounds (int), the live (ray, tile) pairs tested, the rays unresolved
+    after the first round, the (ray, tile) pairs whose box the ray's line
+    enters no later than its hit (each ray's ideal walk), as `pair_rounds`
+    counts them, and `counts`, the kernel's (R, 4) int32 per-ray rounds,
+    live pairs, subtree box tests and leaves folded."""
+    o, d, alive = _rays(origins, dirs, alive)
+    r, dev = o.shape[0], o.device
+    counts = torch.empty((r, 4), dtype=torch.int32, device=dev)
+    t, idx = first_hit_pair(o, d, alive, tiles.center, tiles.tile_lo, tiles.tile_hi, _pair_tree(tiles), k_slots,
+                            counts)
+    live = torch.ones(r, dtype=torch.bool, device=dev) if alive is None else alive
+    enter = torch.where(live[:, None], _tile_entries(tiles, o - tiles.center, d), math.inf)
+    rounds = counts[:, 0]
+    return t, idx, dict(rounds=max(1, int(rounds.max())) if r else 1, pairs=counts[:, 1].sum(dtype=torch.int64),
+                        unresolved_first=(rounds > 1).sum(),
+                        needed=((enter <= t[:, None]) & torch.isfinite(enter)).sum(), counts=counts)
+
+
+def pair_rounds(tiles: SortedTiles, origins: torch.Tensor, dirs: torch.Tensor, alive=None, k_slots: int = 8):
+    """The reference's rounds in plain PyTorch (any device): each round's
+    live pairs laid out tile-aligned and tested against their tiles' 256
+    faces (`pair_tile_plain`), one host read per round: (t, face, stats),
+    stats as `pair_walk` gives them without `counts`."""
     origins = torch.atleast_2d(origins).to(torch.float32)
     dirs = torch.atleast_2d(dirs).to(torch.float32)
     r, dev = origins.shape[0], origins.device
     alive = torch.ones(r, dtype=torch.bool, device=dev) if alive is None else alive.to(torch.bool)
     o_c = origins - tiles.center
     enter = torch.where(alive[:, None], _tile_entries(tiles, o_c, dirs), math.inf)
-    enter0 = enter.clone() if counted else None
+    enter0 = enter.clone()
     k = min(k_slots, tiles.n_tiles)
     best_t = torch.full((r,), math.inf, dtype=torch.float32, device=dev)
     best_i = torch.full((r,), _IDX_BIG, dtype=torch.int32, device=dev)
@@ -134,39 +180,18 @@ def _pair_query(kernel, tiles: SortedTiles, origins, dirs, alive, k_slots: int, 
         # <= keeps the tie rule: an entry equal to the best t could hold an
         # equal-t hit with a smaller face index
         cand_live = torch.isfinite(cand_enter) & (cand_enter <= best_t[:, None])
-        if counted:
-            pairs += cand_live.sum()
-        t_r, i_r = _one_round(kernel, tiles, o_c, dirs, cand, cand_live)
+        pairs += cand_live.sum()
+        t_r, i_r = _one_round(pair_tile_plain, tiles, o_c, dirs, cand, cand_live)
         best_t, best_i = _lex_min(best_t, best_i, t_r, i_r)
         enter.scatter_(1, cand, math.inf)  # every candidate consumed, live or not (in place)
         next_enter = enter.amin(dim=1)
         unresolved = (next_enter <= best_t) & torch.isfinite(next_enter)
         rounds += 1
-        if counted and unresolved_first is None:
+        if unresolved_first is None:
             unresolved_first = unresolved.sum()
         if not bool(unresolved.any()):
             break
     t = torch.where(torch.isfinite(best_t) & alive, best_t, math.inf)
     idx = torch.where(torch.isfinite(t), best_i, -1)
-    if not counted:
-        return t, idx, {}
     return t, idx, dict(rounds=rounds, pairs=pairs, unresolved_first=unresolved_first,
                         needed=((enter0 <= t[:, None]) & torch.isfinite(enter0)).sum())
-
-
-def pair_first_hit(tiles: SortedTiles, origins: torch.Tensor, dirs: torch.Tensor, alive=None, k_slots: int = 8):
-    """First hit (t (R,), sorted face (R,) int32) of each ray against the
-    Morton-tiled mesh, in rounds of `k_slots` nearest tiles per ray; `alive`
-    (R,) bool, all live by default. Dead rays and misses give (inf, -1).
-    Runs the K10 kernel on a CUDA device and its plain version on the CPU;
-    equals the dense big first hit over the sorted faces bit for bit."""
-    t, idx, _ = _pair_query(first_hit_pair, tiles, origins, dirs, alive, k_slots)
-    return t, idx
-
-
-def pair_walk(tiles: SortedTiles, origins: torch.Tensor, dirs: torch.Tensor, alive=None, k_slots: int = 8,
-              kernel=pair_tile_plain):
-    """`pair_first_hit` with the walk's counts: (t, face, stats), stats as
-    `_pair_query` gives them. Each round runs `kernel`, the plain version
-    unless given another with `first_hit_pair`'s arguments and result."""
-    return _pair_query(kernel, tiles, origins, dirs, alive, k_slots, counted=True)

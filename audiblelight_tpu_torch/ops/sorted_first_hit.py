@@ -11,7 +11,8 @@ the port keeps its tiles and its contract and culls per ray:
   of the dense big first hit's table [e2, w2, -e1, -w1, -n, -k], centred on
   the middle of the valid vertices' bounds, zero rows as padding, one tight
   box per tile. `order` maps a sorted position to the original face. The
-  pair-walk first hit (K10, ops/pair_first_hit.py) walks these tiles.
+  pair-walk first hit (K10, ops/pair_first_hit.py) walks these tiles; they
+  carry its tree (`pair_tree`, ops/pair_first_hit.py:build_pair_tree).
 - `build_sorted_tree`: the face tree of the tiles' rows (K1 big's tree over
   the sentinel-padded sorted faces, `padded_sorted_tris`), built once per
   tiling; each row reports its sorted index.
@@ -52,6 +53,7 @@ class SortedTiles:
     room_span: torch.Tensor  # (3,) their extents
     n_tiles: int
     n_faces: int  # valid (sorted) faces, before the padding
+    pair_tree: FaceBVH | None = None  # K10's tree of the rows in tile order (build_pair_tree)
 
     def __repr__(self):
         return f"SortedTiles(tiles={self.n_tiles}, faces={self.n_faces})"
@@ -71,9 +73,10 @@ def sorted_tiles_from_numpy(fields, device) -> SortedTiles:
 
 def build_sorted_tiles(tris: np.ndarray, device=None) -> tuple[SortedTiles | None, np.ndarray]:
     """(tiles, order) of `tris` (F, 3, 3), the tensors on `device` (the card
-    unless the caller names one): `order` maps a sorted position to the
-    original face, so per-face tables permute as `attr[order]`. (None, empty
-    order) when no face is finite with nonzero area."""
+    unless the caller names one), K10's tree built: `order` maps a sorted
+    position to the original face, so per-face tables permute as
+    `attr[order]`. (None, empty order) when no face is finite with nonzero
+    area."""
     tris = np.asarray(tris, dtype=np.float32)
     finite = np.all(np.abs(tris) < 1.0e8, axis=(1, 2))
     area = np.linalg.norm(np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]), axis=-1)
@@ -121,7 +124,12 @@ def build_sorted_tiles(tris: np.ndarray, device=None) -> tuple[SortedTiles | Non
     fields = dict(face_tab=tab, tile_lo=tl, tile_hi=th, center=center.astype(np.float32),
                   room_lo=(vmin - center).astype(np.float32),
                   room_span=np.maximum(vmax - vmin, 1e-6).astype(np.float32), n_tiles=n_tiles, n_faces=n)
-    return sorted_tiles_from_numpy(fields, resolve_device(device)), order
+    tiles = sorted_tiles_from_numpy(fields, resolve_device(device))
+    # Imported here: ops/pair_first_hit.py imports this module
+    from audiblelight_tpu_torch.ops.pair_first_hit import build_pair_tree
+
+    tiles.pair_tree = build_pair_tree(tiles, tris, order)
+    return tiles, order
 
 
 def padded_sorted_tris(tris: np.ndarray, order: np.ndarray, n_tiles: int) -> np.ndarray:

@@ -54,14 +54,17 @@ exact CLI scene's bounces), then drives the port's two main paths:
   second and third bounces, 80k interior rays and the exact trace's
   wavefront with the most dead rays;
 - the cone-sorted (K9, a per-ray walk of the sorted faces' tree in one
-  launch) and pair-walk (K10) first hits, which neither package wires into
-  its tracer, through their own entry points (`build_sorted_tiles`,
-  `build_sorted_tree`, `sorted_first_hit`, `pair_first_hit`) on the exact
-  scene's 80k surface rays and 80k interior rays on the full mesh, the fused
-  trace's first bounce on the LOD, and the surface rays with 45 % of them
-  dead: each kernel held against its plain version (K9's visit counts
-  included) and each op against K1 big over the Morton-sorted faces, bit
-  for bit, K9 timed beside K1 big on the same rays;
+  launch) and pair-walk (K10, each ray's rounds of nearest tiles in one
+  launch, a live tile tested by a walk of its own subtree) first hits,
+  which neither package wires into its tracer, through their own entry
+  points (`build_sorted_tiles`, `build_sorted_tree`, `sorted_first_hit`,
+  `pair_first_hit`) on the exact scene's 80k surface rays and 80k interior
+  rays on the full mesh, the fused trace's first bounce on the LOD, and the
+  surface rays with 45 % of them dead: each kernel held against its plain
+  walk (K9's visit counts and K10's per-ray rounds, tiles, box tests and
+  leaves included), K10 against the reference-shaped rounds, each op
+  against K1 big over the Morton-sorted faces, bit for bit, one launch per
+  call, both timed beside K1 big on the same rays;
 - the rlr main path in a room of <= 512 faces (the 432-face
   `scanned_like_room(subdivision_levels=1)`): one fused MIC scene at the
   flagship settings, where K1 small (the walk of the room's any-hit tree,
@@ -842,25 +845,28 @@ def tiled_phase(make_scene, xscene, k1_scene: tuple, st_x, table_x, interior: tu
 def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
     """The cone-sorted (K9) and pair-walk (K10) first hits, which neither
     package wires into its tracer, through their own entry points: the
-    Morton tiles of each mesh (`build_sorted_tiles`) and K9's tree of them
-    (`build_sorted_tree`), then `sorted_first_hit` and `pair_first_hit` on
-    every wavefront of `wavefronts` ((label, tris, origins, dirs, alive or
-    None)), launches counted from zero around that run (K9 once per call).
-    Then, per wavefront: K9 with visits against its plain walk (t, faces
-    and visit counts identical) and against K1 big over the sentinel-padded
-    sorted faces (bit for bit, the same table and the same tree: K1 big's
-    visits equal K9's on the live rays); K10 against its plain version on
-    every round's lanes and the whole walk; each op against K1 big over the
-    sorted faces and, through `order`, against K1 big over the mesh as it is
-    (t identical, faces differing only at a tie); K9's box tests and leaves
-    per live ray, K10's tiles per ray, rounds and rays unresolved after
-    round 1; K9's time per call (and its device part) beside K1 big's on the
-    same rays, its kernel launches per call by the profiler, the plain
-    versions' and K10's times (kernel and plain summed over the op's
-    rounds), and the bound of the first hit: the pairs this data needs, the
-    rays and the table read once, the result written once; on the first
-    wavefront, the K10 op under the profiler. Returns the phase's launch
-    counts."""
+    Morton tiles of each mesh (`build_sorted_tiles`, which builds K10's tree
+    of the tiles' rows in their own order, `build_pair_tree`, timed again on
+    its own) and K9's tree of them (`build_sorted_tree`), then
+    `sorted_first_hit` and `pair_first_hit` on every wavefront of
+    `wavefronts` ((label, tris, origins, dirs, alive or None)), launches
+    counted from zero around that run (each once per call). Then, per
+    wavefront: K9 with visits against its plain walk (t, faces and visit
+    counts identical) and against K1 big over the sentinel-padded sorted
+    faces (bit for bit, the same table and the same tree: K1 big's visits
+    equal K9's on the live rays); K10 with its per-ray counts against its
+    plain walk (t, faces and every ray's rounds, live pairs, box tests and
+    leaves identical) and against the reference-shaped rounds
+    (`pair_rounds`: t, faces, rounds and live pairs identical); each op
+    against K1 big over the sorted faces and, through `order`, against K1
+    big over the mesh as it is (t identical, faces differing only at a tie);
+    K9's box tests and leaves per live ray, K10's tiles, box tests and
+    leaves per live ray, rounds and rays unresolved after round 1; each op
+    one kernel launch per call and K10 no host sync (profiler); K9's and
+    K10's time per call (and its device part) beside K1 big's on the same
+    rays, the plain versions' times, and the bound of the first hit: the
+    pairs this data needs, the rays and the table read once, the result
+    written once. Returns the phase's launch counts."""
     from audiblelight_tpu_torch.ops import cuda_kernels as ck
     from audiblelight_tpu_torch.ops import pair_first_hit as pfh
     from audiblelight_tpu_torch.ops import sorted_first_hit as sfh
@@ -874,7 +880,13 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
             t1 = time.time()
             tree = sfh.build_sorted_tree(tiles, tris_np, order)
             torch.cuda.synchronize()
-            built[id(tris)] = (tiles, order, tree, t1 - t0, time.time() - t1)
+            t2 = time.time()
+            again = pfh.build_pair_tree(tiles, tris_np, order)
+            torch.cuda.synchronize()
+            t3 = time.time()
+            if not (torch.equal(again.boxes, tiles.pair_tree.boxes) and torch.equal(again.face, tiles.pair_tree.face)):
+                fail(f"build_pair_tree gave another tree than build_sorted_tiles' on {tiles}")
+            built[id(tris)] = (tiles, order, tree, t1 - t0, t2 - t1, t3 - t2)
     ck.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -885,16 +897,16 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
     torch.cuda.synchronize()
     launches = dict(ck.launch_counts)
     print(f"K9 and K10 on {len(wavefronts)} wavefronts through their entry points in {time.time() - t0:.3f} s "
-          f"(host clock); launches {launches}; host builds (tiles, then K9's tree) "
-          f"{', '.join(f'{b[0]} {b[3]:.2f} s, {b[2]} {b[4] * 1e3:.1f} ms' for b in built.values())}", flush=True)
+          f"(host clock); launches {launches}; host builds (tiles with K10's tree, then K9's tree; K10's tree alone) "
+          f"{', '.join(f'{b[0]} {b[3]:.2f} s, {b[2]} {b[4] * 1e3:.1f} ms; {b[0].pair_tree} {b[5] * 1e3:.1f} ms' for b in built.values())}",
+          flush=True)
     for name in ("first_hit_sorted", "first_hit_pair"):
-        if launches[name] <= 0:
-            fail(f"the K9/K10 path never launched {name}")
-    if launches["first_hit_sorted"] != len(wavefronts):
-        fail("sorted_first_hit did not launch K9 once per wavefront")
+        if launches[name] != len(wavefronts):
+            fail(f"the K9/K10 path launched {name} {launches[name]} times, not once per wavefront")
 
     for (label, tris, o, d, alive), ((t9, i9), (t10, i10)) in zip(wavefronts, outs):
         tiles, order, tree, *_ = built[id(tris)]
+        ptree = tiles.pair_tree
         r, dev = o.shape[0], o.device
         live = torch.ones(r, dtype=torch.bool, device=dev) if alive is None else alive
         n_live = int(live.sum())
@@ -906,27 +918,24 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
         t_p, i_p, vis_p = walk[0]
         exact9 = (torch.equal(t_k, t_p) and torch.equal(i_k, i_p) and torch.equal(visits, vis_p)
                   and torch.equal(t_k, t9) and torch.equal(i_k, i9) and not bool(visits[~live].any()))
-        # K10's whole walk through the kernel, each round's lanes kept, and
-        # through the plain version; the kernel against its plain version on
-        # every round's lanes
-        round_args = []
-
-        def k10_kept(*args):
-            round_args.append(args)
-            return ck.first_hit_pair(*args)
-
-        t_kw, i_kw, stats = pfh.pair_walk(tiles, o, d, live, kernel=k10_kept)
-        t_pw, i_pw, stats_p = pfh.pair_walk(tiles, o, d, live)
-        exact10 = (torch.equal(t_kw, t_pw) and torch.equal(i_kw, i_pw) and stats["rounds"] == stats_p["rounds"]
-                   and len(round_args) == stats["rounds"] and torch.equal(t_kw, t10) and torch.equal(i_kw, i10))
-        k10_plain_ms, k10_err = 0.0, 0.0
-        for args in round_args:
-            t_kr, i_kr = ck.first_hit_pair(*args)
-            lanes = []
-            k10_plain_ms += time_ms(lambda: lanes.append(ck.pair_tile_plain(*args)), reps=1, warm=False)
-            t_pr, i_pr = lanes[0]
-            exact10 = exact10 and torch.equal(t_kr, t_pr) and torch.equal(i_kr, i_pr)
-            k10_err = max(k10_err, float((t_kr - t_pr).abs().nan_to_num(0.0).max()))
+        # K10 with its per-ray counts against its plain walk, and against the
+        # reference-shaped rounds
+        counts = torch.empty((r, 4), dtype=torch.int32, device=dev)
+        t_kc, i_kc = ck.first_hit_pair(o, d, alive, tiles.center, tiles.tile_lo, tiles.tile_hi, ptree, 8, counts)
+        walk10, rounds10 = [], []
+        k10_plain_ms = time_ms(lambda: walk10.append(ck.pair_walk_plain(o, d, alive, tiles.center, tiles.tile_lo,
+                                                                        tiles.tile_hi, ptree, 8)), reps=1, warm=False)
+        t_pw, i_pw, c_pw = walk10[0]
+        k10_rounds_ms = time_ms(lambda: rounds10.append(pfh.pair_rounds(tiles, o, d, live)), reps=1, warm=False)
+        t_r, i_r, st_r = rounds10[0]
+        n_rounds = int(counts[:, 0].max())
+        exact10 = (torch.equal(t_kc.view(torch.int32), t_pw.view(torch.int32)) and torch.equal(i_kc, i_pw)
+                   and torch.equal(counts, c_pw) and torch.equal(t_kc, t10) and torch.equal(i_kc, i10))
+        fin = torch.isfinite(t_pw)
+        k10_err = float((t_kc[fin] - t_pw[fin]).abs().max()) if bool(fin.any()) else 0.0
+        rounds_ok = (torch.equal(t10, t_r) and torch.equal(i10, i_r) and st_r["rounds"] == max(1, n_rounds)
+                     and int(st_r["pairs"]) == int(counts[:, 1].sum())
+                     and int(st_r["unresolved_first"]) == int((counts[:, 0] > 1).sum()))
         # Each op against K1 big over the sentinel-padded sorted faces: the
         # same table, and the same tree (K1 big's visits are K9's)
         st = torch.from_numpy(sfh.padded_sorted_tris(tris.cpu().numpy(), order, tiles.n_tiles)).to(dev)
@@ -948,15 +957,18 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
         i9_orig = torch.where(i9 >= 0, order_t[i9.clamp_min(0).long()].to(torch.int32), -1)
         ties = int((i9_orig != i_m).sum())
         orig_ok = torch.equal(t9, t_m) and torch.equal(t10, t9)
-        # Times, and the bound of the (ray, face) pairs this data needs
+        # Times, launches and syncs per call, and the bound of the (ray, face)
+        # pairs this data needs
         k9_op = (lambda: sfh.sorted_first_hit(tiles, tree, o, d, alive))
         k9_ms, k9_dev_ms, k9_launches = time_ms(k9_op), device_ms(k9_op), launches_per_call(k9_op)
         if k9_launches != 1:
             fail(f"sorted_first_hit launched {k9_launches} kernels per call on the {label}, not one")
-        # K10's kernel time in one op call: the sum of its rounds' launches
-        k10_round_ms = [time_ms(lambda: ck.first_hit_pair(*args)) for args in round_args]
-        k10_ms = sum(k10_round_ms)
-        k10_glue_ms = time_ms(lambda: pfh.pair_first_hit(tiles, o, d, alive), reps=5)
+        k10_op = (lambda: pfh.pair_first_hit(tiles, o, d, alive))
+        k10_ms, k10_dev_ms = time_ms(k10_op), device_ms(k10_op)
+        k10_launches, k10_syncs = call_profile(k10_op)
+        if k10_launches != 1 or k10_syncs != 0:
+            fail(f"pair_first_hit made {k10_launches} kernel launches and {k10_syncs} host syncs per call on the "
+                 f"{label}, not one launch and none")
         k1_op = (lambda: ck.ray_first_hit(o, d, st, table_s))
         k1_ms, k1_dev_ms = time_ms(k1_op), device_ms(k1_op)
         boxes = face_boxes(tris)
@@ -970,42 +982,44 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
         # K10's op computes the same first hit: the rays (and their flags)
         # read once, the table read once, t and face written once
         b10_ms, b10_by = bound_ms(needed * FLOPS_BIG_PAIR, r * 25 + tiles.n_tiles * sfh.TILE_FACES * 64 + r * 8)
-        n_lanes = round_args[0][0].shape[0]
         vis = visits[live].double()
-        pairs, ideal = int(stats["pairs"]), int(stats["needed"])
-        unres = int(stats["unresolved_first"])
-        print(f"check K9/K10 on the {label}: {r} rays ({n_live} live) x {tiles.n_faces} faces ({tiles}, {tree}); K9 "
-              f"identical to its plain walk, visit counts included, {exact9}; K10 identical to its plain version "
-              f"(every round's lanes, {n_lanes} in the first, and the whole walk) {exact10}; the dense big table and "
-              f"tree over the sorted faces are the tiles' and K9's {same_table}; K9 equals K1 big over the sorted "
-              f"faces, visits included, {equal9}, K10 {equal10}; against K1 big over the mesh as it is t identical "
-              f"{orig_ok}, faces differ at {ties} ties; K9 per live ray {float(vis[:, 0].mean()):.1f} box tests "
-              f"(max {int(vis[:, 0].max())}) and {float(vis[:, 1].mean()):.2f} leaves of {tree.leaf_faces} faces "
-              f"(max {int(vis[:, 1].max())}), {k9_launches} launch per call; K10 {stats['rounds']} rounds, tests "
-              f"{pairs / max(n_live, 1):.2f} tiles per live ray ({pairs} pairs; entered before the hit "
-              f"{ideal / max(n_live, 1):.2f}), {unres / max(n_live, 1):.2%} of live rays unresolved after round 1; "
-              f"(ray, face) pairs this data needs {needed}; K9 {k9_ms:.4f} ms per call (device {k9_dev_ms:.4f} ms), "
-              f"plain walk {k9_plain_ms:.3f} ms, bound {b9_ms:.5f} ms ({b9_by}); K1 big on the same rays "
-              f"{k1_ms:.4f} ms (device {k1_dev_ms:.4f} ms); K10 kernel {k10_ms:.3f} ms over its "
-              f"{len(round_args)} rounds ({', '.join(f'{t:.3f}' for t in k10_round_ms)}), the op {k10_glue_ms:.3f} "
-              f"ms, plain {k10_plain_ms:.3f} ms (all rounds), bound {b10_ms:.5f} ms ({b10_by})", flush=True)
+        c10 = counts[live].double()
+        pairs, ideal = int(counts[:, 1].sum()), int(st_r["needed"])
+        unres = int((counts[:, 0] > 1).sum())
+        print(f"check K9/K10 on the {label}: {r} rays ({n_live} live) x {tiles.n_faces} faces ({tiles}, {tree}, "
+              f"K10's {ptree}); K9 identical to its plain walk, visit counts included, {exact9}; K10 identical to "
+              f"its plain walk, per-ray rounds, live pairs, box tests and leaves included, {exact10} (largest t gap "
+              f"{k10_err}), to the reference-shaped rounds (t, faces, rounds, pairs) {rounds_ok}; the dense big "
+              f"table and tree over the sorted faces are the tiles' and K9's {same_table}; K9 equals K1 big over the "
+              f"sorted faces, visits included, {equal9}, K10 {equal10}; against K1 big over the mesh as it is t "
+              f"identical {orig_ok}, faces differ at {ties} ties; K9 per live ray {float(vis[:, 0].mean()):.1f} box "
+              f"tests (max {int(vis[:, 0].max())}) and {float(vis[:, 1].mean()):.2f} leaves of {tree.leaf_faces} "
+              f"faces (max {int(vis[:, 1].max())}), {k9_launches} launch per call; K10 {n_rounds} rounds, per live "
+              f"ray {float(c10[:, 1].mean()):.2f} tiles tested (max {int(c10[:, 1].max())}; entered before the hit "
+              f"{ideal / max(n_live, 1):.2f}), {float(c10[:, 2].mean()):.1f} subtree box tests (max "
+              f"{int(c10[:, 2].max())}) and {float(c10[:, 3].mean()):.2f} leaves (max {int(c10[:, 3].max())}), "
+              f"{unres / max(n_live, 1):.2%} of live rays unresolved after round 1 ({pairs} pairs), {k10_launches} "
+              f"launch and {k10_syncs} host syncs per call; (ray, face) pairs this data needs {needed}; K9 "
+              f"{k9_ms:.4f} ms per call (device {k9_dev_ms:.4f} ms), plain walk {k9_plain_ms:.3f} ms, bound "
+              f"{b9_ms:.5f} ms ({b9_by}); K10 {k10_ms:.4f} ms per call (device {k10_dev_ms:.4f} ms, "
+              f"{k10_ms / k1_ms:.2f}x K1 big), plain walk {k10_plain_ms:.3f} ms, reference-shaped rounds "
+              f"{k10_rounds_ms:.3f} ms, bound {b10_ms:.5f} ms ({b10_by}); K1 big on the same rays {k1_ms:.4f} ms "
+              f"(device {k1_dev_ms:.4f} ms)", flush=True)
         if not exact9 or not exact10:
-            fail(f"K9 or K10 disagrees with its plain version on the {label}")
+            fail(f"K9 or K10 disagrees with its plain walk on the {label}")
+        if not rounds_ok:
+            fail(f"K10 disagrees with the reference-shaped rounds on the {label}")
         if not (same_table and equal9 and equal10):
             fail(f"K9 or K10 differs from K1 big over the sorted faces on the {label}")
         if not orig_ok:
             fail(f"K9 or K10 differs from K1 big over the mesh beyond a tie on the {label}")
         if "first_hit_sorted" not in results:
-            # Where the K10 op's time goes besides its kernel (the first wavefront only)
-            _, busy10 = profiled(lambda: pfh.pair_first_hit(tiles, o, d, alive), "K10 op profile")
-            print(f"K10 op on the {label}: device busy {busy10:.3f} ms of {k10_glue_ms:.3f} ms, "
-                  f"{stats['rounds']} kernel launches, {k10_ms:.3f} ms in all")
             fin = torch.isfinite(t_d)
             results["first_hit_sorted"] = dict(max_abs_err=float((t9[fin] - t_d[fin]).abs().max()) if fin.any() else 0.0,
                                                bound_ms=b9_ms, bound_by=b9_by, ms=k9_ms, plain_ms=k9_plain_ms,
                                                library_ms=None)
-            results["first_hit_pair"] = dict(max_abs_err=k10_err, bound_ms=b10_ms, bound_by=b10_by, ms=k10_ms, plain_ms=k10_plain_ms,
-                                             library_ms=None)
+            results["first_hit_pair"] = dict(max_abs_err=k10_err, bound_ms=b10_ms, bound_by=b10_by, ms=k10_ms,
+                                             plain_ms=k10_plain_ms, library_ms=None)
     return launches
 
 
@@ -1412,8 +1426,11 @@ def launch_calls(avgs) -> int:
     return sum(ev.count for ev in avgs if ev.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
 
 
-def launches_per_call(fn) -> int:
-    """Kernel launches of one call of `fn` (after a warm-up), by the profiler."""
+def call_profile(fn) -> tuple:
+    """(kernel launches, host syncs) of one call of `fn` (after a warm-up), by
+    the profiler; a sync is a stream synchronisation or a read of a device
+    scalar (the device synchronisation that ends the profiled window is
+    not counted)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1421,7 +1438,14 @@ def launches_per_call(fn) -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return launch_calls(prof.key_averages())
+    avgs = prof.key_averages()
+    return launch_calls(avgs), sum(ev.count for ev in avgs
+                                   if ev.key in ("cudaStreamSynchronize", "aten::_local_scalar_dense"))
+
+
+def launches_per_call(fn) -> int:
+    """Kernel launches of one call of `fn` (after a warm-up), by the profiler."""
+    return call_profile(fn)[0]
 
 
 def check_walk(name: str, label: str, kernel, walk, dense) -> dict:

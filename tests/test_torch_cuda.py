@@ -22,8 +22,8 @@ re-evaluation); K1 small (its tree staged in shared memory) and the
 cone-sorted first hit (K9) identical to their plain walks, per-ray visit
 counts included, and to their dense plain versions (the dense classic
 scan; the dense big first hit (K1) over the Morton-sorted faces); the
-pair-walk first hit (K10) identical to its plain version and to that dense
-big first hit.
+pair-walk first hit (K10) identical to its plain walk, every ray's rounds,
+live pairs, box tests and leaves included, and to that dense big first hit.
 """
 
 import numpy as np
@@ -376,7 +376,8 @@ def test_each_wrapper_counts_its_launch(card):
     tfh.tiled_walk(tiled_tree, o, d)
     mxu.mxu_first_hit_plain(tables, o, d)
     sfh.sorted_walk(stiles, stree, o, d)
-    pfh.pair_walk(stiles, o, d, k_slots=8)
+    pfh.pair_rounds(stiles, o, d, k_slots=8)
+    ck.pair_walk_plain(o, d, None, stiles.center, stiles.tile_lo, stiles.tile_hi, stiles.pair_tree, 8)
     assert all(v == 0 for v in ck.launch_counts.values())
     ck.ray_first_hit(o, torch.from_numpy(unit_dirs(rng, 64)).to(card), tris)
     ck.ray_first_hit(o, d, tris[:300], small)
@@ -388,7 +389,7 @@ def test_each_wrapper_counts_its_launch(card):
     tfh.tiled_first_hit(tiled_tree, o, d)
     mxu.mxu_first_hit(tables, o, d)
     sfh.sorted_first_hit(stiles, stree, o, d)
-    # k_slots = n_tiles: one round tests every reachable tile, one launch
+    # k_slots = n_tiles: one round tests every reachable tile; every round in one launch
     pfh.pair_first_hit(stiles, o, d, k_slots=stiles.n_tiles)
     assert ck.launch_counts == {"first_hit_big": 1, "first_hit_small": 1, "any_hit": 1, "deposit_histogram": 1,
                                 "deposit_histogram_foa": 1, "bin_histogram": 1, "star_any_hit": 1,
@@ -594,24 +595,47 @@ def test_small_first_hit_matches_plain(card, small_rooms, which, kind):
         ck.ray_first_hit(o, d, tt, ck.dense_mt_table(tt))
 
 
+@pytest.fixture(scope="module")
+def chunked_room():
+    """442,368 faces, 1,728 Morton tiles: more than one staging chunk of K10
+    (1,024 tiles)."""
+    return scanned_like_room(extents=(7.0, 5.0, 3.0), subdivision_levels=6, seed=0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_rays,k_slots,dead", [(20000, 8, 0.0), (40000, 8, 0.45), (300, 1, 0.0)])
-def test_pair_first_hit_matches_plain_and_dense(card, scanned_room, n_rays, k_slots, dead):
-    """K10 on surface rays, with and without dead lanes, k_slots = 1 forcing
-    rounds."""
-    tris = scanned_room.triangles.astype(np.float32)
+@pytest.mark.parametrize("n_rays,k_slots,dead,mesh", [(20000, 8, 0.0, "room"), (40000, 8, 0.45, "room"),
+                                                      (300, 1, 0.0, "room"), (3000, "n_tiles", 0.0, "room"),
+                                                      (20000, 8, 0.2, "chunked")])
+def test_pair_first_hit_matches_plain_and_dense(card, scanned_room, chunked_room, n_rays, k_slots, dead, mesh):
+    """K10 on surface rays, with and without dead rays, k_slots = 1 forcing
+    rounds, k_slots = n_tiles taking every reachable tile in one round, and
+    a mesh of more tiles than one staging chunk: one launch, equal to its
+    plain walk (t, faces and every ray's rounds, live pairs, box tests and
+    leaves) and to K1 big over the sentinel-padded sorted faces."""
+    tris = (scanned_room if mesh == "room" else chunked_room).triangles.astype(np.float32)
     rng = np.random.default_rng(n_rays + 1)
     o, d = _surface_rays(tris, card, n_rays, n_rays + 1)
     alive = torch.from_numpy(rng.uniform(size=n_rays) >= dead).to(card)
     tiles, order = sfh.build_sorted_tiles(tris, device=card)
-    t_k, i_k, stats_k = pfh.pair_walk(tiles, o, d, alive, k_slots=k_slots, kernel=ck.first_hit_pair)
-    t_p, i_p, stats_p = pfh.pair_walk(tiles, o, d, alive, k_slots=k_slots)
-    assert torch.equal(i_k, i_p) and torch.equal(t_k, t_p) and stats_k["rounds"] == stats_p["rounds"]
+    assert (tiles.n_tiles > 1024) == (mesh == "chunked")
+    k = tiles.n_tiles if k_slots == "n_tiles" else k_slots
+    ck.reset_launch_counts()
+    t_k, i_k = pfh.pair_first_hit(tiles, o, d, alive, k_slots=k)
+    assert ck.launch_counts["first_hit_pair"] == 1
+    counts = torch.empty((n_rays, 4), dtype=torch.int32, device=card)
+    t_c, i_c = ck.first_hit_pair(o, d, alive, tiles.center, tiles.tile_lo, tiles.tile_hi, tiles.pair_tree, k, counts)
+    t_p, i_p, c_p = ck.pair_walk_plain(o, d, alive, tiles.center, tiles.tile_lo, tiles.tile_hi, tiles.pair_tree, k)
+    assert torch.equal(i_k, i_p) and torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    assert torch.equal(i_c, i_p) and torch.equal(t_c.view(torch.int32), t_p.view(torch.int32))
+    assert torch.equal(counts, c_p)
+    assert bool((counts[~alive] == torch.tensor([1, 0, 0, 0], dtype=torch.int32, device=card)).all())
     t_d, i_d = _dense_big_sorted(tris, order, tiles, o, d, card)
     assert torch.equal(i_k[alive], i_d[alive]) and torch.equal(t_k[alive], t_d[alive])
     assert bool(torch.isinf(t_k[~alive]).all()) and bool((i_k[~alive] == -1).all())
     if k_slots == 1:
-        assert stats_k["rounds"] > 1
+        assert int(counts[:, 0].max()) > 1
+    if k_slots == "n_tiles":
+        assert int(counts[:, 0].max()) == 1
 
 
 ACCEL_CASES = [("room", k) for k in ("interior", "surface", "on_surface", "grazing", "axis", "vertex_edge",

@@ -18,7 +18,29 @@ rays dead.
   multiply-adds in k - o.n, divided by a grazing d.n).
 - The op against the port's dense big first hit (plain) over the sorted
   faces, bit for bit, with the rounds counted.
+
+The port runs the rounds as one walk per ray (`pair_walk`, the kernel's
+plain version on the CPU), testing each live tile by a walk of its own
+subtree of `build_pair_tree`; the round-structured version stays
+(`pair_rounds`). Held here:
+
+- `build_pair_tree`'s layout: tile t's rows are leaves 64 t ... 64 t + 63
+  under node n_leaves / 64 + t, the rows the tiles' table, each row
+  reporting its sorted index, the padding and sentinel rows -1, every box
+  holding its faces' centred vertices with the pad; `build_face_bvh`'s
+  default path unchanged (K1 big's tree hashed as it was built before the
+  flag that keeps the order);
+- the pad certificate of the tile subtrees for the bilinear arithmetic on
+  interior, surface, grazing, axis-aligned and vertex/edge rays: every
+  ancestor of the leaf holding the dense hit (its tile's subtree root
+  among them) is entered no later than the dense t;
+- the walk against the round-structured version and the reference: t,
+  faces, rounds, live pairs and rays unresolved after the first round
+  identical to `pair_rounds`, faces identical to the reference's
+  interpret-mode op (t within the tolerance above).
 """
+
+import hashlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +53,9 @@ from audiblelight_tpu.ops import sorted_first_hit as jsorted
 from audiblelight_tpu_torch.ops import cuda_kernels as ck
 from audiblelight_tpu_torch.ops import pair_first_hit as tpair
 from audiblelight_tpu_torch.ops import sorted_first_hit as tsorted
-from tests.test_torch_sorted_first_hit import _assert_close, _case, _port, _wavefront
+from test_torch_cuda import _with_sentinels, ray_set
+from test_torch_first_hit_accel import tree_certificate
+from tests.test_torch_sorted_first_hit import _assert_close, _case, _degenerate_mesh, _dense_sorted, _port, _wavefront
 
 torch.set_num_threads(1)
 
@@ -156,3 +180,116 @@ def test_escaping_rays():
     t, idx = tpair.pair_first_hit(tiles, o, d)
     assert np.isinf(float(t[0])) and int(idx[0]) == -1
     assert int(idx[1]) >= 0 and abs(float(t[1]) - 1.0) <= 1e-5
+
+
+@pytest.mark.parametrize("mesh", ["scanned", "degenerate faces", "box"])
+def test_build_pair_tree(room, mesh):
+    """The tiles' rows in their own order: tile t's 256 rows are leaves
+    64 t ... 64 t + 63 under node n_leaves / 64 + t."""
+    if mesh == "box":
+        tris = box_mesh(extents=[4.0, 3.0, 2.5], center=[2.0, 1.5, 1.25]).triangles.astype(np.float32)
+    else:
+        tris = room.triangles.astype(np.float32) if mesh == "scanned" else _degenerate_mesh(room)
+    tiles, order = tsorted.build_sorted_tiles(tris, device="cpu")
+    tree = tiles.pair_tree
+    n_rows = tiles.n_tiles * tsorted.TILE_FACES
+    pow2 = 1 << int(np.ceil(np.log2(tiles.n_tiles)))
+    assert tree.leaf_faces == ck.BVH_LEAF_FACES and tree.n_leaves == ck.TILE_LEAVES * pow2
+    # The rows are the table's, in place; each reports its sorted index, the
+    # zero padding rows and everything past the tiles -1
+    rows = tree.rows.numpy()
+    np.testing.assert_array_equal(rows[:n_rows].view(np.int32), tiles.face_tab.numpy().view(np.int32))
+    assert not rows[n_rows:].any()
+    face = tree.face.numpy()
+    np.testing.assert_array_equal(face[: tiles.n_faces], np.arange(tiles.n_faces))
+    assert (face[tiles.n_faces :] == -1).all()
+    assert torch.equal(tree.face[:n_rows] >= 0, ck.big_keep(tiles.face_tab))
+    # Boxes: each parent holds its children; each leaf its rows' centred
+    # vertices with the pad; leaves without a face empty
+    lo, hi = tree.boxes[:, 0:3].double().numpy(), tree.boxes[:, 4:7].double().numpy()
+    kids = np.arange(2, 2 * tree.n_leaves)
+    assert (lo[kids // 2] <= lo[kids]).all() and (hi[kids // 2] >= hi[kids]).all()
+    verts = tris[order].astype(np.float64) - tiles.center.double().numpy()
+    leaf = tree.n_leaves + np.arange(tiles.n_faces) // tree.leaf_faces
+    assert (lo[leaf][:, None] <= verts - ck.BVH_PAD).all() and (hi[leaf][:, None] >= verts + ck.BVH_PAD).all()
+    empty = tree.n_leaves + np.flatnonzero((face.reshape(-1, tree.leaf_faces) < 0).all(axis=1))
+    assert (lo[empty] == np.inf).all() and (hi[empty] == -np.inf).all()
+    # Tile t's subtree: node pow2 + t holds exactly its 64 leaves, and its
+    # box the tile's faces (within the tile's tight box, padded)
+    for t in range(tiles.n_tiles):
+        node = np.arange(pow2 + t, pow2 + t + 1)
+        while node[0] < tree.n_leaves:
+            node = np.concatenate([2 * node, 2 * node + 1])
+        np.testing.assert_array_equal(np.sort(node), tree.n_leaves + ck.TILE_LEAVES * t + np.arange(ck.TILE_LEAVES))
+        tl, th = tiles.tile_lo[t].double().numpy(), tiles.tile_hi[t].double().numpy()
+        assert (lo[pow2 + t] >= tl - ck.BVH_PAD - 1e-5).all() and (lo[pow2 + t] <= tl - ck.BVH_PAD).all()
+        assert (hi[pow2 + t] <= th + ck.BVH_PAD + 1e-5).all() and (hi[pow2 + t] >= th + ck.BVH_PAD).all()
+
+
+# K1 big's tree (`build_face_bvh`'s default path) of the room and of the room
+# with 1e9 sentinels, rows, faces and boxes hashed as they were built before
+# the in-order flag
+DEFAULT_TREE_SHA256 = {
+    "room": "05152e3fbdda060c9fe88052c19999d36746aad22acbb287937d5144b1c7a41d",
+    "room_sentinels": "9b646cdf7de1568d3b1b2bab419fe7700ce77f61b321e7b99e9ea03ff923c22e",
+}
+
+
+@pytest.mark.parametrize("which", sorted(DEFAULT_TREE_SHA256))
+def test_face_tree_default_path_unchanged(room, which):
+    tris = room.triangles.astype(np.float32)
+    tris = _with_sentinels(tris, 3) if which == "room_sentinels" else tris
+    _, _, _, bvh = ck.big_first_hit_table(torch.from_numpy(tris))
+    h = hashlib.sha256()
+    for x in (bvh.rows, bvh.face, bvh.boxes):
+        h.update(x.contiguous().numpy().tobytes())
+    assert h.hexdigest() == DEFAULT_TREE_SHA256[which]
+
+
+@pytest.mark.parametrize("kind", ["interior", "surface", "grazing", "axis", "vertex_edge"])
+def test_pair_tree_certificate(kind):
+    """On a 6,912-face room (7 x 5 x 3 m, the face-tree tests' rays): every
+    ancestor of the leaf holding the dense hit over the sorted faces, up to
+    the root and so through its tile's subtree root, is entered no later
+    than the dense t; the walk equals that dense hit bit for bit."""
+    tris = scanned_like_room(subdivision_levels=3).triangles.astype(np.float32)
+    o, d = ray_set(kind, tris, seed=len(kind) + 11)
+    tiles, order = tsorted.build_sorted_tiles(tris, device="cpu")
+    t_d, i_d = _dense_sorted(tris, order, tiles, o, d, None)
+    held, slack = tree_certificate(tiles.pair_tree, torch.from_numpy(o) - tiles.center, torch.from_numpy(d),
+                                   t_d.numpy(), i_d.numpy())
+    t_w, i_w, stats = tpair.pair_walk(tiles, *_port(o, d, None))
+    counts = stats["counts"]
+    print(f"{kind}: {int((i_d >= 0).sum())} hits of {len(o)} rays, smallest t* - ancestor entry {slack:.3e}; per ray "
+          f"{float(counts[:, 1].double().mean()):.2f} tiles, {float(counts[:, 2].double().mean()):.1f} box tests, "
+          f"{float(counts[:, 3].double().mean()):.2f} leaves; {stats['rounds']} rounds")
+    assert held.all() and int((i_d >= 0).sum()) > 0.3 * len(o)
+    assert torch.equal(i_w, i_d) and torch.equal(t_w.view(torch.int32), t_d.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind,k", CASES)
+def test_pair_walk_matches_rounds_and_reference(room, kind, k):
+    """The walk against the round-structured version (t, faces and every
+    count identical) and the reference's interpret-mode op (faces
+    identical, t within rtol 1e-4 / atol 3e-5 m)."""
+    tris, o, d, alive = _pair_case(kind, room)
+    tiles, _ = tsorted.build_sorted_tiles(tris, device="cpu")
+    jt, _ = jsorted.build_sorted_tiles(tris)
+    t_w, i_w, st_w = tpair.pair_walk(tiles, *_port(o, d, alive), k_slots=k)
+    t_r, i_r, st_r = tpair.pair_rounds(tiles, *_port(o, d, alive), k_slots=k)
+    assert torch.equal(i_w, i_r) and torch.equal(t_w, t_r)
+    for key in ("rounds", "pairs", "unresolved_first", "needed"):
+        assert int(st_w[key]) == int(st_r[key]), key
+    t_j, i_j = jpair.pair_first_hit(jt, jnp.asarray(o), jnp.asarray(d),
+                                    alive=None if alive is None else jnp.asarray(alive), k_slots=k, interpret=True)
+    np.testing.assert_array_equal(i_w.numpy(), np.asarray(i_j))
+    _assert_close(t_w.numpy(), np.asarray(t_j))
+    counts = st_w["counts"]
+    dead = np.zeros(len(o), bool) if alive is None else ~alive
+    assert (counts[torch.from_numpy(dead)] == torch.tensor([1, 0, 0, 0], dtype=torch.int32)).all()
+    print(f"{kind}: {st_w['rounds']} rounds, {int(st_w['pairs'])} pairs, {int(counts[:, 2].sum())} box tests, "
+          f"{int(counts[:, 3].sum())} leaves")
+    if kind == "k_slots=1":
+        assert st_w["rounds"] > 1
+    if kind == "all dead":
+        assert st_w["rounds"] == 1 and int(st_w["pairs"]) == 0
