@@ -1,8 +1,8 @@
 """Scene: the top-level API of the port.
 
 Copy of audiblelight_tpu/core.py for the SELD dataset path: the Scene holds a
-world state (a ray-traced mesh room or an image-source shoebox, its
-microphone and emitters), Events and an Ambience, places events by rejection
+world state (a ray-traced mesh room, an image-source shoebox or a measured
+SOFA room, its microphone and emitters), Events and an Ambience, places events by rejection
 sampling with the reference's draws (Python `random`, numpy's global stream
 through scipy `rvs`, the world state's Generator), renders on the world
 state's device (the fused renderer, or the plan path where it refuses the
@@ -10,9 +10,13 @@ scene, as it does every shoebox scene), writes per-mic int16 WAVs, the
 metadata JSON and DCASE CSVs, and round-trips through to_dict / from_dict /
 from_json.
 
-Not ported (raise; ROADMAP): the SOFA backend, event
-augmentations, predefined-trajectory events, images, video and acoustic
-imaging.
+The backends are the ray-traced mesh room ("rlr"), the image-source
+shoebox ("shoebox") and the measured room of a SOFA file ("sofa": its IRs
+through the plan path; its microphone is the file's own, so the Scene
+infers the ambience's channels from that one rig).
+
+Not ported (raise; ROADMAP): event augmentations, predefined-trajectory
+events, images, video and acoustic imaging.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ class Scene:
     ):
         """Initialise the Scene.
 
-        `backend` is "rlr", "shoebox" or a WorldState instance; `fg_path` / `bg_path`
+        `backend` is "rlr", "shoebox", "sofa" or a WorldState instance; `fg_path` / `bg_path`
         are recursively listed audio folders; the `*_dist` arguments are
         distribution-like objects sampled for each added event;
         `backend_kwargs` pass through to the WorldState constructor. `device`

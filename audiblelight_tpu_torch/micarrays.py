@@ -6,8 +6,8 @@ em64 spheres, a single mono capsule, and rigs defined at run time by
 `dynamically_define_micarray`) and the one-point listeners: first-order
 ambisonics ("foa", AmbiX channels W, X, Y, Z), higher-order ambisonics
 ("hoa3" by default, or "hoa2"; ACN/SN3D) and the binaural head ("binaural",
-left and right, the analytic spherical head). Measured HRTFs are not
-ported; asking for them raises.
+left and right: the analytic spherical head, or a measured HRTF set read
+from a SOFA file).
 """
 
 from __future__ import annotations
@@ -246,22 +246,17 @@ class FOAListener(MicArray):
 
 @dataclass(repr=False, eq=False)
 class Binaural(MicArray):
-    """A binaural listener: one point rendered to 2 channels (left, right)
-    through the analytic Brown-Duda spherical head (rir.sh). Measured HRTFs
-    (`hrtf_sofa`) are not ported and raise."""
+    """A binaural listener: one point rendered to 2 channels (left, right).
+
+    With `hrtf_sofa` set to a SimpleFreeFieldHRIR SOFA path, rendering uses
+    the measured HRIR set (direct and diffracted paths: the interpolated
+    HRIR; stochastic tail: per-band |H_ear|^2; see rir.hrtf). Without a
+    file, the analytic Brown-Duda spherical head (rir.sh)."""
 
     name: str = "binaural"
     is_spherical: bool = False
     channel_layout_type: str = "binaural"
     hrtf_sofa: str = None
-
-    def __post_init__(self):
-        self._refuse_sofa(self.hrtf_sofa)
-
-    @staticmethod
-    def _refuse_sofa(path) -> None:
-        if path is not None:
-            raise NotImplementedError("measured HRTFs (hrtf_sofa) are not ported (ROADMAP: measured HRTFs)")
 
     @property
     def coordinates_cartesian(self) -> np.ndarray:
@@ -271,10 +266,21 @@ class Binaural(MicArray):
     def capsule_names(self) -> list[str]:
         return ["left", "right"]
 
-    def _set_attribute(self, attr_name: str, value: Any) -> None:
-        if attr_name == "hrtf_sofa":
-            self._refuse_sofa(value)
-        super()._set_attribute(attr_name, value)
+    def to_dict(self) -> dict:
+        out = super().to_dict()
+        if self.hrtf_sofa is not None:
+            out["hrtf_sofa"] = str(self.hrtf_sofa)
+        return out
+
+    def load_hrtf(self, sample_rate: int, device=None):
+        """The measured HRTFSet at `sample_rate` on `device` (default cuda),
+        or None where no file is configured. Cached per (path, rate,
+        device) in rir.hrtf.load_hrtf_sofa, so repeated renders share one copy."""
+        if not self.hrtf_sofa:
+            return None
+        from audiblelight_tpu_torch.rir.hrtf import load_hrtf_sofa
+
+        return load_hrtf_sofa(str(self.hrtf_sofa), int(sample_rate), device)
 
 
 @dataclass(repr=False, eq=False)

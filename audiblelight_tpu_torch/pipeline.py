@@ -9,9 +9,9 @@ key replaced by a `torch.Generator` seeded from the world state's trace walk.
 
 `render_scenes` is the dataset loop: one scene at a time, one renderer per
 (room, rig, event buckets, source bucket), as the reference's pipelined
-loop groups them. A scene the fused renderer refuses (a shoebox room, the
-exact rain mode in a nonconvex room, an ambience the card's bed does not
-draw, or `device_mix=False`) takes the plan path instead, as in the
+loop groups them. A scene the fused renderer refuses (a shoebox or SOFA
+room, the exact rain mode in a nonconvex room, an ambience the card's bed
+does not draw, or `device_mix=False`) takes the plan path instead, as in the
 reference: the world state computes its IR banks (`trace_irs_device`, or
 the shoebox's image sources), `stems_from_plan`
 renders and quantises the stems on the device, and `mix_plan_host` places
@@ -43,6 +43,7 @@ from audiblelight_tpu_torch.render import (
     quantize_stems,
     render_event_stems_arrays,
 )
+from audiblelight_tpu_torch.rir.hrtf import HRTFSet
 from audiblelight_tpu_torch.rir.sh import encoding_channels
 from audiblelight_tpu_torch.worldstate.mesh_backend import LAYOUT_ENCODINGS, MeshDeviceState, rain_mode
 
@@ -149,10 +150,12 @@ class FusedSceneRenderer:
         t_scene: scene length in samples.
         layout: the rig's channel layout: "mic" (one channel per capsule),
             "foa", "hoa2", "hoa3" (ambisonics at one point) or "binaural".
+        hrtf: the measured HRTF set (`rir.hrtf.HRTFSet`) of a binaural rig
+            with `hrtf_sofa`, passed to every trace; None for the analytic head.
     """
 
     def __init__(self, state: MeshDeviceState, n_capsules: int, buckets: tuple,
-                 n_sources: int, t_scene: int, layout: str = "mic"):
+                 n_sources: int, t_scene: int, layout: str = "mic", hrtf=None):
         if not state.convex and rain_mode(state.cfg) != "face":
             raise ValueError(
                 "the fused renderer on a nonconvex mesh needs per-face rain visibility "
@@ -169,6 +172,7 @@ class FusedSceneRenderer:
         self.buckets = tuple(int(b) for b in buckets)
         self.n_sources = int(n_sources)
         self.t_scene = int(t_scene)
+        self.hrtf = hrtf if self.encoding == "binaural" else None
         self._identity = None  # the template scene's, set by from_scene
 
     @classmethod
@@ -182,12 +186,12 @@ class FusedSceneRenderer:
     @staticmethod
     def _scene_identity(scene) -> tuple:
         """What a renderer bakes in besides the buckets: the room's device
-        state (mesh, engine config, material, device), the rig and the
-        scene's length."""
+        state (mesh, engine config, material, device), the rig (a binaural
+        head's HRTF file too) and the scene's length."""
         ws = scene.state
         mic = next(iter(ws.microphones.values()))
         return (id(ws.device_state), mic.channel_layout_type, int(mic.n_capsules), int(mic.n_channels),
-                int(round(float(scene.duration) * ws.sample_rate)))
+                str(getattr(mic, "hrtf_sofa", None)), int(round(float(scene.duration) * ws.sample_rate)))
 
     @classmethod
     def from_scene(cls, scene, plan: ScenePlan, bucket_sources: Optional[int] = None) -> "FusedSceneRenderer":
@@ -199,8 +203,11 @@ class FusedSceneRenderer:
             raise ValueError("the fused renderer needs a single-microphone RLR scene")
         mic = next(iter(ws.microphones.values()))
         bucket = _bucket(len(ws._emitter_positions())) if bucket_sources is None else int(bucket_sources)
+        hrtf = None
+        if mic.channel_layout_type == "binaural" and getattr(mic, "hrtf_sofa", None):
+            hrtf = mic.load_hrtf(ws.sample_rate, ws.device)
         r = cls(ws.device_state, mic.n_listeners, _plan_buckets(plan), bucket,
-                round(float(scene.duration) * ws.sample_rate), layout=mic.channel_layout_type)
+                round(float(scene.duration) * ws.sample_rate), layout=mic.channel_layout_type, hrtf=hrtf)
         r._identity = cls._scene_identity(scene)
         return r
 
@@ -276,7 +283,7 @@ class FusedSceneRenderer:
         tree of it (a nonconvex room's exact rain mode takes the plan path,
         whose trace passes it the same way)."""
         rain = dict(face_occlusion=None if self.state.convex else face_occ)
-        return self.state.trace_rirs(gen, sources, listeners, self.encoding, rain)
+        return self.state.trace_rirs(gen, sources, listeners, self.encoding, rain, self.hrtf)
 
     def stems(self, gen, sources, listeners, face_occ, s_idx, m_idx, plan: ScenePlan) -> torch.Tensor:
         """(es + em, C_out, S) float stems: trace, per-event IR gather, render."""
@@ -323,7 +330,7 @@ class FusedSceneRenderer:
 
 
 def renderer_from_numpy(world: dict, cfg: dict, plan: dict, scene_inputs: tuple,
-                        t_scene: int, device=None):
+                        t_scene: int, device=None, layout: str = "mic", hrtf=None):
     """Carry a world state and one scene's inputs, built elsewhere as numpy
     arrays, over to this package.
 
@@ -337,6 +344,9 @@ def renderer_from_numpy(world: dict, cfg: dict, plan: dict, scene_inputs: tuple,
         scene_inputs: (sources (n_sources, 3), capsules (C, 3), rain table
             (P, F') or None, s_idx (es,), m_idx (em, j)).
         t_scene: scene length in samples.
+        layout: the rig's channel layout (see FusedSceneRenderer).
+        hrtf: a binaural rig's measured set as host arrays (dirs (M, 3),
+            hrirs (M, 2, N), sr), e.g. the JAX package's HRTFSet's, or None.
 
     Returns (renderer, (sources, listeners, face_occ, s_idx, m_idx, plan)) on
     `device`: pass a generator, these, and the ambience scalars to
@@ -350,10 +360,11 @@ def renderer_from_numpy(world: dict, cfg: dict, plan: dict, scene_inputs: tuple,
     sources, capsules, rain, s_idx, m_idx = scene_inputs
     dev = state.device
     splan = ScenePlan.from_numpy(plan, dev)
+    hrtf_set = None if hrtf is None else HRTFSet.from_numpy(*hrtf, device=dev)
     renderer = FusedSceneRenderer(
         state, len(capsules), (splan.static_audio.shape[0], splan.moving_audio.shape[0],
                                splan.moving_w.shape[2], splan.static_audio.shape[1]),
-        len(sources), t_scene,
+        len(sources), t_scene, layout=layout, hrtf=hrtf_set,
     )
     f32 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)  # noqa: E731
     i64 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)  # noqa: E731

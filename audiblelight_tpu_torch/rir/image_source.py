@@ -11,7 +11,8 @@ Counterpart of audiblelight_tpu/rir/image_source.py, with its arithmetic:
     into an integer part d and a fraction, and (f * d) mod n_samples is
     computed in int32 as ((((f * d_hi) mod n) << 8) mod n + f * d_lo) mod n
     with d = 256 d_hi + d_lo;
-  * images whose delay is at or beyond n_samples - 1 add nothing; the
+  * images whose delay is at or beyond n_samples - 1 add nothing (with a
+    measured HRTF set, beyond n_samples minus its HRIR length); the
     spectrum sums in (real, imaginary) float32 pairs, as complex64 does, and
     the IRs are its irfft (`utils.irfft_real`: the CPU's, on any device).
 
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from audiblelight_tpu_torch import config
+from audiblelight_tpu_torch.rir.hrtf import HRTFSet
 from audiblelight_tpu_torch.rir.sh import (
     HEAD_RADIUS_M,
     ambisonic_encoding_gains,
@@ -48,8 +50,10 @@ from audiblelight_tpu_torch.utils import irfft_real, resolve_device
 # block. Omni and ambisonics hold three float32 tensors of the block (the
 # phase, then cos and sin, and the amplitude-gain product): 12 B on the CPU,
 # 20 B measured on an H100 (3.36-3.46 GiB at 2 GiB / 12 B blocks); the
-# binaural head adds each ear's shadow, phase and transfer function.
-TERM_BYTES = {"binaural": 48}
+# binaural head adds each ear's shadow, phase and transfer function; a
+# measured HRTF set ("hrtf") each ear's interpolated HRIR spectrum, 33 B
+# measured on an H100 (1.368 GiB at 2 GiB / 48 B blocks).
+TERM_BYTES = {"binaural": 48, "hrtf": 33}
 TERM_BYTES_DEFAULT = 20
 # The live-set budget of one block: a few GB on a card, less on a host that
 # others share
@@ -145,7 +149,10 @@ def shoebox_rirs(
             ((N+1)^2, ACN/SN3D) or "binaural" (2, the analytic spherical head).
         chunk: images per block (default: the most that keep a block's live
             set within CARD_LIVE_BYTES, or CPU_LIVE_BYTES on the CPU).
-        hrtf: measured HRTFs are not ported; anything but None raises.
+        hrtf: a measured HRTF set (`rir.hrtf.HRTFSet`) for "binaural": each
+            image's arrival blends its 3 nearest HRIRs, whose spectrum
+            multiplies the image's contribution per ear; an image whose
+            HRIR would not fit before n_samples adds nothing.
         device: where to run when `source_pos` is not a tensor (default
             cuda; raises without a card). A tensor's own device wins.
 
@@ -153,8 +160,9 @@ def shoebox_rirs(
         (C_out, E, n_samples) float32 IRs on the device; C_out = C for omni,
         4 for foa, (N+1)^2 for sh{N}, 2 for binaural.
     """
-    if hrtf is not None:
-        raise NotImplementedError("measured HRTFs (hrtf) are not ported (ROADMAP: measured HRTFs)")
+    if hrtf is not None and not isinstance(hrtf, HRTFSet):
+        raise TypeError(f"hrtf must be an HRTFSet (rir.hrtf), got {type(hrtf).__name__}")
+    measured = encoding == "binaural" and hrtf is not None
     dev = source_pos.device if isinstance(source_pos, torch.Tensor) else resolve_device(device)
     f32 = dict(dtype=torch.float32, device=dev)
     room = torch.as_tensor(room_dims, **f32).reshape(3)
@@ -181,14 +189,14 @@ def shoebox_rirs(
     interp = _band_to_bins(freqs_hz, torch.as_tensor(band_freqs, **f32).reshape(-1))
     log_beta_bins = _matmul_small(interp, torch.as_tensor(wall_log_beta, **f32).T)  # (F, 6)
 
-    in_range = n_samples - 1
+    in_range = n_samples - (int(hrtf.hrirs.shape[-1]) if measured else 1)
     phase_scale = -2.0 * math.pi / n_samples
     if encoding == "binaural":
         w_ratio = (2.0 * math.pi * freqs_hz) * (HEAD_RADIUS_M / (2.0 * c))
         ear_phase = (-2.0 * math.pi) * freqs_hz
 
     k_total = walls.shape[0]
-    e_blk, chunk = block_shape(n_rows, e_total, n_freq, k_total, encoding, chunk,
+    e_blk, chunk = block_shape(n_rows, e_total, n_freq, k_total, "hrtf" if measured else encoding, chunk,
                                CARD_LIVE_BYTES if dev.type == "cuda" else CPU_LIVE_BYTES)
     acc_re = torch.zeros((c_out, e_total, n_freq), **f32)
     acc_im = torch.zeros_like(acc_re)
@@ -234,7 +242,17 @@ def shoebox_rirs(
                 continue
             dirs = vec[0] / torch.clamp_min(dist[0, ..., None], 1e-9)  # (e, k, 3) receiver -> source
             re, im = re[0], im[0]
-            if encoding == "binaural":
+            if measured:
+                idx, wgt = hrtf.interp_weights(dirs)  # (e, k, 3)
+                for ear in range(2):  # one ear at a time bounds the (e, k, F) live set
+                    h_t = torch.einsum("ekj,ekjn->ekn", wgt, hrtf.hrirs[idx][..., ear, :])
+                    h = torch.fft.rfft(h_t, n=n_samples, dim=-1)  # (e, k, F)
+                    del h_t
+                    h_re, h_im = h.real, h.imag
+                    acc_re[ear, es] += (re * h_re - im * h_im).sum(dim=1)
+                    acc_im[ear, es] += (re * h_im + im * h_re).sum(dim=1)
+                    del h, h_re, h_im
+            elif encoding == "binaural":
                 itd = woodworth_itd(dirs, c=c)  # (e, k, 2)
                 for ear, cos_axis in enumerate((dirs[..., 1], -dirs[..., 1])):
                     mag = spherical_head_shadow(cos_axis, w_ratio)  # (e, k, F)

@@ -3,8 +3,9 @@
 Counterpart of the main-path functions of audiblelight_tpu/rir/raytracer.py,
 for omni capsule rigs ("omni": AmbeoVR and other "mic" layouts) and the
 one-point listeners: first-order ambisonics ("foa": AmbiX [W, X, Y, Z]),
-higher orders ("sh2", "sh3": ACN/SN3D) and the analytic spherical head
-("binaural": [left, right]):
+higher orders ("sh2", "sh3": ACN/SN3D) and the binaural head ("binaural":
+[left, right]; the analytic spherical head, or a measured HRTF set,
+rir.hrtf):
 
   1. E sources x N rays leave the sources with unit-total energy per source.
   2. Each bounce: first hit against the mesh (K1, or one of the reference's
@@ -187,14 +188,15 @@ def _rain_occlusion(hit, normal, face_safe, listener_pos, tris, vis) -> torch.Te
 
 
 def _unfused_deposit(hit, normal, e_refl, new_dist, hit_ok, occ, listener_pos, n_sources, n_bins, bin_dt,
-                     c, encoding, sh_order, band_freqs):
+                     c, encoding, sh_order, band_freqs, hrtf=None, hrtf_bp=None):
     """The reference's unfused deposit chain for one listener point, folded
     by the grouped histogram (K5): (E, C_out, B, n_bins).
 
     The deposit e_refl cos(theta) / (4 pi^2 max(d, 1e-2)^2), masked by
     visibility and range, is weighted by the gains of the arrival direction:
-    the ambisonic gains at `sh_order`, or the spherical head's per-band
-    power gains |H_ear|^2 for "binaural"."""
+    the ambisonic gains at `sh_order`, or for "binaural" the per-band power
+    gains |H_ear|^2 of the spherical head, or of the measured set `hrtf`
+    blended from its band-power table `hrtf_bp` (`HRTFSet.band_powers`)."""
     tr, n_bands = e_refl.shape
     vec = listener_pos[:, None, :] - hit[None]
     d_l = norm3(vec)
@@ -207,7 +209,10 @@ def _unfused_deposit(hit, normal, e_refl, new_dist, hit_ok, occ, listener_pos, n
     bin_idx = torch.clamp((arrival / bin_dt).to(torch.int32), 0, n_bins - 1)
     deposit = deposit * (arrival < n_bins * bin_dt)[..., None]
     if encoding == "binaural":
-        gains = spherical_head_gains(-dir_l[0], band_freqs) ** 2  # (TR, 2, B)
+        if hrtf_bp is not None:
+            gains = hrtf.band_power_at(-dir_l[0], hrtf_bp)  # (TR, 2, B)
+        else:
+            gains = spherical_head_gains(-dir_l[0], band_freqs) ** 2  # (TR, 2, B)
         weighted = deposit[0][:, None, :] * gains
     else:
         gains = ambisonic_encoding_gains(-dir_l[0], sh_order, encoding)  # (TR, C_out)
@@ -220,10 +225,12 @@ def _unfused_deposit(hit, normal, e_refl, new_dist, hit_ok, occ, listener_pos, n
 
 
 def _bounce(gen, state, tris, route, tri_normals, face_absorption, face_scattering, vis,
-            listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs):
+            listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs,
+            hrtf=None, hrtf_bp=None):
     """One bounce of the whole wavefront: (new state, histogram increment).
     `route` selects the first hit (`_first_hit_route`); `vis` holds the
-    rain-visibility inputs of `_rain_occlusion`."""
+    rain-visibility inputs of `_rain_occlusion`; `hrtf`, `hrtf_bp` a
+    measured binaural set and its band-power table."""
     origins, dirs, energy, dist, alive, prev_face = state
     tr = origins.shape[0]
 
@@ -249,7 +256,7 @@ def _bounce(gen, state, tris, route, tri_normals, face_absorption, face_scatteri
         )
     else:
         add = _unfused_deposit(hit, normal, e_refl, new_dist, hit_ok, occ, listener_pos, n_sources, n_bins,
-                               bin_dt, c, encoding, sh_order, band_freqs)
+                               bin_dt, c, encoding, sh_order, band_freqs, hrtf, hrtf_bp)
 
     spec_dir = dirs - (2.0 * dot3(dirs, normal))[:, None] * normal
     diff_dir = _cosine_hemisphere(gen, normal)
@@ -291,6 +298,7 @@ def trace_energy_histogram_multi(
     fh_table=None,
     any_hit_tree=None,
     mxu_tables=None,
+    hrtf=None,
 ) -> torch.Tensor:
     """Energy histograms for E sources traced together in one wavefront.
 
@@ -322,6 +330,10 @@ def trace_energy_histogram_multi(
             any-hit tree (`MeshDeviceState.any_hit_tree`), for the exact
             mode's dense any-hit; without it each query builds its own on
             the card (`cuda_kernels.segments_occluded`).
+        hrtf: a measured binaural set (`rir.hrtf.HRTFSet`): each ear's
+            per-band power at the arrival direction weights the deposits
+            in place of the spherical head's, its band-power table computed
+            once before the bounces.
 
     Returns (E, C_out, B, n_bins) pressure^2 energies: C_out = C for omni;
     the ambisonic channels signed (energy times the arrival direction's
@@ -356,6 +368,7 @@ def trace_energy_histogram_multi(
     tree = any_hit_tree(tris) if dense_rain and any_hit_tree is not None else None
     vis = (face_occlusion, star, bool(occlusion), bool(shared_visibility), tree)
     band_freqs = _band_centers(n_bands, dev)
+    hrtf_bp = hrtf.band_powers(band_freqs) if hrtf is not None and encoding == "binaural" else None
     phases = decimation_phases(n_rays, max_depth, decimate)
     for pi, (start, end, r_src) in enumerate(phases):
         if pi > 0:
@@ -366,6 +379,7 @@ def trace_energy_histogram_multi(
             state, add = _bounce(
                 gen, state, tris, route, tri_normals, face_absorption, face_scattering,
                 vis, listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs,
+                hrtf, hrtf_bp,
             )
             hist += add
     return hist
@@ -464,12 +478,24 @@ def _linear_phase(delay_samp: torch.Tensor, n_samples: int) -> torch.Tensor:
     return torch.complex(torch.cos(phase), torch.sin(phase))
 
 
-def _binaural_direct_ir(dirs, amp, dist, n_samples: int, sr: int, c: float) -> torch.Tensor:
+def _binaural_direct_ir(dirs, amp, dist, n_samples: int, sr: int, c: float, hrtf=None) -> torch.Tensor:
     """Exact binaural direct paths of the analytic head: per-ear Woodworth
     ITD and spherical-head shadow magnitude on the full rfft grid,
     synthesised with a linear phase. dirs (E, 3) are receiver -> source unit
     vectors, amp (E,) and dist (E,) the head-centre amplitude and distance;
-    arrivals outside [0, n_samples - 1) are dropped. Returns (E, 2, n_samples)."""
+    arrivals outside [0, n_samples - 1) are dropped. With a measured set
+    `hrtf`, the interpolated HRIR's full spectrum at the head-centre delay
+    replaces the analytic magnitude and ITD (the measured ITD, ILD and
+    pinna cues); arrivals whose HRIR would not fit before n_samples are
+    dropped. Returns (E, 2, n_samples)."""
+    if hrtf is not None:
+        h = hrtf.hrirs_at(dirs)  # (E, 2, N) at the engine rate
+        delay_samp = dist[:, None] * (sr / c)  # (E, 1)
+        in_range = (delay_samp >= 0.0) & (delay_samp < n_samples - h.shape[-1])
+        h_spec = torch.fft.rfft(h, n=n_samples, dim=-1)  # (E, 2, F)
+        spec = ((amp[:, None] * in_range)[..., None] * h_spec
+                * _linear_phase(delay_samp.expand(h.shape[:2]), n_samples))
+        return irfft_real(spec, n_samples).to(torch.float32)
     n_freq = n_samples // 2 + 1
     freqs = torch.arange(n_freq, device=dirs.device) * (sr / n_samples)
     mag = spherical_head_gains(dirs, freqs)  # (E, 2, F)
@@ -489,12 +515,14 @@ def direct_paths_ir(
     encoding: str = "omni",
     sh_order: int = 3,
     tree=None,
+    hrtf=None,
 ) -> torch.Tensor:
     """Exact direct paths for a batch of sources, with one occlusion query: a
     windowed sinc at delay d/c with amplitude visibility/(4 pi d), per omni
     capsule, or at the one listener point encoded with the ambisonic gains
     of the arrival direction at `sh_order` (clipped to the layout's order);
-    "binaural" renders the analytic head (`_binaural_direct_ir`). `tree` is
+    "binaural" renders the analytic head, or the measured set `hrtf`
+    (`_binaural_direct_ir`). `tree` is
     the any-hit tree of `tris` where the caller keeps one.
     Returns (E, C_out, n_samples)."""
     source_positions = torch.atleast_2d(source_positions).to(torch.float32)
@@ -511,7 +539,7 @@ def direct_paths_ir(
     delays = d * sr / c
     if encoding == "binaural":
         dirs = vec[:, 0] / torch.clamp_min(d[:, 0:1], 1e-9)
-        return _binaural_direct_ir(dirs, amps[:, 0], d[:, 0], n_samples, sr, c)
+        return _binaural_direct_ir(dirs, amps[:, 0], d[:, 0], n_samples, sr, c, hrtf)
     if encoding != "omni":
         dirs = vec[:, 0] / torch.clamp_min(d[:, 0:1], 1e-9)
         gains = ambisonic_encoding_gains(dirs, sh_order, encoding)  # (E, C_out)
@@ -643,14 +671,15 @@ def _graph_detour(tris, source_pos, center, order: int, n_angles: int = 12, n_ra
 
 
 def _synth_bent_component(gain_b, path, bend, listener_pos, band_freqs, n_samples, sr, c,
-                          encoding="omni", sh_order=3):
+                          encoding="omni", sh_order=3, hrtf=None):
     """Frequency-domain synthesis of bent-path arrivals.
 
     gain_b: (E, C, B) per-band amplitude gains (zero where inactive); path:
     (E, C) bent path lengths; bend: (E, 3) the last bend point, whose
     direction from the listener encodes the arrival at a one-point rig (the
     ambisonic gains, or the spherical head's shadow magnitude and per-ear
-    Woodworth ITD phase on the spectrum). Returns (E, C_out, n_samples).
+    Woodworth ITD phase on the spectrum, or the measured set `hrtf`'s
+    interpolated HRIR spectrum). Returns (E, C_out, n_samples).
     """
     n_freq = n_samples // 2 + 1
     freqs = torch.arange(n_freq, device=gain_b.device) * (sr / n_samples)
@@ -663,6 +692,9 @@ def _synth_bent_component(gain_b, path, bend, listener_pos, band_freqs, n_sample
     if encoding == "binaural":
         dirs = bend - listener_pos  # (E, 3): listener -> last bend
         dirs = dirs / torch.clamp_min(norm3(dirs, keepdim=True), 1e-9)
+        if hrtf is not None:
+            h_spec = torch.fft.rfft(hrtf.hrirs_at(dirs), n=n_samples, dim=-1)  # (E, 2, F)
+            return irfft_real(spec[:, 0:1] * h_spec, n_samples).to(torch.float32)
         mag = spherical_head_gains(dirs, freqs)  # (E, 2, F)
         spec_ear = spec[:, 0:1] * mag * _linear_phase(woodworth_itd(dirs, c=c) * sr, n_samples)
         return irfft_real(spec_ear, n_samples).to(torch.float32)
@@ -691,6 +723,7 @@ def diffracted_path_ir(
     sh_order: int = 3,
     tree=None,
     tree_graph=None,
+    hrtf=None,
 ) -> torch.Tensor:
     """Knife-edge diffraction for OCCLUDED direct paths, E sources at once.
 
@@ -767,7 +800,7 @@ def diffracted_path_ir(
     gain_b = 10.0 ** (-att_db / 20.0) / (4.0 * math.pi * torch.clamp_min(path, 1e-2))[..., None]
     gain_b = gain_b * (occ_direct & found[:, None])[..., None]
     return _synth_bent_component(gain_b, path, bend, listener_pos, band_freqs, n_samples, sr, c,
-                                 encoding, sh_order)
+                                 encoding, sh_order, hrtf)
 
 
 def face_rain_occlusion(tris: torch.Tensor, tri_normals: torch.Tensor, listener_points: torch.Tensor,
@@ -818,6 +851,7 @@ def trace_rirs_multi(
     fh_table=None,
     any_hit_tree=None,
     mxu_tables=None,
+    hrtf=None,
 ) -> torch.Tensor:
     """RIRs for a batch of sources against one listener group: stochastic
     tail on `tris` (the acoustic mesh) + exact direct path on `tris_direct`
@@ -829,7 +863,9 @@ def trace_rirs_multi(
     or `occlusion`, its bounce first hit K7 on `tiled_tree` where given, else
     K8 on `mxu_tables` where its flag is on, else K1 on `fh_table`; every
     any-hit query takes its mesh's tree from
-    `any_hit_tree` (see trace_energy_histogram_multi). Returns (C_out, E,
+    `any_hit_tree` (see trace_energy_histogram_multi). A measured binaural
+    set `hrtf` (`rir.hrtf.HRTFSet`) renders the tail, the direct and the
+    diffracted paths in place of the analytic head. Returns (C_out, E,
     n_samples)."""
     source_positions = torch.atleast_2d(source_positions)
     n_bins = int(np.ceil(n_samples / sr / bin_dt)) + 1
@@ -839,18 +875,20 @@ def trace_rirs_multi(
         tri_normals=tri_normals, face_occlusion=face_occlusion, star=star, occlusion=occlusion,
         shared_visibility=shared_visibility, decimate=decimate, encoding=encoding, sh_order=sh_order_indirect,
         tiled_tree=tiled_tree, fh_table=fh_table, any_hit_tree=any_hit_tree, mxu_tables=mxu_tables,
+        hrtf=hrtf,
     )  # (E, C_out, B, bins)
     band_freqs = _band_centers(face_absorption.shape[1], tris.device)
     irs = synthesize_ir_from_histogram(gen, hist, band_freqs, n_samples, bin_dt, sr=sr, encoding=encoding)
     td = tris if tris_direct is None else tris_direct
     tree_of = any_hit_tree if any_hit_tree is not None else (lambda _: None)
     irs = irs + direct_paths_ir(td, source_positions, listener_pos, n_samples, sr=sr, c=c,
-                                encoding=encoding, sh_order=sh_order_direct, tree=tree_of(td))
+                                encoding=encoding, sh_order=sh_order_direct, tree=tree_of(td), hrtf=hrtf)
     if diffraction:
         irs = irs + diffracted_path_ir(
             td, source_positions, listener_pos, band_freqs, n_samples, sr=sr, c=c,
             order=int(diffraction_order), tris_graph=tris_diffraction_graph,
             encoding=encoding, sh_order=sh_order_direct, tree=tree_of(td),
             tree_graph=None if tris_diffraction_graph is None else tree_of(tris_diffraction_graph),
+            hrtf=hrtf,
         )
     return irs.movedim(0, 1)

@@ -4,13 +4,16 @@
         [--backend shoebox] [--ism-order 12] --channel-layout foa [--device cpu]
     python -m audiblelight_tpu_torch.seld --fg-dir <folder of WAVs> --output-dir <out> \\
         --backend rlr --mesh room.obj --channel-layout foa [--device cpu]
+    python -m audiblelight_tpu_torch.seld --fg-dir <folder of WAVs> --output-dir <out> \\
+        --backend sofa --sofa room.sofa --channel-layout mic [--device cpu]
 
 The port's counterpart of scripts/seld/generate_dataset.py, with the same
 flags, defaults, seeding and file layout: N one-minute 24 kHz scenes in the
 FOA ("foalistener") or MIC ("ambeovr") format, static and moving events
 placed in a shoebox room of random size (the default backend, its IRs from
-the image-source engine, rendered through the plan path) or a ray-traced
-mesh room (the fused renderer), written as
+the image-source engine, rendered through the plan path), a ray-traced
+mesh room (the fused renderer) or a measured room read from a SOFA file
+(its IRs read by the port's own HDF5 reader, the plan path), written as
 
     <output>/<fmt>_dev/dev-<split>-alight/fold<k>_scene<i>_<j>_mic000.wav
     <output>/metadata_dev/dev-<split>-alight/fold<k>_scene<i>_<j>_mic000.csv
@@ -28,7 +31,13 @@ traces the full mesh with the exact rain mode (the star any-hit per
 bounce); such scenes, and every scene under `--no-device-mix`, render
 through the plan path too.
 
-Not ported (raise, ROADMAP): --backend sofa, --assets,
+On the sofa backend the file defines the rig (its ListenerShortName and
+receiver positions), so no microphone is added; `--channel-layout` names
+the output folder only. As in the reference script, the SOFA world state
+gets no seed: `--seed` fixes the scenes' counts and timings, not where
+events snap on the measured grid.
+
+Not ported (raise, ROADMAP): --assets (and --sofa-dir),
 --augmentations, --placement-workers > 0, --mesh-devices > 1,
 --coordinator and --pipeline classic. --fused-batch is accepted and has no
 effect (one scene per render).
@@ -103,7 +112,6 @@ def check_ported(args) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the port
     does not run."""
     unported = [
-        (args.backend == "sofa", "--backend sofa", "the SOFA backend, then measured HRTFs"),
         (args.assets is not None, "--assets", "the asset room tables (glTF loading)"),
         (bool(args.augmentations), "--augmentations", "augmentations"),
         (args.placement_workers > 0, "--placement-workers > 0", "pooled placement"),
@@ -119,9 +127,13 @@ def check_ported(args) -> None:
 def build_backend_kwargs(args, rng: np.random.Generator, meshes: dict) -> dict:
     """The world state's constructor kwargs for one scene, with the
     reference's draws of `rng`: a shoebox's dimensions, then its seed; an
-    rlr room's seed."""
+    rlr room's seed; none for a SOFA file."""
     from audiblelight_tpu_torch.geometry.mesh import load_mesh
 
+    if args.backend == "sofa":
+        if args.sofa is None:
+            raise ValueError("--sofa or --assets is required for the sofa backend")
+        return dict(sofa=args.sofa)
     if args.backend == "shoebox":
         dims = rng.uniform([5.0, 4.0, 2.6], [10.0, 8.0, 3.5])
         return dict(
@@ -183,7 +195,8 @@ def build_scene(args, split: str, scene_num: int, scape_num: int, rng: np.random
         class_mapping="DCASE2023Task3",
         device=args.device,
     )
-    scene.add_microphone(microphone_type="foalistener" if args.channel_layout == "foa" else "ambeovr")
+    if args.backend != "sofa":  # a SOFA file defines its own rig
+        scene.add_microphone(microphone_type="foalistener" if args.channel_layout == "foa" else "ambeovr")
 
     n_static = int(rng.integers(args.min_events_static, args.max_events_static + 1))
     n_moving = int(rng.integers(args.min_events_moving, args.max_events_moving + 1))
@@ -257,6 +270,8 @@ def main(argv: Optional[list] = None) -> list[float]:
     if args.pipeline is None:
         args.pipeline = "fused" if args.backend == "rlr" else "compiled"
     check_ported(args)
+    if args.backend == "sofa" and args.sofa is None:
+        raise ValueError("--sofa or --assets is required for the sofa backend")
     utils.resolve_device(args.device)
     # Seed the global streams too: the scipy placement distributions draw
     # from numpy's global RNG

@@ -330,13 +330,13 @@ class MeshDeviceState:
 
 
     def trace_rirs(self, gen: torch.Generator, sources: torch.Tensor, listeners: torch.Tensor,
-                   encoding: str, rain: dict) -> torch.Tensor:
+                   encoding: str, rain: dict, hrtf=None) -> torch.Tensor:
         """(C_out, E, L) RIRs of `sources` at `listeners` under this room's
         engine config: the tail on the acoustic mesh with the rain
         visibility `rain` (`rain_inputs`), the direct path on the full mesh,
-        and diffraction in a nonconvex room. Where the tail traces the full
-        mesh itself, its bounce first hit takes K7 on `tiled_tree` when
-        that tree is built."""
+        and diffraction in a nonconvex room; `hrtf` a measured binaural set.
+        Where the tail traces the full mesh itself, its bounce first hit
+        takes K7 on `tiled_tree` when that tree is built."""
         from audiblelight_tpu_torch.rir.raytracer import trace_rirs_multi
 
         cfg = self.cfg
@@ -362,6 +362,7 @@ class MeshDeviceState:
             fh_table=self.first_hit_table(self.acoustic_tris),
             any_hit_tree=self.any_hit_tree,
             mxu_tables=self.mxu_tables(self.acoustic_tris),
+            hrtf=hrtf,
             **rain,
         )
 
@@ -639,8 +640,9 @@ class WorldStateRLR(PlacementMixin, WorldState):
         padded to the next power of two with the first one (source
         bucketing, dropped after the trace), one trace per microphone with
         its own seed from the trace walk, the rain visibility of the engine
-        config's mode. One trace per configuration: a second call with the
-        same room, config, emitters and microphones returns the first's."""
+        config's mode, a binaural head with `hrtf_sofa` through its measured
+        set. One trace per configuration: a second call with the same room,
+        config, emitters and microphones (and HRTF file) returns the first's."""
         self._update()
         if self.num_emitters == 0 or not self.microphones:
             raise ValueError("add microphones and emitters before tracing")
@@ -649,7 +651,8 @@ class WorldStateRLR(PlacementMixin, WorldState):
             id(st),
             tuple(np.round(self._emitter_positions().ravel(), 6).tolist()),
             tuple((a, m.name, m.channel_layout_type,
-                   tuple(np.round(np.ravel(m.coordinates_absolute), 6).tolist()))
+                   tuple(np.round(np.ravel(m.coordinates_absolute), 6).tolist()),
+                   str(getattr(m, "hrtf_sofa", None)))  # a changed SOFA file retraces
                   for a, m in self.microphones.items()),
         )
         cached = getattr(self, "_irs_device_cache", None)
@@ -668,7 +671,9 @@ class WorldStateRLR(PlacementMixin, WorldState):
             encoding, listeners, caps = mic_encoding(mic)
             listeners_t = self._points(listeners)
             gen = torch.Generator(device=self.device).manual_seed(self.split_key())
-            irs = st.trace_rirs(gen, sources, listeners_t, encoding, st.rain_inputs(caps, listeners))
+            hrtf = (mic.load_hrtf(self.sample_rate, self.device)
+                    if encoding == "binaural" and getattr(mic, "hrtf_sofa", None) else None)
+            irs = st.trace_rirs(gen, sources, listeners_t, encoding, st.rain_inputs(caps, listeners), hrtf)
             out[alias] = irs[:, :n_src]
         self._irs_device_cache = (cache_key, out)
         return out

@@ -167,11 +167,14 @@ class WorldStateShoebox(PlacementMixin, WorldState):
             else:
                 points = mic.coordinates_center
                 encoding = SHOEBOX_ENCODINGS.get(mic.channel_layout_type, "binaural")
+            # A binaural head with `hrtf_sofa` renders through its measured set
+            hrtf = (mic.load_hrtf(self.sample_rate, self.device)
+                    if encoding == "binaural" and getattr(mic, "hrtf_sofa", None) else None)
             irs = shoebox_rirs(
                 torch.as_tensor(self.dimensions, **f32), sources,
                 torch.as_tensor(utils.coerce2d(points), **f32), log_beta,
                 torch.as_tensor(self.band_freqs, **f32), n_samples=n_samples, max_order=self.max_order,
-                sr=self.sample_rate, encoding=encoding,
+                sr=self.sample_rate, encoding=encoding, hrtf=hrtf,
             )
             mic.irs = out[alias] = irs
         return out

@@ -85,7 +85,28 @@ exact CLI scene's bounces), then drives the port's two main paths:
   its defaults in MIC and FOA (two scenes each, checked as the rlr CLI's,
   the engine's time, peak device memory, terms and bound per scene, its
   device idle share, no tracer kernel launched) and one MonoCapsule scene
-  through `Scene.generate()`.
+  through `Scene.generate()`;
+- the port's HDF5 reader on the committed h5py-written fixtures
+  (tests/resources/torch_sofa/: every dataset's sha256 and every
+  attribute's value as digests.json recorded them, the unlimited datasets
+  refused by name), then the SOFA backend through the SELD CLI (`--backend
+  sofa --sofa`) on two measured rooms the size of converted TAU-SRIR rooms,
+  written with the port's own HDF5 writer (MIC: 2,160 positions x 4
+  capsules x 7,200 samples at 24 kHz; FOA: 720 x 4 x 14,400 at 48 kHz,
+  resampled): two 60 s scenes each, outputs checked as the CLI's, every
+  emitter on the measured grid with its IR's spike at d/c, each static
+  event's DCASE rows at its grid point, the host time per scene split into
+  the file's reads, get_irs, the render and the writes, peak device memory;
+- measured HRTFs (a SimpleFreeFieldHRIR set of 1,250 directions x 200 taps
+  at 44.1 kHz written with the port's `write_hrtf_sofa`): band powers and
+  interpolation on the card against the CPU; the first flagship scene with
+  `Binaural`'s measured set through the fused renderer (K5 folding the
+  measured band powers, held against its plain version on the trace's own
+  bounces; the direct paths at each ear's HRIR onset plus d/c), timed in
+  turns with the analytic head and profiled, the per-bounce gather timed;
+  the image-source engine with the set on the card against the CPU, and a
+  60 s order-6 shoebox scene with `Binaural(hrtf_sofa=...)` through
+  `Scene.generate()`, its engine's time, peak memory and bytes per term.
 
 Each path's kernel launches are counted from zero just before it and read
 just after; a kernel of the path that did not launch fails the run, and so
@@ -157,6 +178,21 @@ KERNELS = ("first_hit_big", "first_hit_small", "first_hit_tiled", "first_hit_mxu
 # absorption 0.3, the compiled plan path), two 60 s scenes per format
 SHOEBOX_FLAGS = ["--n-scenes", "2", "--duration", "60", "--min-events-static", "4", "--max-events-static", "4",
                  "--min-events-moving", "1", "--max-events-moving", "1", "--seed", "7"]
+# The SELD CLI on the SOFA backend: measured rooms written with the port's
+# own writer, two 60 s scenes per file, 4 static and 1 moving event each. A
+# SOFA room takes linear and semicircular paths only, and as in the
+# reference script a moving event whose drawn shape is another is dropped:
+# --seed 4 draws placeable shapes for both scenes
+SOFA_FLAGS = ["--backend", "sofa", "--n-scenes", "2", "--duration", "60", "--min-events-static", "4",
+              "--max-events-static", "4", "--min-events-moving", "1", "--max-events-moving", "1", "--seed", "4"]
+SOFA_LISTENER = (2.5, 2.5, 1.5)  # the measured rooms' listener
+# The measured HRIR set: CIPIC's 1,250 directions (50 azimuths x 25
+# elevations), 200 taps at 44.1 kHz, each onset HRIR_DELAY samples in plus
+# the analytic head's Woodworth offset
+HRIR_SR, HRIR_TAPS, HRIR_DELAY = 44100, 200, 30.0
+# examples/03_sofa_measured.py part 2 at full size: the shoebox scene with
+# a measured head
+HRTF_SHOEBOX = dict(dimensions=[5.0, 4.0, 3.0], max_order=6, max_ir_length=1.0, seed=1)
 MIC_PATH = ("first_hit_big", "any_hit", "deposit_histogram")
 FOA_PATH = ("first_hit_big", "any_hit", "deposit_histogram_foa")
 EXACT_PATH = ("first_hit_big", "any_hit", "deposit_histogram", "star_any_hit")
@@ -391,10 +427,11 @@ def keep_first_last(kept: dict, key: int, item) -> None:
 
 
 def check_binaural(irs: torch.Tensor, direct: torch.Tensor, src: np.ndarray, free: np.ndarray, win: int,
-                   centre=MIC_CENTRE, label: str = "binaural") -> None:
+                   centre=MIC_CENTRE, label: str = "binaural", delay0: float = 0.0) -> None:
     """The binaural rig's direct paths against the Woodworth head at
     `centre`, for each unoccluded source: on the IRs `irs` (2, E, L), the
-    near ear peaks within 2 samples of d/c plus its Woodworth offset; on
+    near ear peaks within 2 samples of d/c plus its Woodworth offset (plus
+    `delay0` samples: a measured set's HRIR onset); on
     their direct component `direct` (2, E, L), both ears do, and the near
     ear is the louder for a source clearly to one side. Where the IRs'
     far-ear peak is off its arrival, or their ILD over the direct windows
@@ -410,7 +447,7 @@ def check_binaural(irs: torch.Tensor, direct: torch.Tensor, src: np.ndarray, fre
         vec = src[e] - np.array(centre)
         dist_e = np.linalg.norm(vec)
         u = torch.as_tensor(vec / dist_e, dtype=torch.float32)[None]
-        ear_s = dist_e / 343.0 * SR + woodworth_itd(u).numpy()[0] * SR  # (2,) per-ear arrivals
+        ear_s = dist_e / 343.0 * SR + woodworth_itd(u).numpy()[0] * SR + delay0  # (2,) per-ear arrivals
         near = int(np.argmin(ear_s))
         lo = [max(int(ear_s[k]) - win, 0) for k in range(2)]
         peak_t = [lo[k] + int(np.argmax(np.abs(irs[k, e, lo[k] : int(ear_s[k]) + win]))) for k in range(2)]
@@ -440,7 +477,8 @@ def check_binaural(irs: torch.Tensor, direct: torch.Tensor, src: np.ndarray, fre
     n_lat = sum(abs(src[e][1] - centre[1]) / np.linalg.norm(src[e] - np.array(centre)) > 0.2
                 for e in np.flatnonzero(free))
     print(f"{label} direct paths: {len(near_off)} of {len(src)} sources unoccluded; traced IRs: max |near-ear "
-          f"peak - (d/c + Woodworth ITD)| {max(near_off, default=float('nan')):.2f} samples, far-ear peak more than 2 "
+          f"peak - (d/c + Woodworth ITD + {delay0:.3f})| {max(near_off, default=float('nan')):.2f} samples, far-ear "
+          f"peak more than 2 "
           f"samples off: {far_off}, ILD sign over the direct windows wrong for {len(ild_wrong)} of "
           f"{n_lat} lateral sources {ild_wrong}, each held by the tail and diffraction outweighing the shadowed "
           f"direct path: {not unexplained}; direct component: max |ear peak - (d/c + Woodworth ITD)| "
@@ -1023,7 +1061,7 @@ def sorted_pair_phase(wavefronts: list, results: dict) -> dict:
     return launches
 
 
-def check_k5_bounces(kept: dict) -> None:
+def check_k5_bounces(kept: dict, label: str = "HOA3 trace") -> None:
     """K5 on a trace's own bounces (`kept`: rays per source -> the first and
     last bounce's (bins, deposits, n_bins)): against its plain version (bins
     identical, sums within 1e-5 relative plus 1e-6 of the peak), timed
@@ -1031,7 +1069,7 @@ def check_k5_bounces(kept: dict) -> None:
     from audiblelight_tpu_torch.ops import cuda_kernels as ck
 
     if len(kept) != 3:
-        fail(f"the HOA3 trace ran K5 at ray counts {sorted(kept)}, expected three decimation phases")
+        fail(f"the {label} ran K5 at ray counts {sorted(kept)}, expected three decimation phases")
     for rays, bounces in sorted(kept.items(), reverse=True):
         for which, (bins, dep, n_bins) in zip(("first", "last"), bounces):
             g, _, k = dep.shape
@@ -1046,7 +1084,7 @@ def check_k5_bounces(kept: dict) -> None:
             out = torch.zeros(g * n_bins, k, device=bins.device)
             warps, cluster = ck.bin_histogram_shape(g, k, n_bins, k % 4 == 0)
             b_ms, b_by = bound_ms(g * rays * k, g * rays * (4 * k + 4) + h_k.numel() * 4)
-            print(f"check bin_histogram at the HOA3 trace's {which} bounce of {rays} rays per source ({tuple(dep.shape)}, "
+            print(f"check bin_histogram at the {label}'s {which} bounce of {rays} rays per source ({tuple(dep.shape)}, "
                   f"{int((dep != 0).any(-1).sum())} rays deposit, in {int(torch.unique(bins[keep]).numel())} bins; "
                   f"{warps} warps a CTA, clusters of {cluster}): bin mismatches {bins_bad}, within tolerance {ok}; "
                   f"{time_ms(lambda: ck.bin_histogram(bins, dep, n_bins)):.4f} ms per call (device "
@@ -1055,7 +1093,7 @@ def check_k5_bounces(kept: dict) -> None:
                   f"{device_ms(lambda: out.index_add_(0, flat.long(), vals)):.4f}), bound {b_ms:.5f} ms ({b_by})",
                   flush=True)
             if bins_bad or not ok:
-                fail(f"bin_histogram disagrees with its plain version at the HOA3 trace's bounce of {rays} rays")
+                fail(f"bin_histogram disagrees with its plain version at the {label}'s bounce of {rays} rays")
 
 
 def check_deposit(name: str, args: list, kw: dict, label: str) -> dict:
@@ -1789,6 +1827,421 @@ def shoebox_phase(fg: Path, out: Path, win: int, dev) -> None:
         fail("the MonoCapsule shoebox scene's outputs are misshapen or silent")
 
 
+def measured_room(path: Path, n_az: int, heights, dists, n_taps: int, sr: int, short_name: str,
+                  seed: int) -> np.ndarray:
+    """Write a SingleRoomSRIR file the size of a converted TAU-SRIR room with
+    the port's own writer: sources on `n_az` azimuths x `heights` x `dists`
+    around SOFA_LISTENER, the AmbeoVR's 4 capsules, float64 IRs at `sr`, each
+    a unit spike at the sample nearest d/c plus a decaying noise tail.
+    Returns the (M, 3) measured source positions."""
+    from audiblelight_tpu_torch.io.sofa import write_sofa
+    from audiblelight_tpu_torch.micarrays import ambeovr_capsules
+
+    az, h, d = np.meshgrid(np.radians(np.arange(n_az) * (360.0 / n_az)), heights, dists, indexing="ij")
+    rel = np.stack([d * np.cos(az), d * np.sin(az), h], axis=-1).reshape(-1, 3)
+    grid = rel + np.array(SOFA_LISTENER)
+    rng = np.random.default_rng(seed)
+    irs = rng.standard_normal((len(grid), 4, n_taps))
+    irs *= 0.02 * np.exp(-np.arange(n_taps) / (0.05 * sr))
+    spike = np.rint(np.linalg.norm(rel, axis=1) / 343.0 * sr).astype(int)
+    irs[np.arange(len(grid)), :, spike] = 1.0
+    write_sofa(path, irs, grid, SOFA_LISTENER, ambeovr_capsules((0.0, 0.0, 0.0)), sr, listener_short_name=short_name)
+    return grid
+
+
+def sofa_phase(fg: Path, out: Path, dev) -> None:
+    """The SOFA backend through the SELD CLI (`--backend sofa --sofa`), on two
+    measured rooms the size of converted TAU-SRIR rooms written with the
+    port's own HDF5 writer: MIC (2,160 positions: 360 azimuths x 3 heights x
+    2 distances, 4 capsules, 7,200 samples at 24 kHz) and FOA (720
+    positions, 14,400 samples at 48 kHz, resampled to the scene's 24 kHz).
+    Two 60 s scenes each: the outputs checked as the rlr CLI's; every
+    emitter of each scene on the measured grid, its IR's spike within 2
+    samples of d/c on every capsule; each static event's DCASE rows at its
+    grid point; the host time per scene split into the file's opens and
+    reads, `get_irs`, the render and the writes; the peak device memory;
+    how `get_irs` read Data.IR; no tracer kernel launched."""
+    from audiblelight_tpu_torch import seld
+    from audiblelight_tpu_torch.core import Scene
+    from audiblelight_tpu_torch.io import sofa as sofa_io
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.utils import cartesian_to_polar
+    from audiblelight_tpu_torch.worldstate.sofa_backend import WorldStateSOFA
+
+    card = card_line()
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t_scene = int(SCENE_SECONDS * SR)
+    # file: every open and read of the SOFA file; get_irs: the rest of
+    # get_irs (the resample and the bank); render: the plan path without
+    # get_irs; writes: WAV, JSON and CSV
+    spent = dict(file=0.0, get_irs=0.0, render=0.0, writes=0.0)
+    per_scene, read_modes = [], []
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    def get_irs(self):
+        t0, f0 = time.perf_counter(), spent["file"]
+        out_irs = real["get_irs"](self)
+        spent["get_irs"] += time.perf_counter() - t0 - (spent["file"] - f0)
+        spent["render"] -= time.perf_counter() - t0  # get_irs runs inside the render
+        read_modes.append(self.ir_read)
+        return out_irs
+
+    def write_outputs(*args, **kwargs):
+        t0 = time.perf_counter()
+        real["write_outputs"](*args, **kwargs)
+        spent["writes"] += time.perf_counter() - t0
+        per_scene.append(dict(spent))
+        for k in spent:
+            spent[k] = 0.0
+
+    real = dict(init=sofa_io.SOFAFile.__init__, get_variable=sofa_io.SOFAFile.get_variable,
+                attrs=sofa_io.SOFAFile.get_global_attributes, rows=sofa_io.SOFAFile.read_ir_rows,
+                get_irs=WorldStateSOFA.get_irs, render=seld.render_scene_audio_compiled,
+                write_outputs=seld.write_outputs)
+    sofa_io.SOFAFile.__init__ = timed(real["init"], "file")
+    sofa_io.SOFAFile.get_variable = timed(real["get_variable"], "file")
+    sofa_io.SOFAFile.get_global_attributes = timed(real["attrs"], "file")
+    sofa_io.SOFAFile.read_ir_rows = timed(real["rows"], "file")
+    WorldStateSOFA.get_irs = get_irs
+    seld.render_scene_audio_compiled = timed(real["render"], "render")
+    seld.write_outputs = write_outputs
+    try:
+        for layout, n_az, heights, dists, n_taps, file_sr in (
+                ("mic", 360, (-0.3, 0.0, 0.3), (1.0, 2.0), 7200, 24000),
+                ("foa", 360, (0.0,), (1.0, 2.0), 14400, 48000)):
+            path = out / f"room_{layout}.sofa"
+            t0 = time.time()
+            grid = measured_room(path, n_az, heights, dists, n_taps, file_sr, layout, seed=17)
+            write_s = time.time() - t0
+            argv = ["--fg-dir", str(fg), "--output-dir", str(out / layout), "--sofa", str(path),
+                    "--channel-layout", layout, *SOFA_FLAGS]
+            ck.reset_launch_counts()
+            per_scene.clear()
+            read_modes.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.time()
+            seconds = seld.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            launched = {k: v for k, v in ck.launch_counts.items() if v}
+            print(f"SOFA {layout} file: {len(grid)} positions x 4 capsules x {n_taps} samples at {file_sr} Hz, "
+                  f"{path.stat().st_size / 1e6:.1f} MB, written in {write_s:.2f} s (host clock); CLI {len(seconds)} "
+                  f"scenes in {run_s:.2f} s; peak device memory {peak / 2**30:.3f} GiB; Data.IR read {read_modes}; "
+                  f"launches {launched} on {card}", flush=True)
+            for sec, parts in zip(seconds, per_scene):
+                print(f"SOFA CLI {layout} scene: {sec:.3f} s (host clock): file opens and reads {parts['file']:.3f} s, "
+                      f"get_irs without its reads {parts['get_irs']:.3f} s, render {parts['render']:.3f} s, writes "
+                      f"{parts['writes']:.3f} s, placement and the rest {sec - sum(parts.values()):.3f} s", flush=True)
+            if len(seconds) != 2 or len(per_scene) != 2 or launched or set(read_modes) != {"rows"}:
+                fail(f"the SOFA {layout} CLI rendered {len(seconds)} scenes, launched {launched}, read {read_modes}")
+            check_cli_outputs(out / layout, layout, t_scene)
+            triples = {(round(a), round(e), round(r * 100)) for a, e, r in cartesian_to_polar(grid - SOFA_LISTENER)}
+            worst, n_em, n_static = 0.0, 0, 0
+            for meta in sorted((out / layout / "metadata_dev").rglob("*.json")):
+                scene = Scene.from_json(meta, device=dev)
+                pos = np.stack([e.coordinates_absolute for lst in scene.state.emitters.values() for e in lst])
+                on_grid = np.abs(pos[:, None] - grid[None]).max(-1).min(-1) < 1e-9
+                irs = scene.state.get_irs()["mic000"]  # (4, E, L) at 24 kHz
+                expect = np.linalg.norm(pos - SOFA_LISTENER, axis=1) / 343.0 * SR
+                peaks = np.abs(irs).argmax(-1)  # (4, E)
+                worst = max(worst, float(np.abs(peaks - expect[None]).max()))
+                n_em += len(pos)
+                if not on_grid.all() or irs.shape != (4, len(pos), round(n_taps * SR / file_sr)):
+                    fail(f"SOFA {layout} scene {meta.name}: emitters off the grid or IRs {irs.shape}")
+                tracks = {}
+                for row in csv.reader(meta.with_name(f"{meta.stem}_mic000.csv").open()):
+                    tracks.setdefault((int(row[1]), int(row[2])), set()).add(tuple(int(v) for v in row[3:]))
+                static = [p for p in tracks.values() if len(p) == 1]
+                n_static += len(static)
+                if len(scene.events) != 5 or not static or not all(p <= triples for p in static):
+                    fail(f"SOFA {layout} scene {meta.name}: {len(scene.events)} events, static rows {static} "
+                         "not on the measured grid")
+            print(f"SOFA {layout} IRs: {n_em} emitters on the measured grid; max |spike - d/c| {worst:.2f} samples "
+                  f"over 4 capsules; {n_static} static tracks in the CSVs at measured points", flush=True)
+            if worst > 2.0:
+                fail(f"SOFA {layout}: a direct spike {worst:.2f} samples off d/c")
+    finally:
+        sofa_io.SOFAFile.__init__ = real["init"]
+        sofa_io.SOFAFile.get_variable = real["get_variable"]
+        sofa_io.SOFAFile.get_global_attributes = real["attrs"]
+        sofa_io.SOFAFile.read_ir_rows = real["rows"]
+        WorldStateSOFA.get_irs = real["get_irs"]
+        seld.render_scene_audio_compiled = real["render"]
+        seld.write_outputs = real["write_outputs"]
+
+
+def fixture_phase() -> None:
+    """The port's HDF5 reader on the committed h5py-written fixtures
+    (tests/resources/torch_sofa/): every dataset's dtype, shape and sha256,
+    and every attribute's value, as digests.json recorded them with h5py;
+    the unlimited datasets refused by name."""
+    import hashlib
+
+    from audiblelight_tpu_torch.io import hdf5
+
+    def jsonable(v):
+        if isinstance(v, bytes):
+            return {"bytes": v.hex()}
+        if isinstance(v, str):
+            return {"str": v}
+        arr = np.asarray(v)
+        if arr.dtype.kind == "S":
+            return {"bytes_array": [x.hex() for x in arr.ravel().tolist()], "shape": list(arr.shape)}
+        return {"dtype": arr.dtype.str, "shape": list(arr.shape), "hex": arr.tobytes().hex()}
+
+    root = REPO / "tests" / "resources" / "torch_sofa"
+    record = json.loads((root / "digests.json").read_text())
+    n_ds = n_attrs = n_refused = 0
+    for name, rec in sorted(record.items()):
+        with hdf5.File(root / name) as f:
+            for ds, want in rec["datasets"].items():
+                arr = f[ds][()]
+                got = dict(dtype=arr.dtype.str, shape=list(arr.shape), sha256=hashlib.sha256(arr.tobytes()).hexdigest())
+                if got != want:
+                    fail(f"fixture {name}: {ds} read as {got}, h5py read {want}")
+                n_ds += 1
+            for obj, attrs in rec["attrs"].items():
+                for k, want in attrs.items():
+                    if jsonable(f[obj].attrs[k]) != want:
+                        fail(f"fixture {name}: attribute {obj}:{k} read as {f[obj].attrs[k]!r}")
+                    n_attrs += 1
+            for ds, feature in rec["refused"].items():
+                try:
+                    f[ds][()]
+                    fail(f"fixture {name}: {ds} read, expected the {feature} refused")
+                except NotImplementedError as err:
+                    if f"HDF5 {feature} is not supported" not in str(err):
+                        fail(f"fixture {name}: {ds} refused as {err}")
+                    n_refused += 1
+    print(f"HDF5 fixtures: {len(record)} h5py-written files, {n_ds} datasets equal to h5py's sha256, {n_attrs} "
+          f"attributes equal to its values, {n_refused} unlimited datasets refused by name", flush=True)
+
+
+def head_hrirs(az_deg: np.ndarray, el_deg: np.ndarray) -> np.ndarray:
+    """(M, 2, HRIR_TAPS) HRIRs at HRIR_SR of the analytic head: a windowed
+    sinc at HRIR_DELAY samples plus each ear's Woodworth offset, scaled by
+    the ear's shadow gain averaged over the tail's four bands."""
+    from audiblelight_tpu_torch.rir.sh import spherical_head_gains, woodworth_itd
+
+    az, el = np.radians(az_deg), np.radians(el_deg)
+    dirs = torch.as_tensor(np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)], -1),
+                           dtype=torch.float32)
+    itd = woodworth_itd(dirs).numpy()  # (M, 2)
+    gain = spherical_head_gains(dirs, np.array([125.0, 500.0, 2000.0, 8000.0])).numpy().mean(-1)  # (M, 2)
+    x = np.arange(HRIR_TAPS)[None, None, :] - (HRIR_DELAY + itd * HRIR_SR)[..., None]
+    return gain[..., None] * np.sinc(x) * np.where(np.abs(x) < 16, 0.5 + 0.5 * np.cos(np.pi * x / 16), 0.0)
+
+
+def hrtf_phase(st, scene_inputs: tuple, t_scene: int, win: int, fg: Path, out: Path, dev) -> dict:
+    """Measured HRTFs: a SimpleFreeFieldHRIR set written with the port's
+    `write_hrtf_sofa` on CIPIC's grid size (1,250 directions x 2 ears x 200
+    taps at 44.1 kHz, the analytic head's delays and shadow gains), read
+    back at 24 kHz on the card and on the CPU (band powers and
+    interpolation weights within 1e-6 relative; indices equal). Then:
+
+    - the first flagship scene through the fused renderer with the measured
+      set (the fused path's K1 big, K2 and K5 launches counted and checked),
+      written as an int16 WAV; K5 held against its plain version on the
+      trace's own bounces; the direct paths checked against each ear's HRIR
+      onset plus d/c (`check_binaural`); the scene timed by CUDA events in
+      turns with the analytic-head scene of the same inputs, profiled (idle
+      share, K5's device time per scene); the per-bounce gather
+      `band_power_at` (an 80k x 1,250 product and a top-3) timed;
+    - the shoebox with `Binaural(hrtf_sofa=...)` (examples/03_sofa_measured.py
+      part 2 at full size: a 60 s scene, order 6, 1.0 s IRs): the engine
+      with the measured set on the card against the CPU (order 3, 4,096
+      samples; within 1e-5 of peak), then the scene through
+      `Scene.generate()`, its engine call timed with its peak device memory
+      and bytes per term of its blocks.
+
+    Returns the fused scene's launches."""
+    from audiblelight_tpu_torch import utils as tutils
+    from audiblelight_tpu_torch.core import Scene
+    from audiblelight_tpu_torch.micarrays import Binaural
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.pipeline import FusedSceneRenderer, write_wav
+    from audiblelight_tpu_torch.render import ScenePlan
+    from audiblelight_tpu_torch.rir import hrtf as hrtf_mod
+    from audiblelight_tpu_torch.rir import image_source, raytracer
+    from audiblelight_tpu_torch.rir.raytracer import _band_centers
+    from audiblelight_tpu_torch.worldstate import shoebox_backend
+
+    card = card_line()
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    az, el = np.meshgrid(np.arange(50) * 7.2, np.linspace(-45.0, 80.0, 25), indexing="ij")
+    az, el = az.ravel(), el.ravel()
+    path = hrtf_mod.write_hrtf_sofa(out / "head.sofa", head_hrirs(az, el), az, el, HRIR_SR)
+    hrtf = hrtf_mod.load_hrtf_sofa(path, SR, dev)
+    hrtf_cpu = hrtf_mod.load_hrtf_sofa(path, SR, "cpu")
+    bands = _band_centers(4, dev)
+    bp, bp_cpu = hrtf.band_powers(bands), hrtf_cpu.band_powers(bands.cpu())
+    bp_gap = float(((bp.cpu() - bp_cpu).abs() / bp_cpu.abs().clamp_min(1e-30)).max())
+    q = torch.randn(80000, 3, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    q = q / q.norm(dim=1, keepdim=True)
+    idx, w = hrtf.interp_weights(q)
+    idx_c, w_c = hrtf_cpu.interp_weights(q.cpu())
+    w_gap = float(((w.cpu() - w_c).abs() / w_c).max())
+    gather_ms = time_ms(lambda: hrtf.band_power_at(q, bp))
+    gather_dev = device_ms(lambda: hrtf.band_power_at(q, bp))
+    fast = q @ hrtf.dirs.T
+    print(f"measured HRTF gather's parts (device): the 80k x {hrtf.dirs.shape[0]} product "
+          f"{device_ms(lambda: q @ hrtf.dirs.T):.4f} ms, its candidates' top-k "
+          f"{device_ms(lambda: torch.topk(fast, 3 + hrtf_mod.TOP_K_SLACK, dim=-1)):.4f} ms", flush=True)
+    del fast
+    print(f"measured HRTF set: {tuple(hrtf.hrirs.shape)} at {hrtf.sr} Hz from {path.stat().st_size / 1e6:.2f} MB; "
+          f"card against CPU: band powers max rel diff {bp_gap:.3e}, interp_weights on 80k directions: indices "
+          f"equal {torch.equal(idx.cpu(), idx_c)}, weights max rel diff {w_gap:.3e}; band_power_at (80k x "
+          f"{hrtf.dirs.shape[0]} product, top-3, blend) {gather_ms:.4f} ms per call (device {gather_dev:.4f}) on "
+          f"{card}", flush=True)
+    if bp_gap > 1e-6 or w_gap > 1e-6 or not torch.equal(idx.cpu(), idx_c):
+        fail("the measured set's band powers or interpolation on the card differ from the CPU's")
+
+    # The fused scene with the measured set, beside the analytic head
+    src, s_idx, m_idx, plan, amb = scene_inputs
+    src_t, s_idx_t, m_idx_t = (torch.as_tensor(x, device=dev) for x in (src, s_idx, m_idx))
+    lis_c = torch.tensor([MIC_CENTRE], dtype=torch.float32, device=dev)
+    occ_c = st.rain_occlusion_for(np.array([MIC_CENTRE]))
+    free_c = ~ck.segments_occluded(lis_c.expand(N_SOURCES, 3).contiguous(), src_t, st.tris).cpu().numpy()
+    splan = ScenePlan.from_numpy(plan, dev)
+    rend = FusedSceneRenderer(st, 1, BUCKETS, N_SOURCES, t_scene, layout="binaural", hrtf=hrtf)
+    analytic = FusedSceneRenderer(st, 1, BUCKETS, N_SOURCES, t_scene, layout="binaural")
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    wav = rend.render_mix(torch.Generator(device=dev).manual_seed(21), src_t, lis_c, occ_c, s_idx_t, m_idx_t,
+                          splan, *amb)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = dict(ck.launch_counts)
+    peak = int(wav.abs().max())
+    wav_path = write_wav(OUT / "binaural_measured.wav", wav, SR)
+    print(f"measured-HRTF binaural scene: {wav_path.relative_to(REPO)} {tuple(wav.shape)} {wav.dtype}, peak {peak}; "
+          f"{first_s:.3f} s (host clock, first); launches {launches}", flush=True)
+    if wav.dtype != torch.int16 or tuple(wav.shape) != (2, t_scene) or peak < 100:
+        fail(f"measured-HRTF binaural scene: payload {wav.dtype} {tuple(wav.shape)}, peak {peak}")
+    for name in RIG_PATH:
+        if launches[name] <= 0:
+            fail(f"the measured-HRTF binaural scene never launched {name}")
+    if launches["bin_histogram"] != launches["first_hit_big"]:
+        fail("the measured-HRTF binaural scene did not fold with K5 once per bounce")
+    check_first_hits(launches, 60, "the measured-HRTF binaural scene")
+
+    def scene(r):
+        return lambda: r.render_mix(torch.Generator(device=dev).manual_seed(5), src_t, lis_c, occ_c, s_idx_t,
+                                    m_idx_t, splan, *amb)
+
+    turns = {"measured": [], "analytic": []}
+    for _ in range(2):
+        for name, r in (("measured", rend), ("analytic", analytic)):
+            turns[name].append(time_ms(scene(r), reps=3))
+    avgs, busy = profiled(scene(rend), "measured-HRTF binaural scene profile")
+    m_ms = float(np.median(turns["measured"]))
+    print(f"measured-HRTF binaural scene time (CUDA events, in turns with the analytic head on the same inputs): "
+          f"measured {', '.join(f'{x:.3f}' for x in turns['measured'])} ms, analytic "
+          f"{', '.join(f'{x:.3f}' for x in turns['analytic'])} ms; device idle share {1 - busy / m_ms:.1%} on {card}",
+          flush=True)
+    kernel_times(avgs, RIG_PATH, "measured-HRTF binaural per scene")
+    kept5 = {}
+
+    def keep_k5(bins, dep, n_bins):
+        keep_first_last(kept5, bins.shape[1], (bins.clone(), dep.clone(), n_bins))
+        return ck.bin_histogram(bins, dep, n_bins)
+
+    raytracer.bin_histogram = keep_k5
+    try:
+        irs = rend.trace(torch.Generator(device=dev).manual_seed(7), src_t, lis_c, occ_c)
+    finally:
+        raytracer.bin_histogram = ck.bin_histogram
+    check_k5_bounces(kept5, "measured-HRTF binaural trace")
+    direct = raytracer.direct_paths_ir(st.tris, src_t, lis_c, irs.shape[-1], sr=SR, encoding="binaural", hrtf=hrtf)
+    check_binaural(irs, direct.transpose(0, 1), src, free_c, win, label="measured-HRTF binaural",
+                   delay0=HRIR_DELAY * SR / HRIR_SR)
+
+    # The shoebox with the measured set: the engine on the card against the CPU
+    rng = np.random.default_rng(23)
+    room = np.array(HRTF_SHOEBOX["dimensions"], np.float32)
+    centre = np.array([[2.4, 2.1, 1.5]], np.float32)
+    src_s = rng.uniform(0.5, room - 0.5, (3, 3)).astype(np.float32)
+    log_beta, bands_s = image_source.wall_log_betas_from_absorption(rng.uniform(0.1, 0.6, (6, 4)))
+    kw = dict(n_samples=4096, max_order=3, sr=SR, encoding="binaural")
+    t0 = time.time()
+    on_cpu = image_source.shoebox_rirs(room, src_s, centre, log_beta, bands_s, device="cpu", hrtf=hrtf_cpu, **kw)
+    cpu_s = time.time() - t0
+    src_d = torch.as_tensor(src_s, device=dev)
+    on_card = image_source.shoebox_rirs(room, src_d, centre, log_beta, bands_s, hrtf=hrtf, **kw)
+    gap = float((on_card.cpu() - on_cpu).abs().max() / on_cpu.abs().max())
+    print(f"shoebox_rirs with the measured set on the card against the CPU: {tuple(on_card.shape)}, "
+          f"{ism_terms(1, 3, 4096, 3)} terms, max |diff| / peak {gap:.3e}; CPU {cpu_s:.2f} s (host clock)", flush=True)
+    if gap > 1e-5:
+        fail(f"shoebox_rirs with the measured set: the card's IRs are {gap:.3e} of peak from the CPU's")
+
+    calls = []
+    real_rirs = shoebox_backend.shoebox_rirs
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        irs_s = real_rirs(*args, **kwargs)
+        b.record()
+        b.synchronize()
+        n_e, n_f = int(args[1].shape[0]), kwargs["n_samples"] // 2 + 1
+        k_img = 8 * (2 * kwargs["max_order"] + 1) ** 3
+        e_blk, chunk = image_source.block_shape(1, n_e, n_f, k_img, "hrtf", None, image_source.CARD_LIVE_BYTES)
+        calls.append(dict(ms=a.elapsed_time(b), peak=torch.cuda.max_memory_allocated() - base, e=n_e,
+                          hrtf=kwargs.get("hrtf") is not None, terms=ism_terms(1, n_e, kwargs["n_samples"],
+                                                                               kwargs["max_order"]),
+                          block=e_blk * chunk * n_f))
+        return irs_s
+
+    tutils.seed_everything(13)
+    scene_s = Scene(duration=SCENE_SECONDS, sample_rate=SR, backend="shoebox", fg_path=fg, max_overlap=2, device=dev,
+                    backend_kwargs=dict(HRTF_SHOEBOX))
+    scene_s.add_microphone(microphone_type=Binaural(hrtf_sofa=str(path)))
+    for event_type in ["static"] * N_STATIC + ["moving"]:
+        scene_s.add_event(event_type=event_type, max_place_attempts=100)
+    scene_s.add_ambience(noise="gaussian")
+    ck.reset_launch_counts()
+    shoebox_backend.shoebox_rirs = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        (out / "shoebox").mkdir()
+        scene_s.generate(output_dir=out / "shoebox")
+        gen_s = time.time() - t0
+    finally:
+        shoebox_backend.shoebox_rirs = real_rirs
+    launched = {k: v for k, v in ck.launch_counts.items() if v}
+    audio = scene_s.audio["mic000"]
+    call = calls[-1] if calls else {}
+    print(f"measured-HRTF shoebox scene (order {HRTF_SHOEBOX['max_order']}, {HRTF_SHOEBOX['max_ir_length']} s IRs, "
+          f"{scene_s.state.num_emitters} emitters): "
+          f"Scene.generate() {gen_s:.3f} s (host clock); shoebox_rirs {call.get('ms', float('nan')):.3f} ms (CUDA "
+          f"events), {call.get('terms', 0)} terms, peak device memory {call.get('peak', 0) / 2**30:.3f} GiB, "
+          f"{call.get('peak', 0) / max(call.get('block', 1), 1):.1f} B per term of its blocks "
+          f"({call.get('block', 0)} terms a block; TERM_BYTES['hrtf'] = {image_source.TERM_BYTES['hrtf']}); audio "
+          f"{audio.shape}, peak {float(np.abs(audio).max()):.4f}; launches {launched} on {card}", flush=True)
+    if (len(calls) != 1 or not call["hrtf"] or launched or audio.shape != (2, t_scene)
+            or float(np.abs(audio).max()) * 32768 < 100):
+        fail(f"the measured-HRTF shoebox scene: {len(calls)} engine calls, launches {launched}, audio {audio.shape}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2457,6 +2910,18 @@ def main() -> int:
     # 13. The shoebox backend: the image-source engine, its direct paths, the
     # SELD CLI at its defaults and one MonoCapsule scene
     shoebox_phase(fg, OUT / "shoebox", win, dev)
+
+    elapsed(t_start, "HDF5 fixtures and the SOFA backend")
+    # 14. The port's HDF5 reader on h5py's files, then the SOFA backend
+    # through the SELD CLI on two measured rooms written by the port
+    fixture_phase()
+    sofa_phase(fg, OUT / "sofa", dev)
+
+    elapsed(t_start, "measured HRTFs")
+    # 15. Measured HRTFs: the fused scene's binaural tail (K5), direct and
+    # diffracted paths, and the shoebox's image sources
+    hrtf_n = hrtf_phase(st, scenes[0], t_scene, win, fg, OUT / "hrtf", dev)
+    print(f"measured-HRTF binaural scene: bin_histogram {hrtf_n['bin_histogram']} launches per scene")
 
     main_launches = dict(launches, first_hit_small=small_n["first_hit_small"],
                          deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"],

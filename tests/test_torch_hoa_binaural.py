@@ -12,8 +12,10 @@
   within 1e-4 of the reference's peak, the omni tolerances.
 - The unfused tails (binaural, HOA3) held statistically: per-band energies
   within 5 % and T30 within 10 % of the reference's, the omni tolerances.
-- `Binaural` and `HOAListener` serialise as the reference's; scenes with
-  them place as the reference's and render through the fused renderer.
+- `Binaural` (with and without `hrtf_sofa`) and `HOAListener` serialise as
+  the reference's; scenes with them place as the reference's and render
+  through the fused renderer. Measured HRTF sets are held in
+  test_torch_hrtf.py.
 """
 
 import json
@@ -194,11 +196,15 @@ def test_rig_to_dict_matches_reference(layout):
 
 
 def test_measured_hrtfs_raise():
-    with pytest.raises(NotImplementedError, match="measured HRTFs"):
-        tmic.Binaural(hrtf_sofa="head.sofa")
-    d = tmic.Binaural().to_dict() | dict(coordinates_center=[1.0, 1.0, 1.0], hrtf_sofa="head.sofa")
-    with pytest.raises(NotImplementedError, match="measured HRTFs"):
-        tmic.MicArray.from_dict(d)
+    """`Binaural(hrtf_sofa=...)`, which raised until measured HRTFs were
+    ported, builds and round-trips through to_dict / from_dict as the
+    reference's does (the set itself is held in test_torch_hrtf.py)."""
+    want, got = jmic.Binaural(hrtf_sofa="head.sofa"), tmic.Binaural(hrtf_sofa="head.sofa")
+    for mic in (want, got):
+        mic.set_absolute_coordinates([1.0, 1.0, 1.0])
+    assert got.to_dict() == want.to_dict() and got.to_dict()["hrtf_sofa"] == "head.sofa"
+    back = tmic.MicArray.from_dict(json.loads(json.dumps(want.to_dict())))
+    assert type(back) is tmic.Binaural and back.hrtf_sofa == "head.sofa" and back.to_dict() == want.to_dict()
 
 
 @pytest.fixture(scope="module")

@@ -120,10 +120,11 @@ def test_result_does_not_depend_on_the_blocks(monkeypatch):
 
 
 def test_hrtf_and_a_missing_card_raise(monkeypatch):
-    """A measured HRTF raises, naming its ROADMAP item; numpy inputs without
-    a device run on the card, and raise where there is none."""
+    """An `hrtf` that is not an HRTFSet raises TypeError (measured sets are
+    held to the reference in test_torch_hrtf.py); numpy inputs without a
+    device run on the card, and raise where there is none."""
     src, lis, log_beta, bands = _inputs(1, 1, 1, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP: measured HRTFs"):
+    with pytest.raises(TypeError, match="HRTFSet"):
         tis.shoebox_rirs(ROOM, src, lis, log_beta, bands, n_samples=256, encoding="binaural", hrtf=object(),
                          device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -37,6 +37,7 @@ from audiblelight_tpu_torch.render import build_scene_plan, quantize_mix_wav
 from audiblelight_tpu_torch.synthesize import dcase_csv_text, generate_dcase2024_metadata
 from audiblelight_tpu_torch.worldstate import get_worldstate_from_string
 from audiblelight_tpu_torch.worldstate.shoebox_backend import WorldStateShoebox
+from audiblelight_tpu_torch.worldstate.sofa_backend import WorldStateSOFA
 
 torch.set_num_threads(1)
 
@@ -76,9 +77,17 @@ def test_absorption_forms_match_reference(absorption):
 
 
 def test_backend_resolves_by_name_and_sofa_raises():
+    """Each backend resolves by name as the reference's does: "sofa", which
+    raised until the SOFA backend was ported, now resolves to it (held to
+    the reference in test_torch_sofa.py), and an unknown name raises."""
+    from audiblelight_tpu.worldstate import get_worldstate_from_string as jax_get
+
     assert get_worldstate_from_string("shoebox") is WorldStateShoebox
-    with pytest.raises(NotImplementedError, match="ROADMAP: the SOFA backend"):
-        get_worldstate_from_string("sofa")
+    assert get_worldstate_from_string("sofa") is WorldStateSOFA
+    for name in ("shoebox", "SOFA", "rlr"):
+        assert get_worldstate_from_string(name).name == jax_get(name).name
+    with pytest.raises(ValueError, match="Cannot find backend"):
+        get_worldstate_from_string("pyroomacoustics")
 
 
 def test_validity_mask_and_line_of_sight_match_reference():
