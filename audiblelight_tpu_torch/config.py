@@ -38,6 +38,7 @@ MOVING_EVENT_SHAPES = ["random", "linear", "semicircular"]
 # Dataset generation (SELD CLI defaults)
 MIN_STATIC_EVENTS, MAX_STATIC_EVENTS = 1, 10
 MIN_MOVING_EVENTS, MAX_MOVING_EVENTS = 0, 6
+BUFFER_SIZE = 8192
 FFT_SIZE = 512
 WIN_SIZE = 256
 HOP_SIZE = 128

@@ -4,19 +4,19 @@ Copy of audiblelight_tpu/core.py for the SELD dataset path: the Scene holds a
 world state (a ray-traced mesh room, an image-source shoebox or a measured
 SOFA room, its microphone and emitters), Events and an Ambience, places events by rejection
 sampling with the reference's draws (Python `random`, numpy's global stream
-through scipy `rvs`, the world state's Generator), renders on the world
-state's device (the fused renderer, or the plan path where it refuses the
-scene, as it does every shoebox scene), writes per-mic int16 WAVs, the
-metadata JSON and DCASE CSVs, and round-trips through to_dict / from_dict /
-from_json.
+through scipy `rvs`, the world state's Generator), augments events with the
+reference's EventAugmentations, renders on the world state's device (the
+classic per-event render, or with `compiled=True` the plan path), writes
+per-mic int16 WAVs, the metadata JSON and DCASE CSVs, and round-trips
+through to_dict / from_dict / from_json.
 
 The backends are the ray-traced mesh room ("rlr"), the image-source
 shoebox ("shoebox") and the measured room of a SOFA file ("sofa": its IRs
 through the plan path; its microphone is the file's own, so the Scene
 infers the ambience's channels from that one rig).
 
-Not ported (raise; ROADMAP): event augmentations, predefined-trajectory
-events, images, video and acoustic imaging.
+Not ported (raise; ROADMAP): predefined-trajectory events, images, video
+and acoustic imaging.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from scipy import stats
 
 from audiblelight_tpu_torch import config, utils
 from audiblelight_tpu_torch.ambience import Ambience
+from audiblelight_tpu_torch.augmentation import ALL_EVENT_AUGMENTATIONS, EventAugmentation
 from audiblelight_tpu_torch.class_mappings import (
     ClassMapping,
     TClassMapping,
@@ -79,10 +80,12 @@ class Scene:
         `backend` is "rlr", "shoebox", "sofa" or a WorldState instance; `fg_path` / `bg_path`
         are recursively listed audio folders; the `*_dist` arguments are
         distribution-like objects sampled for each added event;
-        `backend_kwargs` pass through to the WorldState constructor. `device`
-        is where the world state's queries and the render run (default
-        `cuda`; raises without a card). `image_path` and
-        `event_augmentations` must be None.
+        `backend_kwargs` pass through to the WorldState constructor;
+        `event_augmentations` is the pool (EventAugmentation classes, or
+        (class, kwargs) pairs) that `add_event(augmentations=<count>)` samples
+        from. `device` is where the world state's queries, the render and the
+        events' augmentations run (default `cuda`; raises without a card).
+        `image_path` must be None.
         """
         self.duration = utils.sanitise_positive_number(duration)
         if self.duration < config.WARN_WHEN_SCENE_DURATION_BELOW:
@@ -97,10 +100,8 @@ class Scene:
 
         if backend_kwargs is None:
             backend_kwargs = {}
-        if image_path is not None or event_augmentations:
-            raise NotImplementedError(
-                "event images and augmentations are not ported (ROADMAP: augmentations, imaging and video)"
-            )
+        if image_path is not None:
+            raise NotImplementedError("event images are not ported (ROADMAP: imaging and video)")
 
         if isinstance(backend, str):
             desired_state = get_worldstate_from_string(backend)
@@ -154,6 +155,9 @@ class Scene:
         self.events: OrderedDict[str, Event] = OrderedDict()
 
         self.event_augmentations = []
+        if event_augmentations is not None:
+            self.event_augmentations = self._parse_event_augmentations(event_augmentations)
+
         self.ambience: OrderedDict[str, Ambience] = OrderedDict()
         self.audio: OrderedDict[str, np.ndarray] = OrderedDict()
         self.class_mapping = sanitize_class_mapping(class_mapping)
@@ -190,6 +194,30 @@ class Scene:
             for fg in audio_dir:
                 input_paths.extend(fg.rglob(f"*.{ext}"))
         return utils.sanitise_filepaths(input_paths)
+
+    def _parse_event_augmentations(self, event_augmentations) -> list[tuple]:
+        """Parse user augmentations into (AugmentationType, validated_kwargs) tuples."""
+        if not isinstance(event_augmentations, (tuple, list, np.ndarray)):
+            event_augmentations = [event_augmentations]
+
+        sanitised = []
+        for maybe_iter in event_augmentations:
+            if isinstance(maybe_iter, (tuple, list, np.ndarray)) and len(maybe_iter) == 2:
+                aug_type, kwargs_dict = maybe_iter
+            elif isinstance(maybe_iter, type):
+                aug_type = maybe_iter
+                kwargs_dict = dict()
+            else:
+                raise TypeError(f"Expected a tuple or EventAugmentation type but got {type(maybe_iter)}")
+
+            if not issubclass(aug_type, EventAugmentation):
+                raise TypeError(f"Expected an EventAugmentation subclass but got {type(aug_type)}")
+            if "sample_rate" in kwargs_dict and kwargs_dict["sample_rate"] != self.sample_rate:
+                raise ValueError(f"Expected a sample rate {self.sample_rate}, but got {kwargs_dict['sample_rate']}")
+            kwargs_dict["sample_rate"] = self.sample_rate
+            utils.validate_kwargs(aug_type, **kwargs_dict)
+            sanitised.append((aug_type, kwargs_dict))
+        return sanitised
 
     # ------------------------------------------------------------------
     # Dunder
@@ -379,6 +407,24 @@ class Scene:
             self.state.get_microphone(mic).coordinates_center + utils.polar_to_cartesian(position)
         )[0]
 
+    def _get_n_random_event_augmentations(self, n_augmentations) -> list:
+        """N random, unique, initialised event augmentations (Python's
+        `random.sample` over the Scene's pool, or over every augmentation)."""
+        sample_augs = (
+            self.event_augmentations
+            if len(self.event_augmentations) > 0
+            else [(cls, dict(sample_rate=self.sample_rate)) for cls in ALL_EVENT_AUGMENTATIONS]
+        )
+        n_augmentations = utils.sanitise_positive_number(n_augmentations, cast_to=int)
+        if n_augmentations > len(sample_augs):
+            logger.warning(
+                f"Tried to sample {n_augmentations} random augmentations, but only "
+                f"{len(sample_augs)} are available. Sampling {len(sample_augs)} instead."
+            )
+            n_augmentations = len(sample_augs)
+        sampled = random.sample(sample_augs, k=n_augmentations)
+        return [cls(**kws) for cls, kws in sampled]
+
     def _validate_user_defined_audio_filepath(self, user_filepath: Path, user_class_id) -> None:
         """Enforce the duplicate-audio and same-class policies for user files."""
         if not self.allow_duplicate_audios:
@@ -475,6 +521,7 @@ class Scene:
                 current_kws["filepath"],
             )
 
+            current_kws["device"] = self.state.device
             valid_event_kwargs = utils.get_valid_kwargs(Event.__init__)
             current_event = Event(
                 **{k: v for k, v in current_kws.items() if k in valid_event_kwargs}
@@ -638,8 +685,8 @@ class Scene:
             position = self._coerce_polar_position(position, mic)
             mic = None  # offset already applied
 
-        if augmentations:
-            raise NotImplementedError("event augmentations are not ported (ROADMAP: augmentations)")
+        if isinstance(augmentations, utils.NUMERIC_DTYPES):
+            augmentations = self._get_n_random_event_augmentations(augmentations)
 
         event_kwargs_full = dict(
             filepath=filepath,
@@ -706,8 +753,8 @@ class Scene:
             filepath = utils.sanitise_filepath(filepath)
             self._validate_user_defined_audio_filepath(filepath, class_id)
 
-        if augmentations:
-            raise NotImplementedError("event augmentations are not ported (ROADMAP: augmentations)")
+        if isinstance(augmentations, utils.NUMERIC_DTYPES):
+            augmentations = self._get_n_random_event_augmentations(augmentations)
 
         if shape is None:
             shape = random.choice(config.MOVING_EVENT_SHAPES)
@@ -766,24 +813,6 @@ class Scene:
             raise FileNotFoundError(f"Output directory {output_dir} does not exist")
         return output_dir
 
-    def _check_dry_stems(self) -> None:
-        """Refuses an event that asks for a dry stem (both `ref_ir_channel`
-        and `direct_path_time_ms`), and logs the reference's warning
-        (synthesize.py:compute_dry_audio) for one that sets only one of them."""
-        for alias, event in self.events.items():
-            has_channel, has_window = event.ref_ir_channel is not None, event.direct_path_time_ms is not None
-            if has_channel and has_window:
-                raise NotImplementedError(
-                    f"Event {alias!r} asks for a dry stem (ref_ir_channel and direct_path_time_ms): dry stems "
-                    "come from the classic per-event pipeline (ROADMAP item 1.2), which is not ported"
-                )
-            if has_channel or has_window:
-                logger.warning(
-                    "Only one of `ref_ir_channel` or `direct_path_time_ms` were specified when creating "
-                    "the Event. Dry audio will not be computed for this Event. Pass both variables to "
-                    "compute dry audio."
-                )
-
     def generate(
         self,
         output_dir: Optional[Union[str, Path]] = None,
@@ -798,38 +827,30 @@ class Scene:
     ) -> None:
         """Render the scene to disk: per-mic int16 WAVs, metadata JSON, DCASE CSVs.
 
-        The audio renders on the world state's device through the fused
-        renderer (pipeline.render_scenes: trace, stems, placement, ambience
-        and int16 quantisation in one pass), or through the plan path where
-        the fused renderer refuses the scene (a shoebox room, the exact rain
-        mode in a nonconvex room). `compiled=True` takes the plan path
-        (pipeline.render_scene_audio_compiled: the state's IR banks, device
-        stems, host mix and host ambience bed). `video` and `video_fname` keep
-        the reference's signature; video is not ported.
-
-        The reference's classic per-event pipeline (`compiled=False`) also
-        renders a dry stem for an event with both `ref_ir_channel` and
-        `direct_path_time_ms`; that pipeline is not ported, so such an event
-        raises before anything renders, and an event with only one of the
-        two logs the reference's warning. `compiled=True` renders no dry stem
-        in either package.
+        The audio renders on the world state's device. By default through
+        the classic per-event render, as the reference's
+        (synthesize.render_scene_classic): the state's IR banks (simulated
+        first where there are none), each event convolved on its own, its
+        spatial audio and, for an event with both `ref_ir_channel` and
+        `direct_path_time_ms`, its dry stem kept on the Event (an event with
+        only one of the two logs the reference's warning), then the host mix
+        with the ambience.
+        `compiled=True` takes the plan path (pipeline.render_scene_audio_compiled:
+        the state's IR banks, device stems, host mix and host ambience bed),
+        which keeps no per-event audio and renders no dry stem. `video` and
+        `video_fname` keep the reference's signature; video is not ported.
         """
         if video:
             raise NotImplementedError("video is not ported (ROADMAP item 1.8: video)")
-        if audio and not compiled:
-            self._check_dry_stems()
         output_dir = self._sanitise_output_directory(output_dir)
         if audio and compiled:
             from audiblelight_tpu_torch.pipeline import render_scene_audio_compiled
 
             self.audio = render_scene_audio_compiled(self)
         elif audio:
-            from audiblelight_tpu_torch.pipeline import render_scenes
+            from audiblelight_tpu_torch.synthesize import render_scene_classic
 
-            def complete(scene, payloads):
-                scene.audio = payloads
-
-            render_scenes([self], complete)
+            render_scene_classic(self)
         write_outputs(self, (output_dir / audio_fname).with_suffix(""), (output_dir / metadata_fname).with_suffix(""),
                       audio=audio, metadata_json=metadata_json, metadata_dcase=metadata_dcase)
 
@@ -908,7 +929,7 @@ class Scene:
             class_mapping=class_mapping,
         )
         scene.events = OrderedDict(
-            {k: Event.from_dict(v) for k, v in input_dict["events"].items()}
+            {k: Event.from_dict(v, device=state.device) for k, v in input_dict["events"].items()}
         )
         scene.ambience = OrderedDict(
             {k: Ambience.from_dict(v) for k, v in input_dict["ambience"].items()}

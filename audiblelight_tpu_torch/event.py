@@ -1,9 +1,11 @@
 """Event: a single (static or moving) sound event placed inside a Scene.
 
-Copy of audiblelight_tpu/event.py without augmentations (they raise; ROADMAP):
-timing fields (scene_start / event_start / duration), emitter registration
-(moving when more than one emitter), audio loading (WAV slice, resample, mono,
-peak-normalise), the dry-source parameters, and the dict round trip.
+Copy of audiblelight_tpu/event.py: timing fields (scene_start / event_start
+/ duration), emitter registration (moving when more than one emitter),
+augmentation registration with audio-cache invalidation, audio loading (WAV
+slice, resample, mono, augment, peak-normalise), the dry-source parameters,
+and the dict round trip. `device` is where the augmentations' torch FX run
+(an Event that a Scene made: the scene's device; default `cuda`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, Iterable, Optional, Union
 import numpy as np
 
 from audiblelight_tpu_torch import config, utils
+from audiblelight_tpu_torch.augmentation import EventAugmentation, validate_event_augmentation
 from audiblelight_tpu_torch.class_mappings import (
     TClassMapping,
     infer_id_and_label_from_inputs,
@@ -49,19 +52,23 @@ class Event:
         class_mapping: Optional[Union[TClassMapping, dict, str]] = None,
         ref_ir_channel: Optional[int] = None,
         direct_path_time_ms: Optional[Iterable] = None,
+        device=None,
     ):
         """Initialise the Event.
 
         `scene_start` is when the event begins within the Scene; `event_start`
         the offset into the source audio file; `duration` caps the audio
         length; `ref_ir_channel` + `direct_path_time_ms` (both together)
-        describe the dry source. `augmentations` must be empty.
+        describe the dry source; `augmentations` are EventAugmentation
+        instances or classes, applied in order when the audio loads; `device`
+        is where their torch FX run (set on each augmentation when given).
         """
         self.filepath = utils.sanitise_filepath(filepath)
         self.audio = None
         self.snr = snr
         self.sample_rate = utils.sanitise_positive_number(sample_rate)
         self.alias = alias
+        self.device = device
 
         self.augmentations = []
         if augmentations is not None:
@@ -142,9 +149,26 @@ class Event:
         return [utils.sanitise_positive_number(i, cast_to=int) for i in direct_path_time_ms]
 
     def register_augmentations(self, augmentations) -> None:
-        """Augmentations are not ported: any raises."""
-        if augmentations:
-            raise NotImplementedError("event augmentations are not ported (ROADMAP: augmentations)")
+        """Register augmentations (instances, or classes made at the Event's
+        sample rate), validating their sample rate, and invalidate the cached
+        audio. With a `device`, each runs its FX there."""
+        if not isinstance(augmentations, (list, tuple, set)):
+            augmentations = [augmentations]
+
+        for aug in augmentations:
+            if isinstance(aug, type):
+                aug = aug(sample_rate=self.sample_rate)
+            if aug.sample_rate != self.sample_rate:
+                raise ValueError(
+                    f"Augmentation has mismatching sample rate! "
+                    f"expected {self.sample_rate}, got {aug.sample_rate}"
+                )
+            validate_event_augmentation(aug)
+            if self.device is not None:
+                aug.device = self.device
+            self.augmentations.append(aug)
+
+        self._clear_audio()
 
     def register_emitters(self, emitters: Union[list[Emitter], Emitter, list[dict]]) -> None:
         """Register emitters; multiple emitters means the event is moving."""
@@ -256,7 +280,7 @@ class Event:
     def load_audio(
         self, ignore_cache: Optional[bool] = False, normalize: Optional[bool] = True
     ) -> np.ndarray:
-        """Load (and cache) the event audio: slice, resample, normalise."""
+        """Load (and cache) the event audio: slice, resample, augment, normalise."""
         if (
             self.is_audio_loaded
             and not ignore_cache
@@ -277,6 +301,8 @@ class Event:
         )
 
         audio_out = audio_raw.copy()
+        for aug in self.augmentations:
+            audio_out = aug(audio_out)
 
         if normalize:
             audio_out = audio_out / np.max(np.abs(audio_out) + utils.tiny(audio_out))
@@ -329,8 +355,8 @@ class Event:
         )
 
     @classmethod
-    def from_dict(cls, input_dict: dict[str, Any]) -> "Event":
-        """Instantiate an Event from a dictionary."""
+    def from_dict(cls, input_dict: dict[str, Any], device=None) -> "Event":
+        """Instantiate an Event from a dictionary, its augmentations' FX on `device`."""
         for k in [
             "alias",
             "filepath",
@@ -359,7 +385,7 @@ class Event:
             )
             emitters_list.append(obj)
 
-        augs = input_dict.get("augmentations", [])
+        augs = [EventAugmentation.from_dict(aug, device=device) for aug in input_dict.get("augmentations", [])]
 
         return cls(
             alias=input_dict["alias"],
@@ -379,9 +405,18 @@ class Event:
             spatial_velocity=input_dict["spatial_velocity"],
             ref_ir_channel=input_dict.get("ref_ir_channel", None),
             direct_path_time_ms=input_dict.get("direct_path_time_ms", None),
+            device=device,
         )
 
-    def get_augmentations(self) -> list:
+    def get_augmentation(self, idx: int) -> EventAugmentation:
+        """A single augmentation by integer index."""
+        try:
+            return self.augmentations[idx]
+        except IndexError:
+            raise IndexError(f"No augmentation with index {idx}")
+
+    def get_augmentations(self) -> list[EventAugmentation]:
+        """All augmentations associated with this Event."""
         return self.augmentations
 
     def get_emitter(self, idx: int) -> Emitter:
@@ -394,6 +429,20 @@ class Event:
     def get_emitters(self) -> list[Emitter]:
         """All emitters associated with this Event."""
         return self.emitters if self.emitters is not None else []
+
+    def clear_augmentation(self, idx: int) -> None:
+        """Remove an augmentation by index (invalidates cached audio)."""
+        try:
+            del self.augmentations[idx]
+        except IndexError:
+            raise IndexError(f"No augmentation found at index {idx}")
+        self._clear_audio()
+
+    def clear_augmentations(self) -> None:
+        """Remove all augmentations (invalidates cached audio)."""
+        if len(self.augmentations) > 0:
+            self.augmentations = []
+            self._clear_audio()
 
     def clear_emitters(self) -> None:
         """Remove all emitters (invalidates cached audio)."""

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 from audiblelight_tpu_torch import config
+from audiblelight_tpu_torch.ops.stft import istft_overlap_add, stft
+from audiblelight_tpu_torch.utils import irfft_real
 
 
 def _next_pow2(n: int) -> int:
@@ -38,7 +40,7 @@ def fft_convolve(audio: torch.Tensor, irs: torch.Tensor, out_len: Optional[int] 
     nfft = _next_pow2(full)
     a_hat = torch.fft.rfft(audio, n=nfft, dim=-1)[..., None, :]
     i_hat = torch.fft.rfft(irs, n=nfft, dim=-1)
-    return torch.fft.irfft(a_hat * i_hat, n=nfft, dim=-1)[..., :out_len]
+    return irfft_real(a_hat * i_hat, nfft)[..., :out_len]
 
 
 def interpolation_matrix(
@@ -82,3 +84,23 @@ def time_variant_convolve_spec(s_audio: torch.Tensor, s_ir: torch.Tensor, w_ir: 
     b = torch.fft.fft(y, n=nfft, dim=0)  # (L, J, F)
     out_hat = torch.einsum("tfcj,tjf->tfc", a, b)
     return torch.fft.ifft(out_hat, dim=0)[:m]
+
+
+def tv_convolve(
+    audio: torch.Tensor,
+    irs: torch.Tensor,
+    w_ir,
+    fft_size: int = config.FFT_SIZE,
+    win_size: int = config.WIN_SIZE,
+    hop_size: int = config.HOP_SIZE,
+) -> torch.Tensor:
+    """Moving-source render: STFT -> time-variant convolution -> iSTFT.
+
+    audio (n_samples,), irs (n_ch, n_irs, ir_len) (the trajectory's IRs),
+    w_ir (n_w_frames, n_irs) crossfade weights (`interpolation_matrix`) ->
+    (n_ch, n_frames * hop - win) wet audio, the reference iSTFT's trim.
+    """
+    s_ir = stft(irs, fft_size, win_size, hop_size)  # (frames, F, C, J)
+    s_audio = stft(audio, fft_size, win_size, hop_size)
+    w = torch.as_tensor(w_ir, dtype=torch.float32, device=audio.device)
+    return istft_overlap_add(time_variant_convolve_spec(s_audio, s_ir, w), fft_size, win_size, hop_size).T

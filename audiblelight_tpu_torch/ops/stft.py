@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from audiblelight_tpu_torch import config
+from audiblelight_tpu_torch.utils import irfft_real
 
 
 def sin_squared_window(win_size: int, device=None) -> torch.Tensor:
@@ -62,7 +63,7 @@ def istft_overlap_add(
     if fft_size % hop_size != 0:
         raise ValueError("fft_size must be an integer multiple of hop_size")
     k_per_frame = fft_size // hop_size
-    frames = torch.fft.irfft(spatial_stft, n=fft_size, dim=1, norm="forward")  # (fr, N, C)
+    frames = irfft_real(spatial_stft, fft_size, dim=1, norm="forward")  # (fr, N, C)
     total = (n_frames + 1) * hop_size + win_size
     chunks = frames.reshape(n_frames, k_per_frame, hop_size, n_ch)
     flat_len = n_frames * hop_size

@@ -18,14 +18,10 @@ import torch
 import torch.nn.functional as F
 
 from audiblelight_tpu_torch import config, utils
-from audiblelight_tpu_torch.ops.convolve import (
-    fft_convolve,
-    interpolation_matrix,
-    time_variant_convolve_spec,
-)
+from audiblelight_tpu_torch.ops.convolve import fft_convolve, interpolation_matrix, tv_convolve
 from audiblelight_tpu_torch.ops.noise import powerlaw_psd_gaussian
 from audiblelight_tpu_torch.ops.scaling import normalize_irs
-from audiblelight_tpu_torch.ops.stft import istft_overlap_add, n_stft_frames, stft
+from audiblelight_tpu_torch.ops.stft import n_stft_frames
 
 _TINY = 1e-15
 
@@ -102,8 +98,7 @@ def _render_moving_event(audio, irs, w_ir, out_len, length):
     """One moving event (S,) x IRs (C, J, L) -> (C, out_len) via the STFT-domain
     time-variant convolution, before the level chain."""
     irs_n = normalize_irs(irs.transpose(0, 1)).transpose(0, 1)  # (C, J, L)
-    spec = time_variant_convolve_spec(stft(audio), stft(irs_n), w_ir)
-    wet = istft_overlap_add(spec).T  # (C, samples)
+    wet = tv_convolve(audio, irs_n, w_ir)  # (C, samples)
     if wet.shape[-1] < out_len:
         wet = F.pad(wet, (0, out_len - wet.shape[-1]))
     else:

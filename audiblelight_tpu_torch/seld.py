@@ -29,7 +29,15 @@ renders through the plan path, one `Scene.generate(compiled=True)` at a
 time (IR banks, device stems, host mix). On rlr, `--no-mesh-simplification`
 traces the full mesh with the exact rain mode (the star any-hit per
 bounce); such scenes, and every scene under `--no-device-mix`, render
-through the plan path too.
+through the plan path too. `--pipeline classic`, on every backend, renders
+each scene as `Scene.generate()` does by default: the classic per-event
+render (each event convolved on its own, the mix on the host).
+
+`--augmentations <names>` gives each event one augmentation drawn from the
+named entries of the reference script's table (`AUGMENTATIONS`), with its
+draws: the same --seed gives the same augmentation parameters. The
+augmentations run where the scene renders: their time stretch and pitch
+shift in torch on a card, on the host with `--device cpu`.
 
 On the sofa backend the file defines the rig (its ListenerShortName and
 receiver positions), so no microphone is added; `--channel-layout` names
@@ -38,9 +46,8 @@ gets no seed: `--seed` fixes the scenes' counts and timings, not where
 events snap on the measured grid.
 
 Not ported (raise, ROADMAP): --assets (and --sofa-dir),
---augmentations, --placement-workers > 0, --mesh-devices > 1,
---coordinator and --pipeline classic. --fused-batch is accepted and has no
-effect (one scene per render).
+--placement-workers > 0, --mesh-devices > 1 and --coordinator.
+--fused-batch is accepted and has no effect (one scene per render).
 """
 
 from __future__ import annotations
@@ -51,16 +58,42 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+from scipy import stats
 
 from audiblelight_tpu_torch import config, utils
+from audiblelight_tpu_torch.augmentation import Distortion, Invert, PitchShift, Reverse, SpeedUp
 from audiblelight_tpu_torch.core import Scene, write_outputs
 from audiblelight_tpu_torch.pipeline import render_scene_audio_compiled, render_scenes
 from audiblelight_tpu_torch.render import _bucket
+from audiblelight_tpu_torch.synthesize import render_scene_classic
 from audiblelight_tpu_torch.utils import logger
 
 DURATION = 60
 SAMPLE_RATE = 24000
-AUGMENTATIONS = ("pitchshift", "speedup", "reverse", "invert", "distortion")
+AUGMENTATIONS = {
+    # The reference script's table, its PitchShift entry included:
+    # stats.uniform(loc=-7, scale=0) always draws -7 semitones
+    "pitchshift": (PitchShift, dict(semitones=stats.uniform(-7, 0))),
+    "speedup": (SpeedUp, dict(stretch_factor=stats.uniform(0.9, 0.2))),
+    "reverse": Reverse,
+    "invert": Invert,
+    "distortion": (Distortion, dict(drive_db=stats.uniform(0.0, 10.0))),
+}
+
+
+def get_augmentations(names) -> list:
+    """Resolve augmentation names into (cls, kwargs) entries."""
+    out = []
+    for name in names:
+        if name not in AUGMENTATIONS:
+            raise ValueError(f"Augmentation {name} is not a valid parameter for this script!")
+        entry = AUGMENTATIONS[name]
+        if isinstance(entry, tuple):
+            cls, kws = entry
+            out.append((cls, dict(kws, sample_rate=SAMPLE_RATE)))
+        else:
+            out.append((entry, dict(sample_rate=SAMPLE_RATE)))
+    return out
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,7 +116,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-events-static", type=int, default=config.MAX_STATIC_EVENTS)
     p.add_argument("--min-events-moving", type=int, default=config.MIN_MOVING_EVENTS)
     p.add_argument("--max-events-moving", type=int, default=config.MAX_MOVING_EVENTS)
-    p.add_argument("--augmentations", nargs="*", default=[], choices=list(AUGMENTATIONS))
+    p.add_argument("--augmentations", nargs="*", default=[], choices=list(AUGMENTATIONS),
+                   help="augmentation pool; one random augmentation per event")
     p.add_argument("--materials", action="store_true", help="use acoustic materials")
     p.add_argument("--material", type=str, default="Default")
     p.add_argument("--ism-order", type=int, default=12, help="shoebox image order")
@@ -113,11 +147,9 @@ def check_ported(args) -> None:
     does not run."""
     unported = [
         (args.assets is not None, "--assets", "the asset room tables (glTF loading)"),
-        (bool(args.augmentations), "--augmentations", "augmentations"),
         (args.placement_workers > 0, "--placement-workers > 0", "pooled placement"),
         (args.mesh_devices > 1, "--mesh-devices > 1", "multi-device rendering"),
         (args.coordinator is not None, "--coordinator", "multi-device rendering"),
-        (args.pipeline == "classic", "--pipeline classic", "the classic per-event pipeline"),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -192,6 +224,7 @@ def build_scene(args, split: str, scene_num: int, scape_num: int, rng: np.random
         backend_kwargs=build_backend_kwargs(args, rng, meshes),
         fg_path=args.fg_dir,
         max_overlap=args.max_overlap,
+        event_augmentations=get_augmentations(args.augmentations) if args.augmentations else None,
         class_mapping="DCASE2023Task3",
         device=args.device,
     )
@@ -204,7 +237,8 @@ def build_scene(args, split: str, scene_num: int, scape_num: int, rng: np.random
     for event_type, n in (("static", n_static), ("moving", n_moving)):
         for _ in range(n):
             try:
-                scene.add_event(event_type=event_type, augmentations=None, max_place_attempts=100)
+                scene.add_event(event_type=event_type, augmentations=1 if args.augmentations else None,
+                                max_place_attempts=100)
                 placed += 1
             except (ValueError, FileNotFoundError) as e:
                 logger.warning(f"Could not place {event_type} event: {e}")
@@ -232,9 +266,10 @@ def plan_kwargs(args) -> dict:
 def generate_fused(args, jobs: list, rng: np.random.Generator) -> list[float]:
     """Place, render and write every job in order: through `render_scenes`
     (the fused renderer, or the plan path where it refuses a scene), or, for
-    `--pipeline compiled`, each scene through the plan path. Returns each
-    rendered scene's host-clock seconds, from the start of its placement to
-    the end of its writes."""
+    `--pipeline compiled`, each scene through the plan path, or, for
+    `--pipeline classic`, each scene through the classic per-event render.
+    Returns each rendered scene's host-clock seconds, from the start of its
+    placement to the end of its writes."""
     paths, meshes, seconds = {}, {}, []
 
     def factory():
@@ -258,6 +293,10 @@ def generate_fused(args, jobs: list, rng: np.random.Generator) -> list[float]:
     if args.pipeline == "compiled":
         for scene in factory():
             complete(scene, render_scene_audio_compiled(scene))
+    elif args.pipeline == "classic":
+        for scene in factory():
+            render_scene_classic(scene)
+            complete(scene, scene.audio)
     else:
         render_scenes(factory(), complete, plan_kwargs=plan_kwargs(args), device_mix=args.device_mix)
     return seconds

@@ -247,6 +247,28 @@ def tiny(x) -> Numeric:
     return np.finfo(dtype).tiny
 
 
+def pad_or_truncate_audio(audio: np.ndarray, desired_samples: Numeric, pad_mode: str = "constant") -> np.ndarray:
+    """Pad or truncate a (channels, samples) array to the desired number of samples."""
+    desired_samples = int(desired_samples)
+    if audio.shape[1] < desired_samples:
+        return np.pad(audio, ((0, 0), (0, desired_samples - audio.shape[1])), mode=pad_mode)
+    if audio.shape[1] > desired_samples:
+        return audio[:, :desired_samples]
+    return audio
+
+
+def validate_shape(shape_a: tuple, shape_b: tuple) -> None:
+    """Validate two shapes are compatible; `None` entries match anything."""
+    max_len = max(len(shape_a), len(shape_b))
+    padded_a = tuple(shape_a) + (None,) * (max_len - len(shape_a))
+    padded_b = tuple(shape_b) + (None,) * (max_len - len(shape_b))
+    for i, (a, b) in enumerate(zip(padded_a, padded_b)):
+        if a is not None and b is not None and a != b:
+            raise ValueError(
+                f"Incompatible shapes at index {i}: {a} != {b} (full shapes: {padded_a} vs {padded_b})"
+            )
+
+
 def coerce_nested_inputs(inp: Any) -> Any:
     """Coerce nested numpy values to JSON-serialisable Python types."""
     if isinstance(inp, dict):
@@ -382,14 +404,15 @@ def norm3(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     return torch.linalg.vector_norm(x, dim=-1, keepdim=keepdim)
 
 
-def irfft_real(spec: torch.Tensor, n: int) -> torch.Tensor:
-    """`torch.fft.irfft` over the last axis of a (..., n // 2 + 1) spectrum,
-    with the imaginary parts of the DC bin and (n even) the Nyquist bin
-    dropped first, as the CPU's irfft drops them. cuFFT's C2R reads them: a
+def irfft_real(spec: torch.Tensor, n: int, dim: int = -1, norm: str = "backward") -> torch.Tensor:
+    """`torch.fft.irfft` over axis `dim` of a spectrum with n // 2 + 1 bins
+    there, with the imaginary parts of the DC bin and (n even) the Nyquist
+    bin dropped first, as the CPU's irfft drops them. cuFFT's C2R reads them: a
     linear-phase spectrum's Nyquist bin then moves a band-limited pulse's
     samples on the card by ~1e-4 of its peak."""
+    spec = spec.movedim(dim, -1)
     im = spec.imag.clone()
     im[..., 0] = 0.0
     if n % 2 == 0:
         im[..., n // 2] = 0.0
-    return torch.fft.irfft(torch.complex(spec.real, im), n=n, dim=-1)
+    return torch.fft.irfft(torch.complex(spec.real, im), n=n, dim=-1, norm=norm).movedim(-1, dim)

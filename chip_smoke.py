@@ -29,7 +29,7 @@ exact CLI scene's bounces), then drives the port's two main paths:
   direction, and the FOA scene timed and profiled;
 - the exact rain mode (the default engine config: the full 110,592-face
   mesh, one star any-hit query per bounce): one flagship-width scene
-  through `Scene.generate()`, one MIC scene of the CLI with
+  through `Scene.generate(compiled=True)` (the plan path), one MIC scene of the CLI with
   `--no-mesh-simplification`, and K6 held against its plain version and the
   dense any-hit, and K3 as above, on that scene's own bounces;
 - the HOA3 and binaural rigs: one flagship scene each through the fused
@@ -85,7 +85,7 @@ exact CLI scene's bounces), then drives the port's two main paths:
   its defaults in MIC and FOA (two scenes each, checked as the rlr CLI's,
   the engine's time, peak device memory, terms and bound per scene, its
   device idle share, no tracer kernel launched) and one MonoCapsule scene
-  through `Scene.generate()`;
+  through `Scene.generate(compiled=True)`;
 - the port's HDF5 reader on the committed h5py-written fixtures
   (tests/resources/torch_sofa/: every dataset's sha256 and every
   attribute's value as digests.json recorded them, the unlimited datasets
@@ -106,7 +106,24 @@ exact CLI scene's bounces), then drives the port's two main paths:
   turns with the analytic head and profiled, the per-bounce gather timed;
   the image-source engine with the set on the card against the CPU, and a
   60 s order-6 shoebox scene with `Binaural(hrtf_sofa=...)` through
-  `Scene.generate()`, its engine's time, peak memory and bytes per term.
+  `Scene.generate(compiled=True)`, its engine's time, peak memory and bytes
+  per term;
+- the classic per-event render, `Scene.generate()`'s default: a scene at
+  the first flagship scene's settings (the room, engine config and rig, 4
+  static and 1 moving event) through `generate()` and
+  `generate(compiled=True)` in turns on the same IR banks (WAVs within 5e-3
+  of peak, every event's spatial audio not silent), its trace's launches
+  counted, one event's dry stem at its direct path, the card's classic
+  render against the CPU's on the same banks (1e-5 of peak); one rlr CLI
+  scene with `--pipeline classic --channel-layout foa` (K4);
+- the SSSEG dataset entry (`audiblelight_tpu_torch.ssseg`) at its defaults:
+  two 10 s FOA scenes at 32 kHz with float32 dry stems, each stem's first
+  arrival checked, the scene time split into engine, classic render and
+  writes;
+- the 27 event augmentations on a 5 s event on the card, the torch FX
+  (biquads, compressor and limiter, time stretch, pitch shift) against
+  themselves on the CPU and the host FX, timed beside the host versions;
+  the shoebox CLI with `--augmentations` beside the same CLI without.
 
 Each path's kernel launches are counted from zero just before it and read
 just after; a kernel of the path that did not launch fails the run, and so
@@ -126,6 +143,7 @@ from __future__ import annotations
 
 import csv
 import json
+import logging
 import re
 import shutil
 import subprocess
@@ -735,7 +753,7 @@ def mxu_phase(renderer, inputs: tuple, t_scene: int, results: dict) -> dict:
 
 def tiled_phase(make_scene, xscene, k1_scene: tuple, st_x, table_x, interior: tuple, results: dict) -> tuple:
     """The exact-mode scene again with config.USE_TILED_FIRST_HIT: the same
-    seed and placement (`make_scene`) through Scene.generate(), every
+    seed and placement (`make_scene`) through Scene.generate(compiled=True), every
     bounce's first hit through K7 on the full mesh's face tree,
     built once per mesh (K1's launches there must be the K1 scene's less its
     bounces); its IRs held to 1 % in per-channel energy and 2 % in per-band
@@ -782,7 +800,7 @@ def tiled_phase(make_scene, xscene, k1_scene: tuple, st_x, table_x, interior: tu
         ck.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.time()
-        tscene.generate(output_dir=tiled_dir)
+        tscene.generate(output_dir=tiled_dir, compiled=True)
         torch.cuda.synchronize()
         tiled_s = time.time() - t0
         tiled_launches = dict(ck.launch_counts)
@@ -1662,7 +1680,7 @@ def shoebox_phase(fg: Path, out: Path, win: int, dev) -> None:
     and FOA, two scenes each, its outputs checked, with each scene's CLI
     time and the engine's time (CUDA events), peak device memory, terms and
     bound, and no tracer kernel launched; the engine's device idle share on
-    one MIC scene; one MonoCapsule scene through `Scene.generate()`."""
+    one MIC scene; one MonoCapsule scene through `Scene.generate(compiled=True)`."""
     from audiblelight_tpu_torch import seld
     from audiblelight_tpu_torch import utils as tutils
     from audiblelight_tpu_torch.core import Scene
@@ -1802,7 +1820,7 @@ def shoebox_phase(fg: Path, out: Path, win: int, dev) -> None:
     print(f"shoebox engine on a MIC CLI scene ({mscene.state.num_emitters} emitters): {engine_ms:.3f} ms (CUDA events); "
           f"device idle share {1 - busy / engine_ms:.1%} (profiler busy over CUDA-event time)", flush=True)
 
-    # One MonoCapsule scene through Scene.generate()
+    # One MonoCapsule scene through Scene.generate(compiled=True) (the plan path)
     mono_dir = out / "mono"
     mono_dir.mkdir(parents=True)
     tutils.seed_everything(13)
@@ -1814,7 +1832,7 @@ def shoebox_phase(fg: Path, out: Path, win: int, dev) -> None:
     scene.add_ambience(noise="gaussian")
     torch.cuda.synchronize()
     t0 = time.time()
-    scene.generate(output_dir=mono_dir)
+    scene.generate(output_dir=mono_dir, compiled=True)
     mono_s = time.time() - t0
     audio = scene.audio["mic000"]
     names = sorted(p.name for p in mono_dir.iterdir())
@@ -1849,6 +1867,27 @@ def measured_room(path: Path, n_az: int, heights, dists, n_taps: int, sr: int, s
     return grid
 
 
+class PlacementWarnings(logging.Handler):
+    """Counts the SELD CLI's "Could not place" warnings by scene (its
+    "fold<k>_scene<n>_<scape>" name, from the CLI's "[i/N] split scene n
+    scape s" line before them)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.counts, self.scene = {}, None
+
+    def emit(self, record: logging.LogRecord) -> None:
+        msg = record.getMessage()
+        job = re.match(r"\[\d+/\d+\] (\w+) scene (\d+) scape (\d+)", msg)
+        if job:
+            split, num, scape = job.groups()
+            self.scene = f"fold{1 if split == 'train' else 2}_scene{num}_{int(scape):03d}"
+        elif msg.startswith("Could not place") and self.scene is not None:
+            self.counts[self.scene] = self.counts.get(self.scene, 0) + 1
+        elif msg.startswith("No events placed"):  # the CLI builds the scene again
+            self.counts.pop(self.scene, None)
+
+
 def sofa_phase(fg: Path, out: Path, dev) -> None:
     """The SOFA backend through the SELD CLI (`--backend sofa --sofa`), on two
     measured rooms the size of converted TAU-SRIR rooms written with the
@@ -1860,12 +1899,16 @@ def sofa_phase(fg: Path, out: Path, dev) -> None:
     samples of d/c on every capsule; each static event's DCASE rows at its
     grid point; the host time per scene split into the file's opens and
     reads, `get_irs`, the render and the writes; the peak device memory;
-    how `get_irs` read Data.IR; no tracer kernel launched."""
+    how `get_irs` read Data.IR; no tracer kernel launched. The CLI runs as
+    users run it (its grid unseeded, as the reference script leaves it, and
+    the foreground folder in the file system's order), so a scene holds the
+    5 events the flags ask for less those its placement warned it dropped,
+    and at least one."""
     from audiblelight_tpu_torch import seld
     from audiblelight_tpu_torch.core import Scene
     from audiblelight_tpu_torch.io import sofa as sofa_io
     from audiblelight_tpu_torch.ops import cuda_kernels as ck
-    from audiblelight_tpu_torch.utils import cartesian_to_polar
+    from audiblelight_tpu_torch.utils import cartesian_to_polar, logger
     from audiblelight_tpu_torch.worldstate.sofa_backend import WorldStateSOFA
 
     card = card_line()
@@ -1907,6 +1950,8 @@ def sofa_phase(fg: Path, out: Path, dev) -> None:
                 attrs=sofa_io.SOFAFile.get_global_attributes, rows=sofa_io.SOFAFile.read_ir_rows,
                 get_irs=WorldStateSOFA.get_irs, render=seld.render_scene_audio_compiled,
                 write_outputs=seld.write_outputs)
+    dropped = PlacementWarnings()
+    logger.addHandler(dropped)
     sofa_io.SOFAFile.__init__ = timed(real["init"], "file")
     sofa_io.SOFAFile.get_variable = timed(real["get_variable"], "file")
     sofa_io.SOFAFile.get_global_attributes = timed(real["attrs"], "file")
@@ -1927,6 +1972,7 @@ def sofa_phase(fg: Path, out: Path, dev) -> None:
             ck.reset_launch_counts()
             per_scene.clear()
             read_modes.clear()
+            dropped.counts.clear()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
@@ -1965,9 +2011,14 @@ def sofa_phase(fg: Path, out: Path, dev) -> None:
                     tracks.setdefault((int(row[1]), int(row[2])), set()).add(tuple(int(v) for v in row[3:]))
                 static = [p for p in tracks.values() if len(p) == 1]
                 n_static += len(static)
-                if len(scene.events) != 5 or not static or not all(p <= triples for p in static):
-                    fail(f"SOFA {layout} scene {meta.name}: {len(scene.events)} events, static rows {static} "
-                         "not on the measured grid")
+                n_dropped = dropped.counts.get(meta.stem, 0)
+                if n_dropped:
+                    print(f"SOFA {layout} scene {meta.stem}: the CLI warned that it could not place {n_dropped} "
+                          "event(s)", flush=True)
+                if (not 1 <= len(scene.events) == 5 - n_dropped or not static
+                        or not all(p <= triples for p in static)):
+                    fail(f"SOFA {layout} scene {meta.name}: {len(scene.events)} events ({n_dropped} dropped with "
+                         f"the placement warning), static rows {static} not on the measured grid")
             print(f"SOFA {layout} IRs: {n_em} emitters on the measured grid; max |spike - d/c| {worst:.2f} samples "
                   f"over 4 capsules; {n_static} static tracks in the CSVs at measured points", flush=True)
             if worst > 2.0:
@@ -1980,6 +2031,7 @@ def sofa_phase(fg: Path, out: Path, dev) -> None:
         WorldStateSOFA.get_irs = real["get_irs"]
         seld.render_scene_audio_compiled = real["render"]
         seld.write_outputs = real["write_outputs"]
+        logger.removeHandler(dropped)
 
 
 def fixture_phase() -> None:
@@ -2063,7 +2115,7 @@ def hrtf_phase(st, scene_inputs: tuple, t_scene: int, win: int, fg: Path, out: P
       part 2 at full size: a 60 s scene, order 6, 1.0 s IRs): the engine
       with the measured set on the card against the CPU (order 3, 4,096
       samples; within 1e-5 of peak), then the scene through
-      `Scene.generate()`, its engine call timed with its peak device memory
+      `Scene.generate(compiled=True)`, its engine call timed with its peak device memory
       and bytes per term of its blocks.
 
     Returns the fused scene's launches."""
@@ -2222,7 +2274,7 @@ def hrtf_phase(st, scene_inputs: tuple, t_scene: int, win: int, fg: Path, out: P
         torch.cuda.synchronize()
         t0 = time.time()
         (out / "shoebox").mkdir()
-        scene_s.generate(output_dir=out / "shoebox")
+        scene_s.generate(output_dir=out / "shoebox", compiled=True)
         gen_s = time.time() - t0
     finally:
         shoebox_backend.shoebox_rirs = real_rirs
@@ -2240,6 +2292,466 @@ def hrtf_phase(st, scene_inputs: tuple, t_scene: int, win: int, fg: Path, out: P
             or float(np.abs(audio).max()) * 32768 < 100):
         fail(f"the measured-HRTF shoebox scene: {len(calls)} engine calls, launches {launched}, audio {audio.shape}")
     return launches
+
+
+def first_arrival(h: np.ndarray) -> int:
+    """The first arrival of an impulse response: the peak within 16 samples
+    of its first tap at 20 % of its peak or more (near a wall, reflections
+    that arrive together can top the direct path)."""
+    h = np.abs(h)
+    first = int(np.flatnonzero(h >= 0.2 * h.max())[0])
+    return first + int(np.argmax(h[first : first + 16]))
+
+
+def direct_lag(dry: np.ndarray, audio: np.ndarray) -> int:
+    """The first arrival (samples) of a dry stem `dry` from its event's
+    start: that of its IR window, deconvolved from the event's audio by
+    regularised spectral division."""
+    n = len(dry) + len(audio)
+    a = np.fft.rfft(audio, n)
+    h = np.fft.irfft(np.fft.rfft(dry, n) * np.conj(a) / (np.abs(a) ** 2 + 1e-6 * np.abs(a).max() ** 2), n)
+    return first_arrival(h[: len(dry)])
+
+
+def dry_window(ir: np.ndarray, sr: int, low_ms: float = 5, high_ms: float = 50) -> tuple:
+    """(window, its start) of a reference-channel IR as compute_dry_audio cuts
+    it: [peak - low, peak + high] around the IR's (signed) peak."""
+    peak = int(np.argmax(ir))
+    lo, hi = max(peak - int(low_ms * sr / 1000), 0), peak + int(high_ms * sr / 1000)
+    win = np.zeros_like(ir)
+    win[lo:hi] = ir[lo:hi]
+    return win, lo
+
+
+def stem_correlation(dry: np.ndarray, audio: np.ndarray, win: np.ndarray) -> float:
+    """Correlation of a dry stem `dry` (its event's span in the scene) with
+    its event's audio convolved with the IR window `win`: the stem
+    compute_dry_audio makes, up to its scale."""
+    n = len(audio) + len(win) - 1
+    want = np.fft.irfft(np.fft.rfft(audio, n) * np.fft.rfft(win, n), n)[: len(dry)]
+    got = dry[: len(want)]
+    return float(np.dot(got, want) / (np.linalg.norm(got) * np.linalg.norm(want) + 1e-30))
+
+
+def classic_phase(mesh, fg: Path, room_obj: Path, out: Path, dev) -> dict:
+    """The classic per-event render, `Scene.generate()`'s default, on the
+    first flagship MIC scene's settings (the flagship room and engine
+    config, AmbeoVR, 60 s at 24 kHz, 4 static and 1 moving event): its IR
+    banks simulated to choose one static event with an unoccluded direct
+    path (the plain any-hit) that peaks its capsule-0 IR, given
+    `ref_ir_channel=0, direct_path_time_ms=(5, 50)`; then the banks dropped
+    and `generate()` run, which traces them again from the same point of
+    the trace walk (its launches counted: K1 big 60 times, K2 and K3), and
+    `generate()` and `generate(compiled=True)` in turns (classic, plan,
+    plan, classic) on the same scene and banks, timed by host clock: WAVs
+    within 5e-3 of peak of each other, every event's spatial audio not
+    silent, the dry stem's direct path (deconvolved from the event's audio)
+    within 2 samples of scene_start + d/c, the classic render of the same
+    banks on the CPU within 1e-5 of peak of the card's (every event's spatial
+    audio and the dry stem); the trace profiled. Then one rlr CLI scene with
+    `--pipeline classic --channel-layout foa` (K1 big, K2, K4 counted).
+    Returns the phase's launch counts."""
+    from audiblelight_tpu_torch import seld, synthesize
+    from audiblelight_tpu_torch import utils as tutils
+    from audiblelight_tpu_torch.core import Scene
+    from audiblelight_tpu_torch.io.audio import wav_read
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+
+    card = card_line()
+    t_scene = int(SCENE_SECONDS * SR)
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    engine = {k: v for k, v in ENGINE.items() if k != "sample_rate"}
+    for seed in range(21, 26):
+        tutils.seed_everything(seed)
+        scene = Scene(duration=SCENE_SECONDS, sample_rate=SR, backend="rlr", fg_path=fg, max_overlap=3, device=dev,
+                      backend_kwargs=dict(mesh=mesh, seed=seed, add_to_context=False, rlr_kwargs=engine))
+        scene.add_microphone(microphone_type="ambeovr")
+        for event_type in ["static"] * N_STATIC + ["moving"]:
+            try:
+                scene.add_event(event_type=event_type, max_place_attempts=100)
+            except ValueError as err:
+                print(f"classic scene: could not place a {event_type} event: {err}")
+        scene.add_ambience(noise="gaussian")
+        # The banks to choose the dry-stem event on: a trace from the point
+        # of the state's trace walk at which generate() will trace them again
+        walk = scene.state._trace_count
+        torch.cuda.synchronize()
+        t0 = time.time()
+        scene.state.simulate()
+        torch.cuda.synchronize()
+        sim_s = time.time() - t0
+        bank = scene.state.irs["mic000"]  # (4, E, L) host
+        cap0 = scene.state.microphones["mic000"].coordinates_absolute[0]
+        tris = scene.state.device_state.tris
+        first, dry_event = 0, None
+        for event in scene.events.values():
+            pos = event.emitters[0].coordinates_absolute
+            d_c = float(np.linalg.norm(pos - cap0)) / 343.0 * SR
+            free = not bool(ck.segments_occluded_plain(
+                torch.tensor(np.array([cap0]), dtype=torch.float32, device=dev),
+                torch.tensor(np.array([pos]), dtype=torch.float32, device=dev), tris)[0])
+            if (dry_event is None and not event.is_moving and free
+                    and abs(int(np.argmax(bank[0, first])) - d_c) <= 2.0):
+                dry_event = event
+            first += len(event)
+        if dry_event is not None and any(e.is_moving for e in scene.events.values()):
+            break
+        print(f"classic scene seed {seed}: no unoccluded static event whose direct path peaks its IR; placing again")
+    else:
+        fail("the classic scene found no unoccluded static event whose direct path peaks its IR")
+    dry_event.ref_ir_channel, dry_event.direct_path_time_ms = 0, [5, 50]
+    print(f"classic scene: {len(scene.events)} events ({scene.state.num_emitters} emitters), trace (simulate) "
+          f"{sim_s:.3f} s (host clock); dry stem on {dry_event.alias}", flush=True)
+
+    def generate(compiled: bool, where: Path) -> float:
+        if not compiled:
+            for event in scene.events.values():
+                event.spatial_audio.clear()  # render again (the banks and event audio stay cached)
+        where.mkdir(parents=True, exist_ok=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        scene.generate(output_dir=where, compiled=compiled)
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    # The first generate() is the main path whole: the trace (the same rays
+    # as the banks above) and the classic render
+    scene.state._irs = scene.state._irs_device_cache = None
+    scene.state._trace_count = walk
+    secs = {"classic": [], "plan": []}
+    ck.reset_launch_counts()
+    secs["classic"].append(generate(False, out / "classic"))
+    launches = dict(ck.launch_counts)
+    print(f"classic scene: launches {launches} (Scene.generate(): the trace and the classic render)", flush=True)
+    if np.abs(scene.state.irs["mic000"] - bank).max() > 1e-5 * np.abs(bank).max():
+        fail("the classic scene's generate() traced other banks than the first trace")
+    bank = scene.state.irs["mic000"]
+    for name in MIC_PATH:
+        if launches[name] <= 0:
+            fail(f"the classic scene never launched {name}")
+    check_first_hits(launches, ENGINE["indirect_ray_depth"], "the classic scene")
+    events = list(scene.events.values())
+    for event in events:
+        peak = float(np.abs(event.spatial_audio["mic000"]).max())
+        if not peak > 0 or not np.isfinite(event.spatial_audio["mic000"]).all():
+            fail(f"classic scene: {event.alias}'s spatial audio is silent or not finite (peak {peak})")
+    padded = dry_event._spatial_audio_dry_padded["mic000"]
+    dry_tail = padded[round(dry_event.scene_start * SR):]
+    lag = direct_lag(dry_tail, dry_event.load_audio())
+    d_c = np.linalg.norm(dry_event.emitters[0].coordinates_absolute - scene.state.microphones["mic000"]
+                         .coordinates_absolute[0]) / 343.0 * SR
+    print(f"classic scene dry stem: {padded.shape} float32, peak {float(np.abs(padded).max()):.3e}; direct path at "
+          f"{lag} samples after the event's start, d/c {d_c:.2f}", flush=True)
+    if padded.shape != (t_scene,) or padded[: round(dry_event.scene_start * SR)].any() or abs(lag - d_c) > 2.0:
+        fail("the classic scene's dry stem is misplaced")
+    secs["plan"].append(generate(True, out / "plan"))
+    secs["plan"].append(generate(True, out / "plan"))
+    secs["classic"].append(generate(False, out / "classic"))
+    w_c, _ = wav_read(out / "classic" / "audio_out_mic000.wav")
+    w_p, _ = wav_read(out / "plan" / "audio_out_mic000.wav")
+    gap = float(np.abs(w_c - w_p).max() / np.abs(w_c).max())
+    print(f"classic scene: Scene.generate() {', '.join(f'{s:.3f}' for s in secs['classic'])} s, "
+          f"generate(compiled=True) {', '.join(f'{s:.3f}' for s in secs['plan'])} s (host clock, in turns: render and "
+          f"writes, banks cached) on {card}; WAVs max |diff| / peak {gap:.3e}", flush=True)
+    if w_c.shape != (4, t_scene) or gap > 5e-3:
+        fail("the classic and plan renders of the classic scene disagree")
+
+    # The classic render of the same banks on the CPU
+    worst, first = 0.0, 0
+    t0 = time.time()
+    for event in events:
+        synthesize.render_event_audio(event, bank[:, first : first + len(event)], "cpu", ref_db=scene.ref_db,
+                                      device="cpu")
+        first += len(event)
+        pairs = [(event.spatial_audio, "spatial audio")] + [(event._spatial_audio_dry, "dry stem")] * (
+            event is dry_event)
+        for store, what in pairs:
+            want = store.pop("cpu")
+            gap = float(np.abs(store["mic000"] - want).max() / np.abs(want).max())
+            worst = max(worst, gap)
+            if gap > 1e-5:
+                fail(f"classic scene: {event.alias}'s {what} on the card is {gap:.3e} of peak from the CPU's")
+    print(f"classic render on the card against the CPU (the same banks): max |diff| / peak {worst:.3e} over "
+          f"{len(events)} events and the dry stem; CPU {time.time() - t0:.2f} s (host clock)", flush=True)
+
+    # Where the classic scene's trace goes
+    def trace():
+        scene.state._irs_device_cache = None
+        scene.state.trace_irs_device()
+
+    trace_ms = time_ms(trace, reps=1, warm=False)
+    avgs, busy = profiled(trace, "classic scene trace profile")
+    print(f"classic scene trace (CUDA events): {trace_ms:.3f} ms; device idle share {1 - busy / trace_ms:.1%}")
+    kernel_times(avgs, MIC_PATH, "classic scene per trace")
+
+    # One rlr CLI scene through the classic render in FOA (K4)
+    argv = ["--fg-dir", str(fg), "--output-dir", str(out / "cli"), "--mesh", str(room_obj), "--channel-layout", "foa",
+            *CLI_FLAGS, "--n-scenes", "1", "--pipeline", "classic"]
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    cli_s = seld.main(argv)
+    torch.cuda.synchronize()
+    cli = dict(ck.launch_counts)
+    print(f"SELD CLI foa --pipeline classic: {len(cli_s)} scene, host clock {', '.join(f'{x:.3f}' for x in cli_s)} s "
+          f"(placement, trace, classic render, writes); launches {cli}", flush=True)
+    for name in FOA_PATH:
+        if cli[name] <= 0:
+            fail(f"the classic FOA CLI run never launched {name}")
+    check_first_hits(cli, int(CLI_FLAGS[CLI_FLAGS.index("--ray-depth") + 1]), "the classic FOA CLI run")
+    check_cli_outputs(out / "cli", "foa", t_scene, n_scenes=1)
+    return launches
+
+
+# The repo's WAVs under DCASE2025Task4 class folders (the SSSEG script's mapping)
+SSSEG_CLASSES = {"femaleSpeech": "Speech", "maleSpeech": "Speech", "musicInstrument": "MusicalKeyboard",
+                 "telephone": "AlarmClock"}
+SSSEG_FLAGS = []  # the entry's defaults
+
+
+def ssseg_phase(out: Path, dev) -> None:
+    """`python -m audiblelight_tpu_torch.ssseg` at its defaults (10 s FOA
+    scenes at 32 kHz, shoebox rooms of random size, image sources to order
+    10, 0.5 s IRs, 1-3 static events with dry stems) for two scenes: the
+    script's files, the mixtures int16 and the stems float32, each stem
+    silent before its event and correlated (>= 0.999) with the event's
+    audio through its W IR's window (5 ms before to 50 ms after the IR's
+    peak, as compute_dry_audio cuts it), and its first arrival (deconvolved
+    from the event's audio) within 2 samples of d/c from the rig's centre
+    where that window holds the direct path (a shoebox IR can peak on a
+    reflection more than 5 ms after the direct path, and the window then
+    leaves it out); each scene's host-clock time split
+    into the engine (the image sources), the classic render (less the
+    engine) and the writes."""
+    from audiblelight_tpu_torch import core, ssseg, synthesize
+    from audiblelight_tpu_torch.io.audio import _read_header, wav_read
+    from audiblelight_tpu_torch.worldstate.shoebox_backend import WorldStateShoebox
+
+    card = card_line()
+    shutil.rmtree(out, ignore_errors=True)
+    fg = out / "fg"
+    for wav in sorted((REPO / "tests" / "resources" / "soundevents").glob("*/*.wav")):
+        (fg / SSSEG_CLASSES[wav.parent.name]).mkdir(parents=True, exist_ok=True)
+        shutil.copy(wav, fg / SSSEG_CLASSES[wav.parent.name] / wav.name)
+    spent = {"engine": 0.0, "render": 0.0, "writes": 0.0}
+    scenes = []
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += time.time() - t0
+            return result
+        return call
+
+    saved = (WorldStateShoebox.get_irs, synthesize.render_audio_for_all_scene_events,
+             synthesize.generate_scene_audio_from_events, core.write_outputs, ssseg.wav_write, ssseg.generate_scene)
+    WorldStateShoebox.get_irs = timed("engine", saved[0])
+    synthesize.render_audio_for_all_scene_events = timed("render", saved[1])
+    synthesize.generate_scene_audio_from_events = timed("render", saved[2])
+    core.write_outputs = timed("writes", saved[3])
+    ssseg.wav_write = timed("writes", saved[4])
+    ssseg.generate_scene = lambda *args: scenes.append(saved[5](*args)) or scenes[-1]
+    try:
+        seconds = ssseg.main(["--fg-dir", str(fg), "--output-dir", str(out / "data"), "--n-scenes", "2", *SSSEG_FLAGS])
+    finally:
+        (WorldStateShoebox.get_irs, synthesize.render_audio_for_all_scene_events,
+         synthesize.generate_scene_audio_from_events, core.write_outputs, ssseg.wav_write,
+         ssseg.generate_scene) = saved
+    if len(seconds) != 2 or len(scenes) != 2 or any(s is None for s in scenes):
+        fail(f"the SSSEG entry wrote {len(seconds)} scenes")
+    render = spent["render"] - spent["engine"]
+    print(f"SSSEG scenes: {', '.join(f'{s:.3f}' for s in seconds)} s (host clock per scene, placement included); "
+          f"over both: engine {spent['engine']:.3f} s, classic render less the engine {render:.3f} s, writes "
+          f"{spent['writes']:.3f} s, the rest (placement) {sum(seconds) - spent['render'] - spent['writes']:.3f} s "
+          f"on {card}", flush=True)
+    worst, direct, cut, lowest = 0.0, 0, 0, 1.0
+    for i, scene in enumerate(scenes):
+        mix = out / "data" / "mixtures" / f"scene_{i:05d}"
+        names = sorted(p.name for p in mix.parent.glob(f"{mix.name}*"))
+        if names != [f"{mix.name}.json", f"{mix.name}_mic000.csv", f"{mix.name}_mic000.wav"]:
+            fail(f"SSSEG scene {i} wrote {names}")
+        if _read_header(mix.parent / f"{mix.name}_mic000.wav")[:4] != (1, 4, 32000, 16):
+            fail(f"SSSEG scene {i}: the mixture is not a 4-channel 32 kHz int16 WAV")
+        centre = scene.state.microphones["mic000"].coordinates_center
+        bank = torch.as_tensor(scene.state.irs["mic000"]).cpu().numpy()  # (4, E, L): W first
+        for e, (alias, event) in enumerate(scene.events.items()):
+            path = out / "data" / "stems" / f"scene_{i:05d}" / f"{alias}_{event.class_label}_mic000_dry.wav"
+            header = _read_header(path)
+            dry, _ = wav_read(path)
+            start = round(event.scene_start * 32000)
+            win, lo = dry_window(bank[0, e], 32000)
+            corr = stem_correlation(dry[0, start : round(event.scene_end * 32000)], event.load_audio(), win)
+            lowest = min(lowest, corr)
+            d_c = float(np.linalg.norm(event.emitters[0].coordinates_absolute - centre)) / 343.0 * 32000
+            lag = direct_lag(dry[0, start:], event.load_audio()) if d_c >= lo else d_c
+            if d_c >= lo:  # the window holds the direct path: the stem starts there
+                direct += 1
+                worst = max(worst, abs(lag - d_c))
+            else:
+                cut += 1
+            if (header[0] != 3 or header[3] != 32 or dry.shape != (1, 320000) or dry[0, :start].any()
+                    or corr < 0.999 or abs(lag - d_c) > 2):
+                fail(f"SSSEG scene {i}, {alias}: stem format {header[:4]}, shape {dry.shape}, correlation {corr:.6f} "
+                     f"with the windowed convolution, first arrival at {lag} samples, d/c {d_c:.2f}, window from {lo}")
+    print(f"SSSEG stems: {direct + cut} float32 dry stems, each the event's audio through its IR window (correlation "
+          f">= {lowest:.6f}); {direct} whose window holds the direct path start there (max |first arrival - d/c| "
+          f"{worst:.2f} samples); {cut} whose IR peaks more than 5 ms after the direct path (a reflection), so the "
+          f"reference's window leaves the direct path out", flush=True)
+
+
+DEVICE_FX = {"LowpassFilter": "biquad", "HighpassFilter": "biquad", "HighShelfFilter": "biquad",
+             "LowShelfFilter": "biquad", "MultibandEqualizer": "biquad", "Compressor": "compress",
+             "Limiter": "compress", "SpeedUp": "time_stretch", "PitchShift": "pitch_shift"}
+AUG_FLAGS = ["--augmentations", "pitchshift", "speedup", "reverse", "invert", "distortion"]
+
+
+def correlated(got: np.ndarray, want: np.ndarray) -> tuple:
+    """(correlation, |peak difference| / peak) of two signals of one shape."""
+    corr = float(np.dot(got.ravel(), want.ravel()) / (np.linalg.norm(got) * np.linalg.norm(want) + 1e-12))
+    return corr, abs(float(np.abs(got).max()) - float(np.abs(want).max())) / float(np.abs(want).max())
+
+
+def fx_against_host(dev) -> None:
+    """The torch FX on the card against the host FX at the parameters and
+    bounds of the reference's own fx_jax-vs-numpy tests (tests/test_fx_jax.py:
+    a 1 s 440 + 3520 Hz tone with noise at 44.1 kHz; a biquad within 2e-4 of
+    peak, the compressor within 5e-3, the stretch by correlation > 0.99 and
+    peak within 10 %, the pitch shift by its length and the fundamental
+    within 15 Hz). At the augmentations' drawn parameters the FFT-sampled
+    biquad (the reference's algorithm) can sit further from the recursive
+    host filter (e.g. a shelf near Nyquist), so there the gap is printed."""
+    from audiblelight_tpu_torch.ops import fx_dsp, fx_torch
+
+    sr = 44100
+    t = np.arange(sr) / sr
+    tone = (0.4 * np.sin(2 * np.pi * 440.0 * t) + 0.1 * np.sin(2 * np.pi * 3520.0 * t)
+            + 0.02 * np.random.default_rng(42).standard_normal(sr)).astype(np.float32)
+    worst = {}
+    for kind, freq, q, gain in (("lowpass", 1000.0, 0.7071, 0.0), ("highpass", 900.0, 0.7071, 0.0),
+                                ("peak", 2000.0, 4.0, -12.0), ("lowshelf", 400.0, 0.7071, 9.0),
+                                ("highshelf", 5000.0, 0.7071, -9.0)):
+        b, a = fx_dsp._biquad_coeffs(kind, sr, freq, q, gain)
+        want = fx_dsp.biquad(tone, kind, sr, freq, q, gain)
+        worst[kind] = float(np.abs(fx_torch.biquad(tone, b, a, device=dev) - want).max() / np.abs(want).max())
+    want = fx_dsp.compress(4 * tone, sr, -20.0, 4.0, 5.0, 100.0)
+    worst["compress"] = float(np.abs(fx_torch.compress(4 * tone, sr, -20.0, 4.0, 5.0, 100.0, device=dev) - want).max()
+                              / np.abs(want).max())
+    stretch = {rate: correlated(fx_torch.time_stretch(tone, rate, device=dev), fx_dsp.time_stretch(tone, rate))
+               for rate in (0.75, 1.3)}
+    pitch = {}
+    for semis in (-5.0, 4.0):
+        out = fx_torch.pitch_shift(tone, sr, semis, device=dev)
+        spec = np.abs(np.fft.rfft(out * np.hanning(len(out))))
+        f = np.fft.rfftfreq(len(out), 1 / sr)
+        band = (f > 100) & (f < 1000)
+        pitch[semis] = (out.shape == tone.shape, float(f[band][np.argmax(spec[band])]), 440.0 * 2 ** (semis / 12.0))
+    print(f"torch FX on the card against the host FX at the reference's test parameters: "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())} (max |diff| / peak); stretch (corr, peak) "
+          f"{stretch}; pitch shift (length kept, fundamental, target) {pitch}", flush=True)
+    if (any(v > 2e-4 for k, v in worst.items() if k != "compress") or worst["compress"] > 5e-3
+            or any(c <= 0.99 or p >= 0.1 for c, p in stretch.values())
+            or any(not same or abs(f0 - want) >= 15.0 for same, f0, want in pitch.values())):
+        fail("the torch FX on the card are outside the reference's fx_jax-vs-numpy bounds")
+
+
+def augmentation_phase(fg: Path, out: Path, dev) -> None:
+    """The 27 event augmentations on a 5 s event at 24 kHz on the card, each
+    with the parameters it draws from one seed: where its FX run in torch
+    (the biquads, the compressor and limiter, the time stretch, the pitch
+    shift) against the same torch FX on the CPU (1e-5 of peak; the stretch
+    and the pitch shift by correlation > 0.99 and peak within 10 %, their
+    bound), its gap from the host version printed, timed per call by CUDA
+    events beside the host version's host time; the others (host FX on
+    every device) equal to the CPU instance's, timed by host clock. The
+    torch FX against the host FX at the reference's test parameters
+    (`fx_against_host`). Then the shoebox SELD
+    CLI at its defaults for two MIC scenes with `--augmentations pitchshift
+    speedup reverse invert distortion`, then the same CLI without them, by
+    host clock."""
+    import random
+
+    from audiblelight_tpu_torch import augmentation as taug
+    from audiblelight_tpu_torch import seld
+    from audiblelight_tpu_torch.io.audio import load_audio
+
+    card = card_line()
+    wav = sorted((REPO / "tests" / "resources" / "soundevents").glob("*/*.wav"))[0]
+    audio, _ = load_audio(wav, sr=SR, mono=True, dtype=np.float32)
+    audio = np.resize(audio, int(EVENT_SECONDS * SR)).astype(np.float32)
+    rows = []
+    for i, cls in enumerate(taug.ALL_EVENT_AUGMENTATIONS):
+        name = cls.__name__
+        np.random.seed(i)
+        on_card = cls(sample_rate=SR, device=dev)
+        on_cpu = taug.EventAugmentation.from_dict(on_card.to_dict(), device="cpu")
+
+        def run(aug):
+            random.seed(100)  # the TimeWarp classes' per-frame draws
+            return aug(audio)
+
+        got, host = run(on_card), run(on_cpu)
+        if got.shape != audio.shape or not np.isfinite(got).all():
+            fail(f"augmentation {name} on the card: {got.shape}, finite {np.isfinite(got).all()}")
+        if name not in DEVICE_FX:
+            t_host = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run(on_card)
+                t_host.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(got, host):
+                fail(f"augmentation {name} (host FX) differs between its card and CPU instances")
+            rows.append(f"{name}: host FX, {np.median(t_host):.3f} ms per call (host clock)")
+            continue
+        kind = DEVICE_FX[name]
+        saved = taug._on_card
+        taug._on_card = lambda device: True  # the torch FX, on the CPU instance's device
+        try:
+            torch_cpu = run(on_cpu)
+        finally:
+            taug._on_card = saved
+        card_ms = time_ms(lambda: run(on_card), reps=5)
+        t0 = time.perf_counter()
+        run(on_cpu)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        gap = float(np.abs(got - torch_cpu).max() / np.abs(torch_cpu).max())
+        gap_host = float(np.abs(got - host).max() / np.abs(host).max())
+        corr_h, dpeak_h = correlated(got, host)
+        if kind in ("time_stretch", "pitch_shift"):
+            corr, dpeak = correlated(got, torch_cpu)
+            ok = corr > 0.99 and dpeak < 0.1
+            note = f"against torch on the CPU corr {corr:.6f}, peak {dpeak:.2e}, max |diff| / peak {gap:.2e}"
+        else:
+            ok = gap <= 1e-5
+            note = f"against torch on the CPU max |diff| / peak {gap:.2e} (bound 1e-5)"
+        note += f"; against the host FX max |diff| / peak {gap_host:.2e}, corr {corr_h:.6f}, peak {dpeak_h:.2e}"
+        rows.append(f"{name}: torch FX ({kind}) {card_ms:.3f} ms per call (CUDA events, numpy in and out), host "
+                    f"version {host_ms:.3f} ms (host clock); {note}")
+        if not ok:
+            fail(f"augmentation {name}: {note}")
+    print(f"augmentations on a {EVENT_SECONDS:.0f} s event at {SR} Hz on {card}:", flush=True)
+    for row in rows:
+        print(f"  {row}")
+    fx_against_host(dev)
+
+    # The shoebox SELD CLI with and without augmentations, in turns
+    secs = {"augmented": [], "plain": []}
+    shutil.rmtree(out, ignore_errors=True)
+    for turn, augmented in enumerate((True, False)):
+        key = "augmented" if augmented else "plain"
+        argv = ["--fg-dir", str(fg), "--output-dir", str(out / f"{key}{turn}"), "--channel-layout", "mic",
+                *SHOEBOX_FLAGS] + (AUG_FLAGS if augmented else [])
+        secs[key] += seld.main(argv)
+        meta = sorted((out / f"{key}{turn}" / "metadata_dev").rglob("*.json"))
+        n_aug = sum(len(e["augmentations"]) for m in meta for e in json.loads(m.read_text())["events"].values())
+        if len(meta) != 2 or (n_aug > 0) != augmented:
+            fail(f"the shoebox CLI run {key} wrote {len(meta)} scenes with {n_aug} augmentations")
+        check_cli_outputs(out / f"{key}{turn}", "mic", int(SCENE_SECONDS * SR))
+    print(f"shoebox CLI mic, 2 scenes a run, one run each after the other: with --augmentations "
+          f"{', '.join(f'{s:.3f}' for s in secs['augmented'])} s, without {', '.join(f'{s:.3f}' for s in secs['plain'])} "
+          f"s (host clock per scene: placement, engine, augmentations, render, writes) on {card}", flush=True)
 
 
 def main() -> int:
@@ -2674,7 +3186,7 @@ def main() -> int:
 
     elapsed(t_start, "exact rain mode")
     # 10. The exact rain mode: one flagship-width scene through
-    # Scene.generate() with the default engine config (no mesh
+    # Scene.generate(compiled=True) (the plan path) with the default engine config (no mesh
     # simplification: the full mesh, one star query per bounce), then one MIC
     # scene of the CLI with --no-mesh-simplification
     from audiblelight_tpu_torch import utils as tutils
@@ -2708,7 +3220,7 @@ def main() -> int:
     ck.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
-    xscene.generate(output_dir=exact_dir)
+    xscene.generate(output_dir=exact_dir, compiled=True)
     torch.cuda.synchronize()
     exact_s = time.time() - t0
     exact_launches = dict(ck.launch_counts)
@@ -2922,6 +3434,21 @@ def main() -> int:
     # diffracted paths, and the shoebox's image sources
     hrtf_n = hrtf_phase(st, scenes[0], t_scene, win, fg, OUT / "hrtf", dev)
     print(f"measured-HRTF binaural scene: bin_histogram {hrtf_n['bin_histogram']} launches per scene")
+
+    elapsed(t_start, "classic per-event render")
+    # 16. The classic per-event render (Scene.generate()'s default): the
+    # flagship MIC scene against the plan path, its dry stem, the card
+    # against the CPU; one classic FOA CLI scene
+    classic_phase(mesh, fg, room_obj, OUT / "classic", dev)
+
+    elapsed(t_start, "SSSEG entry")
+    # 17. The SSSEG dataset entry at its defaults: two scenes
+    ssseg_phase(OUT / "ssseg", dev)
+
+    elapsed(t_start, "augmentations")
+    # 18. The 27 augmentations on the card; the shoebox CLI with and without
+    # --augmentations
+    augmentation_phase(fg, OUT / "augment", dev)
 
     main_launches = dict(launches, first_hit_small=small_n["first_hit_small"],
                          deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"],

@@ -238,12 +238,16 @@ def _scene(scene_cls, seed_everything, fg, obj, mic, **device):
 @pytest.mark.parametrize("mic,channels", [("binaural", 2), ("hoalistener", 16)])
 def test_scene_with_rig_renders_on_the_fused_path(assets, tmp_path, mic, channels):
     """The rig places as the reference's (the same to_dict) and the scene
-    renders through the fused renderer (per-face rain visibility) to an
-    int16 WAV of the rig's channels."""
+    renders through the fused renderer (`render_scenes`, the SELD CLI's rlr
+    path; per-face rain visibility) to an int16 WAV of the rig's channels."""
+    from audiblelight_tpu_torch.core import write_outputs
+    from audiblelight_tpu_torch.pipeline import render_scenes
+
     fg, obj = assets
     want = _scene(JaxScene, jutils.seed_everything, fg, obj, mic)
     got = _scene(PortScene, tutils.seed_everything, fg, obj, mic, device="cpu")
-    got.generate(output_dir=tmp_path)
+    render_scenes([got], lambda scene, payloads: setattr(scene, "audio", payloads))
+    write_outputs(got, tmp_path / "audio_out", tmp_path / "metadata_out")
     audio = got.audio["mic000"]
     assert audio.dtype == np.int16 and audio.shape == (channels, 6 * SR) and np.abs(audio).max() > 100
     data, sr = wav_read(tmp_path / "audio_out_mic000.wav")

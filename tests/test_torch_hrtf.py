@@ -342,7 +342,9 @@ def _scene(backend, fg, obj, hrtf_path):
                          ids=["rlr-fused", "rlr-plan", "shoebox"])
 def test_scene_with_measured_hrtfs_renders(sets, assets, tmp_path, monkeypatch, backend, compiled):
     """A scene with `Binaural(hrtf_sofa=...)` renders to a 2-channel int16
-    WAV with sound on each path, its trace or engine given the measured set."""
+    WAV with sound on each path (rlr: the fused renderer, `render_scenes`,
+    and the plan path; the shoebox: `generate()`'s classic render), its
+    trace or engine given the measured set."""
     path, _, _ = sets
     fg, obj = assets
     given = []
@@ -357,7 +359,14 @@ def test_scene_with_measured_hrtfs_renders(sets, assets, tmp_path, monkeypatch, 
 
     monkeypatch.setattr(target, name, spy)
     scene = _scene(backend, fg, obj, path)
-    scene.generate(output_dir=tmp_path, compiled=compiled)
+    if backend == "rlr" and not compiled:
+        from audiblelight_tpu_torch.core import write_outputs
+        from audiblelight_tpu_torch.pipeline import render_scenes
+
+        render_scenes([scene], lambda s, payloads: setattr(s, "audio", payloads))
+        write_outputs(scene, tmp_path / "audio_out", tmp_path / "metadata_out")
+    else:
+        scene.generate(output_dir=tmp_path, compiled=compiled)
     audio = scene.audio["mic000"]
     peak = np.abs(audio).max() * (1 if audio.dtype == np.int16 else 32768)
     assert audio.shape == (2, 6 * SR) and peak > 100

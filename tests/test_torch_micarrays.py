@@ -9,7 +9,7 @@ shoebox an Eigenmike32's IRs are held within 1e-4 of the reference's peak
 Eigenmike32 scene renders its 32 channels, and its exact direct path at the 32
 capsules is held within 5e-5 of the reference's peak (the tolerance of
 tests/test_torch_raytracer.py); 1, 32 and 64 capsules render through the
-fused renderer and the plan path; and K3's plain version at 32 and 64
+fused renderer, the plan path and the classic render; and K3's plain version at 32 and 64
 capsules is held to the interpret-mode Pallas K3 on the same inputs (bins
 identical, sums within 1e-6 of the histogram's peak, as
 tests/test_torch_kernels.py holds it).
@@ -30,10 +30,11 @@ from audiblelight_tpu.rir import raytracer as jrt
 from audiblelight_tpu.worldstate.shoebox_backend import WorldStateShoebox as JaxShoebox
 from audiblelight_tpu_torch import micarrays as tmic
 from audiblelight_tpu_torch import utils as tutils
-from audiblelight_tpu_torch.core import Scene
+from audiblelight_tpu_torch.core import Scene, write_outputs
 from audiblelight_tpu_torch.geometry.mesh import save_obj, scanned_like_room
 from audiblelight_tpu_torch.io.audio import wav_read
 from audiblelight_tpu_torch.ops import cuda_kernels as ck
+from audiblelight_tpu_torch.pipeline import render_scenes
 from audiblelight_tpu_torch.rir import raytracer as trt
 from audiblelight_tpu_torch.worldstate.shoebox_backend import WorldStateShoebox
 from test_torch_cuda import deposit_inputs
@@ -141,23 +142,46 @@ def _rlr_scene(rlr_assets, mic: str):
     return scene
 
 
-@pytest.mark.parametrize("mic,compiled", [("monocapsule", False), ("monocapsule", True), ("eigenmike32", True),
-                                          ("eigenmike64", False)])
-def test_rlr_rig_scene_renders_every_capsule(rlr_assets, tmp_path, mic, compiled):
-    """1, 32 and 64 omni capsules through the fused renderer and the plan
-    path: one int16 channel per capsule, with sound."""
+def _render_fused(scene, out: Path) -> None:
+    """The fused renderer (`render_scenes`, the SELD CLI's rlr path) and the
+    scene's files, as `generate()` wrote them before it took the classic
+    render."""
+    render_scenes([scene], lambda s, payloads: setattr(s, "audio", payloads))
+    write_outputs(scene, out / "audio_out", out / "metadata_out")
+
+
+RIG_PATHS = [("monocapsule", "fused"), ("monocapsule", "plan"), ("eigenmike32", "plan"), ("eigenmike64", "fused"),
+             ("monocapsule", "classic"), ("eigenmike32", "classic"), ("eigenmike64", "classic")]
+
+
+# The fused and plan cases keep their ids from when `generate(compiled=False)` took the fused renderer
+RIG_IDS = [f"{mic}-{dict(fused=False, plan=True).get(path, path)}" for mic, path in RIG_PATHS]
+
+
+@pytest.mark.parametrize("mic,path", RIG_PATHS, ids=RIG_IDS)
+def test_rlr_rig_scene_renders_every_capsule(rlr_assets, tmp_path, mic, path):
+    """1, 32 and 64 omni capsules through the fused renderer, the plan path
+    and the classic render (`generate()`'s default): one int16 channel per
+    capsule, with sound; on the classic render every event's spatial audio
+    has the rig's channels."""
     scene = _rlr_scene(rlr_assets, mic)
-    scene.generate(output_dir=tmp_path, compiled=compiled)
+    if path == "fused":
+        _render_fused(scene, tmp_path)
+    else:
+        scene.generate(output_dir=tmp_path, compiled=path == "plan")
     data, sr = wav_read(tmp_path / "audio_out_mic000.wav")
     n = {"monocapsule": 1, "eigenmike32": 32, "eigenmike64": 64}[mic]
     assert sr == SR and data.shape == (n, 4 * SR) and np.abs(data).max() > 100 / 32768
+    for event in scene.events.values() if path == "classic" else ():
+        audio = event.spatial_audio["mic000"]
+        assert audio.shape[0] == n and np.isfinite(audio).all() and np.abs(audio).max() > 0
 
 
 def test_eigenmike32_rlr_scene_and_direct_path(rlr_assets, tmp_path):
     """The fused renderer writes all 32 capsules' channels; the exact direct
     path at the 32 capsules against the reference's."""
     scene = _rlr_scene(rlr_assets, "eigenmike32")
-    scene.generate(output_dir=tmp_path)
+    _render_fused(scene, tmp_path)
     data, sr = wav_read(tmp_path / "audio_out_mic000.wav")
     assert sr == SR and data.shape == (32, 4 * SR) and np.abs(data).max() > 100 / 32768
     irs = scene.state.trace_irs_device()["mic000"]

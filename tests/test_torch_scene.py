@@ -157,9 +157,10 @@ def test_scene_json_carries_both_ways(scenes, tmp_path):
 
 
 def test_generate_writes_the_reference_files(scenes, tmp_path):
-    """`Scene.generate` renders through the fused renderer and writes the
-    reference's file names: an int16 WAV of the rig's 4 channels, the JSON
-    and the DCASE CSV, the CSV byte-identical to the reference's."""
+    """`Scene.generate` renders through the classic per-event render, as the
+    reference's does, and writes the reference's file names: an int16 WAV of
+    the rig's 4 channels, the JSON and the DCASE CSV, the CSV
+    byte-identical to the reference's."""
     got, want = scenes
     got.generate(output_dir=tmp_path)
     assert sorted(p.name for p in tmp_path.iterdir()) == [
@@ -167,7 +168,7 @@ def test_generate_writes_the_reference_files(scenes, tmp_path):
     with open(tmp_path / "audio_out_mic000.wav", "rb") as f:
         header = f.read(44)
     assert header[20:24] == b"\x01\x00\x04\x00" and header[34:36] == b"\x10\x00"  # PCM, 4 channels, 16-bit
-    assert got.audio["mic000"].shape == (4, 8 * SR) and np.abs(got.audio["mic000"]).max() > 100
+    assert got.audio["mic000"].shape == (4, 8 * SR) and np.abs(got.audio["mic000"]).max() > 100 / 32768
     assert _canon(json.loads((tmp_path / "metadata_out.json").read_text())) == _canon(want.to_dict())
     text = jax_dcase(want)["mic000"].to_csv(sep=",", encoding="utf-8", header=None)
     assert (tmp_path / "metadata_out_mic000.csv").read_text() == text
@@ -230,24 +231,47 @@ def test_simulate_empty_scene_asserts():
 @pytest.fixture
 def dry_event(scenes):
     """The port's scene and its first event, whose dry-stem parameters a
-    test sets; restored afterwards."""
-    got, _ = scenes
+    test sets (its rendered audio dropped, so that `generate()` renders it
+    again); restored afterwards."""
+    got, want = scenes
     event = next(iter(got.events.values()))
     saved = event.ref_ir_channel, event.direct_path_time_ms
+    event._clear_audio()
     yield got, event
     event.ref_ir_channel, event.direct_path_time_ms = saved
+    event._clear_audio()
 
 
-def test_generate_refuses_a_dry_stem(dry_event, tmp_path):
-    """An event with both `ref_ir_channel` and `direct_path_time_ms` asks for
-    the reference's dry stem, which only the classic per-event pipeline
-    renders: `generate()` raises before anything renders or is written."""
+def test_generate_renders_a_dry_stem_as_reference(dry_event, scenes, tmp_path):
+    """An event with both `ref_ir_channel` and `direct_path_time_ms` gets the
+    reference's dry stem from `generate()` (the classic render): the same
+    event and IRs through the JAX package's render_event_audio (whose
+    compute_dry_audio windows the reference channel's IR around its peak)
+    give the same spatial audio and dry stem within 1e-5 of peak, and the
+    padded dry stem sits at the event's place in the scene."""
+    from audiblelight_tpu.synthesize import render_event_audio
+
     got, event = dry_event
+    _, want = scenes
     event.ref_ir_channel, event.direct_path_time_ms = 0, [5, 50]
-    got.audio = None
-    with pytest.raises(NotImplementedError, match=r"classic per-event pipeline \(ROADMAP item 1\.2\)"):
-        got.generate(output_dir=tmp_path)
-    assert got.audio is None and not any(tmp_path.iterdir())
+    got.generate(output_dir=tmp_path)
+    ref = want.events[event.alias]
+    ref_saved = ref.ref_ir_channel, ref.direct_path_time_ms
+    ref.ref_ir_channel, ref.direct_path_time_ms = 0, [5, 50]
+    try:
+        first = list(got.events).index(event.alias)
+        irs = got.state.irs["mic000"][:, first : first + len(event)]
+        render_event_audio(ref, irs, "mic000", ref_db=got.ref_db)
+        for mine, theirs in ((event.spatial_audio, ref.spatial_audio), (event._spatial_audio_dry, ref._spatial_audio_dry)):
+            w = theirs["mic000"]
+            assert np.abs(w).max() > 0
+            assert np.abs(mine["mic000"] - w).max() <= 1e-5 * np.abs(w).max()
+    finally:
+        ref.ref_ir_channel, ref.direct_path_time_ms = ref_saved
+        ref._clear_audio()
+    padded = event._spatial_audio_dry_padded["mic000"]
+    start = round(event.scene_start * SR)
+    assert padded.shape == (8 * SR,) and not padded[:start].any() and np.abs(padded[start:]).max() > 0
 
 
 @pytest.mark.parametrize("which", ["ref_ir_channel", "direct_path_time_ms"])
@@ -265,7 +289,7 @@ def test_generate_warns_for_half_a_dry_stem(dry_event, tmp_path, caplog, which):
     with caplog.at_level("WARNING"):
         got.generate(output_dir=tmp_path)
     assert [r.getMessage() for r in caplog.records if r.name == "audiblelight_tpu_torch"] == [want]
-    assert got.audio["mic000"].shape == (4, 8 * SR) and np.abs(got.audio["mic000"]).max() > 100
+    assert got.audio["mic000"].shape == (4, 8 * SR) and np.abs(got.audio["mic000"]).max() > 100 / 32768
 
 
 def test_generate_compiled_renders_without_a_dry_stem(dry_event, tmp_path):

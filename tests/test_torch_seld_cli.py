@@ -11,7 +11,9 @@ placement); its WAVs are 4-channel 24 kHz int16 and not silent. A second run
 skips the finished scenes, every unported flag raises (and `--backend
 sofa` without `--sofa` the reference's error), and the flags that
 take the plan path (`--pipeline compiled`, `--no-device-mix`,
-`--no-mesh-simplification`) write the same files.
+`--no-mesh-simplification`) write the same files. `--pipeline classic`
+and `--augmentations` run, on rlr and on the shoebox, and place what the
+reference script places, augmentation parameters included.
 
 The CLI's default backend, the shoebox (no --backend; order 2, 0.1 s IRs,
 two 4 s scenes per format, the plan path), is held the same way: the
@@ -138,9 +140,8 @@ def test_cli_resumes(run):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--backend", "sofa"], ["--assets", "9A"], ["--augmentations", "reverse"],
+    ["--backend", "sofa"], ["--assets", "9A"],
     ["--placement-workers", "2"], ["--mesh-devices", "2"], ["--coordinator", "localhost:1"],
-    ["--pipeline", "classic"],
 ], ids=lambda f: " ".join(f))
 def test_cli_unported_flags_raise(tmp_path, flags):
     """Every unported flag raises, naming its ROADMAP item, before anything is
@@ -228,3 +229,63 @@ def test_shoebox_cli_metadata_matches_reference_script(shoebox_run):
         assert got == want
         csv = generate_dcase2024_metadata(scene)["mic000"].to_csv(sep=",", encoding="utf-8", header=None)
         assert Path(f"{stem}_mic000.csv").read_text() == csv
+
+
+AUGS = ["pitchshift", "speedup", "reverse", "invert", "distortion"]
+
+
+@pytest.mark.parametrize("backend,flags", [
+    ("rlr", ["--pipeline", "classic"]),
+    ("rlr", ["--augmentations", *AUGS]),
+    ("shoebox", ["--pipeline", "classic", "--augmentations", *AUGS]),
+], ids=["rlr classic", "rlr augmentations", "shoebox classic augmentations"])
+def test_cli_classic_and_augmentations_match_reference_script(assets, backend, flags):
+    """`--pipeline classic` (every scene through the classic per-event
+    render) and `--augmentations` (one augmentation per event from the
+    reference script's table) run and write the reference's layout, WAVs
+    with sound; the reference script's build_scene for the same seed and
+    flags places the same scenes with the same augmentations (their
+    parameters in the JSON): the same CSV bytes and JSON. A render that
+    draws its bed on the host (the classic render, the shoebox's plan path)
+    draws it from numpy's global stream before the next scene is placed, as
+    the reference script's does; the classic render's simulate() refreshes
+    the emitters' coordinates relative to the mic before the JSON is
+    written, as the reference's does."""
+    name = f"{backend}_{'_'.join(f.strip('-') for f in flags[:3])}"
+    argv = (_argv if backend == "rlr" else _shoebox_argv)(assets, "mic", name) + flags
+    seconds = seld.main(argv + ["--device", "cpu"])
+    out = assets / name
+    assert len(seconds) == 2
+    assert sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file()) == _names("mic")
+    for wav in out.rglob("*.wav"):
+        data, sr = wav_read(wav)
+        assert sr == 24000 and data.shape == (4, 4 * 24000) and np.abs(data).max() > 100 / 32768
+
+    sys.path.insert(0, str(REPO / "scripts" / "seld"))
+    try:
+        gd = importlib.import_module("generate_dataset")
+    finally:
+        sys.path.remove(str(REPO / "scripts" / "seld"))
+    args = seld.build_parser().parse_args((_argv if backend == "rlr" else _shoebox_argv)(assets, "mic", f"ref_{name}")
+                                          + flags)
+    args.pipeline = args.pipeline or ("fused" if backend == "rlr" else "compiled")
+    host_bed = backend == "shoebox" or args.pipeline == "classic"
+    jutils.seed_everything(SEED)
+    rng = np.random.default_rng(SEED)
+    n_augmented = 0
+    for split, fold in (("train", 1), ("test", 2)):
+        scene, _, _ = gd.build_scene(args, split, 1, 0, rng)
+        if host_bed:
+            for amb in scene.ambience.values():
+                amb.load_ambience()
+        if args.pipeline == "classic":
+            scene.state._update()  # the classic render's simulate() refreshes the relative coordinates
+        stem = out / f"metadata_dev/dev-{split}-alight/fold{fold}_scene1_000"
+        want = json.loads(json.dumps(scene.to_dict()))
+        got = json.loads(stem.with_suffix(".json").read_text())
+        want.pop("creation_time"), got.pop("creation_time")
+        assert got == want
+        n_augmented += sum(len(e["augmentations"]) for e in got["events"].values())
+        csv = generate_dcase2024_metadata(scene)["mic000"].to_csv(sep=",", encoding="utf-8", header=None)
+        assert Path(f"{stem}_mic000.csv").read_text() == csv
+    assert (n_augmented > 0) == ("--augmentations" in flags)

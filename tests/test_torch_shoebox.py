@@ -240,9 +240,10 @@ def test_plan_path_matches_reference(scenes):
 
 @pytest.mark.parametrize("compiled", [False, True], ids=["default", "compiled"])
 def test_generate_writes_the_reference_files(scenes, tmp_path, compiled):
-    """`Scene.generate` on a shoebox scene takes the plan path (the fused
-    renderer refuses the state) and writes the reference's files: an int16
-    WAV of the rig's 4 channels with sound, the JSON and the DCASE CSV."""
+    """`Scene.generate` on a shoebox scene (the classic render by default, the
+    plan path with `compiled=True`; the fused renderer refuses the state)
+    writes the reference's files: an int16 WAV of the rig's 4 channels with
+    sound, the JSON and the DCASE CSV."""
     got, want = scenes
     got.generate(output_dir=tmp_path, compiled=compiled)
     assert sorted(p.name for p in tmp_path.iterdir()) == [

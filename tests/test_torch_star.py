@@ -351,8 +351,8 @@ def _canon(d: dict) -> dict:
 def test_generate_default_config_runs_the_star(assets, tmp_path):
     """`Scene.generate()` with the default engine config (no mesh
     simplification, so the exact rain mode) in the 27,648-face room: the
-    fused renderer refuses the scene, the plan path renders it through the
-    star, and the JSON and DCASE CSV are the reference's."""
+    classic render traces it through the star, and the JSON and DCASE CSV
+    are the reference's."""
     root, _, big = assets
     want = _scene(JaxScene, jutils.seed_everything, root / "fg", big, TINY)
     got = _scene(PortScene, tutils.seed_everything, root / "fg", big, TINY, device="cpu")
