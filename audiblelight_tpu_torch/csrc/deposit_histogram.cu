@@ -6,7 +6,10 @@
 //   deposit = e_refl * cos(theta) / (4 pi^2 max(d, 1e-2)^2)
 // masked by visibility (occ == 0), cos(theta) > 0 and the padded bin range,
 // binned at int(arrival * (1 / bin_dt)), arrival = (dist + d) * (1 / c), and
-// summed per band into out (E, C, B, n_bins).
+// summed per band into out (E, C, B, n_bins). The sources may belong to
+// several scenes traced in one bounce (the batched renders): source e reads
+// its scene's capsules, row (e / sources_per_scene) * C + c of the (n_scenes
+// * C, 3) listener points; one scene (sources_per_scene = E) reads row c.
 //
 // Bound on this card: bytes (hit, normal, e_refl, dist, occ: ~45 B per ray
 // and capsule read, plus the (E, C, B, n_bins) output written once); the
@@ -45,8 +48,9 @@ __global__ void deposit_histogram_kernel(const float* __restrict__ hit,     // (
                                          const V* __restrict__ e_refl,      // (E*R, B)
                                          const float* __restrict__ dist,    // (E*R,)
                                          const unsigned char* __restrict__ occ,  // (C, E*R)
-                                         const float* __restrict__ lis,     // (C, 3)
-                                         int n_caps, int n_rays, int tr, int kv, int n_bins, int n_bins_pad,
+                                         const float* __restrict__ lis,     // (n_scenes * C, 3)
+                                         int n_caps, int sources_per_scene, int n_rays, int tr, int kv, int n_bins,
+                                         int n_bins_pad,
                                          float inv_bin_dt, float range_limit, float inv_c, float four_pi2,
                                          float* __restrict__ out) {  // (E, C, B, n_bins)
   constexpr int kWidth = sizeof(V) / sizeof(float);
@@ -63,7 +67,8 @@ __global__ void deposit_histogram_kernel(const float* __restrict__ hit,     // (
 
   int k0, k1;
   share(n_rays, k0, k1);
-  const float lx = lis[3 * c], ly = lis[3 * c + 1], lz = lis[3 * c + 2];
+  const float* row = lis + 3 * ((e / sources_per_scene) * n_caps + c);
+  const float lx = row[0], ly = row[1], lz = row[2];
   const unsigned char* occ_row = occ + (size_t)c * tr + (size_t)e * n_rays;
   V* mine = hist + warp * n_bins;
   for (int base = k0 + 32 * warp; base < k1; base += 32 * n_warps) {
@@ -99,30 +104,34 @@ __global__ void deposit_histogram_kernel(const float* __restrict__ hit,     // (
 
 template <typename V>
 int launch_v(const float* hit, const float* normal, const float* e_refl, const float* dist, const unsigned char* occ,
-             const float* lis, int n_sources, int n_rays, int n_caps, int kv, int n_bins, int n_bins_pad,
-             float inv_bin_dt, float range_limit, float inv_c, float four_pi2, int n_warps, int cluster, float* out,
-             cudaStream_t stream) {
+             const float* lis, int n_sources, int sources_per_scene, int n_rays, int n_caps, int kv, int n_bins,
+             int n_bins_pad, float inv_bin_dt, float range_limit, float inv_c, float four_pi2, int n_warps,
+             int cluster, float* out, cudaStream_t stream) {
   return launch(deposit_histogram_kernel<V>, dim3(cluster, kv, n_sources * n_caps), n_warps,
                 (size_t)n_warps * n_bins * sizeof(V), stream, hit, normal, reinterpret_cast<const V*>(e_refl), dist,
-                occ, lis, n_caps, n_rays, n_sources * n_rays, kv, n_bins, n_bins_pad, inv_bin_dt, range_limit, inv_c,
-                four_pi2, out);
+                occ, lis, n_caps, sources_per_scene, n_rays, n_sources * n_rays, kv, n_bins, n_bins_pad, inv_bin_dt,
+                range_limit, inv_c, four_pi2, out);
 }
 
 }  // namespace
 
 // vec4: B % 4 == 0 and e_refl 16-byte aligned, columns of 4 bands.
-// n_warps and cluster: ops/cuda_kernels.py:deposit_histogram_shape.
+// n_warps and cluster: ops/cuda_kernels.py:deposit_histogram_shape, sized for
+// one scene's sources, so that each (source, capsule) group folds as it does
+// in a one-scene launch and a batch gives each scene its one-scene bits.
 extern "C" int deposit_histogram(const float* hit, const float* normal, const float* e_refl, const float* dist,
-                                 const unsigned char* occ, const float* lis, int n_sources, int n_rays, int n_caps,
-                                 int n_bands, int n_bins, int n_bins_pad, float inv_bin_dt, float range_limit,
-                                 float inv_c, float four_pi2, int vec4, int n_warps, int cluster, float* out,
-                                 cudaStream_t stream) {
+                                 const unsigned char* occ, const float* lis, int n_sources, int sources_per_scene,
+                                 int n_rays, int n_caps, int n_bands, int n_bins, int n_bins_pad, float inv_bin_dt,
+                                 float range_limit, float inv_c, float four_pi2, int vec4, int n_warps, int cluster,
+                                 float* out, cudaStream_t stream) {
   if (n_sources <= 0 || n_caps <= 0 || n_bands <= 0 || n_bins <= 0) return (int)cudaSuccess;
-  if (n_rays < 0 || n_bins > n_bins_pad || (vec4 && (n_bands % 4 != 0 || ((size_t)e_refl & 15) != 0)))
+  if (n_rays < 0 || n_bins > n_bins_pad || sources_per_scene <= 0 || n_sources % sources_per_scene != 0 ||
+      (vec4 && (n_bands % 4 != 0 || ((size_t)e_refl & 15) != 0)))
     return (int)cudaErrorInvalidValue;
   if (vec4)
-    return launch_v<float4>(hit, normal, e_refl, dist, occ, lis, n_sources, n_rays, n_caps, n_bands / 4, n_bins,
-                            n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2, n_warps, cluster, out, stream);
-  return launch_v<float>(hit, normal, e_refl, dist, occ, lis, n_sources, n_rays, n_caps, n_bands, n_bins, n_bins_pad,
-                         inv_bin_dt, range_limit, inv_c, four_pi2, n_warps, cluster, out, stream);
+    return launch_v<float4>(hit, normal, e_refl, dist, occ, lis, n_sources, sources_per_scene, n_rays, n_caps,
+                            n_bands / 4, n_bins, n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2, n_warps,
+                            cluster, out, stream);
+  return launch_v<float>(hit, normal, e_refl, dist, occ, lis, n_sources, sources_per_scene, n_rays, n_caps, n_bands,
+                         n_bins, n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2, n_warps, cluster, out, stream);
 }

@@ -10,6 +10,9 @@
 // binned at int(arrival * (1 / bin_dt)), arrival = (dist + d) * (1 / c), and
 // encoded as [W, X, Y, Z] = deposit * [1, ux, uy, uz] of the arrival vector
 // u = -v * inv_d (v = listener - hit), per band, into out (E, 4, B, n_bins).
+// The sources may belong to several scenes traced in one bounce (the batched
+// renders): source e reads its scene's point, row e / sources_per_scene of
+// the (n_scenes, 3) listener points; one scene (sources_per_scene = E) row 0.
 //
 // Bound on this card: bytes (hit, normal, e_refl, dist, occ: ~45 B per ray
 // read, plus the (E, 4, B, n_bins) output written once); the arithmetic is
@@ -48,9 +51,9 @@ __global__ void deposit_histogram_foa_kernel(const float* __restrict__ hit,     
                                              const V* __restrict__ e_refl,      // (E*R, B)
                                              const float* __restrict__ dist,    // (E*R,)
                                              const unsigned char* __restrict__ occ,  // (E*R,)
-                                             const float* __restrict__ lis,     // (3,)
-                                             int n_rays, int kv, int n_bins, int n_bins_pad, float inv_bin_dt,
-                                             float range_limit, float inv_c, float four_pi2,
+                                             const float* __restrict__ lis,     // (n_scenes, 3)
+                                             int sources_per_scene, int n_rays, int kv, int n_bins, int n_bins_pad,
+                                             float inv_bin_dt, float range_limit, float inv_c, float four_pi2,
                                              float* __restrict__ out) {  // (E, 4, B, n_bins)
   constexpr int kWidth = sizeof(V) / sizeof(float);
   extern __shared__ float4 smem[];
@@ -65,7 +68,8 @@ __global__ void deposit_histogram_foa_kernel(const float* __restrict__ hit,     
 
   int k0, k1;
   share(n_rays, k0, k1);
-  const float lx = lis[0], ly = lis[1], lz = lis[2];
+  const float* row = lis + 3 * (e / sources_per_scene);  // the source's scene's listener point
+  const float lx = row[0], ly = row[1], lz = row[2];
   V* mine = hist + warp * n_bins;
   for (int base = k0 + 32 * warp; base < k1; base += 32 * n_warps) {
     const int k = base + lane;
@@ -102,12 +106,13 @@ __global__ void deposit_histogram_foa_kernel(const float* __restrict__ hit,     
 
 template <typename V>
 int launch_v(const float* hit, const float* normal, const float* e_refl, const float* dist, const unsigned char* occ,
-             const float* lis, int n_sources, int n_rays, int kv, int n_bins, int n_bins_pad, float inv_bin_dt,
-             float range_limit, float inv_c, float four_pi2, int n_warps, int cluster, float* out,
+             const float* lis, int n_sources, int sources_per_scene, int n_rays, int kv, int n_bins, int n_bins_pad,
+             float inv_bin_dt, float range_limit, float inv_c, float four_pi2, int n_warps, int cluster, float* out,
              cudaStream_t stream) {
   return launch(deposit_histogram_foa_kernel<V>, dim3(cluster, 4 * kv, n_sources), n_warps,
                 (size_t)n_warps * n_bins * sizeof(V), stream, hit, normal, reinterpret_cast<const V*>(e_refl), dist,
-                occ, lis, n_rays, kv, n_bins, n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2, out);
+                occ, lis, sources_per_scene, n_rays, kv, n_bins, n_bins_pad, inv_bin_dt, range_limit, inv_c,
+                four_pi2, out);
 }
 
 }  // namespace
@@ -115,16 +120,19 @@ int launch_v(const float* hit, const float* normal, const float* e_refl, const f
 // vec4: B % 4 == 0 and e_refl 16-byte aligned, columns of 4 bands.
 // n_warps and cluster: ops/cuda_kernels.py:deposit_histogram_shape.
 extern "C" int deposit_histogram_foa(const float* hit, const float* normal, const float* e_refl, const float* dist,
-                                     const unsigned char* occ, const float* lis, int n_sources, int n_rays,
+                                     const unsigned char* occ, const float* lis, int n_sources,
+                                     int sources_per_scene, int n_rays,
                                      int n_bands, int n_bins, int n_bins_pad, float inv_bin_dt, float range_limit,
                                      float inv_c, float four_pi2, int vec4, int n_warps, int cluster, float* out,
                                      cudaStream_t stream) {
   if (n_sources <= 0 || n_bands <= 0 || n_bins <= 0) return (int)cudaSuccess;
-  if (n_rays < 0 || n_bins > n_bins_pad || (vec4 && (n_bands % 4 != 0 || ((size_t)e_refl & 15) != 0)))
+  if (n_rays < 0 || n_bins > n_bins_pad || sources_per_scene <= 0 || n_sources % sources_per_scene != 0 ||
+      (vec4 && (n_bands % 4 != 0 || ((size_t)e_refl & 15) != 0)))
     return (int)cudaErrorInvalidValue;
   if (vec4)
-    return launch_v<float4>(hit, normal, e_refl, dist, occ, lis, n_sources, n_rays, n_bands / 4, n_bins, n_bins_pad,
-                            inv_bin_dt, range_limit, inv_c, four_pi2, n_warps, cluster, out, stream);
-  return launch_v<float>(hit, normal, e_refl, dist, occ, lis, n_sources, n_rays, n_bands, n_bins, n_bins_pad,
-                         inv_bin_dt, range_limit, inv_c, four_pi2, n_warps, cluster, out, stream);
+    return launch_v<float4>(hit, normal, e_refl, dist, occ, lis, n_sources, sources_per_scene, n_rays, n_bands / 4,
+                            n_bins, n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2, n_warps, cluster, out,
+                            stream);
+  return launch_v<float>(hit, normal, e_refl, dist, occ, lis, n_sources, sources_per_scene, n_rays, n_bands, n_bins,
+                         n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2, n_warps, cluster, out, stream);
 }

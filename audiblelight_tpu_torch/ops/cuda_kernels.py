@@ -962,6 +962,19 @@ def _deposit_constants(n_bins: int, bin_dt: float, c_sound: float):
     )
 
 
+def _scene_listeners(listener_pos: torch.Tensor, tr: int) -> tuple:
+    """(n_scenes, (C, 1 or TR, 3) listener point of each capsule and ray) of
+    `listener_pos` (C, 3), or (n_scenes, C, 3) for a batch of scenes whose
+    TR rays are scene-major: one scene broadcasts its capsules over the rays,
+    a batch gathers each ray's scene's."""
+    lis = listener_pos.to(torch.float32)
+    if lis.dim() == 2 or lis.shape[0] == 1:
+        return 1, lis.reshape(-1, 3)[:, None, :]
+    n_scenes = lis.shape[0]
+    scene = torch.arange(tr, device=lis.device) // (tr // n_scenes)
+    return n_scenes, lis[scene].transpose(0, 1)
+
+
 def deposit_fold_plain(hit, normal, e_refl, dist, occ, listener_pos,
                        n_sources: int, n_bins: int, bin_dt: float, c_sound: float) -> tuple:
     """The plain version of `deposit_histogram` up to its fold: (rows, dep),
@@ -970,11 +983,11 @@ def deposit_fold_plain(hit, normal, e_refl, dist, occ, listener_pos,
     n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2 = _deposit_constants(n_bins, bin_dt, c_sound)
     dev = hit.device
     tr, n_bands = e_refl.shape
-    cl = listener_pos.shape[0]
-    lis = listener_pos.to(torch.float32)
-    vx = lis[:, 0:1] - hit[None, :, 0]
-    vy = lis[:, 1:2] - hit[None, :, 1]
-    vz = lis[:, 2:3] - hit[None, :, 2]
+    cl = listener_pos.shape[-2]
+    lis = _scene_listeners(listener_pos, tr)[1]
+    vx = lis[..., 0] - hit[None, :, 0]
+    vy = lis[..., 1] - hit[None, :, 1]
+    vz = lis[..., 2] - hit[None, :, 2]
     d2 = vx * vx + vy * vy + vz * vz
     d = torch.sqrt(d2)
     cos_th = torch.clamp_min(
@@ -999,7 +1012,7 @@ def deposit_histogram_plain(hit, normal, e_refl, dist, occ, listener_pos,
                             n_sources: int, n_bins: int, bin_dt: float, c_sound: float):
     """Plain PyTorch version of `deposit_histogram` (any device)."""
     n_bins_pad = _deposit_constants(n_bins, bin_dt, c_sound)[0]
-    n_bands, cl = e_refl.shape[1], listener_pos.shape[0]
+    n_bands, cl = e_refl.shape[1], listener_pos.shape[-2]
     rows, dep = deposit_fold_plain(hit, normal, e_refl, dist, occ, listener_pos, n_sources, n_bins, bin_dt, c_sound)
     out = torch.zeros(cl * n_sources * n_bins_pad, n_bands, dtype=torch.float32, device=hit.device)
     out.index_add_(0, rows, dep)
@@ -1008,24 +1021,26 @@ def deposit_histogram_plain(hit, normal, e_refl, dist, occ, listener_pos,
 
 
 _CP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_DEPOSIT_ARGS = [_CP] * 6 + [_CI] * 6 + [_CF] * 4 + [_CI] * 3 + [_CP, _CP]
-_DEPOSIT_FOA_ARGS = [_CP] * 6 + [_CI] * 5 + [_CF] * 4 + [_CI] * 3 + [_CP, _CP]
+_DEPOSIT_ARGS = [_CP] * 6 + [_CI] * 7 + [_CF] * 4 + [_CI] * 3 + [_CP, _CP]
+_DEPOSIT_FOA_ARGS = [_CP] * 6 + [_CI] * 6 + [_CF] * 4 + [_CI] * 3 + [_CP, _CP]
 
 
 def _deposit_inputs(name: str, hit, normal, e_refl, dist, occ, listener_pos, n_sources: int, n_caps: int) -> tuple:
-    """(TR, B, vec4) of a deposit kernel's inputs, each checked."""
+    """(TR, B, vec4, sources per scene) of a deposit kernel's inputs, each
+    checked; `listener_pos` is (C, 3), or (n_scenes, C, 3) for a batch."""
     tr, n_bands = e_refl.shape
-    if tr % n_sources:
-        raise ValueError(f"{name}: {tr} rays do not split into {n_sources} sources")
+    n_scenes = listener_pos.shape[0] if listener_pos.dim() == 3 else 1
+    if tr % n_sources or n_sources % n_scenes:
+        raise ValueError(f"{name}: {tr} rays do not split into {n_sources} sources of {n_scenes} scenes")
     dev = hit.device
     _check("hit", hit, (tr, 3), torch.float32, dev)
     _check("normal", normal, (tr, 3), torch.float32, dev)
     _check("e_refl", e_refl, (tr, n_bands), torch.float32, dev)
     _check("dist", dist, (tr,), torch.float32, dev)
     _check("occ", occ, (n_caps, tr), torch.bool, dev)
-    _check("listener_pos", listener_pos, (n_caps, 3), torch.float32, dev)
+    _check("listener_pos", listener_pos, (n_scenes, n_caps, 3)[3 - listener_pos.dim():], torch.float32, dev)
     # Columns of four bands where every row starts on 16 bytes
-    return tr, n_bands, n_bands % 4 == 0 and e_refl.data_ptr() % 16 == 0
+    return tr, n_bands, n_bands % 4 == 0 and e_refl.data_ptr() % 16 == 0, n_sources // n_scenes
 
 
 def deposit_histogram(hit, normal, e_refl, dist, occ, listener_pos,
@@ -1037,24 +1052,29 @@ def deposit_histogram(hit, normal, e_refl, dist, occ, listener_pos,
             n_sources * rays, source-major.
         e_refl: (TR, B) reflected energies; dist: (TR,) path lengths so far.
         occ: (C, TR) bool, True where the capsule does not receive the ray.
-        listener_pos: (C, 3) capsule positions.
+        listener_pos: (C, 3) capsule positions, or (n_scenes, C, 3) for the
+            sources of n_scenes scenes traced together (scene-major, each
+            scene n_sources / n_scenes sources): each source reads its
+            scene's capsules.
 
     Returns (n_sources, C, B, n_bins) f32 energy to add to the histograms.
+    A batch gives each scene the bits of its own one-scene call: the fold's
+    shape is sized for one scene's sources.
     """
     if not _on_card(hit):
         return deposit_histogram_plain(hit, normal, e_refl, dist, occ, listener_pos,
                                        n_sources, n_bins, bin_dt, c_sound)
-    cl = listener_pos.shape[0]
-    tr, n_bands, vec4 = _deposit_inputs("deposit_histogram", hit, normal, e_refl, dist, occ, listener_pos,
-                                        n_sources, cl)
+    cl = listener_pos.shape[-2]
+    tr, n_bands, vec4, per_scene = _deposit_inputs("deposit_histogram", hit, normal, e_refl, dist, occ,
+                                                   listener_pos, n_sources, cl)
     n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2 = _deposit_constants(n_bins, bin_dt, c_sound)
-    warps, cluster = deposit_histogram_shape(n_sources * cl, 1, n_bands, n_bins, vec4)
+    warps, cluster = deposit_histogram_shape(per_scene * cl, 1, n_bands, n_bins, vec4)
     out = torch.empty((n_sources, cl, n_bands, n_bins), dtype=torch.float32, device=hit.device)
     fn = _lib("deposit_histogram", "deposit_histogram", _DEPOSIT_ARGS)
     launch_counts["deposit_histogram"] += 1
     err = fn(_ptr(hit), _ptr(normal), _ptr(e_refl), _ptr(dist), _ptr(occ), _ptr(listener_pos),
-             n_sources, tr // n_sources, cl, n_bands, n_bins, n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2,
-             vec4, warps, cluster, _ptr(out), _stream(hit))
+             n_sources, per_scene, tr // n_sources, cl, n_bands, n_bins, n_bins_pad, inv_bin_dt, range_limit, inv_c,
+             four_pi2, vec4, warps, cluster, _ptr(out), _stream(hit))
     _raise_on(err, "deposit_histogram")
     return out
 
@@ -1071,7 +1091,8 @@ def deposit_foa_fold_plain(hit, normal, e_refl, dist, occ, listener_pos,
     4 * B) encoded deposits, zero where the ray deposits nothing."""
     n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2 = _deposit_constants(n_bins, bin_dt, c_sound)
     tr, n_bands = e_refl.shape
-    lis = listener_pos.to(torch.float32).reshape(3)
+    n_scenes, lis = _scene_listeners(listener_pos, tr)
+    lis = lis.reshape(3) if n_scenes == 1 else lis[0].T  # (3,) or (3, TR)
     vx = lis[0] - hit[:, 0]
     vy = lis[1] - hit[:, 1]
     vz = lis[2] - hit[:, 2]
@@ -1113,24 +1134,27 @@ def deposit_histogram_foa(hit, normal, e_refl, dist, occ, listener_pos,
             n_sources * rays, source-major.
         e_refl: (TR, B) reflected energies; dist: (TR,) path lengths so far.
         occ: (1, TR) bool, True where the listener does not receive the ray.
-        listener_pos: (1, 3) the listener point.
+        listener_pos: (1, 3) the listener point, or (n_scenes, 1, 3) for
+            the sources of n_scenes scenes traced together (scene-major):
+            each source reads its scene's point.
 
     Returns (n_sources, 4, B, n_bins) f32 energy in channels [W, X, Y, Z]:
     W the deposit, X/Y/Z the deposit times the arrival direction's component.
+    A batch gives each scene the bits of its own one-scene call.
     """
     if not _on_card(hit):
         return deposit_histogram_foa_plain(hit, normal, e_refl, dist, occ, listener_pos,
                                            n_sources, n_bins, bin_dt, c_sound)
-    tr, n_bands, vec4 = _deposit_inputs("deposit_histogram_foa", hit, normal, e_refl, dist, occ, listener_pos,
-                                        n_sources, 1)
+    tr, n_bands, vec4, per_scene = _deposit_inputs("deposit_histogram_foa", hit, normal, e_refl, dist, occ,
+                                                   listener_pos, n_sources, 1)
     n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2 = _deposit_constants(n_bins, bin_dt, c_sound)
-    warps, cluster = deposit_histogram_shape(n_sources, 4, n_bands, n_bins, vec4)
+    warps, cluster = deposit_histogram_shape(per_scene, 4, n_bands, n_bins, vec4)
     out = torch.empty((n_sources, 4, n_bands, n_bins), dtype=torch.float32, device=hit.device)
     fn = _lib("deposit_histogram_foa", "deposit_histogram_foa", _DEPOSIT_FOA_ARGS)
     launch_counts["deposit_histogram_foa"] += 1
     err = fn(_ptr(hit), _ptr(normal), _ptr(e_refl), _ptr(dist), _ptr(occ), _ptr(listener_pos),
-             n_sources, tr // n_sources, n_bands, n_bins, n_bins_pad, inv_bin_dt, range_limit, inv_c, four_pi2,
-             vec4, warps, cluster, _ptr(out), _stream(hit))
+             n_sources, per_scene, tr // n_sources, n_bands, n_bins, n_bins_pad, inv_bin_dt, range_limit, inv_c,
+             four_pi2, vec4, warps, cluster, _ptr(out), _stream(hit))
     _raise_on(err, "deposit_histogram_foa")
     return out
 

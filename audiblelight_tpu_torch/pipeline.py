@@ -7,17 +7,20 @@ bed and quantise to int16. The reference compiles this into one XLA program;
 here it runs eagerly, one kernel or PyTorch op after another, with the JAX
 key replaced by a `torch.Generator` seeded from the world state's trace walk.
 
-`render_scenes` is the dataset loop: one scene at a time, one renderer per
-(room, rig, event buckets, source bucket), as the reference's pipelined
-loop groups them. A scene the fused renderer refuses (a shoebox or SOFA
-room, the exact rain mode in a nonconvex room, an ambience the card's bed
-does not draw, or `device_mix=False`) takes the plan path instead, as in the
-reference: the world state computes its IR banks (`trace_irs_device`, or
-the shoebox's image sources), `stems_from_plan`
-renders and quantises the stems on the device, and `mix_plan_host` places
-them and adds the host ambience bed. `render_scene_audio_compiled` is that
-path for one scene (`Scene.generate(compiled=True)`). Dispatch-ahead and
-batched renders are not ported.
+`render_scenes_pipelined` is the dataset loop, dispatch-ahead as the
+reference's: one renderer per (room, rig, event buckets, source bucket) in a
+module-wide LRU of 4, `fused_batch` scenes per batched render
+(`FusedSceneRenderer.render_mix_batch`: one bounce loop for the batch), the
+payloads pulled and written on a completion thread while the main thread
+places and dispatches the next scenes. A scene the fused renderer refuses (a
+shoebox or SOFA room, the exact rain mode in a nonconvex room, an ambience
+the card's bed does not draw, or `device_mix=False`) takes the plan path
+instead: the world state computes its IR banks (`trace_irs_device`, or the
+shoebox's image sources), `stems_from_plan` renders and quantises the stems
+on the device, and `mix_plan_host` places them and adds the host ambience
+bed. `render_scene_audio_compiled` is that path for one scene
+(`Scene.generate(compiled=True)`). The pooled driver behind the SELD CLI's
+--placement-workers is `prep.render_prepped_scenes`.
 """
 
 from __future__ import annotations
@@ -132,10 +135,15 @@ def render_scene_audio_compiled(scene, plan: Optional[ScenePlan] = None,
     return OrderedDict((alias, mixed[a:b]) for alias, a, b in mic_channel_spans(scene))
 
 
-def _plan_buckets(plan: ScenePlan) -> tuple:
-    """(es, em, j, S) of a plan."""
-    return (int(plan.static_audio.shape[0]), int(plan.moving_audio.shape[0]),
-            int(plan.moving_w.shape[2]), int(plan.static_audio.shape[1]))
+# A host plan's fields that stay on the host
+_HOST_FIELDS = ("ambience", "n_scene_samples")
+
+
+def _plan_buckets(plan) -> tuple:
+    """(es, em, j, S) of a ScenePlan or a host plan."""
+    get = plan.get if isinstance(plan, dict) else plan.__getattribute__
+    return (int(get("static_audio").shape[0]), int(get("moving_audio").shape[0]),
+            int(get("moving_w").shape[2]), int(get("static_audio").shape[1]))
 
 
 class FusedSceneRenderer:
@@ -230,13 +238,18 @@ class FusedSceneRenderer:
             and self._scene_identity(scene) == self._identity
         )
 
-    def scene_inputs(self, scene) -> tuple:
+    def scene_inputs(self, scene, device: bool = True) -> tuple:
         """Per-scene tracer inputs on the renderer's device: (generator,
         padded sources, listener points, rain table or None, s_idx, m_idx).
-        Advances the world state's trace walk."""
+        Advances the world state's trace walk. `device=False` gives them as
+        host arrays, the trace seed in place of the generator (the rain
+        table is the state's cached one on its device): a batch stacks a
+        group's inputs and uploads them in one copy."""
         (seed, src, caps, s_idx, m_idx), mic_pts = fused_inputs_host(scene, self.buckets, self.n_sources)
         dev = self.device
         face_occ = None if self.state.convex else self.state.rain_occlusion_for(mic_pts)
+        if not device:
+            return (seed, src, caps, face_occ, s_idx, m_idx)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         return (gen, torch.as_tensor(src, device=dev), torch.as_tensor(caps, device=dev), face_occ,
                 torch.as_tensor(s_idx, device=dev), torch.as_tensor(m_idx, device=dev))
@@ -287,8 +300,11 @@ class FusedSceneRenderer:
 
     def stems(self, gen, sources, listeners, face_occ, s_idx, m_idx, plan: ScenePlan) -> torch.Tensor:
         """(es + em, C_out, S) float stems: trace, per-event IR gather, render."""
+        return self._event_stems(self.trace(gen, sources, listeners, face_occ), s_idx, m_idx, plan)
+
+    def _event_stems(self, irs, s_idx, m_idx, plan: ScenePlan) -> torch.Tensor:
+        """(es + em, C_out, S) float stems from a scene's (C, bucket, L) RIRs."""
         es, em, j, _ = self.buckets
-        irs = self.trace(gen, sources, listeners, face_occ)  # (C, bucket, L)
         c, ir_len = irs.shape[0], irs.shape[-1]
         # -1 marks an empty slot (padded events, trajectory tails): a clamped
         # gather, then zeroed
@@ -320,6 +336,11 @@ class FusedSceneRenderer:
         if tuple(listeners.shape) != (self.n_capsules, 3):
             raise ValueError(f"listeners must be ({self.n_capsules}, 3), got {tuple(listeners.shape)}")
         stems = self.stems(gen, sources, listeners, face_occ, s_idx, m_idx, plan)
+        return self._payload(gen, stems, plan, amb_on, amb_beta, amb_db)
+
+    def _payload(self, gen, stems, plan: ScenePlan, amb_on, amb_beta, amb_db) -> torch.Tensor:
+        """A scene's stems placed, its ambience bed drawn from `gen` and
+        added, quantised: (C_out, T) int16."""
         starts = torch.cat([plan.static_start, plan.moving_start])
         mix = place_stems_device(stems, starts, self.t_scene)
         if float(amb_on) != 0.0:
@@ -327,6 +348,77 @@ class FusedSceneRenderer:
                                       self.t_scene, device=self.device)
             mix = mix + float(amb_on) * bed
         return quantize_mix_wav(mix)
+
+    def _batch(self, inputs: list, plans: list) -> tuple:
+        """A group's inputs on the card: (generators, sources (B, S, 3),
+        listeners (B, C, 3), rain tables (B, P, F') or None, s_idx, m_idx,
+        ScenePlans). Every host array of the group (`scene_inputs(...,
+        device=False)`, host plans from `build_scene_plan(..., device=False)`)
+        goes up in one copy; tensors already on the card are stacked there."""
+        if len(inputs) != len(plans) or not inputs:
+            raise ValueError("one plan per scene required")
+        seeds, src, caps, occ, s_idx, m_idx = zip(*inputs)
+        host, put = [], []
+
+        def later(x, dtype) -> int:
+            """Queue a host array for the upload; returns its slot."""
+            host.append(np.array(x, dtype=dtype, order="C"))
+            return len(host) - 1
+
+        slots = [later(np.stack(src), np.float32), later(np.stack(caps), np.float32),
+                 later(np.stack(s_idx), np.int64), later(np.stack(m_idx), np.int64)]
+        if self.state.convex:
+            occ = None
+        elif all(isinstance(o, np.ndarray) for o in occ):
+            occ = later(np.stack(occ), bool)
+        else:
+            occ = torch.stack([torch.as_tensor(o, device=self.device) for o in occ])
+        for plan in plans:  # a host plan's tensor fields as ScenePlan.from_numpy types them
+            put.append(plan if isinstance(plan, ScenePlan) else {
+                k: later(v, np.int64 if np.issubdtype(np.asarray(v).dtype, np.integer) else np.float32)
+                for k, v in plan.items() if k not in _HOST_FIELDS})
+        dev = upload(host, self.device)
+        plans_d = [p if isinstance(p, ScenePlan) else
+                   ScenePlan(**{k: dev[i] for k, i in p.items()}, **{k: plan[k] for k in _HOST_FIELDS})
+                   for p, plan in zip(put, plans)]
+        if isinstance(occ, int):
+            occ = dev[occ]
+        gens = [torch.Generator(device=self.device).manual_seed(int(seed)) for seed in seeds]
+        src, caps, s_idx, m_idx = (dev[k] for k in slots)
+        if tuple(src.shape[1:]) != (self.n_sources, 3) or tuple(caps.shape[1:]) != (self.n_capsules, 3):
+            raise ValueError(f"sources must be (B, {self.n_sources}, 3) and listeners (B, {self.n_capsules}, 3), "
+                             f"got {tuple(src.shape)} and {tuple(caps.shape)}")
+        return gens, src, caps, occ, s_idx, m_idx, plans_d
+
+    def _batch_stems(self, inputs: list, plans: list) -> tuple:
+        """(generators, per-scene float stems, ScenePlans) of a group: one
+        bounce loop for the group's traces, then each scene's stems."""
+        gens, src, caps, occ, s_idx, m_idx, plans_d = self._batch(inputs, plans)
+        irs = self.state.trace_rirs_batch(gens, src, caps, self.encoding, occ, self.hrtf)
+        stems = [self._event_stems(irs[b], s_idx[b], m_idx[b], plans_d[b]) for b in range(len(irs))]
+        return gens, stems, plans_d
+
+    def render_mix_batch(self, inputs: list, plans: list, extras: list) -> torch.Tensor:
+        """B scenes to their (B, C_out, T) int16 WAV payloads: the
+        counterpart of the reference's vmapped render_mix_batch. `inputs`
+        are each scene's `scene_inputs(scene, device=False)`, `plans` their
+        ScenePlans or host plans (`build_scene_plan(..., device=False)`),
+        `extras` their `mix_args`. The B traces run in one bounce loop
+        (each kernel launched once per bounce for the batch, K3 and K4
+        reading each scene's listener points); the stems, the placement,
+        the ambience bed and the quantisation run scene by scene. Scene b's
+        payload equals `render_mix` of that scene with the same seed."""
+        if len(extras) != len(inputs):
+            raise ValueError("one extras tuple per scene required")
+        gens, stems, plans_d = self._batch_stems(inputs, plans)
+        return torch.stack([self._payload(g, st, p, *e) for g, st, p, e in zip(gens, stems, plans_d, extras)])
+
+    def render_batch(self, inputs: list, plans: list) -> tuple:
+        """B scenes to their quantised stems: (int16 (B, E, C_out, S), float32
+        scales (B, E)), the counterpart of the reference's render_batch (see
+        `render_mix_batch` for the inputs)."""
+        q, scales = zip(*(quantize_stems(st) for st in self._batch_stems(inputs, plans)[1]))
+        return torch.stack(q), torch.stack(scales)
 
 
 def renderer_from_numpy(world: dict, cfg: dict, plan: dict, scene_inputs: tuple,
@@ -372,51 +464,154 @@ def renderer_from_numpy(world: dict, cfg: dict, plan: dict, scene_inputs: tuple,
     return renderer, (f32(sources), f32(capsules), face_occ, i64(s_idx), i64(m_idx), splan)
 
 
-def render_scenes(scenes: Iterable, complete: Callable, plan_kwargs: Optional[dict] = None,
-                  device_mix: bool = True) -> int:
-    """Render placed scenes one at a time; `complete(scene, {mic alias: (C, T)
-    numpy audio})` gets each in order: an int16 payload from the fused
-    renderer, a float32 mix from the plan path. Returns the number rendered.
+def upload(arrays: list, device) -> list:
+    """Host arrays to `device` in one copy: packed, each on a 16-byte
+    boundary, into one byte buffer (pinned where the device is a card), sent
+    with one non-blocking copy and viewed back as tensors of their dtypes
+    and shapes."""
+    device = torch.device(device)
+    offsets, total = [], 0
+    for a in arrays:
+        offsets.append(total)
+        total += -(-a.nbytes // 16) * 16
+    buf = torch.empty(total, dtype=torch.uint8, pin_memory=device.type == "cuda")
+    view = buf.numpy()
+    for a, off in zip(arrays, offsets):
+        view[off : off + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = buf.to(device, non_blocking=True)
+    return [buf[off : off + a.nbytes].view(torch.from_numpy(np.empty(0, a.dtype)).dtype).reshape(a.shape)
+            for a, off in zip(arrays, offsets)]
 
-    Each scene packs into a plan with `plan_kwargs`' pinned buckets
-    (max_static / max_moving / max_traj / pad_audio_seconds); a scene whose
-    events overflow them gets auto-sized buckets instead, so no event is
-    dropped. One renderer serves every scene it is `compatible` with at the
-    scene's source bucket: one per (room, rig, buckets, source bucket). A
-    scene the fused renderer refuses, and every scene when `device_mix` is
-    False, renders through the plan path (traced IR banks, device stems,
-    host mix), as does every scene of a world state the fused renderer
-    does not take (the shoebox: its image-source IR banks).
+
+# The module-wide renderer LRU of render_scenes_pipelined: each renderer pins
+# its room's device state (triangles, trees, rain tables), so the cache is
+# bounded; it outlives a call on purpose, since dataset loops call the
+# pipeline in chunks over the same rooms. Every scene re-passes
+# `compatible` before it renders through a cached renderer.
+_PIPELINE_RENDERERS: "OrderedDict" = OrderedDict()
+MAX_RENDERERS = 4
+
+
+def _event_counts(scene) -> dict:
+    """The scene's (max_static, max_moving, max_traj) needs."""
+    events = list(scene.events.values())
+    return dict(max_static=sum(1 for e in events if not e.is_moving),
+                max_moving=sum(1 for e in events if e.is_moving),
+                max_traj=max((len(e) for e in events if e.is_moving), default=0))
+
+
+def _renderer_for(scene, plan: ScenePlan) -> Optional[FusedSceneRenderer]:
+    """The cached renderer for `scene` at its source bucket, built from it
+    (and cached, evicting the least recently used) where none is; a cached
+    one that no longer fits (the room's engine config or material changed)
+    is replaced."""
+    ws = scene.state
+    mic = next(iter(ws.microphones.values()))
+    n_sources = _bucket(len(ws._emitter_positions()))
+    key = (id(ws.device_state), mic.channel_layout_type, int(mic.n_capsules), _plan_buckets(plan),
+           int(ws.sample_rate), str(getattr(mic, "hrtf_sofa", None)), n_sources)
+    renderer = _PIPELINE_RENDERERS.get(key)
+    if renderer is not None:
+        _PIPELINE_RENDERERS.move_to_end(key)
+        if renderer.compatible(scene, plan):
+            return renderer
+    try:
+        renderer = FusedSceneRenderer.from_scene(scene, plan, n_sources)
+    except ValueError:
+        return None
+    _PIPELINE_RENDERERS[key] = renderer
+    while len(_PIPELINE_RENDERERS) > MAX_RENDERERS:
+        _PIPELINE_RENDERERS.popitem(last=False)
+    return renderer
+
+
+def render_scenes_pipelined(scene_factory: Iterable, complete: Callable, max_in_flight: int = 4,
+                            plan_kwargs: Optional[dict] = None, fused_batch: int = 1, device_mix: bool = True) -> int:
+    """The dispatch-ahead dataset loop: `complete(scene, {mic alias: (C, T)
+    numpy audio})` gets every scene of `scene_factory` in order, an int16
+    payload from the fused renderer or a float32 mix from the plan path.
+    Returns the number of scenes completed.
+
+    `scene_factory` yields placed Scenes (placement runs in the iterator, on
+    the host). With `device_mix`, a scene whose ambience the card's bed
+    draws, in a room the fused renderer takes (a convex room, or the
+    per-face rain mode), renders through the cached renderer of its room,
+    rig, buckets and source bucket: `fused_batch` consecutive scenes of one
+    renderer go through `render_mix_batch` (one bounce loop for the batch);
+    a group cut short by another renderer or a plan-path scene, and the
+    trailing partial group, render scene by scene. Every other scene, every
+    scene without `device_mix` (the reference's `fused=False` too), and a
+    scene whose events overflow `plan_kwargs`' pinned buckets (max_static /
+    max_moving / max_traj / pad_audio_seconds) render through the plan path
+    (traced IR banks, device stems, host mix), its buckets auto-sized where
+    the pinned ones would drop an event.
+
+    The completion half (the pull of each payload, the plan path's host mix,
+    `complete`) runs on one worker thread (`prep.CompletionThread`) while
+    this thread places and dispatches the next scenes, up to `max_in_flight`
+    items ahead; a payload's copy to the host is non-blocking into pinned
+    memory (`prep.pull_async`), so dispatching never waits for it.
     """
-    renderers = []
+    from audiblelight_tpu_torch.prep import CompletionThread, pull_async
+
     done = 0
-    for scene in scenes:
-        if len(scene.state.microphones) != 1:
-            raise NotImplementedError("scenes with several microphones are not ported (ROADMAP)")
-        pk = dict(plan_kwargs or {})
-        events = list(scene.events.values())
-        counts = dict(max_static=sum(1 for e in events if not e.is_moving),
-                      max_moving=sum(1 for e in events if e.is_moving),
-                      max_traj=max((len(e) for e in events if e.is_moving), default=0))
-        for k, n in counts.items():
-            if pk.get(k) is not None and n > pk[k]:
-                pk.pop(k)
-        st = getattr(scene.state, "device_state", None)
-        fused = (device_mix and st is not None and FusedSceneRenderer.mix_eligible(scene)
-                 and (st.convex or rain_mode(st.cfg) == "face"))
-        plan = build_scene_plan(scene, plan_path=not fused, **pk)
-        if fused:
-            n_sources = _bucket(len(scene.state._emitter_positions()))
-            renderer = next((r for r in renderers if r.n_sources == n_sources and r.compatible(scene, plan)), None)
-            if renderer is None:
-                renderer = FusedSceneRenderer.from_scene(scene, plan, n_sources)
-                renderers.append(renderer)
-            alias = next(iter(scene.state.microphones))
-            audio = OrderedDict([(alias, renderer.render_scene(scene, plan).cpu().numpy())])
-        else:
-            audio = render_scene_audio_compiled(scene, plan)
-        complete(scene, audio)
+
+    def _finish(item):
+        nonlocal done
+        kind, scenes, data = item
+        if kind == "mix":
+            wavs = data()
+            for i, scene in enumerate(scenes):
+                complete(scene, OrderedDict([(next(iter(scene.state.microphones)), wavs[i])]))
+                done += 1
+            return
+        scene, plan, q, scales = scenes[0], *data
+        mixed = mix_plan_host(plan, q, scales)
+        complete(scene, OrderedDict((alias, mixed[a:b]) for alias, a, b in mic_channel_spans(scene)))
         done += 1
+
+    def _render_group(renderer, group):
+        if len(group) == fused_batch > 1:
+            scenes = [s for s, _ in group]
+            q = renderer.render_mix_batch([renderer.scene_inputs(s, device=False) for s in scenes],
+                                          [p for _, p in group], [renderer.mix_args(s) for s in scenes])
+            completion.put(("mix", scenes, pull_async(q)))
+        else:
+            for s, p in group:
+                completion.put(("mix", [s], pull_async(renderer.render_scene(s, p)[None])))
+        group.clear()
+
+    group: list = []
+    group_renderer = None
+    with CompletionThread(_finish, max_in_flight) as completion:
+        for scene in scene_factory:
+            if len(scene.state.microphones) != 1:
+                raise NotImplementedError("scenes with several microphones are not ported (ROADMAP)")
+            pk = dict(plan_kwargs or {})
+            overflow = False
+            for k, n in _event_counts(scene).items():
+                if pk.get(k) is not None and n > pk[k]:
+                    pk.pop(k)
+                    overflow = True
+            st = getattr(scene.state, "device_state", None)
+            renderer = None
+            if (device_mix and not overflow and st is not None and FusedSceneRenderer.mix_eligible(scene)
+                    and (st.convex or rain_mode(st.cfg) == "face")):
+                plan = build_scene_plan(scene, **pk)
+                renderer = _renderer_for(scene, plan)
+            if renderer is None:  # the plan path, in order after the group
+                _render_group(group_renderer, group)
+                plan = build_scene_plan(scene, plan_path=True, **pk)
+                completion.put(("plan", [scene], (plan, *stems_from_plan(plan))))
+                continue
+            if group and renderer is not group_renderer:
+                _render_group(group_renderer, group)
+            group_renderer = renderer
+            group.append((scene, plan))
+            if len(group) == fused_batch:
+                _render_group(renderer, group)
+        _render_group(group_renderer, group)
+        completion.join()
     return done
 
 

@@ -208,7 +208,7 @@ def _bucket(n: int, default: int = 1) -> int:
 
 def build_scene_plan(scene, max_static: Optional[int] = None, max_moving: Optional[int] = None,
                      max_traj: Optional[int] = None, pad_audio_seconds: Optional[float] = None,
-                     plan_path: bool = False) -> ScenePlan:
+                     plan_path: bool = False, device: bool = True):
     """Pack a placed Scene into a fixed-shape ScenePlan on the scene's
     world-state device.
 
@@ -225,6 +225,9 @@ def build_scene_plan(scene, max_static: Optional[int] = None, max_moving: Option
         into every microphone's channel span. False (the fused renderer's
         plan, which traces the IRs and draws the bed on the card) leaves
         zero-length IR placeholders and no bed.
+    device: False returns the fused renderer's plan as host arrays, a dict
+        of ScenePlan's fields (the scene-prep workers' form, which a batch
+        uploads in one copy; `ScenePlan.from_numpy` puts it on a device).
     """
     sr = scene.sample_rate
     c_total = sum(int(m.n_channels) for m in scene.state.microphones.values())
@@ -283,6 +286,8 @@ def build_scene_plan(scene, max_static: Optional[int] = None, max_moving: Option
         ambience=_host_ambience_bed(scene, c_total, t) if plan_path else None,
         ref_db=np.float32(scene.ref_db), n_scene_samples=t,
     )
+    if not device and not plan_path:
+        return arrays
     plan = ScenePlan.from_numpy(arrays, scene.state.device)
     if plan_path:
         plan.static_irs = torch.zeros((es, c_total, all_irs.shape[-1]), dtype=torch.float32, device=all_irs.device)

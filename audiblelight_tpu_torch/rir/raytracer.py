@@ -26,7 +26,12 @@ rir.hrtf):
      encoded at the listener for the one-point rigs.
 
 The bounce loop is a Python loop with the reference's early exit: it stops
-when every ray is dead, which costs one host read of a flag per bounce.
+when every ray is dead, which costs one host read of a flag per bounce. It
+traces B scenes of one room at once where the reference vmaps its fused
+program (`trace_rirs_batch`): their rays in one wavefront, each kernel
+launched once per bounce for the batch, each scene drawing from its own
+generator and stopping when its own rays are dead (a (B,) flag read per
+bounce), so that each scene gets its one-scene bits.
 Random numbers come from an explicit torch.Generator; they are not the
 reference's threefry draws, so the stochastic tail agrees statistically.
 Where the reference branches on the TPU, this follows its CPU branch: the
@@ -96,18 +101,46 @@ def _helper_axis(v: torch.Tensor) -> torch.Tensor:
     return torch.stack([use_x, 1.0 - use_x, torch.zeros_like(use_x)], dim=-1)
 
 
-def _cosine_hemisphere(gen: torch.Generator, normals: torch.Tensor) -> torch.Tensor:
-    """Cosine-weighted directions about each (R, 3) normal."""
-    r = normals.shape[0]
-    u1 = torch.rand(r, generator=gen, device=normals.device)
-    u2 = torch.rand(r, generator=gen, device=normals.device)
+def _hemisphere_local(gen: torch.Generator, r: int, device) -> torch.Tensor:
+    """(r, 3) cosine-weighted directions about +z, drawn from `gen`."""
+    u1 = torch.rand(r, generator=gen, device=device)
+    u2 = torch.rand(r, generator=gen, device=device)
     rad = torch.sqrt(u1)
     phi = 2.0 * math.pi * u2
-    local = torch.stack([rad * torch.cos(phi), rad * torch.sin(phi), torch.sqrt(1.0 - u1)], dim=-1)
+    return torch.stack([rad * torch.cos(phi), rad * torch.sin(phi), torch.sqrt(1.0 - u1)], dim=-1)
+
+
+def _cosine_hemisphere(draws: "_SceneDraws", normals: torch.Tensor) -> torch.Tensor:
+    """Cosine-weighted directions about each (R, 3) normal, each scene's
+    drawn from its own generator."""
+    local = draws.each(lambda g, r: _hemisphere_local(g, r, normals.device), (3,))
     t1 = cross3(normals, _helper_axis(normals))
     t1 = t1 / torch.clamp_min(norm3(t1, keepdim=True), 1e-12)
     t2 = cross3(normals, t1)
     return local[:, 0:1] * t1 + local[:, 1:2] * t2 + local[:, 2:3] * normals
+
+
+class _SceneDraws:
+    """The random draws of a bounce for B scenes traced together, each from
+    its own generator in the one-scene order and sizes (the scenes' rays
+    are scene-major, `per_scene` rows each). A scene whose rays are all dead
+    draws nothing, as the one-scene loop stops drawing once it exits, so its
+    generator stays where its one-scene trace leaves it; its rows get zeros.
+    Transcendentals run on each scene's own draw (`_hemisphere_local`), so
+    the CPU's vector loops split them as in a one-scene trace."""
+
+    def __init__(self, gens: list, live: list, per_scene: int, device):
+        self.gens, self.live, self.per_scene, self.device = gens, live, per_scene, device
+
+    def each(self, draw, tail: tuple = ()) -> torch.Tensor:
+        """`draw(gen, rows)` of every live scene, concatenated."""
+        parts = [draw(g, self.per_scene) if ok else
+                 torch.zeros((self.per_scene, *tail), dtype=torch.float32, device=self.device)
+                 for g, ok in zip(self.gens, self.live)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def rand(self) -> torch.Tensor:
+        return self.each(lambda g, r: torch.rand(r, generator=g, device=self.device))
 
 
 def decimation_phases(n_rays: int, max_depth: int, enabled: bool) -> tuple:
@@ -162,17 +195,20 @@ def _rain_occlusion(hit, normal, face_safe, listener_pos, tris, vis) -> torch.Te
     """(C, TR) bool rain visibility of one bounce's hit points, True where
     the listener point does not see the hit.
 
-    `vis` = (face_occlusion, star, occlusion, shared_visibility, tree): a
-    per-face table is one gather by hit face; else, in the exact mode, each
+    `vis` = (face_occlusion, star, occlusion, shared_visibility, tree,
+    scene_faces): a per-face table is one gather by hit face (for a batch
+    of scenes, the (P, B * F) tables side by side, gathered at
+    `scene_faces(face_safe)`, each ray's face in its scene's table); else,
+    in the exact mode (one scene), each
     hit point (moved 1e-4 off the surface) is queried toward the rig's
     centroid (shared visibility) or toward every listener point, through the
     star any-hit where a layout `star` was built and through the any-hit on
     `tris` (its any-hit tree `tree`) where it was not (`occlusion`); a
     convex room is never blocked."""
-    face_occlusion, star, occlusion, shared, tree = vis
-    cl, tr = listener_pos.shape[0], hit.shape[0]
+    face_occlusion, star, occlusion, shared, tree, scene_faces = vis
+    cl, tr = listener_pos.shape[-2], hit.shape[0]
     if face_occlusion is not None:
-        return face_occlusion[:, face_safe].expand(cl, tr)
+        return face_occlusion[:, scene_faces(face_safe)].expand(cl, tr)
     if star is None and not occlusion:
         return torch.zeros((cl, tr), dtype=torch.bool, device=hit.device)
     starts = (hit + 1e-4 * normal).contiguous()
@@ -190,7 +226,9 @@ def _rain_occlusion(hit, normal, face_safe, listener_pos, tris, vis) -> torch.Te
 def _unfused_deposit(hit, normal, e_refl, new_dist, hit_ok, occ, listener_pos, n_sources, n_bins, bin_dt,
                      c, encoding, sh_order, band_freqs, hrtf=None, hrtf_bp=None):
     """The reference's unfused deposit chain for one listener point, folded
-    by the grouped histogram (K5): (E, C_out, B, n_bins).
+    by the grouped histogram (K5): (E, C_out, B, n_bins). `listener_pos` is
+    (1, 3), or (B, 1, 3) for B scenes traced together: each ray then takes
+    its scene's point, and K5's inputs are per ray already.
 
     The deposit e_refl cos(theta) / (4 pi^2 max(d, 1e-2)^2), masked by
     visibility and range, is weighted by the gains of the arrival direction:
@@ -198,7 +236,11 @@ def _unfused_deposit(hit, normal, e_refl, new_dist, hit_ok, occ, listener_pos, n
     gains |H_ear|^2 of the spherical head, or of the measured set `hrtf`
     blended from its band-power table `hrtf_bp` (`HRTFSet.band_powers`)."""
     tr, n_bands = e_refl.shape
-    vec = listener_pos[:, None, :] - hit[None]
+    if listener_pos.dim() == 3:  # each ray's scene's point
+        listener_pos = listener_pos[torch.arange(tr, device=hit.device) // (tr // listener_pos.shape[0])]
+        vec = listener_pos.transpose(0, 1) - hit[None]
+    else:
+        vec = listener_pos[:, None, :] - hit[None]
     d_l = norm3(vec)
     dir_l = vec / torch.clamp_min(d_l[..., None], 1e-9)
     cos_th = torch.clamp_min(dot3(dir_l, normal[None]), 0.0)
@@ -224,13 +266,15 @@ def _unfused_deposit(hit, normal, e_refl, new_dist, hit_ok, occ, listener_pos, n
     return add.reshape(n_sources, n_bins, c_out, n_bands).permute(0, 2, 3, 1)
 
 
-def _bounce(gen, state, tris, route, tri_normals, face_absorption, face_scattering, vis,
+def _bounce(draws, state, tris, route, tri_normals, face_absorption, face_scattering, vis,
             listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs,
             hrtf=None, hrtf_bp=None):
     """One bounce of the whole wavefront: (new state, histogram increment).
-    `route` selects the first hit (`_first_hit_route`); `vis` holds the
-    rain-visibility inputs of `_rain_occlusion`; `hrtf`, `hrtf_bp` a
-    measured binaural set and its band-power table."""
+    `draws` (`_SceneDraws`) holds each scene's generator; `route` selects
+    the first hit (`_first_hit_route`); `vis` holds the rain-visibility
+    inputs of `_rain_occlusion`; `listener_pos` is (C, 3), or (B, C, 3) for
+    B scenes (each kernel launches once for all of them); `hrtf`, `hrtf_bp`
+    a measured binaural set and its band-power table."""
     origins, dirs, energy, dist, alive, prev_face = state
     tr = origins.shape[0]
 
@@ -259,8 +303,8 @@ def _bounce(gen, state, tris, route, tri_normals, face_absorption, face_scatteri
                                bin_dt, c, encoding, sh_order, band_freqs, hrtf, hrtf_bp)
 
     spec_dir = dirs - (2.0 * dot3(dirs, normal))[:, None] * normal
-    diff_dir = _cosine_hemisphere(gen, normal)
-    go_diffuse = torch.rand(tr, generator=gen, device=origins.device) < face_scattering[face_safe]
+    diff_dir = _cosine_hemisphere(draws, normal)
+    go_diffuse = draws.rand() < face_scattering[face_safe]
     new_dirs = torch.where(go_diffuse[:, None], diff_dir, spec_dir)
     new_origins = hit + 1e-4 * normal
     new_alive = (
@@ -286,19 +330,8 @@ def trace_energy_histogram_multi(
     bin_dt: float = 0.002,
     c: float = config.SPEED_OF_SOUND,
     *,
-    tri_normals: torch.Tensor = None,
     face_occlusion: torch.Tensor = None,
-    star=None,
-    occlusion: bool = False,
-    shared_visibility: bool = True,
-    decimate: bool = False,
-    encoding: str = "omni",
-    sh_order: int = 1,
-    tiled_tree=None,
-    fh_table=None,
-    any_hit_tree=None,
-    mxu_tables=None,
-    hrtf=None,
+    **kw,
 ) -> torch.Tensor:
     """Energy histograms for E sources traced together in one wavefront.
 
@@ -339,22 +372,78 @@ def trace_energy_histogram_multi(
     the ambisonic channels signed (energy times the arrival direction's
     gains); [left, right] energies times each ear's power gain.
     """
+    return trace_energy_histogram_batch(
+        [gen], tris, face_absorption, face_scattering, source_positions[None], listener_pos[None],
+        n_rays=n_rays, max_depth=max_depth, n_bins=n_bins, bin_dt=bin_dt, c=c,
+        face_occlusion=None if face_occlusion is None else face_occlusion[None], **kw,
+    )[0]
+
+
+def trace_energy_histogram_batch(
+    gens: list,
+    tris: torch.Tensor,
+    face_absorption: torch.Tensor,
+    face_scattering: torch.Tensor,
+    source_positions: torch.Tensor,
+    listener_pos: torch.Tensor,
+    n_rays: int = 2000,
+    max_depth: int = 50,
+    n_bins: int = 512,
+    bin_dt: float = 0.002,
+    c: float = config.SPEED_OF_SOUND,
+    *,
+    tri_normals: torch.Tensor = None,
+    face_occlusion: torch.Tensor = None,
+    star=None,
+    occlusion: bool = False,
+    shared_visibility: bool = True,
+    decimate: bool = False,
+    encoding: str = "omni",
+    sh_order: int = 1,
+    tiled_tree=None,
+    fh_table=None,
+    any_hit_tree=None,
+    mxu_tables=None,
+    hrtf=None,
+) -> torch.Tensor:
+    """`trace_energy_histogram_multi` for B scenes of one room in one bounce
+    loop: source_positions (B, S, 3), listener_pos (B, C, 3), face_occlusion
+    (B, P, F) or None, one generator per scene in `gens`. The B * S sources'
+    rays are traced as one wavefront, scene-major; each bounce launches each
+    kernel once for the batch, K3 and K4 reading each scene's listener
+    points. Each scene draws from its own generator in the one-scene order
+    and sizes and stops drawing when its rays are all dead (one host read of
+    a (B,) alive mask per bounce), so scene b gets exactly the histograms of
+    its one-scene trace with gens[b]. The exact rain mode (`star`,
+    `occlusion`) traces one scene at a time.
+
+    Returns (B, S, C_out, n_bands, n_bins).
+    """
     dev = tris.device
-    n_sources = source_positions.shape[0]
+    n_scenes, per_scene = source_positions.shape[0], source_positions.shape[1]
+    n_sources = n_scenes * per_scene
     n_bands = face_absorption.shape[1]
-    cl = listener_pos.shape[0]
+    cl = listener_pos.shape[1]
+    if len(gens) != n_scenes or listener_pos.shape[0] != n_scenes:
+        raise ValueError(f"{len(gens)} generators and {listener_pos.shape[0]} listener groups for {n_scenes} scenes")
+    if n_scenes > 1 and (star is not None or occlusion and face_occlusion is None):
+        raise NotImplementedError("the exact rain mode traces one scene at a time")
     _check_encoding(encoding, cl)
     c_out = encoding_channels(encoding, cl)
     total = n_sources * n_rays
+    # One scene keeps its (C, 3) points: the kernels' one-scene form
     listener_pos = listener_pos.to(torch.float32).contiguous()
+    lis = listener_pos[0] if n_scenes == 1 else listener_pos
 
     if tri_normals is None:
         tri_normals = cross3(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
         tri_normals = tri_normals / torch.clamp_min(norm3(tri_normals, keepdim=True), 1e-12)
 
+    dirs = _SceneDraws(gens, [True] * n_scenes, per_scene * n_rays, dev).each(
+        lambda g, r: torch.randn((r, 3), generator=g, device=dev), (3,))
     state = (
-        source_positions.to(torch.float32).repeat_interleave(n_rays, dim=0),
-        _sphere_directions(gen, total, dev),
+        source_positions.reshape(n_sources, 3).to(torch.float32).repeat_interleave(n_rays, dim=0),
+        dirs / norm3(dirs, keepdim=True),
         torch.full((total, n_bands), 1.0 / n_rays, dtype=torch.float32, device=dev),
         torch.zeros(total, dtype=torch.float32, device=dev),
         torch.ones(total, dtype=torch.bool, device=dev),
@@ -366,23 +455,35 @@ def trace_energy_histogram_multi(
     route = ((first_hit_table(tris) if fh_table is None else fh_table) if dense else None, tiled_tree, mxu_tables)
     dense_rain = face_occlusion is None and star is None and bool(occlusion)
     tree = any_hit_tree(tris) if dense_rain and any_hit_tree is not None else None
-    vis = (face_occlusion, star, bool(occlusion), bool(shared_visibility), tree)
+    table = None
+    if face_occlusion is not None:  # (B, P, F) -> (P, B * F): scene b's table at columns b * F
+        table = face_occlusion[0] if n_scenes == 1 else face_occlusion.transpose(0, 1).reshape(
+            face_occlusion.shape[1], -1)
     band_freqs = _band_centers(n_bands, dev)
     hrtf_bp = hrtf.band_powers(band_freqs) if hrtf is not None and encoding == "binaural" else None
     phases = decimation_phases(n_rays, max_depth, decimate)
     for pi, (start, end, r_src) in enumerate(phases):
         if pi > 0:
             state = _halve_wavefront(state, n_sources, phases[pi - 1][2], r_src)
+        rows = per_scene * r_src
+        if n_scenes == 1:
+            scene_faces = lambda f: f  # noqa: E731
+        else:
+            offset = torch.arange(n_scenes * rows, device=dev) // rows * face_occlusion.shape[-1]
+            scene_faces = offset.add  # noqa: E731
+        vis = (table, star, bool(occlusion), bool(shared_visibility), tree, scene_faces)
         for _ in range(start, end):
-            if not bool(state[4].any()):  # all rays dead: the reference's while-loop exit
+            # All rays of a scene dead: the reference's while-loop exit, per scene
+            live = state[4].reshape(n_scenes, rows).any(dim=1).tolist()
+            if not any(live):
                 break
             state, add = _bounce(
-                gen, state, tris, route, tri_normals, face_absorption, face_scattering,
-                vis, listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs,
+                _SceneDraws(gens, live, rows, dev), state, tris, route, tri_normals, face_absorption,
+                face_scattering, vis, lis, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs,
                 hrtf, hrtf_bp,
             )
             hist += add
-    return hist
+    return hist.reshape(n_scenes, per_scene, c_out, n_bands, n_bins)
 
 
 def _log_band_weights(freqs: torch.Tensor, band_freqs: torch.Tensor) -> torch.Tensor:
@@ -828,6 +929,38 @@ def trace_rirs_multi(
     source_positions: torch.Tensor,
     listener_pos: torch.Tensor,
     n_samples: int,
+    *,
+    face_occlusion: torch.Tensor = None,
+    **kw,
+) -> torch.Tensor:
+    """RIRs for a batch of sources against one listener group: stochastic
+    tail on `tris` (the acoustic mesh) + exact direct path on `tris_direct`
+    (default `tris`) + optional knife-edge diffraction. `encoding` is "omni"
+    (one channel per capsule), or "foa", "sh2", "sh3" or "binaural" (one
+    listener point); the direct and diffracted paths encode at
+    `sh_order_direct`, the tail at `sh_order_indirect`, each clipped to the
+    layout's order. The tail's rain visibility is `face_occlusion`, `star`
+    or `occlusion`, its bounce first hit K7 on `tiled_tree` where given, else
+    K8 on `mxu_tables` where its flag is on, else K1 on `fh_table`; every
+    any-hit query takes its mesh's tree from
+    `any_hit_tree` (see trace_energy_histogram_multi). A measured binaural
+    set `hrtf` (`rir.hrtf.HRTFSet`) renders the tail, the direct and the
+    diffracted paths in place of the analytic head. The keywords are
+    `trace_rirs_batch`'s. Returns (C_out, E, n_samples)."""
+    return trace_rirs_batch(
+        [gen], tris, face_absorption, face_scattering, torch.atleast_2d(source_positions)[None], listener_pos[None],
+        n_samples, face_occlusion=None if face_occlusion is None else face_occlusion[None], **kw,
+    )[0]
+
+
+def trace_rirs_batch(
+    gens: list,
+    tris: torch.Tensor,
+    face_absorption: torch.Tensor,
+    face_scattering: torch.Tensor,
+    source_positions: torch.Tensor,
+    listener_pos: torch.Tensor,
+    n_samples: int,
     sr: int = config.SAMPLE_RATE,
     n_rays: int = 2000,
     max_depth: int = 50,
@@ -852,43 +985,37 @@ def trace_rirs_multi(
     any_hit_tree=None,
     mxu_tables=None,
     hrtf=None,
-) -> torch.Tensor:
-    """RIRs for a batch of sources against one listener group: stochastic
-    tail on `tris` (the acoustic mesh) + exact direct path on `tris_direct`
-    (default `tris`) + optional knife-edge diffraction. `encoding` is "omni"
-    (one channel per capsule), or "foa", "sh2", "sh3" or "binaural" (one
-    listener point); the direct and diffracted paths encode at
-    `sh_order_direct`, the tail at `sh_order_indirect`, each clipped to the
-    layout's order. The tail's rain visibility is `face_occlusion`, `star`
-    or `occlusion`, its bounce first hit K7 on `tiled_tree` where given, else
-    K8 on `mxu_tables` where its flag is on, else K1 on `fh_table`; every
-    any-hit query takes its mesh's tree from
-    `any_hit_tree` (see trace_energy_histogram_multi). A measured binaural
-    set `hrtf` (`rir.hrtf.HRTFSet`) renders the tail, the direct and the
-    diffracted paths in place of the analytic head. Returns (C_out, E,
-    n_samples)."""
-    source_positions = torch.atleast_2d(source_positions)
+) -> list:
+    """`trace_rirs_multi` for B scenes of one room: source_positions (B, S,
+    3), listener_pos (B, C, 3), face_occlusion (B, P, F) or None, one
+    generator per scene. The tail of every scene is traced in one bounce
+    loop (`trace_energy_histogram_batch`); the synthesis, the direct and the
+    diffracted paths run scene by scene. Scene b gets exactly its one-scene
+    RIRs with gens[b]. Returns B tensors of (C_out, S, n_samples)."""
     n_bins = int(np.ceil(n_samples / sr / bin_dt)) + 1
-    hist = trace_energy_histogram_multi(
-        gen, tris, face_absorption, face_scattering, source_positions, listener_pos,
+    hist = trace_energy_histogram_batch(
+        gens, tris, face_absorption, face_scattering, source_positions, listener_pos,
         n_rays=n_rays, max_depth=max_depth, n_bins=n_bins, bin_dt=bin_dt, c=c,
         tri_normals=tri_normals, face_occlusion=face_occlusion, star=star, occlusion=occlusion,
         shared_visibility=shared_visibility, decimate=decimate, encoding=encoding, sh_order=sh_order_indirect,
         tiled_tree=tiled_tree, fh_table=fh_table, any_hit_tree=any_hit_tree, mxu_tables=mxu_tables,
         hrtf=hrtf,
-    )  # (E, C_out, B, bins)
+    )  # (B, E, C_out, B, bins)
     band_freqs = _band_centers(face_absorption.shape[1], tris.device)
-    irs = synthesize_ir_from_histogram(gen, hist, band_freqs, n_samples, bin_dt, sr=sr, encoding=encoding)
     td = tris if tris_direct is None else tris_direct
     tree_of = any_hit_tree if any_hit_tree is not None else (lambda _: None)
-    irs = irs + direct_paths_ir(td, source_positions, listener_pos, n_samples, sr=sr, c=c,
-                                encoding=encoding, sh_order=sh_order_direct, tree=tree_of(td), hrtf=hrtf)
-    if diffraction:
-        irs = irs + diffracted_path_ir(
-            td, source_positions, listener_pos, band_freqs, n_samples, sr=sr, c=c,
-            order=int(diffraction_order), tris_graph=tris_diffraction_graph,
-            encoding=encoding, sh_order=sh_order_direct, tree=tree_of(td),
-            tree_graph=None if tris_diffraction_graph is None else tree_of(tris_diffraction_graph),
-            hrtf=hrtf,
-        )
-    return irs.movedim(0, 1)
+    out = []
+    for gen, h, src, lis in zip(gens, hist, source_positions, listener_pos):
+        irs = synthesize_ir_from_histogram(gen, h, band_freqs, n_samples, bin_dt, sr=sr, encoding=encoding)
+        irs = irs + direct_paths_ir(td, src, lis, n_samples, sr=sr, c=c,
+                                    encoding=encoding, sh_order=sh_order_direct, tree=tree_of(td), hrtf=hrtf)
+        if diffraction:
+            irs = irs + diffracted_path_ir(
+                td, src, lis, band_freqs, n_samples, sr=sr, c=c,
+                order=int(diffraction_order), tris_graph=tris_diffraction_graph,
+                encoding=encoding, sh_order=sh_order_direct, tree=tree_of(td),
+                tree_graph=None if tris_diffraction_graph is None else tree_of(tris_diffraction_graph),
+                hrtf=hrtf,
+            )
+        out.append(irs.movedim(0, 1))
+    return out

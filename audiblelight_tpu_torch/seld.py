@@ -6,6 +6,8 @@
         --backend rlr --mesh room.obj --channel-layout foa [--device cpu]
     python -m audiblelight_tpu_torch.seld --fg-dir <folder of WAVs> --output-dir <out> \\
         --backend sofa --sofa room.sofa --channel-layout mic [--device cpu]
+    python -m audiblelight_tpu_torch.seld --fg-dir <folder of WAVs> --output-dir <out> \\
+        --backend rlr --mesh room.obj --placement-workers 4 --fused-batch 4 [--device cpu]
 
 The port's counterpart of scripts/seld/generate_dataset.py, with the same
 flags, defaults, seeding and file layout: N one-minute 24 kHz scenes in the
@@ -29,9 +31,24 @@ renders through the plan path, one `Scene.generate(compiled=True)` at a
 time (IR banks, device stems, host mix). On rlr, `--no-mesh-simplification`
 traces the full mesh with the exact rain mode (the star any-hit per
 bounce); such scenes, and every scene under `--no-device-mix`, render
-through the plan path too. `--pipeline classic`, on every backend, renders
-each scene as `Scene.generate()` does by default: the classic per-event
-render (each event convolved on its own, the mix on the host).
+through the plan path too. The rlr fused path is dispatch-ahead
+(`pipeline.render_scenes_pipelined`): `--fused-batch` scenes of one
+renderer trace in one bounce loop (`FusedSceneRenderer.render_mix_batch`),
+and the writes run on a completion thread.
+
+`--placement-workers N` with N > 0 selects the pooled driver (rlr only,
+`generate_pooled`): N spawned worker processes, which never see the card,
+place and pack the scenes (`prep.ScenePrepPool`, placement on the host BVH,
+the rain table on the CPU), and the main process renders them in batches of
+`--fused-batch` and writes them (`prep.render_prepped_scenes`). Each job
+draws its own seed from --seed (skipped jobs too) and seeds the global
+streams with it, so the outputs do not depend on N. At the default, 0, the
+serial loop runs, whose scenes share one stream as the reference script's
+do, so its scenes are not the pooled driver's.
+
+`--pipeline classic`, on every backend, renders each scene as
+`Scene.generate()` does by default: the classic per-event render (each event
+convolved on its own, the mix on the host).
 
 `--augmentations <names>` gives each event one augmentation drawn from the
 named entries of the reference script's table (`AUGMENTATIONS`), with its
@@ -45,14 +62,14 @@ the output folder only. As in the reference script, the SOFA world state
 gets no seed: `--seed` fixes the scenes' counts and timings, not where
 events snap on the measured grid.
 
-Not ported (raise, ROADMAP): --assets (and --sofa-dir),
---placement-workers > 0, --mesh-devices > 1 and --coordinator.
---fused-batch is accepted and has no effect (one scene per render).
+Not ported (raise, ROADMAP): --assets (and --sofa-dir), --mesh-devices > 1
+and --coordinator (item 6, multi-device rendering).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from pathlib import Path
 from typing import Optional
@@ -63,7 +80,8 @@ from scipy import stats
 from audiblelight_tpu_torch import config, utils
 from audiblelight_tpu_torch.augmentation import Distortion, Invert, PitchShift, Reverse, SpeedUp
 from audiblelight_tpu_torch.core import Scene, write_outputs
-from audiblelight_tpu_torch.pipeline import render_scene_audio_compiled, render_scenes
+from audiblelight_tpu_torch.io.audio import wav_write
+from audiblelight_tpu_torch.pipeline import render_scene_audio_compiled, render_scenes_pipelined
 from audiblelight_tpu_torch.render import _bucket
 from audiblelight_tpu_torch.synthesize import render_scene_classic
 from audiblelight_tpu_torch.utils import logger
@@ -124,7 +142,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rays", type=int, default=None, help="indirect ray count (rlr)")
     p.add_argument("--ray-depth", type=int, default=None, help="indirect ray depth (rlr)")
     p.add_argument("--ir-seconds", type=float, default=config.MAX_IR_SECONDS)
-    p.add_argument("--fused-batch", type=int, default=4, help="accepted; renders are one scene each")
+    p.add_argument("--fused-batch", type=int, default=4,
+                   help="scenes per batched fused render (one bounce loop for the batch)")
     p.add_argument("--duration", type=float, default=DURATION)
     p.add_argument("--seed", type=int, default=utils.SEED)
     p.add_argument("--pipeline", choices=["fused", "compiled", "classic"], default=None)
@@ -132,7 +151,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ray-decimation", action=argparse.BooleanOptionalAction, default=False)
     p.add_argument("--diffraction", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--device-mix", action=argparse.BooleanOptionalAction, default=True)
-    p.add_argument("--placement-workers", type=int, default=0)
+    p.add_argument("--placement-workers", type=int, default=0,
+                   help="scene-prep worker processes of the pooled driver (rlr; 0 = the serial loop); "
+                        "outputs do not depend on the count")
     p.add_argument("--mesh-devices", type=int, default=1)
     p.add_argument("--coordinator", type=str, default=None)
     p.add_argument("--num-processes", type=int, default=None)
@@ -147,9 +168,8 @@ def check_ported(args) -> None:
     does not run."""
     unported = [
         (args.assets is not None, "--assets", "the asset room tables (glTF loading)"),
-        (args.placement_workers > 0, "--placement-workers > 0", "pooled placement"),
-        (args.mesh_devices > 1, "--mesh-devices > 1", "multi-device rendering"),
-        (args.coordinator is not None, "--coordinator", "multi-device rendering"),
+        (args.mesh_devices > 1, "--mesh-devices > 1", "item 6, multi-device rendering"),
+        (args.coordinator is not None, "--coordinator", "item 6, multi-device rendering"),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -198,19 +218,28 @@ def build_backend_kwargs(args, rng: np.random.Generator, meshes: dict) -> dict:
     )
 
 
+def job_paths(args, split: str, scene_num: int, scape_num: int) -> tuple:
+    """(audio path, metadata path) stems of one job, the reference's layout."""
+    fold = 1 if split == "train" else 2
+    common = f"dev-{split}-alight/fold{fold}_scene{scene_num}_{str(scape_num).zfill(3)}"
+    out = Path(args.output_dir)
+    return out / f"{args.channel_layout}_dev/{common}", out / f"metadata_dev/{common}"
+
+
+def outputs_exist(audio_path: Path, metadata_path: Path) -> bool:
+    """A job's first WAV and CSV are written (resume skips it)."""
+    return ((audio_path.parent / f"{audio_path.name}_mic000.wav").is_file()
+            and (metadata_path.parent / f"{metadata_path.name}_mic000.csv").is_file())
+
+
 def build_scene(args, split: str, scene_num: int, scape_num: int, rng: np.random.Generator,
                 depth: int = 0, meshes: Optional[dict] = None):
     """Construct and place one scene: (scene, audio path, metadata path), or
     None when its outputs exist (resume). Builds again when no event placed."""
     meshes = {} if meshes is None else meshes
-    fold = 1 if split == "train" else 2
-    common = f"dev-{split}-alight/fold{fold}_scene{scene_num}_{str(scape_num).zfill(3)}"
-    audio_path = Path(args.output_dir) / f"{args.channel_layout}_dev/{common}"
-    metadata_path = Path(args.output_dir) / f"metadata_dev/{common}"
-
-    wav_out = audio_path.parent / f"{audio_path.name}_mic000.wav"
-    csv_out = metadata_path.parent / f"{metadata_path.name}_mic000.csv"
-    if wav_out.is_file() and csv_out.is_file():
+    audio_path, metadata_path = job_paths(args, split, scene_num, scape_num)
+    common = f"{audio_path.parent.name}/{audio_path.name}"
+    if outputs_exist(audio_path, metadata_path):
         logger.warning(f"Skipping existing scene {common}")
         return None
 
@@ -263,13 +292,17 @@ def plan_kwargs(args) -> dict:
     )
 
 
-def generate_fused(args, jobs: list, rng: np.random.Generator) -> list[float]:
-    """Place, render and write every job in order: through `render_scenes`
-    (the fused renderer, or the plan path where it refuses a scene), or, for
+def generate_fused(args, jobs: list, rng: np.random.Generator, stats: dict) -> list[float]:
+    """Place, render and write every job in order: through
+    `render_scenes_pipelined` (the fused renderer, `--fused-batch` scenes a
+    batch, or the plan path where it refuses a scene), or, for
     `--pipeline compiled`, each scene through the plan path, or, for
     `--pipeline classic`, each scene through the classic per-event render.
     Returns each rendered scene's host-clock seconds, from the start of its
-    placement to the end of its writes."""
+    placement to the end of its writes; `stats` gets the run's wall time
+    ("wall_s"), its scene count ("n_scenes") and the host's core count
+    ("cpu_count")."""
+    t_start = time.perf_counter()
     paths, meshes, seconds = {}, {}, []
 
     def factory():
@@ -298,13 +331,116 @@ def generate_fused(args, jobs: list, rng: np.random.Generator) -> list[float]:
             render_scene_classic(scene)
             complete(scene, scene.audio)
     else:
-        render_scenes(factory(), complete, plan_kwargs=plan_kwargs(args), device_mix=args.device_mix)
+        render_scenes_pipelined(factory(), complete, max_in_flight=4, plan_kwargs=plan_kwargs(args),
+                                fused_batch=args.fused_batch, device_mix=args.device_mix)
+    stats.update(wall_s=time.perf_counter() - t_start, n_scenes=len(seconds), cpu_count=os.cpu_count())
     return seconds
 
 
-def main(argv: Optional[list] = None) -> list[float]:
+def make_pooled_prep(args_dict: dict, jobs: list, plan_kwargs: dict):
+    """The pooled driver's worker-side builder (`prep.ScenePrepPool`): each
+    task places and packs one job's scene on the CPU with the job's own
+    seed, which also seeds the global streams (the scipy placement
+    distributions draw from numpy's), so a run places the same scenes
+    whatever its worker count."""
+    from audiblelight_tpu_torch.prep import prep_scene
+
+    args = argparse.Namespace(**dict(args_dict, device="cpu"))
+    meshes: dict = {}
+
+    def prep(index: int, seed: int):
+        split, scene_num, scape = jobs[index]
+        utils.seed_everything(int(seed) % (2**31))
+        built = build_scene(args, split, scene_num, scape, np.random.default_rng(seed), meshes=meshes)
+        if built is None:  # its outputs appeared since the main process's scan
+            return None
+        return prep_scene(built[0], index, plan_kwargs)
+
+    return prep
+
+
+def generate_pooled(args, jobs: list, rng: np.random.Generator, stats: dict) -> list[float]:
+    """The pooled driver (`--placement-workers`): worker processes place and
+    pack the scenes (`make_pooled_prep`), the main process renders them in
+    batches of `--fused-batch` through one renderer per source bucket of a
+    room's template scene and writes them (`prep.render_prepped_scenes`).
+    The counterpart of the reference script's generate_pooled; rlr only.
+    Returns each rendered scene's host-clock seconds since the previous
+    scene's writes ended (the first since the driver started: the seconds
+    add up to the run's wall time); `stats` gets `render_prepped_scenes`'
+    stages, the wall time ("wall_s") and the host's core count
+    ("cpu_count")."""
+    from audiblelight_tpu_torch.pipeline import FusedSceneRenderer
+    from audiblelight_tpu_torch.prep import ScenePrepPool, render_prepped_scenes
+    from audiblelight_tpu_torch.render import build_scene_plan
+
+    if args.backend != "rlr":
+        raise SystemExit("--placement-workers requires --backend rlr")
+    t_start = time.perf_counter()
+    pk = plan_kwargs(args)
+    live_jobs, paths, seeds = [], {}, {}
+    for job in jobs:  # the resume filter; a seed is drawn for every job, skipped ones too
+        audio_path, metadata_path = job_paths(args, *job)
+        seed = int(rng.integers(2**31))
+        if outputs_exist(audio_path, metadata_path):
+            logger.warning(f"Skipping existing scene {audio_path.parent.name}/{audio_path.name}")
+            continue
+        audio_path.parent.mkdir(parents=True, exist_ok=True)
+        metadata_path.parent.mkdir(parents=True, exist_ok=True)
+        paths[len(live_jobs)] = (audio_path, metadata_path)
+        seeds[len(live_jobs)] = seed
+        live_jobs.append(job)
+    total = {"prep_wait_s": 0.0, "dispatch_s": 0.0, "pull_s": 0.0, "complete_s": 0.0, "n_scenes": 0}
+    seconds: list = []
+    last = [t_start]
+    if not live_jobs:
+        stats.update(total, wall_s=time.perf_counter() - t_start, cpu_count=os.cpu_count())
+        return seconds
+
+    def complete(prepped, wav):
+        audio_path, metadata_path = paths[prepped.index]
+        wav_write(audio_path.parent / f"{audio_path.name}_{prepped.mic_alias}.wav", wav, SAMPLE_RATE,
+                  subtype="int16")
+        for mic, text in prepped.csv_texts.items():
+            (metadata_path.parent / f"{metadata_path.name}_{mic}.csv").write_text(text, encoding="utf-8")
+        metadata_path.with_suffix(".json").write_text(prepped.scene_json, encoding="utf-8")
+        now = time.perf_counter()
+        seconds.append(now - last[0])
+        last[0] = now
+
+    # A renderer holds one room, so the reference drives its jobs room by
+    # room, a template scene each; the CLI's jobs share its one --mesh
+    # (--assets, which names a room per job, is not ported)
+    with ScenePrepPool("audiblelight_tpu_torch.seld:make_pooled_prep",
+                       dict(args_dict=vars(args), jobs=live_jobs, plan_kwargs=pk),
+                       workers=args.placement_workers) as pool:
+        # The template scene pins the room, rig and engine config; one
+        # renderer per source bucket shares it
+        utils.seed_everything(seeds[0] % (2**31))
+        built = build_scene(args, *live_jobs[0], np.random.default_rng(seeds[0]))
+        if built is None:
+            raise RuntimeError(f"the template scene of room {args.mesh} was not built")
+        template = built[0]
+        template_plan = build_scene_plan(template, **pk)
+        renderers: dict = {}
+
+        def renderer_for(bucket: int) -> FusedSceneRenderer:
+            if bucket not in renderers:
+                renderers[bucket] = FusedSceneRenderer.from_scene(template, template_plan, bucket)
+            return renderers[bucket]
+
+        prepped = (p for p in pool.imap([(i, seeds[i]) for i in range(len(live_jobs))]) if p is not None)
+        render_prepped_scenes(renderer_for, prepped, complete, fused_batch=args.fused_batch, stats=total)
+    logger.warning(f"Pooled driver rendered {total['n_scenes']} scenes")
+    stats.update(total, wall_s=time.perf_counter() - t_start, cpu_count=os.cpu_count())
+    return seconds
+
+
+def main(argv: Optional[list] = None, stats: Optional[dict] = None) -> list[float]:
     """Run the generator on `argv` (default: the command line). Returns each
-    rendered scene's host-clock seconds, placement included."""
+    rendered scene's host-clock seconds (`generate_fused`,
+    `generate_pooled`); `stats`, where given, gets the run's wall time, scene
+    count and host core count, and the pooled driver's stages."""
     args = build_parser().parse_args(argv)
     if args.pipeline is None:
         args.pipeline = "fused" if args.backend == "rlr" else "compiled"
@@ -318,7 +454,10 @@ def main(argv: Optional[list] = None) -> list[float]:
     rng = np.random.default_rng(args.seed)
     n_train = round(args.n_scenes * args.train_frac)
     jobs = [("train", 1, i) for i in range(n_train)] + [("test", 1, i) for i in range(args.n_scenes - n_train)]
-    return generate_fused(args, jobs, rng)
+    stats = {} if stats is None else stats
+    if args.placement_workers > 0:
+        return generate_pooled(args, jobs, rng, stats)
+    return generate_fused(args, jobs, rng, stats)
 
 
 if __name__ == "__main__":

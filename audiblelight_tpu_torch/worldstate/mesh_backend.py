@@ -11,15 +11,19 @@ Counterpart of audiblelight_tpu/worldstate/mesh_backend.py.
   the LOD's tables and tree for K8, each built once per mesh, built from a
   TriMesh plus an engine-config dict.
 - `WorldStateRLR`, the host half the Scene talks to: mesh and engine config,
-  the placement `rng`, the validity tests placement runs (K2 and the
-  point-in-mesh and surface-distance queries on the world state's device),
-  relative coordinates, serialisation, the walk that seeds each trace, and
-  the trace of every microphone's IR bank (`trace_irs_device`, `get_irs`).
+  the placement `rng`, the validity tests placement runs, relative
+  coordinates, serialisation, the walk that seeds each trace, and the trace
+  of every microphone's IR bank (`trace_irs_device`, `get_irs`).
 
-The trace seeds come from a walk of their own, keyed by the world state's
-seed and a counter: they never draw from the placement streams, so the same
-seed places the same events as the reference. The reference's native BVH
-(cpp/geomlib.cpp) is not used; every query runs through this package.
+Placement's validity tests (point in mesh, surface distance, line of sight,
+the openness heuristic) run on the host BVH (`native_bvh`, the port's copy
+of the reference's cpp/geomlib.cpp), as the reference runs them: many small
+batches, no device round trip each. Where the library cannot be built they
+run through the torch queries on the world state's device (K1, K2 and the
+plain point-in-mesh and surface-distance queries), with the reference's
+warning. The trace seeds come from a walk of their own, keyed by the world
+state's seed and a counter: they never draw from the placement streams, so
+the same seed places the same events as the reference.
 """
 
 from __future__ import annotations
@@ -329,20 +333,14 @@ class MeshDeviceState:
         return out
 
 
-    def trace_rirs(self, gen: torch.Generator, sources: torch.Tensor, listeners: torch.Tensor,
-                   encoding: str, rain: dict, hrtf=None) -> torch.Tensor:
-        """(C_out, E, L) RIRs of `sources` at `listeners` under this room's
-        engine config: the tail on the acoustic mesh with the rain
-        visibility `rain` (`rain_inputs`), the direct path on the full mesh,
-        and diffraction in a nonconvex room; `hrtf` a measured binaural set.
-        Where the tail traces the full mesh itself, its bounce first hit
-        takes K7 on `tiled_tree` when that tree is built."""
-        from audiblelight_tpu_torch.rir.raytracer import trace_rirs_multi
-
+    def _trace_kwargs(self, encoding: str, hrtf=None) -> dict:
+        """The tracer's keywords under this room's engine config: the tail
+        on the acoustic mesh, the direct path on the full mesh, diffraction
+        in a nonconvex room; K7's tree where the tail traces the full mesh
+        itself and that tree is built."""
         cfg = self.cfg
         sr = int(cfg["sample_rate"])
-        return trace_rirs_multi(
-            gen, self.acoustic_tris, self.absorption, self.scattering, sources, listeners,
+        return dict(
             n_samples=int(round(float(cfg["max_ir_length"]) * sr)),
             sr=sr,
             n_rays=int(cfg["indirect_ray_count"]),
@@ -363,8 +361,29 @@ class MeshDeviceState:
             any_hit_tree=self.any_hit_tree,
             mxu_tables=self.mxu_tables(self.acoustic_tris),
             hrtf=hrtf,
-            **rain,
         )
+
+    def trace_rirs(self, gen: torch.Generator, sources: torch.Tensor, listeners: torch.Tensor,
+                   encoding: str, rain: dict, hrtf=None) -> torch.Tensor:
+        """(C_out, E, L) RIRs of `sources` at `listeners` under this room's
+        engine config (`_trace_kwargs`) with the rain visibility `rain`
+        (`rain_inputs`); `hrtf` a measured binaural set."""
+        from audiblelight_tpu_torch.rir.raytracer import trace_rirs_multi
+
+        return trace_rirs_multi(gen, self.acoustic_tris, self.absorption, self.scattering, sources, listeners,
+                                **self._trace_kwargs(encoding, hrtf), **rain)
+
+    def trace_rirs_batch(self, gens: list, sources: torch.Tensor, listeners: torch.Tensor, encoding: str,
+                         face_occlusion: Optional[torch.Tensor], hrtf=None) -> list:
+        """B scenes' RIRs in one bounce loop (`raytracer.trace_rirs_batch`):
+        sources (B, S, 3), listeners (B, C, 3), each scene's per-face rain
+        table stacked (B, P, F') or None in a convex room, one generator per
+        scene. Returns B tensors of (C_out, S, L), scene b's equal to its
+        `trace_rirs` with gens[b]."""
+        from audiblelight_tpu_torch.rir.raytracer import trace_rirs_batch
+
+        return trace_rirs_batch(gens, self.acoustic_tris, self.absorption, self.scattering, sources, listeners,
+                                face_occlusion=face_occlusion, **self._trace_kwargs(encoding, hrtf))
 
 
 # Tracer encoding of each one-point channel layout
@@ -526,6 +545,26 @@ class WorldStateRLR(PlacementMixin, WorldState):
     def _points(self, positions) -> torch.Tensor:
         return torch.as_tensor(np.asarray(positions, dtype=np.float32), device=self.device)
 
+    @property
+    def native_bvh(self):
+        """The host BVH of the mesh (`geometry.native.NativeBVH`) for
+        placement's queries, or None where the library cannot be built (the
+        torch queries run instead). Cached on the mesh, keyed by its face
+        count: dataset runs build many world states over one mesh object."""
+        if getattr(self, "_native_bvh_failed", False):
+            return None
+        cached = self.mesh.__dict__.get("_native_bvh_cache")
+        if cached is not None and cached[0] == len(self.mesh.faces):
+            return cached[1]
+        from audiblelight_tpu_torch.geometry.native import NativeBVH, native_available
+
+        if not native_available():
+            self._native_bvh_failed = True
+            return None
+        bvh = NativeBVH(self.mesh.triangles.astype(np.float32))
+        self.mesh.__dict__["_native_bvh_cache"] = (len(self.mesh.faces), bvh)
+        return bvh
+
     def _get_valid_positions_mask(self, pos_abs: np.ndarray) -> np.ndarray:
         """Batched position validation: distances to objects and surfaces,
         and inside the mesh."""
@@ -533,6 +572,11 @@ class WorldStateRLR(PlacementMixin, WorldState):
         if positions.shape[1] != 3:
             raise ValueError("Expected input to have shape (N, 3) for XYZ coordinates")
         valid = self._distance_mask(positions)
+        bvh = self.native_bvh
+        if bvh is not None:
+            valid &= bvh.nearest_surface_distance(positions) >= self.empty_space_around_surface
+            valid &= bvh.contains(positions)
+            return valid
         pts = self._points(positions)
         tris = self.device_state.tris
         valid &= nearest_surface_distance(pts, tris).cpu().numpy() >= self.empty_space_around_surface
@@ -547,6 +591,11 @@ class WorldStateRLR(PlacementMixin, WorldState):
         for point in (point_a, point_b):
             if point.shape != (3,):
                 raise ValueError(f"Expected an array with shape (3,) but got {point.shape}")
+        bvh = self.native_bvh
+        if bvh is not None:
+            if not bvh.contains(np.stack([point_a, point_b])).all():
+                return False
+            return not bool(bvh.segments_occluded(point_a[None], point_b[None])[0])
         tris = self.device_state.tris
         if not bool(points_inside_mesh(self._points(np.stack([point_a, point_b])), tris).all()):
             return False
@@ -563,10 +612,14 @@ class WorldStateRLR(PlacementMixin, WorldState):
         cos_el = np.cos(elevations)
         directions = np.stack([cos_el * np.cos(angles), cos_el * np.sin(angles), np.sin(elevations)], -1)
         origins = np.broadcast_to(point, (num_rays, 3))
-        st = self.device_state
-        t, _ = ray_mesh_first_hit(self._points(origins), self._points(directions), st.tris,
-                                  st.first_hit_table(st.tris))
-        distances = t.cpu().numpy()
+        bvh = self.native_bvh
+        if bvh is not None:
+            distances, _ = bvh.ray_first_hit(origins, directions)
+        else:
+            st = self.device_state
+            t, _ = ray_mesh_first_hit(self._points(origins), self._points(directions), st.tris,
+                                      st.first_hit_table(st.tris))
+            distances = t.cpu().numpy()
         if np.isinf(distances).any():
             logger.warning(f"Some rays cast from point {point} have infinite distances: is the mesh watertight?")
             distances = distances[np.isfinite(distances)]

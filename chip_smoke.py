@@ -123,7 +123,23 @@ exact CLI scene's bounces), then drives the port's two main paths:
 - the 27 event augmentations on a 5 s event on the card, the torch FX
   (biquads, compressor and limiter, time stretch, pitch shift) against
   themselves on the CPU and the host FX, timed beside the host versions;
-  the shoebox CLI with `--augmentations` beside the same CLI without.
+  the shoebox CLI with `--augmentations` beside the same CLI without;
+- the pooled SELD driver (`pooled_phase`): the host BVH (built, or the run
+  fails; its booleans equal to the card's queries and its distances within
+  1e-5 m on 10,000 points and 1,000 segments of the flagship room, timed
+  per call beside them); `render_mix_batch` of 4 flagship scenes against
+  `render_mix` of each (MIC, then FOA: within 1 LSB), K3 and K4 with a
+  scene axis on the batched trace's own bounces against 4 one-scene
+  launches (bit for bit) and their plain versions, the batch's launches per
+  bounce beside one scene's, scene time per scene and idle share; the
+  serial rlr CLI (4 MIC scenes) with its host time split by stage, one
+  render each with the host BVH and without it, and in one batch of 4
+  (`--fused-batch 4`, the CLI's default) with it, each in a process of its
+  own (`--cli-breakdown`), the batch's files against the single renders'
+  (CSVs byte-identical, JSONs byte-identical but for the creation time,
+  WAVs within 1 LSB) and its launches read from its own run; and the pooled
+  CLI, 8 MIC scenes with 1 worker in single renders and with 4 workers in
+  batches of 4: the same file checks, throughput and the stats breakdown.
 
 Each path's kernel launches are counted from zero just before it and read
 just after; a kernel of the path that did not launch fails the run, and so
@@ -248,22 +264,28 @@ def time_ms(fn, reps: int = 10, warm: bool = True) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, tries: int = 4) -> float:
     """Device time per call of the kernels `fn` launches, from the profiler
     over `reps` calls after a warm-up: `time_ms` without the host's time
-    before each launch."""
+    before each launch. The profiler now and then records none of a
+    session's kernels; such a session is run again, up to `tries` in all,
+    and nan (printed "nan": not measured) is returned if every one came
+    back empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
-                for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
-    return total / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
+                    for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / reps / 1e3
+    return float("nan")
 
 
 def elapsed(t_start: float, label: str) -> None:
@@ -1147,8 +1169,9 @@ def check_deposit(name: str, args: list, kw: dict, label: str) -> dict:
     fold = lambda: hist.index_add_(0, rows, vals)  # noqa: E731
     lib_ms, lib_dev_ms = time_ms(fold), device_ms(fold)
     plain_ms = time_ms(lambda: plain(*args, **kw), reps=3)
-    warps, cluster = ck.deposit_histogram_shape(n_sources * (1 if foa else n_caps), 4 if foa else 1, n_bands, n_bins,
-                                                n_bands % 4 == 0)
+    n_scenes = args[5].shape[0] if args[5].dim() == 3 else 1  # a batch's listener points (n_scenes, C, 3)
+    warps, cluster = ck.deposit_histogram_shape(n_sources // n_scenes * (1 if foa else n_caps), 4 if foa else 1,
+                                                n_bands, n_bins, n_bands % 4 == 0)
     print(f"check {name} at {label} ({tr} rays, {n_sources} sources x {n_caps} {'listener' if foa else 'capsules'} "
           f"-> {tuple(h_k.shape)}; {int(seen.sum())} (ray, {'listener' if foa else 'capsule'}) pairs seen, deposits "
           f"in {int(torch.unique(rows[vals.ne(0).any(-1)]).numel())} histogram rows; {warps} warps a CTA, clusters "
@@ -2754,6 +2777,416 @@ def augmentation_phase(fg: Path, out: Path, dev) -> None:
           f"s (host clock per scene: placement, engine, augmentations, render, writes) on {card}", flush=True)
 
 
+# The pooled SELD driver: the serial CLI's host time (with and without the
+# host BVH, and in one batch), then 8 scenes with 1 worker against 4 workers
+# in batches of 4
+POOLED_SCENES = 8
+BREAKDOWN_SCENES = 4
+POOLED_WORKERS = 4
+POOLED_BATCH = 4
+N_BATCH = 4  # scenes per batched render in the batch-against-single checks
+
+
+def host_bvh_check(mesh, dev) -> None:
+    """The host BVH (`WorldStateRLR.native_bvh`) must be built; on 10,000
+    random points and 1,000 segments in the flagship room its booleans equal
+    the card's queries and its distances are within 1e-5 m of them; per-call
+    host times beside the card's at placement's batch sizes."""
+    from audiblelight_tpu_torch.geometry.native import lib_path
+    from audiblelight_tpu_torch.geometry.queries import nearest_surface_distance, points_inside_mesh
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.worldstate.mesh_backend import WorldStateRLR
+
+    t0 = time.time()
+    ws = WorldStateRLR(mesh, device=dev, add_to_context=False)
+    bvh = ws.native_bvh
+    if bvh is None:
+        fail("the host BVH was not built (g++ or the library failed)")
+    print(f"host BVH: {lib_path().relative_to(REPO)} over {bvh.n_tris} faces, built and loaded in "
+          f"{time.time() - t0:.3f} s (host clock, the library's build included)", flush=True)
+    rng = np.random.default_rng(3)
+    lo, hi = mesh.bounds
+    pts = rng.uniform(lo - 0.2, hi + 0.2, (10_000, 3)).astype(np.float32)
+    starts = rng.uniform(lo, hi, (1_000, 3)).astype(np.float32)
+    ends = rng.uniform(lo, hi, (1_000, 3)).astype(np.float32)
+    st = ws.device_state
+    tree = st.any_hit_tree(st.tris)
+    p_t, s_t, e_t = (torch.as_tensor(x, device=dev) for x in (pts, starts, ends))
+    inside_c = points_inside_mesh(p_t, st.tris).cpu().numpy()
+    near_c = nearest_surface_distance(p_t, st.tris).cpu().numpy()
+    occ_c = ck.segments_occluded(s_t, e_t, st.tris, tree).cpu().numpy()
+    inside_h, near_h, occ_h = bvh.contains(pts), bvh.nearest_surface_distance(pts), bvh.segments_occluded(starts, ends)
+    gap = float(np.abs(near_h - near_c).max())
+    bad = int((inside_h != inside_c).sum()), int((occ_h != occ_c).sum())
+    print(f"host BVH against the card's queries: point in mesh {bad[0]} of 10,000 differ ({int(inside_h.sum())} "
+          f"inside), segments {bad[1]} of 1,000 differ ({int(occ_h.sum())} blocked), nearest-surface distance max "
+          f"gap {gap:.3e} m", flush=True)
+    if any(bad) or gap > 1e-5:
+        fail("the host BVH disagrees with the card's queries")
+
+    def host_ms(fn, reps: int = 20) -> float:
+        fn()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    def card_ms(fn, reps: int = 5) -> float:  # host clock of a query whose answer the host reads
+        return host_ms(lambda: fn().cpu(), reps)
+
+    for n in (1, 100, 10_000):
+        h_in = host_ms(lambda: bvh.contains(pts[:n]))
+        h_near = host_ms(lambda: bvh.nearest_surface_distance(pts[:n]))
+        c_in = card_ms(lambda: points_inside_mesh(p_t[:n], st.tris))
+        c_near = card_ms(lambda: nearest_surface_distance(p_t[:n], st.tris))
+        print(f"host BVH per call at {n} points: point in mesh {h_in:.4f} ms (card {c_in:.4f} ms), nearest surface "
+              f"{h_near:.4f} ms (card {c_near:.4f} ms); host clock, the card's with its read", flush=True)
+    for n in (1, 1_000):
+        h_occ = host_ms(lambda: bvh.segments_occluded(starts[:n], ends[:n]))
+        c_occ = card_ms(lambda: ck.segments_occluded(s_t[:n].contiguous(), e_t[:n].contiguous(), st.tris, tree))
+        print(f"host BVH per call at {n} segments: occluded {h_occ:.4f} ms (card K2 {c_occ:.4f} ms)", flush=True)
+
+
+def batch_check(renderer, scenes: list, label: str, path: tuple) -> None:
+    """`render_mix_batch` of N_BATCH flagship scenes against `render_mix` of
+    each with the same seeds (int16 within 1 LSB); K3 or K4 with a scene
+    axis on the batched trace's own bounces against per-scene launches (bit
+    for bit), the n_scenes = 1 form against the one-scene form (bit for
+    bit) and its plain version (`check_deposit`); launches per bounce of the
+    batched trace against one scene's, scene time per scene by CUDA events
+    and the device idle share."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.render import ScenePlan
+    from audiblelight_tpu_torch.rir import raytracer
+
+    dev, st = renderer.device, renderer.state
+    seeds = [2000 + i for i in range(N_BATCH)]
+    singles_in = []
+    for seed, (src, caps, s_idx, m_idx, plan, amb) in zip(seeds, scenes):
+        lis = torch.as_tensor(caps if renderer.encoding == "omni" else np.mean(caps, 0, keepdims=True),
+                              dtype=torch.float32, device=dev)
+        singles_in.append((seed, torch.as_tensor(src, device=dev), lis, renderer.rain_table(caps),
+                           torch.as_tensor(s_idx, device=dev), torch.as_tensor(m_idx, device=dev),
+                           ScenePlan.from_numpy(plan, dev), amb))
+    batch_in = [(seed, src, (caps if renderer.encoding == "omni" else np.mean(caps, 0, keepdims=True)),
+                 renderer.rain_table(caps), s_idx, m_idx)
+                for seed, (src, caps, s_idx, m_idx, _, _) in zip(seeds, scenes)]
+    plans = [sc[4] for sc in scenes]
+    extras = [sc[5] for sc in scenes]
+
+    def single(i):
+        seed, *args, plan, amb = singles_in[i]
+        return renderer.render_mix(torch.Generator(device=dev).manual_seed(seed), *args, plan, *amb)
+
+    def batch():
+        return renderer.render_mix_batch(batch_in, plans, extras)
+
+    ck.reset_launch_counts()
+    got = batch()
+    torch.cuda.synchronize()
+    launches = dict(ck.launch_counts)
+    want = [single(i) for i in range(N_BATCH)]
+    gaps = [int((got[i].int() - want[i].int()).abs().max()) for i in range(N_BATCH)]
+    print(f"{label} batch of {N_BATCH}: render_mix_batch against render_mix of each scene, max "
+          f"{max(gaps)} LSB ({gaps}), bit for bit {all(torch.equal(got[i], want[i]) for i in range(N_BATCH))}; "
+          f"launches {launches}", flush=True)
+    if max(gaps) > 1 or any(int(w.abs().max()) < 100 for w in want):
+        fail(f"{label}: the batch differs from its scenes rendered alone by more than 1 LSB, or is silent")
+    for name in path:
+        if launches[name] <= 0:
+            fail(f"the {label} batch never launched {name}")
+    check_first_hits(launches, 60, f"the {label} batch")
+
+    # Launches per bounce: the batched trace's against one scene's, by the profiler
+    gens = lambda: [torch.Generator(device=dev).manual_seed(s) for s in seeds]  # noqa: E731
+    src_b = torch.stack([x[1] for x in singles_in])
+    lis_b = torch.stack([x[2] for x in singles_in])
+    occ_b = torch.stack([x[3] for x in singles_in])
+    n_bounces = []
+    bounce = raytracer._bounce
+
+    def counted(draws, state, *args):
+        n_bounces[-1] += 1
+        return bounce(draws, state, *args)
+
+    raytracer._bounce = counted
+    try:
+        per = {}
+        for what, fn in (("one scene", lambda: renderer.trace(torch.Generator(device=dev).manual_seed(seeds[0]),
+                                                               *singles_in[0][1:4])),
+                         (f"batch of {N_BATCH}", lambda: st.trace_rirs_batch(gens(), src_b, lis_b, renderer.encoding,
+                                                                             occ_b, None))):
+            n_bounces.append(0)
+            fn()
+            torch.cuda.synchronize()
+            b = n_bounces[-1]
+            n, syncs = call_profile(fn)
+            per[what] = (n, b, syncs)
+    finally:
+        raytracer._bounce = bounce
+    print(f"{label} trace launches: " + "; ".join(f"{w} {n} over {b} bounces ({n / b:.1f} a bounce), host syncs "
+                                                  f"{s}" for w, (n, b, s) in per.items()), flush=True)
+
+    one_ms = time_ms(lambda: single(0), reps=3)
+    batch_ms = time_ms(batch, reps=3)
+    _, busy_one = profiled(lambda: single(0), f"{label} one scene profile")
+    _, busy_b = profiled(batch, f"{label} batch profile")
+    print(f"{label} scene time (CUDA events): one scene {one_ms:.3f} ms, batch of {N_BATCH} {batch_ms:.3f} ms = "
+          f"{batch_ms / N_BATCH:.3f} ms a scene ({one_ms * N_BATCH / batch_ms:.2f}x); device idle share one scene "
+          f"{1 - busy_one / one_ms:.1%}, batch {1 - busy_b / batch_ms:.1%} on {card_line()}", flush=True)
+
+    # K3 / K4 with a scene axis on the batched trace's own bounces
+    name = "deposit_histogram" if renderer.encoding == "omni" else "deposit_histogram_foa"
+    kept = {}
+    setattr(raytracer, name, keep_deposits(name, kept))
+    try:
+        st.trace_rirs_batch(gens(), src_b, lis_b, renderer.encoding, occ_b, None)
+    finally:
+        setattr(raytracer, name, getattr(ck, name))
+    kernel = getattr(ck, name)
+    for rays, bounces in sorted(kept.items(), reverse=True):
+        for which, (args, kw) in zip(("first", "last"), bounces):
+            hit, normal, e_refl, dist, occ, lis = args
+            if lis.dim() != 3 or lis.shape[0] != N_BATCH:
+                fail(f"{name} in the batched trace took listener points {tuple(lis.shape)}")
+            h = kernel(*args, **kw)
+            n = hit.shape[0] // N_BATCH
+            per_scene = kw["n_sources"] // N_BATCH
+            parts = [kernel(hit[b * n:(b + 1) * n], normal[b * n:(b + 1) * n], e_refl[b * n:(b + 1) * n],
+                            dist[b * n:(b + 1) * n], occ[:, b * n:(b + 1) * n].contiguous(), lis[b],
+                            **dict(kw, n_sources=per_scene)) for b in range(N_BATCH)]
+            one = kernel(hit[:n], normal[:n], e_refl[:n], dist[:n], occ[:, :n].contiguous(), lis[:1],
+                         **dict(kw, n_sources=per_scene))
+            same = torch.equal(h, torch.cat(parts))
+            print(f"{name} at n_scenes = {N_BATCH}, the batched {label} trace's {which} bounce of {rays} rays: "
+                  f"equal to {N_BATCH} one-scene launches bit for bit {same}; the n_scenes = 1 form equal to the "
+                  f"one-scene form {torch.equal(one, parts[0])}", flush=True)
+            if not same or not torch.equal(one, parts[0]):
+                fail(f"{name} with a scene axis differs from its one-scene launches")
+    check_deposit_bounces(name, kept, f"batched {label} trace (n_scenes = {N_BATCH})")
+
+
+def pooled_inputs(st, dev) -> list:
+    """N_BATCH flagship scenes for the batch checks, each with its own
+    AmbeoVR position: (sources, capsules, s_idx, m_idx, host plan, ambience)."""
+    from audiblelight_tpu_torch.micarrays import ambeovr_capsules
+
+    out = []
+    for i in range(N_BATCH):
+        src, s_idx, m_idx, plan, amb = flagship_inputs(st.tris, np.random.default_rng(300 + i), dev)
+        centre = np.array(MIC_CENTRE) + np.array([0.25, -0.2, 0.1]) * np.array([i % 2, i // 2, i % 3])
+        out.append((src, ambeovr_capsules(tuple(centre)), s_idx, m_idx, plan, amb))
+    return out
+
+
+def breakdown_main(mode: str, fg: str, room_obj: str, out: str) -> int:
+    """The serial rlr CLI (MIC, --seed 7, BREAKDOWN_SCENES flagship scenes,
+    one render per scene) with its host time split by stage: room state,
+    host BVH build, placement, plan build, rain table, render, writes. Run in
+    a process of its own; mode "nobvh" takes the host BVH away
+    (`WorldStateRLR.native_bvh` patched to None), so that placement runs on
+    the card; mode "batched" renders the scenes in one batch
+    (`--fused-batch BREAKDOWN_SCENES`, `render_mix_batch`). Prints one JSON
+    line last: seconds per stage, calls per stage and this run's kernel
+    launches."""
+    import threading
+
+    sys.path.insert(0, str(REPO))
+    from audiblelight_tpu_torch import pipeline, seld
+    from audiblelight_tpu_torch.geometry import native
+    from audiblelight_tpu_torch.ops import build
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.worldstate import mesh_backend
+
+    build.build_all()
+    if mode == "nobvh":
+        mesh_backend.WorldStateRLR.native_bvh = property(lambda self: None)
+    local = threading.local()
+    spent: dict = {}
+    counts: dict = {}
+
+    def timed(stage: str, fn, sync: bool = True):
+        """`fn` with its exclusive host-clock seconds added to `stage`,
+        synchronised after each call where the stage runs device work."""
+        def run(*a, **k):
+            stack = local.__dict__.setdefault("stack", [])
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                total = time.perf_counter() - t0
+                inner = stack.pop()
+                spent[stage] = spent.get(stage, 0.0) + total - inner
+                counts[stage] = counts.get(stage, 0) + 1
+                if stack:
+                    stack[-1] += total
+        return run
+
+    seld.build_scene = timed("placement", seld.build_scene)
+    pipeline.build_scene_plan = timed("plan build", pipeline.build_scene_plan)
+    mesh_backend.MeshDeviceState.from_mesh = classmethod(
+        timed("room state", mesh_backend.MeshDeviceState.from_mesh.__func__))
+    mesh_backend.MeshDeviceState.rain_occlusion_for = timed(
+        "rain table", mesh_backend.MeshDeviceState.rain_occlusion_for)
+    native.NativeBVH.__init__ = timed("host BVH build", native.NativeBVH.__init__)
+    pipeline.FusedSceneRenderer.render_scene = timed("render", pipeline.FusedSceneRenderer.render_scene)
+    pipeline.FusedSceneRenderer.render_mix_batch = timed("render (batch)",
+                                                         pipeline.FusedSceneRenderer.render_mix_batch)
+    seld.write_outputs = timed("writes", seld.write_outputs, sync=False)  # the completion thread's
+    batch = BREAKDOWN_SCENES if mode == "batched" else 1
+    argv = ["--fg-dir", fg, "--output-dir", out, "--mesh", room_obj, "--channel-layout", "mic",
+            *cli_flags(BREAKDOWN_SCENES), "--fused-batch", str(batch)]
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    seconds = seld.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.launch_counts)
+    print(f"rlr CLI breakdown ({mode}): {len(seconds)} scenes in {wall:.3f} s; per scene (placement to writes) "
+          f"{', '.join(f'{x:.3f}' for x in seconds)} s", flush=True)
+    for stage, sec in sorted(spent.items(), key=lambda kv: -kv[1]):
+        print(f"rlr CLI breakdown ({mode}): {stage} {sec:.3f} s over {counts[stage]} calls, "
+              f"{sec / len(seconds):.3f} s a scene", flush=True)
+    print(f"rlr CLI breakdown ({mode}): launches {launches}", flush=True)
+    print(json.dumps(dict(mode=mode, wall_s=wall, scene_s=seconds, stages=spent, calls=counts, launches=launches)))
+    return 0
+
+
+def cli_flags(n_scenes: int) -> list:
+    """CLI_FLAGS with `n_scenes` train scenes."""
+    flags = list(CLI_FLAGS)
+    flags[flags.index("--n-scenes") + 1] = str(n_scenes)
+    return flags + ["--train-frac", "1.0"]
+
+
+def card_probe_builder():
+    """A `ScenePrepPool` builder whose tasks report what a worker process
+    sees of the card: (CUDA_VISIBLE_DEVICES, torch.cuda.is_available(),
+    torch.cuda.device_count())."""
+    import os
+
+    def prep(index: int, seed: int) -> tuple:
+        return os.environ.get("CUDA_VISIBLE_DEVICES"), torch.cuda.is_available(), torch.cuda.device_count()
+
+    return prep
+
+
+def pooled_phase(mesh, st, fg: Path, room_obj: Path, out: Path, dev) -> dict:
+    """The pooled SELD driver and what stands behind it: the host BVH, the
+    batched renders (MIC: K3, FOA: K4) against one scene at a time, the
+    serial rlr CLI's host time by stage with and without the host BVH, and
+    in one batch of BREAKDOWN_SCENES (each in a process of its own; the
+    batch's files against the single renders'), and the pooled CLI
+    (POOLED_SCENES MIC scenes, --seed 7) with 1 worker in single renders
+    against POOLED_WORKERS workers in batches of POOLED_BATCH (`--placement-
+    workers 0` is the serial loop, whose scenes are not the pooled
+    driver's): CSVs byte-identical, JSONs byte-identical but for the
+    creation-time line, WAVs within 1 LSB, throughput and the stats
+    breakdown. Returns the launches of the pooled run with POOLED_WORKERS."""
+    import os
+
+    from audiblelight_tpu_torch import seld
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.pipeline import FusedSceneRenderer
+    from audiblelight_tpu_torch.prep import ScenePrepPool
+
+    with ScenePrepPool("chip_smoke:card_probe_builder", {}, workers=2) as pool:
+        seen = list(pool.imap([(0, 0), (1, 0)]))
+    print(f"pool workers see of the card (CUDA_VISIBLE_DEVICES, is_available, device_count): {seen}", flush=True)
+    if any(available or count for _, available, count in seen):
+        fail("a scene-prep worker sees the card")
+    host_bvh_check(mesh, dev)
+    scenes = pooled_inputs(st, dev)
+    t_scene = int(SCENE_SECONDS * SR)
+    batch_check(FusedSceneRenderer(st, 4, BUCKETS, N_SOURCES, t_scene, layout="mic"), scenes, "MIC", MIC_PATH)
+    batch_check(FusedSceneRenderer(st, 1, BUCKETS, N_SOURCES, t_scene, layout="foa"), scenes, "FOA", FOA_PATH)
+    del scenes
+
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    for mode in ("bvh", "nobvh", "batched"):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--cli-breakdown", mode, str(fg),
+                               str(room_obj), str(out / f"serial_{mode}")], capture_output=True, text=True,
+                              timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("rlr CLI breakdown")]
+        print("\n".join(lines), flush=True)
+        if proc.returncode != 0 or not proc.stdout.strip():
+            print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n")
+            fail(f"the serial CLI breakdown ({mode}) failed with {proc.returncode}")
+        check_cli_outputs(out / f"serial_{mode}", "mic", t_scene, BREAKDOWN_SCENES)
+    # The CLI's default batch: one render_mix_batch of the 4 scenes, its
+    # launches read from that run alone, its files the single renders'
+    batched = json.loads(proc.stdout.strip().splitlines()[-1])
+    if batched["calls"].get("render (batch)") != 1 or batched["calls"].get("render"):
+        fail(f"the serial CLI at --fused-batch {BREAKDOWN_SCENES} rendered {batched['calls']}")
+    for name in MIC_PATH:
+        if batched["launches"][name] <= 0:
+            fail(f"the serial CLI at --fused-batch {BREAKDOWN_SCENES} never launched {name}")
+    if not 0 < batched["launches"]["first_hit_big"] <= 60:
+        fail(f"the serial CLI's batch launched first_hit_big {batched['launches']['first_hit_big']} times")
+    compare_cli_outputs(out / "serial_bvh", out / "serial_batched", f"serial CLI, --fused-batch 1 and "
+                        f"{BREAKDOWN_SCENES}", 3 * BREAKDOWN_SCENES)
+
+    runs = {}
+    for workers, batch in ((1, 1), (POOLED_WORKERS, POOLED_BATCH)):
+        argv = ["--fg-dir", str(fg), "--output-dir", str(out / f"pooled_w{workers}"), "--mesh", str(room_obj),
+                "--channel-layout", "mic", *cli_flags(POOLED_SCENES), "--placement-workers", str(workers),
+                "--fused-batch", str(batch)]
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        stats: dict = {}
+        seld.main(argv, stats=stats)
+        torch.cuda.synchronize()
+        launches = dict(ck.launch_counts)
+        runs[workers] = launches
+        n = stats["n_scenes"]
+        print(f"pooled CLI, {workers} workers, batches of {batch}: {n} scenes in {stats['wall_s']:.3f} s = "
+              f"{n / stats['wall_s']:.3f} scenes/s, {n * SCENE_SECONDS / stats['wall_s']:.1f} scene-seconds/s, "
+              f"{stats['wall_s'] / n:.3f} s a scene; stats "
+              f"{ {k: round(v, 3) for k, v in stats.items() if k.endswith('_s')} }; os.cpu_count() "
+              f"{os.cpu_count()}; launches {launches} on {card_line()}", flush=True)
+        if n != POOLED_SCENES:
+            fail(f"the pooled CLI rendered {n} scenes")
+        for name in MIC_PATH:
+            if launches[name] <= 0:
+                fail(f"the pooled CLI ({workers} workers) never launched {name}")
+        if not 0 < launches["first_hit_big"] <= 60 * POOLED_SCENES:
+            fail(f"the pooled CLI launched first_hit_big {launches['first_hit_big']} times")
+        check_cli_outputs(out / f"pooled_w{workers}", "mic", t_scene, POOLED_SCENES)
+    compare_cli_outputs(out / "pooled_w1", out / f"pooled_w{POOLED_WORKERS}",
+                        f"pooled CLI, 1 and {POOLED_WORKERS} workers", 3 * POOLED_SCENES)
+    return runs[POOLED_WORKERS]
+
+
+def compare_cli_outputs(a_dir: Path, b_dir: Path, label: str, n_files: int) -> None:
+    """Two CLI runs of the same scenes wrote the same `n_files` files: CSVs
+    byte-identical, JSONs byte-identical but for the creation-time line,
+    WAVs within 1 LSB."""
+    from audiblelight_tpu_torch.io.audio import wav_read
+
+    files = sorted(p.relative_to(a_dir) for p in a_dir.rglob("*") if p.is_file())
+    if len(files) != n_files or files != sorted(p.relative_to(b_dir) for p in b_dir.rglob("*") if p.is_file()):
+        fail(f"{label}: the runs wrote different files ({len(files)} in the first)")
+    worst = 0
+    for rel in files:
+        a, b = a_dir / rel, b_dir / rel
+        if rel.suffix == ".csv" and a.read_bytes() != b.read_bytes():
+            fail(f"{label}: {rel} differs")
+        if rel.suffix == ".json" and [ln for ln in a.read_text().splitlines() if '"creation_time"' not in ln] != \
+                [ln for ln in b.read_text().splitlines() if '"creation_time"' not in ln]:
+            fail(f"{label}: {rel} differs")
+        if rel.suffix == ".wav":
+            x, y = (np.round(wav_read(f)[0] * 32768).astype(np.int32) for f in (a, b))
+            worst = max(worst, int(np.abs(x - y).max()))
+    print(f"{label}: {len(files)} files; CSVs byte-identical, JSONs byte-identical but for the creation time, "
+          f"WAVs at most {worst} LSB apart", flush=True)
+    if worst > 1:
+        fail(f"{label}: WAVs differ by more than 1 LSB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3450,6 +3883,13 @@ def main() -> int:
     # --augmentations
     augmentation_phase(fg, OUT / "augment", dev)
 
+    elapsed(t_start, "pooled driver")
+    # 19. The pooled SELD driver: the host BVH, the batched renders (K3 and
+    # K4 with a scene axis), the serial CLI's host time by stage, the pooled
+    # CLI with 1 and 4 workers
+    pooled_n = pooled_phase(mesh, st, fg, room_obj, OUT / "pooled", dev)
+    print(f"pooled CLI: launches {pooled_n}")
+
     main_launches = dict(launches, first_hit_small=small_n["first_hit_small"],
                          deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"],
                          star_any_hit=exact_main["star_any_hit"], bin_histogram=rig_main["hoa3"]["bin_histogram"],
@@ -3490,4 +3930,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-breakdown"]:
+        sys.exit(breakdown_main(*sys.argv[2:6]))
     sys.exit(main())

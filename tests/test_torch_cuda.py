@@ -346,6 +346,26 @@ def test_deposit_histogram_foa_matches_plain(card, e, r, b, n_bins, arrivals):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("foa", [False, True], ids=["K3", "K4"])
+def test_deposit_scene_axis_matches_per_scene_launches(card, foa):
+    """K3 and K4 with a scene axis (listener points (3, C, 3), 3 x 8
+    sources) equal three one-scene launches bit for bit, and their plain
+    version as the one-scene launch does."""
+    rng = np.random.default_rng(6)
+    c = 1 if foa else 4
+    scenes = [[torch.from_numpy(x).to(card) for x in deposit_inputs(rng, 8, 2500, c, 4, CROWDED)] for _ in range(3)]
+    fn, plain = ((ck.deposit_histogram_foa, ck.deposit_histogram_foa_plain) if foa
+                 else (ck.deposit_histogram, ck.deposit_histogram_plain))
+    kw = dict(n_bins=501, bin_dt=0.002, c_sound=343.0)
+    want = torch.cat([fn(*x, n_sources=8, **kw) for x in scenes])
+    args = [torch.cat([x[i] for x in scenes]).contiguous() for i in range(4)]
+    args += [torch.cat([x[4] for x in scenes], dim=1).contiguous(), torch.stack([x[5] for x in scenes])]
+    assert torch.equal(fn(*args, n_sources=24, **kw), want)
+    _check_deposit(fn, plain, args, dict(kw, n_sources=24), (24, 4 if foa else c, 4, 501))
+    assert torch.equal(fn(*scenes[0][:5], scenes[0][5][None], n_sources=8, **kw), want[:8])
+
+
+@pytest.mark.cuda
 def test_each_wrapper_counts_its_launch(card):
     """A wrapper on CUDA tensors launches its kernel once and counts it; the
     plain versions launch nothing."""

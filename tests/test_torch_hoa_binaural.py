@@ -238,15 +238,16 @@ def _scene(scene_cls, seed_everything, fg, obj, mic, **device):
 @pytest.mark.parametrize("mic,channels", [("binaural", 2), ("hoalistener", 16)])
 def test_scene_with_rig_renders_on_the_fused_path(assets, tmp_path, mic, channels):
     """The rig places as the reference's (the same to_dict) and the scene
-    renders through the fused renderer (`render_scenes`, the SELD CLI's rlr
+    renders through the fused renderer (`render_scenes_pipelined`, the SELD CLI's rlr
     path; per-face rain visibility) to an int16 WAV of the rig's channels."""
     from audiblelight_tpu_torch.core import write_outputs
-    from audiblelight_tpu_torch.pipeline import render_scenes
+    from audiblelight_tpu_torch.pipeline import render_scenes_pipelined
 
     fg, obj = assets
     want = _scene(JaxScene, jutils.seed_everything, fg, obj, mic)
     got = _scene(PortScene, tutils.seed_everything, fg, obj, mic, device="cpu")
-    render_scenes([got], lambda scene, payloads: setattr(scene, "audio", payloads))
+    render_scenes_pipelined([got], lambda scene, payloads: setattr(scene, "audio", payloads),
+                            device_mix=True)
     write_outputs(got, tmp_path / "audio_out", tmp_path / "metadata_out")
     audio = got.audio["mic000"]
     assert audio.dtype == np.int16 and audio.shape == (channels, 6 * SR) and np.abs(audio).max() > 100

@@ -342,7 +342,7 @@ def _scene(backend, fg, obj, hrtf_path):
                          ids=["rlr-fused", "rlr-plan", "shoebox"])
 def test_scene_with_measured_hrtfs_renders(sets, assets, tmp_path, monkeypatch, backend, compiled):
     """A scene with `Binaural(hrtf_sofa=...)` renders to a 2-channel int16
-    WAV with sound on each path (rlr: the fused renderer, `render_scenes`,
+    WAV with sound on each path (rlr: the fused renderer, `render_scenes_pipelined`,
     and the plan path; the shoebox: `generate()`'s classic render), its
     trace or engine given the measured set."""
     path, _, _ = sets
@@ -361,9 +361,10 @@ def test_scene_with_measured_hrtfs_renders(sets, assets, tmp_path, monkeypatch, 
     scene = _scene(backend, fg, obj, path)
     if backend == "rlr" and not compiled:
         from audiblelight_tpu_torch.core import write_outputs
-        from audiblelight_tpu_torch.pipeline import render_scenes
+        from audiblelight_tpu_torch.pipeline import render_scenes_pipelined
 
-        render_scenes([scene], lambda s, payloads: setattr(s, "audio", payloads))
+        render_scenes_pipelined([scene], lambda s, payloads: setattr(s, "audio", payloads),
+                                device_mix=True)
         write_outputs(scene, tmp_path / "audio_out", tmp_path / "metadata_out")
     else:
         scene.generate(output_dir=tmp_path, compiled=compiled)

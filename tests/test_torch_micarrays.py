@@ -34,7 +34,7 @@ from audiblelight_tpu_torch.core import Scene, write_outputs
 from audiblelight_tpu_torch.geometry.mesh import save_obj, scanned_like_room
 from audiblelight_tpu_torch.io.audio import wav_read
 from audiblelight_tpu_torch.ops import cuda_kernels as ck
-from audiblelight_tpu_torch.pipeline import render_scenes
+from audiblelight_tpu_torch.pipeline import render_scenes_pipelined
 from audiblelight_tpu_torch.rir import raytracer as trt
 from audiblelight_tpu_torch.worldstate.shoebox_backend import WorldStateShoebox
 from test_torch_cuda import deposit_inputs
@@ -143,10 +143,10 @@ def _rlr_scene(rlr_assets, mic: str):
 
 
 def _render_fused(scene, out: Path) -> None:
-    """The fused renderer (`render_scenes`, the SELD CLI's rlr path) and the
+    """The fused renderer (`render_scenes_pipelined`, the SELD CLI's rlr path) and the
     scene's files, as `generate()` wrote them before it took the classic
     render."""
-    render_scenes([scene], lambda s, payloads: setattr(s, "audio", payloads))
+    render_scenes_pipelined([scene], lambda s, payloads: setattr(s, "audio", payloads))
     write_outputs(scene, out / "audio_out", out / "metadata_out")
 
 

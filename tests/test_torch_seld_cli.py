@@ -112,6 +112,7 @@ def test_cli_metadata_matches_reference_script(run):
     root, layout, _ = run
     sys.path.insert(0, str(REPO / "scripts" / "seld"))
     try:
+        sys.modules.pop("generate_dataset", None)  # the other script of that name, if a test loaded it
         gd = importlib.import_module("generate_dataset")
     finally:
         sys.path.remove(str(REPO / "scripts" / "seld"))
@@ -141,13 +142,17 @@ def test_cli_resumes(run):
 
 @pytest.mark.parametrize("flags", [
     ["--backend", "sofa"], ["--assets", "9A"],
-    ["--placement-workers", "2"], ["--mesh-devices", "2"], ["--coordinator", "localhost:1"],
+    # The pooled driver is ported (its runs are held in test_torch_prep.py);
+    # its multi-device form is not
+    pytest.param(["--placement-workers", "2", "--mesh-devices", "2"], id="--placement-workers 2"),
+    ["--mesh-devices", "2"], ["--coordinator", "localhost:1"],
 ], ids=lambda f: " ".join(f))
 def test_cli_unported_flags_raise(tmp_path, flags):
     """Every unported flag raises, naming its ROADMAP item, before anything is
     written. `--backend sofa` is ported (its runs are held in
     test_torch_sofa.py): without `--sofa` it raises the reference script's
-    error, before anything is written too."""
+    error, before anything is written too. `--placement-workers` is ported;
+    with `--mesh-devices 2` (item 6) it raises."""
     argv = ["--fg-dir", str(tmp_path), "--output-dir", str(tmp_path / "out"), "--backend", "rlr",
             "--mesh", str(tmp_path / "room.obj"), "--device", "cpu"] + flags
     raises = (pytest.raises(ValueError, match="--sofa or --assets is required") if flags == ["--backend", "sofa"]
@@ -210,6 +215,7 @@ def test_shoebox_cli_metadata_matches_reference_script(shoebox_run):
     root, layout, _ = shoebox_run
     sys.path.insert(0, str(REPO / "scripts" / "seld"))
     try:
+        sys.modules.pop("generate_dataset", None)  # the other script of that name, if a test loaded it
         gd = importlib.import_module("generate_dataset")
     finally:
         sys.path.remove(str(REPO / "scripts" / "seld"))
@@ -263,6 +269,7 @@ def test_cli_classic_and_augmentations_match_reference_script(assets, backend, f
 
     sys.path.insert(0, str(REPO / "scripts" / "seld"))
     try:
+        sys.modules.pop("generate_dataset", None)  # the other script of that name, if a test loaded it
         gd = importlib.import_module("generate_dataset")
     finally:
         sys.path.remove(str(REPO / "scripts" / "seld"))

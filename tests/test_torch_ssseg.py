@@ -63,6 +63,7 @@ def runs(tmp_path_factory):
 
     sys.path.insert(0, str(REPO / "scripts" / "ssseg"))
     try:
+        sys.modules.pop("generate_dataset", None)  # the other script of that name, if a test loaded it
         gd = importlib.import_module("generate_dataset")
     finally:
         sys.path.remove(str(REPO / "scripts" / "ssseg"))
