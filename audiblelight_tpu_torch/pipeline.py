@@ -13,14 +13,16 @@ module-wide LRU of 4, `fused_batch` scenes per batched render
 (`FusedSceneRenderer.render_mix_batch`: one bounce loop for the batch), the
 payloads pulled and written on a completion thread while the main thread
 places and dispatches the next scenes. A scene the fused renderer refuses (a
-shoebox or SOFA room, the exact rain mode in a nonconvex room, an ambience
-the card's bed does not draw, or `device_mix=False`) takes the plan path
-instead: the world state computes its IR banks (`trace_irs_device`, or the
-shoebox's image sources), `stems_from_plan` renders and quantises the stems
-on the device, and `mix_plan_host` places them and adds the host ambience
-bed. `render_scene_audio_compiled` is that path for one scene
+shoebox or SOFA room, the exact rain mode in a nonconvex room, several
+microphones, an ambience the card's bed does not draw, or
+`device_mix=False`) takes the plan path instead, in order: the world state
+computes its IR banks (`trace_irs_device`, or the shoebox's image sources),
+`stems_from_plan` renders and quantises the stems on the device, and
+`mix_plan_host` places them and adds the host ambience bed. `render_scene_audio_compiled` is that path for one scene
 (`Scene.generate(compiled=True)`). The pooled driver behind the SELD CLI's
---placement-workers is `prep.render_prepped_scenes`.
+--placement-workers is `prep.render_prepped_scenes`. Every rank of a
+`parallel.make_mesh` mesh renders its slice of a batch through
+`render_mix_batch_sharded` / `render_batch_sharded`.
 """
 
 from __future__ import annotations
@@ -420,6 +422,39 @@ class FusedSceneRenderer:
         q, scales = zip(*(quantize_stems(st) for st in self._batch_stems(inputs, plans)[1]))
         return torch.stack(q), torch.stack(scales)
 
+    @staticmethod
+    def batch_shard(b: int, mesh, axis: str) -> slice:
+        """This rank's contiguous slice of B scenes on the mesh's `axis`."""
+        n_dev = int(mesh.shape[mesh.mesh_dim_names.index(axis)])
+        if b % n_dev != 0:
+            raise ValueError(f"batch size {b} must divide by mesh '{axis}' size {n_dev}")
+        per = b // n_dev
+        i = int(mesh.get_local_rank(axis))
+        return slice(i * per, (i + 1) * per)
+
+    def render_mix_batch_sharded(self, inputs: list, plans: list, extras: list, mesh,
+                                 axis: str = "scene") -> torch.Tensor:
+        """B scenes to int16 WAV payloads with the batch sharded over a
+        `parallel.make_mesh` mesh: every rank passes the same B scenes and
+        renders its contiguous slice of them on its own card through
+        `render_mix_batch` (the reference's shard_map of the vmapped
+        program). The geometry is each rank's own device state and no
+        collective runs. Returns this rank's (B / n, C_out, T) shard, n the
+        `axis` size, which B must divide."""
+        if not (len(inputs) == len(plans) == len(extras)):
+            raise ValueError("one plan + extras tuple per scene required")
+        sl = self.batch_shard(len(inputs), mesh, axis)
+        return self.render_mix_batch(inputs[sl], plans[sl], extras[sl])
+
+    def render_batch_sharded(self, inputs: list, plans: list, mesh, axis: str = "scene") -> tuple:
+        """B scenes' quantised stems with the batch sharded over the mesh (see
+        `render_mix_batch_sharded`): this rank's (int16 (B / n, E, C_out, S),
+        float32 scales (B / n, E)) shard of `render_batch`."""
+        if len(inputs) != len(plans):
+            raise ValueError("one plan per scene required")
+        sl = self.batch_shard(len(inputs), mesh, axis)
+        return self.render_batch(inputs[sl], plans[sl])
+
 
 def renderer_from_numpy(world: dict, cfg: dict, plan: dict, scene_inputs: tuple,
                         t_scene: int, device=None, layout: str = "mic", hrtf=None):
@@ -544,7 +579,8 @@ def render_scenes_pipelined(scene_factory: Iterable, complete: Callable, max_in_
     scene whose events overflow `plan_kwargs`' pinned buckets (max_static /
     max_moving / max_traj / pad_audio_seconds) render through the plan path
     (traced IR banks, device stems, host mix), its buckets auto-sized where
-    the pinned ones would drop an event.
+    the pinned ones would drop an event; so does a scene with several
+    microphones, whose mix is split per microphone.
 
     The completion half (the pull of each payload, the plan path's host mix,
     `complete`) runs on one worker thread (`prep.CompletionThread`) while
@@ -585,8 +621,6 @@ def render_scenes_pipelined(scene_factory: Iterable, complete: Callable, max_in_
     group_renderer = None
     with CompletionThread(_finish, max_in_flight) as completion:
         for scene in scene_factory:
-            if len(scene.state.microphones) != 1:
-                raise NotImplementedError("scenes with several microphones are not ported (ROADMAP)")
             pk = dict(plan_kwargs or {})
             overflow = False
             for k, n in _event_counts(scene).items():
@@ -595,8 +629,8 @@ def render_scenes_pipelined(scene_factory: Iterable, complete: Callable, max_in_
                     overflow = True
             st = getattr(scene.state, "device_state", None)
             renderer = None
-            if (device_mix and not overflow and st is not None and FusedSceneRenderer.mix_eligible(scene)
-                    and (st.convex or rain_mode(st.cfg) == "face")):
+            if (device_mix and not overflow and st is not None and len(scene.state.microphones) == 1
+                    and FusedSceneRenderer.mix_eligible(scene) and (st.convex or rain_mode(st.cfg) == "face")):
                 plan = build_scene_plan(scene, **pk)
                 renderer = _renderer_for(scene, plan)
             if renderer is None:  # the plan path, in order after the group

@@ -244,7 +244,8 @@ class CompletionThread:
 
 
 def render_prepped_scenes(renderer_for: Callable, prepped_iter, complete: Callable, fused_batch: int = 4,
-                          max_in_flight: int = 8, stats: Optional[dict] = None) -> int:
+                          max_in_flight: int = 8, stats: Optional[dict] = None, mesh=None,
+                          mesh_axis: str = "scene") -> int:
     """Render a stream of PreppedScenes (a `ScenePrepPool.imap`) through the
     fused renderer, `fused_batch` scenes a batch (`render_mix_batch`: one
     bounce loop for the batch), and call `complete(prepped, (C, T) int16)`
@@ -255,6 +256,12 @@ def render_prepped_scenes(renderer_for: Callable, prepped_iter, complete: Callab
     where its shape matches the renderer's acoustic mesh; otherwise the
     main process computes it on the card. Up to `max_in_flight` batches wait for
     the completion thread.
+
+    With `mesh` (`parallel.make_mesh`; every rank of it runs this over the
+    same stream), a group whose size the mesh's `mesh_axis` divides renders
+    sharded (`render_mix_batch_sharded`): each rank renders, and completes,
+    its own slice of the group. Any other group (a trailing partial one)
+    renders whole on each rank, and each rank completes all of it.
 
     `stats` (optional) gets the host-clock decomposition, in place:
     prep_wait_s (the dispatch thread waiting for the pool), dispatch_s
@@ -292,7 +299,12 @@ def render_prepped_scenes(renderer_for: Callable, prepped_iter, complete: Callab
             else:
                 occ = r.state.rain_occlusion_for(p.mic_pts)
             inputs.append((seed, src, caps, occ, s_idx, m_idx))
-        q = r.render_mix_batch(inputs, [p.plan for p in group], [p.amb for p in group])
+        plans, extras = [p.plan for p in group], [p.amb for p in group]
+        if mesh is not None and len(group) % int(mesh.shape[mesh.mesh_dim_names.index(mesh_axis)]) == 0:
+            q = r.render_mix_batch_sharded(inputs, plans, extras, mesh, mesh_axis)
+            group = group[r.batch_shard(len(group), mesh, mesh_axis)]
+        else:
+            q = r.render_mix_batch(inputs, plans, extras)
         wait = pull_async(q)
         _stats["dispatch_s"] += time.perf_counter() - t0
         completion.put((group, wait))

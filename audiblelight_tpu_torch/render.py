@@ -132,6 +132,31 @@ def render_event_stems_arrays(
     return torch.cat([static_wet, moving_wet * moving_mask[:, None, None]], dim=0)
 
 
+def render_scene_arrays(
+    static_audio, static_irs, static_mask, static_snr, static_start, static_len, static_place_len,
+    moving_audio, moving_irs, moving_w, moving_mask, moving_snr, moving_start, moving_len, moving_place_len,
+    ambience, ref_db, n_scene_samples: int,
+) -> torch.Tensor:
+    """One scene's (C, T) float mix from its plan tensors, on their device:
+    the stems (`render_event_stems_arrays`) placed at their offsets, static
+    events first, then the ambience bed (a (C, T) array or tensor, or None).
+    Callers render a batch scene by scene (`parallel.render_batch`), so a
+    scene's bits do not depend on the batch it rides in."""
+    stems = render_event_stems_arrays(
+        static_audio, static_irs, static_mask, static_snr, static_len, static_place_len,
+        moving_audio, moving_irs, moving_w, moving_mask, moving_snr, moving_len, moving_place_len, ref_db,
+    )
+    mix = place_stems_device(stems, torch.cat([static_start, moving_start]), int(n_scene_samples))
+    if ambience is None:
+        return mix
+    return mix + torch.as_tensor(ambience, dtype=torch.float32, device=mix.device)
+
+
+def render_scene_plan(plan: ScenePlan) -> torch.Tensor:
+    """Render a ScenePlan to its (C, T) float scene mix."""
+    return render_scene_arrays(*(getattr(plan, f.name) for f in fields(ScenePlan)))
+
+
 def quantize_stems(stems: torch.Tensor):
     """(..., E, C, S) stems -> (int16 stems, f32 per-stem scales (..., E)) with
     dequantised = q * scale. Rounds half to even, as jnp.round does."""

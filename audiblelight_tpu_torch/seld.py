@@ -8,6 +8,9 @@
         --backend sofa --sofa room.sofa --channel-layout mic [--device cpu]
     python -m audiblelight_tpu_torch.seld --fg-dir <folder of WAVs> --output-dir <out> \\
         --backend rlr --mesh room.obj --placement-workers 4 --fused-batch 4 [--device cpu]
+    python -m audiblelight_tpu_torch.seld ... --backend rlr --mesh room.obj --mesh-devices 2 [--device cpu]
+    python -m audiblelight_tpu_torch.seld ... --backend rlr --mesh room.obj \\
+        --coordinator host:port --num-processes P --process-id i
 
 The port's counterpart of scripts/seld/generate_dataset.py, with the same
 flags, defaults, seeding and file layout: N one-minute 24 kHz scenes in the
@@ -46,6 +49,20 @@ streams with it, so the outputs do not depend on N. At the default, 0, the
 serial loop runs, whose scenes share one stream as the reference script's
 do, so its scenes are not the pooled driver's.
 
+Several ranks (one process, one card each) share a run: `--mesh-devices N`
+spawns N rank processes on this host (rank r on `cuda:r`; gloo ranks on the
+CPU with `--device cpu`), and `--coordinator host:port --num-processes P
+--process-id i` makes this process rank i of a group that the other
+processes join (`parallel.init_distributed`, NCCL between cards). Every rank
+runs the pooled driver on its share of the jobs (`generate_pooled`) and of
+`--placement-workers` (the total, split over the spawned ranks); the outputs
+do not depend on the number of ranks. A host with fewer cards than
+`--mesh-devices` exits with the reference's message.
+
+The fused pipeline and the pooled driver run on rlr only: `--pipeline
+fused`, `--placement-workers` or `--mesh-devices` on another backend exits
+with the reference script's message before anything is written.
+
 `--pipeline classic`, on every backend, renders each scene as
 `Scene.generate()` does by default: the classic per-event render (each event
 convolved on its own, the mix on the host).
@@ -62,19 +79,21 @@ the output folder only. As in the reference script, the SOFA world state
 gets no seed: `--seed` fixes the scenes' counts and timings, not where
 events snap on the measured grid.
 
-Not ported (raise, ROADMAP): --assets (and --sofa-dir), --mesh-devices > 1
-and --coordinator (item 6, multi-device rendering).
+Not ported (raise, ROADMAP): --assets (and --sofa-dir).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import sys
 import time
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
+import torch
 from scipy import stats
 
 from audiblelight_tpu_torch import config, utils
@@ -154,8 +173,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--placement-workers", type=int, default=0,
                    help="scene-prep worker processes of the pooled driver (rlr; 0 = the serial loop); "
                         "outputs do not depend on the count")
-    p.add_argument("--mesh-devices", type=int, default=1)
-    p.add_argument("--coordinator", type=str, default=None)
+    p.add_argument("--mesh-devices", type=int, default=1,
+                   help="rank processes to spawn on this host, one card each (rlr); 1 = this process alone")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="host:port (or an init URL) of the ranks' rendezvous; this process is rank --process-id "
+                        "of --num-processes")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", type=str, default="cuda",
@@ -168,8 +190,6 @@ def check_ported(args) -> None:
     does not run."""
     unported = [
         (args.assets is not None, "--assets", "the asset room tables (glTF loading)"),
-        (args.mesh_devices > 1, "--mesh-devices > 1", "item 6, multi-device rendering"),
-        (args.coordinator is not None, "--coordinator", "item 6, multi-device rendering"),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -359,23 +379,44 @@ def make_pooled_prep(args_dict: dict, jobs: list, plan_kwargs: dict):
     return prep
 
 
+def _world() -> tuple:
+    """(world size, rank) of the run's process group, (1, 0) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
 def generate_pooled(args, jobs: list, rng: np.random.Generator, stats: dict) -> list[float]:
-    """The pooled driver (`--placement-workers`): worker processes place and
-    pack the scenes (`make_pooled_prep`), the main process renders them in
-    batches of `--fused-batch` through one renderer per source bucket of a
-    room's template scene and writes them (`prep.render_prepped_scenes`).
-    The counterpart of the reference script's generate_pooled; rlr only.
-    Returns each rendered scene's host-clock seconds since the previous
-    scene's writes ended (the first since the driver started: the seconds
-    add up to the run's wall time); `stats` gets `render_prepped_scenes`'
-    stages, the wall time ("wall_s") and the host's core count
-    ("cpu_count")."""
+    """The pooled driver (`--placement-workers`, `--mesh-devices`): worker
+    processes place and pack the scenes (`make_pooled_prep`), the rank
+    renders them in batches of `--fused-batch` through one renderer per
+    source bucket of a room's template scene and writes them
+    (`prep.render_prepped_scenes`). The counterpart of the reference
+    script's generate_pooled; rlr only.
+
+    In a process group of W ranks (`--coordinator`, or the ranks that
+    `--mesh-devices` spawns) every rank scans for finished jobs and draws
+    every job's seed, a barrier follows (so that no rank's scan sees
+    another's writes), and rank r renders and writes the live jobs j with
+    j % W == r; every rank builds the same template scene from live job 0.
+    Each job carries its own seed and a batch gives each scene its
+    one-scene bits, so the outputs do not depend on W.
+
+    Returns the seconds of the world's scenes (rank by rank; each the
+    host-clock seconds since its rank's previous writes ended, the first
+    since the driver started); `stats` gets this rank's
+    `render_prepped_scenes` stages, the world's scene count ("n_scenes"),
+    the wall time ("wall_s"), the host's core count ("cpu_count") and the
+    world size ("world_size")."""
+    import torch.distributed as dist
+
     from audiblelight_tpu_torch.pipeline import FusedSceneRenderer
     from audiblelight_tpu_torch.prep import ScenePrepPool, render_prepped_scenes
     from audiblelight_tpu_torch.render import build_scene_plan
 
-    if args.backend != "rlr":
-        raise SystemExit("--placement-workers requires --backend rlr")
+    world, rank = _world()
     t_start = time.perf_counter()
     pk = plan_kwargs(args)
     live_jobs, paths, seeds = [], {}, {}
@@ -390,11 +431,14 @@ def generate_pooled(args, jobs: list, rng: np.random.Generator, stats: dict) -> 
         paths[len(live_jobs)] = (audio_path, metadata_path)
         seeds[len(live_jobs)] = seed
         live_jobs.append(job)
+    if world > 1:
+        dist.barrier()
+    mine = [i for i in range(len(live_jobs)) if i % world == rank]
     total = {"prep_wait_s": 0.0, "dispatch_s": 0.0, "pull_s": 0.0, "complete_s": 0.0, "n_scenes": 0}
     seconds: list = []
     last = [t_start]
     if not live_jobs:
-        stats.update(total, wall_s=time.perf_counter() - t_start, cpu_count=os.cpu_count())
+        stats.update(total, wall_s=time.perf_counter() - t_start, cpu_count=os.cpu_count(), world_size=world)
         return seconds
 
     def complete(prepped, wav):
@@ -411,53 +455,138 @@ def generate_pooled(args, jobs: list, rng: np.random.Generator, stats: dict) -> 
     # A renderer holds one room, so the reference drives its jobs room by
     # room, a template scene each; the CLI's jobs share its one --mesh
     # (--assets, which names a room per job, is not ported)
-    with ScenePrepPool("audiblelight_tpu_torch.seld:make_pooled_prep",
-                       dict(args_dict=vars(args), jobs=live_jobs, plan_kwargs=pk),
-                       workers=args.placement_workers) as pool:
-        # The template scene pins the room, rig and engine config; one
-        # renderer per source bucket shares it
-        utils.seed_everything(seeds[0] % (2**31))
-        built = build_scene(args, *live_jobs[0], np.random.default_rng(seeds[0]))
-        if built is None:
-            raise RuntimeError(f"the template scene of room {args.mesh} was not built")
-        template = built[0]
-        template_plan = build_scene_plan(template, **pk)
-        renderers: dict = {}
+    if mine:
+        with ScenePrepPool("audiblelight_tpu_torch.seld:make_pooled_prep",
+                           dict(args_dict=vars(args), jobs=live_jobs, plan_kwargs=pk),
+                           workers=args.placement_workers) as pool:
+            # The template scene pins the room, rig and engine config; one
+            # renderer per source bucket shares it
+            utils.seed_everything(seeds[0] % (2**31))
+            built = build_scene(args, *live_jobs[0], np.random.default_rng(seeds[0]))
+            if built is None:
+                raise RuntimeError(f"the template scene of room {args.mesh} was not built")
+            template = built[0]
+            template_plan = build_scene_plan(template, **pk)
+            renderers: dict = {}
 
-        def renderer_for(bucket: int) -> FusedSceneRenderer:
-            if bucket not in renderers:
-                renderers[bucket] = FusedSceneRenderer.from_scene(template, template_plan, bucket)
-            return renderers[bucket]
+            def renderer_for(bucket: int) -> FusedSceneRenderer:
+                if bucket not in renderers:
+                    renderers[bucket] = FusedSceneRenderer.from_scene(template, template_plan, bucket)
+                return renderers[bucket]
 
-        prepped = (p for p in pool.imap([(i, seeds[i]) for i in range(len(live_jobs))]) if p is not None)
-        render_prepped_scenes(renderer_for, prepped, complete, fused_batch=args.fused_batch, stats=total)
-    logger.warning(f"Pooled driver rendered {total['n_scenes']} scenes")
-    stats.update(total, wall_s=time.perf_counter() - t_start, cpu_count=os.cpu_count())
+            prepped = (p for p in pool.imap([(i, seeds[i]) for i in mine]) if p is not None)
+            render_prepped_scenes(renderer_for, prepped, complete, fused_batch=args.fused_batch, stats=total)
+    n_scenes = total["n_scenes"]
+    if world > 1:  # the world's count and seconds, rank by rank
+        from audiblelight_tpu_torch.parallel import rank_device
+
+        count = torch.tensor([n_scenes], dtype=torch.int64, device=rank_device())
+        dist.all_reduce(count, op=dist.ReduceOp.SUM)
+        n_scenes = int(count.item())
+        per_rank: list = [None] * world
+        dist.all_gather_object(per_rank, seconds)
+        seconds = [x for part in per_rank for x in part]
+    if rank == 0:
+        logger.warning(f"Pooled driver rendered {n_scenes} scenes")
+    stats.update(total, n_scenes=n_scenes, wall_s=time.perf_counter() - t_start, cpu_count=os.cpu_count(),
+                 world_size=world)
     return seconds
+
+
+def _rank_main(rank: int, argv: list, world: int, init_method: str, workers: list, result_dir: str,
+               threads: int) -> None:
+    """One rank spawned by `spawn_ranks`: the CLI as rank `rank` of the
+    group that `init_method` gathers, with its share of the prep workers;
+    rank 0 writes the world's seconds and its stats to `result_dir`."""
+    torch.set_num_threads(max(1, threads // world))
+    stats: dict = {}
+    seconds = main(argv + ["--coordinator", init_method, "--num-processes", str(world), "--process-id", str(rank),
+                           "--placement-workers", str(workers[rank])], stats=stats)
+    if rank == 0:
+        (Path(result_dir) / "rank0.json").write_text(json.dumps(dict(seconds=seconds, stats=stats)))
+
+
+def spawn_ranks(args, argv: list, stats: dict) -> list[float]:
+    """`--mesh-devices N` without `--coordinator`: N rank processes
+    ("spawn"), rank r on `cuda:r` (gloo ranks on the CPU with `--device
+    cpu`), gathered through a file in a fresh temporary directory, each
+    running the pooled driver on its share of the jobs and of
+    `--placement-workers` (the total, split over the ranks). Returns and
+    fills what rank 0's `generate_pooled` does."""
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    n = args.mesh_devices
+    if torch.device(args.device).type == "cuda" and torch.cuda.device_count() < n:
+        raise SystemExit(f"--mesh-devices {n} but only {torch.cuda.device_count()} devices")
+    workers = [args.placement_workers // n + (r < args.placement_workers % n) for r in range(n)]
+    with tempfile.TemporaryDirectory() as result_dir:
+        init_method = (Path(result_dir) / "rendezvous").as_uri()
+        tmp.start_processes(_rank_main, args=(argv, n, init_method, workers, result_dir, torch.get_num_threads()),
+                            nprocs=n, join=True, start_method="spawn")
+        result = json.loads((Path(result_dir) / "rank0.json").read_text())
+    stats.update(result["stats"])
+    return result["seconds"]
 
 
 def main(argv: Optional[list] = None, stats: Optional[dict] = None) -> list[float]:
     """Run the generator on `argv` (default: the command line). Returns each
     rendered scene's host-clock seconds (`generate_fused`,
-    `generate_pooled`); `stats`, where given, gets the run's wall time, scene
-    count and host core count, and the pooled driver's stages."""
+    `generate_pooled`: the world's scenes); `stats`, where given, gets the
+    run's wall time, scene count and host core count, and the pooled
+    driver's stages and world size. With `--coordinator` this process joins
+    the group before anything touches the card and leaves it on its way
+    out, on error too."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     if args.pipeline is None:
         args.pipeline = "fused" if args.backend == "rlr" else "compiled"
     check_ported(args)
     if args.backend == "sofa" and args.sofa is None:
         raise ValueError("--sofa or --assets is required for the sofa backend")
-    utils.resolve_device(args.device)
+    dev = utils.resolve_device(args.device)
+    stats = {} if stats is None else stats
+    if args.coordinator is None:
+        return _generate(args, argv, stats)
+    # A rank of a multi-process run: join the group before anything touches
+    # the card, and leave it on the way out, on error too
+    import torch.distributed as dist
+
+    from audiblelight_tpu_torch.parallel import init_distributed
+
+    owned = not dist.is_initialized()
+    init_distributed(args.coordinator, args.num_processes, args.process_id,
+                     None if dev.index is None else [dev.index], backend="gloo" if dev.type == "cpu" else "nccl")
+    try:
+        return _generate(args, argv, stats)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _generate(args, argv: list, stats: dict) -> list[float]:
+    """`main` once its process group, if any, is up: the pooled driver
+    (where `--placement-workers` > 0, `--mesh-devices` > 1, or the group has
+    several ranks, whose jobs the serial loop could not split), else the
+    serial loop."""
+    world = _world()[0]
+    pooled = args.placement_workers > 0 or args.mesh_devices > 1 or world > 1
+    if pooled and args.backend != "rlr":
+        raise SystemExit("--placement-workers/--mesh-devices require --backend rlr")
+    if not pooled and args.pipeline == "fused" and args.backend != "rlr":
+        raise SystemExit("--pipeline fused requires the rlr backend")
+    if args.mesh_devices > 1 and args.coordinator is None:
+        return spawn_ranks(args, argv, stats)
+    if args.mesh_devices > world:
+        raise SystemExit(f"--mesh-devices {args.mesh_devices} but only {world} devices")
     # Seed the global streams too: the scipy placement distributions draw
     # from numpy's global RNG
     utils.seed_everything(args.seed)
     rng = np.random.default_rng(args.seed)
     n_train = round(args.n_scenes * args.train_frac)
     jobs = [("train", 1, i) for i in range(n_train)] + [("test", 1, i) for i in range(args.n_scenes - n_train)]
-    stats = {} if stats is None else stats
-    if args.placement_workers > 0:
-        return generate_pooled(args, jobs, rng, stats)
-    return generate_fused(args, jobs, rng, stats)
+    return (generate_pooled if pooled else generate_fused)(args, jobs, rng, stats)
 
 
 if __name__ == "__main__":

@@ -139,7 +139,20 @@ exact CLI scene's bounces), then drives the port's two main paths:
   (CSVs byte-identical, JSONs byte-identical but for the creation time,
   WAVs within 1 LSB) and its launches read from its own run; and the pooled
   CLI, 8 MIC scenes with 1 worker in single renders and with 4 workers in
-  batches of 4: the same file checks, throughput and the stats breakdown.
+  batches of 4: the same file checks, throughput and the stats breakdown;
+- multi-device rendering (`parallel_phase`; the host has one card): the
+  pooled CLI as rank 0 of a world of one (`--coordinator`, NCCL), its files
+  equal to the pooled 1-worker run's first scenes (0 LSB), its scene time
+  beside that run's; `--mesh-devices 2` exits with the reference's message;
+  a world of one NCCL rank in this process (`init_distributed` timed, the
+  collectives per call, `shard_render` normalised against `render_batch`,
+  `shard_render` and `render_mix_batch_sharded` timed in turns beside
+  `render_batch` and `render_mix_batch`); two gloo ranks sharing the card
+  (`--gloo-rank`, subprocesses): `shard_render`, `shard_convolve_time` and
+  `shard_trace_rirs` against their unsharded runs, the collectives per call;
+  and a 60 s scene with an AmbeoVR and a FOA listener in the small room
+  through `render_scenes_pipelined` (the plan path), each microphone's
+  direct path at d/c.
 
 Each path's kernel launches are counted from zero just before it and read
 just after; a kernel of the path that did not launch fails the run, and so
@@ -3085,7 +3098,8 @@ def pooled_phase(mesh, st, fg: Path, room_obj: Path, out: Path, dev) -> dict:
     workers 0` is the serial loop, whose scenes are not the pooled
     driver's): CSVs byte-identical, JSONs byte-identical but for the
     creation-time line, WAVs within 1 LSB, throughput and the stats
-    breakdown. Returns the launches of the pooled run with POOLED_WORKERS."""
+    breakdown. Returns the launches of the pooled run with POOLED_WORKERS and
+    the stats of the run with 1 worker."""
     import os
 
     from audiblelight_tpu_torch import seld
@@ -3138,10 +3152,10 @@ def pooled_phase(mesh, st, fg: Path, room_obj: Path, out: Path, dev) -> dict:
         ck.reset_launch_counts()
         torch.cuda.synchronize()
         stats: dict = {}
-        seld.main(argv, stats=stats)
+        stats["scene_seconds"] = seld.main(argv, stats=stats)
         torch.cuda.synchronize()
         launches = dict(ck.launch_counts)
-        runs[workers] = launches
+        runs[workers] = launches, stats
         n = stats["n_scenes"]
         print(f"pooled CLI, {workers} workers, batches of {batch}: {n} scenes in {stats['wall_s']:.3f} s = "
               f"{n / stats['wall_s']:.3f} scenes/s, {n * SCENE_SECONDS / stats['wall_s']:.1f} scene-seconds/s, "
@@ -3158,7 +3172,7 @@ def pooled_phase(mesh, st, fg: Path, room_obj: Path, out: Path, dev) -> dict:
         check_cli_outputs(out / f"pooled_w{workers}", "mic", t_scene, POOLED_SCENES)
     compare_cli_outputs(out / "pooled_w1", out / f"pooled_w{POOLED_WORKERS}",
                         f"pooled CLI, 1 and {POOLED_WORKERS} workers", 3 * POOLED_SCENES)
-    return runs[POOLED_WORKERS]
+    return runs[POOLED_WORKERS][0], runs[1][1]
 
 
 def compare_cli_outputs(a_dir: Path, b_dir: Path, label: str, n_files: int) -> None:
@@ -3185,6 +3199,407 @@ def compare_cli_outputs(a_dir: Path, b_dir: Path, label: str, n_files: int) -> N
           f"WAVs at most {worst} LSB apart", flush=True)
     if worst > 1:
         fail(f"{label}: WAVs differ by more than 1 LSB")
+
+
+# Multi-device rendering: a world of one NCCL rank on the card, two gloo
+# ranks sharing it, the CLI as rank 0 of a world of one, and a scene with
+# two microphones
+PARALLEL_BATCH = 4  # scenes of the sharded-render checks
+PARALLEL_CLI_SCENES = 4  # the --coordinator CLI run: the first jobs of pooled_phase's 1-worker run
+PARALLEL_BACKEND = "nccl"  # the world of one's backend
+COLLECTIVE_REPS = 50
+TWO_MIC_POSITIONS = dict(ambeovr=(2.4, 2.5, 1.5), foalistener=(4.6, 2.5, 1.4), event=(3.5, 1.3, 1.3))
+TWO_MIC_PATH = ("first_hit_small", "any_hit", "deposit_histogram", "deposit_histogram_foa")
+FLAGSHIP_ROOM = dict(extents=(7.0, 5.0, 3.0), seed=0)
+RANK_DEVICE = "cuda:0"  # the gloo ranks' card
+GLOO_RANK_SCRIPT = Path(__file__).resolve()  # run as `--gloo-rank`
+
+
+def plan_path_plans(renderer, scenes: list, dev) -> list:
+    """ScenePlans with IR banks: each flagship scene of `scenes`
+    (`pooled_inputs`) traced by `renderer` (the MIC rig) and its IRs gathered
+    per event slot as the plan path packs them, with a white -65 dB bed."""
+    from audiblelight_tpu_torch.render import ScenePlan, ambience_bed_device
+
+    plans = []
+    for i, (src, caps, s_idx, m_idx, plan, _) in enumerate(scenes):
+        lis = torch.as_tensor(caps, dtype=torch.float32, device=dev)
+        irs = renderer.trace(torch.Generator(device=dev).manual_seed(4000 + i), torch.as_tensor(src, device=dev), lis,
+                             renderer.rain_table(caps))  # (C, S, L)
+        c, ir_len = irs.shape[0], irs.shape[-1]
+        s_i, m_i = torch.as_tensor(s_idx, device=dev), torch.as_tensor(m_idx, device=dev)
+        p = ScenePlan.from_numpy(plan, dev)
+        p.static_irs = (irs[:, s_i.clamp_min(0)] * (s_i >= 0)[None, :, None]).transpose(0, 1).contiguous()
+        em, j = m_i.shape
+        m_irs = irs[:, m_i.clamp_min(0).reshape(-1)].reshape(c, em, j, ir_len) * (m_i >= 0)[None, :, :, None]
+        p.moving_irs = m_irs.transpose(0, 1).contiguous()
+        p.ambience = ambience_bed_device(torch.Generator(device=dev).manual_seed(5000 + i), 0.0, REF_DB, c,
+                                         p.n_scene_samples, dev)
+        plans.append(p)
+    return plans
+
+
+def collective_ms(op, reps: int = COLLECTIVE_REPS) -> float:
+    """Milliseconds per call of `op()` (a collective), host clock over `reps`
+    calls after a warm-up, synchronised."""
+    op()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        op()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def rank_collectives(dev) -> dict:
+    """all_reduce MAX of a scalar and all_gather of a 4-float tensor on `dev`,
+    ms per call, over the process group."""
+    import torch.distributed as dist
+
+    peak = torch.ones((), device=dev)
+    part = torch.ones(4, device=dev)
+    parts = [torch.empty_like(part) for _ in range(dist.get_world_size())]
+    return dict(all_reduce_ms=collective_ms(lambda: dist.all_reduce(peak, op=dist.ReduceOp.MAX)),
+                all_gather_ms=collective_ms(lambda: dist.all_gather(parts, part)))
+
+
+def flagship_trace_kwargs(st) -> dict:
+    """The flagship MIC trace's keywords in room state `st` (engine config,
+    cached first-hit table and any-hit trees, the rain table toward the
+    AmbeoVR's centre)."""
+    from audiblelight_tpu_torch.micarrays import ambeovr_capsules
+
+    caps = ambeovr_capsules(MIC_CENTRE)
+    occ = st.rain_occlusion_for(np.asarray(caps).mean(axis=0, keepdims=True))
+    return dict(st._trace_kwargs("omni", None), face_occlusion=occ)
+
+
+def gloo_rank_main(rank: int, init: str, folder: str) -> int:
+    """One of two gloo ranks on cuda:0 (`python3 chip_smoke.py --gloo-rank
+    <rank> <init URL> <folder>`): shard_render (plain and normalised) of the
+    batch in <folder>/inputs.pt, shard_convolve_time of its 60 s signal, and
+    shard_trace_rirs of its 16 flagship sources in the flagship room (this
+    rank's own room state), launches counted around the trace; the
+    collectives timed per call. Writes <folder>/rank<rank>.pt."""
+    sys.path.insert(0, str(REPO))
+    from audiblelight_tpu_torch import parallel as par
+    from audiblelight_tpu_torch.geometry.mesh import scanned_like_room
+    from audiblelight_tpu_torch.micarrays import ambeovr_capsules
+    from audiblelight_tpu_torch.ops import build
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.pipeline import FusedSceneRenderer
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() runs the unsharded side
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all()
+    folder = Path(folder)
+    t0 = time.perf_counter()
+    dev = torch.device(RANK_DEVICE)
+    par.init_distributed(init, 2, rank, None if dev.index is None else [dev.index], backend="gloo", timeout=120)
+    init_s = time.perf_counter() - t0
+    try:
+        mesh = par.make_mesh()
+        inp = torch.load(folder / "inputs.pt", map_location=dev)
+        out = dict(init_s=init_s, **rank_collectives(dev))
+        out["render"] = par.shard_render(inp["batched"], mesh).cpu()
+        out["render_norm"] = par.shard_render(inp["batched"], mesh, normalize=True).cpu()
+        out["conv"] = par.shard_convolve_time(inp["audio"], inp["irs"], mesh).cpu()
+        st = FusedSceneRenderer.from_mesh(scanned_like_room(**FLAGSHIP_ROOM), ENGINE,
+                                          ambeovr_capsules(MIC_CENTRE), BUCKETS, N_SOURCES,
+                                          int(SCENE_SECONDS * SR), device=dev).state
+        ck.reset_launch_counts()
+        trace = par.shard_trace_rirs(mesh, int(inp["trace_seed"]), st.acoustic_tris, st.absorption, st.scattering,
+                                     inp["sources"], inp["listeners"], **flagship_trace_kwargs(st))
+        torch.cuda.synchronize()
+        out["trace"], out["trace_launches"] = trace.cpu(), dict(ck.launch_counts)
+        torch.save(out, folder / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def compare_to_run(a_dir: Path, b_dir: Path, label: str, n_files: int, max_lsb: int = 0) -> None:
+    """Every file `a_dir` holds is in `b_dir` with the same content: CSVs byte
+    for byte, JSONs but for the creation time, WAVs within `max_lsb`."""
+    from audiblelight_tpu_torch.io.audio import wav_read
+
+    files = sorted(p.relative_to(a_dir) for p in a_dir.rglob("*") if p.is_file())
+    if len(files) != n_files:
+        fail(f"{label}: {len(files)} files, expected {n_files}")
+    worst = 0
+    for rel in files:
+        a, b = a_dir / rel, b_dir / rel
+        if not b.is_file():
+            fail(f"{label}: {rel} is not in {b_dir}")
+        if rel.suffix == ".csv" and a.read_bytes() != b.read_bytes():
+            fail(f"{label}: {rel} differs")
+        if rel.suffix == ".json" and [ln for ln in a.read_text().splitlines() if '"creation_time"' not in ln] != \
+                [ln for ln in b.read_text().splitlines() if '"creation_time"' not in ln]:
+            fail(f"{label}: {rel} differs")
+        if rel.suffix == ".wav":
+            x, y = (np.round(wav_read(f)[0] * 32768).astype(np.int32) for f in (a, b))
+            worst = max(worst, int(np.abs(x - y).max()))
+    print(f"{label}: {len(files)} files; CSVs byte-identical, JSONs byte-identical but for the creation time, "
+          f"WAVs at most {worst} LSB apart", flush=True)
+    if worst > max_lsb:
+        fail(f"{label}: WAVs differ by more than {max_lsb} LSB")
+
+
+def two_mic_check(fg: Path, dev) -> dict:
+    """A 60 s rlr scene with an AmbeoVR and a FOA listener (the flagship
+    engine config) in the 432-face small room through
+    `render_scenes_pipelined`, which renders it on the plan path: both
+    microphones' mixes with sound, launches counted around it (MIC: K1
+    small, K2, K3; FOA: K4), and each microphone's direct path from the
+    static event (line of sight checked with the plain any-hit) in its
+    traced IRs within 2 samples of d/c (every AmbeoVR capsule; the FOA's W
+    channel). Returns the launches."""
+    from audiblelight_tpu_torch.core import Scene
+    from audiblelight_tpu_torch.geometry.mesh import scanned_like_room
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.pipeline import render_scenes_pipelined
+    from audiblelight_tpu_torch import seld
+
+    rlr = {k: v for k, v in ENGINE.items() if k != "sample_rate"}
+    scene = Scene(duration=SCENE_SECONDS, sample_rate=SR, backend="rlr", fg_path=fg, device=dev,
+                  backend_kwargs=dict(mesh=scanned_like_room((7.0, 5.0, 3.0), subdivision_levels=1, seed=0), seed=3,
+                                      add_to_context=False, rlr_kwargs=rlr))
+    scene.add_microphone(microphone_type="ambeovr", position=list(TWO_MIC_POSITIONS["ambeovr"]))
+    scene.add_microphone(microphone_type="foalistener", position=list(TWO_MIC_POSITIONS["foalistener"]))
+    scene.add_event(event_type="static", position=list(TWO_MIC_POSITIONS["event"]), scene_start=1.0,
+                    duration=EVENT_SECONDS, snr=20.0)
+    scene.add_event(event_type="moving", max_place_attempts=100)
+    scene.add_ambience(noise="gaussian")
+    audio = {}
+    pk = seld.plan_kwargs(seld.build_parser().parse_args(["--fg-dir", ".", "--output-dir", "."]))
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    if render_scenes_pipelined([scene], lambda s, a: audio.update(a), plan_kwargs=pk) != 1:
+        fail("the two-microphone scene did not complete")
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(ck.launch_counts)
+    print(f"two-microphone scene (AmbeoVR + FOA, small room, plan path): {seconds:.3f} s (host clock); "
+          f"peaks { {a: float(np.abs(x).max()) for a, x in audio.items()} }; launches {launches}", flush=True)
+    if list(audio) != ["mic000", "mic001"] or any(np.abs(x).max() < 1e-3 or x.shape != (4, int(SCENE_SECONDS * SR))
+                                                  for x in audio.values()):
+        fail("the two-microphone scene's mixes are missing, silent or misshapen")
+    for name in TWO_MIC_PATH:
+        if launches[name] <= 0:
+            fail(f"the two-microphone scene never launched {name}")
+    banks = scene.state.trace_irs_device()  # the render's trace (cached)
+    tris = scene.state.device_state.tris
+    pos = np.asarray(TWO_MIC_POSITIONS["event"], dtype=np.float64)
+    for alias, mic in scene.state.microphones.items():
+        pts = (np.atleast_2d(mic.coordinates_absolute) if mic.channel_layout_type == "mic"
+               else np.atleast_2d(mic.coordinates_center))
+        blocked = ck.segments_occluded_plain(torch.tensor(pts, dtype=torch.float32, device=dev),
+                                             torch.tensor(np.tile(pos, (len(pts), 1)), dtype=torch.float32,
+                                                          device=dev), tris)
+        if bool(blocked.any()):
+            fail(f"the two-microphone scene's event has no line of sight to {alias}")
+        bank = banks[alias].cpu().numpy()  # (C, E, L); the static event's emitter is 0
+        offs = [first_arrival(bank[c, 0]) - np.linalg.norm(pts[c] - pos) / 343.0 * SR for c in range(len(pts))]
+        print(f"two-microphone scene {alias} ({mic.channel_layout_type}): direct arrivals minus d/c "
+              f"{[round(float(o), 2) for o in offs]} samples", flush=True)
+        if max(abs(o) for o in offs) > 2.0:
+            fail(f"the two-microphone scene's {alias} direct path is off d/c")
+    return launches
+
+
+def parallel_phase(renderer, st, fg: Path, room_obj: Path, out: Path, pooled_w1: dict, dev) -> dict:
+    """Multi-device rendering on the one card (`audiblelight_tpu_torch.parallel`):
+
+    - the rlr CLI as rank 0 of a world of one (`--coordinator
+      127.0.0.1:<port> --num-processes 1 --process-id 0`, NCCL,
+      `--placement-workers 1 --fused-batch 1`, the first
+      PARALLEL_CLI_SCENES jobs of pooled_phase's 1-worker run, whose files it
+      writes again to 0 LSB), launches counted, its seconds per scene beside
+      that run's for the same jobs;
+    - `--mesh-devices 2` exits with the reference's message on a one-card
+      host, before anything is written;
+    - a world of one NCCL rank in this process: init_distributed timed,
+      make_mesh, the collectives per call, shard_render (normalised) of
+      PARALLEL_BATCH traced flagship plans equal to the normalised
+      render_batch, shard_render against render_batch and
+      render_mix_batch_sharded against render_mix_batch (equal, timed in
+      turns) on the same batch;
+    - two gloo ranks sharing cuda:0 (`--gloo-rank`, subprocesses with a
+      timeout): shard_render, shard_convolve_time and shard_trace_rirs
+      against their unsharded runs here (shard_render within 1e-6 of peak,
+      shard_convolve_time within 1e-5, each trace shard within 1e-5 of
+      trace_rirs_multi of its slice with its shard generator; whether each
+      is bit for bit printed), the collectives per call;
+    - a scene with two microphones through render_scenes_pipelined
+      (`two_mic_check`).
+
+    Returns the CLI run's launches."""
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    from audiblelight_tpu_torch import parallel as par
+    from audiblelight_tpu_torch import seld
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.ops.convolve import fft_convolve
+    from audiblelight_tpu_torch.rir.raytracer import trace_rirs_multi
+
+    card = card_line()
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+
+    # The CLI as rank 0 of a world of one
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = ["--fg-dir", str(fg), "--mesh", str(room_obj), "--channel-layout", "mic",
+            *cli_flags(PARALLEL_CLI_SCENES), "--placement-workers", "1", "--fused-batch", "1"]
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    stats: dict = {}
+    seconds = seld.main(base + ["--output-dir", str(out / "coordinator"), "--coordinator", f"127.0.0.1:{port}",
+                                "--num-processes", "1", "--process-id", "0"], stats=stats)
+    torch.cuda.synchronize()
+    launches = dict(ck.launch_counts)
+    n = stats["n_scenes"]
+    same_jobs = pooled_w1["scene_seconds"][:n]  # the same jobs in the run without it
+    print(f"pooled CLI with --coordinator (world of one, NCCL): {n} scenes in {stats['wall_s']:.3f} s; per scene "
+          f"(host clock since the previous writes) {[round(x, 3) for x in seconds]} s against "
+          f"{[round(x, 3) for x in same_jobs]} s for the same jobs without it (pooled_phase's 1-worker run, "
+          f"{pooled_w1['n_scenes']} scenes in {pooled_w1['wall_s']:.3f} s); after the first scene, median "
+          f"{np.median(seconds[1:]):.3f} against {np.median(same_jobs[1:]):.3f} s; world_size "
+          f"{stats.get('world_size')}; launches {launches} on {card}", flush=True)
+    if n != PARALLEL_CLI_SCENES or stats.get("world_size") != 1 or dist.is_initialized():
+        fail(f"the --coordinator CLI rendered {n} scenes in a world of {stats.get('world_size')}, or left its group up")
+    for name in MIC_PATH:
+        if launches[name] <= 0:
+            fail(f"the --coordinator CLI never launched {name}")
+    check_first_hits(launches, 60 * n, "the --coordinator CLI")
+    compare_to_run(out / "coordinator", out.parent / "pooled" / "pooled_w1",
+                   "pooled CLI with --coordinator against pooled_phase's 1-worker run", 3 * PARALLEL_CLI_SCENES)
+
+    # --mesh-devices 2 on this host
+    n_cards = torch.cuda.device_count()
+    try:
+        seld.main(base + ["--output-dir", str(out / "mesh2"), "--mesh-devices", "2"])
+        fail("--mesh-devices 2 ran on a host with fewer than 2 cards" if n_cards < 2 else "unexpected")
+    except SystemExit as exc:
+        print(f"--mesh-devices 2 on a host with {n_cards} card(s): SystemExit({str(exc)!r})", flush=True)
+        if str(exc) != f"--mesh-devices 2 but only {n_cards} devices" or (out / "mesh2").exists():
+            fail("--mesh-devices 2 did not exit with the reference's message before writing")
+
+    # A world of one NCCL rank in this process
+    rendezvous = Path(tempfile.mkdtemp(dir=out))
+    t0 = time.perf_counter()
+    world = par.init_distributed((rendezvous / "init").as_uri(), 1, 0, backend=PARALLEL_BACKEND)
+    init_s = time.perf_counter() - t0
+    try:
+        mesh = par.make_mesh()
+        coll = rank_collectives(dev)
+        print(f"world of one ({dist.get_backend()}): init_distributed {init_s * 1e3:.3f} ms (host clock), mesh "
+              f"{mesh}; all_reduce MAX {coll['all_reduce_ms']:.4f} ms, all_gather {coll['all_gather_ms']:.4f} ms a "
+              f"call (host clock over {COLLECTIVE_REPS}) on {card}", flush=True)
+        if world != 1 or tuple(mesh.shape) != (1, 1):
+            fail(f"the world of one has {world} ranks, mesh {tuple(mesh.shape)}")
+        scenes = pooled_inputs(st, dev)[:PARALLEL_BATCH]
+        plans = plan_path_plans(renderer, scenes, dev)
+        batched = par.stack_plans(plans)
+        ck.reset_launch_counts()
+        got = par.shard_render(batched, mesh, normalize=True)
+        torch.cuda.synchronize()
+        render_launches = {k: v for k, v in ck.launch_counts.items() if v}
+        want = par.render_batch(batched)
+        want_norm = want / want.abs().max()
+        print(f"shard_render (normalised, world of one) of {PARALLEL_BATCH} traced flagship plans "
+              f"{tuple(got.shape)}: equal to the normalised render_batch {torch.equal(got, want_norm)}, peak "
+              f"{float(got.abs().max()):.6f}; kernel launches {render_launches} (plain PyTorch)", flush=True)
+        if not torch.equal(got, want_norm) or abs(float(got.abs().max()) - 1.0) > 1e-6:
+            fail("shard_render (normalised) differs from the normalised render_batch")
+        t_shard, t_local = [], []
+        for _ in range(2):  # in turns: sharded, local, local, sharded
+            t_shard.append(time_ms(lambda: par.shard_render(batched, mesh), reps=3))
+            t_local.append(time_ms(lambda: par.render_batch(batched), reps=3))
+        batch_in = [(2000 + i, src, caps, renderer.rain_table(caps), s_idx, m_idx)
+                    for i, (src, caps, s_idx, m_idx, _, _) in enumerate(scenes)]
+        host_plans, extras = [sc[4] for sc in scenes], [sc[5] for sc in scenes]
+        mix_sharded = renderer.render_mix_batch_sharded(batch_in, host_plans, extras, mesh)
+        mix_local = renderer.render_mix_batch(batch_in, host_plans, extras)
+        if not torch.equal(mix_sharded, mix_local):
+            fail("render_mix_batch_sharded (world of one) differs from render_mix_batch")
+        m_shard, m_local = [], []
+        for _ in range(2):
+            m_shard.append(time_ms(lambda: renderer.render_mix_batch_sharded(batch_in, host_plans, extras, mesh),
+                                   reps=3))
+            m_local.append(time_ms(lambda: renderer.render_mix_batch(batch_in, host_plans, extras), reps=3))
+        print(f"world of one, {PARALLEL_BATCH} flagship scenes (CUDA events, median of 3, two turns): shard_render "
+              f"{t_shard} ms against render_batch {t_local} ms; render_mix_batch_sharded {m_shard} ms against "
+              f"render_mix_batch {m_local} ms (equal {torch.equal(mix_sharded, mix_local)}) on {card}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    # Two gloo ranks sharing cuda:0
+    gloo = out / "gloo"
+    gloo.mkdir()
+    rng = np.random.default_rng(11)
+    src = torch.as_tensor(scenes[0][0], device=dev)
+    inputs = dict(batched={k: (v.cpu() if torch.is_tensor(v) else v) for k, v in batched.items()},
+                  audio=torch.as_tensor(rng.standard_normal(int(SCENE_SECONDS * SR)), dtype=torch.float32),
+                  irs=plans[0].static_irs[0].cpu(), trace_seed=7, sources=src.cpu(),
+                  listeners=torch.as_tensor(scenes[0][1], dtype=torch.float32))
+    torch.save(inputs, gloo / "inputs.pt")
+    init = (gloo / "init").as_uri()
+    procs = [subprocess.Popen([sys.executable, str(GLOO_RANK_SCRIPT), "--gloo-rank", str(r), init, str(gloo)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-4000:])
+            fail(f"gloo rank {r} failed with {p.returncode}")
+    ranks = [torch.load(gloo / f"rank{r}.pt") for r in range(2)]
+    print(f"two gloo ranks on cuda:0: init_distributed {[round(x['init_s'] * 1e3, 3) for x in ranks]} ms; all_reduce "
+          f"MAX {[round(x['all_reduce_ms'], 4) for x in ranks]} ms, all_gather "
+          f"{[round(x['all_gather_ms'], 4) for x in ranks]} ms a call (host clock over {COLLECTIVE_REPS}; gloo "
+          f"stages CUDA tensors through the host) on {card}", flush=True)
+    render = torch.cat([x["render"] for x in ranks]).to(dev)
+    render_norm = torch.cat([x["render_norm"] for x in ranks]).to(dev)
+    gaps = [float((a - b).abs().max() / b.abs().max()) for a, b in ((render, want), (render_norm, want_norm))]
+    print(f"gloo shard_render: bit for bit with render_batch {torch.equal(render, want)}, max |diff| {gaps[0]:.3e} "
+          f"of peak; normalised bit for bit {torch.equal(render_norm, want_norm)}, {gaps[1]:.3e}", flush=True)
+    if max(gaps) > 1e-6:
+        fail("the gloo ranks' shard_render differs from render_batch on the card")
+    conv_want = fft_convolve(inputs["audio"].to(dev), inputs["irs"].to(dev))
+    for r, x in enumerate(ranks):
+        gap = float((x["conv"].to(dev) - conv_want).abs().max() / conv_want.abs().max())
+        print(f"gloo rank {r} shard_convolve_time {tuple(x['conv'].shape)}: max |diff| {gap:.3e} of peak against "
+              f"fft_convolve on the whole signal", flush=True)
+        if tuple(x["conv"].shape) != tuple(conv_want.shape) or gap > 1e-5:
+            fail(f"gloo rank {r}'s shard_convolve_time differs from fft_convolve")
+    kw = flagship_trace_kwargs(st)
+    half = N_SOURCES // 2
+    for r, x in enumerate(ranks):
+        want_t = trace_rirs_multi(par.shard_generator(7, r, dev), st.acoustic_tris, st.absorption, st.scattering,
+                                  src[half * r : half * (r + 1)], inputs["listeners"].to(dev), **kw)
+        got_t = x["trace"].to(dev)
+        gap = float((got_t - want_t).abs().max() / want_t.abs().max())
+        print(f"gloo rank {r} shard_trace_rirs {tuple(got_t.shape)}: bit for bit {torch.equal(got_t, want_t)}, max "
+              f"|diff| {gap:.3e} of peak against trace_rirs_multi of its slice; launches {x['trace_launches']}",
+              flush=True)
+        if got_t.shape != want_t.shape or gap > 1e-5:
+            fail(f"gloo rank {r}'s shard_trace_rirs differs from its unsharded slice")
+        for name in MIC_PATH:
+            if x["trace_launches"].get(name, 0) <= 0:
+                fail(f"gloo rank {r}'s trace never launched {name}")
+
+    two_mic_check(fg, dev)
+    return launches
 
 
 def main() -> int:
@@ -3887,8 +4302,15 @@ def main() -> int:
     # 19. The pooled SELD driver: the host BVH, the batched renders (K3 and
     # K4 with a scene axis), the serial CLI's host time by stage, the pooled
     # CLI with 1 and 4 workers
-    pooled_n = pooled_phase(mesh, st, fg, room_obj, OUT / "pooled", dev)
+    pooled_n, pooled_w1 = pooled_phase(mesh, st, fg, room_obj, OUT / "pooled", dev)
     print(f"pooled CLI: launches {pooled_n}")
+
+    elapsed(t_start, "multi-device rendering")
+    # 20. Multi-device rendering: the CLI as rank 0 of a world of one, the
+    # world of one's sharded renders, two gloo ranks sharing the card, a
+    # scene with two microphones
+    parallel_n = parallel_phase(renderer, st, fg, room_obj, OUT / "parallel", pooled_w1, dev)
+    print(f"multi-device: the --coordinator CLI's launches {parallel_n}")
 
     main_launches = dict(launches, first_hit_small=small_n["first_hit_small"],
                          deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"],
@@ -3932,4 +4354,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli-breakdown"]:
         sys.exit(breakdown_main(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        sys.exit(gloo_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

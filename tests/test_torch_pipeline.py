@@ -12,12 +12,21 @@ noise carrier (diffuse-field decorrelation), which moves the split of that
 energy across capsules by ~8 % per render, so each channel is held within
 25 %.
 
+A scene with two microphones (an AmbeoVR and a FOA listener, in a shoebox
+and in the 432-face scanned room) goes through both packages'
+render_scenes_pipelined, which send it to the plan path: the port, given the
+reference's IR banks, writes the reference's five files (two WAVs, two CSVs,
+the JSON), the CSVs equal, the JSON equal but for the creation time, the
+WAVs within 1 LSB; with its own banks it renders both microphones.
+
 Also here: the import guard (the port and chip_smoke.py import neither JAX,
 pandas nor the JAX package) and the no-card guard of the entry points
 (renderer, device state, Scene and the SELD CLI).
 """
 
 import ast
+import json
+from collections import OrderedDict
 from pathlib import Path
 
 import numpy as np
@@ -183,3 +192,136 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert not (REPO / "never").exists()
     assert PortRenderer.from_mesh(room, {}, caps, (1, 1, 2, 100), 2, 1000, device="cpu").device.type == "cpu"
     assert PortScene(duration=5.0, backend="rlr", backend_kwargs=dict(mesh=room), device="cpu").state.device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# A scene with two microphones through the dispatch-ahead loop
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def two_mic_assets(tmp_path_factory):
+    """The repo's sound events and the 432-face scanned room as an OBJ."""
+    import shutil
+
+    from audiblelight_tpu_torch.geometry.mesh import save_obj
+    from audiblelight_tpu_torch.geometry.mesh import scanned_like_room as port_room
+
+    root = tmp_path_factory.mktemp("two_mics")
+    for wav in sorted((REPO / "tests/resources/soundevents").rglob("*.wav")):
+        (root / "fg" / wav.parent.name).mkdir(parents=True, exist_ok=True)
+        shutil.copy(wav, root / "fg" / wav.parent.name / wav.name)
+    save_obj(port_room((6.0, 4.0, 3.0), subdivision_levels=1, seed=0), root / "room.obj")
+    return root
+
+
+def _two_mic_scene(scene_cls, seed_everything, root, backend: str, **device):
+    """An AmbeoVR and a FOA listener, two static events and a moving one."""
+    seed_everything(9)
+    if backend == "shoebox":
+        kw = dict(backend="shoebox", backend_kwargs=dict(dimensions=[6.0, 4.5, 3.0], max_order=2,
+                                                         max_ir_length=0.1, seed=3))
+    else:
+        kw = dict(backend="rlr", backend_kwargs=dict(
+            mesh=str(root / "room.obj"), seed=11, add_to_context=False,
+            rlr_kwargs=dict(indirect_ray_count=128, indirect_ray_depth=4, max_ir_length=0.1)))
+    scene = scene_cls(duration=4.0, sample_rate=SR, fg_path=root / "fg", max_overlap=3, **kw, **device)
+    scene.add_microphone(microphone_type="ambeovr")
+    scene.add_microphone(microphone_type="foalistener")
+    for event_type in ("static", "static", "moving"):
+        scene.add_event(event_type=event_type, max_place_attempts=100)
+    scene.add_ambience(noise="gaussian")
+    return scene
+
+
+@pytest.fixture(scope="module", params=["shoebox", "rlr"])
+def two_mics(request, two_mic_assets, tmp_path_factory):
+    """The same two-microphone scene through both packages'
+    render_scenes_pipelined (the fused loop, which sends it to the plan
+    path), the port given the reference's IR banks; then the port's scene
+    again with its own banks. Returns (backend, port folder, reference
+    folder, the port's own audio)."""
+    import importlib
+    import random
+    import sys
+
+    from audiblelight_tpu import utils as jutils
+    from audiblelight_tpu.pipeline import render_scenes_pipelined as jax_pipelined
+    from audiblelight_tpu_torch import utils as tutils
+    from audiblelight_tpu_torch.core import Scene as PortScene
+    from audiblelight_tpu_torch.core import write_outputs
+    from audiblelight_tpu_torch.pipeline import render_scenes_pipelined
+
+    states = random.getstate(), np.random.get_state(), torch.random.get_rng_state()
+    sys.path.insert(0, str(REPO / "scripts" / "seld"))
+    try:
+        sys.modules.pop("generate_dataset", None)  # the other script of that name, if a test loaded it
+        gd = importlib.import_module("generate_dataset")
+    finally:
+        sys.path.remove(str(REPO / "scripts" / "seld"))
+    backend, root = request.param, two_mic_assets
+    pk = dict(max_static=2, max_moving=1, max_traj=32, pad_audio_seconds=4.0)
+    out_w, out_g = tmp_path_factory.mktemp(f"ref_{backend}"), tmp_path_factory.mktemp(f"port_{backend}")
+    try:
+        want = _two_mic_scene(Scene, jutils.seed_everything, root, backend)
+        got = _two_mic_scene(PortScene, tutils.seed_everything, root, backend, device="cpu")
+
+        def complete(write, out):
+            def run(scene, audio):
+                scene.audio = audio
+                write(scene, out / "scene", out / "scene")
+            return run
+
+        for seed in (jutils.seed_everything, tutils.seed_everything):
+            seed(5)
+        # The reference's fused loop refuses a shoebox outright (its plans
+        # need a device trace), so its shoebox scenes take fused=False: the
+        # plan path, where its fused loop sends a two-microphone rlr scene
+        assert jax_pipelined([want], complete(gd.write_outputs, out_w), plan_kwargs=pk, fused=backend == "rlr",
+                             device_mix=True, overlap_io=False) == 1  # pandas' writes off a thread
+        if backend == "shoebox":
+            got.state._irs = OrderedDict((k, np.array(v)) for k, v in want.state.irs.items())
+        else:
+            banks = OrderedDict((k, torch.from_numpy(np.array(v))) for k, v in want.state.trace_irs_device().items())
+            ws = got.state
+
+            def trace_irs_device():  # the reference's banks; a trace refreshes the relative coordinates
+                ws._update()
+                return banks
+
+            ws.trace_irs_device = trace_irs_device
+        for seed in (jutils.seed_everything, tutils.seed_everything):
+            seed(5)
+        assert render_scenes_pipelined([got], complete(write_outputs, out_g), plan_kwargs=pk, device_mix=True) == 1
+        own = _two_mic_scene(PortScene, tutils.seed_everything, root, backend, device="cpu")
+        audio = {}
+        assert render_scenes_pipelined([own], lambda s, a: audio.update(a), plan_kwargs=pk) == 1
+    finally:
+        random.setstate(states[0])
+        np.random.set_state(states[1])
+        torch.random.set_rng_state(states[2])
+    return backend, out_g, out_w, audio
+
+
+def test_two_microphone_scene_writes_the_reference_files(two_mics):
+    backend, out_g, out_w, _ = two_mics
+    names = ["scene.json", "scene_mic000.csv", "scene_mic000.wav", "scene_mic001.csv", "scene_mic001.wav"]
+    assert sorted(p.name for p in out_g.iterdir()) == sorted(p.name for p in out_w.iterdir()) == names
+    for mic in ("mic000", "mic001"):
+        assert (out_g / f"scene_{mic}.csv").read_text() == (out_w / f"scene_{mic}.csv").read_text()
+        w_got, w_want = wav_read(out_g / f"scene_{mic}.wav")[0], wav_read(out_w / f"scene_{mic}.wav")[0]
+        assert w_got.shape == w_want.shape == (4, 4 * SR)
+        lsb = np.abs(np.round(w_got * 32768).astype(np.int64) - np.round(w_want * 32768).astype(np.int64)).max()
+        assert lsb <= 1 and np.abs(w_got).max() > 100 / 32768, (backend, mic, lsb)
+    got_json, want_json = (json.loads((d / "scene.json").read_text()) for d in (out_g, out_w))
+    got_json.pop("creation_time"), want_json.pop("creation_time")
+    assert got_json == want_json
+
+
+def test_two_microphone_scene_with_the_ports_own_banks(two_mics):
+    """The port's own trace (or image sources) of the scene, one per
+    microphone, renders both microphones' float32 mixes with sound."""
+    _, _, _, audio = two_mics
+    assert list(audio) == ["mic000", "mic001"]
+    for mix in audio.values():
+        assert mix.dtype == np.float32 and mix.shape == (4, 4 * SR) and np.abs(mix).max() > 1e-3

@@ -12,8 +12,10 @@ of `render_scenes_pipelined(device_mix=True)` over the same scenes;
 event. The CLI's `--placement-workers 2 --fused-batch 2` writes the CSVs of
 `--placement-workers 1 --fused-batch 1` byte for byte, its JSONs byte for
 byte but for the creation-time line, and its WAVs within 1 LSB (0 workers
-is the serial loop, as in the reference script); the multi-device flags
-raise, naming ROADMAP item 6.
+is the serial loop, as in the reference script). The multi-device runs
+write the same files: `--mesh-devices 2 --device cpu` (two gloo ranks, each
+rendering its share of the jobs), also with two prep workers, `--coordinator`
+with a world of one, and two ranks resuming a run.
 """
 
 import json
@@ -247,31 +249,98 @@ def test_bucket_overflow_keeps_every_event(prepped, monkeypatch):
     assert all(w.dtype == (np.float32 if o else np.int16) for w, o in zip(wavs, overflowed))
 
 
-def test_pooled_cli_output_does_not_depend_on_the_workers(assets):
-    stats = {w: {} for w in (1, 2)}
-    seconds = {w: seld.main(_argv(assets, f"cli_w{w}", "--placement-workers", str(w), "--fused-batch", str(w)),
-                            stats=stats[w]) for w in (1, 2)}
-    for w in (1, 2):
-        assert stats[w]["n_scenes"] == len(seconds[w]) == 3
-        assert set(stats[w]) >= {"prep_wait_s", "dispatch_s", "pull_s", "complete_s", "wall_s", "cpu_count"}
-        assert sum(seconds[w]) <= stats[w]["wall_s"]
-    files = sorted(p.relative_to(assets / "cli_w1") for p in (assets / "cli_w1").rglob("*") if p.is_file())
-    assert len(files) == 9
-    assert files == sorted(p.relative_to(assets / "cli_w2") for p in (assets / "cli_w2").rglob("*") if p.is_file())
+def _pooled(assets, name: str, *flags, capfd=None) -> tuple:
+    """One pooled CLI run into assets/name: (seconds, stats, its log)."""
+    stats: dict = {}
+    seconds = seld.main(_argv(assets, name, *flags), stats=stats)
+    return seconds, stats, capfd.readouterr().err if capfd is not None else ""
+
+
+@pytest.fixture(scope="module")
+def pooled_w1(assets):
+    """The pooled CLI with 1 worker in single renders: what every other
+    pooled run of the same jobs is held to."""
+    return _pooled(assets, "cli_w1", "--placement-workers", "1", "--fused-batch", "1")
+
+
+def _same_outputs(assets, a: str, b: str, n_files: int = 9) -> None:
+    """Two runs wrote the same files: CSVs byte for byte, JSONs but for the
+    creation time, WAVs within 1 LSB and not silent."""
+    files = sorted(p.relative_to(assets / a) for p in (assets / a).rglob("*") if p.is_file())
+    assert len(files) == n_files
+    assert files == sorted(p.relative_to(assets / b) for p in (assets / b).rglob("*") if p.is_file())
     for rel in files:
-        a, b = assets / "cli_w1" / rel, assets / "cli_w2" / rel
+        x_path, y_path = assets / a / rel, assets / b / rel
         if rel.suffix == ".csv":
-            assert a.read_bytes() == b.read_bytes()
+            assert x_path.read_bytes() == y_path.read_bytes()
         elif rel.suffix == ".json":
-            assert _without_creation_time(a.read_text()) == _without_creation_time(b.read_text())
+            assert _without_creation_time(x_path.read_text()) == _without_creation_time(y_path.read_text())
         else:
-            x, y = wav_read(a)[0], wav_read(b)[0]
+            x, y = wav_read(x_path)[0], wav_read(y_path)[0]
             assert x.shape == (4, 4 * 24000)
             assert np.abs(np.round(x * 32768) - np.round(y * 32768)).max() <= 1 and np.abs(x).max() > 100 / 32768
 
 
-@pytest.mark.parametrize("flags", [["--mesh-devices", "2"], ["--coordinator", "localhost:1"]], ids=" ".join)
-def test_pooled_cli_multi_device_flags_raise(assets, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        seld.main(_argv(assets, str(tmp_path / "out"), "--placement-workers", "2", *flags))
-    assert not (tmp_path / "out").exists()
+def test_pooled_cli_output_does_not_depend_on_the_workers(assets, pooled_w1):
+    runs = {1: pooled_w1, 2: _pooled(assets, "cli_w2", "--placement-workers", "2", "--fused-batch", "2")}
+    for seconds, stats, _ in runs.values():
+        assert stats["n_scenes"] == len(seconds) == 3 and stats["world_size"] == 1
+        assert set(stats) >= {"prep_wait_s", "dispatch_s", "pull_s", "complete_s", "wall_s", "cpu_count"}
+        assert sum(seconds) <= stats["wall_s"]
+    _same_outputs(assets, "cli_w1", "cli_w2")
+
+
+def test_pooled_cli_mesh_devices_matches_one_device(assets, pooled_w1, capfd):
+    """`--mesh-devices 2 --device cpu` spawns two gloo ranks (no prep
+    workers: 0 split over 2 ranks), each rendering its share of the jobs,
+    and writes the 1-worker run's files; the log gives the world's count."""
+    seconds, stats, log = _pooled(assets, "cli_mesh2", "--mesh-devices", "2", capfd=capfd)
+    assert stats["world_size"] == 2 and stats["n_scenes"] == len(seconds) == 3
+    assert "Pooled driver rendered 3 scenes" in log
+    _same_outputs(assets, "cli_w1", "cli_mesh2")
+
+
+def test_pooled_cli_mesh_devices_with_workers(assets, pooled_w1):
+    """`--mesh-devices 2 --placement-workers 2` (one prep worker a rank, batches
+    of 2) writes the files of `--mesh-devices 1 --placement-workers 1`."""
+    seconds, stats, _ = _pooled(assets, "cli_mesh2_w2", "--mesh-devices", "2", "--placement-workers", "2",
+                                "--fused-batch", "2")
+    assert stats["world_size"] == 2 and len(seconds) == 3
+    _same_outputs(assets, "cli_w1", "cli_mesh2_w2")
+
+
+def test_pooled_cli_coordinator_world_of_one(assets, pooled_w1):
+    """`--coordinator host:port --num-processes 1 --process-id 0` joins a
+    world of one (gloo on the CPU), writes the run's files without it, and
+    leaves the group on its way out."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    seconds, stats, _ = _pooled(assets, "cli_coord", "--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+                                "--process-id", "0", "--placement-workers", "1", "--fused-batch", "1")
+    assert stats["world_size"] == 1 and len(seconds) == 3
+    assert not dist.is_initialized()
+    _same_outputs(assets, "cli_w1", "cli_coord")
+
+
+def test_pooled_cli_resume_with_two_ranks(assets, pooled_w1):
+    """With the second job's files already written, two ranks render only the
+    other two (one each, after the barrier) and leave the written files as
+    they were; every job keeps its seed, so the files are the 1-worker run's."""
+    import shutil
+
+    out = assets / "cli_resume"
+    for src in (assets / "cli_w1").rglob("*fold1_scene1_001*"):
+        dst = out / src.relative_to(assets / "cli_w1")
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy2(src, dst)
+    before = {p: p.stat().st_mtime_ns for p in out.rglob("*") if p.is_file()}
+    assert len(before) == 3
+    seconds, stats, _ = _pooled(assets, "cli_resume", "--mesh-devices", "2")
+    assert stats["n_scenes"] == len(seconds) == 2
+    assert all(p.stat().st_mtime_ns == t for p, t in before.items())
+    _same_outputs(assets, "cli_w1", "cli_resume")

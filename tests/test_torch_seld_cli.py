@@ -9,7 +9,10 @@ script's own `build_scene` and `generate_dcase2024_metadata` for the same
 --seed (the reference render is not run: the metadata depends only on the
 placement); its WAVs are 4-channel 24 kHz int16 and not silent. A second run
 skips the finished scenes, every unported flag raises (and `--backend
-sofa` without `--sofa` the reference's error), and the flags that
+sofa` without `--sofa` the reference's error), the fused pipeline and the
+pooled driver exit with the reference's messages on the shoebox and SOFA
+backends, `--mesh-devices 2` raises without a card and exits on a host
+with one, and the flags that
 take the plan path (`--pipeline compiled`, `--no-device-mix`,
 `--no-mesh-simplification`) write the same files. `--pipeline classic`
 and `--augmentations` run, on rlr and on the shoebox, and place what the
@@ -140,24 +143,63 @@ def test_cli_resumes(run):
     assert {p: p.stat().st_mtime_ns for p in out.rglob("*") if p.is_file()} == before
 
 
-@pytest.mark.parametrize("flags", [
-    ["--backend", "sofa"], ["--assets", "9A"],
-    # The pooled driver is ported (its runs are held in test_torch_prep.py);
-    # its multi-device form is not
-    pytest.param(["--placement-workers", "2", "--mesh-devices", "2"], id="--placement-workers 2"),
-    ["--mesh-devices", "2"], ["--coordinator", "localhost:1"],
-], ids=lambda f: " ".join(f))
+@pytest.mark.parametrize("flags", [["--backend", "sofa"], ["--assets", "9A"]], ids=lambda f: " ".join(f))
 def test_cli_unported_flags_raise(tmp_path, flags):
     """Every unported flag raises, naming its ROADMAP item, before anything is
     written. `--backend sofa` is ported (its runs are held in
     test_torch_sofa.py): without `--sofa` it raises the reference script's
-    error, before anything is written too. `--placement-workers` is ported;
-    with `--mesh-devices 2` (item 6) it raises."""
+    error, before anything is written too. The multi-device flags are ported
+    (their runs are held in test_torch_prep.py)."""
     argv = ["--fg-dir", str(tmp_path), "--output-dir", str(tmp_path / "out"), "--backend", "rlr",
             "--mesh", str(tmp_path / "room.obj"), "--device", "cpu"] + flags
     raises = (pytest.raises(ValueError, match="--sofa or --assets is required") if flags == ["--backend", "sofa"]
               else pytest.raises(NotImplementedError, match="ROADMAP"))
     with raises:
+        seld.main(argv)
+    assert not (tmp_path / "out").exists()
+
+
+SOFA_FIXTURE = REPO / "tests/resources/torch_sofa/reference_writer.sofa"
+
+
+@pytest.mark.parametrize("backend,flags,message", [
+    ("shoebox", ["--pipeline", "fused"], "--pipeline fused requires the rlr backend"),
+    ("sofa", ["--sofa", str(SOFA_FIXTURE), "--pipeline", "fused"], "--pipeline fused requires the rlr backend"),
+    ("shoebox", ["--placement-workers", "2"], "--placement-workers/--mesh-devices require --backend rlr"),
+    ("sofa", ["--sofa", str(SOFA_FIXTURE), "--mesh-devices", "2"],
+     "--placement-workers/--mesh-devices require --backend rlr"),
+], ids=["shoebox fused", "sofa fused", "shoebox pooled", "sofa mesh-devices"])
+def test_cli_rlr_only_paths_exit_on_other_backends(tmp_path, backend, flags, message):
+    """The fused pipeline and the pooled driver run on rlr only: on the
+    shoebox and SOFA backends the CLI exits with the reference script's
+    message before anything is written."""
+    argv = ["--fg-dir", str(tmp_path), "--output-dir", str(tmp_path / "out"), "--backend", backend,
+            "--device", "cpu"] + flags
+    with pytest.raises(SystemExit, match=message):
+        seld.main(argv)
+    assert not (tmp_path / "out").exists()
+
+
+def test_cli_mesh_devices_without_a_card_raises(tmp_path, monkeypatch):
+    """`--mesh-devices 2` on the default device (a card) raises the port's
+    no-card error on a machine without cards, before a rank is spawned."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--fg-dir", str(tmp_path), "--output-dir", str(tmp_path / "out"), "--backend", "rlr",
+            "--mesh", str(tmp_path / "room.obj"), "--mesh-devices", "2"]
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        seld.main(argv)
+    assert not (tmp_path / "out").exists()
+
+
+def test_cli_mesh_devices_beyond_the_cards_exits(tmp_path, monkeypatch):
+    """`--mesh-devices 2` on a host with one card exits with the reference
+    script's message, before a rank is spawned (NCCL refuses two ranks on
+    one card)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    argv = ["--fg-dir", str(tmp_path), "--output-dir", str(tmp_path / "out"), "--backend", "rlr",
+            "--mesh", str(tmp_path / "room.obj"), "--mesh-devices", "2"]
+    with pytest.raises(SystemExit, match="--mesh-devices 2 but only 1 devices"):
         seld.main(argv)
     assert not (tmp_path / "out").exists()
 
