@@ -1,23 +1,26 @@
-"""Background ambience of a Scene: colored noise.
+"""Background ambience of a Scene: colored noise or a looped audio file.
 
-Copy of audiblelight_tpu/ambience.py for noise beds ("gaussian", the colour
-names, or a numeric power-law exponent). The fused renderer draws a bed on
-the card (render.ambience_bed_device); the plan path draws it on the host
-(`Ambience.load_ambience`), with the reference's numpy draws, so the same
-numpy state gives the same bed bit for bit. File-based beds are not ported
-(ROADMAP).
+Copy of audiblelight_tpu/ambience.py: noise beds ("gaussian", the colour
+names, or a numeric power-law exponent) and file beds (an audio file tiled
+over the channels and the duration). The fused renderer draws a "gaussian"
+bed on the card (render.ambience_bed_device); the plan path makes every
+other bed on the host (`Ambience.load_ambience`), with the reference's
+numpy and Python `random` draws, so the same streams give the same bed bit
+for bit.
 """
 
 from __future__ import annotations
 
+import random
 from pathlib import Path
 from typing import Any, Iterable, Optional, Union
 
 import numpy as np
 
 from audiblelight_tpu_torch import config, utils
-from audiblelight_tpu_torch.io.audio import valid_audio
+from audiblelight_tpu_torch.io.audio import load_audio, valid_audio
 from audiblelight_tpu_torch.micarrays import _compare_dicts
+from audiblelight_tpu_torch.utils import logger
 
 # Map of colour names to beta exponents; higher beta = more low-frequency energy
 NOISE_MAPPING = dict(pink=1, brown=2, red=2, blue=-1, white=0, violet=-2)
@@ -41,9 +44,10 @@ class Ambience:
     ):
         """Initialise invariant background noise for a Scene.
 
-        `noise` is a colour name, "gaussian", or a numeric beta exponent; extra
-        kwargs (`fmin`, `seed`) are recorded as the reference records them.
-        `filepath` raises.
+        Either `filepath` (an audio file, tiled over the channels and the
+        duration) or `noise` (a colour name, "gaussian", or a numeric beta
+        exponent) must be given; extra kwargs (`fmin`, `seed`) are recorded
+        as the reference records them.
         """
         self.channels = utils.sanitise_positive_number(channels, cast_to=int)
         self.sample_rate = utils.sanitise_positive_number(sample_rate, cast_to=int)
@@ -51,7 +55,7 @@ class Ambience:
         self.alias = alias
 
         if noise is None and filepath is not None:
-            raise NotImplementedError("file-based ambience is not ported (ROADMAP); pass `noise`")
+            self.filepath, self.beta = utils.sanitise_filepath(filepath), None
         elif noise is not None and filepath is None:
             self.filepath, self.beta = None, _parse_beta(noise)
         elif noise is not None and filepath is not None:
@@ -81,18 +85,38 @@ class Ambience:
             return False
 
     def load_ambience(self, ignore_cache: Optional[bool] = False, normalize: Optional[bool] = True) -> np.ndarray:
-        """The bed as a (channels, samples) array, drawn on the host once and
+        """The bed as a (channels, samples) array, made on the host once and
         kept. "gaussian" is float32 white noise from a PCG generator seeded
         by one draw of numpy's global stream; the other exponents shape a
         Gaussian spectrum (`powerlaw_psd_gaussian`, its own seeded
-        generator). `normalize` divides each channel by its peak."""
+        generator). A file is loaded at the scene's rate and tiled to the
+        duration: a mono file over every channel, a file with the bed's
+        channel count as it is, any other one channel of it picked by
+        Python's `random`. `normalize` divides each channel by its peak."""
         if self.is_audio_loaded and not ignore_cache:
             return self.audio
-        shape = (self.channels, round(self.duration * self.sample_rate))
+        total_samples = round(self.duration * self.sample_rate)
+        shape = (self.channels, total_samples)
         if self.beta == "gaussian":
             out = np.random.default_rng(np.random.randint(0, 2**31)).standard_normal(shape, dtype=np.float32)
-        else:
+        elif self.beta is not None:
             out = powerlaw_psd_gaussian(self.beta, shape, **self.noise_kwargs)
+        else:
+            ambient = utils.coerce2d(load_audio(self.filepath, sr=self.sample_rate, mono=False)[0])
+            n_audio_channels, n_samples = ambient.shape
+            tile_channels = 1
+            if n_audio_channels != self.channels:
+                if n_audio_channels == 1:
+                    ambient = ambient[0, :]
+                else:
+                    logger.warning(
+                        f"Passed audio has {n_audio_channels} channels, but expected "
+                        f"{self.channels} channels. A random mono channel will be chosen."
+                    )
+                    ambient = ambient[random.choice(range(n_audio_channels)), :]
+                tile_channels = self.channels
+            repeats = -(-total_samples // n_samples)  # ceiling division
+            out = np.tile(utils.coerce2d(ambient), (tile_channels, repeats))[:, :total_samples]
         if normalize:
             if out.dtype != np.float32:
                 out = np.asarray(out, dtype=np.float64)

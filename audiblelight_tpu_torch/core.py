@@ -15,8 +15,10 @@ shoebox ("shoebox") and the measured room of a SOFA file ("sofa": its IRs
 through the plan path; its microphone is the file's own, so the Scene
 infers the ambience's channels from that one rig).
 
-Not ported (raise; ROADMAP): predefined-trajectory events, images, video
-and acoustic imaging.
+Events are static, moving (a drawn trajectory) or predefined (a given
+trajectory, or the room's navigation waypoints).
+
+Not ported (raise; ROADMAP): images, video and acoustic imaging.
 """
 
 from __future__ import annotations
@@ -645,7 +647,25 @@ class Scene:
                 **event_kwargs,
             )
         elif event_type == "predefined":
-            raise NotImplementedError("predefined-trajectory events are not ported (ROADMAP)")
+            if spatial_velocity is not None or spatial_resolution is not None:
+                logger.warning(
+                    "Predefined event will ignore `spatial_velocity` or `spatial_resolution` parameters"
+                )
+            event = self.add_event_predefined(
+                filepath=filepath,
+                trajectory=trajectory,
+                alias=alias,
+                augmentations=augmentations,
+                scene_start=scene_start,
+                event_start=event_start,
+                duration=duration,
+                snr=snr,
+                class_id=class_id,
+                class_label=class_label,
+                ensure_direct_path=ensure_direct_path,
+                max_place_attempts=max_place_attempts,
+                image_filepath=image_filepath,
+            )
         else:
             raise ValueError(
                 f"Cannot parse event type {event_type}, expected either 'static', 'moving', "
@@ -790,6 +810,169 @@ class Scene:
             )
         return self.get_event(alias)
 
+    def _try_add_predefined_event(
+        self,
+        trajectory: Optional[np.ndarray],
+        ensure_direct_path: Optional[bool],
+        max_place_attempts: Optional[utils.Numeric],
+        **event_kwargs,
+    ) -> bool:
+        """Placement loop for predefined-trajectory events: the given
+        trajectory, else each of the state's navigation waypoint lists in
+        turn, each with its parameter samples (one where the scene start,
+        event start and duration are all given)."""
+        if event_kwargs["image_filepath"] is not None:
+            raise NotImplementedError("event images are not ported (ROADMAP: imaging and video)")
+
+        alias = event_kwargs["alias"]
+        has_overrides = all(event_kwargs.get(k) is not None for k in ("scene_start", "event_start", "duration"))
+        attempts_per_traj = int(max_place_attempts) if not has_overrides else 1
+
+        if trajectory is not None:
+            if not self.state._validate_position(trajectory):
+                raise ValueError("Provided trajectory is invalid")
+            trajectories = [trajectory]
+        else:
+            trajectories = self.state.waypoints
+
+        overrides = {k: event_kwargs.get(k) for k in ("scene_start", "event_start", "duration", "snr")}
+        ensure_direct_path_to_mic = self.state._parse_valid_microphone_aliases(ensure_direct_path)
+
+        for trajectory_current in trajectories:
+            n_points = trajectory_current.shape[0]
+            start = trajectory_current[0]
+            distances = np.linalg.norm(trajectory_current[1:] - start, axis=1)
+            max_distance = distances[np.argmax(distances)] if len(distances) else 0.0
+
+            # Every point must see each microphone that asks for a direct path
+            if not all(
+                self.state.path_exists_between_points(t, self.get_microphone(d).coordinates_center)
+                for d in ensure_direct_path_to_mic
+                for t in trajectory_current
+            ):
+                continue
+
+            for _ in range(attempts_per_traj):
+                current_kws = event_kwargs.copy()
+                if overrides["duration"] is None and self.event_duration_dist is None:
+                    current_kws["duration"] = None
+                else:
+                    current_kws["duration"] = utils.sample_distribution(
+                        self.event_duration_dist, overrides["duration"]
+                    )
+                if overrides["event_start"] is None and self.event_start_dist is None:
+                    current_kws["event_start"] = None
+                else:
+                    current_kws["event_start"] = utils.sample_distribution(
+                        self.event_start_dist, overrides["event_start"]
+                    )
+                current_kws.update(
+                    {
+                        "scene_start": utils.sample_distribution(self.scene_start_dist, overrides["scene_start"]),
+                        "snr": utils.sample_distribution(self.snr_dist, overrides["snr"]),
+                        "shape": "predefined",
+                    }
+                )
+                current_kws["class_id"], current_kws["class_label"] = infer_id_and_label_from_inputs(
+                    current_kws["class_id"],
+                    current_kws["class_label"],
+                    self.class_mapping,
+                    current_kws["filepath"],
+                )
+                current_kws["device"] = self.state.device
+                valid_event_kwargs = utils.get_valid_kwargs(Event.__init__)
+                current_event = Event(**{k: v for k, v in current_kws.items() if k in valid_event_kwargs})
+
+                if self._would_exceed_temporal_overlap(current_event.scene_start, current_event.scene_end):
+                    continue
+
+                # Velocity and resolution follow from the trajectory and the duration
+                current_event.spatial_resolution = (
+                    utils.sanitise_positive_number(n_points / current_event.duration, cast_to=round) - 1
+                )
+                current_event.spatial_velocity = max_distance / current_event.duration
+                if (
+                    current_event.spatial_velocity > self.event_velocity_dist.max
+                    or current_event.spatial_velocity < self.event_velocity_dist.min
+                ):
+                    continue
+
+                self.state._add_emitters_without_validating(trajectory_current, alias)
+                emitters = self.state.get_emitters(alias)
+                if len(emitters) != len(trajectory_current):
+                    # The event is not registered yet: clear its emitters directly
+                    self.state.clear_emitter(alias)
+                    raise ValueError(
+                        f"Did not add expected number of emitters into the WorldState "
+                        f"(expected {len(trajectory_current)}, got {len(emitters)})"
+                    )
+                current_event.register_emitters(emitters)
+                self.events[alias] = current_event
+                return True
+
+        return False
+
+    def add_event_predefined(
+        self,
+        filepath: Optional[Union[str, Path]] = None,
+        trajectory: Optional[np.ndarray] = None,
+        alias: Optional[str] = None,
+        augmentations=None,
+        scene_start: Optional[utils.Numeric] = None,
+        event_start: Optional[utils.Numeric] = None,
+        duration: Optional[utils.Numeric] = None,
+        snr: Optional[utils.Numeric] = None,
+        class_id: Optional[int] = None,
+        class_label: Optional[str] = None,
+        ensure_direct_path: Optional[Union[bool, list, str]] = False,
+        max_place_attempts: Optional[utils.Numeric] = config.MAX_PLACE_ATTEMPTS,
+        image_filepath: Optional[Union[str, Path]] = None,
+    ) -> Event:
+        """Add a moving event along a predefined trajectory (N, 3), or along
+        one of the state's navigation waypoint lists; its spatial velocity
+        and resolution follow from the trajectory and the duration."""
+        alias = utils.get_default_alias("event", self.events) if alias is None else alias
+        filepath = (
+            self._get_random_audio(self.fg_audios) if filepath is None else utils.sanitise_filepath(filepath)
+        )
+        if filepath is not None:
+            filepath = utils.sanitise_filepath(filepath)
+            self._validate_user_defined_audio_filepath(filepath, class_id)
+
+        if isinstance(augmentations, utils.NUMERIC_DTYPES):
+            augmentations = self._get_n_random_event_augmentations(augmentations)
+
+        if not isinstance(trajectory, np.ndarray) and len(self.state.waypoints) == 0:
+            raise ValueError("State must have waypoints: did you set `waypoints_json` correctly?")
+
+        event_kwargs = dict(
+            filepath=filepath,
+            alias=alias,
+            scene_start=scene_start,
+            event_start=event_start,
+            duration=duration,
+            snr=snr,
+            sample_rate=self.sample_rate,
+            class_id=class_id,
+            class_label=class_label,
+            augmentations=augmentations,
+            class_mapping=self.class_mapping,
+            image_filepath=image_filepath,
+        )
+        placed = self._try_add_predefined_event(
+            **event_kwargs,
+            trajectory=trajectory,
+            max_place_attempts=max_place_attempts,
+            ensure_direct_path=ensure_direct_path,
+        )
+        if not placed:
+            raise ValueError(
+                f"Could not place event in the mesh after {config.MAX_PLACE_ATTEMPTS} attempts. "
+                f"Consider increasing the value of `max_overlap` (currently {self.max_overlap}) "
+                f"or the `duration` of the scene (currently {self.duration})."
+            )
+        return self.get_event(alias)
+
     def _would_exceed_temporal_overlap(self, new_event_start: float, new_event_end: float) -> bool:
         """True when adding [start, end] would exceed the overlap budget."""
         intersections = 0
@@ -841,7 +1024,7 @@ class Scene:
         `video_fname` keep the reference's signature; video is not ported.
         """
         if video:
-            raise NotImplementedError("video is not ported (ROADMAP item 1.8: video)")
+            raise NotImplementedError("video is not ported (ROADMAP item 1.3: video)")
         output_dir = self._sanitise_output_directory(output_dir)
         if audio and compiled:
             from audiblelight_tpu_torch.pipeline import render_scene_audio_compiled

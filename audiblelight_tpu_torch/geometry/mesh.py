@@ -1,11 +1,11 @@
 """Host-side triangle mesh (numpy): the port's copy of audiblelight_tpu's TriMesh.
 
-Only what the SELD path needs: derived quantities, the convexity test that
-switches occlusion off, midpoint subdivision, vertex-clustering decimation
-(the acoustic LOD), OBJ and PLY files, and the two synthetic room generators
-(glTF loading and mesh repair are not ported). The arithmetic is
-kept line for line with the reference so both packages build the same
-triangles and the same LOD from the same seed.
+Derived quantities, the convexity test that switches occlusion off, mesh
+repair (degenerate faces, winding), midpoint subdivision, vertex-clustering
+decimation (the acoustic LOD), glTF/GLB, OBJ and PLY files, and the two
+synthetic room generators. The arithmetic is kept line for line with the
+reference so both packages build the same triangles, the same repair and
+the same LOD from the same seed.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ class TriMesh:
         if self.faces.ndim != 2 or self.faces.shape[1] != 3:
             raise ValueError(f"faces must be (F, 3), got {self.faces.shape}")
         self.metadata = metadata or {}
+        self.visuals = None  # io.gltf.MeshVisuals of a glTF mesh with a material layer
         self._tri_cache = None
         self._is_convex = None
         self._simplify_memo = {}
@@ -80,6 +81,62 @@ class TriMesh:
         _, inverse, counts = np.unique(edges, axis=0, return_inverse=True, return_counts=True)
         bad_edge = counts[inverse.ravel()] != 2
         return np.flatnonzero(bad_edge.reshape(3, len(f)).any(axis=0))
+
+    def remove_degenerate_faces(self) -> int:
+        """Drop zero-area faces in place; returns the number removed."""
+        keep = self.face_areas > 1e-12
+        removed = int((~keep).sum())
+        if removed:
+            self.faces = self.faces[keep]
+            self._tri_cache = None
+        return removed
+
+    def fix_winding(self) -> None:
+        """Orient faces consistently by propagating the winding across shared
+        edges: the reference's walk (seeds in face order, a stack, each
+        edge's faces in face order), over Python lists."""
+        f = self.faces.tolist()
+        n_faces = len(f)
+        if n_faces == 0:
+            return
+        edge_map: dict = {}
+        for fi, (a, b, c) in enumerate(f):
+            for u, v in ((a, b), (b, c), (c, a)):
+                edge_map.setdefault((u, v) if u < v else (v, u), []).append((fi, u, v))
+
+        visited = [False] * n_faces
+        flip = [False] * n_faces
+        for seed in range(n_faces):
+            if visited[seed]:
+                continue
+            stack = [seed]
+            visited[seed] = True
+            while stack:
+                fi = stack.pop()
+                fa = f[fi][::-1] if flip[fi] else f[fi]
+                directed = {(fa[0], fa[1]), (fa[1], fa[2]), (fa[2], fa[0])}
+                for u, v in ((fa[0], fa[1]), (fa[1], fa[2]), (fa[2], fa[0])):
+                    for fj, ja, jb in edge_map.get((u, v) if u < v else (v, u), ()):
+                        if fj == fi or visited[fj]:
+                            continue
+                        # Coherent winding: the two faces traverse their
+                        # shared edge in opposite directions
+                        if (ja, jb) in directed:
+                            flip[fj] = True
+                        visited[fj] = True
+                        stack.append(fj)
+        flip = np.asarray(flip)
+        if flip.any():
+            self.faces[flip] = self.faces[flip][:, ::-1]
+            self._tri_cache = None
+
+    def repair(self) -> None:
+        """Best-effort in-place repair: degenerate removal, then the winding fix."""
+        from audiblelight_tpu_torch.utils import logger
+
+        self.remove_degenerate_faces()
+        self.fix_winding()
+        logger.info(f"Broken faces after repair: {len(self.broken_faces())}")
 
     @property
     def is_watertight(self) -> bool:
@@ -318,25 +375,32 @@ def _load_ply(path: Path) -> tuple[np.ndarray, np.ndarray]:
 
 
 def load_mesh(mesh_fpath: Union[str, Path]) -> TriMesh:
-    """Load an OBJ or PLY mesh and coerce its units to metres (a mesh over
-    1000 units across is taken as millimetres, over 100 as centimetres).
-    Metadata carries the file's stem, suffix and path."""
+    """Load a glTF/GLB, OBJ or PLY mesh and coerce its units to metres.
+    Metadata carries the file's stem, suffix and path; a glTF mesh keeps its
+    material layer in `visuals`. A mesh over 1000 units across is taken as
+    millimetres; over 100, as centimetres, except a glTF mesh, whose units
+    are metres by the format's spec."""
     from audiblelight_tpu_torch.utils import logger, sanitise_filepath
 
     mesh_fpath = sanitise_filepath(mesh_fpath)
     suffix = mesh_fpath.suffix.lower()
-    if suffix == ".obj":
+    visuals = None
+    if suffix in (".glb", ".gltf"):
+        from audiblelight_tpu_torch.io.gltf import load_gltf
+
+        vertices, faces, visuals = load_gltf(mesh_fpath, with_visuals=True)
+    elif suffix == ".obj":
         vertices, faces = _load_obj(mesh_fpath)
     elif suffix == ".ply":
         vertices, faces = _load_ply(mesh_fpath)
-    elif suffix in (".glb", ".gltf"):
-        raise NotImplementedError("glTF meshes are not ported (ROADMAP: slice E, io/gltf.py)")
     else:
         raise ValueError(f"Unsupported mesh format: {suffix}")
     mesh = TriMesh(vertices, faces,
                    metadata=dict(fname=mesh_fpath.stem, ftype=mesh_fpath.suffix, fpath=str(mesh_fpath)))
+    mesh.visuals = visuals
     extent = np.max(mesh.bounds[1] - mesh.bounds[0])
-    factor = 1000.0 if extent > 1000.0 else (100.0 if extent > 100.0 else 1.0)
+    units_defined = suffix in (".glb", ".gltf")
+    factor = 1000.0 if extent > 1000.0 else (100.0 if (extent > 100.0 and not units_defined) else 1.0)
     if factor != 1.0:
         unit = "millimetres" if factor == 1000.0 else "centimetres"
         logger.warning(f"Mesh {mesh_fpath.stem} spans {extent:.0f} units; assuming {unit} "

@@ -1,9 +1,10 @@
 """WAV audio I/O and decode-time processing (mono mix, offset/duration, resample).
 
-Counterpart of audiblelight_tpu/io/audio.py for WAV files: PCM 8/16/24/32-bit
-and IEEE float 32/64 read, int16 and float32 written, with the same
-slicing and the same scipy polyphase resampler. MP3 and FLAC raise: their
-decoders (io/codecs.py and the system libmpg123) are not ported.
+Counterpart of audiblelight_tpu/io/audio.py: WAV files (PCM 8/16/24/32-bit
+and IEEE float 32/64 read, int16 and float32 written, a slice read without
+decoding the rest), MP3 through the system libmpg123 and FLAC through the
+port's own decoder (`io/codecs.py`, both decoded whole, then sliced), with
+the same slicing and the same scipy polyphase resampler.
 """
 
 from __future__ import annotations
@@ -21,14 +22,15 @@ _WAVE_FORMAT_IEEE_FLOAT = 0x0003
 _WAVE_FORMAT_EXTENSIBLE = 0xFFFE
 
 
-def _not_ported(path) -> None:
+def _check_format(path) -> str:
+    """The lower-case suffix of a supported audio file (wav, mp3, flac)."""
     suffix = Path(path).suffix.lower()
-    if suffix in (".mp3", ".flac"):
-        raise NotImplementedError(
-            f"{suffix} decoding is not ported (ROADMAP: slice E, io/codecs.py); convert {path} to WAV"
+    if suffix not in (".wav", ".mp3", ".flac"):
+        raise ValueError(
+            f"Unsupported audio format '{suffix}' (wav/mp3/flac are supported). "
+            f"Convert other formats to WAV."
         )
-    if suffix != ".wav":
-        raise ValueError(f"Unsupported audio format '{suffix}' (wav is supported)")
+    return suffix
 
 
 def _read_header(path) -> tuple[int, int, int, int, int, int]:
@@ -133,8 +135,17 @@ def wav_write(path: Union[str, Path], audio, sample_rate: int, subtype: str = "i
 
 
 def get_duration(path: Union[str, Path]) -> float:
-    """Duration of a WAV file in seconds, from its header."""
-    _not_ported(path)
+    """Duration of an audio file in seconds, without decoding it: a WAV's
+    header, an MP3's frame scan (libmpg123), a FLAC's STREAMINFO."""
+    suffix = _check_format(path)
+    if suffix == ".mp3":
+        from audiblelight_tpu_torch.io.codecs import mp3_duration
+
+        return mp3_duration(path)
+    if suffix == ".flac":
+        from audiblelight_tpu_torch.io.codecs import flac_duration
+
+        return flac_duration(path)
     _, channels, sr, bits, _, data_size = _read_header(path)
     return data_size / (channels * (bits // 8)) / sr
 
@@ -150,10 +161,20 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
 def load_audio(path: Union[str, Path], sr: Optional[int] = None, mono: bool = True,
                offset: float = 0.0, duration: Optional[float] = None,
                dtype=np.float32) -> Tuple[np.ndarray, int]:
-    """Load (a slice of) a WAV file, mix to mono (mean of channels) and
-    resample to `sr`. Returns (audio, sr): (samples,) mono, else (channels, samples)."""
-    _not_ported(path)
-    audio, file_sr = wav_read(path, offset=offset, duration=duration)
+    """Load (a slice of) an audio file, mix to mono (mean of channels) and
+    resample to `sr`. Returns (audio, sr): (samples,) mono, else (channels,
+    samples). A WAV reads only its slice; MP3 and FLAC decode whole, then
+    slice from round(offset * sr) for round(duration * sr) samples."""
+    suffix = _check_format(path)
+    if suffix in (".mp3", ".flac"):
+        from audiblelight_tpu_torch.io.codecs import flac_read, mp3_read
+
+        audio, file_sr = (mp3_read if suffix == ".mp3" else flac_read)(path)
+        start = round(offset * file_sr)
+        stop = None if duration is None else start + round(duration * file_sr)
+        audio = audio[:, start:stop]
+    else:
+        audio, file_sr = wav_read(path, offset=offset, duration=duration)
     if mono:
         audio = np.mean(audio, axis=0)
     if sr is not None and sr != file_sr:

@@ -143,6 +143,17 @@ class _SceneDraws:
         return self.each(lambda g, r: torch.rand(r, generator=g, device=self.device))
 
 
+def transmission_generators(gens: list) -> list:
+    """The transmission roulette's generator of each scene: on its scene
+    generator's device, seeded from that generator's seed, so a trace with
+    transmission keeps every other draw of the trace without it."""
+    out = []
+    for g in gens:
+        seed = np.random.SeedSequence([g.initial_seed(), 0x7472616E]).generate_state(1, np.uint64)[0]
+        out.append(torch.Generator(device=g.device).manual_seed(int(seed >> np.uint64(1))))
+    return out
+
+
 def decimation_phases(n_rays: int, max_depth: int, enabled: bool) -> tuple:
     """(start_bounce, end_bounce, rays_per_source) schedule of the progressive
     wavefront decimation: at depth/3 and 2*depth/3 each source keeps the first
@@ -268,13 +279,22 @@ def _unfused_deposit(hit, normal, e_refl, new_dist, hit_ok, occ, listener_pos, n
 
 def _bounce(draws, state, tris, route, tri_normals, face_absorption, face_scattering, vis,
             listener_pos, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs,
-            hrtf=None, hrtf_bp=None):
+            hrtf=None, hrtf_bp=None, trans=None):
     """One bounce of the whole wavefront: (new state, histogram increment).
     `draws` (`_SceneDraws`) holds each scene's generator; `route` selects
     the first hit (`_first_hit_route`); `vis` holds the rain-visibility
     inputs of `_rain_occlusion`; `listener_pos` is (C, 3), or (B, C, 3) for
     B scenes (each kernel launches once for all of them); `hrtf`, `hrtf_bp`
-    a measured binaural set and its band-power table."""
+    a measured binaural set and its band-power table.
+
+    `trans` = (face transmission (F, B), `_SceneDraws` of the transmission
+    generators) turns transmission on: the non-absorbed energy splits into
+    a reflected part (1 - tau), which the rain deposits, and a transmitted
+    part (tau); a Russian roulette with p_t the transmitted share of the
+    band-mean energies sends the ray through the face (direction kept,
+    origin 1e-4 behind the face) or reflects it, the branch's energy divided
+    by its probability. Its uniform comes from generators of its own, so
+    tau = 0 gives the bits of a trace without transmission."""
     origins, dirs, energy, dist, alive, prev_face = state
     tr = origins.shape[0]
 
@@ -289,6 +309,9 @@ def _bounce(draws, state, tris, route, tri_normals, face_absorption, face_scatte
     normal = tri_normals[face_safe]
     normal = torch.where((dot3(normal, dirs) > 0)[:, None], -normal, normal)
     e_refl = energy * (1.0 - face_absorption[face_safe])
+    if trans is not None:
+        tau = trans[0][face_safe]
+        e_refl, e_trans = e_refl * (1.0 - tau), e_refl * tau
 
     occ = _rain_occlusion(hit, normal, face_safe, listener_pos, tris, vis)
     if encoding == "omni" or (encoding == "foa" and sh_order == 1):
@@ -307,14 +330,22 @@ def _bounce(draws, state, tris, route, tri_normals, face_absorption, face_scatte
     go_diffuse = draws.rand() < face_scattering[face_safe]
     new_dirs = torch.where(go_diffuse[:, None], diff_dir, spec_dir)
     new_origins = hit + 1e-4 * normal
+    new_energy = e_refl
+    if trans is not None:
+        p_t = e_trans.mean(dim=-1) / torch.clamp_min(e_refl.mean(dim=-1) + e_trans.mean(dim=-1), 1e-30)
+        go_trans = (trans[1].rand() < p_t)[:, None]
+        new_energy = torch.where(go_trans, e_trans / torch.clamp_min(p_t, 1e-12)[:, None],
+                                 e_refl / torch.clamp_min(1.0 - p_t, 1e-12)[:, None])
+        new_dirs = torch.where(go_trans, dirs, new_dirs)
+        new_origins = hit + torch.where(go_trans, -1e-4, 1e-4) * normal
     new_alive = (
         hit_ok
-        & (e_refl.amax(dim=-1) * n_rays > 1e-6)
+        & (new_energy.amax(dim=-1) * n_rays > 1e-6)
         & (new_dist < c * n_bins * bin_dt)
     )
     # The next bounce masks the face just hit (K8's self-mask); -1 on a miss
     new_prev = torch.where(hit_ok, face, torch.full_like(face, -1))
-    return (new_origins, new_dirs, e_refl, new_dist, new_alive, new_prev), add
+    return (new_origins, new_dirs, new_energy, new_dist, new_alive, new_prev), add
 
 
 def trace_energy_histogram_multi(
@@ -405,6 +436,8 @@ def trace_energy_histogram_batch(
     any_hit_tree=None,
     mxu_tables=None,
     hrtf=None,
+    transmission: bool = False,
+    face_transmission: torch.Tensor = None,
 ) -> torch.Tensor:
     """`trace_energy_histogram_multi` for B scenes of one room in one bounce
     loop: source_positions (B, S, 3), listener_pos (B, C, 3), face_occlusion
@@ -415,10 +448,15 @@ def trace_energy_histogram_batch(
     and sizes and stops drawing when its rays are all dead (one host read of
     a (B,) alive mask per bounce), so scene b gets exactly the histograms of
     its one-scene trace with gens[b]. The exact rain mode (`star`,
-    `occlusion`) traces one scene at a time.
+    `occlusion`) traces one scene at a time. `transmission` lets rays pass
+    through faces with the (F, B) coefficients `face_transmission` (see
+    `_bounce`), each scene's roulette drawing from `transmission_generators`
+    of its generator.
 
     Returns (B, S, C_out, n_bands, n_bins).
     """
+    if transmission and face_transmission is None:
+        raise ValueError("transmission=True requires face_transmission (F, B)")
     dev = tris.device
     n_scenes, per_scene = source_positions.shape[0], source_positions.shape[1]
     n_sources = n_scenes * per_scene
@@ -461,6 +499,10 @@ def trace_energy_histogram_batch(
             face_occlusion.shape[1], -1)
     band_freqs = _band_centers(n_bands, dev)
     hrtf_bp = hrtf.band_powers(band_freqs) if hrtf is not None and encoding == "binaural" else None
+    tau, trans_gens = None, None
+    if transmission:
+        tau = face_transmission.to(device=dev, dtype=torch.float32)
+        trans_gens = transmission_generators(gens)
     phases = decimation_phases(n_rays, max_depth, decimate)
     for pi, (start, end, r_src) in enumerate(phases):
         if pi > 0:
@@ -480,7 +522,7 @@ def trace_energy_histogram_batch(
             state, add = _bounce(
                 _SceneDraws(gens, live, rows, dev), state, tris, route, tri_normals, face_absorption,
                 face_scattering, vis, lis, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs,
-                hrtf, hrtf_bp,
+                hrtf, hrtf_bp, None if tau is None else (tau, _SceneDraws(trans_gens, live, rows, dev)),
             )
             hist += add
     return hist.reshape(n_scenes, per_scene, c_out, n_bands, n_bins)
@@ -985,6 +1027,8 @@ def trace_rirs_batch(
     any_hit_tree=None,
     mxu_tables=None,
     hrtf=None,
+    transmission: bool = False,
+    face_transmission: torch.Tensor = None,
 ) -> list:
     """`trace_rirs_multi` for B scenes of one room: source_positions (B, S,
     3), listener_pos (B, C, 3), face_occlusion (B, P, F) or None, one
@@ -999,7 +1043,7 @@ def trace_rirs_batch(
         tri_normals=tri_normals, face_occlusion=face_occlusion, star=star, occlusion=occlusion,
         shared_visibility=shared_visibility, decimate=decimate, encoding=encoding, sh_order=sh_order_indirect,
         tiled_tree=tiled_tree, fh_table=fh_table, any_hit_tree=any_hit_tree, mxu_tables=mxu_tables,
-        hrtf=hrtf,
+        hrtf=hrtf, transmission=transmission, face_transmission=face_transmission,
     )  # (B, E, C_out, B, bins)
     band_freqs = _band_centers(face_absorption.shape[1], tris.device)
     td = tris if tris_direct is None else tris_direct

@@ -11,6 +11,10 @@
     python -m audiblelight_tpu_torch.seld ... --backend rlr --mesh room.obj --mesh-devices 2 [--device cpu]
     python -m audiblelight_tpu_torch.seld ... --backend rlr --mesh room.obj \\
         --coordinator host:port --num-processes P --process-id i
+    python -m audiblelight_tpu_torch.seld --fg-dir <folder> --output-dir <out> \\
+        --backend rlr --assets 9A [--mesh-dir <folder of .glb>] [--scapes-per-room 1] [--device cpu]
+    python -m audiblelight_tpu_torch.seld --fg-dir <folder> --output-dir <out> \\
+        --backend sofa --assets 9A --sofa-dir <folder of .sofa> --channel-layout mic [--device cpu]
 
 The port's counterpart of scripts/seld/generate_dataset.py, with the same
 flags, defaults, seeding and file layout: N one-minute 24 kHz scenes in the
@@ -79,7 +83,18 @@ the output folder only. As in the reference script, the SOFA world state
 gets no seed: `--seed` fixes the scenes' counts and timings, not where
 events snap on the measured grid.
 
-Not ported (raise, ROADMAP): --assets (and --sofa-dir).
+`--assets <split>` generates the reference's room table
+(`seld_assets.MESHES`, or `SOFAS` on the sofa backend): each train and test
+room of the split, `--scapes-per-room` scenes each (default the table's:
+1,200 scenes over a split), written as fold<1|2>_scene<room index>_<scape>.
+A room is its `<room>.glb` under `--mesh-dir` where that file exists, else
+the table's deterministic stand-in room; on the sofa backend
+`tau_<room>_<fmt>.sofa` or `<room>_<fmt>.sofa` under `--sofa-dir`. The
+fused loop keeps a renderer per room (its LRU), and the pooled driver
+drives the jobs room by room, each room's renderers built from a template
+scene of its own (the room's first live job), as the reference does; the
+prep workers build each job's own room. Outputs still do not depend on the
+worker or rank count.
 """
 
 from __future__ import annotations
@@ -141,10 +156,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", choices=["shoebox", "rlr", "sofa"], default="shoebox")
     p.add_argument("--mesh", type=str, default=None, help="mesh file (rlr backend)")
     p.add_argument("--sofa", type=str, default=None, help="SOFA file (sofa backend)")
-    p.add_argument("--assets", type=str, default=None, help="room split (not ported)")
-    p.add_argument("--mesh-dir", type=str, default=None)
-    p.add_argument("--sofa-dir", type=str, default=None)
-    p.add_argument("--scapes-per-room", type=int, default=None)
+    p.add_argument("--assets", type=str, default=None,
+                   help="room split of the asset table (e.g. 9A, 12, 144): train/test rooms x scapes per room")
+    p.add_argument("--mesh-dir", type=str, default=None, help="folder of the rooms' .glb meshes (with --assets)")
+    p.add_argument("--sofa-dir", type=str, default=None, help="folder of the rooms' .sofa files (with --assets)")
+    p.add_argument("--scapes-per-room", type=int, default=None,
+                   help="scenes per room, in place of the asset table's counts")
     p.add_argument("--channel-layout", choices=["foa", "mic"], default="mic")
     p.add_argument("--n-scenes", type=int, default=10, help="scenes per split")
     p.add_argument("--train-frac", type=float, default=0.75)
@@ -185,27 +202,46 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for what the port
-    does not run."""
-    unported = [
-        (args.assets is not None, "--assets", "the asset room tables (glTF loading)"),
-    ]
-    for bad, flag, item in unported:
-        if bad:
-            raise NotImplementedError(f"{flag} is not ported (ROADMAP: {item})")
+def _mesh_for(args, room: Optional[str], meshes: dict):
+    """The TriMesh of a job: its table room (the `.glb` under --mesh-dir,
+    loaded once, else the stand-in), or --mesh."""
+    from audiblelight_tpu_torch.geometry.mesh import TriMesh, load_mesh
+    from audiblelight_tpu_torch.seld_assets import resolve_room
+
+    if room is not None:
+        mesh = resolve_room(room, args.mesh_dir)
+    elif args.mesh is not None:
+        mesh = args.mesh
+    else:
+        raise ValueError("--mesh or --assets is required for the rlr backend")
+    if isinstance(mesh, TriMesh):
+        return mesh
+    if str(mesh) not in meshes:
+        meshes[str(mesh)] = load_mesh(mesh)
+    return meshes[str(mesh)]
 
 
-def build_backend_kwargs(args, rng: np.random.Generator, meshes: dict) -> dict:
-    """The world state's constructor kwargs for one scene, with the
-    reference's draws of `rng`: a shoebox's dimensions, then its seed; an
-    rlr room's seed; none for a SOFA file."""
-    from audiblelight_tpu_torch.geometry.mesh import load_mesh
-
-    if args.backend == "sofa":
+def _sofa_for(args, room: Optional[str]):
+    """The SOFA file of a job: its table room's under --sofa-dir (the
+    converter's `tau_<room>_<fmt>.sofa`, else `<room>_<fmt>.sofa`), or --sofa."""
+    if room is None:
         if args.sofa is None:
             raise ValueError("--sofa or --assets is required for the sofa backend")
-        return dict(sofa=args.sofa)
+        return args.sofa
+    if args.sofa_dir is None:
+        raise SystemExit("--sofa-dir is required with --assets on the sofa backend")
+    cands = [Path(args.sofa_dir) / f"tau_{room}_{args.channel_layout}.sofa",
+             Path(args.sofa_dir) / f"{room}_{args.channel_layout}.sofa"]
+    return next((c for c in cands if c.is_file()), cands[0])
+
+
+def build_backend_kwargs(args, rng: np.random.Generator, meshes: dict, room: Optional[str] = None) -> dict:
+    """The world state's constructor kwargs for one scene, with the
+    reference's draws of `rng`: a shoebox's dimensions, then its seed; an
+    rlr room's seed; none for a SOFA file. `room` is the job's asset-table
+    room (None: --mesh or --sofa)."""
+    if args.backend == "sofa":
+        return dict(sofa=_sofa_for(args, room))
     if args.backend == "shoebox":
         dims = rng.uniform([5.0, 4.0, 2.6], [10.0, 8.0, 3.5])
         return dict(
@@ -215,10 +251,7 @@ def build_backend_kwargs(args, rng: np.random.Generator, meshes: dict) -> dict:
             max_ir_length=args.ir_seconds,
             seed=int(rng.integers(2**31)),
         )
-    if args.mesh is None:
-        raise ValueError("--mesh is required for the rlr backend")
-    if args.mesh not in meshes:
-        meshes[args.mesh] = load_mesh(args.mesh)
+    mesh = _mesh_for(args, room, meshes)
     rlr_kwargs = dict(
         max_ir_length=args.ir_seconds,
         mesh_simplification=args.mesh_simplification,
@@ -230,12 +263,32 @@ def build_backend_kwargs(args, rng: np.random.Generator, meshes: dict) -> dict:
     if args.ray_depth is not None:
         rlr_kwargs["indirect_ray_depth"] = args.ray_depth
     return dict(
-        mesh=meshes[args.mesh],
+        mesh=mesh,
         material=args.material if args.materials else None,
         add_to_context=False,
         rlr_kwargs=rlr_kwargs,
         seed=int(rng.integers(2**31)),
     )
+
+
+def asset_jobs(args) -> list:
+    """The run's jobs (split, scene number, scape, room): with --assets the
+    table's rooms x scapes (the scene number is the room's index in its
+    split), else --n-scenes scenes of scene 1 in the one --mesh/--sofa room
+    (None), split by --train-frac."""
+    if args.assets is None:
+        n_train = round(args.n_scenes * args.train_frac)
+        return ([("train", 1, i, None) for i in range(n_train)]
+                + [("test", 1, i, None) for i in range(args.n_scenes - n_train)])
+    from audiblelight_tpu_torch.seld_assets import get_assets
+
+    chosen = get_assets(args.backend, args.assets)
+    jobs = []
+    for split in ("train", "test"):
+        per_room = args.scapes_per_room if args.scapes_per_room is not None else chosen[f"scapes_per_{split}_mesh"]
+        for room_idx, room in enumerate(chosen[split]):
+            jobs.extend((split, room_idx, scape, room) for scape in range(per_room))
+    return jobs
 
 
 def job_paths(args, split: str, scene_num: int, scape_num: int) -> tuple:
@@ -253,9 +306,11 @@ def outputs_exist(audio_path: Path, metadata_path: Path) -> bool:
 
 
 def build_scene(args, split: str, scene_num: int, scape_num: int, rng: np.random.Generator,
-                depth: int = 0, meshes: Optional[dict] = None):
-    """Construct and place one scene: (scene, audio path, metadata path), or
-    None when its outputs exist (resume). Builds again when no event placed."""
+                depth: int = 0, meshes: Optional[dict] = None, room: Optional[str] = None):
+    """Construct and place one scene in the job's room (`room`, an asset
+    table entry, or None for --mesh/--sofa): (scene, audio path, metadata
+    path), or None when its outputs exist (resume). Builds again when no
+    event placed."""
     meshes = {} if meshes is None else meshes
     audio_path, metadata_path = job_paths(args, split, scene_num, scape_num)
     common = f"{audio_path.parent.name}/{audio_path.name}"
@@ -270,7 +325,7 @@ def build_scene(args, split: str, scene_num: int, scape_num: int, rng: np.random
         duration=args.duration,
         sample_rate=SAMPLE_RATE,
         backend=args.backend,
-        backend_kwargs=build_backend_kwargs(args, rng, meshes),
+        backend_kwargs=build_backend_kwargs(args, rng, meshes, room=room),
         fg_path=args.fg_dir,
         max_overlap=args.max_overlap,
         event_augmentations=get_augmentations(args.augmentations) if args.augmentations else None,
@@ -296,7 +351,7 @@ def build_scene(args, split: str, scene_num: int, scape_num: int, rng: np.random
         if depth >= 5:
             raise RuntimeError(f"Could not place any events for scene {common}")
         logger.warning(f"No events placed for {common}; retrying...")
-        return build_scene(args, split, scene_num, scape_num, rng, depth + 1, meshes=meshes)
+        return build_scene(args, split, scene_num, scape_num, rng, depth + 1, meshes=meshes, room=room)
 
     scene.add_ambience(noise="gaussian")
     return scene, audio_path, metadata_path
@@ -326,10 +381,10 @@ def generate_fused(args, jobs: list, rng: np.random.Generator, stats: dict) -> l
     paths, meshes, seconds = {}, {}, []
 
     def factory():
-        for idx, (split, scene_num, scape) in enumerate(jobs):
+        for idx, (split, scene_num, scape, room) in enumerate(jobs):
             logger.warning(f"[{idx + 1}/{len(jobs)}] {split} scene {scene_num} scape {scape}")
             t0 = time.perf_counter()
-            built = build_scene(args, split, scene_num, scape, rng, meshes=meshes)
+            built = build_scene(args, split, scene_num, scape, rng, meshes=meshes, room=room)
             if built is None:
                 continue
             scene, audio_path, metadata_path = built
@@ -369,9 +424,10 @@ def make_pooled_prep(args_dict: dict, jobs: list, plan_kwargs: dict):
     meshes: dict = {}
 
     def prep(index: int, seed: int):
-        split, scene_num, scape = jobs[index]
+        split, scene_num, scape, *room = jobs[index]  # (split, scene, scape[, room])
+        room = room[0] if room else None
         utils.seed_everything(int(seed) % (2**31))
-        built = build_scene(args, split, scene_num, scape, np.random.default_rng(seed), meshes=meshes)
+        built = build_scene(args, split, scene_num, scape, np.random.default_rng(seed), meshes=meshes, room=room)
         if built is None:  # its outputs appeared since the main process's scan
             return None
         return prep_scene(built[0], index, plan_kwargs)
@@ -400,8 +456,9 @@ def generate_pooled(args, jobs: list, rng: np.random.Generator, stats: dict) -> 
     `--mesh-devices` spawns) every rank scans for finished jobs and draws
     every job's seed, a barrier follows (so that no rank's scan sees
     another's writes), and rank r renders and writes the live jobs j with
-    j % W == r; every rank builds the same template scene from live job 0.
-    Each job carries its own seed and a batch gives each scene its
+    j % W == r. The jobs are driven room by room (`--assets` names a room
+    per job): every rank builds a room's template scene alike, from the
+    room's first live job. Each job carries its own seed and a batch gives each scene its
     one-scene bits, so the outputs do not depend on W.
 
     Returns the seconds of the world's scenes (rank by rank; each the
@@ -421,7 +478,7 @@ def generate_pooled(args, jobs: list, rng: np.random.Generator, stats: dict) -> 
     pk = plan_kwargs(args)
     live_jobs, paths, seeds = [], {}, {}
     for job in jobs:  # the resume filter; a seed is drawn for every job, skipped ones too
-        audio_path, metadata_path = job_paths(args, *job)
+        audio_path, metadata_path = job_paths(args, *job[:3])
         seed = int(rng.integers(2**31))
         if outputs_exist(audio_path, metadata_path):
             logger.warning(f"Skipping existing scene {audio_path.parent.name}/{audio_path.name}")
@@ -452,30 +509,44 @@ def generate_pooled(args, jobs: list, rng: np.random.Generator, stats: dict) -> 
         seconds.append(now - last[0])
         last[0] = now
 
-    # A renderer holds one room, so the reference drives its jobs room by
-    # room, a template scene each; the CLI's jobs share its one --mesh
-    # (--assets, which names a room per job, is not ported)
+    # A renderer holds one room, so the jobs are driven room by room (in
+    # the order of their first live job), each room's renderers built from
+    # a template scene of its own: the room's first live job, which every
+    # rank builds alike
+    rooms: dict = {}
+    for i, job in enumerate(live_jobs):
+        rooms.setdefault(job[3], []).append(i)
     if mine:
         with ScenePrepPool("audiblelight_tpu_torch.seld:make_pooled_prep",
                            dict(args_dict=vars(args), jobs=live_jobs, plan_kwargs=pk),
                            workers=args.placement_workers) as pool:
-            # The template scene pins the room, rig and engine config; one
-            # renderer per source bucket shares it
-            utils.seed_everything(seeds[0] % (2**31))
-            built = build_scene(args, *live_jobs[0], np.random.default_rng(seeds[0]))
-            if built is None:
-                raise RuntimeError(f"the template scene of room {args.mesh} was not built")
-            template = built[0]
-            template_plan = build_scene_plan(template, **pk)
-            renderers: dict = {}
+            meshes: dict = {}
+            for room, indices in rooms.items():
+                todo = [i for i in indices if i % world == rank]
+                if not todo:
+                    continue
+                first = indices[0]
+                split, scene_num, scape, _ = live_jobs[first]
+                utils.seed_everything(seeds[first] % (2**31))
+                built = build_scene(args, split, scene_num, scape, np.random.default_rng(seeds[first]),
+                                    meshes=meshes, room=room)
+                if built is None:
+                    raise RuntimeError(f"the template scene of room {room or args.mesh} was not built")
+                template = built[0]
+                template_plan = build_scene_plan(template, **pk)
+                renderers: dict = {}
 
-            def renderer_for(bucket: int) -> FusedSceneRenderer:
-                if bucket not in renderers:
-                    renderers[bucket] = FusedSceneRenderer.from_scene(template, template_plan, bucket)
-                return renderers[bucket]
+                def renderer_for(bucket: int, _t=template, _p=template_plan, _r=renderers) -> FusedSceneRenderer:
+                    if bucket not in _r:
+                        _r[bucket] = FusedSceneRenderer.from_scene(_t, _p, bucket)
+                    return _r[bucket]
 
-            prepped = (p for p in pool.imap([(i, seeds[i]) for i in mine]) if p is not None)
-            render_prepped_scenes(renderer_for, prepped, complete, fused_batch=args.fused_batch, stats=total)
+                room_stats: dict = {}
+                prepped = (p for p in pool.imap([(i, seeds[i]) for i in todo]) if p is not None)
+                render_prepped_scenes(renderer_for, prepped, complete, fused_batch=args.fused_batch,
+                                      stats=room_stats)
+                for k, v in room_stats.items():
+                    total[k] += v
     n_scenes = total["n_scenes"]
     if world > 1:  # the world's count and seconds, rank by rank
         from audiblelight_tpu_torch.parallel import rank_device
@@ -542,9 +613,14 @@ def main(argv: Optional[list] = None, stats: Optional[dict] = None) -> list[floa
     args = build_parser().parse_args(argv)
     if args.pipeline is None:
         args.pipeline = "fused" if args.backend == "rlr" else "compiled"
-    check_ported(args)
-    if args.backend == "sofa" and args.sofa is None:
+    if args.backend == "sofa" and args.assets is None and args.sofa is None:
         raise ValueError("--sofa or --assets is required for the sofa backend")
+    if args.backend == "sofa" and args.assets is not None and args.sofa_dir is None:
+        raise SystemExit("--sofa-dir is required with --assets on the sofa backend")
+    if args.assets is not None:
+        from audiblelight_tpu_torch.seld_assets import get_assets
+
+        get_assets(args.backend, args.assets)  # an unknown split raises before anything is written
     dev = utils.resolve_device(args.device)
     stats = {} if stats is None else stats
     if args.coordinator is None:
@@ -584,9 +660,7 @@ def _generate(args, argv: list, stats: dict) -> list[float]:
     # from numpy's global RNG
     utils.seed_everything(args.seed)
     rng = np.random.default_rng(args.seed)
-    n_train = round(args.n_scenes * args.train_frac)
-    jobs = [("train", 1, i) for i in range(n_train)] + [("test", 1, i) for i in range(args.n_scenes - n_train)]
-    return (generate_pooled if pooled else generate_fused)(args, jobs, rng, stats)
+    return (generate_pooled if pooled else generate_fused)(args, asset_jobs(args), rng, stats)
 
 
 if __name__ == "__main__":

@@ -128,6 +128,11 @@ def check_all_lens_equal(*iterables) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def get_project_root() -> Path:
+    """The directory that holds the package (and `resources/`)."""
+    return Path(__file__).resolve().parent.parent
+
+
 def sanitise_filepath(filepath: Any) -> Path:
     """Validate that a file exists and coerce it to a Path."""
     if isinstance(filepath, (str, Path)):

@@ -166,6 +166,8 @@ class MeshDeviceState:
         acoustic_tris, acoustic_normals: (F', 3, 3), (F', 3) the mesh the
             stochastic tail traces.
         absorption, scattering: (F', B), (F',) per-face materials.
+        transmission: (F', B) per-face transmission coefficients, which the
+            tail reads where cfg["transmission"] is on (required then).
         convex: True when the room is a convex enclosure (no occlusion).
         diffraction_graph_tris: (F'', 3, 3) triangles the diffraction
             candidate legs check against, or None for `tris`.
@@ -175,10 +177,10 @@ class MeshDeviceState:
 
     def __init__(self, tris, acoustic_tris, acoustic_normals, absorption, scattering,
                  convex: bool, diffraction_graph_tris=None, cfg: Optional[dict] = None,
-                 device=None):
+                 device=None, transmission=None):
         self.cfg = engine_config(cfg)
-        if bool(self.cfg["transmission"]):
-            raise NotImplementedError("transmission is not ported (ROADMAP: transmission)")
+        if bool(self.cfg["transmission"]) and transmission is None:
+            raise ValueError("transmission=True requires the per-face transmission table")
         self.device = resolve_device(device)
         self.convex = bool(convex)
         self.tris = self._tensor(tris)
@@ -186,6 +188,7 @@ class MeshDeviceState:
         self.acoustic_normals = self._tensor(acoustic_normals)
         self.absorption = self._tensor(absorption)
         self.scattering = self._tensor(scattering)
+        self.transmission = None if transmission is None else self._tensor(transmission)
         if diffraction_graph_tris is None or diffraction_graph_tris is acoustic_tris:
             # The LOD itself (one tensor, so one cached any-hit tree)
             self.diffraction_graph_tris = None if diffraction_graph_tris is None else self.acoustic_tris
@@ -205,7 +208,7 @@ class MeshDeviceState:
         cfg = engine_config(cfg)
         material = validate_material(material)
         amesh = acoustic_mesh(mesh, cfg)
-        absorption, scattering, _ = face_props(mesh, amesh, material, cfg["frequency_bands"])
+        absorption, scattering, tau = face_props(mesh, amesh, material, cfg["frequency_bands"])
         if len(mesh.faces) < config.GRID_ACCEL_MIN_FACES:
             graph = None
         elif amesh is not mesh:
@@ -213,7 +216,8 @@ class MeshDeviceState:
         else:
             graph = mesh.simplified(target_faces=config.MESH_SIMPLIFICATION_TARGET_FACES).triangles
         return cls(mesh.triangles, amesh.triangles, amesh.face_normals, absorption, scattering,
-                   convex=mesh.is_convex, diffraction_graph_tris=graph, cfg=cfg, device=device)
+                   convex=mesh.is_convex, diffraction_graph_tris=graph, cfg=cfg, device=device,
+                   transmission=tau if bool(cfg["transmission"]) else None)
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.array(x, dtype=np.float32), device=self.device)
@@ -361,6 +365,8 @@ class MeshDeviceState:
             any_hit_tree=self.any_hit_tree,
             mxu_tables=self.mxu_tables(self.acoustic_tris),
             hrtf=hrtf,
+            transmission=bool(cfg["transmission"]),
+            face_transmission=self.transmission,
         )
 
     def trace_rirs(self, gen: torch.Generator, sources: torch.Tensor, listeners: torch.Tensor,
@@ -430,7 +436,10 @@ class WorldStateRLR(PlacementMixin, WorldState):
 
     Arguments as the reference's; `device` is where the mesh lives for the
     placement queries and the trace (default `cuda`; raises without a card).
-    Not ported (raise): navigation waypoints and mesh repair.
+    `waypoints_json` names the navigation waypoints of predefined-trajectory
+    events (default: `resources/waypoints/gibson/<mesh name>.json` beside
+    the package, where it exists); `repair_threshold` repairs a mesh that is
+    not watertight when its share of broken faces is under it.
     """
 
     name = "RLR"
@@ -471,16 +480,20 @@ class WorldStateRLR(PlacementMixin, WorldState):
         )
 
         self.mesh = mesh if isinstance(mesh, TriMesh) else load_mesh(mesh)
-        if waypoints_json is not None:
-            raise NotImplementedError(
-                "navigation waypoints (predefined-trajectory events) are not ported (ROADMAP)"
-            )
-        self.waypoints = []
-        self.repair_threshold = repair_threshold
-        if repair_threshold is not None and not self.mesh.is_watertight:
-            raise NotImplementedError("mesh repair is not ported (ROADMAP); pass a watertight mesh")
+        # The engine config first: the torch queries that validate the
+        # waypoints (where the host BVH cannot be built) read the device state
         self.material = validate_material(material)
         self.cfg = self._parse_rlr_config(rlr_kwargs)
+        self.waypoints_json = waypoints_json
+        self.waypoints = self.load_mesh_navigation_waypoints(waypoints_json)
+        self.repair_threshold = repair_threshold
+        if repair_threshold is not None and not self.mesh.is_watertight:
+            broken = self.mesh.broken_faces()
+            if len(broken) / max(len(self.mesh.faces), 1) < repair_threshold:
+                self.mesh.repair()
+                # The repaired faces invalidate what was built from the old ones
+                for cache in ("_torch_device_states", "_native_bvh_cache"):
+                    self.mesh.__dict__.pop(cache, None)
         self.ctx = None
         if self.add_to_state:
             self._setup_audio_context()
@@ -533,6 +546,42 @@ class WorldStateRLR(PlacementMixin, WorldState):
             for emitter in emitter_list:
                 self.ctx.sources.append(emitter.coordinates_absolute)
         self._update_relative_coordinates()
+
+    def load_mesh_navigation_waypoints(self, waypoints_json: Optional[Union[Path, str]] = None) -> list:
+        """The navigation waypoints of this mesh: a JSON list of dictionaries,
+        each with a "waypoints" list of positions, from `waypoints_json` or,
+        by default, `resources/waypoints/gibson/<mesh name>.json`. Waypoint
+        lists with an invalid position are dropped."""
+        import json
+
+        if waypoints_json is None:
+            mesh_fname = self.mesh.metadata.get("fname", "")
+            # A generated mesh has no file, so never any waypoints: say so quietly
+            ftype = self.mesh.metadata.get("ftype", "")
+            fpath = str(self.mesh.metadata.get("fpath", ""))
+            procedural = ftype == "generated" or fpath.startswith("synthetic://")
+            default_loc = utils.get_project_root() / "resources/waypoints/gibson"
+            candidate = (default_loc / mesh_fname).with_suffix(".json")
+            if not candidate.is_file():
+                (logger.debug if procedural else logger.warning)(
+                    f"Cannot find waypoints for mesh {mesh_fname} inside default location "
+                    f"({default_loc}). No navigation waypoints will be loaded."
+                )
+                return []
+            waypoints_json = candidate
+        else:
+            waypoints_json = utils.sanitise_filepath(waypoints_json)
+
+        with open(waypoints_json) as js_in:
+            js_out = json.load(js_in)
+        if not isinstance(js_out, list):
+            raise ValueError(f"Expected waypoints JSON to be a list of dictionaries, got {type(js_out)}")
+        if not all("waypoints" in wp for wp in js_out):
+            raise KeyError("Waypoints JSON must be a list of dictionaries, each containing the key 'waypoints'.")
+        waypoints = [np.array(wp["waypoints"]) for wp in js_out if self._validate_position(wp["waypoints"])]
+        if len(waypoints) == 0:
+            logger.warning("No valid navigation waypoints found!")
+        return waypoints
 
     # ------------------------------------------------------------------
     # Geometry
@@ -756,6 +805,8 @@ class WorldStateRLR(PlacementMixin, WorldState):
             empty_space_around_capsule=self.empty_space_around_capsule,
             repair_threshold=self.repair_threshold,
             material=self.material,
+            # Only where one was named: the reference's dict has no such key
+            **({} if self.waypoints_json is None else dict(waypoints_json=str(self.waypoints_json))),
         )
 
     @classmethod
@@ -773,6 +824,7 @@ class WorldStateRLR(PlacementMixin, WorldState):
             repair_threshold=input_dict["repair_threshold"],
             rlr_kwargs=input_dict["rlr_config"],
             material=input_dict.get("material", None),
+            waypoints_json=input_dict.get("waypoints_json", None),
             device=device,
         )
         state.microphones = OrderedDict(

@@ -152,7 +152,28 @@ exact CLI scene's bounces), then drives the port's two main paths:
   `shard_trace_rirs` against their unsharded runs, the collectives per call;
   and a 60 s scene with an AmbeoVR and a FOA listener in the small room
   through `render_scenes_pipelined` (the plan path), each microphone's
-  direct path at d/c.
+  direct path at d/c;
+- real datasets' assets (`assets_phase`): whether libmpg123 and libmp3lame
+  load (the repo's MP3 decoded where the first does); a 60 s stereo 48 kHz
+  FLAC read back bit for bit and Rice-coded FLACs (fixed and LPC
+  predictors), each decode timed beside the reference's per-field loop on
+  the same file; the flagship room as a GLB (`Haymarket.glb`): its load,
+  `repair` and `fix_winding` timed, a tenth of its faces flipped and mended;
+  the rlr SELD CLI with `--assets 9A --scapes-per-room 1` at the flagship
+  width (the GLB room: K1 big, K2, K3; 8 stand-in rooms: K1 small, K2, K3)
+  through the pooled driver with 1 and 2 prep workers, its 27 files under
+  the reference's names and equal between the runs (0 LSB), each scene's
+  seconds; a plan-path MIC scene with a WAV bed (the bed equal to its host
+  load, the mix before the first event the bed at its level); a fused
+  scene with an 11-point predefined trajectory (its emitters the
+  trajectory, K1 big 60 times, the trajectory's direct paths at d/c); an
+  FOA CLI scene whose foreground holds a FLAC (and the MP3 where it
+  decodes), each file an event; a flagship scene with transmission on and
+  off timed in turns; a 24-face room divided by a wall at 5,000 rays x 60
+  bounces (energy only with transmission on, under 0.2 of the open
+  room's; tau = 0 equal to off bit for bit; K1 small, K2 and K3 once a
+  bounce, each held to its plain version on that trace's first and last
+  bounce).
 
 Each path's kernel launches are counted from zero just before it and read
 just after; a kernel of the path that did not launch fails the run, and so
@@ -3602,6 +3623,565 @@ def parallel_phase(renderer, st, fg: Path, room_obj: Path, out: Path, pooled_w1:
     return launches
 
 
+# Real datasets' assets: the asset room tables (a hand-packed GLB room and
+# the table's stand-ins), MP3 and FLAC, file ambience, predefined
+# trajectories and transmission through faces
+ASSET_FLAGS = ["--backend", "rlr", "--assets", "9A", "--scapes-per-room", "1", "--duration", "60", "--rays", "5000",
+               "--ray-depth", "60", "--ray-decimation", "--ir-seconds", "1.0", "--min-events-static", "4",
+               "--max-events-static", "4", "--min-events-moving", "1", "--max-events-moving", "1", "--seed", "7",
+               "--fused-batch", "1"]
+# The FOA CLI scene whose foreground holds the MP3 and a FLAC: one static
+# event a file (the foreground lists one file per extension, in the
+# extensions' order, so the draws do not depend on the file system; --seed
+# 4 draws each file once in the flagship room)
+CODEC_CLI_FLAGS = ["--backend", "rlr", "--channel-layout", "foa", "--n-scenes", "1", "--train-frac", "1.0",
+                   "--duration", "60", "--rays", "5000", "--ray-depth", "60", "--ray-decimation",
+                   "--min-events-moving", "0", "--max-events-moving", "0", "--seed", "4"]
+FLAC_SECONDS, FLAC_RICE_SECONDS = 60.0, 10.0
+DIVIDED_ROOM = (6.0, 4.0, 3.0)
+DIVIDED_KW = dict(n_rays=5000, max_depth=60, n_samples=2400, sr=SR, occlusion=True)
+
+
+def pack_glb(path: Path, vertices: np.ndarray, faces: np.ndarray) -> Path:
+    """A minimal GLB: one float32 position accessor, uint32 indices, one node."""
+    import struct
+
+    v, f = np.asarray(vertices, np.float32), np.asarray(faces, np.uint32)
+    blob = v.tobytes() + f.tobytes()
+    gltf = {
+        "asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}], "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0}, "indices": 1, "mode": 4}]}],
+        "accessors": [{"bufferView": 0, "componentType": 5126, "count": len(v), "type": "VEC3"},
+                      {"bufferView": 1, "componentType": 5125, "count": f.size, "type": "SCALAR"}],
+        "bufferViews": [{"buffer": 0, "byteOffset": 0, "byteLength": v.nbytes},
+                        {"buffer": 0, "byteOffset": v.nbytes, "byteLength": f.nbytes}],
+        "buffers": [{"byteLength": len(blob)}],
+    }
+    js = json.dumps(gltf).encode()
+    js += b" " * (-len(js) % 4)
+    blob += b"\x00" * (-len(blob) % 4)
+    out = struct.pack("<III", 0x46546C67, 2, 28 + len(js) + len(blob))
+    out += struct.pack("<II", len(js), 0x4E4F534A) + js + struct.pack("<II", len(blob), 0x004E4942) + blob
+    path.write_bytes(out)
+    return path
+
+
+def reference_loop_subframe(br, block_size: int, bps: int) -> np.ndarray:
+    """The reference decoder's subframe, one field at a time (its
+    `_decode_subframe` and `_decode_residual`, copied as they are): the
+    yardstick of the port's numpy decode."""
+    fixed = {0: [], 1: [1], 2: [2, -1], 3: [3, -3, 1], 4: [4, -6, 4, -1]}
+
+    def residual(block_size, pred_order):
+        method = br.read(2)
+        param_bits = 4 if method == 0 else 5
+        escape = (1 << param_bits) - 1
+        part_order = br.read(4)
+        out = np.empty(block_size - pred_order, dtype=np.int64)
+        idx = 0
+        for p in range(1 << part_order):
+            n = (block_size >> part_order) - (pred_order if p == 0 else 0)
+            param = br.read(param_bits)
+            if param == escape:
+                raw_bits = br.read(5)
+                for i in range(n):
+                    out[idx + i] = br.read_signed(raw_bits) if raw_bits else 0
+            else:
+                for i in range(n):
+                    q = br.read_unary()
+                    r = br.read(param) if param else 0
+                    v = (q << param) | r
+                    out[idx + i] = (v >> 1) ^ -(v & 1)
+            idx += n
+        return out
+
+    if br.read(1) != 0:
+        raise ValueError("Invalid FLAC subframe sync bit")
+    sf_type = br.read(6)
+    wasted = 0
+    if br.read(1):
+        wasted = 1 + br.read_unary()
+        bps -= wasted
+    if sf_type == 0:
+        samples = np.full(block_size, br.read_signed(bps), dtype=np.int64)
+    elif sf_type == 1:
+        samples = np.array([br.read_signed(bps) for _ in range(block_size)], dtype=np.int64)
+    elif 8 <= sf_type <= 12:
+        order = sf_type - 8
+        warm = [br.read_signed(bps) for _ in range(order)]
+        resid = residual(block_size, order)
+        samples = np.empty(block_size, dtype=np.int64)
+        samples[:order] = warm
+        coeffs = fixed[order]
+        for i in range(order, block_size):
+            pred = 0
+            for k, ck in enumerate(coeffs):
+                pred += ck * samples[i - 1 - k]
+            samples[i] = resid[i - order] + pred
+    else:
+        order = sf_type - 31
+        warm = [br.read_signed(bps) for _ in range(order)]
+        precision = br.read(4) + 1
+        shift = br.read_signed(5)
+        coeffs = [br.read_signed(precision) for _ in range(order)]
+        resid = residual(block_size, order)
+        samples = np.empty(block_size, dtype=np.int64)
+        samples[:order] = warm
+        for i in range(order, block_size):
+            pred = 0
+            for k in range(order):
+                pred += coeffs[k] * samples[i - 1 - k]
+            samples[i] = resid[i - order] + (pred >> shift)
+    if wasted:
+        samples <<= wasted
+    return samples
+
+
+def host_s(fn) -> tuple:
+    """(result, host-clock seconds) of one call of `fn`."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def codec_check(out: Path) -> Path:
+    """MP3 and FLAC on the chip host: whether libmpg123 and libmp3lame load;
+    where libmpg123 does, the repo's MP3 decoded (timed; its rate, duration
+    and sound checked); a 60 s stereo 48 kHz FLAC written and read back bit
+    for bit (verbatim, the reference's bytes), and fixed- and LPC-predicted
+    Rice-coded FLACs of FLAC_RICE_SECONDS, each decode timed beside the
+    reference's per-field loop on the same file (equal samples). Returns a
+    foreground folder of the MP3 (where decodable) and a FLAC of a repo WAV
+    for the CLI."""
+    from audiblelight_tpu_torch.io import codecs
+    from audiblelight_tpu_torch.io.audio import get_duration, load_audio
+
+    mp3 = REPO / "tests/resources/soundevents/music/000010.mp3"
+    have_dec, have_enc = codecs.mp3_available(), codecs.mp3_encode_available()
+    print(f"codecs on this host: libmpg123 {'present' if have_dec else 'absent'}, libmp3lame "
+          f"{'present' if have_enc else 'absent'}", flush=True)
+    fg = out / "fg"
+    shutil.rmtree(out, ignore_errors=True)
+    (fg / "music").mkdir(parents=True)
+    (fg / "femaleSpeech").mkdir()
+    if have_dec:
+        (audio, sr), dec_s = host_s(lambda: codecs.mp3_read(mp3))
+        dur = get_duration(mp3)
+        print(f"MP3 {mp3.name}: {audio.shape[0]} x {audio.shape[1]} at {sr} Hz decoded in {dec_s:.3f} s (host clock), "
+              f"peak {float(np.abs(audio).max()):.3f}, duration {dur:.3f} s from the frame scan", flush=True)
+        if sr not in (22050, 24000, 32000, 44100, 48000) or not np.isfinite(audio).all() or \
+                np.abs(audio).max() < 1e-3 or abs(dur - audio.shape[1] / sr) > 0.5:
+            fail("the repo's MP3 decoded wrongly")
+        shutil.copy(mp3, fg / "music" / mp3.name)
+    rng = np.random.default_rng(17)
+    n = int(FLAC_SECONDS * 48000)
+    t = np.arange(n) / 48000
+    x = (0.3 * np.sin(2 * np.pi * 220.0 * t)[None] * np.array([[1.0], [0.7]])
+         + 0.02 * rng.standard_normal((2, n))).astype(np.float32)
+    q = (np.clip(np.round(x * 32768), -32768, 32767) / 32768).astype(np.float32)
+    ref_sub = codecs._decode_subframe
+    for method, seconds in (("verbatim", FLAC_SECONDS), ("fixed", FLAC_RICE_SECONDS), ("lpc", FLAC_RICE_SECONDS)):
+        m = int(seconds * 48000)
+        path = out / f"{method}.flac"
+        _, write_s = host_s(lambda: codecs.flac_write(path, x[:, :m], 48000, method=method, stereo="mid_side"
+                                                      if method == "lpc" else "independent"))
+        (got, sr), port_s = host_s(lambda: codecs.flac_read(path))
+        codecs._decode_subframe = reference_loop_subframe
+        try:
+            (want, _), ref_s = host_s(lambda: codecs.flac_read(path))
+        finally:
+            codecs._decode_subframe = ref_sub
+        same = np.array_equal(got, q[:, :m]) and np.array_equal(got, want)
+        print(f"FLAC {method} {got.shape[0]} x {got.shape[1]} at {sr} Hz ({seconds:.0f} s, {path.stat().st_size} "
+              f"bytes): written in {write_s:.3f} s; decoded in {port_s:.3f} s, the reference's per-field loop "
+              f"{ref_s:.3f} s on the same file ({ref_s / port_s:.1f}x); bit for bit with the input and the loop "
+              f"{same} (host clock)", flush=True)
+        if not same or sr != 48000:
+            fail(f"the {method} FLAC did not round-trip bit for bit")
+    speech = sorted((REPO / "tests/resources/soundevents/femaleSpeech").glob("*.wav"))[0]
+    audio, sr = load_audio(speech, mono=False)
+    codecs.flac_write(fg / "femaleSpeech" / f"{speech.stem}.flac", audio, sr, method="lpc")
+    back, _ = load_audio(fg / "femaleSpeech" / f"{speech.stem}.flac", mono=False)
+    if not np.array_equal(back, (np.clip(np.round(audio * 32768), -32768, 32767) / 32768).astype(np.float32)):
+        fail("the speech FLAC did not read back")
+    return fg
+
+
+def glb_check(mesh, out: Path) -> Path:
+    """The flagship room as a GLB (`Haymarket.glb`, a room of split 9A):
+    load_mesh's time and its faces, repair's and fix_winding's time on it,
+    and fix_winding on a copy with a tenth of its faces flipped, which must
+    give back the room's winding. Returns the mesh folder."""
+    from audiblelight_tpu_torch.geometry.mesh import TriMesh, load_mesh
+
+    mesh_dir = out / "meshes"
+    mesh_dir.mkdir(parents=True)
+    path = pack_glb(mesh_dir / "Haymarket.glb", mesh.vertices, mesh.faces)
+    loaded, load_s = host_s(lambda: load_mesh(path))
+    same = np.array_equal(loaded.faces, mesh.faces) and np.array_equal(loaded.vertices,
+                                                                        mesh.vertices.astype(np.float32))
+    copy = TriMesh(loaded.vertices, loaded.faces.copy())
+    _, degenerate_s = host_s(copy.remove_degenerate_faces)
+    _, winding_s = host_s(copy.fix_winding)
+    _, repair_s = host_s(TriMesh(loaded.vertices, loaded.faces.copy()).repair)
+    flipped = loaded.faces.copy()
+    flip = np.random.default_rng(3).random(len(flipped)) < 0.1
+    flipped[flip] = flipped[flip][:, ::-1]
+    broken = TriMesh(loaded.vertices, flipped)
+    _, flipped_s = host_s(broken.fix_winding)
+    f = broken.faces
+    directed = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]])
+    coherent = len(np.unique(directed, axis=0)) == len(directed)
+    print(f"GLB {path.name} ({path.stat().st_size} bytes): load_mesh {load_s:.3f} s for {len(loaded.faces)} faces "
+          f"(the room's faces and float32 vertices: {same}); remove_degenerate_faces {degenerate_s:.3f} s, "
+          f"fix_winding {winding_s:.3f} s, repair {repair_s:.3f} s; fix_winding with {int(flip.sum())} faces "
+          f"flipped {flipped_s:.3f} s, every edge then traversed once each way {coherent} (host clock)", flush=True)
+    if not same or len(loaded.faces) != len(mesh.faces) or not coherent:
+        fail("the GLB room did not load or its winding was not repaired")
+    return mesh_dir
+
+
+def assets_cli_check(fg: Path, mesh_dir: Path, out: Path) -> dict:
+    """The rlr SELD CLI over split 9A at one scape a room (`--assets 9A
+    --scapes-per-room 1`, the flagship width): Haymarket from the GLB (K1
+    big on its LOD, K2, K3), the other 8 rooms the table's stand-ins (K1
+    small, K2, K3), through the pooled driver with 1 and with 2 prep workers:
+    9 WAVs, CSVs and JSONs under the reference's names, the two runs' files
+    equal (0 LSB), each scene's seconds (each a room's first). Returns the
+    1-worker run's launches."""
+    from audiblelight_tpu_torch import seld
+    from audiblelight_tpu_torch.io.audio import wav_read
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+
+    names = []
+    for split, fold, n in (("train", 1, 6), ("test", 2, 3)):
+        for i in range(n):
+            stem = f"dev-{split}-alight/fold{fold}_scene{i}_000"
+            names += [f"mic_dev/{stem}_mic000.wav", f"metadata_dev/{stem}.json", f"metadata_dev/{stem}_mic000.csv"]
+    runs = {}
+    for workers in (1, 2):
+        argv = ["--fg-dir", str(fg), "--output-dir", str(out / f"assets_w{workers}"), "--mesh-dir", str(mesh_dir),
+                "--channel-layout", "mic", *ASSET_FLAGS, "--placement-workers", str(workers)]
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        stats: dict = {}
+        seconds = seld.main(argv, stats=stats)
+        torch.cuda.synchronize()
+        runs[workers] = launches = dict(ck.launch_counts)
+        got = sorted(str(p.relative_to(out / f"assets_w{workers}")) for p in (out / f"assets_w{workers}").rglob("*")
+                     if p.is_file())
+        print(f"--assets 9A CLI, {workers} prep workers: {stats['n_scenes']} scenes in {stats['wall_s']:.3f} s; "
+              f"seconds a scene (each its room's first) {[round(s, 3) for s in seconds]}; stats "
+              f"{ {k: round(v, 3) for k, v in stats.items() if k.endswith('_s')} }; launches {launches} on "
+              f"{card_line()}", flush=True)
+        if got != sorted(names) or stats["n_scenes"] != 9:
+            fail(f"the --assets CLI wrote {got}")
+        for wav in (out / f"assets_w{workers}").rglob("*.wav"):
+            data, sr = wav_read(wav)
+            if sr != SR or data.shape != (4, int(SCENE_SECONDS * SR)) or np.abs(data).max() * 32768 < 100:
+                fail(f"{wav.name}: not a 4-channel {SR} Hz scene with sound")
+        for name in ("first_hit_big", "first_hit_small", "any_hit", "deposit_histogram"):
+            if launches[name] <= 0:
+                fail(f"the --assets CLI never launched {name}")
+        depth = int(ASSET_FLAGS[ASSET_FLAGS.index("--ray-depth") + 1])
+        if launches["first_hit_big"] != depth or launches["first_hit_small"] != 8 * depth:
+            fail(f"the --assets CLI launched first_hit_big {launches['first_hit_big']} and first_hit_small "
+                 f"{launches['first_hit_small']} times (expected {depth}, one scene in the GLB room, and "
+                 f"{8 * depth})")
+    meta = json.loads((out / "assets_w1/metadata_dev/dev-train-alight/fold1_scene0_000.json").read_text())
+    if meta["state"]["mesh"]["fpath"] != str(mesh_dir / "Haymarket.glb"):
+        fail(f"room Haymarket was {meta['state']['mesh']['fpath']}, not its GLB")
+    compare_to_run(out / "assets_w1", out / "assets_w2", "--assets CLI, 1 and 2 prep workers", 27)
+    return runs[1]
+
+
+def scene_in_flagship_room(mesh, fg: Path, dev, seed: int):
+    """A Scene in the flagship room at the flagship engine config, an
+    AmbeoVR at MIC_CENTRE, the global streams seeded with `seed`."""
+    from audiblelight_tpu_torch import utils
+    from audiblelight_tpu_torch.core import Scene
+
+    utils.seed_everything(seed)
+    scene = Scene(duration=SCENE_SECONDS, backend="rlr", sample_rate=SR, fg_path=fg, device=dev,
+                  backend_kwargs=dict(mesh=mesh, seed=seed, add_to_context=False, rlr_kwargs=dict(ENGINE)))
+    scene.add_microphone(microphone_type="ambeovr", position=list(MIC_CENTRE), alias="mic000")
+    return scene
+
+
+def ambience_and_predefined_check(mesh, renderer, fg: Path, out: Path, dev) -> dict:
+    """File ambience: a MIC scene in the flagship room with a 4-channel WAV
+    bed (two static 2 s events, from a fifth of the scene on) renders through the plan path
+    (`render_scenes_pipelined`), its bed equal to the host load of the same
+    file and the mix before the first event the bed at the scene's level.
+    Predefined trajectory: a fused flagship scene with an 11-point
+    trajectory event and a gaussian bed, its emitters equal to the
+    trajectory, its launches counted (K1 big 60 times), and the
+    trajectory's direct paths in a trace checked as the flagship scene's.
+    Returns the predefined scene's launches."""
+    from audiblelight_tpu_torch.ambience import Ambience
+    from audiblelight_tpu_torch.io.audio import get_duration, wav_write
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.pipeline import FusedSceneRenderer, render_scenes_pipelined, write_wav
+
+    bed_path = out / "bed.wav"
+    rng = np.random.default_rng(23)
+    wav_write(bed_path, (0.3 * rng.standard_normal((4, 7 * SR))).astype(np.float32), SR)
+    scene = scene_in_flagship_room(mesh, fg, dev, 31)
+    for _ in range(2):
+        scene.add_event(event_type="static", scene_start=float(rng.uniform(0.2, 0.5)) * SCENE_SECONDS, duration=2.0,
+                        max_place_attempts=100)
+    scene.add_ambience(filepath=bed_path, ref_db=-30)
+    if FusedSceneRenderer.mix_eligible(scene):
+        fail("a file bed was offered to the device bed")
+    done: dict = {}
+    torch.cuda.synchronize()
+    (_, plan_s) = host_s(lambda: render_scenes_pipelined([scene], lambda s, audio: done.update(audio)))
+    mix = done["mic000"]
+    bed = scene.ambience["ambience000"].load_ambience()
+    host = Ambience(channels=4, duration=SCENE_SECONDS, alias="x", filepath=bed_path, sample_rate=SR).load_ambience()
+    head = int(min(e.scene_start for e in scene.get_events()) * SR) - SR
+    big = np.abs(bed[:, :head]) > 1e-2
+    ratio = mix[:, :head][big] / bed[:, :head][big]
+    spread = float(np.abs(ratio / ratio[0] - 1).max())
+    print(f"file ambience: a plan-path MIC scene with a 4-channel WAV bed in {plan_s:.3f} s (host clock); the bed "
+          f"equal to the host load {np.array_equal(bed, host)}; before the first event the mix is the bed times "
+          f"{float(ratio[0]):.4e} (spread {spread:.2e})", flush=True)
+    if mix.shape != (4, int(SCENE_SECONDS * SR)) or not np.array_equal(bed, host) or spread > 1e-4:
+        fail("the file bed did not reach the mix")
+
+    scene = scene_in_flagship_room(mesh, fg, dev, 32)
+    lo, hi = np.array([0.3, 0.3, 0.3]), np.array([6.7, 4.7, 2.2])
+    while True:  # an 11-point, 2 m line every point of which placement accepts
+        a, step = rng.uniform(lo, hi), rng.standard_normal(3) * np.array([1.0, 1.0, 0.1])
+        traj = a + np.linspace(0.0, 2.0, N_TRAJ)[:, None] * step / np.linalg.norm(step)
+        if scene.state._validate_position(traj):
+            break
+    longest = max(fg.glob("*/*.wav"), key=get_duration)  # 2 s of audio along the 2 m line: 1 m/s
+    event = scene.add_event(event_type="predefined", filepath=longest, trajectory=traj,
+                            scene_start=0.3 * SCENE_SECONDS, event_start=0.0, duration=2.0, snr=20.0)
+    scene.add_event(event_type="static", max_place_attempts=100)
+    scene.add_ambience(noise="gaussian")
+    emitters = np.stack([e.coordinates_absolute for e in event.emitters])
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    (_, fused_s) = host_s(lambda: render_scenes_pipelined([scene], lambda s, audio: done.update(pre=audio)))
+    torch.cuda.synchronize()
+    launches = dict(ck.launch_counts)
+    wav = torch.as_tensor(done["pre"]["mic000"])
+    path = write_wav(OUT / "predefined.wav", wav, SR)
+    print(f"predefined trajectory: {len(event.emitters)} emitters equal to the trajectory "
+          f"{np.array_equal(emitters, traj)}, velocity {event.spatial_velocity:.3f} m/s, resolution "
+          f"{event.spatial_resolution}; fused scene {fused_s:.3f} s (host clock, the room state built); "
+          f"{path.relative_to(REPO)} {tuple(wav.shape)} {wav.dtype}, peak {int(wav.abs().max())}; launches {launches}",
+          flush=True)
+    if not np.array_equal(emitters, traj) or wav.dtype != torch.int16 or int(wav.abs().max()) < 100:
+        fail("the predefined event's emitters or its scene")
+    check_first_hits(launches, int(ENGINE["indirect_ray_depth"]), "the predefined scene")
+    listeners = torch.as_tensor(ambeovr_caps(), dtype=torch.float32, device=dev)
+    src_t = torch.as_tensor(traj, dtype=torch.float32, device=dev)
+    irs = renderer.trace(torch.Generator(device=dev).manual_seed(33), src_t, listeners,
+                         renderer.rain_table(ambeovr_caps()))
+    check_direct_paths(irs, src_t, listeners, renderer.state.tris, "predefined trajectory")
+    return launches
+
+
+def ambeovr_caps() -> np.ndarray:
+    from audiblelight_tpu_torch.micarrays import ambeovr_capsules
+
+    return ambeovr_capsules(MIC_CENTRE)
+
+
+def check_direct_paths(irs, src_t, listeners, tris, label: str) -> None:
+    """Every unoccluded (source, capsule) pair's IR peaks within 2 samples of
+    d/c inside a 2 ms window, as the flagship scene's direct paths do."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+
+    n_src, n_caps = src_t.shape[0], listeners.shape[0]
+    blocked = ck.segments_occluded(listeners.repeat(n_src, 1), src_t.repeat_interleave(n_caps, dim=0),
+                                   tris).reshape(n_src, n_caps)
+    expect = (torch.linalg.vector_norm(src_t[:, None] - listeners[None], dim=-1) / 343.0 * SR).cpu().numpy()
+    ir_ec = irs.transpose(0, 1).abs().cpu().numpy()
+    free = ~blocked.cpu().numpy()
+    off = []
+    for e, c in zip(*np.nonzero(free)):
+        lo = max(int(expect[e, c]) - 48, 0)
+        off.append(abs(lo + int(np.argmax(ir_ec[e, c, lo : int(expect[e, c]) + 48])) - expect[e, c]))
+    print(f"{label} direct paths: {int(free.sum())} of {free.size} (source, capsule) pairs unoccluded; max |peak "
+          f"within 2 ms - d/c| {max(off, default=float('nan')):.2f} samples", flush=True)
+    if not off or max(off) > 2.0:
+        fail(f"{label}: direct-path arrivals off their distance")
+
+
+def divided_room(tau: float, dev) -> tuple:
+    """A room divided at x = 3 by a wall box overlapping the shell (the
+    reference's transmission test room): (tris, absorption, scattering,
+    transmission) on `dev`."""
+    from audiblelight_tpu_torch.geometry.mesh import box_mesh
+
+    ext = np.array(DIVIDED_ROOM)
+    room = box_mesh(extents=ext, center=ext / 2)
+    wall = box_mesh(extents=[0.2, 4.4, 3.4], center=[3.0, 2.0, 1.5], inward_normals=False)
+    tris = torch.as_tensor(np.concatenate([room.triangles, wall.triangles]), dtype=torch.float32, device=dev)
+    f = tris.shape[0]
+    return (tris, torch.full((f, 4), 0.3, device=dev), torch.full((f,), 0.3, device=dev),
+            torch.full((f, 4), tau, device=dev))
+
+
+def transmission_check(mesh, renderer, scene_inputs: tuple, dev) -> None:
+    """Transmission: the first flagship scene's inputs through a renderer
+    with `transmission=True` (the Default material's tau) and the default
+    one, timed in turns by CUDA events, launches counted; then a room
+    divided by a wall at 5,000 rays x 60 bounces (AmbeoVR behind the wall):
+    no energy off, some on, under 0.2 of the open room's; tau = 0 equal to
+    off bit for bit; K1 small, K2 and K3 once a bounce of the trace with
+    transmission on, each held to its plain version on that trace's first
+    and last bounce."""
+    from audiblelight_tpu_torch.geometry.mesh import box_mesh
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.pipeline import FusedSceneRenderer
+    from audiblelight_tpu_torch.render import ScenePlan
+    from audiblelight_tpu_torch.rir import raytracer
+
+    caps = ambeovr_caps()
+    t_scene = int(SCENE_SECONDS * SR)
+    on = FusedSceneRenderer.from_mesh(mesh, dict(ENGINE, transmission=True), caps, BUCKETS, N_SOURCES, t_scene,
+                                      device=dev)
+    if on.state.transmission is None or not bool(on.state.cfg["transmission"]):
+        fail("the transmission renderer has no transmission table")
+    src, s_idx, m_idx, plan, amb = scene_inputs
+    listeners = torch.as_tensor(caps, dtype=torch.float32, device=dev)
+    args = (torch.as_tensor(src, device=dev), listeners, renderer.rain_table(caps), torch.as_tensor(s_idx, device=dev),
+            torch.as_tensor(m_idx, device=dev), ScenePlan.from_numpy(plan, dev), *amb)
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    wav = on.render_mix(torch.Generator(device=dev).manual_seed(41), *args)
+    torch.cuda.synchronize()
+    launches = dict(ck.launch_counts)
+    check_first_hits(launches, int(ENGINE["indirect_ray_depth"]), "the transmission scene")
+    times = {"off": [], "on": []}
+    for _ in range(3):
+        for key, rend in (("off", renderer), ("on", on)):
+            times[key].append(time_ms(lambda rend=rend: rend.render_mix(torch.Generator(device=dev).manual_seed(42),
+                                                                        *args), reps=2))
+    ratio = np.median(times["on"]) / np.median(times["off"])
+    print(f"transmission scene (Default material, tau {on.state.transmission[0].tolist()}): peak "
+          f"{int(wav.abs().max())}, launches {launches}; in turns by CUDA events on {[round(x, 3) for x in times['on']]}"
+          f" ms, off {[round(x, 3) for x in times['off']]} ms, median ratio {ratio:.3f}", flush=True)
+
+    tris, absorption, scatter, tau = divided_room(0.05, dev)
+    rig = torch.as_tensor(np.stack([np.array([4.5, 2.0, 1.5]) + (c - np.array(MIC_CENTRE)) for c in caps]),
+                          dtype=torch.float32, device=dev)
+    src1 = torch.tensor([[1.5, 2.0, 1.5]], device=dev)
+
+    def energy(irs):
+        return float(irs.double().pow(2).sum())
+
+    gen = lambda: torch.Generator(device=dev).manual_seed(43)  # noqa: E731
+    off_irs = raytracer.trace_rirs_multi(gen(), tris, absorption, scatter, src1, rig, **DIVIDED_KW)
+    zero_irs = raytracer.trace_rirs_multi(gen(), tris, absorption, scatter, src1, rig, transmission=True,
+                                          face_transmission=tau * 0, **DIVIDED_KW)
+    room = box_mesh(extents=np.array(DIVIDED_ROOM), center=np.array(DIVIDED_ROOM) / 2)
+    open_tris = torch.as_tensor(room.triangles, dtype=torch.float32, device=dev)
+    open_irs = raytracer.trace_rirs_multi(gen(), open_tris, absorption[:12], scatter[:12], src1, rig,
+                                          **dict(DIVIDED_KW, occlusion=False))
+    kept_fh, kept_ah, kept_dep, bounces = {}, {}, {}, [0]
+    route, seg, bounce = raytracer._first_hit_route, raytracer.segments_occluded, raytracer._bounce
+
+    def keep_route(o, d, prev_face, tris_, rt):
+        keep_first_last(kept_fh, 0, (o.clone(), d.clone(), tris_, rt[0]))
+        return route(o, d, prev_face, tris_, rt)
+
+    def keep_seg(starts, ends, tris_, tree=None):
+        if starts.shape[0] == kept_fh[0][-1][0].shape[0]:  # the bounce's rain query
+            keep_first_last(kept_ah, 0, (starts.clone(), ends.clone(), tris_, tree))
+        return seg(starts, ends, tris_, tree)
+
+    def counted(*a, **k):
+        bounces[0] += 1
+        return bounce(*a, **k)
+
+    raytracer._first_hit_route, raytracer.segments_occluded, raytracer._bounce = keep_route, keep_seg, counted
+    raytracer.deposit_histogram = keep_deposits("deposit_histogram", kept_dep)
+    tree = ck.any_hit_tree(tris)
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    try:
+        hist = raytracer.trace_energy_histogram_multi(
+            gen(), tris, absorption, scatter, src1, rig, n_rays=DIVIDED_KW["n_rays"],
+            max_depth=DIVIDED_KW["max_depth"], n_bins=60, bin_dt=0.002, occlusion=True, transmission=True,
+            face_transmission=tau, any_hit_tree=lambda _: tree)
+        torch.cuda.synchronize()
+    finally:
+        raytracer._first_hit_route, raytracer.segments_occluded, raytracer._bounce = route, seg, bounce
+        raytracer.deposit_histogram = ck.deposit_histogram
+    trace_launches = dict(ck.launch_counts)
+    on_irs = raytracer.trace_rirs_multi(gen(), tris, absorption, scatter, src1, rig, transmission=True,
+                                        face_transmission=tau, **DIVIDED_KW)
+    e_off, e_on, e_open = energy(off_irs), energy(on_irs), energy(open_irs)
+    print(f"divided room (tau 0.05, {DIVIDED_KW['n_rays']} rays x {DIVIDED_KW['max_depth']} bounces, AmbeoVR behind "
+          f"the wall): IR energy off {e_off:.3e}, on {e_on:.3e}, open room {e_open:.3e} (on / open {e_on / e_open:.4f});"
+          f" tau = 0 bit for bit with off {torch.equal(zero_irs, off_irs)}; the histogram trace with transmission: "
+          f"{bounces[0]} bounces, launches {trace_launches}, energy {float(hist.sum()):.3e}", flush=True)
+    if e_off != 0.0 or not 0.0 < e_on < 0.2 * e_open or not torch.equal(zero_irs, off_irs):
+        fail("transmission through the divided room")
+    for name in ("first_hit_small", "any_hit", "deposit_histogram"):
+        if trace_launches[name] != bounces[0]:
+            fail(f"the transmission trace launched {name} {trace_launches[name]} times over {bounces[0]} bounces")
+    for which, (o, d, tris_, table) in zip(("first", "last"), kept_fh[0]):
+        check_small(f"transmission trace's {which} bounce", o, d, tris_, table)
+    for which, (s_, e_, tris_, tree) in zip(("first", "last"), kept_ah[0]):
+        check_any_hit("any_hit", f"transmission trace's {which} bounce", s_, e_, tris_, tree,
+                      lambda s_=s_, e_=e_, tris_=tris_, tree=tree: ck.segments_occluded(s_, e_, tris_, tree))
+    for rays, pair in kept_dep.items():
+        for which, (a, kw) in zip(("first", "last"), pair):
+            check_deposit("deposit_histogram", a, kw, f"the transmission trace's {which} bounce of {rays} rays")
+
+
+def assets_phase(mesh, renderer, scene_inputs: tuple, out: Path, dev) -> dict:
+    """Real datasets' assets on the card: the codecs (`codec_check`), the GLB
+    room and its repair (`glb_check`), the `--assets 9A` CLI with the GLB
+    room and 8 stand-ins at 1 and 2 prep workers (`assets_cli_check`), a
+    file bed and a predefined trajectory in the flagship room
+    (`ambience_and_predefined_check`), an FOA CLI scene whose foreground
+    holds the MP3 (where decodable) and a FLAC, and transmission
+    (`transmission_check`). Returns the --assets CLI's launches."""
+    from audiblelight_tpu_torch import seld
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    fg = codec_check(out / "codecs")
+    mesh_dir = glb_check(mesh, out)
+    cli_fg = out / "fg"
+    for wav in sorted((REPO / "tests" / "resources" / "soundevents").glob("*/*.wav")):
+        (cli_fg / wav.parent.name).mkdir(parents=True, exist_ok=True)
+        shutil.copy(wav, cli_fg / wav.parent.name / wav.name)
+    launches = assets_cli_check(cli_fg, mesh_dir, out)
+
+    ambience_and_predefined_check(mesh, renderer, cli_fg, out, dev)
+
+    n_files = str(len(list(fg.glob("*/*"))))
+    argv = ["--fg-dir", str(fg), "--output-dir", str(out / "codec_cli"), "--mesh", str(OUT / "cli" / "room.obj"),
+            *CODEC_CLI_FLAGS, "--min-events-static", n_files, "--max-events-static", n_files]
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    seconds = seld.main(argv)
+    torch.cuda.synchronize()
+    meta = json.loads((out / "codec_cli/metadata_dev/dev-train-alight/fold1_scene1_000.json").read_text())
+    used = sorted(Path(ev["filepath"]).suffix for ev in meta["events"].values())
+    want = sorted(p.suffix for p in fg.glob("*/*"))
+    print(f"FOA CLI scene with a foreground of {want}: {seconds[0]:.3f} s (host clock), events from {used}; launches "
+          f"{dict(ck.launch_counts)}", flush=True)
+    if used != want:
+        fail(f"the codec CLI scene used {used}, not {want}")
+    for name in FOA_PATH:
+        if ck.launch_counts[name] <= 0:
+            fail(f"the codec CLI scene never launched {name}")
+
+    transmission_check(mesh, renderer, scene_inputs, dev)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4311,6 +4891,13 @@ def main() -> int:
     # scene with two microphones
     parallel_n = parallel_phase(renderer, st, fg, room_obj, OUT / "parallel", pooled_w1, dev)
     print(f"multi-device: the --coordinator CLI's launches {parallel_n}")
+
+    elapsed(t_start, "real datasets' assets")
+    # 21. Real datasets' assets: MP3 and FLAC, a GLB room and its repair, the
+    # --assets room table at 1 and 2 prep workers, a file bed, a predefined
+    # trajectory, transmission through faces
+    assets_n = assets_phase(mesh, renderer, scenes[0], OUT / "assets", dev)
+    print(f"--assets CLI: launches {assets_n}")
 
     main_launches = dict(launches, first_hit_small=small_n["first_hit_small"],
                          deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"],

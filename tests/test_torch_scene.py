@@ -187,7 +187,7 @@ def test_generate_signature_matches_reference(scenes, tmp_path):
     got, _ = scenes
     got.generate(tmp_path, False, True, True, "audio_out", "metadata_out", False, "clip")
     assert sorted(p.name for p in tmp_path.iterdir()) == ["metadata_out.json", "metadata_out_mic000.csv"]
-    with pytest.raises(NotImplementedError, match="1.8"):
+    with pytest.raises(NotImplementedError, match="1.3"):
         got.generate(output_dir=tmp_path, audio=False, video=True, video_fname="clip")
 
 

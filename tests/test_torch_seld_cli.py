@@ -8,8 +8,9 @@ its JSONs equal (but for the creation time) to those of the reference
 script's own `build_scene` and `generate_dcase2024_metadata` for the same
 --seed (the reference render is not run: the metadata depends only on the
 placement); its WAVs are 4-channel 24 kHz int16 and not silent. A second run
-skips the finished scenes, every unported flag raises (and `--backend
-sofa` without `--sofa` the reference's error), the fused pipeline and the
+skips the finished scenes, `--backend sofa` without `--sofa` raises the
+reference's error (and `--assets` on it without `--sofa-dir` exits with the
+reference's message), the fused pipeline and the
 pooled driver exit with the reference's messages on the shoebox and SOFA
 backends, `--mesh-devices 2` raises without a card and exits on a host
 with one, and the flags that
@@ -145,15 +146,19 @@ def test_cli_resumes(run):
 
 @pytest.mark.parametrize("flags", [["--backend", "sofa"], ["--assets", "9A"]], ids=lambda f: " ".join(f))
 def test_cli_unported_flags_raise(tmp_path, flags):
-    """Every unported flag raises, naming its ROADMAP item, before anything is
-    written. `--backend sofa` is ported (its runs are held in
-    test_torch_sofa.py): without `--sofa` it raises the reference script's
-    error, before anything is written too. The multi-device flags are ported
+    """A flag the CLI cannot run as given raises before anything is
+    written. Every flag is ported: `--backend sofa` without `--sofa` raises
+    the reference script's error, and `--assets` (its runs are held in
+    test_torch_assets.py) on the sofa backend without `--sofa-dir` exits with
+    the reference script's message. The multi-device flags are ported
     (their runs are held in test_torch_prep.py)."""
     argv = ["--fg-dir", str(tmp_path), "--output-dir", str(tmp_path / "out"), "--backend", "rlr",
             "--mesh", str(tmp_path / "room.obj"), "--device", "cpu"] + flags
-    raises = (pytest.raises(ValueError, match="--sofa or --assets is required") if flags == ["--backend", "sofa"]
-              else pytest.raises(NotImplementedError, match="ROADMAP"))
+    if flags == ["--backend", "sofa"]:
+        raises = pytest.raises(ValueError, match="--sofa or --assets is required")
+    else:
+        argv += ["--backend", "sofa"]
+        raises = pytest.raises(SystemExit, match="--sofa-dir is required with --assets on the sofa backend")
     with raises:
         seld.main(argv)
     assert not (tmp_path / "out").exists()
