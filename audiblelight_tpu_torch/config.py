@@ -75,3 +75,33 @@ USE_MXU_FIRST_HIT = False
 # Face budget of the vertex-clustered acoustic LOD when the engine config's
 # `mesh_simplification` is True.
 MESH_SIMPLIFICATION_TARGET_FACES = 4096
+
+# Video (Scene's video settings; the scene video is 640 x 320 frames)
+VIDEO_RESOLUTION = (1920, 960)  # width, height
+VIDEO_FPS = 10
+VIDEO_OVERLAY_DISTANCE_SCALE_FACTOR = 1.0
+VIDEO_OVERLAY_BASE_SIZE = 0.5
+
+# Scene-API entries (scripts/generate counterparts)
+SCENE_DURATION = 60
+DEFAULT_STATIC_EVENTS = 4
+DEFAULT_MOVING_EVENTS = 1
+MIC_ARRAY_TYPE = "ambeovr"
+N_SCENES = 1000
+
+# Acoustic imaging (APGD)
+AIMG_FMIN, AIMG_FMAX = 1500, 4500
+AIMG_NBANDS = 9
+AIMG_SCALE = "linear"
+AIMG_BANDWIDTH = 50.0
+AIMG_TSTI = 10e-3
+AIMG_FRAME_CAP = None
+AIMG_SH_ORDER = 10
+AIMG_CIRCLE_RADIUS_DEG = 20
+AIMG_POLYGON_MASK_THRESHOLD = 4e-5
+AIMG_RESOLUTION = 360, 180
+AIMG_N_JOBS = -1
+AIMG_VERBOSITY = 50
+# Amplitude distribution of the real STARSS23 training data, which
+# standardises synthetic amplitudes; must not change
+AIMG_STARSS23_MU, AIMG_STARSS23_SIGMA = 0.0006131814582534336, 0.00048684798377322537

@@ -16,9 +16,13 @@ through the plan path; its microphone is the file's own, so the Scene
 infers the ambience's channels from that one rig).
 
 Events are static, moving (a drawn trajectory) or predefined (a given
-trajectory, or the room's navigation waypoints).
-
-Not ported (raise; ROADMAP): images, video and acoustic imaging.
+trajectory, or the room's navigation waypoints), each with an optional
+image (picked per class from `image_path` by Python's `random`, as the
+reference draws it). `generate(video=True)` writes the scene video
+(synthesize.generate_scene_video_from_events: the room's panorama through
+K1 on the state's device, events drawn per frame) and
+`generate_acoustic_image` the APGD acoustic images and their labels
+(imaging.py, the solve on the state's device).
 """
 
 from __future__ import annotations
@@ -75,6 +79,11 @@ class Scene:
         event_augmentations=None,
         backend_kwargs: Optional[dict] = None,
         class_mapping: Optional[Union[TClassMapping, dict, str]] = "DCASE2023Task3",
+        video_fps: Optional[utils.Numeric] = config.VIDEO_FPS,
+        video_res: Optional[tuple] = config.VIDEO_RESOLUTION,
+        video_low_power: Optional[bool] = True,
+        video_overlay_distance_scale_factor: Optional[utils.Numeric] = config.VIDEO_OVERLAY_DISTANCE_SCALE_FACTOR,
+        video_overlay_base_size: Optional[utils.Numeric] = config.VIDEO_OVERLAY_BASE_SIZE,
         device=None,
     ):
         """Initialise the Scene.
@@ -87,7 +96,9 @@ class Scene:
         (class, kwargs) pairs) that `add_event(augmentations=<count>)` samples
         from. `device` is where the world state's queries, the render and the
         events' augmentations run (default `cuda`; raises without a card).
-        `image_path` must be None.
+        `image_path` is a folder (or list) of event images in class folders
+        (`<class label>/<image>`); `video_fps` and `video_res` are the
+        reference's video settings (the scene video itself is 640 x 320).
         """
         self.duration = utils.sanitise_positive_number(duration)
         if self.duration < config.WARN_WHEN_SCENE_DURATION_BELOW:
@@ -102,8 +113,6 @@ class Scene:
 
         if backend_kwargs is None:
             backend_kwargs = {}
-        if image_path is not None:
-            raise NotImplementedError("event images are not ported (ROADMAP: imaging and video)")
 
         if isinstance(backend, str):
             desired_state = get_worldstate_from_string(backend)
@@ -150,6 +159,8 @@ class Scene:
         self.fg_audios = self._introspect_input_directories(self.fg_paths)
         self.bg_paths = self._parse_input_directories(bg_path) if bg_path is not None else []
         self.bg_audios = self._introspect_input_directories(self.bg_paths)
+        self.image_paths = self._parse_input_directories(image_path) if image_path is not None else []
+        self.fg_images = self._introspect_input_directories(self.image_paths, exts=utils.IMAGE_EXTS)
 
         self.allow_duplicate_audios = allow_duplicate_audios
         self.allow_same_class_events = allow_same_class_events
@@ -162,11 +173,59 @@ class Scene:
 
         self.ambience: OrderedDict[str, Ambience] = OrderedDict()
         self.audio: OrderedDict[str, np.ndarray] = OrderedDict()
+        self.acoustic_image: OrderedDict[str, np.ndarray] = OrderedDict()
+        self.acoustic_image_json: OrderedDict[str, list] = OrderedDict()
         self.class_mapping = sanitize_class_mapping(class_mapping)
+
+        self.video_fps = utils.sanitise_positive_number(video_fps, cast_to=int)
+        self.video_res = self._sanitise_video_res(video_res)
+        self.video_low_power = video_low_power
+        self.video_overlay_base_size = utils.sanitise_positive_number(video_overlay_base_size)
+        self.video_overlay_distance_scaling_factor = utils.sanitise_positive_number(
+            video_overlay_distance_scale_factor
+        )
 
     # ------------------------------------------------------------------
     # Sanitisers
     # ------------------------------------------------------------------
+
+    @staticmethod
+    def _sanitise_video_res(video_res: Any) -> list[int]:
+        """Validate an equirectangular (width, height = width/2) resolution."""
+        if not isinstance(video_res, (tuple, list, set, np.ndarray)):
+            raise TypeError(f"Expected video_res to be an iterable, but got type {type(video_res)}")
+        if len(video_res) != 2:
+            raise ValueError(
+                f"Expected video_res to contain exactly 2 values, but got {len(video_res)} values"
+            )
+        if not all(v > 0 for v in video_res):
+            raise ValueError(f"Expected all values in video_res to be positive, but got {video_res}")
+        w, h = video_res
+        if not int(h) == int(w // 2):
+            raise ValueError(
+                f"Expected height to be exactly half of width for an equirectangular video, "
+                f"but got {h} x {w}"
+            )
+        return [utils.sanitise_positive_number(vr, cast_to=int) for vr in video_res]
+
+    @staticmethod
+    def _sanitise_image_filepath(image_filepath) -> None:
+        """Refuse an event image whose extension is not an image's."""
+        image_filepath = utils.sanitise_filepath(image_filepath)
+        if not str(image_filepath).endswith(utils.IMAGE_EXTS):
+            raise ValueError(
+                f"Image filepath {image_filepath.name} is invalid! Extension must be one of "
+                f"{', '.join(utils.IMAGE_EXTS)}"
+            )
+
+    def _pick_image(self, current_kws: dict) -> None:
+        """Give an event without an image a random one of its class's folder
+        (`random.choice`, drawn only where the folder has images)."""
+        if all((current_kws["class_label"] is not None, current_kws["image_filepath"] is None,
+                len(self.fg_images) > 0)):
+            valid_imgs = [img for img in self.fg_images if current_kws["class_label"] == img.parent.stem]
+            if len(valid_imgs) > 0:
+                current_kws["image_filepath"] = random.choice(valid_imgs)
 
     @staticmethod
     def _sanitise_ref_db(ref_db: Any) -> int:
@@ -462,7 +521,7 @@ class Scene:
         bounds, then asks the WorldState to place the emitter(s)/trajectory.
         """
         if event_kwargs["image_filepath"] is not None:
-            raise NotImplementedError("event images are not ported (ROADMAP: imaging and video)")
+            self._sanitise_image_filepath(event_kwargs["image_filepath"])
 
         alias = event_kwargs["alias"]
         # Note: even with full timing overrides we keep the retry budget — a single
@@ -522,6 +581,7 @@ class Scene:
                 self.class_mapping,
                 current_kws["filepath"],
             )
+            self._pick_image(current_kws)
 
             current_kws["device"] = self.state.device
             valid_event_kwargs = utils.get_valid_kwargs(Event.__init__)
@@ -822,7 +882,7 @@ class Scene:
         turn, each with its parameter samples (one where the scene start,
         event start and duration are all given)."""
         if event_kwargs["image_filepath"] is not None:
-            raise NotImplementedError("event images are not ported (ROADMAP: imaging and video)")
+            self._sanitise_image_filepath(event_kwargs["image_filepath"])
 
         alias = event_kwargs["alias"]
         has_overrides = all(event_kwargs.get(k) is not None for k in ("scene_start", "event_start", "duration"))
@@ -879,6 +939,7 @@ class Scene:
                     self.class_mapping,
                     current_kws["filepath"],
                 )
+                self._pick_image(current_kws)
                 current_kws["device"] = self.state.device
                 valid_event_kwargs = utils.get_valid_kwargs(Event.__init__)
                 current_event = Event(**{k: v for k, v in current_kws.items() if k in valid_event_kwargs})
@@ -1020,12 +1081,14 @@ class Scene:
         with the ambience.
         `compiled=True` takes the plan path (pipeline.render_scene_audio_compiled:
         the state's IR banks, device stems, host mix and host ambience bed),
-        which keeps no per-event audio and renders no dry stem. `video` and
-        `video_fname` keep the reference's signature; video is not ported.
+        which keeps no per-event audio and renders no dry stem. `video=True`
+        writes the scene video at `<video_fname>.{mp4,avi,gif}` after the
+        audio (synthesize.generate_scene_video_from_events: rlr scenes only,
+        PIL required; the room's panorama through K1 on the state's device).
         """
-        if video:
-            raise NotImplementedError("video is not ported (ROADMAP item 1.3: video)")
         output_dir = self._sanitise_output_directory(output_dir)
+        audio_path = (output_dir / audio_fname).with_suffix("")
+        metadata_path = (output_dir / metadata_fname).with_suffix("")
         if audio and compiled:
             from audiblelight_tpu_torch.pipeline import render_scene_audio_compiled
 
@@ -1034,8 +1097,130 @@ class Scene:
             from audiblelight_tpu_torch.synthesize import render_scene_classic
 
             render_scene_classic(self)
-        write_outputs(self, (output_dir / audio_fname).with_suffix(""), (output_dir / metadata_fname).with_suffix(""),
-                      audio=audio, metadata_json=metadata_json, metadata_dcase=metadata_dcase)
+        write_outputs(self, audio_path, metadata_path, audio=audio, metadata_json=False, metadata_dcase=False)
+        if video:
+            from audiblelight_tpu_torch.synthesize import generate_scene_video_from_events
+
+            generate_scene_video_from_events(self, (output_dir / video_fname).with_suffix(""))
+        write_outputs(self, audio_path, metadata_path, audio=False, metadata_json=metadata_json,
+                      metadata_dcase=metadata_dcase)
+
+    def _generate_acoustic_image_hdf(self, hdf_outpath: Union[str, Path], a_np: np.ndarray) -> None:
+        """Write an acoustic-image HDF file for one microphone through the
+        port's HDF5 writer (no h5py): the dataset `ai_apgd` in the image's
+        dtype, and the reference's attributes `file` (the mesh's or SOFA
+        file's name), `ai_n_frames = shape[0]` and `ai_n_bands = shape[1]`
+        (on a (tesselation, bands, frames) image `shape[0]` is the
+        tesselation size: the reference's quirk, kept)."""
+        from audiblelight_tpu_torch.io import hdf5
+
+        if self.state.name == "RLR":
+            filename = self.state.mesh.metadata.get("fname", "")
+        elif self.state.name == "SOFA":
+            filename = self.state.sofa_path.stem
+        else:
+            filename = ""
+        hdf5.write_file(hdf_outpath, {"ai_apgd": a_np},
+                        {"file": filename, "ai_n_frames": np.int64(a_np.shape[0]),
+                         "ai_n_bands": np.int64(a_np.shape[1])})
+
+    def generate_acoustic_image(
+        self,
+        output_dir: Optional[Union[str, Path]] = None,
+        t_sti: Optional[utils.Numeric] = config.AIMG_TSTI,
+        scale: Optional[str] = config.AIMG_SCALE,
+        nbands: Optional[utils.Numeric] = config.AIMG_NBANDS,
+        frame_cap: Optional[utils.Numeric] = config.AIMG_FRAME_CAP,
+        fmin: Optional[utils.Numeric] = config.AIMG_FMIN,
+        fmax: Optional[utils.Numeric] = config.AIMG_FMAX,
+        bw: Optional[utils.Numeric] = config.AIMG_BANDWIDTH,
+        sh_order: Optional[utils.Numeric] = config.AIMG_SH_ORDER,
+        polygon_mask_threshold: Optional[utils.Numeric] = config.AIMG_POLYGON_MASK_THRESHOLD,
+        resolution: Optional[tuple] = config.AIMG_RESOLUTION,
+        circle_radius: Optional[utils.Numeric] = config.AIMG_CIRCLE_RADIUS_DEG,
+        json_fname: Optional[Union[str, Path]] = "acoustic_image_metadata",
+        hdf_fname: Optional[Union[str, Path]] = "acoustic_image",
+        standardise: Optional[bool] = True,
+        n_jobs: Optional[utils.Numeric] = config.AIMG_N_JOBS,
+        verbosity: Optional[utils.Numeric] = config.AIMG_VERBOSITY,
+    ) -> None:
+        """Generate APGD acoustic images + segmentation metadata per microphone:
+        `<json_fname>_<mic>.json` and `<hdf_fname>_<mic>.hdf`, kept in
+        `self.acoustic_image` and `self.acoustic_image_json`. The solve runs on
+        the world state's device (imaging.get_visibility_matrix); the labels
+        take the DCASE rows at t_sti * 10 s frames. `n_jobs` and `verbosity`
+        are accepted for the reference's signature and unused.
+        """
+        from audiblelight_tpu_torch.imaging import (
+            generate_acoustic_image_json,
+            get_visibility_matrix,
+            standardise_acoustic_image_amplitude,
+        )
+        from audiblelight_tpu_torch.synthesize import generate_dcase2024_metadata
+
+        output_dir = self._sanitise_output_directory(output_dir)
+        json_path = (output_dir / json_fname).with_suffix("")
+        hdf_path = (output_dir / hdf_fname).with_suffix("")
+
+        sh_order = utils.sanitise_positive_number(sh_order, cast_to=int)
+        frame_cap = utils.sanitise_positive_number(frame_cap, cast_to=int) if frame_cap is not None else None
+        resolution = self._sanitise_video_res(resolution)
+
+        dcase_meta = generate_dcase2024_metadata(self, temporal_resolution=t_sti * 10)
+
+        for micarray_alias, micarray in self.state.microphones.items():
+            if micarray_alias not in dcase_meta.keys():
+                raise ValueError(f"No metadata generated for microphone with alias '{micarray_alias}'!")
+            micarray_meta = np.asarray(dcase_meta[micarray_alias], dtype=np.int64).reshape(-1, 6)
+
+            if micarray_alias not in self.audio.keys():
+                raise ValueError(
+                    f"No audio for microphone with alias '{micarray_alias}' found. "
+                    f"Call `scene.generate` first, with `audio=True`, to generate audio."
+                )
+            micarray_coords = micarray.coordinates_polar
+            micarray_audio = self.audio[micarray_alias].T
+
+            if not micarray_coords.shape[0] == micarray_audio.shape[1]:
+                raise ValueError(
+                    f"Expected audio to have {micarray_coords.shape[0]} channels, "
+                    f"but got {micarray_audio.shape[1]} channels"
+                )
+
+            apgd_arr = get_visibility_matrix(
+                micarray_audio,
+                micarray_coords,
+                sr=self.sample_rate,
+                t_sti=utils.sanitise_positive_number(t_sti),
+                scale=scale,
+                nbands=utils.sanitise_positive_number(nbands, cast_to=int),
+                frame_cap=frame_cap,
+                fmin=utils.sanitise_positive_number(fmin, cast_to=int),
+                fmax=utils.sanitise_positive_number(fmax, cast_to=int),
+                bw=utils.sanitise_positive_number(bw),
+                sh_order=sh_order,
+                device=self.state.device,
+            )
+
+            aimg_js = generate_acoustic_image_json(
+                apgd_arr,
+                micarray_meta,
+                resolution=resolution,
+                polygon_mask_threshold=utils.sanitise_positive_number(polygon_mask_threshold, cast_to=float),
+                circle_radius=utils.sanitise_positive_number(circle_radius, cast_to=float),
+            )
+            if standardise:
+                aimg_js = standardise_acoustic_image_amplitude(aimg_js)
+
+            self.acoustic_image[micarray_alias] = apgd_arr
+            self.acoustic_image_json[micarray_alias] = aimg_js
+
+            js_full = json_path.with_suffix(".json").with_stem(f"{json_path.name}_{micarray_alias}")
+            with open(js_full, "w") as f:
+                json.dump(aimg_js, f, indent=4, ensure_ascii=False)
+
+            aimg_full = hdf_path.with_suffix(".hdf").with_stem(f"{hdf_path.name}_{micarray_alias}")
+            self._generate_acoustic_image_hdf(aimg_full, apgd_arr)
 
     # ------------------------------------------------------------------
     # Serialisation

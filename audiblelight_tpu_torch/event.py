@@ -3,8 +3,8 @@
 Copy of audiblelight_tpu/event.py: timing fields (scene_start / event_start
 / duration), emitter registration (moving when more than one emitter),
 augmentation registration with audio-cache invalidation, audio loading (WAV
-slice, resample, mono, augment, peak-normalise), the dry-source parameters,
-and the dict round trip. `device` is where the augmentations' torch FX run
+slice, resample, mono, augment, peak-normalise), the event image (PIL), the
+dry-source parameters, and the dict round trip. `device` is where the augmentations' torch FX run
 (an Event that a Scene made: the scene's device; default `cuda`).
 """
 
@@ -312,8 +312,17 @@ class Event:
         return self.audio
 
     def load_image(self, ignore_cache: Optional[bool] = False) -> np.ndarray:
-        """Event images (video and acoustic imaging) are not ported."""
-        raise NotImplementedError("event images are not ported (ROADMAP: imaging and video)")
+        """Load (and cache) the event image as an RGB uint8 array, through PIL
+        (an ImportError where PIL is absent, as the reference raises)."""
+        if self.is_image_loaded and not ignore_cache:
+            return self.image
+        if self.image_filepath is None:
+            raise FileNotFoundError("No image filepath was passed when calling `Event.__init__`")
+        from PIL import Image
+
+        image_loaded = Image.open(self.image_filepath).convert("RGB")
+        self.image = np.asarray(image_loaded, dtype=np.uint8)
+        return self.image
 
     def to_dict(self) -> dict:
         """Metadata for this Event as a dictionary."""

@@ -34,8 +34,9 @@ for, so the rest of the file reads.
 The writer (`write_file`) covers what the package's SOFA writers need:
 superblock v0, v1 object headers, one root symbol table (the group leaf K
 is raised to hold every entry in one node), contiguous little-endian float64
-datasets and variable-length UTF-8 string attributes in a global heap, as
-h5py stores a Python ``str``.
+(or float32) datasets, variable-length UTF-8 string attributes in a global
+heap, as h5py stores a Python ``str``, and scalar int64 attributes, as h5py
+stores a Python ``int`` (the acoustic-image file of `Scene.generate_acoustic_image`).
 """
 
 from __future__ import annotations
@@ -1157,6 +1158,9 @@ _VLEN_STR_TYPE = (struct.pack("<B3sI", 0x19, bytes([0x01, 0x01, 0x00]), 16)
                   + struct.pack("<B3sI", 0x10, bytes(3), 1) + struct.pack("<HH", 0, 8))
 _F64_TYPE = struct.pack("<B3sI", 0x11, bytes([0x20, 0x3F, 0x00]), 8) + struct.pack(
     "<HHBBBBI", 0, 64, 52, 11, 0, 52, 1023)
+_F32_TYPE = struct.pack("<B3sI", 0x11, bytes([0x20, 0x1F, 0x00]), 4) + struct.pack(
+    "<HHBBBBI", 0, 32, 23, 8, 0, 23, 127)
+_I64_TYPE = struct.pack("<B3sI", 0x10, bytes([0x08, 0x00, 0x00]), 8) + struct.pack("<HH", 0, 64)
 _SCALAR_SPACE = struct.pack("<BBBB4x", 1, 0, 0, 0)
 
 
@@ -1166,25 +1170,30 @@ def _simple_space(shape: tuple) -> bytes:
 
 def write_file(path: Union[str, Path], datasets: dict, attrs: Optional[dict] = None,
                dataset_attrs: Optional[dict] = None) -> Path:
-    """Write an HDF5 file of float64 datasets and string attributes.
+    """Write an HDF5 file of float datasets and string or int64 attributes.
 
     Arguments:
-        datasets: {name: array}; each is stored contiguous, little-endian float64.
-        attrs: {name: str} root attributes, as variable-length UTF-8 strings.
-        dataset_attrs: {dataset name: {name: str}} attributes of the datasets.
+        datasets: {name: array}; each is stored contiguous and little-endian,
+            a float32 array as float32 and any other as float64.
+        attrs: {name: str or np.int64} root attributes, a str as a
+            variable-length UTF-8 string, an np.int64 as a scalar int64.
+        dataset_attrs: {dataset name: {name: str or np.int64}} attributes of
+            the datasets.
 
     The file is superblock v0 with v1 object headers and one root symbol
     table, as h5py writes at its default ``libver``; h5py reads it back to
-    the same names, arrays and ``str`` attributes.
+    the same names, arrays and attributes (``str`` and ``np.int64``).
     """
     path = Path(path)
     attrs = dict(attrs or {})
     dataset_attrs = {k: dict(v) for k, v in (dataset_attrs or {}).items()}
     names = sorted(datasets, key=lambda s: s.encode("utf-8"))
-    arrays = {k: np.array(datasets[k], dtype="<f8", order="C") for k in names}
+    arrays = {k: np.array(datasets[k], dtype="<f4" if np.asarray(datasets[k]).dtype == np.float32 else "<f8",
+                          order="C") for k in names}
     for k, v in list(attrs.items()) + [kv for d in dataset_attrs.values() for kv in d.items()]:
-        if not isinstance(v, str):
-            raise TypeError(f"attribute {k!r}: the writer stores str values only, got {type(v).__name__}")
+        if not isinstance(v, (str, np.int64)):
+            raise TypeError(f"attribute {k!r}: the writer stores str values only, or np.int64 scalars, "
+                            f"got {type(v).__name__}")
 
     leaf_k = max(4, -(-len(names) // 2))
     internal_k = 16
@@ -1192,7 +1201,8 @@ def write_file(path: Union[str, Path], datasets: dict, attrs: Optional[dict] = N
     sb_size = 56 + 40  # superblock v0 with its root symbol-table entry
 
     # Global heap: every string attribute's UTF-8 bytes
-    strings = [v for v in attrs.values()] + [v for d in dataset_attrs.values() for v in d.values()]
+    strings = [v for v in list(attrs.values()) + [v for d in dataset_attrs.values() for v in d.values()]
+               if isinstance(v, str)]
     heap_objs = []
     for i, s in enumerate(strings, start=1):
         raw = s.encode("utf-8")
@@ -1200,22 +1210,30 @@ def write_file(path: Union[str, Path], datasets: dict, attrs: Optional[dict] = N
     gcol_used = 16 + sum(len(h) for h in heap_objs)
     gcol_size = max(4096, gcol_used + 16)
 
-    def attr_msg(name: str, index: int, gcol: int) -> bytes:
+    def attr_msg(name: str, value, index: Optional[int], gcol: int) -> bytes:
+        """An int64 scalar (`index` None) or a global-heap string attribute."""
         nm = name.encode("utf-8") + b"\0"
-        value = strings[index - 1].encode("utf-8")
-        data = (struct.pack("<BBHHH", 1, 0, len(nm), len(_VLEN_STR_TYPE), len(_SCALAR_SPACE))
-                + _pad8(nm) + _pad8(_VLEN_STR_TYPE) + _pad8(_SCALAR_SPACE)
-                + struct.pack("<IQI", len(value), gcol, index))
+        dtype = _I64_TYPE if index is None else _VLEN_STR_TYPE
+        data = (struct.pack("<BBHHH", 1, 0, len(nm), len(dtype), len(_SCALAR_SPACE))
+                + _pad8(nm) + _pad8(dtype) + _pad8(_SCALAR_SPACE))
+        if index is None:
+            data += struct.pack("<q", int(value))
+        else:
+            data += struct.pack("<IQI", len(value.encode("utf-8")), gcol, index)
         return _msg_v1(0x000C, data)
 
     # Layout: superblock | root header | B-tree | SNOD | local heap (+data) | GCOL | dataset headers | data
     counter = iter(range(1, len(strings) + 1))
-    root_attr_idx = [next(counter) for _ in attrs]
-    ds_attr_idx = {k: [next(counter) for _ in dataset_attrs.get(k, {})] for k in names}
+
+    def heap_indices(values) -> list:
+        return [next(counter) if isinstance(v, str) else None for v in values]
+
+    root_attr_idx = heap_indices(attrs.values())
+    ds_attr_idx = {k: heap_indices(dataset_attrs.get(k, {}).values()) for k in names}
 
     def root_header(btree: int, lheap: int, gcol: int) -> bytes:
         msgs = [_msg_v1(0x0011, struct.pack("<QQ", btree, lheap))]
-        msgs += [attr_msg(n, i, gcol) for n, i in zip(attrs, root_attr_idx)]
+        msgs += [attr_msg(n, v, i, gcol) for (n, v), i in zip(attrs.items(), root_attr_idx)]
         return _header_v1(msgs)
 
     root_len = len(root_header(0, 0, 0))
@@ -1241,11 +1259,11 @@ def write_file(path: Union[str, Path], datasets: dict, attrs: Optional[dict] = N
         arr = arrays[k]
         msgs = [
             _msg_v1(0x0001, _simple_space(arr.shape) if arr.ndim else _SCALAR_SPACE),
-            _msg_v1(0x0003, _F64_TYPE, flags=1),
+            _msg_v1(0x0003, _F32_TYPE if arr.dtype == np.float32 else _F64_TYPE, flags=1),
             _msg_v1(0x0005, struct.pack("<BBBB", 2, 2, 2, 1) + struct.pack("<I", 0)),
             _msg_v1(0x0008, struct.pack("<BBQQ", 3, 1, data_at if arr.nbytes else (1 << 64) - 1, arr.nbytes)),
         ]
-        msgs += [attr_msg(n, i, gcol_at) for n, i in zip(dataset_attrs.get(k, {}), ds_attr_idx[k])]
+        msgs += [attr_msg(n, v, i, gcol_at) for (n, v), i in zip(dataset_attrs.get(k, {}).items(), ds_attr_idx[k])]
         return _header_v1(msgs)
 
     pos = gcol_at + gcol_size

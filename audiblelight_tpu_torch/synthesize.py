@@ -22,6 +22,11 @@ the bytes its `df.to_csv(sep=",", encoding="utf-8", header=None)` writes:
 the frame number as the index column, then class, source, azimuth,
 elevation and distance as integers, sorted stably by (frame, class,
 source).
+
+`generate_scene_video_from_events` writes the scene video: the room's
+panorama from the first microphone through K1 on the state's device, the
+events drawn per frame, as MP4 (H.264 where the shim builds, else MJPEG),
+MJPEG AVI and GIF.
 """
 
 from __future__ import annotations
@@ -471,3 +476,113 @@ def generate_dcase2024_metadata(scene, temporal_resolution: float = 0.1) -> dict
 def dcase_csv_text(rows: list[list[int]]) -> str:
     """The DCASE CSV of one microphone's rows: one line per row, no header."""
     return "".join(",".join(str(int(v)) for v in row) + "\n" for row in rows)
+
+
+# ---------------------------------------------------------------------------
+# Video
+# ---------------------------------------------------------------------------
+
+VIDEO_SIZE = (640, 320)  # equirect frame (width, height), kept light for the GIF
+
+
+def event_position(event, mic_alias: str, t: float) -> np.ndarray:
+    """The event's (azimuth, elevation, distance) from microphone `mic_alias`
+    at scene time `t`: its one emitter's, or linearly interpolated between
+    the two emitters of its trajectory around t."""
+    n_em = len(event.emitters)
+    if n_em == 1:
+        return np.atleast_2d(event.emitters[0].coordinates_relative_polar[mic_alias])[0]
+    frac = (t - event.scene_start) / max(event.duration, 1e-9)
+    fidx = frac * (n_em - 1)
+    lo = int(np.floor(fidx))
+    hi = min(lo + 1, n_em - 1)
+    w = fidx - lo
+    p_lo = np.atleast_2d(event.emitters[lo].coordinates_relative_polar[mic_alias])[0]
+    p_hi = np.atleast_2d(event.emitters[hi].coordinates_relative_polar[mic_alias])[0]
+    return (1 - w) * p_lo + w * p_hi
+
+
+def scene_panorama(scene: "Scene") -> np.ndarray:
+    """(320, 640, 3) uint8 panorama of the scene's room from the first
+    microphone's centre: one first-hit launch (K1 big or small) of the
+    pixel rays on the full mesh, on the world state's device, through the
+    state's cached first-hit table. A failed launch raises (the reference
+    draws a flat background instead)."""
+    from audiblelight_tpu_torch.viz.panorama import render_equirect_panorama
+
+    mic = scene.state.microphones[list(scene.state.microphones.keys())[0]]
+    cam = np.atleast_2d(np.asarray(mic.coordinates_absolute)).mean(axis=0)
+    st = scene.state.device_state
+    width, height = VIDEO_SIZE
+    return render_equirect_panorama(st.tris, cam, width, height, table=st.first_hit_table(st.tris),
+                                    visuals=getattr(scene.state.mesh, "visuals", None))
+
+
+def scene_video_frames(scene: "Scene", background, fps: int) -> list:
+    """The video's frames (PIL Images): the background with each event active
+    at the frame's time drawn at its equirect position, its image scaled
+    with distance where it has one (a marker where the image does not load,
+    as the reference draws), else a yellow marker."""
+    from PIL import Image, ImageDraw
+
+    width, height = VIDEO_SIZE
+    n_frames = max(1, int(round(scene.duration * fps)))  # never zero frames
+    mic_alias = list(scene.state.microphones.keys())[0]
+    frames_out = []
+    for frame_idx in range(n_frames):
+        t = frame_idx / fps
+        img = background.copy()
+        draw = ImageDraw.Draw(img)
+        for event in scene.get_events():
+            if not (event.scene_start <= t <= event.scene_end):
+                continue
+            az, el, dist = event_position(event, mic_alias, t)
+            # Equirect projection: az in [-180, 180) -> x, el in [-90, 90] -> y
+            x = int((0.5 - az / 360.0) * width) % width
+            y = int((0.5 - el / 180.0) * height)
+            r = max(4, int(30 / max(dist, 0.5)))
+            if event.image is not None or event.image_filepath is not None:
+                try:
+                    tile = Image.fromarray(event.load_image()).resize((4 * r, 4 * r))
+                except (OSError, ValueError) as err:
+                    logger.warning(f"Event image of {event.alias} not drawn ({err}); marker instead")
+                else:
+                    img.paste(tile, (x - 2 * r, y - 2 * r))
+                    continue
+            draw.ellipse([x - r, y - r, x + r, y + r], fill=(240, 200, 60))
+        frames_out.append(img)
+    return frames_out
+
+
+def generate_scene_video_from_events(scene: "Scene", video_path, fps: Optional[int] = None) -> None:
+    """Render an equirectangular animation of the scene's events.
+
+    The background is the room's own panorama (`scene_panorama`: K1 on the
+    world state's device), rendered once from the first microphone; each of
+    `scene.duration * fps` 640 x 320 frames draws the events active at its
+    time (`scene_video_frames`). Written as `<video_path>.mp4` (H.264 where
+    the shim in io/h264.py builds, else MJPEG), `<video_path>.avi` (MJPEG)
+    and `<video_path>.gif`. Only mesh-backed (rlr) scenes are supported, as
+    in the reference; PIL is required (its ImportError otherwise).
+    """
+    if scene.state.name.upper() != "RLR":
+        raise ValueError("Video generation is only supported for the RLR (mesh) backend")
+    from pathlib import Path
+
+    from PIL import Image
+
+    from audiblelight_tpu_torch.io.avi import write_mjpeg_avi
+    from audiblelight_tpu_torch.io.h264 import h264_available, write_h264_mp4
+    from audiblelight_tpu_torch.io.mp4 import write_mjpeg_mp4
+
+    fps = fps if fps is not None else scene.video_fps
+    background = Image.fromarray(scene_panorama(scene))
+    frames_out = scene_video_frames(scene, background, fps)
+
+    mp4_path = Path(video_path).with_suffix(".mp4")
+    out = write_h264_mp4(mp4_path, frames_out, fps) if h264_available() else write_mjpeg_mp4(mp4_path, frames_out,
+                                                                                               fps)
+    write_mjpeg_avi(Path(video_path).with_suffix(".avi"), frames_out, fps)
+    gif = Path(video_path).with_suffix(".gif")
+    frames_out[0].save(gif, save_all=True, append_images=frames_out[1:], duration=int(1000 / fps), loop=0)
+    logger.info(f"Wrote scene video ({len(frames_out)} frames @ {fps} fps) to {out} (+ {gif.name})")

@@ -34,6 +34,8 @@ Numeric = Union[int, float, complex, np.integer, np.floating]
 # Extensions of the foreground-audio listing, in the reference's order: a
 # random file choice draws from the same list
 AUDIO_EXTS = ("wav", "mp3", "mpeg4", "m4a", "flac", "aac")
+# Extensions of the event-image listing, in the reference's order
+IMAGE_EXTS = ("jpg", "jpeg", "png", "pdf", "gif", "tiff", "webp", "eps", "svg", "raw")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

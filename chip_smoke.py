@@ -173,7 +173,24 @@ exact CLI scene's bounces), then drives the port's two main paths:
   bounces (energy only with transmission on, under 0.2 of the open
   room's; tau = 0 equal to off bit for bit; K1 small, K2 and K3 once a
   bounce, each held to its plain version on that trace's first and last
-  bounce).
+  bounce);
+- the last modules (`media_phase`): whether PIL imports and the H.264 shim
+  builds; the stage timers (a synced stage's cost, the flagship MIC scene's
+  peak device memory through `device_memory_stats`, one flagship
+  `render_mix` in an `annotate` region under the trace capture, whose
+  Chrome-trace file must name the region and K1, K2 and K3's kernels); a 60 s
+  flagship MIC scene through `generate_acoustic_image` at the defaults (484
+  pixels, 9 bands, 600 frames), the visibilities, batched eigh, APGD chain
+  (CUDA events, idle share), labels and HDF write timed, the image held
+  against the port's CPU solve of the same visibilities (1e-4 of peak), its
+  HDF and JSON read back; the imaging CLI (two 10 s shoebox Eigenmike32
+  scenes) and MUSIC DOA (8 azimuths) at their defaults; the flagship room's
+  640 x 320 panorama from the microphone (one K1 big launch of 204,800 rays
+  on the 110,592 faces, held against K1's plain versions bit for bit, timed
+  with its bound) and, where PIL imports, a 10 s scene with an event image
+  through `generate(compiled=True, video=True)` (MP4, AVI and GIF of 100
+  frames, the MP4 decoded where the shim loads); `random_events`,
+  `dcase_format` and `scene_timing`.
 
 Each path's kernel launches are counted from zero just before it and read
 just after; a kernel of the path that did not launch fails the run, and so
@@ -3895,14 +3912,14 @@ def assets_cli_check(fg: Path, mesh_dir: Path, out: Path) -> dict:
     return runs[1]
 
 
-def scene_in_flagship_room(mesh, fg: Path, dev, seed: int):
+def scene_in_flagship_room(mesh, fg: Path, dev, seed: int, duration: float = SCENE_SECONDS):
     """A Scene in the flagship room at the flagship engine config, an
     AmbeoVR at MIC_CENTRE, the global streams seeded with `seed`."""
     from audiblelight_tpu_torch import utils
     from audiblelight_tpu_torch.core import Scene
 
     utils.seed_everything(seed)
-    scene = Scene(duration=SCENE_SECONDS, backend="rlr", sample_rate=SR, fg_path=fg, device=dev,
+    scene = Scene(duration=duration, backend="rlr", sample_rate=SR, fg_path=fg, device=dev,
                   backend_kwargs=dict(mesh=mesh, seed=seed, add_to_context=False, rlr_kwargs=dict(ENGINE)))
     scene.add_microphone(microphone_type="ambeovr", position=list(MIC_CENTRE), alias="mic000")
     return scene
@@ -4180,6 +4197,407 @@ def assets_phase(mesh, renderer, scene_inputs: tuple, out: Path, dev) -> dict:
 
     transmission_check(mesh, renderer, scene_inputs, dev)
     return launches
+
+
+MEDIA_IMAGE = REPO / "tests" / "resources" / "images" / "femaleSpeech" / "21_0.jpg"
+VIDEO_SECONDS = 10.0  # 100 frames at the Scene's 10 fps
+AIMG_CLI_FLAGS = ["--n-scenes", "2"]  # the entry's defaults otherwise: 10 s shoebox Eigenmike32 scenes
+DOA_FLAGS = []  # the entry's defaults: 8 azimuths
+RANDOM_EVENTS_FLAGS = []  # the entry's defaults: one 60 s shoebox AmbeoVR scene
+# Two scenes of 10 s: at 60 s the seed's second scene draws many moving
+# events, whose order-12 image sources at 44.1 kHz would take most of the phase
+SCENE_TIMING_FLAGS = ["--n-scenes", "2", "--duration", "10"]
+DCASE_FLAGS = []
+AIMG_CPU_FRAMES = 150  # frames of the flagship image re-solved on the CPU (the chain is causal)
+TRACE_KERNELS = ("first_hit_big", "any_hit", "deposit_histogram")
+
+
+def card_memory() -> dict:
+    """This card's `profiling.device_memory_stats()` entry."""
+    from audiblelight_tpu_torch.profiling import device_memory_stats
+
+    return device_memory_stats()[str(torch.device("cuda", 0))]
+
+
+def trace_names(path: Path) -> set:
+    """The event names of a Chrome-trace JSON."""
+    return {ev.get("name", "") for ev in json.loads(path.read_text())["traceEvents"]}
+
+
+def gif_frames(path: Path, fps: int = 10) -> int:
+    """A GIF's video frames: PIL merges identical consecutive frames into one
+    of their summed duration, so they are counted by duration."""
+    from PIL import Image
+
+    total = 0
+    with Image.open(path) as im:
+        for i in range(im.n_frames):
+            im.seek(i)
+            total += im.info["duration"]
+    return total // int(1000 / fps)
+
+
+def mp4_frames(path: Path) -> int:
+    """An MP4's sample count, from its `stsz` box (H.264 or MJPEG)."""
+    raw = path.read_bytes()
+    i = raw.index(b"stsz")
+    return int.from_bytes(raw[i + 12 : i + 16], "big")
+
+
+def timers_check(renderer, scene_inputs: tuple, prof, out: Path, dev) -> dict:
+    """(a) The stage timers: a synced empty stage's cost against an unsynced
+    one; the flagship MIC scene's peak device memory (peak reset, one
+    `render_mix`, read back through `device_memory_stats`); one flagship
+    `render_mix` inside an `annotate` region under the trace capture, whose
+    file must name the region and K1, K2 and K3's kernels."""
+    from audiblelight_tpu_torch.profiling import Profiler, annotate, torch_trace
+    from audiblelight_tpu_torch.render import ScenePlan
+
+    src, s_idx, m_idx, plan, amb = scene_inputs
+    caps = ambeovr_caps()
+    args = (torch.as_tensor(src, device=dev), torch.as_tensor(caps, dtype=torch.float32, device=dev),
+            renderer.rain_table(caps), torch.as_tensor(s_idx, device=dev), torch.as_tensor(m_idx, device=dev),
+            ScenePlan.from_numpy(plan, dev), *amb)
+
+    def render():
+        return renderer.render_mix(torch.Generator(device=dev).manual_seed(51), *args)
+
+    sync_ms = {}
+    for sync in (True, False):
+        p = Profiler(sync=sync)
+        render()
+        for _ in range(200):
+            with p.stage("empty"):
+                pass
+        sync_ms[sync] = p.stages["empty"].mean_seconds * 1e3
+    torch.cuda.synchronize()
+    with prof.stage("memory"):
+        torch.cuda.reset_peak_memory_stats()
+        before = card_memory()
+        wav = render()
+        torch.cuda.synchronize()
+        after = card_memory()
+    print(f"stage timers: an empty stage with sync {sync_ms[True]:.4f} ms, without {sync_ms[False]:.4f} ms (host "
+          f"clock, mean of 200); flagship MIC scene's peak device memory {after['peak_bytes_in_use'] / 2**30:.3f} GiB "
+          f"({(after['peak_bytes_in_use'] - before['bytes_in_use']) / 2**30:.3f} GiB above the "
+          f"{before['bytes_in_use'] / 2**30:.3f} GiB in use before it; limit {after['bytes_limit'] / 2**30:.1f} GiB)",
+          flush=True)
+    if int(wav.abs().max()) < 100 or after["peak_bytes_in_use"] < before["bytes_in_use"]:
+        fail("the memory scene is silent or its peak is below what was in use")
+    with prof.stage("trace capture"):
+        with torch_trace(out / "trace") as cap:
+            with annotate("flagship_render_mix"):
+                render()
+    names = trace_names(cap.path)
+    found = {k: any(is_kernel(n, k) for n in names) for k in TRACE_KERNELS}
+    print(f"trace capture: {cap.path.relative_to(OUT.parent)} ({cap.path.stat().st_size / 1e6:.2f} MB, "
+          f"{len(names)} event names), region 'flagship_render_mix' {'flagship_render_mix' in names}, kernels {found}", flush=True)
+    if "flagship_render_mix" not in names or not all(found.values()):
+        fail("the trace capture does not name the region and K1, K2 and K3")
+    return dict(sync_ms=sync_ms[True], peak_gib=after["peak_bytes_in_use"] / 2**30)
+
+
+def acoustic_image_check(mesh, fg: Path, prof, out: Path, dev) -> None:
+    """(b) A 60 s flagship MIC scene through `generate(compiled=True)` and
+    `generate_acoustic_image` at the defaults (484 pixels, 9 bands, 600
+    frames): the visibilities (host), the batched eigh, the APGD chain (CUDA
+    events), the labels (host) and the HDF write timed; the first
+    AIMG_CPU_FRAMES frames held against the port's CPU solve of the same
+    visibilities (the chain is causal) within 1e-4 of the peak; the HDF read
+    back by the port's reader, the JSON checked against the DCASE rows."""
+    from audiblelight_tpu_torch import imaging
+    from audiblelight_tpu_torch.core import Scene
+    from audiblelight_tpu_torch.io import hdf5
+    from audiblelight_tpu_torch.synthesize import generate_dcase2024_metadata
+    from audiblelight_tpu_torch.utils import polar_to_cartesian
+
+    scene = scene_in_flagship_room(mesh, fg, dev, 41, duration=SCENE_SECONDS)
+    for event_type in ["static"] * N_STATIC + ["moving"]:
+        scene.add_event(event_type=event_type, max_place_attempts=100)
+    scene.add_ambience(noise="gaussian")
+    (out / "image").mkdir(parents=True)
+    with prof.stage("image scene"):
+        scene.generate(output_dir=out / "image", compiled=True)
+    kept, chain_ms = {}, []
+
+    def timed(name, fn, events=False):
+        def run(*a, **k):
+            with prof.stage(name):
+                if events:
+                    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    t0.record()
+                res = fn(*a, **k)
+                if events:
+                    t1.record()
+            if events:
+                chain_ms.append(t0.elapsed_time(t1))
+            kept.setdefault(name, res)
+            return res
+        return run
+
+    names = ("band_visibilities", "normalised_visibilities", "apgd_frames", "generate_acoustic_image_json")
+    originals = {n: getattr(imaging, n) for n in names}
+    write_hdf = Scene._generate_acoustic_image_hdf
+    for n in names:
+        setattr(imaging, n, timed(n, originals[n], events=n == "apgd_frames"))
+    Scene._generate_acoustic_image_hdf = timed("hdf write", write_hdf)
+    try:
+        t0 = time.time()
+        scene.generate_acoustic_image(output_dir=out / "image")
+        image_s = time.time() - t0
+        apgd = originals["apgd_frames"]
+        sig = kept["band_visibilities"]
+        s_norm = kept["normalised_visibilities"][:, :40]
+        a_t = imaging._complex64(imaging.steering_operator(
+            polar_to_cartesian(scene.state.microphones["mic000"].coordinates_polar).T, imaging.get_field(10)), dev)
+        l_t = torch.tensor(2.0 * imaging.eigh_max(a_t, dev), dtype=torch.float32, device=dev)
+        eager = imaging.apgd_frames_eager
+        avgs, busy = profiled(lambda: eager(s_norm, a_t, l_t), "APGD chain profile, eager (40 frames)")
+        _, busy_g = profiled(lambda: apgd(s_norm, a_t, l_t), "APGD chain profile, CUDA graph (40 frames)")
+    finally:
+        for n in names:
+            setattr(imaging, n, originals[n])
+        Scene._generate_acoustic_image_hdf = write_hdf
+    img = scene.acoustic_image["mic000"]
+    stats = prof.to_dict()
+    print(f"acoustic image: {img.shape} {img.dtype} in {image_s:.3f} s (host clock); visibilities (host) "
+          f"{stats['band_visibilities']['total_seconds']:.3f} s, batched eigh of {sig.shape[0]} x {sig.shape[1]} "
+          f"matrices {stats['normalised_visibilities']['total_seconds'] * 1e3:.2f} ms, APGD chain {chain_ms[0]:.1f} ms "
+          f"(CUDA events; {stats['apgd_frames']['total_seconds']:.3f} s host clock), labels (host) "
+          f"{stats['generate_acoustic_image_json']['total_seconds']:.3f} s, HDF write "
+          f"{stats['hdf write']['total_seconds'] * 1e3:.1f} ms on {card_line()}", flush=True)
+    eager_40 = time_ms(lambda: eager(s_norm, a_t, l_t), reps=3)
+    chain_40 = time_ms(lambda: apgd(s_norm, a_t, l_t), reps=3)
+    same = torch.equal(apgd(s_norm, a_t, l_t), eager(s_norm, a_t, l_t))
+    print(f"APGD chain, 40 frames (CUDA events): eager {eager_40:.2f} ms, device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / eager_40:.1%}, {launch_calls(avgs) / (40 * 50):.1f} launches per iteration; one frame as a "
+          f"CUDA graph {chain_40:.2f} ms, device busy {busy_g:.2f} ms, idle share {1 - busy_g / chain_40:.1%}; "
+          f"graph equal to eager bit for bit {same}", flush=True)
+    if not same:
+        fail("the APGD chain's CUDA graph differs from the eager chain")
+    if img.shape != (484, 9, int(SCENE_SECONDS * 10)) or not np.isfinite(img).all() or img.min() < 0 or img.max() <= 0:
+        fail(f"the flagship acoustic image is {img.shape}, min {img.min()}, max {img.max()}")
+
+    n_cpu = AIMG_CPU_FRAMES
+    a_c = a_t.cpu()
+    l_c = torch.tensor(2.0 * imaging.eigh_max(a_c, "cpu"), dtype=torch.float32)
+    t0 = time.time()
+    cpu = imaging.apgd_frames(imaging.normalised_visibilities(imaging._complex64(sig[:, :n_cpu], torch.device("cpu"))),
+                              a_c, l_c).permute(2, 0, 1).numpy()
+    gap = float(np.abs(img[:, :, :n_cpu] - cpu).max() / np.abs(cpu).max())
+    print(f"acoustic image against the port's CPU solve of the same visibilities (first {n_cpu} frames, "
+          f"{time.time() - t0:.1f} s on the host): max |diff| / peak {gap:.3e}", flush=True)
+    if not gap <= 1e-4:
+        fail("the card's acoustic image disagrees with the CPU's")
+
+    with hdf5.File(out / "image" / "acoustic_image_mic000.hdf") as f:
+        data, attrs = f["ai_apgd"][()], dict(f.attrs.items())
+    js = json.loads((out / "image" / "acoustic_image_metadata_mic000.json").read_text())
+    rows = np.asarray(generate_dcase2024_metadata(scene, temporal_resolution=0.1)["mic000"])
+    want = sum(int((rows[:, 0] == f).sum()) for f in np.unique(rows[:, 0]) if f < img.shape[2])
+    blobs = sum(len(d["segmentation"]) for d in js)
+    print(f"acoustic image files: HDF {data.shape} {data.dtype} equal to the image {np.array_equal(data, img)}, "
+          f"attributes {attrs}; JSON {len(js)} entries ({want} DCASE rows in the image's frames), {blobs} blobs",
+          flush=True)
+    if (not np.array_equal(data, img) or attrs["ai_n_frames"] != 484 or attrs["ai_n_bands"] != 9 or len(js) != want
+            or not blobs or {d["category_id"] for d in js} - set(CLI_CLASSES.values())):
+        fail("the acoustic image's HDF or JSON")
+
+
+def entries_check(fg: Path, prof, out: Path) -> None:
+    """(c) and (e) The entries at their defaults, as a user calls them: the
+    acoustic-image CLI (two 10 s shoebox Eigenmike32 scenes, its APGD chain
+    by CUDA events), MUSIC DOA (8 azimuths), random events (one scene),
+    the DCASE converter on their outputs and the scene timer (two scenes)."""
+    from audiblelight_tpu_torch import acoustic_images, dcase_format, imaging, music_doa, random_events, scene_timing
+
+    chain = []
+    apgd = imaging.apgd_frames
+
+    def timed_apgd(*a, **k):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        res = apgd(*a, **k)
+        t1.record()
+        t1.synchronize()
+        chain.append(t0.elapsed_time(t1))
+        return res
+
+    imaging.apgd_frames = timed_apgd
+    try:
+        with prof.stage("acoustic_images CLI"):
+            secs = acoustic_images.main(["--fg-dir", str(fg), "--output-dir", str(out / "aimg_cli"), *AIMG_CLI_FLAGS])
+    finally:
+        imaging.apgd_frames = apgd
+    scenes = sorted(p for p in (out / "aimg_cli").iterdir() if p.is_dir())
+    files = [sorted(p.name for p in d.iterdir()) for d in scenes]
+    print(f"acoustic_images CLI: {len(secs)} scenes, {', '.join(f'{x:.3f}' for x in secs)} s each (host clock); APGD "
+          f"chain {', '.join(f'{x:.1f}' for x in chain)} ms (CUDA events); files {files[0] if files else None}",
+          flush=True)
+    if len(secs) != 2 or any(f != ["acoustic_image_metadata_mic000.json", "acoustic_image_mic000.hdf",
+                                   "audio_out_mic000.wav", "metadata_out.json", "metadata_out_mic000.csv"]
+                             for f in files):
+        fail("the acoustic_images CLI's scenes")
+
+    with prof.stage("music_doa"):
+        errors = music_doa.main(DOA_FLAGS)
+    print(f"music_doa: errors {', '.join(f'{e:.1f}' for e in errors)} deg (mean {np.mean(errors):.2f}, max "
+          f"{np.max(errors):.2f})", flush=True)
+    if len(errors) != 8 or not np.isfinite(errors).all():
+        fail("music_doa")
+
+    with prof.stage("random_events"):
+        secs = random_events.main(["--fg-dir", str(fg), "--output-dir", str(out / "random_events"),
+                                   *RANDOM_EVENTS_FLAGS])
+    written = sorted(p.relative_to(out).as_posix() for p in (out / "random_events").rglob("*") if p.is_file())
+    print(f"random_events: {secs[0]:.3f} s (host clock), {written}", flush=True)
+    if written != [f"random_events/scene_0000/{n}" for n in ("audio_out_mic000.wav", "metadata_out.json",
+                                                             "metadata_out_mic000.csv")]:
+        fail("random_events' files")
+
+    with prof.stage("dcase_format"):
+        n_cli = dcase_format.main(["--input-dir", str(OUT / "cli" / "mic"), "--output-dir", str(out / "dcase_cli"),
+                                   *DCASE_FLAGS])
+        n_img = dcase_format.main(["--input-dir", str(out / "aimg_cli"), "--output-dir", str(out / "dcase"),
+                                   *DCASE_FLAGS])
+        n_rand = dcase_format.main(["--input-dir", str(out / "random_events"), "--output-dir", str(out / "dcase"),
+                                    "--room", "2", *DCASE_FLAGS])
+    converted = sorted(p.relative_to(out / "dcase").as_posix() for p in (out / "dcase").rglob("*") if p.is_file())
+    print(f"dcase_format: the SELD CLI's output {n_cli} (already the DCASE layout: its WAVs and CSVs in separate "
+          f"folders, so the converter, as the reference's, pairs none); the acoustic-image and random-event scenes "
+          f"{n_img} + {n_rand}: {converted}", flush=True)
+    if n_cli != 0 or (n_img, n_rand) != (2, 1) or len(converted) != 6:
+        fail("dcase_format")
+
+    import contextlib
+    import io as _io
+
+    buf = _io.StringIO()
+    with prof.stage("scene_timing"), contextlib.redirect_stdout(buf):
+        total, done = scene_timing.main(["--output-dir", str(out / "scene_timing"), *SCENE_TIMING_FLAGS])
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f"scene_timing: {line}", flush=True)
+    if done != 2 or not re.fullmatch(r"total_seconds=\d+\.\d\d avg_seconds_per_scene=\d+\.\d\d\d", line):
+        fail("scene_timing")
+
+
+def video_check(mesh, renderer, fg: Path, pil: bool, prof, out: Path, dev) -> dict:
+    """(d) The flagship room's panorama from the microphone at 640 x 320:
+    one K1 big launch of 204,800 rays on the full 110,592-face mesh, held
+    against K1's plain versions on the same rays (t and faces bit for bit,
+    so the pixels equal the plain route's), timed with its bound; then, where
+    PIL imports, `generate(compiled=True, video=True)` of a 10 s scene in the
+    flagship room with an event image, its MP4, AVI and GIF of 100 frames,
+    the MP4 decoded where the H.264 shim loads. Returns the video scene's
+    launches (None without PIL)."""
+    from audiblelight_tpu_torch.io.avi import read_avi_frame_count
+    from audiblelight_tpu_torch.io.h264 import h264_available, read_video_frames
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.viz import panorama
+
+    st = renderer.state
+    table = st.first_hit_table(st.tris)
+    width, height = 640, 320
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    with prof.stage("panorama"):
+        img = panorama.render_equirect_panorama(st.tris, MIC_CENTRE, width, height, table=table)
+    launches = dict(ck.launch_counts)
+    print(f"panorama: {img.shape} {img.dtype}, {len(np.unique(img.reshape(-1, 3), axis=0))} tones; launches "
+          f"{launches}", flush=True)
+    check_first_hits(launches, 1, "the panorama")
+    dirs = torch.as_tensor(panorama._equirect_dirs(width, height), device=dev)
+    o = torch.tensor(MIC_CENTRE, dtype=torch.float32, device=dev).expand(dirs.shape[0], 3).contiguous()
+    check_k1(f"panorama's {o.shape[0]} pixel rays on the full mesh", o, dirs, st.tris, table)
+    t_p, i_p = ck.ray_first_hit_plain(o, dirs, st.tris, table)
+    plain_img = panorama.shade(st.tris.cpu().numpy(), MIC_CENTRE, width, height, t_p.cpu().numpy(),
+                               i_p.cpu().numpy())
+    needed, _ = first_hit_pairs(o, dirs, t_p, i_p, face_boxes(st.tris))
+    r, f = o.shape[0], st.tris.shape[0]
+    b_ms, b_by = bound_ms(needed * FLOPS_BIG_PAIR, r * 24 + f * 64 + r * 8)
+    k1_ms = time_ms(lambda: ck.ray_first_hit(o, dirs, st.tris, table))
+    k1_dev = device_ms(lambda: ck.ray_first_hit(o, dirs, st.tris, table))
+    whole = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        panorama.render_equirect_panorama(st.tris, MIC_CENTRE, width, height, table=table)
+        whole.append(time.time() - t0)
+    print(f"panorama K1: {k1_ms:.4f} ms per launch (device {k1_dev:.4f} ms), bound {b_ms:.5f} ms ({b_by}; {needed} "
+          f"pairs this data needs, {needed / (r * f):.4%} of dense); pixels equal to the plain route's "
+          f"{np.array_equal(img, plain_img)}; whole panorama {np.median(whole) * 1e3:.1f} ms (host clock, median of "
+          f"3, shading included) on {card_line()}", flush=True)
+    if not np.array_equal(img, plain_img):
+        fail("the panorama differs from the plain route's")
+    if not pil:
+        print("scene video: skipped, PIL is absent", flush=True)
+        return None
+
+    scene = scene_in_flagship_room(mesh, fg, dev, 43, duration=VIDEO_SECONDS)
+    event = scene.add_event(event_type="static", image_filepath=MEDIA_IMAGE, max_place_attempts=100)
+    scene.add_event(event_type="moving", max_place_attempts=100)
+    scene.add_ambience(noise="gaussian")
+    (out / "video").mkdir(parents=True)
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    with prof.stage("video scene"):
+        t0 = time.time()
+        scene.generate(output_dir=out / "video", compiled=True, video=True)
+        torch.cuda.synchronize()
+        video_s = time.time() - t0
+    v_launches = dict(ck.launch_counts)
+    files = sorted(p.name for p in (out / "video").iterdir())
+    counts = dict(mp4=mp4_frames(out / "video/video_out.mp4"), avi=read_avi_frame_count(out / "video/video_out.avi"),
+                  gif=gif_frames(out / "video/video_out.gif"))
+    raw = (out / "video/video_out.mp4").read_bytes()
+    codec = "H.264" if b"avc1" in raw else "MJPEG"
+    decoded = None
+    if h264_available():
+        it, w, h, _ = read_video_frames(out / "video/video_out.mp4")
+        frames = list(it)
+        decoded = (len(frames), w, h, float(np.mean([fr.mean() for fr in frames])))
+    print(f"scene video: a {VIDEO_SECONDS:.0f} s scene in the flagship room with the image {MEDIA_IMAGE.name} on "
+          f"{event.alias}, generate(compiled=True, video=True) in {video_s:.3f} s (host clock); files {files}; frames {counts}; MP4 "
+          f"{codec}, decoded {decoded}; launches {v_launches}", flush=True)
+    n_frames = int(round(VIDEO_SECONDS * scene.video_fps))
+    if set(counts.values()) != {n_frames} or (decoded is not None and decoded[:3] != (n_frames, width, height)):
+        fail("the scene video's frames")
+    for name in ("first_hit_big", "any_hit", "deposit_histogram"):
+        if v_launches[name] <= 0:
+            fail(f"the video scene never launched {name}")
+    # One launch a bounce of the plan path's trace, one for the panorama
+    check_first_hits(v_launches, int(ENGINE["indirect_ray_depth"]) + 1, "the video scene")
+    return v_launches
+
+
+def media_phase(mesh, renderer, scene_inputs: tuple, fg: Path, out: Path, dev) -> dict:
+    """Stage timers, acoustic imaging, MUSIC DOA, the scene video and the
+    Scene-API entries on the card (`timers_check`, `acoustic_image_check`,
+    `video_check`, `entries_check`), their stages timed by a
+    `Profiler(sync=True)` whose report is printed. Returns the panorama's
+    and video scene's launches."""
+    from audiblelight_tpu_torch.io.h264 import h264_available
+    from audiblelight_tpu_torch.profiling import Profiler
+
+    try:
+        import PIL
+
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    shim = h264_available()
+    print(f"media: PIL {pil if pil else 'absent'}; H.264 shim {'built and loaded' if shim else 'unavailable'}",
+          flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    prof = Profiler(sync=True)
+    timers = timers_check(renderer, scene_inputs, prof, out, dev)
+    acoustic_image_check(mesh, fg, prof, out, dev)
+    entries_check(fg, prof, out)
+    launches = video_check(mesh, renderer, fg, pil is not None, prof, out, dev)
+    print("media phase stages (Profiler(sync=True)):\n" + prof.report(), flush=True)
+    return dict(timers, video_launches=launches)
+
 
 
 def main() -> int:
@@ -4898,6 +5316,13 @@ def main() -> int:
     # trajectory, transmission through faces
     assets_n = assets_phase(mesh, renderer, scenes[0], OUT / "assets", dev)
     print(f"--assets CLI: launches {assets_n}")
+
+    elapsed(t_start, "media: stage timers, acoustic images, DOA, video, entries")
+    # 22. The last modules: stage timers (peak memory, a trace), the flagship
+    # acoustic image, the imaging and DOA entries, the panorama (K1 big on
+    # 204,800 pixel rays) and a scene video, the scripts/generate entries
+    media_n = media_phase(mesh, renderer, scenes[0], fg, OUT / "media", dev)
+    print(f"media: {media_n}")
 
     main_launches = dict(launches, first_hit_small=small_n["first_hit_small"],
                          deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"],

@@ -752,3 +752,105 @@ def test_tiled_and_mxu_trees_match_plain(card, accel_rooms, which, kind):
     for t, i in ((t_p, i_p), (t_d, i_d)):
         assert torch.equal(i, i_k) and torch.equal(t.view(torch.int32), t_k.view(torch.int32))
     assert torch.equal(visits, vis_p)
+
+
+@pytest.mark.cuda
+def test_synced_stage_includes_the_kernels_time(card):
+    """A stage with sync=True ends after the work it launched: its time is
+    at least the device time of its kernels (CUDA events), where the same
+    launches in an unsynced stage return after the enqueue."""
+    from audiblelight_tpu_torch.profiling import Profiler
+
+    x = torch.randn(4096, 4096, device=card)
+    x @ x
+    torch.cuda.synchronize()
+    prof = Profiler(sync=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with prof.stage("matmul"):
+        start.record()
+        for _ in range(20):
+            y = x @ x
+        end.record()
+    device_s = start.elapsed_time(end) / 1e3  # valid only once the stage has synchronised
+    assert prof.stages["matmul"].total_seconds >= device_s > 0
+    unsynced = Profiler(sync=False)
+    with unsynced.stage("matmul"):
+        for _ in range(20):
+            y = x @ x
+    torch.cuda.synchronize()
+    assert unsynced.stages["matmul"].total_seconds < prof.stages["matmul"].total_seconds
+    assert prof.block(y) is y
+
+
+@pytest.mark.cuda
+def test_device_memory_stats_on_the_card(card):
+    from audiblelight_tpu_torch.profiling import device_memory_stats
+
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=card)
+    stats = device_memory_stats()
+    got = stats[str(torch.device("cuda", 0))]
+    assert got["bytes_in_use"] >= x.numel() and got["peak_bytes_in_use"] >= got["bytes_in_use"]
+    assert got["bytes_limit"] >= got["peak_bytes_in_use"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rig", ["ambeovr", "eigenmike32"])
+def test_acoustic_image_card_matches_cpu(card, rig):
+    """The acoustic image's device half on the card against the same
+    functions on the CPU, on the same host visibilities (sh_order 10, 9
+    bands, 30 frames): the normalised visibilities within 1e-5 of each
+    matrix's largest entry, and each frame's APGD solve from the same warm
+    start (the CPU chain's previous frame) within 1e-4 of the image's peak.
+    Chained over 30 frames, float32 solves of the Eigenmike32 drift apart by
+    up to 1e-2 of peak (the reference's own float32 chain is 1.4e-2 of peak
+    from a float64 solve there, ROADMAP section 3), so the whole chain
+    through `get_visibility_matrix` is held at 1e-4 on the AmbeoVR only."""
+    from audiblelight_tpu_torch import imaging
+    from audiblelight_tpu_torch.micarrays import AmbeoVR, Eigenmike32
+    from audiblelight_tpu_torch.utils import polar_to_cartesian
+
+    coords = (AmbeoVR() if rig == "ambeovr" else Eigenmike32()).coordinates_polar
+    rng = np.random.default_rng(3)
+    sr = 24000
+    xyz = polar_to_cartesian(coords).T
+    a3 = imaging.steering_operator(xyz, imaging.get_field(3))
+    audio = np.real(np.outer(np.sin(2 * np.pi * 3000.0 * np.arange(3 * sr) / sr), a3[:, 10].conj()))
+    audio = audio + 0.05 * rng.standard_normal(audio.shape)
+    sig = imaging.band_visibilities(audio, imaging.band_frequencies(9, 1500, 4500, "linear"), sr, 50.0, 10e-3, 30)
+    a = imaging.steering_operator(xyz, imaging.get_field(10))
+    cpu = torch.device("cpu")
+    s_c = imaging.normalised_visibilities(imaging._complex64(sig, cpu))
+    s_g = imaging.normalised_visibilities(imaging._complex64(sig, card)).cpu()
+    assert ((s_g - s_c).abs() <= 1e-5 * s_c.abs().amax(dim=(-2, -1), keepdim=True)).all()
+    a_c = imaging._complex64(a, cpu)
+    l_ = torch.tensor(2.0 * imaging.eigh_max(a, "cpu"), dtype=torch.float32)
+    chain = imaging.apgd_frames(s_c, a_c, l_)  # (bands, frames, N)
+    warm = torch.cat([torch.zeros_like(chain[:, :1]), chain[:, :-1]], dim=1)
+    got = imaging.apgd_solve(s_c.to(card), a_c.to(card), l_.to(card), warm.to(card)).cpu()
+    peak = float(chain.abs().max())
+    assert got.shape == chain.shape == (9, 30, 484) and peak > 0
+    assert float((got - chain).abs().max()) <= 1e-4 * peak
+    if rig == "ambeovr":
+        whole = imaging.get_visibility_matrix(audio, coords, device=card, sr=sr, frame_cap=30)
+        want = imaging.get_visibility_matrix(audio, coords, device="cpu", sr=sr, frame_cap=30)
+        assert whole.shape == want.shape == (484, 9, 30)
+        assert np.abs(whole - want).max() <= 1e-4 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_caps", [4, 32])
+def test_apgd_graph_equals_eager(card, n_caps):
+    """The APGD chain replayed from one captured frame (a CUDA graph) equals
+    the eager chain on the card bit for bit."""
+    from audiblelight_tpu_torch import imaging
+
+    rng = np.random.default_rng(n_caps)
+    x = rng.standard_normal((9, 12, n_caps, 8)) + 1j * rng.standard_normal((9, 12, n_caps, 8))
+    sig = torch.as_tensor((x @ x.conj().transpose(0, 1, 3, 2)).astype(np.complex64), device=card)
+    a = torch.as_tensor(np.exp(1j * rng.uniform(0, 6.3, (n_caps, 484))).astype(np.complex64), device=card)
+    l_ = torch.tensor(2.0 * imaging.eigh_max(a, card), dtype=torch.float32, device=card)
+    s_norm = imaging.normalised_visibilities(sig)
+    got = imaging.apgd_frames(s_norm, a, l_)
+    want = imaging.apgd_frames_eager(s_norm, a, l_)
+    assert got.shape == (9, 12, 484) and float(want.max()) > 0
+    assert torch.equal(got, want)

@@ -176,9 +176,16 @@ def test_generate_writes_the_reference_files(scenes, tmp_path):
 
 def test_generate_signature_matches_reference(scenes, tmp_path):
     """`generate` takes the reference's parameters in the reference's order
-    (`video_fname` before `compiled`), accepts `video_fname`, and still
-    refuses `video=True`."""
+    (`video_fname` before `compiled`), accepts `video_fname`, and with
+    `video=True` writes the reference's three video files for this 8 s rlr
+    scene: `clip.mp4`, `clip.avi` and `clip.gif`, 80 frames each at the
+    Scene's 10 fps (the render refreshes the emitters' directions first)."""
     import inspect
+    import struct
+
+    from PIL import Image
+
+    from audiblelight_tpu_torch.io.avi import read_avi_frame_count
 
     def params(fn):
         return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]
@@ -187,8 +194,22 @@ def test_generate_signature_matches_reference(scenes, tmp_path):
     got, _ = scenes
     got.generate(tmp_path, False, True, True, "audio_out", "metadata_out", False, "clip")
     assert sorted(p.name for p in tmp_path.iterdir()) == ["metadata_out.json", "metadata_out_mic000.csv"]
-    with pytest.raises(NotImplementedError, match="1.3"):
-        got.generate(output_dir=tmp_path, audio=False, video=True, video_fname="clip")
+    (tmp_path / "video").mkdir()
+    got.generate(output_dir=tmp_path / "video", metadata_json=False, metadata_dcase=False, video=True,
+                 video_fname="clip")
+    assert sorted(p.name for p in (tmp_path / "video").iterdir()) == [
+        "audio_out_mic000.wav", "clip.avi", "clip.gif", "clip.mp4"]
+    assert got.video_fps == 10
+    raw = (tmp_path / "video/clip.mp4").read_bytes()
+    stsz = raw.index(b"stsz")
+    assert struct.unpack(">I", raw[stsz + 12:stsz + 16])[0] == 80
+    assert read_avi_frame_count(tmp_path / "video/clip.avi") == 80
+    with Image.open(tmp_path / "video/clip.gif") as gif:  # identical frames merge: count by duration
+        durations = []
+        for i in range(gif.n_frames):
+            gif.seek(i)
+            durations.append(gif.info["duration"])
+        assert gif.size == (640, 320) and sum(durations) == 80 * 100
 
 
 def _box_state(faces, **kwargs):
