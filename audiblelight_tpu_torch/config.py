@@ -11,6 +11,7 @@ SAMPLE_RATE = 44100
 
 # Scene
 DEFAULT_REF_DB = -65
+MIN_REF_DB, MAX_REF_DB = -80, -50
 MAX_OVERLAP = 2
 WARN_WHEN_SCENE_DURATION_BELOW = 5
 
@@ -21,8 +22,11 @@ MIN_EVENT_DURATION, MAX_EVENT_DURATION = 2.0, 10.0
 MIN_EVENT_SNR, MAX_EVENT_SNR = 5.0, 30.0
 DEFAULT_EVENT_VELOCITY = (MAX_EVENT_VELOCITY - MIN_EVENT_VELOCITY) / 2
 DEFAULT_EVENT_RESOLUTION = (MAX_EVENT_RESOLUTION - MIN_EVENT_RESOLUTION) / 2
+DEFAULT_EVENT_DURATION = (MAX_EVENT_DURATION - MIN_EVENT_DURATION) / 2
+DEFAULT_EVENT_SNR = (MAX_EVENT_SNR - MIN_EVENT_SNR) / 2
 
 # World state and placement
+DEFAULT_BACKEND = "rlr"
 MESH_UNITS = "meters"
 MIN_AVG_RAY_LENGTH = 3.0
 NUM_RAYS = 100
@@ -44,6 +48,9 @@ WIN_SIZE = 256
 HOP_SIZE = 128
 SPEED_OF_SOUND = 343.0
 
+# Padded sizes of a scene's render plan
+MAX_EVENTS_PER_SCENE = 16
+MAX_EMITTERS_PER_EVENT = 64  # trajectory points of a moving event
 MAX_IR_SECONDS = 1.0
 RAY_TRACER_DIRECT_RAY_COUNT = 500
 RAY_TRACER_INDIRECT_RAY_COUNT = 5000
@@ -51,6 +58,7 @@ RAY_TRACER_INDIRECT_RAY_DEPTH = 200
 RAY_TRACER_DIRECT_SH_ORDER = 3
 RAY_TRACER_INDIRECT_SH_ORDER = 1
 RAY_TRACER_FREQUENCY_BANDS = 4
+RAY_TRACER_MAX_IR_LENGTH = 4.0
 
 # CUDA tensors go through the hand-written kernels (ops/cuda_kernels.py).
 # With False a CUDA tensor raises instead: there is no silent plain route on
@@ -61,6 +69,11 @@ USE_CUDA_KERNELS = True
 # diffraction graph legs (worldstate.mesh_backend.MeshDeviceState), and, with
 # USE_TILED_FIRST_HIT, a face tree for K7 when the full mesh is traced.
 GRID_ACCEL_MIN_FACES = 16384
+
+# Star any-hit (K6) for the exact rain mode's per-bounce visibility on big
+# nonconvex acoustic meshes (MeshDeviceState.star_accel_for). With False the
+# exact mode queries the dense any-hit (K2) on the mesh's any-hit tree.
+USE_STAR_OCCLUSION = True
 
 # Tiled first hit (ops/tiled_first_hit.py, K7) when the full mesh is traced:
 # the dense classic Moller-Trumbore first hit (on the card a per-ray walk of
@@ -79,6 +92,7 @@ MESH_SIMPLIFICATION_TARGET_FACES = 4096
 # Video (Scene's video settings; the scene video is 640 x 320 frames)
 VIDEO_RESOLUTION = (1920, 960)  # width, height
 VIDEO_FPS = 10
+VIDEO_TEXTURE_DECIMATE = (536, 536)
 VIDEO_OVERLAY_DISTANCE_SCALE_FACTOR = 1.0
 VIDEO_OVERLAY_BASE_SIZE = 0.5
 
@@ -87,6 +101,7 @@ SCENE_DURATION = 60
 DEFAULT_STATIC_EVENTS = 4
 DEFAULT_MOVING_EVENTS = 1
 MIC_ARRAY_TYPE = "ambeovr"
+DEFAULT_CHANNEL_LAYOUT = "mic"
 N_SCENES = 1000
 
 # Acoustic imaging (APGD)

@@ -192,6 +192,25 @@ class TriMesh:
         self._is_convex = bool(np.all(s >= -tol) or np.all(s <= tol))
         return self._is_convex
 
+    def sample_surface(self, n: int, rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        """`n` points drawn uniformly from the surface (area-weighted), in
+        the reference's order of draws from `rng` (a fresh generator when
+        None): the faces, then the two barycentric uniforms."""
+        rand = rng if rng is not None else np.random.default_rng()
+        areas = self.face_areas
+        face_idx = rand.choice(len(self.faces), size=n, p=areas / areas.sum())
+        tri = self.triangles[face_idx]
+        u = rand.uniform(size=(n, 1))
+        v = rand.uniform(size=(n, 1))
+        over = (u + v) > 1
+        u = np.where(over, 1 - u, u)
+        v = np.where(over, 1 - v, v)
+        return tri[:, 0] + u * (tri[:, 1] - tri[:, 0]) + v * (tri[:, 2] - tri[:, 0])
+
+    def scaled(self, factor: float) -> "TriMesh":
+        """A copy with the vertices scaled by `factor`."""
+        return TriMesh(self.vertices * factor, self.faces.copy(), dict(self.metadata))
+
     def subdivided(self, levels: int = 1) -> "TriMesh":
         """Midpoint-subdivide each face into 4, `levels` times (watertight in,
         watertight out: midpoints are shared per edge)."""

@@ -552,3 +552,21 @@ def ambeovr_capsules(center) -> np.ndarray:
     """(4, 3) absolute capsule positions of an AmbeoVR centred at `center`."""
     mic = AmbeoVR()
     return mic.set_absolute_coordinates(np.asarray(center, dtype=np.float64))
+
+
+__all__ = [
+    "sanitize_microphone_input",
+    "MicArray",
+    "Binaural",
+    "Eigenmike32",
+    "Eigenmike64",
+    "MonoCapsule",
+    "AmbeoVR",
+    "MICARRAY_LIST",
+    "FOAListener",
+    "HOAListener",
+    "dynamically_define_micarray",
+    "CHANNEL_LAYOUT_TYPES",
+    "ChannelLayout",
+    "ChannelLayoutType",
+]

@@ -45,6 +45,8 @@ from typing import NamedTuple
 import torch
 
 from audiblelight_tpu_torch.ops.cuda_kernels import (
+    MXU_EPS_UV,
+    MXU_T_EPS,
     FaceBVH,
     big_face_table,
     first_hit_mxu,
@@ -57,6 +59,8 @@ from audiblelight_tpu_torch.utils import dot3
 
 MXU_F_TILE = 1024  # the reference's face columns come in multiples of this
 MXU_F_MAX = 8192  # the reference's table bound; bigger meshes keep the dense kernel
+EPS_UV = MXU_EPS_UV  # relative barycentric slop of the window
+T_EPS = MXU_T_EPS  # least hit distance (m)
 
 
 class MxuFaceTables(NamedTuple):
@@ -153,3 +157,6 @@ def mxu_first_hit_plain(tables: MxuFaceTables, origins: torch.Tensor, dirs: torc
     t_exact = torch.where(t_exact > 0.0, t_exact, t_sel)
     hit = idx >= 0
     return torch.where(hit, t_exact, torch.full_like(t_exact, float("inf"))), torch.where(hit, idx, -1)
+
+
+__all__ = ["MxuFaceTables", "build_mxu_face_tables", "mxu_first_hit", "MXU_F_MAX"]

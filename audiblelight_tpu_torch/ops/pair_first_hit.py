@@ -39,7 +39,7 @@ import torch
 
 from audiblelight_tpu_torch.ops.cuda_kernels import (PFH_LANES, FaceBVH, _lex_min, big_keep, build_face_bvh,
                                                      first_hit_pair, pair_tile_plain, tile_entries)
-from audiblelight_tpu_torch.ops.sorted_first_hit import SortedTiles, _rays, padded_sorted_tris
+from audiblelight_tpu_torch.ops.sorted_first_hit import SortedTiles, _rays, build_sorted_tiles, padded_sorted_tris
 
 _BIG = 3.0e38
 _IDX_BIG = 2**30
@@ -195,3 +195,6 @@ def pair_rounds(tiles: SortedTiles, origins: torch.Tensor, dirs: torch.Tensor, a
     idx = torch.where(torch.isfinite(t), best_i, -1)
     return t, idx, dict(rounds=rounds, pairs=pairs, unresolved_first=unresolved_first,
                         needed=((enter0 <= t[:, None]) & torch.isfinite(enter0)).sum())
+
+
+__all__ = ["pair_first_hit", "build_sorted_tiles", "SortedTiles"]

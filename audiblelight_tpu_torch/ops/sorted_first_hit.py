@@ -174,3 +174,6 @@ def sorted_walk(tiles: SortedTiles, tree: FaceBVH, origins: torch.Tensor, dirs: 
     each ray's visits: (t, face, visits (R, 2) int32 = slab tests, leaves
     folded; 0 for a dead ray)."""
     return sorted_walk_plain(*_rays(origins, dirs, alive), tiles.center, tree)
+
+
+__all__ = ["SortedTiles", "build_sorted_tiles", "sorted_first_hit", "TILE_FACES"]

@@ -179,3 +179,6 @@ def star_segments_occluded(accel: StarAccel, starts: torch.Tensor, end: torch.Te
 def star_segments_occluded_plain(accel: StarAccel, starts: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
     """`star_segments_occluded` through the kernel's plain walk (any device)."""
     return any_hit_walk_plain(*_star_inputs(starts, end), accel.tree)[0]
+
+
+__all__ = ["StarAccel", "build_star_accel", "star_segments_occluded"]

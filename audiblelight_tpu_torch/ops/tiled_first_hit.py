@@ -137,3 +137,6 @@ def tiled_walk(tree: FaceBVH, origins: torch.Tensor, dirs: torch.Tensor):
     the walk's counts: (t, face, visits (R, 2) int32 = box tests, leaves
     folded per ray)."""
     return tiled_walk_plain(*_rays(origins, dirs), tree)
+
+
+__all__ = ["MeshTiles", "build_mesh_tiles", "build_tiled_tree", "tiled_first_hit"]

@@ -654,3 +654,13 @@ def write_wav(path, payload: torch.Tensor, sample_rate: int) -> Path:
     path = Path(path)
     wav_write(path, payload.cpu().numpy(), int(sample_rate))
     return path
+
+
+__all__ = [
+    "mic_channel_spans",
+    "stems_from_plan",
+    "mix_plan_host",
+    "render_scene_audio_compiled",
+    "render_scenes_pipelined",
+    "FusedSceneRenderer",
+]

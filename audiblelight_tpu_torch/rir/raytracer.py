@@ -59,14 +59,14 @@ from audiblelight_tpu_torch.ops.cuda_kernels import (
 )
 from audiblelight_tpu_torch.ops.mxu_first_hit import MXU_F_MAX, build_mxu_face_tables, mxu_first_hit
 from audiblelight_tpu_torch.ops.star_occlusion import star_segments_occluded
-from audiblelight_tpu_torch.ops.tiled_first_hit import tiled_first_hit
+from audiblelight_tpu_torch.ops.tiled_first_hit import MeshTiles, build_tiled_tree, tiled_first_hit
 from audiblelight_tpu_torch.rir.sh import (
     ambisonic_encoding_gains,
     encoding_channels,
     spherical_head_gains,
     woodworth_itd,
 )
-from audiblelight_tpu_torch.utils import cross3, dot3, irfft_real, norm3
+from audiblelight_tpu_torch.utils import cross3, dot3, irfft_real, norm3, resolve_device
 
 
 def _check_encoding(encoding: str, cl: int) -> None:
@@ -1063,3 +1063,209 @@ def trace_rirs_batch(
             )
         out.append(irs.movedim(0, 1))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Single-source entries: the reference's one-source API, each a thin wrapper
+# over the batched functions above with one source, so the bounce, rain,
+# deposit and synthesis code exists once
+# ---------------------------------------------------------------------------
+
+
+def _entry_device(device, *arrays) -> torch.device:
+    """Where a single-source entry runs: `device` where the caller names
+    one, else the first tensor argument's device, else the card
+    (`utils.resolve_device`: raises without one)."""
+    if device is not None:
+        return resolve_device(device)
+    for x in arrays:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return resolve_device(None)
+
+
+def _on(x, dev, dtype=torch.float32):
+    """`x` (a tensor, an array or None) as a `dtype` tensor on `dev`."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=dtype)
+    return torch.as_tensor(np.asarray(x), device=dev).to(dtype)
+
+
+def _generator(gen, dev) -> torch.Generator:
+    """A torch.Generator on `dev`: `gen` itself, or one seeded with the int `gen`."""
+    if isinstance(gen, torch.Generator):
+        return gen
+    return torch.Generator(device=dev).manual_seed(int(gen))
+
+
+def _route_kwargs(tris: torch.Tensor, face_chunk, accel, mesh_tiles) -> dict:
+    """The port's first-hit and any-hit keywords for the reference's
+    `face_chunk`, `accel` and `mesh_tiles`.
+
+    `accel` (the reference's grid) becomes the trees that the caller keeps
+    per mesh: an object with `first_hit_table(tris)`, `any_hit_tree(tris)`
+    and `mxu_tables(tris)`, as `worldstate.mesh_backend.MeshDeviceState`
+    (`WorldStateRLR.device_state`); pass its own `tris` / `acoustic_tris`
+    so that its cached trees serve. `mesh_tiles`, K7's route, is a tree of
+    `ops.tiled_first_hit.build_tiled_tree`, or the reference's layout
+    (`build_mesh_tiles`), whose faces are `tris`' and whose tree is built
+    here. `face_chunk` has no counterpart."""
+    if face_chunk is not None:
+        raise TypeError("face_chunk has no counterpart in the port: its kernels walk face trees, "
+                        "they do not stream the faces in chunks")
+    kw = {}
+    if accel is not None:
+        if not all(hasattr(accel, a) for a in ("first_hit_table", "any_hit_tree", "mxu_tables")):
+            raise TypeError(f"accel must hold the mesh's trees (a MeshDeviceState), got {type(accel).__name__}: "
+                            "the port has no grid")
+        kw.update(any_hit_tree=accel.any_hit_tree, mxu_tables=accel.mxu_tables(tris))
+        if mesh_tiles is None and kw["mxu_tables"] is None:
+            kw["fh_table"] = accel.first_hit_table(tris)
+    if mesh_tiles is not None:
+        kw["tiled_tree"] = build_tiled_tree(tris, tris.device) if isinstance(mesh_tiles, MeshTiles) else mesh_tiles
+    return kw
+
+
+def trace_energy_histogram(
+    gen,
+    tris,
+    face_absorption,
+    face_scattering,
+    source_pos,
+    listener_pos,
+    n_rays: int = 2000,
+    max_depth: int = 50,
+    n_bins: int = 512,
+    bin_dt: float = 0.002,
+    c: float = config.SPEED_OF_SOUND,
+    encoding: str = "omni",
+    face_chunk=None,
+    *,
+    occlusion: bool = True,
+    tri_normals=None,
+    face_transmission=None,
+    transmission: bool = False,
+    shared_visibility: bool = True,
+    accel=None,
+    star=None,
+    mesh_tiles=None,
+    face_occlusion=None,
+    sh_order: int = 1,
+    decimate: bool = False,
+    hrtf=None,
+    device=None,
+) -> torch.Tensor:
+    """Trace rays from one source: per-channel per-band energy histograms
+    (C_out, B, n_bins), `trace_energy_histogram_multi` with one source.
+
+    `gen` is a torch.Generator on the device, or an int seed. The arrays
+    (tensors or numpy) are those of `trace_energy_histogram_multi`, with
+    `source_pos` (3,) and `listener_pos` (C, 3); `face_occlusion` is the
+    (C_occ, F) rain table. `accel`, `mesh_tiles` and `face_chunk` as in
+    `_route_kwargs`; `star` is an `ops.star_occlusion.StarAccel` of `tris`.
+    Runs on `device`, else the device of the tensors passed, else the card.
+    """
+    dev = _entry_device(device, tris, source_pos, listener_pos)
+    tris = _on(tris, dev)
+    return trace_energy_histogram_multi(
+        _generator(gen, dev), tris, _on(face_absorption, dev), _on(face_scattering, dev),
+        _on(source_pos, dev).reshape(1, 3), _on(listener_pos, dev).reshape(-1, 3),
+        n_rays=n_rays, max_depth=max_depth, n_bins=n_bins, bin_dt=bin_dt, c=c,
+        face_occlusion=_on(face_occlusion, dev, torch.bool), tri_normals=_on(tri_normals, dev), star=star,
+        occlusion=occlusion, shared_visibility=shared_visibility, decimate=decimate, encoding=encoding,
+        sh_order=sh_order, hrtf=hrtf, transmission=transmission, face_transmission=_on(face_transmission, dev),
+        **_route_kwargs(tris, face_chunk, accel, mesh_tiles),
+    )[0]
+
+
+def direct_path_ir(
+    tris,
+    source_pos,
+    listener_pos,
+    n_samples: int,
+    sr: int = config.SAMPLE_RATE,
+    c: float = config.SPEED_OF_SOUND,
+    encoding: str = "omni",
+    accel=None,
+    sh_order: int = 3,
+    hrtf=None,
+    device=None,
+) -> torch.Tensor:
+    """The exact direct path of one source, (C_out, n_samples):
+    `direct_paths_ir` with one source. `accel` holds the mesh's any-hit
+    tree (see `_route_kwargs`); the device as in `trace_energy_histogram`."""
+    dev = _entry_device(device, tris, source_pos, listener_pos)
+    tris = _on(tris, dev)
+    tree = None
+    if accel is not None:
+        tree = _route_kwargs(tris, None, accel, None)["any_hit_tree"](tris)
+    return direct_paths_ir(tris, _on(source_pos, dev).reshape(1, 3), _on(listener_pos, dev).reshape(-1, 3),
+                           n_samples, sr=sr, c=c, encoding=encoding, sh_order=sh_order, tree=tree, hrtf=hrtf)[0]
+
+
+def trace_rirs(
+    gen,
+    tris,
+    face_absorption,
+    face_scattering,
+    source_pos,
+    listener_pos,
+    n_samples: int,
+    sr: int = config.SAMPLE_RATE,
+    n_rays: int = 2000,
+    max_depth: int = 50,
+    bin_dt: float = 0.002,
+    c: float = config.SPEED_OF_SOUND,
+    encoding: str = "omni",
+    face_chunk=None,
+    *,
+    occlusion: bool = True,
+    tri_normals=None,
+    face_transmission=None,
+    transmission: bool = False,
+    shared_visibility: bool = True,
+    accel=None,
+    star=None,
+    mesh_tiles=None,
+    face_occlusion=None,
+    tris_direct=None,
+    sh_order_direct: int = 3,
+    sh_order_indirect: int = 1,
+    decimate: bool = False,
+    hrtf=None,
+    device=None,
+) -> torch.Tensor:
+    """The full RIR of one source, (C_out, n_samples): the stochastic tail
+    on `tris` plus the exact direct path on `tris_direct` (default `tris`),
+    `trace_rirs_multi(...)[:, 0]` with one source (bit for bit on the same
+    generator). Keywords as in `trace_energy_histogram`; the device as
+    there."""
+    dev = _entry_device(device, tris, source_pos, listener_pos)
+    tris = _on(tris, dev)
+    return trace_rirs_multi(
+        _generator(gen, dev), tris, _on(face_absorption, dev), _on(face_scattering, dev),
+        _on(source_pos, dev).reshape(1, 3), _on(listener_pos, dev).reshape(-1, 3), n_samples,
+        sr=sr, n_rays=n_rays, max_depth=max_depth, bin_dt=bin_dt, c=c,
+        face_occlusion=_on(face_occlusion, dev, torch.bool), tri_normals=_on(tri_normals, dev), star=star,
+        occlusion=occlusion, shared_visibility=shared_visibility, tris_direct=_on(tris_direct, dev),
+        decimate=decimate, encoding=encoding, sh_order_direct=sh_order_direct, sh_order_indirect=sh_order_indirect,
+        hrtf=hrtf, transmission=transmission, face_transmission=_on(face_transmission, dev),
+        **_route_kwargs(tris, face_chunk, accel, mesh_tiles),
+    )[:, 0]
+
+
+__all__ = [
+    "trace_energy_histogram",
+    "trace_energy_histogram_multi",
+    "trace_energy_histogram_batch",
+    "synthesize_ir_from_histogram",
+    "direct_path_ir",
+    "direct_paths_ir",
+    "diffracted_path_ir",
+    "face_rain_occlusion",
+    "trace_rirs",
+    "trace_rirs_multi",
+    "trace_rirs_batch",
+]

@@ -31,6 +31,7 @@ MJPEG AVI and GIF.
 
 from __future__ import annotations
 
+import importlib
 from collections import Counter
 from time import time
 from typing import TYPE_CHECKING, Optional
@@ -40,7 +41,6 @@ import torch
 
 from audiblelight_tpu_torch import config, utils
 from audiblelight_tpu_torch.io.audio import valid_audio
-from audiblelight_tpu_torch.ops import stft as _stft
 from audiblelight_tpu_torch.ops.convolve import (
     fft_convolve,
     interpolation_matrix,
@@ -49,6 +49,9 @@ from audiblelight_tpu_torch.ops.convolve import (
 )
 from audiblelight_tpu_torch.ops.scaling import normalize_irs as _normalize_irs
 from audiblelight_tpu_torch.utils import logger
+
+# The module: the ops package exports its `stft` function under the same name
+_stft = importlib.import_module("audiblelight_tpu_torch.ops.stft")
 
 if TYPE_CHECKING:  # pragma: no cover
     from audiblelight_tpu_torch.core import Scene

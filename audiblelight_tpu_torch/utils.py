@@ -10,9 +10,12 @@ import json
 import logging
 import os
 import random
+from contextlib import contextmanager
 from functools import cached_property
+from importlib import import_module
 from pathlib import Path
-from typing import Any, Callable, Optional, Union
+from time import time
+from typing import Any, Callable, Generator, Optional, Union
 
 import numpy as np
 import torch
@@ -36,6 +39,20 @@ Numeric = Union[int, float, complex, np.integer, np.floating]
 AUDIO_EXTS = ("wav", "mp3", "mpeg4", "m4a", "flac", "aac")
 # Extensions of the event-image listing, in the reference's order
 IMAGE_EXTS = ("jpg", "jpeg", "png", "pdf", "gif", "tiff", "webp", "eps", "svg", "raw")
+
+
+@contextmanager
+def timer(name: str) -> Generator[None, Any, None]:
+    """Log how long the wrapped block takes (debug level; a warning where
+    it raises)."""
+    start = time()
+    try:
+        yield
+    except Exception as e:
+        logger.warning(f"Took {time() - start:.2f} seconds to {name} and raised {e}.")
+        raise
+    else:
+        logger.debug(f"Took {time() - start:.2f} seconds to {name}.")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -120,6 +137,11 @@ def cartesian_to_polar(cartesian_array: np.ndarray) -> np.ndarray:
     return np.column_stack((np.rad2deg(np.arctan2(y, x)), np.rad2deg(np.arcsin(z / r)), r))
 
 
+def center_coordinates(cartesian_array: np.ndarray) -> np.ndarray:
+    """Subtract the centroid so coordinates are centred around the origin."""
+    return cartesian_array - np.mean(cartesian_array, axis=0)
+
+
 def check_all_lens_equal(*iterables) -> bool:
     """True if all iterables share the same length."""
     return len({len(i) for i in iterables}) == 1
@@ -202,6 +224,36 @@ def sanitise_distribution(x: Any) -> Optional[DistributionWrapper]:
             return DistributionWrapper(x)
         raise TypeError("Callable must return a numeric value to be used as a distribution")
     raise TypeError(f"Expected a distribution-like object or a callable returning floats, but got: {type(x)}")
+
+
+def list_all_directories(root_dir: Union[str, Path]) -> list[str]:
+    """Every directory under root_dir, recursively, as resolved paths."""
+    root_path = Path(root_dir)
+    if not root_path.exists():
+        raise FileNotFoundError(f"Directory '{root_dir}' does not exist")
+    if not root_path.is_dir():
+        raise ValueError(f"'{root_dir}' is not a directory")
+    return [str(p.resolve()) for p in root_path.rglob("*") if p.is_dir()]
+
+
+def list_deepest_directories(root_dir: Union[str, Path]) -> list[str]:
+    """The leaf directories under root_dir (those with no subdirectory)."""
+    all_dirs = sorted([Path(p) for p in list_all_directories(root_dir)], key=lambda p: len(str(p)))
+    deepest = []
+    for d in all_dirs:
+        if not any(other != d and str(other).startswith(str(d) + os.sep) for other in all_dirs):
+            deepest.append(str(d.resolve()))
+    return deepest
+
+
+def list_innermost_directory_names(root_dir: Union[str, Path]) -> list[str]:
+    """Names (not paths) of the leaf directories under root_dir."""
+    return [Path(p).name for p in list_deepest_directories(root_dir)]
+
+
+def list_innermost_directory_names_unique(root_dir: Union[str, Path]) -> set:
+    """The unique names of the leaf directories under root_dir."""
+    return {Path(p).name for p in list_deepest_directories(root_dir)}
 
 
 def sample_distribution(distribution=None, override: Optional[Numeric] = None) -> float:
@@ -386,6 +438,62 @@ def generate_sawtooth_trajectory(xyz_start, xyz_end, n_points: int, amplitude: f
 # ---------------------------------------------------------------------------
 # f32 vector helpers of the tracer
 # ---------------------------------------------------------------------------
+
+
+TRAJECTORY_SHAPES = ("linear", "semicircular", "random", "sinusoidal", "sawtooth")
+
+
+def safe_import(module_name: str, message: str = None) -> Any:
+    """Import an optional dependency, raising ImportError with `message`
+    (or a hint to install it) where it is missing."""
+    try:
+        return import_module(module_name)
+    except ImportError:
+        if message is None:
+            message = f"Cannot import module '{module_name}': try running 'pip install {module_name}'"
+        raise ImportError(message)
+
+
+def dynamic_parallel_run(
+    func: Callable,
+    args_list: Optional[list[tuple]] = None,
+    kwargs_list: Optional[list[dict]] = None,
+    n_jobs: Optional[Numeric] = None,
+    verbosity: Optional[Numeric] = None,
+):
+    """`func` over the argument tuples in joblib workers (host code), the
+    worker count halved each time workers die, serial at one worker or
+    without joblib. `n_jobs` None is config.AIMG_N_JOBS; -1 is every core."""
+    if args_list is None:
+        args_list = []
+    if kwargs_list is None:
+        kwargs_list = [{} for _ in args_list]
+    if n_jobs is None:
+        from audiblelight_tpu_torch.config import AIMG_N_JOBS
+
+        n_jobs = AIMG_N_JOBS
+    if n_jobs == -1:
+        n_jobs = os.cpu_count() or 1
+    current_jobs = sanitise_positive_number(n_jobs, cast_to=int)
+    verbosity = sanitise_positive_number(verbosity or 0, cast_to=int)
+    try:
+        from joblib import Parallel, delayed
+        from joblib.externals.loky.process_executor import TerminatedWorkerError
+    except ImportError:  # pragma: no cover
+        current_jobs = 1
+        TerminatedWorkerError = Exception
+
+    while current_jobs > 1:
+        try:
+            logger.info(f"Trying with n_jobs={current_jobs}...")
+            return Parallel(n_jobs=current_jobs, verbose=verbosity)(
+                delayed(func)(*args_, **kwargs_) for args_, kwargs_ in zip(args_list, kwargs_list)
+            )
+        except TerminatedWorkerError:
+            current_jobs = max(1, current_jobs // 2)
+            logger.error(f"Workers terminated; reducing workers to {current_jobs}...")
+    logger.info("Falling back to serial execution...")
+    return [func(*args_, **kwargs_) for args_, kwargs_ in zip(args_list, kwargs_list)]
 
 
 def cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from audiblelight_tpu_torch import config, utils
-from audiblelight_tpu_torch.geometry.mesh import TriMesh, load_mesh
+from audiblelight_tpu_torch.geometry.mesh import TriMesh, box_mesh, load_mesh
 from audiblelight_tpu_torch.geometry.queries import (
     nearest_surface_distance,
     points_inside_mesh,
@@ -238,10 +238,13 @@ class MeshDeviceState:
     def star_accel_for(self, center, r_pad: float):
         """The cached star occlusion layout of the acoustic mesh about
         `center`, valid for segment ends within `r_pad` of it; keyed by the
-        centre rounded to 0.1 mm and r_pad. None where it does not pay: a
-        convex room, an acoustic mesh under GRID_ACCEL_MIN_FACES faces, or
-        too many faces near the centre (build_star_accel); the exact mode
-        then runs the dense any-hit."""
+        centre rounded to 0.1 mm and r_pad. None where config.
+        USE_STAR_OCCLUSION is off or the layout does not pay: a convex
+        room, an acoustic mesh under GRID_ACCEL_MIN_FACES faces, or too many
+        faces near the centre (build_star_accel); the exact mode then runs
+        the dense any-hit."""
+        if not config.USE_STAR_OCCLUSION:
+            return None
         if self.convex or self.acoustic_tris.shape[0] < config.GRID_ACCEL_MIN_FACES:
             return None
         center = np.asarray(center, dtype=np.float64).reshape(3)
@@ -614,6 +617,38 @@ class WorldStateRLR(PlacementMixin, WorldState):
         self.mesh.__dict__["_native_bvh_cache"] = (len(self.mesh.faces), bvh)
         return bvh
 
+    @property
+    def acoustic_mesh(self) -> TriMesh:
+        """The mesh the stochastic tail traces: the vertex-clustered LOD when
+        the engine config's mesh_simplification is on, else the full mesh
+        (placement and the direct path always use the full mesh)."""
+        return acoustic_mesh(self.mesh, self.cfg)
+
+    @property
+    def diffraction_graph_tris(self) -> Optional[torch.Tensor]:
+        """(F'', 3, 3) triangles the diffraction graph's legs are checked
+        against (the LOD of a mesh of at least GRID_ACCEL_MIN_FACES faces),
+        or None for the full mesh."""
+        return self.device_state.diffraction_graph_tris
+
+    @property
+    def mesh_tiles(self):
+        """K7's face tree of the full mesh (`MeshDeviceState.tiled_tree`),
+        which the tracer's `mesh_tiles` keyword takes, or None where
+        config.USE_TILED_FIRST_HIT is off or the mesh has fewer than
+        GRID_ACCEL_MIN_FACES faces."""
+        return self.device_state.tiled_tree
+
+    def rain_occlusion_for(self, listener_points) -> torch.Tensor:
+        """The cached (P, F') per-face rain-occlusion table of the acoustic
+        mesh toward `listener_points` (`MeshDeviceState.rain_occlusion_for`)."""
+        return self.device_state.rain_occlusion_for(listener_points)
+
+    def star_accel_for(self, center, r_pad: float):
+        """The cached star occlusion layout about `center`, or None where it
+        does not pay (`MeshDeviceState.star_accel_for`)."""
+        return self.device_state.star_accel_for(center, r_pad)
+
     def _get_valid_positions_mask(self, pos_abs: np.ndarray) -> np.ndarray:
         """Batched position validation: distances to objects and surfaces,
         and inside the mesh."""
@@ -779,6 +814,48 @@ class WorldStateRLR(PlacementMixin, WorldState):
             out[alias] = irs[:, :n_src]
         self._irs_device_cache = (cache_key, out)
         return out
+
+    # ------------------------------------------------------------------
+    # Visualisation (host, matplotlib)
+    # ------------------------------------------------------------------
+
+    def create_scene(self) -> dict:
+        """The room with a marker box for every microphone capsule and every
+        emitter: a dict of named TriMesh parts ("mesh", "<mic>_capsuleNNN",
+        "<event>_NNN"), as the reference returns it."""
+        parts = {"mesh": self.mesh}
+        marker = [0.12, 0.12, 0.12]
+        for alias, mic in self.microphones.items():
+            for ci, cap in enumerate(np.atleast_2d(mic.coordinates_absolute)):
+                parts[f"{alias}_capsule{ci:03d}"] = box_mesh(extents=marker, center=cap, inward_normals=False)
+        for alias, emitters in self.emitters.items():
+            for ei, em in enumerate(emitters):
+                parts[f"{alias}_{ei:03d}"] = box_mesh(extents=marker, center=em.coordinates_absolute,
+                                                      inward_normals=False)
+        return parts
+
+    def create_plot(self):
+        """A matplotlib figure: top and side views of the mesh's vertices,
+        the microphones (red) and the emitters (blue)."""
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots(1, 2, figsize=(20, 10))
+        vertices = self.mesh.vertices
+        mic_positions = np.vstack([np.atleast_2d(m.coordinates_absolute) for m in self.microphones.values()])
+        emitter_positions = np.vstack([x.coordinates_absolute for xs in self.emitters.values() for x in xs])
+        for ax_, idx, ylab, title in zip(ax.flatten(), [1, 2], ["Y", "Z"], ["Top", "Side"]):
+            ax_.scatter(vertices[:, 0], vertices[:, idx], c="gray", alpha=0.1, s=1)
+            ax_.scatter(mic_positions[:, 0], mic_positions[:, idx], c="red", s=100, label="Microphone")
+            ax_.scatter(emitter_positions[:, 0], emitter_positions[:, idx], c="blue", s=25, alpha=0.5,
+                        label="Emitters")
+            ax_.set_xlabel("X")
+            ax_.set_ylabel(ylab)
+            ax_.set_title(f"{title} view of {self.mesh.metadata.get('fpath', 'mesh')}")
+            ax_.legend()
+            ax_.axis("equal")
+            ax_.grid(True)
+        fig.tight_layout()
+        return fig
 
     # ------------------------------------------------------------------
     # Serialisation

@@ -190,7 +190,19 @@ exact CLI scene's bounces), then drives the port's two main paths:
   with its bound) and, where PIL imports, a 10 s scene with an event image
   through `generate(compiled=True, video=True)` (MP4, AVI and GIF of 100
   frames, the MP4 decoded where the shim loads); `random_events`,
-  `dcase_format` and `scene_timing`.
+  `dcase_format` and `scene_timing`;
+- the front door and the last public API (`api_phase`): a fresh process
+  that imports the package from its front door and every module of it (no
+  JAX, no CUDA context, no kernel built); `trace_rirs` of one flagship
+  source for omni (AmbeoVR), FOA and binaural at 5,000 rays x 60 bounces
+  (K1 big on the LOD, K2 on the direct path, K3, K4 and K5), every launch
+  held against its plain version (K1 and K2 bit for bit; K3-K5 with bins
+  identical and within 1e-5 of each histogram's peak, their plain folds
+  adding with `index_add_`'s atomics on the card), each call timed by CUDA
+  events and repeated bit for bit on the same seed, each kernel checked and
+  timed at the trace's one-source shapes as on the flagship's bounces; and
+  the port's seven examples (`audiblelight_tpu_torch/examples/`) at the
+  reference's sizes on the card, their files and launches checked.
 
 Each path's kernel launches are counted from zero just before it and read
 just after; a kernel of the path that did not launch fails the run, and so
@@ -2889,7 +2901,8 @@ def host_bvh_check(mesh, dev) -> None:
         h_in = host_ms(lambda: bvh.contains(pts[:n]))
         h_near = host_ms(lambda: bvh.nearest_surface_distance(pts[:n]))
         c_in = card_ms(lambda: points_inside_mesh(p_t[:n], st.tris))
-        c_near = card_ms(lambda: nearest_surface_distance(p_t[:n], st.tris))
+        # The card's dense distance takes ~12 s at 10,000 points: one timed call there
+        c_near = card_ms(lambda: nearest_surface_distance(p_t[:n], st.tris), reps=1 if n == 10_000 else 5)
         print(f"host BVH per call at {n} points: point in mesh {h_in:.4f} ms (card {c_in:.4f} ms), nearest surface "
               f"{h_near:.4f} ms (card {c_near:.4f} ms); host clock, the card's with its read", flush=True)
     for n in (1, 1_000):
@@ -4600,6 +4613,215 @@ def media_phase(mesh, renderer, scene_inputs: tuple, fg: Path, out: Path, dev) -
 
 
 
+API_ENCODINGS = (("omni", "deposit_histogram"), ("foa", "deposit_histogram_foa"), ("binaural", "bin_histogram"))
+API_TRACE = dict(n_samples=SR, sr=SR, n_rays=5000, max_depth=60, bin_dt=0.002, decimate=True)
+# The port's examples: what each leaves in its output directory, and the
+# kernels its run on the card must launch
+EXAMPLES = {
+    "01_shoebox_quickstart": (["scene/audio_out_mic000.wav", "scene/metadata_out_mic000.csv"], ()),
+    "02_mesh_raytraced": (["room.obj", "scene/audio_out_mic000.wav", "scene/metadata_out_mic000.csv"],
+                          ("first_hit_small", "any_hit", "deposit_histogram_foa")),
+    "03_sofa_measured": (["room.sofa", "head.sofa", "scene/audio_out_mic000.wav", "binaural/audio_out_head.wav"],
+                         ()),
+    "04_sharded_batch": (["fg/music/tone.wav"], ()),
+    "05_imaging_doa": (["scene/audio_out_mic000.wav", "scene/acoustic_image_mic000.hdf"], ()),
+    "06_augmentations": (["fg/music/tone.wav"], ()),
+    "07_scanned_room_video": (["audio_out_m.wav", "metadata_out_m.csv", "video_out.mp4", "video_out.gif"],
+                              ("first_hit_big", "any_hit", "deposit_histogram")),
+}
+FRONT_DOOR_PROBE = """
+import importlib, json, pkgutil, sys
+import torch
+from audiblelight_tpu_torch import Scene, Event, Ambience, MicArray, WorldState, __version__
+import audiblelight_tpu_torch
+for info in pkgutil.walk_packages(audiblelight_tpu_torch.__path__, "audiblelight_tpu_torch."):
+    importlib.import_module(info.name)
+from audiblelight_tpu_torch.ops import build
+print(json.dumps(dict(version=__version__, jax=sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "audiblelight_tpu")),
+                      cuda=torch.cuda.is_initialized(), built=sorted(build._LOADED))))
+"""
+
+
+def record_launches(rt, names: tuple, kept: dict) -> dict:
+    """Stand-ins for the tracer module `rt`'s kernel entries `names` that
+    keep every launch's inputs and outputs (clones) in `kept[name]` and
+    return the entry's own result. Returns the originals, to restore."""
+    saved = {n: getattr(rt, n) for n in names}
+
+    def keeper(name, fn):
+        def keep(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            clone = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+            res = tuple(map(clone, out)) if isinstance(out, tuple) else clone(out)
+            kept.setdefault(name, []).append(([clone(a) for a in args], kwargs, res))
+            return out
+        return keep
+
+    for n in names:
+        setattr(rt, n, keeper(n, saved[n]))
+    return saved
+
+
+def check_one_source_launches(kept: dict, label: str) -> dict:
+    """Every kept launch of one trace against its plain version on the same
+    inputs: K1's t bit for bit (0 ulp) and faces equal to the dense walk's,
+    K2's booleans equal to the dense any-hit's, K3 and K4 (bins identical,
+    within 1e-5 of each histogram's peak: the plain folds add with
+    `index_add_`'s atomics on the card) and K5 (bins identical, within 1e-5
+    relative plus 1e-6 of the peak) as on the flagship's bounces. Prints and
+    returns each kernel's launches and largest error."""
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+
+    out = {}
+    for name, launches in kept.items():
+        worst = 0.0
+        for i, (args, kwargs, res) in enumerate(launches):
+            if name == "ray_mesh_first_hit":
+                t_p, i_p = ck.ray_first_hit_plain(*args, **kwargs)
+                t_k, i_k = res
+                fin = torch.isfinite(t_p)
+                bad = (not torch.equal(i_k, i_p) or not torch.equal(torch.isfinite(t_k), fin)
+                       or not torch.equal(t_k[fin], t_p[fin]))
+                err = float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0
+            elif name == "segments_occluded":
+                want = ck.segments_occluded_plain(*args[:3])
+                bad, err = not torch.equal(res, want), float((res != want).sum())
+            else:
+                h_p = getattr(ck, f"{name}_plain")(*args, **kwargs)
+                bad = bool(((res != 0) != (h_p != 0)).any())
+                err = float((res - h_p).abs().max())
+                if name == "bin_histogram":
+                    bad |= not bool(((res - h_p).abs() <= 1e-5 * h_p.abs() + 1e-6 * h_p.abs().amax()).all())
+                else:
+                    peak = h_p.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+                    bad |= float(((res - h_p).abs() / peak).max()) > 1e-5
+            if bad:
+                fail(f"{name} launch {i} of the {label} disagrees with its plain version")
+            worst = max(worst, err)
+        out[name] = dict(launches=len(launches), max_abs_err=worst)
+    print(f"{label}: every launch against its plain version {out}", flush=True)
+    return out
+
+
+def api_phase(st, src0: np.ndarray, out: Path, dev) -> dict:
+    """The front door, the single-source tracer entries and the port's
+    examples on the card.
+
+    - A fresh process imports the package from its front door and every
+      module of it: `jax` and the reference stay out of `sys.modules`, no
+      CUDA context opens and no kernel is built.
+    - `trace_rirs` of one flagship source in the flagship room (the LOD's
+      K1 big, the rain table, the direct path on the full mesh through K2)
+      for omni (AmbeoVR, K3), FOA (K4) and binaural (K5) at 5,000 rays x 60
+      bounces, each call timed by CUDA events, every K1-K5 launch of it held
+      against its plain version (`check_one_source_launches`), a second call
+      on the same seed bit for bit the first; each kernel timed at the
+      first bounce's one-source shape beside its plain version.
+    - The seven examples at their full sizes on the card, in this process
+      (`main(out, "cuda")`), each timed, its files checked and its
+      launches counted.
+    Returns the launches of the three traces."""
+    import importlib
+    import os
+
+    import audiblelight_tpu_torch as port
+    from audiblelight_tpu_torch import Ambience, Event, MicArray, Scene, WorldState, __version__  # noqa: F401
+    from audiblelight_tpu_torch.micarrays import ambeovr_capsules
+    from audiblelight_tpu_torch.ops import cuda_kernels as ck
+    from audiblelight_tpu_torch.rir import raytracer as rt
+
+    out.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run([sys.executable, "-c", FRONT_DOOR_PROBE], capture_output=True, text=True, timeout=300,
+                         cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)))
+    probe = json.loads(res.stdout.strip().splitlines()[-1]) if res.returncode == 0 else None
+    print(f"front door in a fresh process: {probe} (rc {res.returncode}); this process: audiblelight_tpu_torch "
+          f"{port.__version__}, __all__ {port.__all__}", flush=True)
+    if probe != dict(version="0.1.0", jax=[], cuda=False, built=[]):
+        fail(f"importing the package opened a CUDA context, built a kernel or imported JAX: {res.stderr[-2000:]}")
+
+    centre = np.array([MIC_CENTRE], dtype=np.float32)
+    caps = ambeovr_capsules(MIC_CENTRE).astype(np.float32)
+    occ = st.rain_occlusion_for(caps.mean(axis=0, keepdims=True))
+    src = torch.as_tensor(src0, dtype=torch.float32, device=dev)
+    names = ("ray_mesh_first_hit", "segments_occluded", "deposit_histogram", "deposit_histogram_foa", "bin_histogram")
+    args_of = lambda lis: (st.acoustic_tris, st.absorption, st.scattering, src,  # noqa: E731
+                           torch.as_tensor(lis, device=dev))
+    kw = dict(API_TRACE, face_occlusion=occ, tri_normals=st.acoustic_normals, tris_direct=st.tris, accel=st)
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    traces, kept_all = {}, {}
+    for enc, _ in API_ENCODINGS:
+        lis = caps if enc == "omni" else centre
+        kept = {}
+        saved = record_launches(rt, names, kept)
+        try:
+            traces[enc] = rt.trace_rirs(torch.Generator(device=dev).manual_seed(19), *args_of(lis), encoding=enc, **kw)
+        finally:
+            for n, fn in saved.items():
+                setattr(rt, n, fn)
+        kept_all[enc] = kept
+    torch.cuda.synchronize()
+    launches = dict(ck.launch_counts)
+    print(f"trace_rirs of one source, omni, FOA and binaural: launches {launches}", flush=True)
+    for k in ("first_hit_big", "any_hit", "deposit_histogram", "deposit_histogram_foa", "bin_histogram"):
+        if launches[k] <= 0:
+            fail(f"the single-source traces never launched {k}")
+    check_first_hits(launches, sum(len(k["ray_mesh_first_hit"]) for k in kept_all.values()),
+                     "the single-source traces")
+    for enc, kernel in API_ENCODINGS:
+        irs = traces[enc]
+        want_shape = (2 if enc == "binaural" else 4, API_TRACE["n_samples"])
+        if tuple(irs.shape) != want_shape or not bool(torch.isfinite(irs).all()) or float(irs.abs().max()) <= 0:
+            fail(f"trace_rirs {enc}: {tuple(irs.shape)} (expected {want_shape}), finite and not silent")
+        check_one_source_launches(kept_all[enc], f"{enc} single-source trace")
+        lis = caps if enc == "omni" else centre
+        again = []
+        call_ms = time_ms(lambda: again.append(rt.trace_rirs(
+            torch.Generator(device=dev).manual_seed(19), *args_of(lis), encoding=enc, **kw)), reps=3)
+        same = all(torch.equal(a, irs) for a in again)
+        print(f"trace_rirs {enc}: {tuple(irs.shape)}, peak {float(irs.abs().max()):.4e}; {call_ms:.3f} ms per call "
+              f"(CUDA events, median of 3 after a warm-up) on {card_line()}; the same seed again bit for bit {same}",
+              flush=True)
+        if not same:
+            fail(f"trace_rirs {enc} differs from itself on the same seed")
+        # Each kernel at the trace's own one-source shapes, timed with its
+        # plain version, library call and bound by the flagship's checks
+        (o, d, tris, table), _, (t_k, i_k) = kept_all[enc]["ray_mesh_first_hit"][0]
+        pairs, _ = first_hit_pairs(o, d, t_k, i_k, face_boxes(tris))
+        b_ms, b_by = bound_ms(pairs * FLOPS_BIG_PAIR, o.shape[0] * 24 + tris.shape[0] * 64 + o.shape[0] * 8)
+        print(f"first_hit_big at the {enc} trace's first bounce: (ray, face) pairs this data needs {pairs}, bound "
+              f"{b_ms:.5f} ms ({b_by})", flush=True)
+        check_k1(f"{enc} single-source trace's first bounce", o, d, tris, table)
+        (s_, e_, t_, tree), _, _ = kept_all[enc]["segments_occluded"][0]
+        check_any_hit("any_hit", f"{enc} single-source trace's direct path", s_, e_, t_, tree,
+                      lambda: ck.segments_occluded(s_, e_, t_, tree))
+        if kernel == "bin_histogram":
+            kept5 = {}
+            for args, _, _ in kept_all[enc][kernel]:
+                keep_first_last(kept5, args[0].shape[1], tuple(args))
+            check_k5_bounces(kept5, f"{enc} single-source trace")
+        else:
+            args, kwargs, _ = kept_all[enc][kernel][0]
+            check_deposit(kernel, args, kwargs, f"the {enc} single-source trace's first bounce")
+
+    for name, (writes, path) in EXAMPLES.items():
+        mod = importlib.import_module(f"audiblelight_tpu_torch.examples.{name}")
+        target = out / name
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        mod.main(target, "cuda")
+        torch.cuda.synchronize()
+        took = time.time() - t0
+        ran = {k: v for k, v in ck.launch_counts.items() if v}
+        missing = [w for w in writes if not (target / w).is_file() or (target / w).stat().st_size == 0]
+        print(f"example {name} on the card: {took:.1f} s (host clock), launches {ran}, files {len(writes)} "
+              f"checked, missing {missing}", flush=True)
+        if missing or any(ran.get(k, 0) <= 0 for k in path):
+            fail(f"example {name} did not write {missing} or never launched one of {path}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5323,6 +5545,13 @@ def main() -> int:
     # 204,800 pixel rays) and a scene video, the scripts/generate entries
     media_n = media_phase(mesh, renderer, scenes[0], fg, OUT / "media", dev)
     print(f"media: {media_n}")
+
+    elapsed(t_start, "front door, single-source tracer entries and examples")
+    # 23. The front door in a fresh process, trace_rirs of one source for
+    # omni, FOA and binaural (every K1-K5 launch against its plain
+    # version), the seven examples on the card
+    api_n = api_phase(st, scenes[0][0][0], OUT / "api", dev)
+    print(f"single-source traces: launches {api_n}")
 
     main_launches = dict(launches, first_hit_small=small_n["first_hit_small"],
                          deposit_histogram_foa=cli_launches["foa"]["deposit_histogram_foa"],

@@ -8,6 +8,8 @@ can flip a rounding). The ambience noise is random in both packages, so it
 is held by its spectral slope and level only.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +33,9 @@ from audiblelight_tpu.ops.stft import (
 from audiblelight_tpu_torch import render as trender
 from audiblelight_tpu_torch.ops import convolve as tconv
 from audiblelight_tpu_torch.ops import scaling as tscale
-from audiblelight_tpu_torch.ops import stft as tstft
+
+# The module: the ops package exports its `stft` function under the same name
+tstft = importlib.import_module("audiblelight_tpu_torch.ops.stft")
 
 torch.set_num_threads(1)
 
