@@ -37,6 +37,7 @@ import torch
 from audiblelight_tpu_torch import utils
 from audiblelight_tpu_torch.geometry.mesh import TriMesh
 from audiblelight_tpu_torch.io.audio import wav_write
+from audiblelight_tpu_torch.profiling import annotate, count
 from audiblelight_tpu_torch.render import (
     ScenePlan,
     _bucket,
@@ -111,20 +112,25 @@ def mic_channel_spans(scene) -> list:
 def stems_from_plan(plan: ScenePlan):
     """One plan's stems on its device, quantised: (int16 stems (E, C, S),
     float32 per-stem scales (E,))."""
-    stems = render_event_stems_arrays(
-        plan.static_audio, plan.static_irs, plan.static_mask, plan.static_snr, plan.static_len,
-        plan.static_place_len, plan.moving_audio, plan.moving_irs, plan.moving_w, plan.moving_mask,
-        plan.moving_snr, plan.moving_len, plan.moving_place_len, plan.ref_db,
-    )
-    return quantize_stems(stems)
+    with annotate("stems.dispatch"):
+        stems = render_event_stems_arrays(
+            plan.static_audio, plan.static_irs, plan.static_mask, plan.static_snr, plan.static_len,
+            plan.static_place_len, plan.moving_audio, plan.moving_irs, plan.moving_w, plan.moving_mask,
+            plan.moving_snr, plan.moving_len, plan.moving_place_len, plan.ref_db,
+        )
+        return quantize_stems(stems)
 
 
 def mix_plan_host(plan: ScenePlan, q, scales) -> np.ndarray:
     """The (C, T) float32 scene mix on the host: the quantised stems placed
-    at their offsets, plus the plan's host ambience bed."""
-    starts = torch.cat([plan.static_start, plan.moving_start]).cpu().numpy()
-    return mix_stems_host(q.cpu().numpy(), scales.cpu().numpy(), starts, plan.n_scene_samples,
-                          ambience=plan.ambience)
+    at their offsets, plus the plan's host ambience bed. Its three reads
+    wait for the device."""
+    with annotate("complete.pull"):
+        count("host_syncs", 3)
+        starts = torch.cat([plan.static_start, plan.moving_start]).cpu().numpy()
+        q, scales = q.cpu().numpy(), scales.cpu().numpy()
+    with annotate("complete.mix"):
+        return mix_stems_host(q, scales, starts, plan.n_scene_samples, ambience=plan.ambience)
 
 
 def render_scene_audio_compiled(scene, plan: Optional[ScenePlan] = None,
@@ -587,6 +593,11 @@ def render_scenes_pipelined(scene_factory: Iterable, complete: Callable, max_in_
     this thread places and dispatches the next scenes, up to `max_in_flight`
     items ahead; a payload's copy to the host is non-blocking into pinned
     memory (`prep.pull_async`), so dispatching never waits for it.
+
+    While a torch.profiler session is active, each scene's work is recorded
+    as spans (`profiling.annotate`) tagged with the scene's ordinal in
+    `scene_factory`: a `loop.dispatch` root on this thread and a
+    `loop.complete` root on the completion thread.
     """
     from audiblelight_tpu_torch.prep import CompletionThread, pull_async
 
@@ -594,56 +605,63 @@ def render_scenes_pipelined(scene_factory: Iterable, complete: Callable, max_in_
 
     def _finish(item):
         nonlocal done
-        kind, scenes, data = item
+        kind, scenes, ordinals, data = item
         if kind == "mix":
-            wavs = data()
-            for i, scene in enumerate(scenes):
-                complete(scene, OrderedDict([(next(iter(scene.state.microphones)), wavs[i])]))
+            for i, (scene, ordinal) in enumerate(zip(scenes, ordinals)):
+                with annotate("loop.complete", ordinal):
+                    if i == 0:
+                        wavs = data()
+                    complete(scene, OrderedDict([(next(iter(scene.state.microphones)), wavs[i])]))
                 done += 1
             return
-        scene, plan, q, scales = scenes[0], *data
-        mixed = mix_plan_host(plan, q, scales)
-        complete(scene, OrderedDict((alias, mixed[a:b]) for alias, a, b in mic_channel_spans(scene)))
+        scene, (plan, q, scales) = scenes[0], data
+        with annotate("loop.complete", ordinals[0]):
+            mixed = mix_plan_host(plan, q, scales)
+            with annotate("complete.user"):
+                complete(scene, OrderedDict((alias, mixed[a:b]) for alias, a, b in mic_channel_spans(scene)))
         done += 1
 
     def _render_group(renderer, group):
         if len(group) == fused_batch > 1:
-            scenes = [s for s, _ in group]
+            scenes = [s for s, _, _ in group]
             q = renderer.render_mix_batch([renderer.scene_inputs(s, device=False) for s in scenes],
-                                          [p for _, p in group], [renderer.mix_args(s) for s in scenes])
-            completion.put(("mix", scenes, pull_async(q)))
+                                          [p for _, _, p in group], [renderer.mix_args(s) for s in scenes])
+            completion.put(("mix", scenes, [o for _, o, _ in group], pull_async(q)))
         else:
-            for s, p in group:
-                completion.put(("mix", [s], pull_async(renderer.render_scene(s, p)[None])))
+            for s, o, p in group:
+                completion.put(("mix", [s], [o], pull_async(renderer.render_scene(s, p)[None])))
         group.clear()
 
     group: list = []
     group_renderer = None
     with CompletionThread(_finish, max_in_flight) as completion:
-        for scene in scene_factory:
-            pk = dict(plan_kwargs or {})
-            overflow = False
-            for k, n in _event_counts(scene).items():
-                if pk.get(k) is not None and n > pk[k]:
-                    pk.pop(k)
-                    overflow = True
-            st = getattr(scene.state, "device_state", None)
-            renderer = None
-            if (device_mix and not overflow and st is not None and len(scene.state.microphones) == 1
-                    and FusedSceneRenderer.mix_eligible(scene) and (st.convex or rain_mode(st.cfg) == "face")):
-                plan = build_scene_plan(scene, **pk)
-                renderer = _renderer_for(scene, plan)
-            if renderer is None:  # the plan path, in order after the group
-                _render_group(group_renderer, group)
-                plan = build_scene_plan(scene, plan_path=True, **pk)
-                completion.put(("plan", [scene], (plan, *stems_from_plan(plan))))
-                continue
-            if group and renderer is not group_renderer:
-                _render_group(group_renderer, group)
-            group_renderer = renderer
-            group.append((scene, plan))
-            if len(group) == fused_batch:
-                _render_group(renderer, group)
+        for ordinal, scene in enumerate(scene_factory):
+            with annotate("loop.dispatch", ordinal):
+                pk = dict(plan_kwargs or {})
+                overflow = False
+                for k, n in _event_counts(scene).items():
+                    if pk.get(k) is not None and n > pk[k]:
+                        pk.pop(k)
+                        overflow = True
+                st = getattr(scene.state, "device_state", None)
+                renderer = None
+                if (device_mix and not overflow and st is not None and len(scene.state.microphones) == 1
+                        and FusedSceneRenderer.mix_eligible(scene) and (st.convex or rain_mode(st.cfg) == "face")):
+                    plan = build_scene_plan(scene, **pk)
+                    renderer = _renderer_for(scene, plan)
+                if renderer is None:  # the plan path, in order after the group
+                    _render_group(group_renderer, group)
+                    plan = build_scene_plan(scene, plan_path=True, **pk)
+                    item = ("plan", [scene], [ordinal], (plan, *stems_from_plan(plan)))
+                    with annotate("loop.put"):
+                        completion.put(item)
+                    continue
+                if group and renderer is not group_renderer:
+                    _render_group(group_renderer, group)
+                group_renderer = renderer
+                group.append((scene, ordinal, plan))
+                if len(group) == fused_batch:
+                    _render_group(renderer, group)
         _render_group(group_renderer, group)
         completion.join()
     return done

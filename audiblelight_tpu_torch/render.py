@@ -22,6 +22,7 @@ from audiblelight_tpu_torch.ops.convolve import fft_convolve, interpolation_matr
 from audiblelight_tpu_torch.ops.noise import powerlaw_psd_gaussian
 from audiblelight_tpu_torch.ops.scaling import normalize_irs
 from audiblelight_tpu_torch.ops.stft import n_stft_frames
+from audiblelight_tpu_torch.profiling import annotate, count
 
 _TINY = 1e-15
 
@@ -61,7 +62,7 @@ class ScenePlan:
         Integer fields become int64 (index arithmetic), float fields f32;
         `ambience` stays host-side and `n_scene_samples` an int.
         """
-        out = {}
+        out, uploads = {}, 0
         for fld in fields(cls):
             v = arrays[fld.name]
             if fld.name == "n_scene_samples":
@@ -72,6 +73,8 @@ class ScenePlan:
                 a = np.array(v)
                 dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
                 out[fld.name] = torch.as_tensor(a, dtype=dtype, device=device)
+                uploads += a.size > 0
+        count("host_syncs", uploads)
         return cls(**out)
 
 
@@ -254,76 +257,84 @@ def build_scene_plan(scene, max_static: Optional[int] = None, max_moving: Option
         of ScenePlan's fields (the scene-prep workers' form, which a batch
         uploads in one copy; `ScenePlan.from_numpy` puts it on a device).
     """
-    sr = scene.sample_rate
-    c_total = sum(int(m.n_channels) for m in scene.state.microphones.values())
-    t = round(scene.duration * sr)
-    all_irs = _plan_irs(scene.state) if plan_path else None
+    with annotate("plan.build"):
+        sr = scene.sample_rate
+        c_total = sum(int(m.n_channels) for m in scene.state.microphones.values())
+        t = round(scene.duration * sr)
+        all_irs = _plan_irs(scene.state) if plan_path else None
 
-    statics, movings = [], []
-    counter = 0
-    for event in scene.events.values():
-        audio = event.load_audio(normalize=True)
-        start = max(0, round(event.scene_start * sr))
-        end = min(round(event.scene_end * sr), t)
-        entry = dict(audio=audio, n_em=len(event), first=counter, snr=float(event.snr), start=start,
-                     length=len(audio), place_len=max(end - start, 0), duration=event.duration)
-        counter += len(event)
-        (movings if event.is_moving else statics).append(entry)
+        with annotate("plan.audio"):
+            statics, movings = [], []
+            counter = 0
+            for event in scene.events.values():
+                audio = event.load_audio(normalize=True)
+                start = max(0, round(event.scene_start * sr))
+                end = min(round(event.scene_end * sr), t)
+                entry = dict(audio=audio, n_em=len(event), first=counter, snr=float(event.snr), start=start,
+                             length=len(audio), place_len=max(end - start, 0), duration=event.duration)
+                counter += len(event)
+                (movings if event.is_moving else statics).append(entry)
 
-    es = max_static if max_static is not None else _bucket(len(statics))
-    em = max_moving if max_moving is not None else _bucket(len(movings))
-    if len(statics) > es or len(movings) > em:
-        from audiblelight_tpu_torch.utils import logger
+            es = max_static if max_static is not None else _bucket(len(statics))
+            em = max_moving if max_moving is not None else _bucket(len(movings))
+            if len(statics) > es or len(movings) > em:
+                from audiblelight_tpu_torch.utils import logger
 
-        logger.warning(f"Scene exceeds the plan's event buckets: keeping {es}/{len(statics)} static "
-                       f"and {em}/{len(movings)} moving events")
-    max_len = max([e["length"] for e in statics + movings] or [sr])
-    s = round(pad_audio_seconds * sr) if pad_audio_seconds is not None else _bucket(max_len)
-    j = max_traj if max_traj is not None else _bucket(max([e["n_em"] for e in movings] or [2]), default=2)
-    fr = n_stft_frames(s)
+                logger.warning(f"Scene exceeds the plan's event buckets: keeping {es}/{len(statics)} static "
+                               f"and {em}/{len(movings)} moving events")
+            max_len = max([e["length"] for e in statics + movings] or [sr])
+            s = round(pad_audio_seconds * sr) if pad_audio_seconds is not None else _bucket(max_len)
+            j = max_traj if max_traj is not None else _bucket(max([e["n_em"] for e in movings] or [2]), default=2)
+            fr = n_stft_frames(s)
 
-    def slots(entries, n):
-        audio = np.zeros((n, s), np.float32)
-        fields = dict(mask=np.zeros(n, np.float32), snr=np.zeros(n, np.float32),
-                      start=np.zeros(n, np.int32), len=np.ones(n, np.int32), place_len=np.zeros(n, np.int32))
-        for i, e in enumerate(entries[:n]):
-            m = min(e["length"], s)
-            audio[i, :m] = e["audio"][:m]
-            fields["mask"][i], fields["snr"][i], fields["start"][i] = 1.0, e["snr"], e["start"]
-            fields["len"][i], fields["place_len"][i] = m, min(e["place_len"], s)
-        return audio, fields
+            def slots(entries, n):
+                audio = np.zeros((n, s), np.float32)
+                fields = dict(mask=np.zeros(n, np.float32), snr=np.zeros(n, np.float32),
+                              start=np.zeros(n, np.int32), len=np.ones(n, np.int32), place_len=np.zeros(n, np.int32))
+                for i, e in enumerate(entries[:n]):
+                    m = min(e["length"], s)
+                    audio[i, :m] = e["audio"][:m]
+                    fields["mask"][i], fields["snr"][i], fields["start"][i] = 1.0, e["snr"], e["start"]
+                    fields["len"][i], fields["place_len"][i] = m, min(e["place_len"], s)
+                return audio, fields
 
-    static_audio, st = slots(statics, es)
-    moving_audio, mv = slots(movings, em)
-    moving_w = np.zeros((em, fr, j), np.float32)
-    for i, e in enumerate(movings[:em]):
-        n_j = min(e["n_em"], j)
-        ir_times = np.linspace(0, e["duration"], e["n_em"])[:n_j]
-        moving_w[i, :, :n_j] = interpolation_matrix(ir_times, sr, config.HOP_SIZE, fr)
+            static_audio, st = slots(statics, es)
+            moving_audio, mv = slots(movings, em)
+            moving_w = np.zeros((em, fr, j), np.float32)
+            for i, e in enumerate(movings[:em]):
+                n_j = min(e["n_em"], j)
+                ir_times = np.linspace(0, e["duration"], e["n_em"])[:n_j]
+                moving_w[i, :, :n_j] = interpolation_matrix(ir_times, sr, config.HOP_SIZE, fr)
 
-    arrays = dict(
-        static_audio=static_audio, static_irs=np.zeros((es, c_total, 0), np.float32),
-        static_mask=st["mask"], static_snr=st["snr"], static_start=st["start"], static_len=st["len"],
-        static_place_len=st["place_len"],
-        moving_audio=moving_audio, moving_irs=np.zeros((em, c_total, j, 0), np.float32), moving_w=moving_w,
-        moving_mask=mv["mask"], moving_snr=mv["snr"], moving_start=mv["start"], moving_len=mv["len"],
-        moving_place_len=mv["place_len"],
-        ambience=_host_ambience_bed(scene, c_total, t) if plan_path else None,
-        ref_db=np.float32(scene.ref_db), n_scene_samples=t,
-    )
-    if not device and not plan_path:
-        return arrays
-    plan = ScenePlan.from_numpy(arrays, scene.state.device)
-    if plan_path:
-        plan.static_irs = torch.zeros((es, c_total, all_irs.shape[-1]), dtype=torch.float32, device=all_irs.device)
-        for i, e in enumerate(statics[:es]):
-            plan.static_irs[i] = all_irs[:, e["first"]]
-        plan.moving_irs = torch.zeros((em, c_total, j, all_irs.shape[-1]), dtype=torch.float32,
-                                      device=all_irs.device)
-        for i, e in enumerate(movings[:em]):
-            n_j = min(e["n_em"], j)
-            plan.moving_irs[i, :, :n_j] = all_irs[:, e["first"] : e["first"] + n_j]
-    return plan
+        bed = None
+        if plan_path:
+            with annotate("plan.bed"):
+                bed = _host_ambience_bed(scene, c_total, t)
+        arrays = dict(
+            static_audio=static_audio, static_irs=np.zeros((es, c_total, 0), np.float32),
+            static_mask=st["mask"], static_snr=st["snr"], static_start=st["start"], static_len=st["len"],
+            static_place_len=st["place_len"],
+            moving_audio=moving_audio, moving_irs=np.zeros((em, c_total, j, 0), np.float32), moving_w=moving_w,
+            moving_mask=mv["mask"], moving_snr=mv["snr"], moving_start=mv["start"], moving_len=mv["len"],
+            moving_place_len=mv["place_len"], ambience=bed, ref_db=np.float32(scene.ref_db), n_scene_samples=t,
+        )
+        if not device and not plan_path:
+            return arrays
+        with annotate("plan.upload"):
+            plan = ScenePlan.from_numpy(arrays, scene.state.device)
+        if not plan_path:
+            return plan
+        with annotate("plan.gather"):
+            plan.static_irs = torch.zeros((es, c_total, all_irs.shape[-1]), dtype=torch.float32,
+                                          device=all_irs.device)
+            for i, e in enumerate(statics[:es]):
+                plan.static_irs[i] = all_irs[:, e["first"]]
+            plan.moving_irs = torch.zeros((em, c_total, j, all_irs.shape[-1]), dtype=torch.float32,
+                                          device=all_irs.device)
+            for i, e in enumerate(movings[:em]):
+                n_j = min(e["n_em"], j)
+                plan.moving_irs[i, :, :n_j] = all_irs[:, e["first"] : e["first"] + n_j]
+        return plan
 
 
 def _plan_irs(state) -> torch.Tensor:

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from audiblelight_tpu_torch import config
+from audiblelight_tpu_torch.profiling import annotate, count
 from audiblelight_tpu_torch.rir.hrtf import HRTFSet
 from audiblelight_tpu_torch.rir.sh import (
     HEAD_RADIUS_M,
@@ -164,108 +165,110 @@ def shoebox_rirs(
         raise TypeError(f"hrtf must be an HRTFSet (rir.hrtf), got {type(hrtf).__name__}")
     measured = encoding == "binaural" and hrtf is not None
     dev = source_pos.device if isinstance(source_pos, torch.Tensor) else resolve_device(device)
-    f32 = dict(dtype=torch.float32, device=dev)
-    room = torch.as_tensor(room_dims, **f32).reshape(3)
-    src_all = torch.atleast_2d(torch.as_tensor(source_pos, **f32))
-    lis = torch.atleast_2d(torch.as_tensor(listener_pos, **f32))
-    if encoding != "omni":
-        lis = lis[:1]
-    e_total, n_rows = src_all.shape[0], lis.shape[0]
-    c_out = encoding_channels(encoding, n_rows)
-    n_samples = int(n_samples)
-    n_freq = n_samples // 2 + 1
+    with annotate("engine.ism", device=dev):
+        f32 = dict(dtype=torch.float32, device=dev)
+        room = torch.as_tensor(room_dims, **f32).reshape(3)
+        src_all = torch.atleast_2d(torch.as_tensor(source_pos, **f32))
+        lis = torch.atleast_2d(torch.as_tensor(listener_pos, **f32))
+        if encoding != "omni":
+            lis = lis[:1]
+        e_total, n_rows = src_all.shape[0], lis.shape[0]
+        c_out = encoding_channels(encoding, n_rows)
+        n_samples = int(n_samples)
+        n_freq = n_samples // 2 + 1
 
-    n_np, q_np = _image_grid(int(max_order))
-    n_img = torch.as_tensor(n_np, device=dev)
-    q_img = torch.as_tensor(q_np, device=dev)
-    mirror = (1 - 2 * q_img).to(torch.float32)  # (K, 3)
-    shift = (2.0 * n_img.to(torch.float32)) * room  # (K, 3)
-    m0, m_l = (n_img - q_img).abs().to(torch.float32), n_img.abs().to(torch.float32)
-    walls = torch.stack([m0[:, 0], m_l[:, 0], m0[:, 1], m_l[:, 1], m0[:, 2], m_l[:, 2]], dim=-1)  # (K, 6)
+        n_np, q_np = _image_grid(int(max_order))
+        count("host_syncs", 3)  # the grid's two uploads and `_band_to_bins`' read of the lowest band
+        n_img = torch.as_tensor(n_np, device=dev)
+        q_img = torch.as_tensor(q_np, device=dev)
+        mirror = (1 - 2 * q_img).to(torch.float32)  # (K, 3)
+        shift = (2.0 * n_img.to(torch.float32)) * room  # (K, 3)
+        m0, m_l = (n_img - q_img).abs().to(torch.float32), n_img.abs().to(torch.float32)
+        walls = torch.stack([m0[:, 0], m_l[:, 0], m0[:, 1], m_l[:, 1], m0[:, 2], m_l[:, 2]], dim=-1)  # (K, 6)
 
-    f_idx = torch.arange(n_freq, dtype=torch.int32, device=dev)
-    f_f32 = f_idx.to(torch.float32)
-    freqs_hz = f_f32 * (sr / n_samples)
-    interp = _band_to_bins(freqs_hz, torch.as_tensor(band_freqs, **f32).reshape(-1))
-    log_beta_bins = _matmul_small(interp, torch.as_tensor(wall_log_beta, **f32).T)  # (F, 6)
+        f_idx = torch.arange(n_freq, dtype=torch.int32, device=dev)
+        f_f32 = f_idx.to(torch.float32)
+        freqs_hz = f_f32 * (sr / n_samples)
+        interp = _band_to_bins(freqs_hz, torch.as_tensor(band_freqs, **f32).reshape(-1))
+        log_beta_bins = _matmul_small(interp, torch.as_tensor(wall_log_beta, **f32).T)  # (F, 6)
 
-    in_range = n_samples - (int(hrtf.hrirs.shape[-1]) if measured else 1)
-    phase_scale = -2.0 * math.pi / n_samples
-    if encoding == "binaural":
-        w_ratio = (2.0 * math.pi * freqs_hz) * (HEAD_RADIUS_M / (2.0 * c))
-        ear_phase = (-2.0 * math.pi) * freqs_hz
+        in_range = n_samples - (int(hrtf.hrirs.shape[-1]) if measured else 1)
+        phase_scale = -2.0 * math.pi / n_samples
+        if encoding == "binaural":
+            w_ratio = (2.0 * math.pi * freqs_hz) * (HEAD_RADIUS_M / (2.0 * c))
+            ear_phase = (-2.0 * math.pi) * freqs_hz
 
-    k_total = walls.shape[0]
-    e_blk, chunk = block_shape(n_rows, e_total, n_freq, k_total, "hrtf" if measured else encoding, chunk,
-                               CARD_LIVE_BYTES if dev.type == "cuda" else CPU_LIVE_BYTES)
-    acc_re = torch.zeros((c_out, e_total, n_freq), **f32)
-    acc_im = torch.zeros_like(acc_re)
-    for e0 in range(0, e_total, e_blk):
-        src = src_all[e0 : e0 + e_blk]
-        for k0 in range(0, k_total, chunk):
-            ks = slice(k0, k0 + chunk)
-            gain = torch.exp(_matmul_small(walls[ks], log_beta_bins.T))  # (k, F)
-            img = mirror[None, ks] * src[:, None, :] + shift[None, ks]  # (e, k, 3)
-            vec = img[None] - lis[:, None, None, :]  # (C, e, k, 3)
-            sq = vec * vec
-            # Rounded once from double: the card's float sqrt can be 1 ulp
-            # off the CPU's, and a delay's last bits move a band-limited
-            # pulse's samples
-            dist = torch.sqrt((sq[..., 0] + sq[..., 1] + sq[..., 2]).double()).float()  # (C, e, k)
-            amp = 1.0 / ((4.0 * math.pi) * torch.clamp_min(dist, 1e-2))
-            delay = dist * (sr / c)
-            amp = amp * (delay < in_range)
-            d_int = torch.floor(delay).to(torch.int32)
-            d_frac = (delay - d_int.to(torch.float32))[..., None]
-            d_mod = torch.remainder(d_int, n_samples)[..., None]
-            # (f * d) mod n in int32, as the reference splits it
-            phase_i = (d_mod >> 8) * f_idx
-            phase_i.remainder_(n_samples).bitwise_left_shift_(8).remainder_(n_samples)
-            scratch = torch.mul(d_mod & 255, f_idx)
-            phase_i.add_(scratch).remainder_(n_samples)
-            phase = phase_i.to(torch.float32)
-            del phase_i
-            # scratch's storage, reused: f * d_frac, then cos, then the real part
-            re = scratch.view(torch.float32)
-            torch.mul(f_f32, d_frac, out=re)
-            phase.add_(re).mul_(phase_scale)
-            torch.cos(phase, out=re)
-            im = phase.sin_()
-            weight = amp[..., None] * gain  # (C, e, k, F)
-            re.mul_(weight)
-            im.mul_(weight)
-            del weight
-            es = slice(e0, e0 + src.shape[0])
-            if encoding == "omni":
-                acc_re[:, es] += re.sum(dim=2)
-                acc_im[:, es] += im.sum(dim=2)
-                continue
-            dirs = vec[0] / torch.clamp_min(dist[0, ..., None], 1e-9)  # (e, k, 3) receiver -> source
-            re, im = re[0], im[0]
-            if measured:
-                idx, wgt = hrtf.interp_weights(dirs)  # (e, k, 3)
-                for ear in range(2):  # one ear at a time bounds the (e, k, F) live set
-                    h_t = torch.einsum("ekj,ekjn->ekn", wgt, hrtf.hrirs[idx][..., ear, :])
-                    h = torch.fft.rfft(h_t, n=n_samples, dim=-1)  # (e, k, F)
-                    del h_t
-                    h_re, h_im = h.real, h.imag
-                    acc_re[ear, es] += (re * h_re - im * h_im).sum(dim=1)
-                    acc_im[ear, es] += (re * h_im + im * h_re).sum(dim=1)
-                    del h, h_re, h_im
-            elif encoding == "binaural":
-                itd = woodworth_itd(dirs, c=c)  # (e, k, 2)
-                for ear, cos_axis in enumerate((dirs[..., 1], -dirs[..., 1])):
-                    mag = spherical_head_shadow(cos_axis, w_ratio)  # (e, k, F)
-                    ph = ear_phase * itd[..., ear, None]
-                    h_re, h_im = mag * torch.cos(ph), mag * torch.sin(ph)
-                    del mag, ph
-                    acc_re[ear, es] += (re * h_re - im * h_im).sum(dim=1)
-                    acc_im[ear, es] += (re * h_im + im * h_re).sum(dim=1)
-            else:
-                enc = ambisonic_encoding_gains(dirs, 3, encoding)  # (e, k, C_out)
-                acc_re[:, es] += torch.einsum("ekf,ekc->cef", re, enc)
-                acc_im[:, es] += torch.einsum("ekf,ekc->cef", im, enc)
-    return irfft_real(torch.complex(acc_re, acc_im), n_samples).to(torch.float32)
+        k_total = walls.shape[0]
+        e_blk, chunk = block_shape(n_rows, e_total, n_freq, k_total, "hrtf" if measured else encoding, chunk,
+                                   CARD_LIVE_BYTES if dev.type == "cuda" else CPU_LIVE_BYTES)
+        acc_re = torch.zeros((c_out, e_total, n_freq), **f32)
+        acc_im = torch.zeros_like(acc_re)
+        for e0 in range(0, e_total, e_blk):
+            src = src_all[e0 : e0 + e_blk]
+            for k0 in range(0, k_total, chunk):
+                ks = slice(k0, k0 + chunk)
+                gain = torch.exp(_matmul_small(walls[ks], log_beta_bins.T))  # (k, F)
+                img = mirror[None, ks] * src[:, None, :] + shift[None, ks]  # (e, k, 3)
+                vec = img[None] - lis[:, None, None, :]  # (C, e, k, 3)
+                sq = vec * vec
+                # Rounded once from double: the card's float sqrt can be 1 ulp
+                # off the CPU's, and a delay's last bits move a band-limited
+                # pulse's samples
+                dist = torch.sqrt((sq[..., 0] + sq[..., 1] + sq[..., 2]).double()).float()  # (C, e, k)
+                amp = 1.0 / ((4.0 * math.pi) * torch.clamp_min(dist, 1e-2))
+                delay = dist * (sr / c)
+                amp = amp * (delay < in_range)
+                d_int = torch.floor(delay).to(torch.int32)
+                d_frac = (delay - d_int.to(torch.float32))[..., None]
+                d_mod = torch.remainder(d_int, n_samples)[..., None]
+                # (f * d) mod n in int32, as the reference splits it
+                phase_i = (d_mod >> 8) * f_idx
+                phase_i.remainder_(n_samples).bitwise_left_shift_(8).remainder_(n_samples)
+                scratch = torch.mul(d_mod & 255, f_idx)
+                phase_i.add_(scratch).remainder_(n_samples)
+                phase = phase_i.to(torch.float32)
+                del phase_i
+                # scratch's storage, reused: f * d_frac, then cos, then the real part
+                re = scratch.view(torch.float32)
+                torch.mul(f_f32, d_frac, out=re)
+                phase.add_(re).mul_(phase_scale)
+                torch.cos(phase, out=re)
+                im = phase.sin_()
+                weight = amp[..., None] * gain  # (C, e, k, F)
+                re.mul_(weight)
+                im.mul_(weight)
+                del weight
+                es = slice(e0, e0 + src.shape[0])
+                if encoding == "omni":
+                    acc_re[:, es] += re.sum(dim=2)
+                    acc_im[:, es] += im.sum(dim=2)
+                    continue
+                dirs = vec[0] / torch.clamp_min(dist[0, ..., None], 1e-9)  # (e, k, 3) receiver -> source
+                re, im = re[0], im[0]
+                if measured:
+                    idx, wgt = hrtf.interp_weights(dirs)  # (e, k, 3)
+                    for ear in range(2):  # one ear at a time bounds the (e, k, F) live set
+                        h_t = torch.einsum("ekj,ekjn->ekn", wgt, hrtf.hrirs[idx][..., ear, :])
+                        h = torch.fft.rfft(h_t, n=n_samples, dim=-1)  # (e, k, F)
+                        del h_t
+                        h_re, h_im = h.real, h.imag
+                        acc_re[ear, es] += (re * h_re - im * h_im).sum(dim=1)
+                        acc_im[ear, es] += (re * h_im + im * h_re).sum(dim=1)
+                        del h, h_re, h_im
+                elif encoding == "binaural":
+                    itd = woodworth_itd(dirs, c=c)  # (e, k, 2)
+                    for ear, cos_axis in enumerate((dirs[..., 1], -dirs[..., 1])):
+                        mag = spherical_head_shadow(cos_axis, w_ratio)  # (e, k, F)
+                        ph = ear_phase * itd[..., ear, None]
+                        h_re, h_im = mag * torch.cos(ph), mag * torch.sin(ph)
+                        del mag, ph
+                        acc_re[ear, es] += (re * h_re - im * h_im).sum(dim=1)
+                        acc_im[ear, es] += (re * h_im + im * h_re).sum(dim=1)
+                else:
+                    enc = ambisonic_encoding_gains(dirs, 3, encoding)  # (e, k, C_out)
+                    acc_re[:, es] += torch.einsum("ekf,ekc->cef", re, enc)
+                    acc_im[:, es] += torch.einsum("ekf,ekc->cef", im, enc)
+        return irfft_real(torch.complex(acc_re, acc_im), n_samples).to(torch.float32)
 
 
 def wall_log_betas_from_absorption(

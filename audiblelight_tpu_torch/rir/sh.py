@@ -18,6 +18,8 @@ import math
 import numpy as np
 import torch
 
+from audiblelight_tpu_torch.profiling import count
+
 _S3 = float(np.sqrt(np.float32(3.0)) / np.float32(2.0))
 _S5_8 = float(np.sqrt(np.float32(5.0 / 8.0)))
 _S15_2 = float(np.sqrt(np.float32(15.0)) / np.float32(2.0))
@@ -80,6 +82,7 @@ def ambisonic_encoding_gains(dirs: torch.Tensor, encode_order: int, encoding: st
     if g.shape[-1] < c_out:
         g = torch.cat([g, g.new_zeros(g.shape[:-1] + (c_out - g.shape[-1],))], dim=-1)
     if encoding == "foa":
+        count("host_syncs")  # the index list's upload from pageable memory waits for the device
         g = g[..., [0, 3, 1, 2]]
     return g
 

@@ -18,6 +18,7 @@ import torch
 from audiblelight_tpu_torch import config, utils
 from audiblelight_tpu_torch.geometry.mesh import box_mesh
 from audiblelight_tpu_torch.micarrays import MicArray
+from audiblelight_tpu_torch.profiling import count
 from audiblelight_tpu_torch.rir.image_source import shoebox_rirs
 from audiblelight_tpu_torch.rir.materials import get_material_absorption, octave_band_centers
 from audiblelight_tpu_torch.utils import resolve_device
@@ -159,6 +160,7 @@ class WorldStateShoebox(PlacementMixin, WorldState):
         f32 = dict(dtype=torch.float32, device=self.device)
         log_beta = torch.as_tensor(np.log(np.sqrt(np.clip(1.0 - self.absorption, 1e-6, 1.0))), **f32)
         sources = torch.as_tensor(self._emitter_positions(), **f32)
+        count("host_syncs", 2)  # each upload from pageable memory waits for the device
         n_samples = int(round(self.max_ir_length * self.sample_rate))
         out = OrderedDict()
         for alias, mic in self.microphones.items():
@@ -170,6 +172,7 @@ class WorldStateShoebox(PlacementMixin, WorldState):
             # A binaural head with `hrtf_sofa` renders through its measured set
             hrtf = (mic.load_hrtf(self.sample_rate, self.device)
                     if encoding == "binaural" and getattr(mic, "hrtf_sofa", None) else None)
+            count("host_syncs", 3)
             irs = shoebox_rirs(
                 torch.as_tensor(self.dimensions, **f32), sources,
                 torch.as_tensor(utils.coerce2d(points), **f32), log_beta,
