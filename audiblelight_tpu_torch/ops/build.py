@@ -27,6 +27,7 @@ SOURCES = {
     "mxu_first_hit": "mxu_first_hit.cu",
     "sorted_first_hit": "sorted_first_hit.cu",
     "pair_first_hit": "pair_first_hit.cu",
+    "shoebox_ism": "shoebox_ism.cu",
 }
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"

@@ -24,6 +24,10 @@ audiblelight_tpu/ops/star_occlusion.py:
   nearest-tile rounds of each ray, each live tile's subtree walked, in one
   launch; the tiles and their tree are built by ops/sorted_first_hit.py and
   ops/pair_first_hit.py)
+- `shoebox_ism`         <- no Pallas kernel: the shoebox image-source sum,
+  which the JAX package leaves to XLA's fusion (its per-image inputs are
+  formed by rir/image_source.py:image_terms; its plain version is
+  rir/image_source.py:shoebox_rirs_plain, the eager block loop)
 
 Each wrapper prepares its inputs in PyTorch (the same preparation feeds the
 kernel and the plain version), then runs the plain version when the tensors
@@ -59,7 +63,7 @@ _CHUNK_ELEMS = 1 << 22
 
 launch_counts = {"first_hit_big": 0, "first_hit_small": 0, "any_hit": 0, "deposit_histogram": 0,
                  "deposit_histogram_foa": 0, "bin_histogram": 0, "star_any_hit": 0, "first_hit_tiled": 0,
-                 "first_hit_mxu": 0, "first_hit_sorted": 0, "first_hit_pair": 0}
+                 "first_hit_mxu": 0, "first_hit_sorted": 0, "first_hit_pair": 0, "shoebox_ism": 0}
 
 
 def reset_launch_counts() -> None:
@@ -1655,3 +1659,106 @@ def first_hit_pair(o, d, alive, center, tile_lo, tile_hi, bvh: FaceBVH, k_slots:
              _ptr(t), _ptr(idx), ctypes.c_void_p(0 if counts is None else counts.data_ptr()), _stream(o))
     _raise_on(err, "first_hit_pair")
     return t, idx
+
+
+# ---------------------------------------------------------------------------
+# The shoebox image-source sum
+# ---------------------------------------------------------------------------
+
+ISM_BINS = 256  # bins of one block of csrc/shoebox_ism.cu (kThreads); its first bin is the phase's base
+ISM_TILE = 64  # images the kernel stages at a time: a split holds at least this many
+ISM_CHANNELS = (1, 4, 9, 16)  # omni rows and sh0; foa and sh1; sh2; sh3
+_ISM_SCRATCH = 512 << 20  # bytes of the splits' partial sums, at most
+
+
+def ism_magic(n: int) -> int:
+    """floor((2^32 - 1) / n): umulhi(x, it) is floor(x / n) or one less for any x < 2^32."""
+    return 0xFFFFFFFF // int(n)
+
+
+def ism_phase_plain(f: torch.Tensor, d_mod: torch.Tensor, n: int) -> torch.Tensor:
+    """(f * d_mod) mod n by the kernel's method, in int64 (f and d_mod
+    broadcast; 0 <= d_mod < n, 0 <= f <= n / 2): the block's base (f_block *
+    d_mod) mod n, f_block = f rounded down to ISM_BINS, then x = base + (f -
+    f_block) * d_mod (< 2^32) less umulhi(x, ism_magic(n)) * n and one
+    conditional subtract of n, in uint32 arithmetic. The kernel's exactness
+    rests on this equalling the remainder."""
+    f, d = f.to(torch.int64), d_mod.to(torch.int64)
+    f_block = f // ISM_BINS * ISM_BINS
+    x = (f_block * d) % n + (f - f_block) * d
+    r = x - ((x * ism_magic(n)) >> 32) * n  # umulhi(x, m): x * m < 2^63, as m < 2^31 for n >= 2
+    return torch.minimum(r, (r - n) & 0xFFFFFFFF)
+
+
+@functools.lru_cache(maxsize=None)
+def _ism_shape(channels: int, device_index: int) -> tuple:
+    """(paths a block holds, blocks the card keeps resident) of the kernel for C channels."""
+    paths, per_sm = ctypes.c_int(), ctypes.c_int()
+    fn = _lib("shoebox_ism", "shoebox_ism_shape", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    _raise_on(fn(channels, ctypes.byref(paths), ctypes.byref(per_sm)), "shoebox_ism_shape")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return paths.value, max(1, per_sm.value) * sms
+
+
+def ism_splits(blocks: int, resident: int, n_images: int, max_splits: int) -> int:
+    """The fewest splits of the images, 1 to `max_splits`, whose grid
+    (`blocks` a split, in waves of the card's `resident` blocks) takes
+    within 1 % of the least time: waves times the largest split's images."""
+    splits = range(1, max(1, max_splits) + 1)
+    cost = [-(-blocks * s // resident) * -(-n_images // s) for s in splits]
+    return next(s for s, c in zip(splits, cost) if c <= 1.01 * min(cost))
+
+
+def shoebox_ism(d_mod, d_frac, amp, enc, walls, log_beta_bins, n_samples: int) -> torch.Tensor:
+    """The image-source sum of `rir.image_source.shoebox_rirs` on the card:
+    two launches (the splits' partial sums, then their ordered sum).
+
+    Arguments:
+        d_mod: (P, K) int32 integer sample delays mod n_samples of each path
+            (a listener row and an emitter) and image.
+        d_frac, amp: (P, K) float32 fractional delays and amplitudes, amp
+            zero where the image falls out of range.
+        enc: (P, K, C) float32 receiver gains, channel 0's equal to 1 (the W
+            of an ambisonic layout), C in 4, 9, 16; or None: one channel of
+            unit gain (omni rows, sh0).
+        walls: (K, 6) float32 wall counts; log_beta_bins: (F, 6) float32
+            log reflection coefficients per bin, F = n_samples // 2 + 1.
+
+    Returns (C, P, F) complex64: sum over k of amp * gain(k, f) *
+    exp(-2 pi i ((f d_mod) mod n + f d_frac) / n) * enc[..., c], gain =
+    exp(walls . log_beta_bins(f)). The same inputs give the same bits. CUDA
+    tensors only: on the CPU the engine runs its plain block loop.
+    """
+    if not _on_card(amp):
+        raise ValueError("shoebox_ism takes CUDA tensors; on the CPU the engine runs "
+                         "rir.image_source.shoebox_rirs_plain")
+    p, k = amp.shape
+    n_freq, channels, dev = n_samples // 2 + 1, 1 if enc is None else enc.shape[-1], amp.device
+    if channels not in ISM_CHANNELS or (enc is not None and channels == 1):
+        raise ValueError(f"shoebox_ism: {channels} receiver channels; the kernel takes {ISM_CHANNELS}, one as None")
+    if not 2 <= n_samples < 1 << 24:
+        raise ValueError(f"shoebox_ism: n_samples must lie in [2, 2^24), got {n_samples}")
+    _check("d_mod", d_mod, (p, k), torch.int32, dev)
+    _check("d_frac", d_frac, (p, k), torch.float32, dev)
+    _check("amp", amp, (p, k), torch.float32, dev)
+    if enc is not None:
+        _check("enc", enc, (p, k, channels), torch.float32, dev)
+    _check("walls", walls, (k, 6), torch.float32, dev)
+    _check("log_beta_bins", log_beta_bins, (n_freq, 6), torch.float32, dev)
+    out = torch.empty((channels, p, n_freq), dtype=torch.complex64, device=dev)
+    if p == 0:
+        return out
+    per_block, resident = _ism_shape(channels, dev.index)
+    blocks = -(-n_freq // ISM_BINS) * -(-p // per_block)
+    most = min(k // ISM_TILE, _ISM_SCRATCH // (8 * channels * p * n_freq), 65535)
+    splits = ism_splits(blocks, resident, k, most)
+    part = torch.empty((splits, channels, p, n_freq, 2), dtype=torch.float32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _lib("shoebox_ism", "shoebox_ism",
+              [vp] * 6 + [ci] * 4 + [ctypes.c_uint, ctypes.c_float, ci, vp, vp, vp])
+    launch_counts["shoebox_ism"] += 2
+    err = fn(_ptr(d_mod), _ptr(d_frac), _ptr(amp), ctypes.c_void_p(0 if enc is None else enc.data_ptr()),
+             _ptr(walls), _ptr(log_beta_bins), channels, p, k, n_samples, ism_magic(n_samples),
+             _f32(-2.0 * math.pi / n_samples), splits, _ptr(part), _ptr(out), _stream(amp))
+    _raise_on(err, "shoebox_ism")
+    return out

@@ -17,14 +17,20 @@ Counterpart of audiblelight_tpu/rir/image_source.py, with its arithmetic:
     the IRs are its irfft (`utils.irfft_real`: the CPU's, on any device).
 
 The reference scans fixed chunks of 1,024 images, which XLA fuses into one
-pass. Eager PyTorch makes each step a tensor of (listeners, emitters,
-images, bins), so the images (and, where one image of every emitter would
-not fit, the emitters) are taken in blocks chosen from a byte budget for
-that live set; buffers are reused in place. The blocks change the sums'
-order only, so the result does not depend on them beyond rounding. It runs
-on the sources' device; each image distance is a square root rounded once
-from double and the irfft drops the Nyquist bin's imaginary part on every
-device, so a card and a CPU form the same delays and IRs (to ~1e-7 of peak).
+pass. Here the per-image quantities (`image_terms`: distances, amplitudes,
+delays, receiver gains) are formed in PyTorch, and the (image, bin) sum
+runs where the sources lie. On a card, for omni and ambisonic rigs, it is
+one hand-written kernel over all images (`ops.cuda_kernels.shoebox_ism`,
+csrc/shoebox_ism.cu), whose terms never leave registers. On the CPU, and for
+the binaural rigs, it is the eager block loop (`shoebox_rirs_plain`, the
+kernel's plain version): each step a tensor of (listeners, emitters, images,
+bins), so the images (and, where one image of every emitter would not fit,
+the emitters) are taken in blocks chosen from a byte budget for that live
+set; buffers are reused in place. Blocks and the kernel's splits change the
+sums' order only, so the result does not depend on them beyond rounding.
+Each image distance is a square root rounded once from double and the irfft
+drops the Nyquist bin's imaginary part on every device, so a card and a CPU
+form the same delays and IRs (to ~1e-7 of peak).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 
 from audiblelight_tpu_torch import config
+from audiblelight_tpu_torch.ops.cuda_kernels import shoebox_ism
 from audiblelight_tpu_torch.profiling import annotate, count
 from audiblelight_tpu_torch.rir.hrtf import HRTFSet
 from audiblelight_tpu_torch.rir.sh import (
@@ -60,6 +67,9 @@ TERM_BYTES_DEFAULT = 20
 # others share
 CARD_LIVE_BYTES = 2 << 30
 CPU_LIVE_BYTES = 256 << 20
+# The encodings the kernel takes on a card: one unit-gain channel per
+# listener row, or an ambisonic layout of 1, 4, 9 or 16 channels
+KERNEL_ENCODINGS = ("omni", "foa", "sh0", "sh1", "sh2", "sh3")
 
 
 def _image_grid(max_order: int) -> tuple[np.ndarray, np.ndarray]:
@@ -118,6 +128,34 @@ def block_shape(n_rows: int, n_emitters: int, n_freq: int, n_images: int, encodi
     return int(e_blk), int(chunk)
 
 
+def image_terms(src: torch.Tensor, lis: torch.Tensor, mirror: torch.Tensor, shift: torch.Tensor, sr: int,
+                c: float, in_range: int, n_samples: int) -> tuple:
+    """The sum's quantities per (listener row, emitter, image), for emitters
+    `src` (e, 3), rows `lis` (R, 3) and the images' mirror signs and shifts
+    (k, 3): (vec, dist, amp, d_frac, d_mod), vec (R, e, k, 3) the row to
+    image vectors and the others (R, e, k): the distance (a square root
+    rounded once from double), 1 / (4 pi max(dist, 1e-2)) masked to zero
+    where the delay is at or beyond `in_range`, and the delay's fraction and
+    integer part mod n_samples (int32). Elementwise: a block of emitters or
+    images gets the bits of the whole set."""
+    img = mirror[None] * src[:, None, :] + shift[None]  # (e, k, 3)
+    vec = img[None] - lis[:, None, None, :]  # (R, e, k, 3)
+    sq = vec * vec
+    # Rounded once from double: the card's float sqrt can be 1 ulp off the
+    # CPU's, and a delay's last bits move a band-limited pulse's samples
+    dist = torch.sqrt((sq[..., 0] + sq[..., 1] + sq[..., 2]).double()).float()
+    amp = 1.0 / ((4.0 * math.pi) * torch.clamp_min(dist, 1e-2))
+    delay = dist * (sr / c)
+    amp = amp * (delay < in_range)
+    d_int = torch.floor(delay).to(torch.int32)
+    return vec, dist, amp, delay - d_int.to(torch.float32), torch.remainder(d_int, n_samples)
+
+
+def image_directions(vec: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """(e, k, 3) unit receiver -> image directions of the first listener row."""
+    return vec[0] / torch.clamp_min(dist[0, ..., None], 1e-9)
+
+
 def shoebox_rirs(
     room_dims,
     source_pos,
@@ -135,6 +173,12 @@ def shoebox_rirs(
 ) -> torch.Tensor:
     """Shoebox RIRs of every (listener, source) pair.
 
+    On a CUDA device the omni and ambisonic encodings ("omni", "foa",
+    "sh0"-"sh3") take the image-source kernel (`ops.cuda_kernels.
+    shoebox_ism`, on the quantities of `image_terms` over all images at
+    once); on the CPU, and for "binaural" on any device, the eager block
+    loop (`shoebox_rirs_plain`) runs.
+
     Arguments:
         room_dims: (3,) room dimensions Lx, Ly, Lz in metres; the room spans
             [0, L] per axis.
@@ -148,8 +192,9 @@ def shoebox_rirs(
         max_order: image order per axis.
         encoding: "omni" (one channel per listener), "foa" (4, AmbiX), "sh{N}"
             ((N+1)^2, ACN/SN3D) or "binaural" (2, the analytic spherical head).
-        chunk: images per block (default: the most that keep a block's live
-            set within CARD_LIVE_BYTES, or CPU_LIVE_BYTES on the CPU).
+        chunk: images per block of the block loop (default: the most that
+            keep a block's live set within CARD_LIVE_BYTES, or CPU_LIVE_BYTES
+            on the CPU); the kernel takes no blocks.
         hrtf: a measured HRTF set (`rir.hrtf.HRTFSet`) for "binaural": each
             image's arrival blends its 3 nearest HRIRs, whose spectrum
             multiplies the image's contribution per ear; an image whose
@@ -161,6 +206,34 @@ def shoebox_rirs(
         (C_out, E, n_samples) float32 IRs on the device; C_out = C for omni,
         4 for foa, (N+1)^2 for sh{N}, 2 for binaural.
     """
+    return _shoebox(room_dims, source_pos, listener_pos, wall_log_beta, band_freqs, n_samples, max_order, sr, c,
+                    encoding, chunk, hrtf, device, kernel=True)
+
+
+def shoebox_rirs_plain(
+    room_dims,
+    source_pos,
+    listener_pos,
+    wall_log_beta,
+    band_freqs,
+    n_samples: int,
+    max_order: int = 8,
+    sr: int = config.SAMPLE_RATE,
+    c: float = config.SPEED_OF_SOUND,
+    encoding: str = "omni",
+    chunk: Optional[int] = None,
+    hrtf=None,
+    device=None,
+) -> torch.Tensor:
+    """`shoebox_rirs` by the eager block loop on any device: the
+    image-source kernel's plain version, and the engine itself on the CPU
+    and for binaural rigs. Arguments and result as `shoebox_rirs`."""
+    return _shoebox(room_dims, source_pos, listener_pos, wall_log_beta, band_freqs, n_samples, max_order, sr, c,
+                    encoding, chunk, hrtf, device, kernel=False)
+
+
+def _shoebox(room_dims, source_pos, listener_pos, wall_log_beta, band_freqs, n_samples, max_order, sr, c, encoding,
+             chunk, hrtf, device, kernel: bool) -> torch.Tensor:
     if hrtf is not None and not isinstance(hrtf, HRTFSet):
         raise TypeError(f"hrtf must be an HRTFSet (rir.hrtf), got {type(hrtf).__name__}")
     measured = encoding == "binaural" and hrtf is not None
@@ -191,8 +264,18 @@ def shoebox_rirs(
         freqs_hz = f_f32 * (sr / n_samples)
         interp = _band_to_bins(freqs_hz, torch.as_tensor(band_freqs, **f32).reshape(-1))
         log_beta_bins = _matmul_small(interp, torch.as_tensor(wall_log_beta, **f32).T)  # (F, 6)
-
         in_range = n_samples - (int(hrtf.hrirs.shape[-1]) if measured else 1)
+
+        if kernel and dev.type != "cpu" and encoding in KERNEL_ENCODINGS:
+            vec, dist, amp, d_frac, d_mod = image_terms(src_all, lis, mirror, shift, sr, c, in_range, n_samples)
+            enc = (None if encoding in ("omni", "sh0")
+                   else ambisonic_encoding_gains(image_directions(vec, dist), 3, encoding))  # (E, K, C_out)
+            paths = n_rows * e_total
+            count("ism.kernel")
+            spec = shoebox_ism(d_mod.reshape(paths, -1), d_frac.reshape(paths, -1), amp.reshape(paths, -1), enc,
+                               walls, log_beta_bins, n_samples).reshape(c_out, e_total, n_freq)
+            return irfft_real(spec, n_samples).to(torch.float32)
+
         phase_scale = -2.0 * math.pi / n_samples
         if encoding == "binaural":
             w_ratio = (2.0 * math.pi * freqs_hz) * (HEAD_RADIUS_M / (2.0 * c))
@@ -208,19 +291,9 @@ def shoebox_rirs(
             for k0 in range(0, k_total, chunk):
                 ks = slice(k0, k0 + chunk)
                 gain = torch.exp(_matmul_small(walls[ks], log_beta_bins.T))  # (k, F)
-                img = mirror[None, ks] * src[:, None, :] + shift[None, ks]  # (e, k, 3)
-                vec = img[None] - lis[:, None, None, :]  # (C, e, k, 3)
-                sq = vec * vec
-                # Rounded once from double: the card's float sqrt can be 1 ulp
-                # off the CPU's, and a delay's last bits move a band-limited
-                # pulse's samples
-                dist = torch.sqrt((sq[..., 0] + sq[..., 1] + sq[..., 2]).double()).float()  # (C, e, k)
-                amp = 1.0 / ((4.0 * math.pi) * torch.clamp_min(dist, 1e-2))
-                delay = dist * (sr / c)
-                amp = amp * (delay < in_range)
-                d_int = torch.floor(delay).to(torch.int32)
-                d_frac = (delay - d_int.to(torch.float32))[..., None]
-                d_mod = torch.remainder(d_int, n_samples)[..., None]
+                vec, dist, amp, d_frac, d_mod = image_terms(src, lis, mirror[ks], shift[ks], sr, c, in_range,
+                                                            n_samples)  # (C, e, k)
+                d_frac, d_mod = d_frac[..., None], d_mod[..., None]
                 # (f * d) mod n in int32, as the reference splits it
                 phase_i = (d_mod >> 8) * f_idx
                 phase_i.remainder_(n_samples).bitwise_left_shift_(8).remainder_(n_samples)
@@ -243,7 +316,7 @@ def shoebox_rirs(
                     acc_re[:, es] += re.sum(dim=2)
                     acc_im[:, es] += im.sum(dim=2)
                     continue
-                dirs = vec[0] / torch.clamp_min(dist[0, ..., None], 1e-9)  # (e, k, 3) receiver -> source
+                dirs = image_directions(vec, dist)  # (e, k, 3) receiver -> source
                 re, im = re[0], im[0]
                 if measured:
                     idx, wgt = hrtf.interp_weights(dirs)  # (e, k, 3)

@@ -78,14 +78,19 @@ exact CLI scene's bounces), then drives the port's two main paths:
   64-channel int16 WAVs, launches counted as for the MIC scene, timed and
   profiled, K3 held against its plain version and itself on each trace's
   own bounces, and every (source, capsule) pair's direct arrival checked;
-- the shoebox backend, the SELD CLI's default (no kernel: the image-source
-  engine is plain PyTorch): the engine on the card against the same
-  function on the CPU (within 1e-5 of peak), the direct paths of its
-  order-12, 1 s IRs (omni, FOA direction, binaural ITD and ILD), the CLI at
-  its defaults in MIC and FOA (two scenes each, checked as the rlr CLI's,
-  the engine's time, peak device memory, terms and bound per scene, its
-  device idle share, no tracer kernel launched) and one MonoCapsule scene
-  through `Scene.generate(compiled=True)`;
+- the shoebox backend, the SELD CLI's default (the image-source kernel,
+  csrc/shoebox_ism.cu, for omni and ambisonic rigs): the engine on the card
+  against the same function on the CPU (within 1e-5 of peak); the kernel
+  against its plain version (the eager block loop) on the card in turns
+  (plain, kernel, kernel, plain; CUDA events) at the FOA cell's shape (15
+  emitters, order 12, 24,000 samples), for one sh3 call and for one MIC CLI
+  scene, each with its bound, within 1e-5 of peak and bit-identical from
+  call to call; the direct paths of its order-12, 1 s IRs (omni, FOA
+  direction, binaural ITD and ILD), the CLI at its defaults in MIC and FOA
+  (two scenes each, checked as the rlr CLI's, the engine's time, peak
+  device memory, terms and bound per scene, its device idle share, the
+  kernel's two launches per engine call and no tracer kernel) and one
+  MonoCapsule scene through `Scene.generate(compiled=True)`;
 - the port's HDF5 reader on the committed h5py-written fixtures
   (tests/resources/torch_sofa/: every dataset's sha256 and every
   attribute's value as digests.json recorded them, the unlimited datasets
@@ -270,7 +275,8 @@ CLI_FLAGS = ["--backend", "rlr", "--n-scenes", "2", "--duration", "60", "--rays"
              "--min-events-static", "4", "--max-events-static", "4",
              "--min-events-moving", "1", "--max-events-moving", "1", "--seed", "7"]
 KERNELS = ("first_hit_big", "first_hit_small", "first_hit_tiled", "first_hit_mxu", "first_hit_sorted",
-           "first_hit_pair", "star_any_hit", "any_hit", "deposit_histogram_foa", "deposit_histogram", "bin_histogram")
+           "first_hit_pair", "star_any_hit", "any_hit", "deposit_histogram_foa", "deposit_histogram", "bin_histogram",
+           "shoebox_ism", "shoebox_ism_reduce")
 # The SELD CLI on its default backend (shoebox: order 12, 1.0 s IRs,
 # absorption 0.3, the compiled plan path), two 60 s scenes per format
 SHOEBOX_FLAGS = ["--n-scenes", "2", "--duration", "60", "--min-events-static", "4", "--max-events-static", "4",
@@ -327,13 +333,14 @@ def time_ms(fn, reps: int = 10, warm: bool = True) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int = 20, tries: int = 4) -> float:
-    """Device time per call of the kernels `fn` launches, from the profiler
-    over `reps` calls after a warm-up: `time_ms` without the host's time
-    before each launch. The profiler now and then records none of a
-    session's kernels; such a session is run again, up to `tries` in all,
-    and nan (printed "nan": not measured) is returned if every one came
-    back empty."""
+def device_ms(fn, reps: int = 20, tries: int = 4, key: str = "") -> float:
+    """Device time per call of the kernels `fn` launches (those whose name
+    holds `key`), from the profiler over `reps` calls after a warm-up:
+    `time_ms` without the host's time before each launch. A span's device
+    range (a user annotation, which covers its kernels) is not counted. The
+    profiler now and then records none of a session's kernels; such a
+    session is run again, up to `tries` in all, and nan (printed "nan": not
+    measured) is returned if every one came back empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -345,7 +352,8 @@ def device_ms(fn, reps: int = 20, tries: int = 4) -> float:
                 fn()
             torch.cuda.synchronize()
         total = sum(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
-                    for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+                    for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA and key in ev.key
+                    and not getattr(ev, "is_user_annotation", False))
         if total > 0:
             return total / reps / 1e3
     return float("nan")
@@ -654,9 +662,11 @@ def profiled(fn, label: str) -> tuple:
         fn()
         torch.cuda.synchronize()
     avgs = prof.key_averages()
-    # Device-side events only: a CPU op's device time repeats its kernels'
+    # Device-side events only: a CPU op's device time repeats its kernels',
+    # and so does a span's device range (a user annotation)
     self_dev = [(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0)) / 1e3,
-                 ev.count, ev.key) for ev in avgs if ev.device_type == DeviceType.CUDA]
+                 ev.count, ev.key) for ev in avgs
+                if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)]
     busy = sum(t for t, _, _ in self_dev)
     count = {k: sum(ev.count for ev in avgs if ev.key == k)
              for k in ("aten::_local_scalar_dense", "cudaStreamSynchronize", "cudaLaunchKernel")}
@@ -1754,11 +1764,51 @@ def ism_terms(rows: int, emitters: int, n_samples: int, order: int) -> int:
     return rows * emitters * 8 * (2 * order + 1) ** 3 * (n_samples // 2 + 1)
 
 
+def ism_turns(label: str, kernel, plain, terms: int) -> None:
+    """The image-source kernel (`kernel()`) against its plain version on the
+    card (`plain()`, the block loop), each returning the IRs or {alias: IRs}:
+    a warm call each, then plain, kernel, kernel, plain by CUDA events; the
+    kernel route's device time and the kernel's own (profiler); fails unless the kernel's IRs lie
+    within 1e-5 of the plain IRs' peak and its two timed calls agree bit for
+    bit."""
+    def one(fn):
+        out = fn()
+        return next(iter(out.values())) if isinstance(out, dict) else out
+
+    one(plain), one(kernel)
+    ms, got = {"plain": [], "kernel": []}, {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        irs = one(kernel if which == "kernel" else plain)
+        b.record()
+        b.synchronize()
+        ms[which].append(a.elapsed_time(b))
+        got[which].append(irs)
+    dev_ms = device_ms(lambda: one(kernel), reps=3)
+    kernel_ms = device_ms(lambda: one(kernel), reps=3, key="shoebox_ism")
+    ref = got["plain"][0]
+    gap = float((got["kernel"][0] - ref).abs().max() / ref.abs().max())
+    same = torch.equal(got["kernel"][0], got["kernel"][1])
+    b_ms = terms * FLOPS_ISM_TERM / PEAK_FP32 * 1e3
+    print(f"shoebox_ism kernel, {label} ({terms} terms): {ms['kernel'][0]:.3f} / {ms['kernel'][1]:.3f} ms per call "
+          f"(CUDA events), device {dev_ms:.3f} ms (profiler, the call's kernels), of it the kernel's two launches "
+          f"{kernel_ms:.3f} ms; plain {ms['plain'][0]:.3f} / "
+          f"{ms['plain'][1]:.3f} ms; bound {b_ms:.3f} ms (operations: {FLOPS_ISM_TERM} per term at "
+          f"{PEAK_FP32 / 1e12:.0f} TFLOP/s); max |kernel - plain| / peak {gap:.3e}; two calls bit for bit {same} "
+          f"on {card_line()}", flush=True)
+    if gap > 1e-5 or not same:
+        fail(f"shoebox_ism {label}: {gap:.3e} of peak from the plain version, bit-stable {same}")
+
+
 def shoebox_phase(fg: Path, out: Path, win: int, dev) -> None:
     """The shoebox backend, the SELD CLI's default: the image-source engine
     on the card against the same function on the CPU (order 4, 8,192
     samples, 4 capsules, 6 sources, 4 bands; omni and FOA; within 1e-5 of
-    peak); the direct paths of its order-12, 1 s, 24 kHz IRs in a 7 x 5 x 3 m
+    peak); the kernel against its plain version on the card in turns
+    (`ism_turns`) at the FOA cell's shape, for one sh3 call and for one MIC
+    CLI scene; the direct paths of its order-12, 1 s, 24 kHz IRs in a 7 x 5 x 3 m
     room (omni: each capsule's peak within 2 samples of d/c; FOA: the
     direction at the W peak within 5 degrees; binaural: `check_binaural`,
     the direct component from the same call at order 0 with walls that
@@ -1773,7 +1823,8 @@ def shoebox_phase(fg: Path, out: Path, win: int, dev) -> None:
     from audiblelight_tpu_torch.io.audio import _read_header
     from audiblelight_tpu_torch.micarrays import ambeovr_capsules
     from audiblelight_tpu_torch.ops import cuda_kernels as ck
-    from audiblelight_tpu_torch.rir.image_source import shoebox_rirs, wall_log_betas_from_absorption
+    from audiblelight_tpu_torch.rir.image_source import (shoebox_rirs, shoebox_rirs_plain,
+                                                         wall_log_betas_from_absorption)
     from audiblelight_tpu_torch.worldstate import shoebox_backend
 
     card = card_line()
@@ -1798,6 +1849,16 @@ def shoebox_phase(fg: Path, out: Path, win: int, dev) -> None:
               f"{cpu_s * 1e3:.1f} ms (host clock)", flush=True)
         if gap > 1e-5:
             fail(f"shoebox_rirs {enc}: the card's IRs are {gap:.3e} of peak from the CPU's")
+
+    # The kernel against the block loop at the FOA cell's shape and for sh3
+    cell_src = torch.as_tensor(rng.uniform(0.5, room - 0.5, (15, 3)).astype(np.float32), device=dev)
+    cell_lb, cell_bands = wall_log_betas_from_absorption(0.3, n_bands=4)
+    for enc in ("foa", "sh3"):
+        kw = dict(n_samples=SR, max_order=ISM_ORDER, sr=SR, encoding=enc)
+        ism_turns(f"{enc}, 15 emitters, order {ISM_ORDER}, {SR} samples",
+                  lambda: shoebox_rirs(room, cell_src, caps[:1], cell_lb, cell_bands, **kw),
+                  lambda: shoebox_rirs_plain(room, cell_src, caps[:1], cell_lb, cell_bands, **kw),
+                  ism_terms(1, 15, SR, ISM_ORDER))
 
     # Direct paths at the CLI's order, length and rate
     cand = rng.uniform(0.6, room - 0.6, (256, 3))
@@ -1890,7 +1951,7 @@ def shoebox_phase(fg: Path, out: Path, win: int, dev) -> None:
                       f"shoebox_rirs {call['ms']:.3f} ms (CUDA events), peak device memory "
                       f"{call['peak'] / 2**30:.3f} GiB, bound {b_ms:.3f} ms (operations: {FLOPS_ISM_TERM} per "
                       f"term at {PEAK_FP32 / 1e12:.0f} TFLOP/s) on {card}", flush=True)
-            if len(cli_s[layout]) != 2 or len(calls) - n_calls != 2 or launched:
+            if len(cli_s[layout]) != 2 or len(calls) - n_calls != 2 or launched != {"shoebox_ism": 4}:
                 fail(f"the shoebox {layout} CLI rendered {len(cli_s[layout])} scenes with "
                      f"{len(calls) - n_calls} engine calls and launched {launched}")
             check_cli_outputs(out / layout, layout, t_scene)
@@ -1905,6 +1966,16 @@ def shoebox_phase(fg: Path, out: Path, win: int, dev) -> None:
     _, busy = profiled(mscene.state.get_irs, "shoebox engine profile")
     print(f"shoebox engine on a MIC CLI scene ({mscene.state.num_emitters} emitters): {engine_ms:.3f} ms (CUDA events); "
           f"device idle share {1 - busy / engine_ms:.1%} (profiler busy over CUDA-event time)", flush=True)
+
+    def plain_irs():
+        shoebox_backend.shoebox_rirs = shoebox_rirs_plain
+        try:
+            return mscene.state.get_irs()
+        finally:
+            shoebox_backend.shoebox_rirs = shoebox_rirs
+
+    ism_turns(f"a MIC CLI scene (omni, 4 capsules, {mscene.state.num_emitters} emitters)", mscene.state.get_irs,
+              plain_irs, ism_terms(4, mscene.state.num_emitters, n, ISM_ORDER))
 
     # One MonoCapsule scene through Scene.generate(compiled=True) (the plan path)
     mono_dir = out / "mono"
@@ -4618,7 +4689,7 @@ API_TRACE = dict(n_samples=SR, sr=SR, n_rays=5000, max_depth=60, bin_dt=0.002, d
 # The port's examples: what each leaves in its output directory, and the
 # kernels its run on the card must launch
 EXAMPLES = {
-    "01_shoebox_quickstart": (["scene/audio_out_mic000.wav", "scene/metadata_out_mic000.csv"], ()),
+    "01_shoebox_quickstart": (["scene/audio_out_mic000.wav", "scene/metadata_out_mic000.csv"], ("shoebox_ism",)),
     "02_mesh_raytraced": (["room.obj", "scene/audio_out_mic000.wav", "scene/metadata_out_mic000.csv"],
                           ("first_hit_small", "any_hit", "deposit_histogram_foa")),
     "03_sofa_measured": (["room.sofa", "head.sofa", "scene/audio_out_mic000.wav", "binaural/audio_out_head.wav"],
@@ -4855,7 +4926,7 @@ def main() -> int:
         func = name
         for line in rep.splitlines():
             if "Compiling entry function" in line:
-                func = next(k for k in KERNELS if f"{k}_kernel" in line)
+                func = next(k for k in KERNELS if f"{k}_kernel" in line or k.endswith("_reduce") and k in line)
             if "registers" in line or "spill" in line:
                 print(f"ptxas {func}: {line.strip()}")
 

@@ -38,6 +38,7 @@ from audiblelight_tpu_torch.ops import pair_first_hit as pfh
 from audiblelight_tpu_torch.ops import sorted_first_hit as sfh
 from audiblelight_tpu_torch.ops import star_occlusion as so
 from audiblelight_tpu_torch.ops import tiled_first_hit as tfh
+from audiblelight_tpu_torch.rir import image_source as tis
 
 
 def random_tris(seed, n):
@@ -398,6 +399,9 @@ def test_each_wrapper_counts_its_launch(card):
     sfh.sorted_walk(stiles, stree, o, d)
     pfh.pair_rounds(stiles, o, d, k_slots=8)
     ck.pair_walk_plain(o, d, None, stiles.center, stiles.tile_lo, stiles.tile_hi, stiles.pair_tree, 8)
+    room, lb = np.array([5.0, 4.0, 3.0], np.float32), np.full((6, 1), -0.2, np.float32)
+    ism = dict(n_samples=256, max_order=1, encoding="foa")
+    tis.shoebox_rirs_plain(room, o[:2], o[:1], lb, np.array([1000.0], np.float32), **ism)
     assert all(v == 0 for v in ck.launch_counts.values())
     ck.ray_first_hit(o, torch.from_numpy(unit_dirs(rng, 64)).to(card), tris)
     ck.ray_first_hit(o, d, tris[:300], small)
@@ -411,9 +415,12 @@ def test_each_wrapper_counts_its_launch(card):
     sfh.sorted_first_hit(stiles, stree, o, d)
     # k_slots = n_tiles: one round tests every reachable tile; every round in one launch
     pfh.pair_first_hit(stiles, o, d, k_slots=stiles.n_tiles)
+    # The image-source sum: its partial sums, then their ordered sum
+    tis.shoebox_rirs(room, o[:2], o[:1], lb, np.array([1000.0], np.float32), **ism)
     assert ck.launch_counts == {"first_hit_big": 1, "first_hit_small": 1, "any_hit": 1, "deposit_histogram": 1,
                                 "deposit_histogram_foa": 1, "bin_histogram": 1, "star_any_hit": 1,
-                                "first_hit_tiled": 1, "first_hit_mxu": 1, "first_hit_sorted": 1, "first_hit_pair": 1}
+                                "first_hit_tiled": 1, "first_hit_mxu": 1, "first_hit_sorted": 1, "first_hit_pair": 1,
+                                "shoebox_ism": 2}
 
 
 @pytest.fixture(scope="module")
