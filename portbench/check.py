@@ -2,9 +2,14 @@
 held to the plain reference (`reference.<backend>`), which works each
 scene out again from the benchmark's inputs.
 
-The number compared is each sampled scene's widest payload gap: the largest
-difference, in int16 steps, between the program's WAV samples and the
-reference's. Its limit is the configuration's `check.payload_gap_lsb`.
+The numbers compared come from the backend's reference: its
+`numbers(program_int16, reference_int16) -> {name: value}` where it has
+one, else the one number `payload_gap_lsb`, each scene's widest payload
+gap (the largest difference, in int16 steps, between the program's WAV
+samples and the reference's). Lower is better for each; over the sample
+the worst counts. The configuration's `check` gives each number's limit
+(and `sample`, the scenes drawn): a run is correct when it checked a scene
+and every limited number is reported and at or under its limit.
 """
 
 from __future__ import annotations
@@ -58,10 +63,32 @@ def reference_payloads(config: dict, specs: dict, clips: list, kept: list, devic
     return out
 
 
-def compare(config: dict, specs: dict, clips: list, kept: list, device, lowp=None) -> dict:
-    """{"payload_gap_lsb": the widest gap over the sample, "checked": count}."""
+def numbers_of(config: dict):
+    """The backend's `numbers(program_int16, reference_int16)`."""
     from portbench.reference.audio import payload_gap
 
+    ref = importlib.import_module(f"portbench.reference.{config['backend']}")
+    return getattr(ref, "numbers", lambda program, reference: dict(payload_gap_lsb=payload_gap(program, reference)))
+
+
+def compare(config: dict, specs: dict, clips: list, kept: list, device, lowp=None) -> dict:
+    """{each number: its worst value over the sample, "checked": the scenes compared}."""
     refs = reference_payloads(config, specs, clips, kept, device, lowp)
-    gaps = [payload_gap(payload_int16(audio), r) for (_, audio), r in zip(kept, refs)]
-    return dict(payload_gap_lsb=max(gaps) if gaps else None, checked=len(gaps))
+    numbers = numbers_of(config)
+    worst: dict = {}
+    for (_, audio), r in zip(kept, refs):
+        for name, value in numbers(payload_int16(audio), r).items():
+            worst[name] = value if name not in worst else max(worst[name], value)
+    return dict(worst, checked=len(refs))
+
+
+def judge(limits: dict, numbers: dict) -> tuple:
+    """(correct, {each limited number and "scenes_checked": {"value", "limit"}})
+    of `compare`'s numbers against the configuration's `check` (whose
+    `sample` is no limit). A limited number that was not reported reads
+    None, and incorrect."""
+    table = {name: dict(value=numbers.get(name), limit=limit) for name, limit in limits.items() if name != "sample"}
+    table["scenes_checked"] = dict(value=numbers["checked"], limit=1)
+    correct = numbers["checked"] >= 1 and all(c["value"] is not None and c["value"] <= c["limit"]
+                                              for name, c in table.items() if name != "scenes_checked")
+    return correct, table

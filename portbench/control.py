@@ -4,9 +4,10 @@ float32), read against the reference at the cell's own size.
 
     python3 -m portbench.control --workload <cell> --seeds <n> [<n> ...]
 
-prints, for each seed, the widest payload gap between the control and the
-reference on the traffic's first scene, the number the check compares. The
-check's limit has to lie below the smallest of these readings.
+prints, for each seed, every number the check compares (`check.numbers_of`:
+the backend reference's, or the widest payload gap) between the control
+and the reference on the traffic's first scene. A number's limit has to lie
+below the smallest of its readings, for one number at least.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from pathlib import Path
 
 def readings(workload: str, seeds: list, root: Path, device: str = "cuda", config_overrides: dict = None,
              mix_overrides: dict = None) -> list:
-    """[{"seed", "payload_gap_lsb"}] of the control on each seed."""
+    """[{"seed", each number}] of the control on each seed."""
     from portbench import check, manifest, traffic
     from portbench.reference import audio
 
@@ -33,7 +34,7 @@ def readings(workload: str, seeds: list, root: Path, device: str = "cuda", confi
         kept = [(dict(index=0), None)]
         exact = check.reference_payloads(config, specs, clips, kept, device)[0]
         low = check.reference_payloads(config, specs, clips, kept, device, lowp=audio.bfloat16)[0]
-        out.append(dict(seed=seed, payload_gap_lsb=audio.payload_gap(low, exact)))
+        out.append(dict(seed=seed, **check.numbers_of(config)(low, exact)))
     return out
 
 

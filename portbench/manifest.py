@@ -13,6 +13,8 @@ import importlib
 import json
 from pathlib import Path
 
+import numpy as np
+
 HERE = Path(__file__).resolve().parent
 
 
@@ -29,6 +31,12 @@ def load_config(name: str, base: Path = HERE) -> dict:
 def load_mix(name: str, base: Path = HERE) -> dict:
     with open(Path(base) / "mixes" / f"{name}.json") as f:
         return json.load(f)
+
+
+def load_mesh(name: str, base: Path = HERE) -> tuple:
+    """(vertices (V, 3) float64, faces (F, 3) int32) of `meshes/<name>.npz`."""
+    with np.load(Path(base) / "meshes" / f"{name}.npz") as f:
+        return f["vertices"].astype(np.float64), f["faces"].astype(np.int32)
 
 
 def mixes(base: Path = HERE) -> list:

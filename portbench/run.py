@@ -10,7 +10,14 @@ any further ones built as the loop asks) for `--seconds` and drains it. With `--
 end-to-end metrics; with `--trace 1` the window runs under torch.profiler
 and the line carries the per-layer metrics. Either way a sample of the
 window's scenes drawn from the seed is held to the plain reference once the
-window has closed, and the last line of standard output is the result.
+window has closed (`check.py`: each number that the backend's reference
+reports, against the configuration's limit for it), and the last line of
+standard output is the result, its `check` last: each number compared
+beside its limit, and the scenes checked.
+
+A configuration's room is a shoebox drawn per scene or a mesh of
+`meshes/`, the same in every scene (`traffic.py`); `backends/<backend>.py`
+gives the port's Scene its settings for either.
 """
 
 from __future__ import annotations
@@ -145,9 +152,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, root: Path, 
     inside = run.inside
     if not inside:
         raise RuntimeError("no scene completed inside the window")
-    limit = config["check"]["payload_gap_lsb"]
-    gap = numbers["payload_gap_lsb"]
-    correct = gap is not None and gap <= limit and numbers["checked"] >= 1
+    correct, checked = check.judge(config["check"], numbers)
     if trace:
         metrics = {}
         for m in manifest.metrics_for(man, workload, "per_layer"):
@@ -171,8 +176,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, root: Path, 
     if dtrace is not None:
         device_info.update(busy_s=dtrace.busy_ns() * 1e-9, window_s=window.end - window.start)
         result["breakdown"] = dtrace.breakdown()
-    result["check"] = dict(payload_gap_lsb=dict(value=gap, limit=limit),
-                           scenes_checked=dict(value=numbers["checked"], limit=1))
+    result["check"] = checked
     return result
 
 

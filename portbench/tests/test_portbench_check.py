@@ -1,7 +1,9 @@
 """The output check on the CPU at a tiny size: the reference agrees with
 the port, the control fails the limit, and a run whose timed path is broken
 underneath (the mix altered where it is made, the engine's responses a
-sample late) reads `correct` false.
+sample late) reads `correct` false. A backend's reference may report
+numbers of its own: each is held to its limit, and one with no reading
+fails.
 
     python -m pytest portbench/tests -p no:cacheprovider
 """
@@ -11,14 +13,16 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from portbench import manifest
+from portbench import check, manifest
 from portbench.control import readings
+from portbench.reference.audio import payload_gap
 from portbench.run import run_cell
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -65,6 +69,9 @@ def test_the_reference_equals_the_port_on_the_cpu(workload):
     # an int16 step, and a stem's int16 step rounded the other way
     assert r["check"]["payload_gap_lsb"]["value"] <= 2
     assert r["check"]["scenes_checked"]["value"] >= 1 and r["failed"] == 0
+    # The line's check: the one number beside its limit, then the scenes
+    assert list(r["check"]) == ["payload_gap_lsb", "scenes_checked"]
+    assert r["check"]["payload_gap_lsb"]["limit"] == _limit(workload) and r["check"]["scenes_checked"]["limit"] == 1
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -72,6 +79,53 @@ def test_the_control_fails_the_limit(workload):
     for r in readings(workload, [11, 12, 13], ROOT, device="cpu", config_overrides=TINY[workload],
                       mix_overrides=TINY_MIX):
         assert r["payload_gap_lsb"] > _limit(workload), r
+
+
+def _stand_in(monkeypatch, numbers=None):
+    """A backend `standin` whose reference renders a fixed payload and,
+    given `numbers`, reports them beside the payload gap."""
+    ref = types.ModuleType("portbench.reference.standin")
+    ref.render = lambda config, spec, clips, bed_seed, device, lowp: np.zeros((4, 100), np.int16)
+    if numbers is not None:
+        ref.numbers = lambda program, reference: dict(payload_gap_lsb=payload_gap(program, reference), **numbers)
+    monkeypatch.setitem(sys.modules, ref.__name__, ref)
+    return dict(backend="standin", check=dict(payload_gap_lsb=12, tail_db=1.0, sample=2))
+
+
+SPEC = dict(bed_seed=0)
+
+
+def _kept(*gaps):
+    """A sample of scenes whose program payloads lie `gaps` int16 steps off."""
+    return [(dict(index=i), np.full((4, 100), g, np.int16)) for i, g in enumerate(gaps)]
+
+
+@pytest.mark.parametrize("tail,correct", [(0.5, True), (1.5, False)])
+def test_a_reference_number_is_held_to_its_limit(tail, correct, monkeypatch):
+    config = _stand_in(monkeypatch, dict(tail_db=tail))
+    numbers = check.compare(config, {0: SPEC, 1: SPEC}, [], _kept(3, 5), "cpu")
+    assert numbers == dict(payload_gap_lsb=5, tail_db=tail, checked=2)
+    ok, table = check.judge(config["check"], numbers)
+    assert ok is correct and table == dict(payload_gap_lsb=dict(value=5, limit=12), tail_db=dict(value=tail, limit=1.0),
+                                           scenes_checked=dict(value=2, limit=1))
+    assert not check.judge(config["check"], dict(numbers, payload_gap_lsb=13))[0]
+
+
+def test_a_limited_number_with_no_reading_reads_incorrect(monkeypatch):
+    config = _stand_in(monkeypatch)  # the reference reports the payload gap alone
+    numbers = check.compare(config, {0: SPEC}, [], _kept(1), "cpu")
+    assert numbers == dict(payload_gap_lsb=1, checked=1)
+    ok, table = check.judge(config["check"], numbers)
+    assert not ok and table["tail_db"] == dict(value=None, limit=1.0)
+    assert not check.judge(dict(payload_gap_lsb=12), dict(checked=0))[0]
+
+
+def test_the_shoebox_check_reads_as_before():
+    config = manifest.load_config("shoebox_foa")
+    assert check.numbers_of(config)(np.zeros((4, 9), np.int16), np.full((4, 9), -7, np.int16)) == dict(payload_gap_lsb=7)
+    ok, table = check.judge(config["check"], dict(payload_gap_lsb=1, checked=2))
+    assert ok and list(table.items()) == [("payload_gap_lsb", dict(value=1, limit=12)),
+                                          ("scenes_checked", dict(value=2, limit=1))]
 
 
 def _alter_plan(orig):

@@ -57,12 +57,19 @@ def test_a_mix_added_by_file_alone_is_listed_and_generated(tmp_path):
     assert len(ring) == 2 and all(len(s["events"]) == 3 for s in ring)
 
 
-@pytest.mark.parametrize("config,mix", [("shoebox_foa", "dcase5"), ("shoebox_foa", "dense16")])
+# Configurations by name: the benchmark's, and its shoebox one in the mesh room
+CONFIGS = {"shoebox_foa": lambda: manifest.load_config("shoebox_foa"),
+           "scanned_room_0": lambda: dict(manifest.load_config("shoebox_foa"), room=dict(mesh="scanned_room_0"))}
+
+
+@pytest.mark.parametrize("config,mix", [("shoebox_foa", "dcase5"), ("shoebox_foa", "dense16"),
+                                        ("scanned_room_0", "dcase5")])
 def test_traffic_is_fixed_by_the_seed_and_keeps_its_shapes(config, mix):
-    cfg, mx = manifest.load_config(config), manifest.load_mix(mix)
+    cfg, mx = CONFIGS[config](), manifest.load_mix(mix)
     seed = 2**31 + 12345  # seeds past 32 bits, as the benchmark is given
     a, b = traffic.scene(cfg, mx, seed, 3), traffic.scene(cfg, mx, seed, 3)
     assert a == b and a != traffic.scene(cfg, mx, seed + 1, 3)
+    assert a["room"] == cfg["room"] if "mesh" in cfg["room"] else len(a["room"]) == 3
     n_moving = sum(e["moving"] for e in a["events"])
     assert (len(a["events"]) - n_moving, n_moving) == (mx["static"], mx["moving"])
     # Onset order, and never more than max_overlap events sounding at once
@@ -125,7 +132,7 @@ def test_a_run_loads_no_jax_and_the_reference_none_of_the_program():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]"
-    code = ("import sys; import portbench.reference.audio, portbench.reference.shoebox;"
+    code = ("import sys; import portbench.reference.audio, portbench.reference.shoebox, portbench.traffic;"
             "print(sorted({m.split('.')[0] for m in sys.modules} & {'audiblelight_tpu_torch', 'audiblelight_tpu', 'jax'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]"
