@@ -314,17 +314,18 @@ class FusedSceneRenderer:
         """(es + em, C_out, S) float stems from a scene's (C, bucket, L) RIRs."""
         es, em, j, _ = self.buckets
         c, ir_len = irs.shape[0], irs.shape[-1]
-        # -1 marks an empty slot (padded events, trajectory tails): a clamped
-        # gather, then zeroed
-        s_irs = irs[:, s_idx.clamp_min(0)] * (s_idx >= 0)[None, :, None]
-        m_irs = irs[:, m_idx.clamp_min(0).reshape(-1)].reshape(c, em, j, ir_len)
-        m_irs = m_irs * (m_idx >= 0)[None, :, :, None]
-        return render_event_stems_arrays(
-            plan.static_audio, s_irs.transpose(0, 1), plan.static_mask, plan.static_snr,
-            plan.static_len, plan.static_place_len,
-            plan.moving_audio, m_irs.transpose(0, 1), plan.moving_w, plan.moving_mask,
-            plan.moving_snr, plan.moving_len, plan.moving_place_len, plan.ref_db,
-        )
+        with annotate("fused.stems"):
+            # -1 marks an empty slot (padded events, trajectory tails): a
+            # clamped gather, then zeroed
+            s_irs = irs[:, s_idx.clamp_min(0)] * (s_idx >= 0)[None, :, None]
+            m_irs = irs[:, m_idx.clamp_min(0).reshape(-1)].reshape(c, em, j, ir_len)
+            m_irs = m_irs * (m_idx >= 0)[None, :, :, None]
+            return render_event_stems_arrays(
+                plan.static_audio, s_irs.transpose(0, 1), plan.static_mask, plan.static_snr,
+                plan.static_len, plan.static_place_len,
+                plan.moving_audio, m_irs.transpose(0, 1), plan.moving_w, plan.moving_mask,
+                plan.moving_snr, plan.moving_len, plan.moving_place_len, plan.ref_db,
+            )
 
     def render_mix(self, gen: torch.Generator, sources, listeners, face_occ, s_idx, m_idx,
                    plan: ScenePlan, amb_on: float, amb_beta: float, amb_db: float) -> torch.Tensor:
@@ -401,7 +402,8 @@ class FusedSceneRenderer:
     def _batch_stems(self, inputs: list, plans: list) -> tuple:
         """(generators, per-scene float stems, ScenePlans) of a group: one
         bounce loop for the group's traces, then each scene's stems."""
-        gens, src, caps, occ, s_idx, m_idx, plans_d = self._batch(inputs, plans)
+        with annotate("fused.upload"):
+            gens, src, caps, occ, s_idx, m_idx, plans_d = self._batch(inputs, plans)
         irs = self.state.trace_rirs_batch(gens, src, caps, self.encoding, occ, self.hrtf)
         stems = [self._event_stems(irs[b], s_idx[b], m_idx[b], plans_d[b]) for b in range(len(irs))]
         return gens, stems, plans_d

@@ -60,6 +60,7 @@ from audiblelight_tpu_torch.ops.cuda_kernels import (
 from audiblelight_tpu_torch.ops.mxu_first_hit import MXU_F_MAX, build_mxu_face_tables, mxu_first_hit
 from audiblelight_tpu_torch.ops.star_occlusion import star_segments_occluded
 from audiblelight_tpu_torch.ops.tiled_first_hit import MeshTiles, build_tiled_tree, tiled_first_hit
+from audiblelight_tpu_torch.profiling import annotate, count
 from audiblelight_tpu_torch.rir.sh import (
     ambisonic_encoding_gains,
     encoding_channels,
@@ -451,7 +452,10 @@ def trace_energy_histogram_batch(
     `occlusion`) traces one scene at a time. `transmission` lets rays pass
     through faces with the (F, B) coefficients `face_transmission` (see
     `_bounce`), each scene's roulette drawing from `transmission_generators`
-    of its generator.
+    of its generator. While a torch.profiler session is active the loop is
+    the span `trace.bounces` (a marker kernel on the stream at each end) and
+    counts `trace.sync` (each read of the alive mask) and `trace.rays` (the
+    rows each bounce hands to the first hit).
 
     Returns (B, S, C_out, n_bands, n_bins).
     """
@@ -504,27 +508,30 @@ def trace_energy_histogram_batch(
         tau = face_transmission.to(device=dev, dtype=torch.float32)
         trans_gens = transmission_generators(gens)
     phases = decimation_phases(n_rays, max_depth, decimate)
-    for pi, (start, end, r_src) in enumerate(phases):
-        if pi > 0:
-            state = _halve_wavefront(state, n_sources, phases[pi - 1][2], r_src)
-        rows = per_scene * r_src
-        if n_scenes == 1:
-            scene_faces = lambda f: f  # noqa: E731
-        else:
-            offset = torch.arange(n_scenes * rows, device=dev) // rows * face_occlusion.shape[-1]
-            scene_faces = offset.add  # noqa: E731
-        vis = (table, star, bool(occlusion), bool(shared_visibility), tree, scene_faces)
-        for _ in range(start, end):
-            # All rays of a scene dead: the reference's while-loop exit, per scene
-            live = state[4].reshape(n_scenes, rows).any(dim=1).tolist()
-            if not any(live):
-                break
-            state, add = _bounce(
-                _SceneDraws(gens, live, rows, dev), state, tris, route, tri_normals, face_absorption,
-                face_scattering, vis, lis, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs,
-                hrtf, hrtf_bp, None if tau is None else (tau, _SceneDraws(trans_gens, live, rows, dev)),
-            )
-            hist += add
+    with annotate("trace.bounces", device=dev):
+        for pi, (start, end, r_src) in enumerate(phases):
+            if pi > 0:
+                state = _halve_wavefront(state, n_sources, phases[pi - 1][2], r_src)
+            rows = per_scene * r_src
+            if n_scenes == 1:
+                scene_faces = lambda f: f  # noqa: E731
+            else:
+                offset = torch.arange(n_scenes * rows, device=dev) // rows * face_occlusion.shape[-1]
+                scene_faces = offset.add  # noqa: E731
+            vis = (table, star, bool(occlusion), bool(shared_visibility), tree, scene_faces)
+            for _ in range(start, end):
+                # All rays of a scene dead: the reference's while-loop exit, per scene
+                live = state[4].reshape(n_scenes, rows).any(dim=1).tolist()
+                count("trace.sync")
+                if not any(live):
+                    break
+                count("trace.rays", state[0].shape[0])
+                state, add = _bounce(
+                    _SceneDraws(gens, live, rows, dev), state, tris, route, tri_normals, face_absorption,
+                    face_scattering, vis, lis, n_sources, n_rays, n_bins, bin_dt, c, encoding, sh_order, band_freqs,
+                    hrtf, hrtf_bp, None if tau is None else (tau, _SceneDraws(trans_gens, live, rows, dev)),
+                )
+                hist += add
     return hist.reshape(n_scenes, per_scene, c_out, n_bands, n_bins)
 
 
@@ -1034,8 +1041,9 @@ def trace_rirs_batch(
     3), listener_pos (B, C, 3), face_occlusion (B, P, F) or None, one
     generator per scene. The tail of every scene is traced in one bounce
     loop (`trace_energy_histogram_batch`); the synthesis, the direct and the
-    diffracted paths run scene by scene. Scene b gets exactly its one-scene
-    RIRs with gens[b]. Returns B tensors of (C_out, S, n_samples)."""
+    diffracted paths run scene by scene (the spans `trace.carriers`,
+    `trace.direct` and `trace.diffraction`). Scene b gets exactly its
+    one-scene RIRs with gens[b]. Returns B tensors of (C_out, S, n_samples)."""
     n_bins = int(np.ceil(n_samples / sr / bin_dt)) + 1
     hist = trace_energy_histogram_batch(
         gens, tris, face_absorption, face_scattering, source_positions, listener_pos,
@@ -1050,17 +1058,20 @@ def trace_rirs_batch(
     tree_of = any_hit_tree if any_hit_tree is not None else (lambda _: None)
     out = []
     for gen, h, src, lis in zip(gens, hist, source_positions, listener_pos):
-        irs = synthesize_ir_from_histogram(gen, h, band_freqs, n_samples, bin_dt, sr=sr, encoding=encoding)
-        irs = irs + direct_paths_ir(td, src, lis, n_samples, sr=sr, c=c,
-                                    encoding=encoding, sh_order=sh_order_direct, tree=tree_of(td), hrtf=hrtf)
+        with annotate("trace.carriers"):
+            irs = synthesize_ir_from_histogram(gen, h, band_freqs, n_samples, bin_dt, sr=sr, encoding=encoding)
+        with annotate("trace.direct"):
+            irs = irs + direct_paths_ir(td, src, lis, n_samples, sr=sr, c=c,
+                                        encoding=encoding, sh_order=sh_order_direct, tree=tree_of(td), hrtf=hrtf)
         if diffraction:
-            irs = irs + diffracted_path_ir(
-                td, src, lis, band_freqs, n_samples, sr=sr, c=c,
-                order=int(diffraction_order), tris_graph=tris_diffraction_graph,
-                encoding=encoding, sh_order=sh_order_direct, tree=tree_of(td),
-                tree_graph=None if tris_diffraction_graph is None else tree_of(tris_diffraction_graph),
-                hrtf=hrtf,
-            )
+            with annotate("trace.diffraction"):
+                irs = irs + diffracted_path_ir(
+                    td, src, lis, band_freqs, n_samples, sr=sr, c=c,
+                    order=int(diffraction_order), tris_graph=tris_diffraction_graph,
+                    encoding=encoding, sh_order=sh_order_direct, tree=tree_of(td),
+                    tree_graph=None if tris_diffraction_graph is None else tree_of(tris_diffraction_graph),
+                    hrtf=hrtf,
+                )
         out.append(irs.movedim(0, 1))
     return out
 

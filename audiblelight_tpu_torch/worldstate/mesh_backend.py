@@ -49,6 +49,7 @@ from audiblelight_tpu_torch.ops.cuda_kernels import SMALL_F_MAX, any_hit_tree, f
 from audiblelight_tpu_torch.ops.mxu_first_hit import MXU_F_MAX, build_mxu_face_tables
 from audiblelight_tpu_torch.ops.star_occlusion import build_star_accel, star_tree
 from audiblelight_tpu_torch.ops.tiled_first_hit import build_tiled_tree
+from audiblelight_tpu_torch.profiling import annotate
 from audiblelight_tpu_torch.rir.materials import (
     get_material_absorption,
     get_material_scattering,
@@ -230,9 +231,11 @@ class MeshDeviceState:
         pts = np.atleast_2d(np.asarray(listener_points, dtype=np.float64))
         key = tuple(np.round(pts, 4).ravel().tolist())
         if key not in self._rain_cache:
-            self._rain_cache[key] = face_rain_occlusion(
-                self.acoustic_tris, self.acoustic_normals, self._tensor(pts), self.any_hit_tree(self.acoustic_tris)
-            )
+            with annotate("trace.rain"):
+                self._rain_cache[key] = face_rain_occlusion(
+                    self.acoustic_tris, self.acoustic_normals, self._tensor(pts),
+                    self.any_hit_tree(self.acoustic_tris),
+                )
         return self._rain_cache[key]
 
     def star_accel_for(self, center, r_pad: float):

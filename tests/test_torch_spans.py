@@ -346,3 +346,155 @@ def test_the_engine_brackets_each_call_with_one_marker_pair(card):
     for span, begin, end in zip(spans, markers[0::2], markers[1::2]):
         assert end - begin > 1  # the engine's own work lies between its markers
         assert span.start_ns - CLOCK_NS < events[begin][1] < span.end_ns
+
+
+# --------------------------------------------------------------------------
+# The fused path: a ray-traced room through the batched renderer
+# --------------------------------------------------------------------------
+
+# Each scene's spans on the fused path, each batch's bounce loop and upload
+FUSED_SCENE = ("trace.rain", "trace.carriers", "trace.direct", "trace.diffraction", "fused.stems")
+FUSED_PLAN_KW = dict(max_static=2, max_moving=1, max_traj=4, pad_audio_seconds=1.0)
+# Deep enough that every loop ends when its rays are dead (0.05 s responses
+# end their rays at 17.8 m of path)
+FUSED_DEPTH = 40
+
+
+def _pillar_room():
+    """A 6 x 5 x 3 m room with a pillar (1 x 3 x 2.6 m) inside: nonconvex."""
+    from audiblelight_tpu_torch.geometry.mesh import TriMesh
+
+    def box(lo, hi, inward):
+        v = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1]) for z in (lo[2], hi[2])], float)
+        f = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+                      [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]], np.int32)
+        return v, f[:, ::-1].copy() if inward else f
+
+    (v0, f0), (v1, f1) = box([0, 0, 0], [6, 5, 3], True), box([2.5, 1.0, 0.0], [3.5, 4.0, 2.6], False)
+    return TriMesh(np.concatenate([v0, v1]), np.concatenate([f0, f1 + len(v0)]))
+
+
+def _rlr_scene(clip, room, i):
+    """A tiny AmbeoVR scene in the pillar room: one source behind the pillar,
+    one in view, a moving one; a gaussian bed."""
+    from audiblelight_tpu_torch.core import Scene
+
+    scene = Scene(duration=2.0, sample_rate=SR, backend="rlr", max_overlap=3, ref_db=-50, device="cpu",
+                  backend_kwargs=dict(mesh=room, material=None, add_to_context=False, seed=11 + i, rlr_kwargs=dict(
+                      indirect_ray_count=24, indirect_ray_depth=FUSED_DEPTH, max_ir_length=0.05,
+                      mesh_simplification=True, ray_decimation=False, diffraction=True)))
+    scene.add_microphone(microphone_type="ambeovr", position=[1.5, 2.5 + 0.1 * i, 1.5])
+    for k, (pos, start) in enumerate((([4.5, 2.5, 1.2], 0.0), ([1.0, 1.0, 1.8], 0.5))):
+        scene.add_event(event_type="static", filepath=clip, position=pos, scene_start=start, event_start=0.0,
+                        duration=1.0, snr=20.0 + k, class_id=k)
+    trajectory = np.stack([np.linspace(4.2, 5.0, 3), np.full(3, 0.6), np.full(3, 1.5)], axis=1)
+    scene.add_event(event_type="predefined", filepath=clip, trajectory=trajectory, scene_start=0.8,
+                    event_start=0.0, duration=1.0, snr=25.0, class_id=2)
+    scene.add_ambience(noise="gaussian")
+    return scene
+
+
+def _fused_loop(clip, traced):
+    """Three scenes of one room through the loop's fused path (a batch of
+    two, then one alone): their payloads in order, and each bounce loop's
+    (bounces run, rows a bounce)."""
+    from audiblelight_tpu_torch.pipeline import render_scenes_pipelined
+    from audiblelight_tpu_torch.rir import raytracer
+
+    room, out, loops = _pillar_room(), [], []
+    bounce = raytracer._bounce
+
+    def counted(draws, state, *args, **kwargs):
+        loops[-1].append(state[0].shape[0])
+        return bounce(draws, state, *args, **kwargs)
+
+    trace = raytracer.trace_energy_histogram_batch
+
+    def loop(*args, **kwargs):
+        loops.append([])
+        return trace(*args, **kwargs)
+
+    def factory():
+        for i in range(3):
+            yield _rlr_scene(clip, room, i)
+
+    kw = dict(max_in_flight=2, plan_kwargs=FUSED_PLAN_KW, fused_batch=2, device_mix=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(raytracer, "_bounce", counted)
+        mp.setattr(raytracer, "trace_energy_histogram_batch", loop)
+        if traced:
+            with _traced():
+                render_scenes_pipelined(factory(), lambda s, audio: out.append(next(iter(audio.values()))), **kw)
+        else:
+            render_scenes_pipelined(factory(), lambda s, audio: out.append(next(iter(audio.values()))), **kw)
+    return out, loops
+
+
+@pytest.fixture(scope="module")
+def fused_runs(clip):
+    """(untraced payloads, traced payloads, the traced run's recording, its loops)."""
+    profiling.clear_recorded()
+    try:
+        plain, _ = _fused_loop(clip, traced=False)
+        assert recorded().spans == [] and recorded().counts == []
+        traced, loops = _fused_loop(clip, traced=True)
+        return plain, traced, recorded(), loops
+    finally:
+        profiling.clear_recorded()
+
+
+def test_the_fused_path_records_only_under_a_profiler_and_keeps_its_bits(fused_runs):
+    plain, traced, rec, loops = fused_runs
+    assert len(plain) == len(traced) == 3
+    for a, b in zip(plain, traced):
+        assert a.dtype == b.dtype == np.int16 and np.array_equal(a, b)
+    names = defaultdict(int)
+    for s in rec.spans:
+        names[s.name] += 1
+    # One bounce loop for the batch of two, one for the scene alone
+    assert len(loops) == names["trace.bounces"] == 2 and names["fused.upload"] == 1
+    assert all(names[name] == 3 for name in FUSED_SCENE), dict(names)
+    # All on the dispatch thread (the trailing scene's after its loop.dispatch)
+    dispatch = {s.thread for s in rec.spans if s.name == "loop.dispatch"}
+    assert len(dispatch) == 1
+    assert {s.thread for s in rec.spans if s.name in FUSED_SCENE + ("trace.bounces", "fused.upload")} == dispatch
+
+
+def test_the_fused_path_counts_a_sync_a_read_of_the_alive_mask(fused_runs):
+    _, _, rec, loops = fused_runs
+    # Each loop reads the mask before each bounce, and once more to find
+    # every ray dead (no loop reaches its depth)
+    assert all(0 < len(rows) < FUSED_DEPTH for rows in loops)
+    assert rec.total("trace.sync") == sum(len(rows) + 1 for rows in loops)
+    assert rec.total("trace.rays") == sum(sum(rows) for rows in loops)
+    # The batch's loop hands both scenes' rays to each bounce
+    assert loops[0][0] == 2 * loops[1][0]
+
+
+@pytest.mark.cuda
+def test_the_bounce_loop_brackets_each_call_with_one_marker_pair(card):
+    from audiblelight_tpu_torch.rir.raytracer import trace_energy_histogram_batch
+
+    room = _pillar_room()
+    tris = torch.as_tensor(room.triangles, dtype=torch.float32, device=card)
+    args = (tris, torch.full((len(tris), 4), 0.2, device=card), torch.full((len(tris),), 0.5, device=card),
+            torch.tensor([[[4.5, 2.5, 1.2], [1.0, 1.0, 1.8]]], device=card),
+            torch.tensor([[[1.5, 2.5, 1.5], [1.51, 2.5, 1.5]]], device=card))
+
+    def once():
+        gen = torch.Generator(device=card).manual_seed(3)
+        return trace_energy_histogram_batch([gen], *args, n_rays=64, max_depth=8, n_bins=32)
+
+    once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            once()
+        torch.cuda.synchronize()
+    spans = [s for s in recorded().spans if s.name == "trace.bounces"]
+    events = _device_kernels(prof)
+    markers = [i for i, e in enumerate(events) if MARKER in e[0]]
+    assert len(spans) == 3 and len(markers) == 6
+    for span, begin, end in zip(spans, markers[0::2], markers[1::2]):
+        assert end - begin > 1  # the bounces' own work lies between the markers
+        assert span.start_ns - CLOCK_NS < events[begin][1] < span.end_ns
